@@ -7,17 +7,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. the card: torch's device name, and nvidia-smi's name + power limit;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
-     (forcing), K1 (Richardson + projection head), K3 (faces_div), each
-     against its plain PyTorch version on the card, with errors, median
-     CUDA-event times and the roofline bound;
+     (forcing), K1 (Richardson + projection head), K3 (faces_div), K5
+     (correct), and K4 (tridiag) on the momentum systems of the direct
+     Helmholtz solve, each against its plain PyTorch version on the
+     card, with errors, median CUDA-event times and the roofline bound;
+     the whole direct Helmholtz solve's residual; every kernel's f64
+     instantiation at 8x16x32;
   4. main path: BoussinesqModel.run, 20 gated steps at 32x128x256 f32
      with the bench opt-ins, after 2 warm-up steps — zero escalations,
-     finite fields, small post-projection divergence, K2 and K1
-     launched on every step, K3 never;
-  5. escalated path: one step_strong from the same state — K2 and K3
-     launch once, and the result agrees with the fast step;
-  6. the CLI on data/aqua_planet_shell_test_3d-classic.prm;
-  7. one JSON line with every kernel's numbers, then, last, the
+     finite fields, small post-projection divergence, K2, K1 and K5
+     launched on every step, K3 and K4 never;
+  5. escalated path: one step_strong from the same state — K2, K3 and
+     K5 launch once, and the result agrees with the fast step;
+  6. direct-Helmholtz path (`helmholtz solver = direct`): 20 gated steps
+     at 32x128x256 f32 — zero escalations, K2, K3 and K5 once and K4
+     twice a step, no K1; one step_strong; one direct step against the
+     default model's full-CG step_strong;
+  7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, and on a
+     copy of it with `set helmholtz solver = direct`;
+  8. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
@@ -27,6 +35,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,13 +73,18 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def bound(n_cells, fields, ops_per_cell, itemsize=4):
+def bound_of(n_bytes, n_ops):
     """Least time (ms) for the work: the larger of bytes/bandwidth and
     operations/peak f32 rate; and which of the two bounds it."""
-    t_bytes = fields * n_cells * itemsize / PEAK_BYTES_PER_S
-    t_ops = ops_per_cell * n_cells / PEAK_F32_OPS_PER_S
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound(n_cells, fields, ops_per_cell, itemsize=4):
+    """bound_of for a kernel that moves `fields` arrays of n_cells values."""
+    return bound_of(fields * n_cells * itemsize, ops_per_cell * n_cells)
 
 
 def compare(name, got, want, rtol, atol):
@@ -89,6 +103,12 @@ def compare(name, got, want, rtol, atol):
     return err
 
 
+def direct_params(p):
+    """The same configuration with `helmholtz solver = direct`."""
+    p.numerics.helmholtz_solver = "direct"
+    return p
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -105,6 +125,8 @@ def main() -> None:
         from dycoreplanet_tpu_torch.ops import kernel_lib
         from dycoreplanet_tpu_torch.ops import projection as k3
         from dycoreplanet_tpu_torch.ops import richardson as k1
+        from dycoreplanet_tpu_torch.ops import stencil as st
+        from dycoreplanet_tpu_torch.ops import tridiag as k4
     except ImportError as exc:
         fail(f"the port's package is not importable next to this script "
              f"({exc})")
@@ -215,6 +237,96 @@ def main() -> None:
                        max_abs_err=err3, ms=ms, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None))
 
+    # K5: the correction, on the K3 faces and the Poisson solution
+    rhs_phi = g3[3] - g3[4] / float(n_cells)
+    phi, _ = model.poisson_spectral.solve(rhs_phi)
+    args5 = (u_star, g3[:3], phi, s0.p, dt, st.volume_mean(model.geo, phi))
+    g5 = pk.correct(*args5)
+    w5 = pk.correct_plain(*args5)
+    torch.cuda.synchronize()
+    err5 = compare("K5 correct", g5, w5, 2e-6, 2e-6)
+    ms = time_ms(lambda: pk.correct(*args5))
+    pms = time_ms(lambda: pk.correct_plain(*args5))
+    b_ms, b_by = bound(n_cells, k3.CORRECT_FIELDS_MOVED,
+                       k3.CORRECT_OPS_PER_CELL)
+    phase(f"K5 correct: max abs err {err5:.3e} (rtol=atol=2e-6), kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms * 1e3:.1f} us "
+          f"({b_by})")
+    report.append(dict(name="K5 correct", route="cuda",
+                       source="dycoreplanet_tpu_torch/csrc/projection.cu",
+                       replaces="dycoreplanet_tpu/ops/pallas_stencil.py:920",
+                       max_abs_err=err5, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None))
+
+    # K4: the radial tridiagonal systems of the direct Helmholtz solves
+    # of a `helmholtz solver = direct` model, from its K2 right-hand side
+    dmodel = BoussinesqModel(direct_params(bench_params(BENCH_SHAPE)),
+                             device=dev)
+    ds0 = seed_developed_flow(dmodel)
+    rhs_ud, T_advd = dmodel._forcing(ds0.u, ds0.u_faces, ds0.T, ds0.p, dt)
+    coef = dmodel._scalar(dmodel.dtype.type(dt)
+                          * dmodel.dtype.type(dmodel.one_over_Re))
+    b_u = dmodel._vol_t[None] * rhs_ud
+    tk = dmodel._tridiag
+    k4_rows = []
+    for what, solver, b, c in (
+            ("momentum", dmodel.helmholtz_direct, b_u, coef),
+            ("temperature", dmodel.temperature_direct,
+             (dmodel._vol_t * T_advd)[None], kT)):
+        sys4 = solver.systems(b, c)
+        n4, m4 = sys4[3].shape[0], sys4[3][0].numel()
+        g4 = tk(*sys4)
+        w4 = tk.plain(*sys4)
+        torch.cuda.synchronize()
+        sc = float(w4.abs().max())
+        err4 = compare(f"K4 tridiag ({what})", (g4,), (w4,), 1e-5 * sc,
+                       1e-5 * sc)
+        ms = time_ms(lambda: tk(*sys4))
+        pms = time_ms(lambda: tk.plain(*sys4))
+        # the operands as passed (lower, upper: one value a row; diag
+        # broadcast over the real/imaginary axis) and x
+        b_ms, b_by = bound_of(4 * k4.values_moved(*sys4),
+                              k4.OPS_PER_VALUE * n4 * m4)
+        # aside: the four operands materialized to (n, m), as the wrapper
+        # hands them to the kernel, and x
+        mat_ms, _ = bound(n4 * m4, 5, k4.OPS_PER_VALUE)
+        phase(f"K4 tridiag, {what} systems (n {n4}, m {m4}): max abs err "
+              f"{err4:.3e} (rtol=atol=1e-5 x scale {sc:.3e}), kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms * 1e3:.1f} us "
+              f"({b_by}; with the operands materialized to (n, m) "
+              f"{mat_ms * 1e3:.1f} us)")
+        k4_rows.append((err4, ms, pms, b_ms, b_by))
+    # the general kernel (c' in the wrapper's copy of upper), for n above
+    # the register kernel's
+    seeded = torch.Generator(device=dev).manual_seed(0)
+    gen = [torch.rand(40, 33024, device=dev, generator=seeded)
+           for _ in range(4)]
+    gen[1] += 3.0
+    upper_in = gen[2].clone()
+    err4g = compare("K4 tridiag (n = 40, general kernel)", (tk(*gen),),
+                    (tk.plain(*gen),), 1e-5, 1e-5)
+    if not torch.equal(gen[2], upper_in):
+        fail("K4 tridiag (n = 40): the caller's upper was overwritten")
+    phase(f"K4 tridiag, general kernel (n 40, m 33024): max abs err "
+          f"{err4g:.3e} (rtol=atol=1e-5)")
+    err4, ms, pms, b_ms, b_by = k4_rows[0]
+    report.append(dict(name="K4 tridiag", route="cuda",
+                       source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+                       replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+                       max_abs_err=max(err4, k4_rows[1][0], err4g), ms=ms,
+                       plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None))
+    # the whole direct solve: ||vol x - c L(x) - b|| / ||b||
+    x_u = dmodel.helmholtz_direct.solve(b_u, coef)
+    resid = dmodel._vol_t[None] * x_u - coef * torch.stack([
+        st.weak_laplacian(dmodel.geo, x_u[c], dmodel.u_specs[c])
+        for c in range(3)]) - b_u
+    rel_res = float(resid.norm() / b_u.norm())
+    if not rel_res <= 1e-5:
+        fail(f"direct Helmholtz residual {rel_res:.3e} > 1e-5")
+    phase(f"direct Helmholtz solve (momentum): relative residual "
+          f"{rel_res:.3e} (tol 1e-5)")
+
     # the optional float64 instantiations, at a small grid: the kernels
     # and their plain versions then differ only by reassociation
     m64 = BoussinesqModel(bench_params((8, 16, 32), dtype="float64"),
@@ -230,6 +342,17 @@ def main() -> None:
     g, w = m64._proj.faces_div(s64.u, BENCH_DT), m64._proj.plain(s64.u,
                                                                  BENCH_DT)
     e64 = max(e64, compare("K3 f64", g[:4], w[:4], 1e-12, 1e-12))
+    a5 = (s64.u, g[:3], s64.T, s64.p, BENCH_DT,
+          st.volume_mean(m64.geo, s64.T))
+    e64 = max(e64, compare("K5 f64", m64._proj.correct(*a5),
+                           m64._proj.correct_plain(*a5), 1e-12, 1e-12))
+    d64 = BoussinesqModel(direct_params(bench_params((8, 16, 32),
+                                                     dtype="float64")),
+                          device=dev)
+    sys64 = d64.helmholtz_direct.systems(
+        d64._vol_t[None] * s64.u, d64._scalar(BENCH_DT * d64.one_over_Re))
+    e64 = max(e64, compare("K4 f64", (d64._tridiag(*sys64),),
+                           (d64._tridiag.plain(*sys64),), 1e-12, 1e-12))
     phase(f"f64 kernels at (8, 16, 32): max abs err {e64:.3e} "
           f"(tol 1e-12, K1 1e-11)")
 
@@ -256,7 +379,8 @@ def main() -> None:
     div_max = max(divs)
     if not div_max < 1e-4:
         fail(f"post-projection divergence {div_max:.3e} >= 1e-4")
-    want_l = {"forcing": N_STEPS, "richardson": N_STEPS, "faces_div": 0}
+    want_l = {"forcing": N_STEPS, "richardson": N_STEPS, "faces_div": 0,
+              "correct": N_STEPS, "tridiag": 0}
     if launches != want_l:
         fail(f"main-path launches {launches}, expected {want_l}")
     ms_step = wall / N_STEPS * 1e3
@@ -266,8 +390,7 @@ def main() -> None:
           f"max|u| {hist[-1]['max_velocity']:.4f}, {ms_step:.3f} ms/step "
           f"(host clock incl. the per-step diagnostics read), "
           f"{n_cells / (wall / N_STEPS):.4e} grid points/s")
-    for r in report:
-        r["launches"] = launches[r["name"].split()[1]]
+    by_path = {name: {"main": n} for name, n in launches.items()}
 
     # ---- 5. escalated path --------------------------------------------
     s_fast, d_fast = model.step(s_end, BENCH_DT)
@@ -276,9 +399,10 @@ def main() -> None:
     torch.cuda.synchronize()
     after = {name: k.launches for name, k in model.kernels().items()}
     delta = {k: after[k] - before[k] for k in after}
-    if delta != {"forcing": 1, "richardson": 0, "faces_div": 1}:
-        fail(f"step_strong launches {delta}, expected forcing 1, "
-             "faces_div 1, richardson 0")
+    want_d = {"forcing": 1, "richardson": 0, "faces_div": 1, "correct": 1,
+              "tridiag": 0}
+    if delta != want_d:
+        fail(f"step_strong launches {delta}, expected {want_d}")
     if not d_strong.solver_ok:
         fail("step_strong did not converge")
     rel = float((s_fast.u - s_strong.u).abs().max()
@@ -292,21 +416,95 @@ def main() -> None:
           f"{d_strong.poisson_iters}, rel |u_fast - u_strong| {rel:.3e} "
           f"(tol {tol:.3e})")
 
-    # ---- 6. CLI --------------------------------------------------------
-    cli = subprocess.run(
-        [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p",
-         os.path.join("data", "aqua_planet_shell_test_3d-classic.prm"),
-         "--max-steps", "3", "--no-output"],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
-    if cli.returncode != 0:
-        fail(f"CLI rc {cli.returncode}:\n{cli.stdout[-2000:]}\n"
-             f"{cli.stderr[-2000:]}")
-    div_lines = [ln.strip() for ln in cli.stdout.splitlines()
-                 if "Post-projection" in ln]
-    phase(f"CLI rc 0 ({len(div_lines)} step(s); last: "
-          f"{div_lines[-1] if div_lines else 'none'})")
+    for name, n in delta.items():
+        by_path[name]["escalated"] = n
 
-    # ---- 7. report -----------------------------------------------------
+    # ---- 6. direct-Helmholtz path -------------------------------------
+    dmodel.run(max_steps=2, state=ds0)
+    for k in dmodel.kernels().values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds_end, dhist = dmodel.run(max_steps=N_STEPS, state=ds0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dl = {name: k.launches for name, k in dmodel.kernels().items()}
+    if len(dhist) != N_STEPS:
+        fail(f"direct path ran {len(dhist)} steps, expected {N_STEPS}")
+    if dmodel.escalations != 0:
+        fail(f"direct path escalated {dmodel.escalations} time(s)")
+    for x in (ds_end.u, ds_end.p, ds_end.T) + tuple(ds_end.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail("direct path produced non-finite fields")
+    ddivs = [h["div_norm"] for h in dhist]
+    if not max(ddivs) < 1e-4:
+        fail(f"direct path: post-projection divergence {max(ddivs):.3e} "
+             ">= 1e-4")
+    want_dl = {"forcing": N_STEPS, "faces_div": N_STEPS,
+               "tridiag": 2 * N_STEPS, "correct": N_STEPS}
+    if dl != want_dl:
+        fail(f"direct-path launches {dl}, expected {want_dl}")
+    ms_step = wall / N_STEPS * 1e3
+    phase(f"direct path: {N_STEPS} gated steps, 0 escalations, launches "
+          f"{dl}, max|div u| first/last/max {ddivs[0]:.3e}/{ddivs[-1]:.3e}/"
+          f"{max(ddivs):.3e}, max|u| {dhist[-1]['max_velocity']:.4f}, "
+          f"{ms_step:.3f} ms/step (host clock incl. the per-step "
+          f"diagnostics read), {n_cells / (wall / N_STEPS):.4e} grid "
+          f"points/s")
+    for name, n in dl.items():
+        by_path.setdefault(name, {})["direct"] = n
+    before = {name: k.launches for name, k in dmodel.kernels().items()}
+    _, dd_strong = dmodel.step_strong(ds_end, BENCH_DT)
+    torch.cuda.synchronize()
+    delta = {name: k.launches - before[name]
+             for name, k in dmodel.kernels().items()}
+    want_d = {"forcing": 1, "faces_div": 1, "tridiag": 2, "correct": 1}
+    if delta != want_d:
+        fail(f"direct step_strong launches {delta}, expected {want_d}")
+    if not dd_strong.solver_ok:
+        fail("direct step_strong did not converge")
+    # one direct step against the default model's full-CG step (the
+    # escalated step of phase 5, helmholtz tol 1e-8), from one state
+    s_direct, _ = dmodel.step(s_end, BENCH_DT)
+    rel = float((s_direct.u - s_strong.u).abs().max()
+                / s_strong.u.abs().max())
+    if not rel <= tol:
+        fail(f"direct step vs full-CG step: rel |du| {rel:.3e} > {tol:.3e}")
+    phase(f"direct path: step_strong launches {delta}, poisson CG iters "
+          f"{dd_strong.poisson_iters}; rel |u_direct - u_cg| {rel:.3e} "
+          f"(tol {tol:.3e})")
+
+    # ---- 7. CLI --------------------------------------------------------
+    classic = os.path.join(HERE, "data",
+                           "aqua_planet_shell_test_3d-classic.prm")
+    with tempfile.TemporaryDirectory() as tmp:
+        direct_prm = os.path.join(tmp, "classic-direct.prm")
+        with open(classic) as f, open(direct_prm, "w") as g:
+            # a subsection read again merges into the first one
+            g.write(f.read() + "\nsubsection Numerics\n"
+                    "  set helmholtz solver = direct\nend\n")
+        for label, prm in (("classic", classic), ("direct", direct_prm)):
+            cli = subprocess.run(
+                [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm,
+                 "--max-steps", "3", "--no-output"],
+                cwd=HERE, capture_output=True, text=True, timeout=600)
+            if cli.returncode != 0:
+                fail(f"CLI ({label}) rc {cli.returncode}:\n"
+                     f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+            div_lines = [ln.strip() for ln in cli.stdout.splitlines()
+                         if "Post-projection" in ln]
+            phase(f"CLI ({label}) rc 0 ({len(div_lines)} step(s); last: "
+                  f"{div_lines[-1] if div_lines else 'none'})")
+
+    # ---- 8. report -----------------------------------------------------
+    # launches: the count on the path the kernel serves (K1, K2, K5: the
+    # main path; K3, K4: the direct path), and the count on every path
+    own = {"richardson": "main", "forcing": "main", "correct": "main",
+           "faces_div": "direct", "tridiag": "direct"}
+    for r in report:
+        name = r["name"].split()[1]
+        r["launches"] = by_path[name][own[name]]
+        r["launches_by_path"] = by_path[name]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

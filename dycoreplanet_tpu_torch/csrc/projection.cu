@@ -1,5 +1,8 @@
+// The two projection stages around the Poisson solve:
+//
 // K3: the pre-Poisson projection head on its own — the steps that
-// bypass the Richardson kernel (escalated, full-CG steps) still take it.
+// bypass the Richardson kernel (escalated, full-CG and direct-Helmholtz
+// steps) take it.
 //
 // Replaces the Pallas kernel ShellProjectionPallas._build_faces_div
 // (dycoreplanet_tpu/ops/pallas_stencil.py:842): u* -> left-face
@@ -15,6 +18,26 @@
 // Design: one thread per cell; per-block partial sums of rhs by a
 // fixed-order shared-memory tree, then a one-block fixed-order pass
 // (no float atomics).
+//
+// K5: the post-Poisson correction, run once by every projection.
+//
+// Replaces the Pallas kernel ShellProjectionPallas._build_correct
+// (dycoreplanet_tpu/ops/pallas_stencil.py:920): with phi' = phi - mean,
+// the left faces uf - dt * grad_f(phi') (radial wall face and pole face
+// zeroed), the cell velocity u* - dt * centred grad(phi') (radial
+// Neumann ghosts, pole ghosts = the ring at lon + pi with sign +1,
+// periodic lon) and p + phi' (incremental) or phi'.
+//
+// Bound: device-memory traffic: u* (3 fields), phi, three faces and p
+// read, u (3 fields), three faces and p written — 15 fields (~62.9 MB at
+// 32x128x256 f32), against ~30 operations per cell.
+//
+// Design: one thread per cell, longitude fastest; ghosts are index
+// arithmetic (shell_common.cuh); the mean of phi arrives as a device
+// scalar, so the host never waits. Each neighbour's phi' is formed as
+// phi - mean before differencing, as the plain version rounds it, and
+// the metric is the per-face distance of the geometry (not a scalar dr
+// and dlat, which the Pallas kernel may use because radii are uniform).
 #include "shell_common.cuh"
 
 namespace {
@@ -68,6 +91,75 @@ int launch(int nr, int nlat, int nlon, const T* M, const T* u_star,
   return (int)cudaGetLastError();
 }
 
+// correction metric channels at (i, j): the distances across the lo
+// and hi faces of axes r and lat, and across the lon faces
+enum { C_DR_LO = 0, C_DR_HI, C_DLAT_LO, C_DLAT_HI, C_DLON, C_K };
+
+template <typename T>
+__global__ void correct_kernel(Dims g, const T* __restrict__ M,
+                               const T* __restrict__ u_star,
+                               const T* __restrict__ phi,
+                               const T* __restrict__ uf0,
+                               const T* __restrict__ uf1,
+                               const T* __restrict__ uf2,
+                               const T* __restrict__ pres,
+                               const T* __restrict__ phi_mean, T dt,
+                               int incremental, T* __restrict__ u_new,
+                               T* __restrict__ f0, T* __restrict__ f1,
+                               T* __restrict__ f2, T* __restrict__ p_new) {
+  const int64_t N = g.n_cells();
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= N) return;
+  int i, j, k;
+  g.coords(c, i, j, k);
+  const int mi = g.lm(i, j);
+  const int64_t MS = (int64_t)g.nr * g.nlat;
+  auto m = [&](int ch) { return M[ch * MS + mi]; };
+  const T pm = phi_mean[0];
+  auto p = [&](int64_t idx) { return phi[idx] - pm; };
+
+  const T pc = p(c);
+  // radial: Neumann ghosts, so the wall-face gradients are 0
+  const T gr_lo = i == 0 ? T(0) : (pc - p(g.cell(i - 1, j, k))) / m(C_DR_LO);
+  const T gr_hi =
+      i + 1 < g.nr ? (p(g.cell(i + 1, j, k)) - pc) / m(C_DR_HI) : T(0);
+  // latitude: the pole ghost is the ring at lon + pi (sign +1)
+  const T p_s = j == 0 ? p(g.cell(i, 0, g.antipode(k)))
+                       : p(g.cell(i, j - 1, k));
+  const T p_n = j + 1 < g.nlat ? p(g.cell(i, j + 1, k))
+                               : p(g.cell(i, g.nlat - 1, g.antipode(k)));
+  const T gl_lo = (pc - p_s) / m(C_DLAT_LO);
+  const T gl_hi = (p_n - pc) / m(C_DLAT_HI);
+  // longitude: periodic
+  const T go_lo = (pc - p(g.cell(i, j, g.wrap(k - 1)))) / m(C_DLON);
+  const T go_hi = (p(g.cell(i, j, g.wrap(k + 1))) - pc) / m(C_DLON);
+
+  // left faces: the radial wall face and the pole face carry no flow
+  f0[c] = i == 0 ? T(0) : uf0[c] - dt * gr_lo;
+  f1[c] = j == 0 ? T(0) : uf1[c] - dt * gl_lo;
+  f2[c] = uf2[c] - dt * go_lo;
+  // cell velocity: centred gradient = mean of the two face gradients
+  u_new[c] = u_star[c] - dt * (T(0.5) * (gr_lo + gr_hi));
+  u_new[N + c] = u_star[N + c] - dt * (T(0.5) * (gl_lo + gl_hi));
+  u_new[2 * N + c] = u_star[2 * N + c] - dt * (T(0.5) * (go_lo + go_hi));
+  p_new[c] = incremental ? pres[c] + pc : pc;
+}
+
+template <typename T>
+int launch_correct(int nr, int nlat, int nlon, const T* M, const T* u_star,
+                   const T* phi, const T* uf0, const T* uf1, const T* uf2,
+                   const T* pres, const T* phi_mean, double dt,
+                   int incremental, T* u_new, T* f0, T* f1, T* f2, T* p_new,
+                   void* stream) {
+  Dims g{nr, nlat, nlon};
+  const int64_t N = (int64_t)nr * nlat * nlon;
+  const unsigned grid = (unsigned)((N + BLOCK - 1) / BLOCK);
+  correct_kernel<T><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      g, M, u_star, phi, uf0, uf1, uf2, pres, phi_mean, T(dt), incremental,
+      u_new, f0, f1, f2, p_new);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define PROJECTION_ENTRY(NAME, T)                                           \
@@ -80,3 +172,18 @@ int launch(int nr, int nlat, int nlon, const T* M, const T* u_star,
 
 PROJECTION_ENTRY(dp_faces_div_f32, float)
 PROJECTION_ENTRY(dp_faces_div_f64, double)
+
+#define CORRECT_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(int nr, int nlat, int nlon, const T* M,               \
+                      const T* u_star, const T* phi, const T* uf0,          \
+                      const T* uf1, const T* uf2, const T* pres,            \
+                      const T* phi_mean, double dt, int incremental,        \
+                      T* u_new, T* f0, T* f1, T* f2, T* p_new,              \
+                      void* stream) {                                       \
+    return launch_correct<T>(nr, nlat, nlon, M, u_star, phi, uf0, uf1, uf2, \
+                             pres, phi_mean, dt, incremental, u_new, f0,    \
+                             f1, f2, p_new, stream);                        \
+  }
+
+CORRECT_ENTRY(dp_correct_f32, float)
+CORRECT_ENTRY(dp_correct_f64, double)

@@ -7,23 +7,28 @@ IMEX-Euler splitting and the incremental pressure projection:
   1. explicit forcing     rhs_u = u + dt (-adv u + cor u + buoy T
                                           + visc_curv u - grad p)     [K2]
   2. Helmholtz predictor  (V - dt/Re L) u* = V rhs_u
-  3. temperature          (V - dt/Pe L) T = V T_adv + dt/Pe L_offset  [K1]
+  3. temperature          (V - dt/Pe L) T = V T_adv + dt/Pe L_offset
   4. Poisson projection   -L phi = -V div(U*)/dt  (fast diagonalization)
   5. correction           U = U* - dt grad_f phi, u = u* - dt grad_c phi,
-                          p = p + phi
+                          p = p + phi                                  [K5]
 
 On the fast path steps 2-3 are fixed-iteration Jacobi-Richardson
 solves with the projection head fused (kernel K1, ops/richardson.py).
 Their exactly tracked residuals and the Poisson residual spot-check
 gate every step; a miss redoes the step with full CG (``step_strong``),
 which runs the faces_div kernel K3 (ops/projection.py) — the
-reference's NoConvergence retry, boussinesq_model.tpp:1203-1232. The
-JAX model's ``_explicit_forcing`` and ``_advected_temperature`` are
+reference's NoConvergence retry, boussinesq_model.tpp:1203-1232. With
+``helmholtz solver = direct`` steps 2-3 are exact fast-diagonalization
+solves whose radial tridiagonals go through K4 (solvers/helmholtz.py,
+ops/tridiag.py), followed by K3; only the Poisson spot-check gates
+them. Every projection ends in the correction kernel K5. The JAX
+model's ``_explicit_forcing`` and ``_advected_temperature`` are
 ``ShellForcing.explicit_forcing`` / ``.advected_temperature`` here, the
 plain version of K2 (ops/forcing.py).
 
 This slice runs the 3D spherical shell, standard (advective)
-personality, incremental projection. Every other configuration raises
+personality, incremental projection, with the Richardson/CG or the
+direct Helmholtz solves. Every other configuration raises
 ``NotImplementedError`` naming its ROADMAP.md item; none quietly runs
 another path.
 """
@@ -47,10 +52,12 @@ from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
 from dycoreplanet_tpu_torch.ops.projection import (
     ShellProjection, apply_wall_face_values)
 from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
+from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues)
 from dycoreplanet_tpu_torch.solvers.cg import cg
+from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
 from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -160,8 +167,6 @@ def _unsupported(params: Parameters) -> Optional[str]:
         return "annulus and cuboid geometries"
     if num.dtype == "bfloat16":
         return "bf16"
-    if num.helmholtz_solver == "direct":
-        return "remaining solvers: direct Helmholtz (K4)"
     if num.poisson_solver in ("cg", "mg"):
         return f"remaining solvers: poisson solver = {num.poisson_solver}"
     if num.temperature_advection == "semi-lagrangian":
@@ -171,7 +176,8 @@ def _unsupported(params: Parameters) -> Optional[str]:
                 "tracking, with the rewind)")
     if params.NSE_solver_interval > 1:
         return "NSE solver interval > 1 temperature substeps"
-    if num.fixed_solver_iters <= 0 and num.momentum_fixed_iters > 0:
+    if (num.helmholtz_solver != "direct" and num.fixed_solver_iters <= 0
+            and num.momentum_fixed_iters > 0):
         return ("remaining solvers: momentum fixed iters > 0 with fixed "
                 "solver iters = 0 (Richardson momentum beside CG "
                 "temperature)")
@@ -243,9 +249,13 @@ class BoussinesqModel:
             u_specs=self.u_specs, p_specs=self.p_specs,
             T_specs=self.T_specs, T_wall=self.T_wall,
             dt_T_factor=1.0 / params.NSE_solver_interval)
-        self._proj = ShellProjection(geo, self.u_specs)
+        self._proj = ShellProjection(
+            geo, self.u_specs, self.p_specs,
+            incremental=num.projection == "incremental")
         self._richardson = None
-        if num.fixed_solver_iters > 0:
+        # the fused K1 stage runs only beside iterative temperature
+        # solves (JAX model: `self.temperature_direct is None`)
+        if num.fixed_solver_iters > 0 and self.temperature_direct is None:
             self._richardson = ShellRichardson(
                 geo, one_over_Re=self.one_over_Re,
                 one_over_Pe=self.one_over_Pe,
@@ -269,7 +279,10 @@ class BoussinesqModel:
     def kernels(self) -> Dict[str, object]:
         """The kernel wrappers of the step, by name (their ``launches``
         count the CUDA launches)."""
-        out = {"forcing": self._forcing, "faces_div": self._proj}
+        out = {"forcing": self._forcing,
+               "faces_div": self._proj.faces_div_count,
+               "correct": self._proj.correct_count,
+               "tridiag": self._tridiag}
         if self._richardson is not None:
             out["richardson"] = self._richardson
         return out
@@ -365,6 +378,24 @@ class BoussinesqModel:
         self.T_diag = (
             -weak_laplacian_diagonal(geo, self.T_specs_hom)).astype(dt_np)
 
+        # direct (non-iterative) Helmholtz solvers for the implicit
+        # momentum and temperature systems (solvers/helmholtz.py); their
+        # radial tridiagonals share one K4 wrapper
+        self._tridiag = TridiagSolve()
+        self.helmholtz_direct = None
+        self.temperature_direct = None
+        if params.numerics.helmholtz_solver == "direct":
+            self.helmholtz_direct = make_helmholtz_solver(
+                geo, [self.u_specs[c][0] for c in range(3)], dtype=dt_np,
+                tridiag=self._tridiag, device=self.device)
+            self.temperature_direct = make_helmholtz_solver(
+                geo, [self.T_specs_hom[0]], dtype=dt_np,
+                tridiag=self._tridiag, device=self.device)
+            if self.helmholtz_direct is None or self.temperature_direct is None:
+                raise ValueError(
+                    "helmholtz solver = direct requires a separable "
+                    "geometry (uniform radial spacing)")
+
         self._vol_t = self._tensor(self.vol)
         self._diameter_t = self._tensor(self.diameter)
         self._T_lap_offset_t = self._tensor(self.T_lap_offset)
@@ -442,8 +473,14 @@ class BoussinesqModel:
 
     # ------------------------------------------------------------------
     def _solve_temperature_system(self, rhs_T, kT, x0):
-        """(vol - kT * weak_lap_hom) T = rhs_T by Jacobi-CG (reference:
-        temperature CG at 1e-12*rhs, tpp:1426-1440)."""
+        """(vol - kT * weak_lap_hom) T = rhs_T, direct when configured,
+        else by Jacobi-CG (reference: temperature CG at 1e-12*rhs,
+        tpp:1426-1440). Returns (T_new, iterations, residual_norm,
+        converged); -1 = direct, not measured."""
+        if self.temperature_direct is not None:
+            T_new = self.temperature_direct.solve(rhs_T[None], kT)[0]
+            return (T_new, -1, torch.tensor(-1.0, device=self.device),
+                    torch.tensor(True, device=self.device))
         geo = self.geo
         vol = self._vol_t
         diag_T = vol + kT * self._T_diag_t
@@ -474,12 +511,21 @@ class BoussinesqModel:
         return res.x, res.iterations, res.residual_norm, res.converged
 
     def _solve_momentum_projection(self, rhs_u, pres, dt):
-        """Full-CG Helmholtz predictor + projection (the escalated path;
-        all three components in one stacked CG)."""
+        """Helmholtz predictor + projection: the direct solve when
+        configured (under ``_force_cg`` too, as in the JAX model), else
+        full CG (the escalated path; all three components in one stacked
+        CG)."""
         geo = self.geo
         vol = self._vol_t
         coef = self._scalar(self.dtype.type(dt)
                             * self.dtype.type(self.one_over_Re))
+        if self.helmholtz_direct is not None:
+            u_star = self.helmholtz_direct.solve(vol[None] * rhs_u, coef)
+            (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
+             poisson_ok) = self._project_velocity(u_star, pres, dt)
+            return (u_new, p_new, new_faces, [-1] * 3, poisson_iters,
+                    torch.tensor(-1.0, device=self.device), poisson_rnorm,
+                    poisson_ok)
 
         def helm_op(x):
             return vol[None] * x - coef * torch.stack([
@@ -500,8 +546,8 @@ class BoussinesqModel:
     # ------------------------------------------------------------------
     def _project_velocity(self, u_star, pres, dt, prefused=None):
         """Faces + compatible RHS (from K1's head, or K3), Poisson solve,
-        face/cell correction, residual spot-check. Returns (u_new, p_new,
-        new_faces, poisson_iters, poisson_rnorm, poisson_ok)."""
+        face/cell correction [K5], residual spot-check. Returns (u_new,
+        p_new, new_faces, poisson_iters, poisson_rnorm, poisson_ok)."""
         geo = self.geo
         p = self.params
         vol = self._vol_t
@@ -517,17 +563,9 @@ class BoussinesqModel:
         phi, poisson_iters, poisson_rnorm, poisson_ok = \
             self._solve_pressure_poisson(rhs_phi)
 
-        phi = phi - st.volume_mean(geo, phi)
-        new_faces = []
-        for d in range(3):
-            gphi = st.grad_left_faces(geo, phi, d, self.p_specs[d])
-            new_faces.append(apply_wall_face_values(
-                geo, uf_star[d] - dt * gphi, d))
-        gradphi_c = torch.stack([
-            st.centered_gradient(geo, phi, d, self.p_specs[d])
-            for d in range(3)])
-        u_new = u_star - dt * gradphi_c
-        p_new = pres + phi if p.numerics.projection == "incremental" else phi
+        u_new, f0, f1, f2, p_new = self._proj.correct(
+            u_star, uf_star, phi, pres, dt, st.volume_mean(geo, phi))
+        new_faces = [f0, f1, f2]
         if p.correct_pressure_to_zero_mean:
             p_new = p_new - st.volume_mean(geo, p_new)
 

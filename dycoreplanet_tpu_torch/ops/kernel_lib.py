@@ -30,7 +30,7 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("forcing.cu", "richardson.cu", "projection.cu")
+SOURCES = ("forcing.cu", "richardson.cu", "projection.cu", "tridiag.cu")
 HEADERS = ("shell_common.cuh",)
 # no --use_fast_math: divisions and square roots stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -112,6 +112,14 @@ def bind(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+class LaunchCount:
+    """The launch count of one kernel, for a wrapper that launches more
+    than one (``BoussinesqModel.kernels()`` exposes one per kernel)."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def check(err: int, what: str) -> None:

@@ -1,16 +1,26 @@
-"""K3: the pre-Poisson projection head (faces + divergence + Poisson
-right-hand side) as a hand-written CUDA kernel, with its plain version.
+"""The two projection stages around the Poisson solve as hand-written
+CUDA kernels, each with its plain version (kernel source:
+csrc/projection.cu).
 
-Replaces the Pallas kernel ``ShellProjectionPallas._build_faces_div``
+K3, ``faces_div``: the pre-Poisson head (faces + divergence + Poisson
+right-hand side). Replaces the Pallas kernel
+``ShellProjectionPallas._build_faces_div``
 (dycoreplanet_tpu/ops/pallas_stencil.py:842), which the JAX model calls
 on the steps that bypass the fused Richardson kernel
-(models/boussinesq.py ``_project_velocity``). Kernel source:
-csrc/projection.cu; the per-cell device code is shared with K1's
-projection head (csrc/shell_common.cuh).
+(models/boussinesq.py ``_project_velocity``); the per-cell device code
+is shared with K1's projection head (csrc/shell_common.cuh). Bound:
+u* (3 fields) read, three faces and rhs_raw written: 7 fields, ~29 MB
+at 32x128x256 f32.
 
-Bound: device-memory traffic — u* (3 fields) read, three faces and
-rhs_raw written: 7 fields, ~29 MB at 32x128x256 f32. Design: one thread
-per cell, ghosts by index arithmetic, fixed-order block sums of rhs.
+K5, ``correct``: the post-Poisson correction (faces and cell velocity
+minus dt grad phi, p + phi). Replaces the Pallas kernel
+``ShellProjectionPallas._build_correct`` (pallas_stencil.py:920); the
+JAX model computes the same chain in plain jnp, and every projection of
+the port runs the kernel. Bound: 8 fields read (u* 3, phi, 3 faces, p)
+and 7 written (u 3, 3 faces, p): 15 fields, ~62.9 MB at 32x128x256 f32.
+
+Design of both: one thread per cell, ghosts by index arithmetic; K3
+takes fixed-order block sums of rhs.
 """
 
 from __future__ import annotations
@@ -23,11 +33,16 @@ import torch
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import kernel_lib as kl
 from dycoreplanet_tpu_torch.ops import stencil as st
+from dycoreplanet_tpu_torch.ops.bc import BC
 
-# bytes that bound the kernel: fields read once plus fields written once
+# bytes that bound each kernel: fields read once plus fields written once
 FIELDS_MOVED = 7
+CORRECT_FIELDS_MOVED = 15
 # floating-point operations per cell (faces, fluxes, divergence, rhs)
 OPS_PER_CELL = 25
+# (mean subtraction, six face gradients, three faces, three cell
+# gradients and velocities, pressure)
+CORRECT_OPS_PER_CELL = 30
 
 
 def apply_wall_face_values(geo: Geometry, uf: torch.Tensor, d: int
@@ -50,23 +65,75 @@ def faces_div_plain(geo: Geometry, u_specs, u_star: torch.Tensor, dt):
     return uf[0], uf[1], uf[2], rhs_raw, torch.sum(rhs_raw).reshape(1)
 
 
-class ShellProjection:
-    """``faces_div(u_star, dt) -> (uf0, uf1, uf2, rhs_raw, rhs_sum)``;
-    the caller subtracts ``rhs_sum / n_cells`` (compatibility). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+def correct_plain(geo: Geometry, p_specs, u_star: torch.Tensor, uf,
+                  phi: torch.Tensor, pres: torch.Tensor, dt, phi_mean,
+                  incremental: bool):
+    """Plain PyTorch version of K5: (u_new, f0, f1, f2, p_new)."""
+    phi = phi - phi_mean
+    new_faces = []
+    for d in range(3):
+        gphi = st.grad_left_faces(geo, phi, d, p_specs[d])
+        new_faces.append(apply_wall_face_values(geo, uf[d] - dt * gphi, d))
+    gradphi_c = torch.stack([
+        st.centered_gradient(geo, phi, d, p_specs[d]) for d in range(3)])
+    u_new = u_star - dt * gradphi_c
+    p_new = pres + phi if incremental else phi
+    return (u_new, *new_faces, p_new)
 
-    def __init__(self, geo: Geometry, u_specs):
+
+class ShellProjection:
+    """The shell's projection kernels:
+
+      ``faces_div(u_star, dt) -> (uf0, uf1, uf2, rhs_raw, rhs_sum)`` [K3];
+        the caller subtracts ``rhs_sum / n_cells`` (compatibility);
+      ``correct(u_star, uf, phi, pres, dt, phi_mean)
+        -> (u_new, f0, f1, f2, p_new)`` [K5], ``phi_mean`` a one-element
+        tensor (the volume mean of phi, subtracted inside).
+
+    CPU tensors take the plain versions; CUDA tensors launch the
+    kernels. ``faces_div_count`` and ``correct_count`` count each
+    kernel's launches."""
+
+    def __init__(self, geo: Geometry, u_specs, p_specs, incremental: bool):
+        rules = (p_specs[0].lo, p_specs[0].hi, p_specs[1].lo, p_specs[1].hi)
+        if rules != (BC.NEUMANN, BC.NEUMANN, BC.POLE, BC.POLE):
+            raise ValueError("the correction kernel takes Neumann radial "
+                             "walls and pole ghosts for the pressure")
         self.geo = geo
         self.u_specs = u_specs
+        self.p_specs = p_specs
+        self.incremental = bool(incremental)
         ch = kl.shell_channels(geo)
-        self._M64 = np.stack([ch[k] for k in (
-            "vol", "ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon")])
+        self._M64 = {
+            "faces_div": np.stack([ch[k] for k in (
+                "vol", "ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon")]),
+            "correct": np.stack([ch[k] for k in (
+                "dr_lo", "dr_hi", "dlat_lo", "dlat_hi", "dlon")]),
+        }
         self._M = {}
         self._fn = {}
-        self.launches = 0
+        self.faces_div_count = kl.LaunchCount()
+        self.correct_count = kl.LaunchCount()
 
     def plain(self, u_star: torch.Tensor, dt):
         return faces_div_plain(self.geo, self.u_specs, u_star, dt)
+
+    def correct_plain(self, u_star, uf, phi, pres, dt, phi_mean):
+        return correct_plain(self.geo, self.p_specs, u_star, uf, phi, pres,
+                             dt, phi_mean, self.incremental)
+
+    def _prepare(self, which, dev, dtype, argtypes):
+        """(metric channels on the device, bound entry point)."""
+        key = (which, str(dev), dtype)
+        if key not in self._M:
+            self._M[key] = torch.as_tensor(self._M64[which], dtype=dtype,
+                                           device=dev).contiguous()
+        sfx = kl.suffix(dtype)
+        fn = self._fn.get((which, sfx))
+        if fn is None:
+            fn = kl.bind("projection.cu", f"dp_{which}_{sfx}", argtypes)
+            self._fn[(which, sfx)] = fn
+        return self._M[key], fn
 
     def faces_div(self, u_star: torch.Tensor, dt):
         if u_star.device.type == "cpu":
@@ -74,25 +141,41 @@ class ShellProjection:
         nr, nlat, nlon = self.geo.cell_shape
         dev, dtype = kl.require_cuda(
             "faces_div", {"u_star": (u_star, (3, nr, nlat, nlon))})
-        key = (str(dev), dtype)
-        if key not in self._M:
-            self._M[key] = torch.as_tensor(self._M64, dtype=dtype,
-                                           device=dev).contiguous()
-        sfx = kl.suffix(dtype)
-        fn = self._fn.get(sfx)
-        if fn is None:
-            P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            fn = kl.bind("projection.cu", f"dp_faces_div_{sfx}",
-                         [I, I, I, P, P, D, P, P, P, P, P, P, P])
-            self._fn[sfx] = fn
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        M, fn = self._prepare("faces_div", dev, dtype,
+                              [I, I, I, P, P, D, P, P, P, P, P, P, P])
         f0, f1, f2, rhs = (torch.empty((nr, nlat, nlon), dtype=dtype,
                                        device=dev) for _ in range(4))
         nblk = (nr * nlat * nlon + 255) // 256
         parts = torch.empty(nblk, dtype=dtype, device=dev)
         total = torch.empty(1, dtype=dtype, device=dev)
         p = kl.ptr
-        kl.check(fn(nr, nlat, nlon, p(self._M[key]), p(u_star), float(dt),
+        kl.check(fn(nr, nlat, nlon, p(M), p(u_star), float(dt),
                     p(f0), p(f1), p(f2), p(rhs), p(parts), p(total),
                     kl.stream_of(u_star)), "faces_div kernel")
-        self.launches += 1
+        self.faces_div_count.launches += 1
         return f0, f1, f2, rhs, total
+
+    def correct(self, u_star: torch.Tensor, uf, phi: torch.Tensor,
+                pres: torch.Tensor, dt, phi_mean: torch.Tensor):
+        if u_star.device.type == "cpu":
+            return self.correct_plain(u_star, uf, phi, pres, dt, phi_mean)
+        cells = self.geo.cell_shape
+        pm = phi_mean.reshape(1)
+        dev, dtype = kl.require_cuda("correct", {
+            "u_star": (u_star, (3,) + cells), "phi": (phi, cells),
+            "uf0": (uf[0], cells), "uf1": (uf[1], cells),
+            "uf2": (uf[2], cells), "pres": (pres, cells),
+            "phi_mean": (pm, (1,))})
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        M, fn = self._prepare("correct", dev, dtype,
+                              [I, I, I] + [P] * 8 + [D, I] + [P] * 6)
+        u_new = torch.empty_like(u_star)
+        f0, f1, f2, p_new = (torch.empty_like(phi) for _ in range(4))
+        p = kl.ptr
+        kl.check(fn(*cells, p(M), p(u_star), p(phi), p(uf[0]), p(uf[1]),
+                    p(uf[2]), p(pres), p(pm), float(dt),
+                    int(self.incremental), p(u_new), p(f0), p(f1), p(f2),
+                    p(p_new), kl.stream_of(u_star)), "correct kernel")
+        self.correct_count.launches += 1
+        return u_new, f0, f1, f2, p_new

@@ -1,0 +1,173 @@
+"""Direct (non-iterative) Helmholtz solver for the shell:
+(vol - c * weak_laplacian) x = b, the counterpart of the JAX package's
+``solvers/helmholtz.py`` (``ShellHelmholtzDirect``).
+
+The momentum and temperature systems share the pressure operator's
+separable structure on the uniform-radius shell: vol_ij = v_i cos_j and
+the radial conductance a_ij = alpha_i cos_j, so per longitude mode the
+lat generalized eigentransform of the pressure operator (pole faces
+have zero area for every field) reduces the operator to independent
+radial tridiagonals  diag(v) + c (T_r^bc + lam I)  — solved by the
+batched Thomas kernel K4 (ops/tridiag.py).
+
+Only the radial wall rule distinguishes the fields: NEUMANN walls add
+nothing, ANTISYM/DIRICHLET walls add 2*alpha_wall to the boundary
+diagonal. Inhomogeneous Dirichlet values are the caller's affine offset,
+as in the CG path. Host setup is f64 numpy, identical to the JAX
+package's; the per-mode transforms are plain matrix products
+(``torch.einsum``) in full precision (the model disables TF32), and
+``c`` enters only on the device side, so one solver serves every dt.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dycoreplanet_tpu_torch.grid.geometry import Geometry
+from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
+from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+from dycoreplanet_tpu_torch.solvers.spectral import (
+    _real_dft_pair, _uniform_radial, shell_lat_eigensystem)
+
+# wall-rule weight on the boundary diagonal of the 1D operator
+_WALL_W = {BC.NEUMANN: 0.0, BC.ANTISYM: 2.0, BC.DIRICHLET: 2.0}
+
+
+def _rules_of(spec: Optional[BCSpec]) -> Tuple[float, float]:
+    if spec is None:
+        raise ValueError("wall axis needs a BCSpec")
+    try:
+        return _WALL_W[spec.lo], _WALL_W[spec.hi]
+    except KeyError as e:  # pole rules etc. are not wall rules
+        raise ValueError(f"unsupported radial wall rule {e}") from None
+
+
+def _conductance_full(geo: Geometry, d: int) -> np.ndarray:
+    """face_area/dist WITHOUT wall zeroing (walls couple to ghosts)."""
+    return np.asarray(
+        np.broadcast_to(
+            np.asarray(geo.face_area[d], np.float64)
+            / np.asarray(geo.face_dist[d], np.float64),
+            geo.face_shape(d),
+        )
+    )
+
+
+def _radial_tridiag(alpha: np.ndarray, w_lo: float, w_hi: float):
+    """1D wall-aware operator pieces from face conductances alpha
+    (n+1,): returns (diag (n,), lower (n,), upper (n,)) of T^bc with
+    lower[0] = upper[-1] = 0 (ghost coupling folded into diag)."""
+    n = alpha.shape[0] - 1
+    diag = np.zeros(n)
+    diag[:-1] += alpha[1:n]
+    diag[1:] += alpha[1:n]
+    diag[0] += w_lo * alpha[0]
+    diag[-1] += w_hi * alpha[n]
+    lower = np.concatenate([[0.0], -alpha[1:n]])
+    upper = np.concatenate([-alpha[1:n], [0.0]])
+    return diag, lower, upper
+
+
+class ShellHelmholtzDirect:
+    """Exact shell solve of (vol - c*weak_laplacian) x_f = b_f for a
+    stack of fields with per-field radial wall rules. ``tridiag`` is the
+    K4 wrapper (shared by a model's solvers, so one launch count)."""
+
+    def __init__(self, geo: Geometry, radial_specs: Sequence[BCSpec],
+                 dtype=np.float32, tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "shell" or not _uniform_radial(geo):
+            raise ValueError("ShellHelmholtzDirect needs the uniform-radius "
+                             "shell")
+        self.geo = geo
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nr, nlat, nlon = geo.cell_shape
+        self.nm = nlon // 2 + 1
+        nc = len(radial_specs)
+
+        cosl = np.cos(np.asarray(geo.axes[1].centers, np.float64))
+        j0 = int(np.argmax(cosl))
+        a = _conductance_full(geo, 0)[:, :, 0]
+        alpha = a[:, j0] / cosl[j0]                    # (nr+1,)
+        volf = np.broadcast_to(np.asarray(geo.vol, np.float64),
+                               geo.cell_shape)[:, :, 0]
+        v = volf[:, j0] / cosl[j0]                     # (nr,)
+
+        V, lam = shell_lat_eigensystem(geo)
+        F, G = _real_dft_pair(nlon, np.float64)
+
+        trd = np.zeros((nc, nr))
+        low = up = None
+        for cidx, spec in enumerate(radial_specs):
+            w_lo, w_hi = _rules_of(spec)
+            d_, l_, u_ = _radial_tridiag(alpha, w_lo, w_hi)
+            trd[cidx] = d_
+            low, up = l_, u_                           # field-independent
+
+        f = lambda x: np.asarray(x, dtype=dtype)       # host constants
+        self._F, self._G = f(F), f(G)
+        self._V = f(V)
+        # Thomas layout: (nr, C, m, s, k); see solve()
+        self._v = f(v[:, None, None, None, None])
+        self._trd = f(np.transpose(trd)[:, :, None, None, None])
+        self._lam = f(np.transpose(lam)[None, None, :, None, :])
+        self._low = f(low[:, None, None, None, None])
+        self._up = f(up[:, None, None, None, None])
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "ShellHelmholtzDirect":
+        """Move the constants to ``device``."""
+        self._t = {k: torch.as_tensor(getattr(self, k), device=device)
+                   for k in ("_F", "_G", "_V", "_v", "_trd", "_lam", "_low",
+                             "_up")}
+        return self
+
+    def _consts(self, dtype):
+        acc = torch.promote_types(dtype, torch.float32)
+        return acc, {k: a.to(acc) for k, a in self._t.items()}
+
+    def systems(self, b: torch.Tensor, c: float):
+        """The radial tridiagonal systems of the solve, (lower, diag,
+        upper, rhs): rhs is (nr, C, nlat, 2, nlon/2+1), the coefficients
+        broadcast against it. b: (C, nr, nlat, nlon); c: the scalar
+        coefficient (dt/Re or dt_T/Pe, rounded to the working dtype by
+        the caller)."""
+        nm = self.nm
+        acc, t = self._consts(b.dtype)
+        bh = torch.einsum("kl,cijl->cijk", t["_F"], b.to(acc))
+        bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=3)  # (C,i,j,s,k)
+        # Thomas order (nr, C, m, s, k), C-contiguous so that K4 solves
+        # along axis 0 with the batch flattened in C order (one copy)
+        yt = torch.einsum("kjm,cijsk->icmsk", t["_V"], bs).contiguous()
+        diag = t["_v"] + c * (t["_trd"] + t["_lam"])   # (nr, C, m, 1, k)
+        return c * t["_low"], diag, c * t["_up"], yt
+
+    def solve(self, b: torch.Tensor, c: float) -> torch.Tensor:
+        """x with (vol - c weak_laplacian) x = b, per field of b."""
+        _, t = self._consts(b.dtype)
+        xt = self.tridiag(*self.systems(b, c))
+        xs = torch.einsum("kjm,icmsk->cijsk", t["_V"], xt)
+        xk = torch.cat([xs[:, :, :, 0, :], xs[:, :, :, 1, :]], dim=3)
+        x = torch.einsum("lk,cijk->cijl", t["_G"], xk)
+        return x.to(b.dtype).contiguous()
+
+
+def make_helmholtz_solver(geo: Geometry, wall_specs: Sequence[BCSpec],
+                          dtype=np.float32,
+                          tridiag: Optional[TridiagSolve] = None,
+                          device=None):
+    """Direct Helmholtz solver for a stack of fields whose radial wall
+    BCSpecs are ``wall_specs``; None when the shell's radii are not
+    uniform (as in the JAX package). The annulus and cuboid solvers
+    are not ported yet."""
+    if geo.kind != "shell":
+        raise NotImplementedError(
+            f"the {geo.kind} direct Helmholtz solver is not ported yet "
+            "(ROADMAP.md: annulus and cuboid geometries)")
+    if not _uniform_radial(geo):
+        return None
+    return ShellHelmholtzDirect(geo, wall_specs, dtype=dtype,
+                                tridiag=tridiag, device=device)

@@ -18,7 +18,7 @@ float32 on the card (the model disables TF32).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,18 @@ def shell_lat_eigensystem(geo: Geometry):
     return V, lam
 
 
+def _real_dft_pair(n: int, dtype) -> Tuple[np.ndarray, np.ndarray]:
+    """(F, G): forward real-DFT matmul matrix (rows = Re then -Im of the
+    rfft) and its f64 pseudo-inverse — an exact roundtrip pair."""
+    nm = n // 2 + 1
+    ll = np.arange(n)
+    kk = np.arange(nm)
+    ang = 2.0 * np.pi * kk[:, None] * ll[None, :] / n
+    F = np.concatenate([np.cos(ang), -np.sin(ang)], axis=0)
+    G = np.linalg.pinv(F, rcond=1e-12)
+    return F.astype(dtype), G.astype(dtype)
+
+
 class ShellPoissonFastDiag:
     """EXACT shell solve by full fast diagonalization (see module doc).
 
@@ -122,11 +134,7 @@ class ShellPoissonFastDiag:
         tiny = 1e-10 * float(denom.max())
         inv_denom = np.where(denom > tiny, 1.0 / np.maximum(denom, tiny), 0.0)
 
-        ll = np.arange(nlon)
-        kk = np.arange(nm)
-        ang = 2.0 * np.pi * kk[:, None] * ll[None, :] / nlon
-        F = np.concatenate([np.cos(ang), -np.sin(ang)], axis=0)  # (2nm, nlon)
-        G = np.linalg.pinv(F, rcond=1e-12)                       # (nlon, 2nm)
+        F, G = _real_dft_pair(nlon, np.float64)   # (2nm, nlon), (nlon, 2nm)
 
         f = lambda x: np.asarray(x, dtype=dtype)   # host constants
         self._F = f(F)
@@ -185,6 +193,6 @@ def make_poisson_solver(geo: Geometry, dtype=np.float32,
     if not _uniform_radial(geo):
         raise NotImplementedError(
             "the non-uniform radial shell (ShellPoissonSpectral) is not "
-            "ported yet (ROADMAP.md: remaining solvers, with K4)")
+            "ported yet (ROADMAP.md: remaining solvers)")
     return ShellPoissonFastDiag(geo, dtype=dtype, precision=precision,
                                 refine_op=refine_op, device=device)

@@ -2,16 +2,19 @@
 """Where one step of the PyTorch port spends its time on the card.
 
     python3 scripts/profile_torch_step.py [--steps 10] [--trace out.json]
+                                          [--helmholtz direct]
 
 Runs the flagship configuration (models/presets.py: shell 32x128x256
-f32, bench opt-ins, seeded developed flow) on CUDA and reports
+f32, bench opt-ins, seeded developed flow) on CUDA — with `--helmholtz
+direct`, the same configuration with `helmholtz solver = direct` — and
+reports
   * host-clock ms/step two ways: reading the step diagnostics every step
     (as BoussinesqModel.run does) and enqueueing all steps before one
     synchronize;
   * a torch.profiler window over the same steps: device time by kernel,
-    grouped into the hand-written kernels (K1-K3), matrix products (the
-    Poisson transforms) and other PyTorch kernels, and the device's busy
-    share of the window.
+    grouped into the hand-written kernels (K1-K5), matrix products (the
+    Poisson and Helmholtz transforms) and other PyTorch kernels, and the
+    device's busy share of the window.
 The last line of standard output is one JSON object with these numbers.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -26,15 +29,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 HAND = ("forcing_kernel", "rich_init", "rich_sweep", "rich_head",
-        "faces_div_kernel", "reduce_partials")
+        "faces_div_kernel", "reduce_partials", "correct_kernel", "thomas_")
 GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
 
 
 def _category(name: str) -> str:
     if any(k in name for k in HAND):
-        return "hand kernels (K1-K3)"
+        return "hand kernels (K1-K5)"
     if any(k in name for k in GEMM):
-        return "matrix products (Poisson transforms)"
+        return "matrix products (Poisson, Helmholtz transforms)"
     return "other PyTorch kernels"
 
 
@@ -44,6 +47,8 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled window")
+    ap.add_argument("--helmholtz", choices=("auto", "direct"),
+                    default="auto", help="the `helmholtz solver` setting")
     args = ap.parse_args()
 
     import torch
@@ -57,7 +62,9 @@ def main() -> int:
     from dycoreplanet_tpu_torch.models.presets import (
         BENCH_DT, bench_params, seed_developed_flow)
 
-    model = BoussinesqModel(bench_params(), device="cuda")
+    params = bench_params()
+    params.numerics.helmholtz_solver = args.helmholtz
+    model = BoussinesqModel(params, device="cuda")
     s = seed_developed_flow(model)
     for _ in range(args.warmup):
         s, d = model.step(s, BENCH_DT)
@@ -112,7 +119,7 @@ def main() -> int:
         cats[c] = (ms0 + ms, cnt0 + cnt)
 
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name}")
+    print(f"device: {name}; helmholtz solver = {args.helmholtz}")
     print(f"ms/step (host clock): {ms_gated:.4f} reading the diagnostics "
           f"every step, {ms_enqueue:.4f} enqueued ahead")
     print(f"profiled window: {window_ms:.3f} ms for {n} steps; device "
@@ -129,7 +136,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     print(json.dumps({
-        "device": name, "steps": n, "ms_per_step_gated": ms_gated,
+        "device": name, "helmholtz_solver": args.helmholtz, "steps": n,
+        "ms_per_step_gated": ms_gated,
         "ms_per_step_enqueued": ms_enqueue,
         "device_ms_per_step": device_ms / n,
         "busy_share": device_ms / window_ms,

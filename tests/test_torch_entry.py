@@ -95,6 +95,22 @@ def test_cli_runs_on_cpu(capsys):
     assert "Grid cells             : 4 x 8 x 16" in out
 
 
+def test_cli_runs_direct_helmholtz_on_cpu(capsys, tmp_path):
+    """The classic prm with `set helmholtz solver = direct` in a Numerics
+    subsection appended to it (a subsection read again merges)."""
+    from dycoreplanet_tpu_torch.cli.main import main
+
+    prm = tmp_path / "direct.prm"
+    with open(PRM) as f:
+        prm.write_text(f.read() + "\nsubsection Numerics\n"
+                       "  set helmholtz solver = direct\nend\n")
+    rc = main(["-p", str(prm), "--max-steps", "2", "--no-output",
+               "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "helmholtz=[-1, -1, -1]" in out and "temperature=-1" in out
+
+
 def test_cli_refuses_what_is_not_ported(capsys):
     from dycoreplanet_tpu_torch.cli.main import main
 

@@ -1,13 +1,14 @@
 """The kernel modules of the PyTorch port — K2 forcing, K1 Richardson +
-projection head, K3 faces_div — through their wrappers on CPU tensors
-(which take the plain PyTorch versions), held against
+projection head, K3 faces_div, K5 correct — through their wrappers on
+CPU tensors (which take the plain PyTorch versions), held against
 
   * the JAX package's jnp oracles (the paths its model runs on the CPU),
     in f64 to 1e-12, and
   * the JAX Pallas kernels in interpret mode at (8, 16, 32) f32, to the
     tolerances of tests/test_pallas_richardson.py: rtol = atol = 2e-6
-    for iterates and faces, rtol = 1e-4, atol = 2e-5 * scale for the
-    Poisson right-hand side; K2 to 1e-5 of the field scale.
+    for iterates and faces (and every output of K5), rtol = 1e-4,
+    atol = 2e-5 * scale for the Poisson right-hand side; K2 to 1e-5 of
+    the field scale.
 
 The CUDA kernels themselves run only on a card: the test marked
 ``cuda`` holds them against the plain versions there and skips here.
@@ -28,6 +29,8 @@ from dycoreplanet_tpu.ops.pallas_stencil import (
 from dycoreplanet_tpu.solvers.fixed import richardson_solve as j_rich
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.models import BoussinesqModel
+from dycoreplanet_tpu_torch.ops import stencil as tm_st
+from tests.test_torch_helmholtz import _random_spd_tridiag
 
 
 def _configure(p, dtype, shape, scheme="muscl", coriolis="reference",
@@ -241,6 +244,63 @@ def test_faces_div_plain_vs_pallas_interpret_f32():
         np.asarray(w_rhs - jnp.sum(w_ps) / n), rtol=1e-4, atol=2e-5 * scale)
 
 
+# ---------------------------------------------------------------- K5
+def _correct_inputs(jm, seed, dtype):
+    u_star, f0, f1, f2, _, pres = _fields(jm, seed, dtype)
+    phi = np.random.default_rng(seed + 1).standard_normal(
+        jm.geo.cell_shape).astype(dtype)
+    return u_star, (f0, f1, f2), phi, pres
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_correct_plain_vs_jnp_f64(incremental):
+    """The jnp oracle of tests/test_pallas_stencil.py (post-Poisson
+    stage), for the incremental and the pressure-free projection."""
+    jm, tm = _models("float64", (8, 8, 16))
+    tm._proj.incremental = incremental
+    geo = jm.geo
+    u_star, uf, phi, pres = _correct_inputs(jm, 8, np.float64)
+    dt = 0.01
+    jphi = jnp.asarray(phi)
+    phi0 = jphi - j_st.volume_mean(geo, jphi)
+    faces_ref = [jm._apply_wall_face_values(
+        jnp.asarray(uf[d]) - dt * j_st.grad_left_faces(geo, phi0, d,
+                                                       jm.p_specs[d]), d)
+        for d in range(3)]
+    gradc = jnp.stack([j_st.centered_gradient(geo, phi0, d, jm.p_specs[d])
+                       for d in range(3)])
+    want = ([jnp.asarray(u_star) - dt * gradc] + faces_ref
+            + [jnp.asarray(pres) + phi0 if incremental else phi0])
+    tphi = torch.as_tensor(phi)
+    got = tm._proj.correct(torch.as_tensor(u_star), _t(uf), tphi,
+                           torch.as_tensor(pres), dt,
+                           tm_st.volume_mean(tm.geo, tphi))
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-12
+    assert tm._proj.correct_count.launches == 0
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_correct_plain_vs_pallas_interpret_f32(incremental):
+    jm, tm = _models("float32", (8, 16, 32))
+    proj = ShellProjectionPallas(jm.geo, dtype=np.float32,
+                                 incremental=incremental, interpret=True)
+    tm._proj.incremental = incremental
+    u_star, uf, phi, pres = _correct_inputs(jm, 9, np.float32)
+    dt = np.float32(0.004)
+    jphi = jnp.asarray(phi)
+    want = proj.correct(jnp.asarray(u_star), tuple(_j(uf)), jphi,
+                        jnp.asarray(pres), dt, j_st.volume_mean(jm.geo, jphi))
+    tphi = torch.as_tensor(phi)
+    got = tm._proj.correct(torch.as_tensor(u_star), _t(uf), tphi,
+                           torch.as_tensor(pres), float(dt),
+                           tm_st.volume_mean(tm.geo, tphi))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-6,
+                                   atol=2e-6)
+
+
 # ---------------------------------------------------------------- card
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
@@ -265,5 +325,29 @@ def test_cuda_kernels_match_plain_versions():
     got3, want3 = m._proj.faces_div(got[0], dt), m._proj.plain(got[0], dt)
     for g, w in zip(got3[:3], want3[:3]):
         np.testing.assert_allclose(_np(g), _np(w), rtol=2e-6, atol=2e-6)
+    # K5 on the K3 faces and a seeded phi
+    phi = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        m.geo.cell_shape).astype(np.float32), device="cuda")
+    args = (got[0], got3[:3], phi, pres, dt, tm_st.volume_mean(m.geo, phi))
+    for g, w in zip(m._proj.correct(*args), m._proj.correct_plain(*args)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=2e-6, atol=2e-6)
+    # K4: the register kernel (n <= 32) and the general one (n > 32);
+    # neither reads lower[0] or upper[n-1]
+    rng = np.random.RandomState(0)
+    for n in (32, 40):
+        low, diag, up = (torch.as_tensor(a, device="cuda") for a in
+                         _random_spd_tridiag(rng, n, (3, 700)))
+        rhs = torch.as_tensor(rng.randn(n, 3, 700), device="cuda")
+        want = m._tridiag.plain(low, diag, up, rhs)
+        low[0] = float("nan")
+        up[-1] = float("nan")
+        up_in = up.clone()
+        got4 = m._tridiag(low, diag, up, rhs)
+        np.testing.assert_allclose(_np(got4), _np(want), rtol=1e-12,
+                                   atol=1e-12)
+        # the general kernel writes c' into the wrapper's own copy
+        assert torch.equal(up[:-1], up_in[:-1])
     assert m._forcing.launches == 1 and m._richardson.launches == 1
-    assert m._proj.launches == 1
+    assert m._proj.faces_div_count.launches == 1
+    assert m._proj.correct_count.launches == 1
+    assert m._tridiag.launches == 2

@@ -86,6 +86,14 @@ def test_static_fields_match(dtype):
             getattr(tm.poisson_spectral, name),
             np.asarray(getattr(jm.poisson_spectral, name)), err_msg=name)
     assert tm.rho_background == pytest.approx(jm.rho_background, rel=1e-14)
+    # the direct Helmholtz solvers' constants, built from the same prm
+    jm, tm = _pair(dtype, helmholtz_solver="direct")
+    for solver in ("helmholtz_direct", "temperature_direct"):
+        for name in ("_F", "_G", "_V", "_v", "_trd", "_lam", "_low", "_up"):
+            np.testing.assert_array_equal(
+                getattr(getattr(tm, solver), name),
+                np.asarray(getattr(getattr(jm, solver), name)),
+                err_msg=f"{solver}.{name}")
 
 
 @pytest.mark.parametrize("numerics", [{}, OPT_INS],
@@ -191,7 +199,7 @@ def test_without_cuda_no_device_raises(monkeypatch):
 @pytest.mark.parametrize("setting", [
     ("use_FEEC_solver", True), ("cuboid_geometry", True),
     ("space_dimension", 2), ("NSE_solver_interval", 2),
-    ("numerics.dtype", "bfloat16"), ("numerics.helmholtz_solver", "direct"),
+    ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
     ("numerics.poisson_solver", "mg"),
     ("numerics.temperature_advection", "semi-lagrangian"),
     ("numerics.residual_check_interval", 4),
