@@ -7,12 +7,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. the card: torch's device name, and nvidia-smi's name + power limit;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
-     (forcing), K1 (Richardson + projection head), K3 (faces_div), K5
-     (correct), and K4 (tridiag) on the momentum systems of the direct
-     Helmholtz solve, each against its plain PyTorch version on the
-     card, with errors, median CUDA-event times and the roofline bound;
-     the whole direct Helmholtz solve's residual; every kernel's f64
-     instantiation at 8x16x32;
+     (forcing), K1 (Richardson + projection head, with its four norms),
+     K3 (faces_div), K5 (correct), and K4 (tridiag) on the momentum
+     systems of the direct Helmholtz solve, each against its plain
+     PyTorch version on the card, with errors, the mean device time of
+     one call over 50 back-to-back calls, and the roofline bound; the
+     whole direct Helmholtz solve's residual; K2 and K1 (iteration pairs
+     (1,1), (2,1), (1,3), (3,3), and (3,3) in groups of sweeps) at the
+     bench shape, a shape no tile divides (6x20x36) and one smaller than
+     a tile (4x8x16), in f32 and f64; the f64 instantiations of K3-K5 at
+     8x16x32;
   4. main path: BoussinesqModel.run, 20 gated steps at 32x128x256 f32
      with the bench opt-ins, after 2 warm-up steps — zero escalations,
      finite fields, small post-projection divergence, K2, K1 and K5
@@ -30,9 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
 
+import copy
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -52,25 +56,6 @@ def fail(msg: str) -> None:
 
 def phase(msg: str) -> None:
     print(f"chip_smoke: {msg}", flush=True)
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Median of per-call CUDA-event times (ms)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def bound_of(n_bytes, n_ops):
@@ -103,6 +88,121 @@ def compare(name, got, want, rtol, atol):
     return err
 
 
+def check_k1(name, got, want, pre, dtype):
+    """K1 against its plain version: iterates and faces rtol = atol =
+    2e-6 (f64 1e-12), rhs_phi rtol 1e-4 and atol 2e-5 x scale (f64
+    1e-11), and the four norms (check_norms; `pre`: short_norms). Returns
+    the max abs error of the fields and check_norms' worst ratio."""
+    import torch
+
+    f32 = dtype == torch.float32
+    tol = 2e-6 if f32 else 1e-12
+    err = compare(f"{name} iterates/faces", (got[0], got[1]) + tuple(
+        got[2][:3]), (want[0], want[1]) + tuple(want[2][:3]), tol, tol)
+    sc = float(want[2][3].abs().max()) + 1e-30
+    err = max(err, compare(f"{name} rhs_phi", (got[2][3],), (want[2][3],),
+                           1e-4 if f32 else 1e-11,
+                           (2e-5 if f32 else 1e-11) * sc))
+    return err, check_norms(name, got[3], want[3], pre, dtype)
+
+
+def short_norms(rk, args):
+    """The plain version's residual norms (rn_u, rn_T) one sweep short of
+    rk's iteration counts (after no sweep: |b - A x0|)."""
+    short = copy.copy(rk)
+    short.iters_u, short.iters_T = rk.iters_u - 1, rk.iters_T - 1
+    n = short.plain(*args)[3]
+    return float(n[0]), float(n[2])
+
+
+def norm_ratios(got, want, pre, eps):
+    """|d rn| / (0.1 rn + 2 eps |r_pre|) for rn_u and rn_T (check_norms),
+    with rn and r_pre the plain version's."""
+    return [abs(float(got[r]) - float(want[r]))
+            / max(0.1 * float(want[r]) + 2 * eps * p, 1e-300)
+            for r, p in ((0, pre[0]), (2, pre[1]))]
+
+
+def check_norms(name, got, want, pre, dtype):
+    """The norms the honesty gate reads (rn_u, bn_u, rn_T, bn_T). The
+    b norms are plain sums: rtol 1e-5 (f64 1e-12). A residual norm rn
+    must agree within 0.1 rn + 2 eps |r_pre|, r_pre the residual one
+    sweep earlier (short_norms): the two versions round the last update
+    r - A (r/D) differently (1/D as a table, the operator in conductance
+    form), by about an ulp of r_pre a cell, and earlier differences
+    shrink with every sweep; 0.1 rn covers the order of the sums. A
+    residual norm of 0, or one left un-updated by the last sweep, fails
+    it (phase 3 shows both on the bench flow). Second, looser: within
+    eps |b|, 1/16 of the gate's f32 floor (16 eps |b|). Returns the
+    largest |d rn| / tolerance."""
+    import torch
+
+    eps = float(torch.finfo(dtype).eps)
+    rtol_b = 1e-5 if dtype == torch.float32 else 1e-12
+    g = [float(x) for x in got]
+    w = [float(x) for x in want]
+    ratios = norm_ratios(got, want, pre, eps)
+    for (r, b), ratio in zip(((0, 1), (2, 3)), ratios):
+        if not abs(g[b] - w[b]) <= rtol_b * w[b]:
+            fail(f"{name}: b norm {g[b]!r} vs plain {w[b]!r} (rtol {rtol_b})")
+        if not (ratio <= 1.0 and abs(g[r] - w[r]) <= eps * w[b]):
+            fail(f"{name}: residual norm {g[r]!r} vs plain {w[r]!r}: "
+                 f"{ratio:.3g} x the tolerance 0.1 rn + 2 eps |r_pre|, "
+                 f"{abs(g[r] - w[r]) / (eps * w[b]):.3g} eps |b|")
+    return max(ratios)
+
+
+PAIRS = ((1, 1), (2, 1), (1, 3), (3, 3))
+
+
+def check_k1_k2(dev, shape, dtype_name):
+    """K2, then K1 at every iteration pair of PAIRS on K2's output and
+    at (3, 3) in groups of sweeps, against their plain versions on one
+    grid. Returns (K2 err, K1 err, K1 launches of one call at each, the
+    worst residual-norm ratio of check_norms)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+    from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
+
+    m = BoussinesqModel(bench_params(shape, dtype=dtype_name), device=dev)
+    s = seed_developed_flow(m)
+    f32 = m.torch_dtype == torch.float32
+    args2 = (s.u, s.u_faces, s.T, s.p, BENCH_DT)
+    g2 = m._forcing(*args2)
+    w2 = m._forcing.plain(*args2)
+    scale = max(float(w.abs().max()) for w in w2)
+    label = f"{shape} {dtype_name}"
+    e2 = compare(f"K2 {label}", g2, w2, 0.0 if f32 else 1e-12,
+                 (1e-5 if f32 else 1e-12) * scale)
+    kT = m._scalar(m.dtype.type(BENCH_DT) * m.dtype.type(m.one_over_Pe))
+    a1 = (g2[0], m._vol_t * g2[1] + kT * m._T_lap_offset_t, s.T, BENCH_DT)
+    e1, nr, passes = 0.0, 0.0, []
+    for iu, iT in PAIRS:
+        rk = ShellRichardson(
+            m.geo, one_over_Re=m.one_over_Re, one_over_Pe=m.one_over_Pe,
+            nse_interval=m.params.NSE_solver_interval,
+            helm_diags=m.helm_diags, T_diag=m.T_diag, iters_u=iu,
+            iters_T=iT, u_specs=m.u_specs, T_specs_hom=m.T_specs_hom)
+        e, r = check_k1(f"K1 {label} iters ({iu},{iT})", rk(*a1),
+                        rk.plain(*a1), short_norms(rk, a1), m.torch_dtype)
+        e1, nr = max(e1, e), max(nr, r)
+        passes.append(len(rk.plan(m.torch_dtype)))
+    # the sweeps in groups through device memory, as for iteration
+    # counts whose halo no tile's shared memory holds: (3, 3) in two
+    # passes or more under a limit of 2,500 values of shared memory
+    itemsize = torch.finfo(m.torch_dtype).bits // 8
+    rk.plan = lambda dtype: k1.plan(shape, itemsize, 3, 3,
+                                    smem_limit=2500 * itemsize)
+    rk.iters_u = rk.iters_T = 3
+    e, r = check_k1(f"K1 {label} iters (3,3) in groups", rk(*a1),
+                    rk.plain(*a1), short_norms(rk, a1), m.torch_dtype)
+    passes.append(len(rk.plan(m.torch_dtype)))
+    return e2, max(e1, e), passes, max(nr, r)
+
+
 def direct_params(p):
     """The same configuration with `helmholtz solver = direct`."""
     p.numerics.helmholtz_solver = "direct"
@@ -118,6 +218,7 @@ def main() -> None:
              "CUDA card")
     try:
         import dycoreplanet_tpu_torch
+        from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
         from dycoreplanet_tpu_torch.models import BoussinesqModel
         from dycoreplanet_tpu_torch.models.presets import (
             BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
@@ -152,10 +253,14 @@ def main() -> None:
     # ---- 2. build ------------------------------------------------------
     secs = kernel_lib.build_all()
     phase(f"built {len(kernel_lib.SOURCES)} kernel sources in {secs:.1f} s")
-    for src, log in sorted(kernel_lib.BUILD_LOG.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}", flush=True)
+    ptxas = {src: kernel_lib.ptxas_summary(src) for src in kernel_lib.SOURCES}
+    for src, rows in ptxas.items():
+        for r in rows:
+            print(f"  ptxas {src} {r['kernel']}: {r['registers']} registers, "
+                  f"{r['stack_bytes']} bytes stack frame, "
+                  f"{r['spill_stores']}/{r['spill_loads']} bytes spill "
+                  f"stores/loads, {r['smem_bytes']} bytes static smem",
+                  flush=True)
 
     # ---- 3. kernel checks ---------------------------------------------
     dev = torch.device("cuda")
@@ -182,7 +287,8 @@ def main() -> None:
                        source="dycoreplanet_tpu_torch/csrc/forcing.cu",
                        replaces="dycoreplanet_tpu/ops/pallas_stencil.py:373",
                        max_abs_err=err2, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None))
+                       bound_by=b_by, library_ms=None,
+                       ptxas=ptxas["forcing.cu"]))
 
     # K1: Richardson solves + projection head, on the K2 outputs
     rhs_u, T_adv = got
@@ -193,15 +299,29 @@ def main() -> None:
     g1 = rk(*args1)
     w1 = rk.plain(*args1)
     torch.cuda.synchronize()
-    err1 = compare("K1 iterates/faces", (g1[0], g1[1]) + tuple(g1[2][:3]),
-                   (w1[0], w1[1]) + tuple(w1[2][:3]), 2e-6, 2e-6)
-    sc = float(w1[2][3].abs().max()) + 1e-30
-    err1 = max(err1, compare("K1 rhs_phi", (g1[2][3],), (w1[2][3],), 1e-4,
-                             2e-5 * sc))
+    pre = short_norms(rk, args1)
+    err1, dn = check_k1("K1", g1, w1, pre, torch.float32)
     norms_k = [float(x) for x in g1[3]]
     norms_p = [float(x) for x in w1[3]]
+    eps = float(torch.finfo(torch.float32).eps)
+    gate = 16 * eps
+    # the check fails a kernel whose residual norms were 0, or were left
+    # un-updated by the last sweep (the plain norms one sweep short)
+    faults = {"rn = 0": [0.0, norms_p[1], 0.0, norms_p[3]],
+              "r not updated": [pre[0], norms_p[1], pre[1], norms_p[3]]}
+    seen = []
+    for what, bad in faults.items():
+        ratios = norm_ratios(bad, w1[3], pre, eps)
+        if not min(ratios) > 1.0:
+            fail(f"K1 norm check passes a kernel with {what} ({ratios})")
+        seen.append(f"{what}: u {ratios[0]:.3g}, T {ratios[1]:.3g}")
     phase(f"K1 norms (rn_u, bn_u, rn_T, bn_T): kernel {norms_k}, "
-          f"plain {norms_p}")
+          f"plain {norms_p}, plain one sweep short (rn_u, rn_T) {list(pre)}; "
+          f"max |d rn| {dn:.3g} x tol (0.1 rn + 2 eps |r_pre|); faulty "
+          f"norms would read {'; '.join(seen)} x tol; gate margins u "
+          f"{gate * norms_k[1] / max(norms_k[0], 1e-300):.3g}x, "
+          f"T {gate * norms_k[3] / max(norms_k[2], 1e-300):.3g}x; "
+          f"{len(rk.plan(torch.float32))} launch(es) a call")
     ms, pms = time_ms(lambda: rk(*args1)), time_ms(lambda: rk.plain(*args1))
     b_ms, b_by = bound(n_cells, k1.FIELDS_MOVED,
                        k1.ops_per_cell(rk.iters_u, rk.iters_T))
@@ -212,7 +332,8 @@ def main() -> None:
                        source="dycoreplanet_tpu_torch/csrc/richardson.cu",
                        replaces="dycoreplanet_tpu/ops/pallas_richardson.py:348",
                        max_abs_err=err1, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None))
+                       bound_by=b_by, library_ms=None,
+                       ptxas=ptxas["richardson.cu"]))
 
     # K3: faces_div on the K1 iterate
     u_star = g1[0]
@@ -327,21 +448,26 @@ def main() -> None:
     phase(f"direct Helmholtz solve (momentum): relative residual "
           f"{rel_res:.3e} (tol 1e-5)")
 
-    # the optional float64 instantiations, at a small grid: the kernels
-    # and their plain versions then differ only by reassociation
+    # K2 and K1 at the bench shape, a shape no tile divides and one
+    # smaller than a tile, every iteration pair, f32 and f64
+    for shape in (BENCH_SHAPE, (6, 20, 36), (4, 8, 16)):
+        for dname in ("float32", "float64"):
+            e2, e1, passes, nr = check_k1_k2(dev, shape, dname)
+            report[0]["max_abs_err"] = max(report[0]["max_abs_err"], e2)
+            report[1]["max_abs_err"] = max(report[1]["max_abs_err"], e1)
+            phase(f"K2 / K1 at {shape} {dname}: max abs err {e2:.3e} / "
+                  f"{e1:.3e} (K1 iteration pairs {list(PAIRS)} and (3,3) "
+                  f"in groups, launches a call {passes}; worst residual "
+                  f"norm {nr:.3g} x tol)")
+
+    # the optional float64 instantiations of K3-K5, at a small grid: the
+    # kernels and their plain versions then differ only by reassociation
     m64 = BoussinesqModel(bench_params((8, 16, 32), dtype="float64"),
                           device=dev)
     s64 = seed_developed_flow(m64)
-    a2 = (s64.u, s64.u_faces, s64.T, s64.p, BENCH_DT)
-    e64 = compare("K2 f64", m64._forcing(*a2), m64._forcing.plain(*a2),
-                  1e-12, 1e-12)
-    a1 = (m64._forcing(*a2)[0], s64.T, s64.T, BENCH_DT)
-    g, w = m64._richardson(*a1), m64._richardson.plain(*a1)
-    e64 = max(e64, compare("K1 f64", (g[0], g[1]) + tuple(g[2]),
-                           (w[0], w[1]) + tuple(w[2]), 1e-11, 1e-11))
     g, w = m64._proj.faces_div(s64.u, BENCH_DT), m64._proj.plain(s64.u,
                                                                  BENCH_DT)
-    e64 = max(e64, compare("K3 f64", g[:4], w[:4], 1e-12, 1e-12))
+    e64 = compare("K3 f64", g[:4], w[:4], 1e-12, 1e-12)
     a5 = (s64.u, g[:3], s64.T, s64.p, BENCH_DT,
           st.volume_mean(m64.geo, s64.T))
     e64 = max(e64, compare("K5 f64", m64._proj.correct(*a5),
@@ -353,8 +479,7 @@ def main() -> None:
         d64._vol_t[None] * s64.u, d64._scalar(BENCH_DT * d64.one_over_Re))
     e64 = max(e64, compare("K4 f64", (d64._tridiag(*sys64),),
                            (d64._tridiag.plain(*sys64),), 1e-12, 1e-12))
-    phase(f"f64 kernels at (8, 16, 32): max abs err {e64:.3e} "
-          f"(tol 1e-12, K1 1e-11)")
+    phase(f"f64 K3-K5 at (8, 16, 32): max abs err {e64:.3e} (tol 1e-12)")
 
     # ---- 4. main path --------------------------------------------------
     # two warm-up steps first: the first Poisson solve pays the BLAS

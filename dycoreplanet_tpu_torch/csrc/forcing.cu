@@ -16,244 +16,486 @@
 // nr*nlat*nlon values (~50 MB at 32x128x256 f32), against roughly
 // 480 floating-point operations per cell.
 //
-// Design: one thread per cell, longitude fastest so that neighbouring
-// threads read neighbouring addresses. Every ghost (periodic lon wrap,
-// pole ring at lon + pi, radial wall mirror) is index arithmetic on a
-// global load; the stencil's repeated reads of a neighbour hit L1/L2.
-// Metrics are lon-invariant (K, nr, nlat) channels. No shared memory,
-// no reductions. A tiled version that stages planes in shared memory is
-// later work.
+// Design (2.5-D): a block of 8 x 32 threads owns a TL x TO = 8 x 32
+// lat-lon tile and marches along the radius over a chunk of planes
+// (ops/forcing.py `plan`), one cell per thread and plane:
+//   * each plane of u0, u1, u2, T (halo 2, for MUSCL), p (halo 1), the
+//     face velocities and the plane's metric rows is staged in shared
+//     memory with cp.async, double-buffered: plane i+1 is in flight
+//     while plane i is computed. The lateral ghost rules are applied as
+//     it is staged (periodic lon, the pole ring at lon + pi; the pole
+//     ring's sign after arrival), so the compute reads no ghost index;
+//   * the radial neighbours i-1..i+2 are a register window per thread,
+//     filled with the radial ghost rules (ANTISYM / NEUMANN, T's
+//     DIRICHLET inner wall) as they are loaded;
+//   * every face flux is computed once: the lat and lon fluxes of the
+//     plane go to shared memory for the two cells beside each face, the
+//     radial flux of the face above is carried to the next plane;
+//   * the metric comes as lon-invariant (K, nr, nlat) tables with the
+//     reciprocals of the volume, the radius and the face distances
+//     (ops/forcing.py), so the only divides left are the van Leer
+//     limiter's;
+//   * one limiter per face, formed without divergence, and the faces
+//     dealt evenly to the threads;
+//   * no local arrays, so that ptxas keeps everything in registers, and
+//     __launch_bounds__ for two blocks an SM in f32 (one in f64, whose
+//     registers are twice as wide).
 #include "shell_common.cuh"
 
 namespace {
 
 using shell::Dims;
-using shell::Ref;
+using shell::stage;
+using shell::stage_commit;
+using shell::stage_wait;
+using shell::wrap_any;
 
-// metric channels at (i, j)
+constexpr int TL = 8, TO = 32, THREADS = TL * TO;
+constexpr int PW = TO + 4, PH = TL + 4;      // plane with halo 2
+constexpr int QW = TO + 2;                   // p plane with halo 1
+constexpr int NXL = (TL + 1) * TO;           // lat faces j0..j0+TL
+constexpr int NXO = TL * (TO + 1);           // lon faces k0..k0+TO
+constexpr int MR = TL + 1;                   // metric rows j0..j0+TL
+
+// metric channels at (i, j) (ops/forcing.py `_M64`)
 enum {
-  M_VOL = 0, M_AR_LO, M_AR_HI, M_ALAT_LO, M_ALAT_HI, M_ALON,
-  M_DR_LO, M_DR_HI, M_DLAT_LO, M_DLAT_HI, M_DLON, M_RC, M_GR, M_K
+  M_IVOL = 0, M_AR_LO, M_AR_HI, M_ALAT_LO, M_ALAT_HI, M_ALON,
+  M_IDR_LO, M_IDR_HI, M_IDLAT_LO, M_IDLAT_HI, M_IDLON, M_IR, M_GR, M_K
+};
+// lat rows: cos, tan, sin, 1 / cos
+enum { L_COS = 0, L_TAN, L_SIN, L_ICOS, L_K };
+
+// one staged plane: offsets (in values) into its buffer
+constexpr int O_F = 0;                          // u0, u1, u2, T
+constexpr int O_P = O_F + 4 * PH * PW;          // p
+constexpr int O_F1 = O_P + (TL + 2) * QW;       // lat face velocities
+constexpr int O_F2 = O_F1 + NXL;                // lon face velocities
+constexpr int O_M = O_F2 + NXO;                 // metric rows
+constexpr int PLANE = O_M + M_K * MR;
+// the block's shared memory: two planes, the face fluxes, the lat rows
+constexpr int O_XL = 2 * PLANE;                 // 4 fields' lat fluxes
+constexpr int O_XO = O_XL + 4 * NXL;            // 4 fields' lon fluxes
+constexpr int O_LAT = O_XO + 4 * NXO;
+constexpr int SMEM_VALUES = O_LAT + L_K * TL;
+
+template <typename T>
+struct Args {
+  Dims g;
+  int RS;                  // planes a block marches over
+  int nbo, nbl;            // tiles along lon and lat
+  const T* u;
+  const T* f0;
+  const T* f1;
+  const T* f2;
+  const T* Tf;
+  const T* p;
+  const T* T_wall;
+  const T* M;
+  const T* lat;
+  T dt, dt_T, beta, T_ref, rho_bg, iRe, omega;
+  int scheme, physical_coriolis, perturbation, include_gradp;
+  T* rhs_u;
+  T* T_adv;
 };
 
+// radial window of one advected field along the thread's column
 template <typename T>
-struct Rules {
-  int lo, hi;        // radial ghost rules
-  float pole;        // +1 POLE, -1 POLE_FLIP
-  const T* wall;     // (nlat, nlon) wall values for a DIRICHLET lo wall
+struct Win {
+  T m1, c, p1, p2;         // cells i-1, i, i+1, i+2
+  T flo;                   // flux through face i (from the plane below)
 };
-
-template <typename T>
-__device__ __forceinline__ T get_r(const Dims& g, const T* F, const Rules<T>& R,
-                                   int m, int j, int k) {
-  Ref r = shell::ref_r(g, m, j, k, R.lo, R.hi);
-  T v = F[r.idx];
-  if (m < 0 && R.lo == shell::DIRICHLET)
-    return T(2) * R.wall[(int64_t)j * g.nlon + k] - v;
-  return T(r.sign) * v;
-}
-
-template <typename T>
-__device__ __forceinline__ T get_lat(const Dims& g, const T* F,
-                                     const Rules<T>& R, int i, int m, int k) {
-  Ref r = shell::ref_lat(g, i, m, k, R.pole);
-  return T(r.sign) * F[r.idx];
-}
-
-// sum over the three axes of [A u_f q]_out - [A u_f q]_in (not yet / vol)
-template <typename T>
-__device__ T advective_flux_sum(const Dims& g, const T* F, const Rules<T>& R,
-                                const T* f0, const T* f1, const T* f2,
-                                const T* M, int i, int j, int k, int scheme) {
-  const int64_t MS = (int64_t)g.nr * g.nlat;
-  const int mi = g.lm(i, j);
-  auto m = [&](int ch) { return M[ch * MS + mi]; };
-  const int64_t c = g.cell(i, j, k);
-
-  auto gr = [&](int q) { return get_r<T>(g, F, R, q, j, k); };
-  T aq_lo = m(M_AR_LO) * (f0[c] * shell::face_value<T>(gr, i, g.nr, false,
-                                                        f0[c], scheme));
-  T aq_up = T(0);
-  if (i + 1 < g.nr) {
-    T uf = f0[g.cell(i + 1, j, k)];
-    aq_up = m(M_AR_HI) * (uf * shell::face_value<T>(gr, i + 1, g.nr, false,
-                                                      uf, scheme));
-  }
-  T acc = aq_up - aq_lo;
-
-  auto gl = [&](int q) { return get_lat<T>(g, F, R, i, q, k); };
-  aq_lo = m(M_ALAT_LO) * (f1[c] * shell::face_value<T>(gl, j, g.nlat, false,
-                                                        f1[c], scheme));
-  aq_up = T(0);
-  if (j + 1 < g.nlat) {
-    T uf = f1[g.cell(i, j + 1, k)];
-    aq_up = m(M_ALAT_HI) * (uf * shell::face_value<T>(gl, j + 1, g.nlat,
-                                                        false, uf, scheme));
-  }
-  acc = acc + (aq_up - aq_lo);
-
-  auto go = [&](int q) { return F[g.cell(i, j, g.wrap(q))]; };
-  T uf_up = f2[g.cell(i, j, g.wrap(k + 1))];
-  aq_lo = m(M_ALON) * (f2[c] * shell::face_value<T>(go, k, g.nlon, true,
-                                                     f2[c], scheme));
-  aq_up = m(M_ALON) * (uf_up * shell::face_value<T>(go, k + 1, g.nlon, true,
-                                                     uf_up, scheme));
-  return acc + (aq_up - aq_lo);
-}
 
 // centred gradient: mean of the two adjacent face-normal derivatives
-template <typename T, typename Get>
-__device__ __forceinline__ T cgrad(const Get& get, int c, T dl, T dh) {
-  T v = get(c);
-  T gl = (v - get(c - 1)) / dl;
-  T gh = (get(c + 1) - v) / dh;
-  return T(0.5) * (gl + gh);
+template <typename T>
+__device__ __forceinline__ T cgrad(T lo, T v, T hi, T idl, T idh) {
+  return T(0.5) * ((v - lo) * idl + (hi - v) * idh);
 }
 
+// radial cell m of field Q on the column at offset jk of a plane, with
+// the ghost rules: u_r ANTISYM / ANTISYM, u_lat, u_lon ANTISYM / NEUMANN,
+// T DIRICHLET (2 wall - v) / NEUMANN
+template <int Q, typename T>
+__device__ __forceinline__ T col(const T* __restrict__ F, const Dims& g,
+                                 int64_t plane, int64_t jk, int m, T wall) {
+  if (m < 0) {
+    const T v = F[jk];
+    return Q == 3 ? T(2) * wall - v : -v;
+  }
+  if (m >= g.nr) {
+    const T v = F[(g.nr - 1) * plane + jk];
+    return Q == 0 ? -v : v;
+  }
+  return F[m * plane + jk];
+}
+
+// p: NEUMANN at both walls
 template <typename T>
-__global__ void forcing_kernel(
-    Dims g, const T* __restrict__ u, const T* __restrict__ f0,
-    const T* __restrict__ f1, const T* __restrict__ f2,
-    const T* __restrict__ Tf, const T* __restrict__ p,
-    const T* __restrict__ T_wall, const T* __restrict__ M,
-    const T* __restrict__ lat, T dt, T dt_T, T beta, T T_ref, T rho_bg,
-    T iRe, T omega, int scheme, int physical_coriolis, int perturbation,
-    int include_gradp, T* __restrict__ rhs_u, T* __restrict__ T_adv) {
+__device__ __forceinline__ T pcol(const T* __restrict__ p, const Dims& g,
+                                  int64_t plane, int64_t jk, int m) {
+  m = m < 0 ? 0 : (m >= g.nr ? g.nr - 1 : m);
+  return p[m * plane + jk];
+}
+
+// the offset in a plane of staged position (r, c) (halo 2) after the
+// lateral ghost rules: lon wraps, a row past a pole is the ring at
+// lon + pi
+__device__ __forceinline__ int64_t plane_src(const Dims& g, int j0, int k0,
+                                             int r, int c) {
+  const int jj = j0 - 2 + r;
+  int kk = wrap_any(k0 - 2 + c, g.nlon);
+  const bool pole = jj < 0 || jj >= g.nlat;
+  if (pole) kk = wrap_any(kk + g.nlon / 2, g.nlon);
+  const int row = jj < 0 ? 0 : (pole ? g.nlat - 1 : jj);
+  return (int64_t)row * g.nlon + kk;
+}
+
+// stage plane i into buffer D (asynchronous; one commit group)
+template <typename T>
+__device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
+                                            int j0, int k0) {
+  const Dims& g = A.g;
   const int64_t N = g.n_cells();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  int i, j, k;
-  g.coords(c, i, j, k);
+  const int64_t pi = (int64_t)i * g.nlat * g.nlon;
+  for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
+    const int r = e / PW, c = e % PW;
+    const int64_t idx = pi + plane_src(g, j0, k0, r, c);
+    stage(D + O_F + e, A.u + idx, true);
+    stage(D + O_F + PH * PW + e, A.u + N + idx, true);
+    stage(D + O_F + 2 * PH * PW + e, A.u + 2 * N + idx, true);
+    stage(D + O_F + 3 * PH * PW + e, A.Tf + idx, true);
+    if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
+      stage(D + O_P + (r - 1) * QW + c - 1, A.p + idx, true);
+  }
+  for (int e = threadIdx.x; e < NXL; e += THREADS) {
+    const int jf = j0 + e / TO;
+    const bool in = jf < g.nlat;
+    stage(D + O_F1 + e,
+          A.f1 + (in ? pi + (int64_t)jf * g.nlon + wrap_any(k0 + e % TO, g.nlon)
+                     : 0), in);
+  }
+  for (int e = threadIdx.x; e < NXO; e += THREADS) {
+    const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
+    stage(D + O_F2 + e,
+          A.f2 + pi + (int64_t)jj * g.nlon + wrap_any(k0 + e % (TO + 1), g.nlon),
+          true);
+  }
   const int64_t MS = (int64_t)g.nr * g.nlat;
-  const int mi = g.lm(i, j);
-  auto m = [&](int ch) { return M[ch * MS + mi]; };
-  const T cosl = lat[j], tanl = lat[g.nlat + j], sinl = lat[2 * g.nlat + j];
-  const T vol = m(M_VOL), r = m(M_RC);
-
-  // div(u_f), shared by the three momentum components and T
-  T dq_r = (i + 1 < g.nr ? m(M_AR_HI) * f0[g.cell(i + 1, j, k)] : T(0))
-           - m(M_AR_LO) * f0[c];
-  T dq_l = (j + 1 < g.nlat ? m(M_ALAT_HI) * f1[g.cell(i, j + 1, k)] : T(0))
-           - m(M_ALAT_LO) * f1[c];
-  T dq_o = m(M_ALON) * f2[g.cell(i, j, g.wrap(k + 1))] - m(M_ALON) * f2[c];
-  const T div_u = ((dq_r + dq_l) + dq_o) / vol;
-
-  const T* u0 = u;
-  const T* u1 = u + N;
-  const T* u2 = u + 2 * N;
-  const T ur = u0[c], ul = u1[c], up = u2[c];
-
-  // ghost rules: u_r antisym/antisym + POLE; u_lat, u_lon antisym/
-  // Neumann + POLE_FLIP; T Dirichlet/Neumann + POLE; p Neumann + POLE
-  const Rules<T> R_ur{shell::ANTISYM, shell::ANTISYM, 1.f, nullptr};
-  const Rules<T> R_ut{shell::ANTISYM, shell::NEUMANN, -1.f, nullptr};
-  const Rules<T> R_T{shell::DIRICHLET, shell::NEUMANN, 1.f, T_wall};
-  const Rules<T> R_p{shell::NEUMANN, shell::NEUMANN, 1.f, nullptr};
-
-  T adv[3];
-  const T* comps[3] = {u0, u1, u2};
-  const T uc[3] = {ur, ul, up};
-  for (int q = 0; q < 3; ++q) {
-    const Rules<T>& R = q == 0 ? R_ur : R_ut;
-    T s = advective_flux_sum<T>(g, comps[q], R, f0, f1, f2, M, i, j, k,
-                                scheme);
-    adv[q] = s / vol - uc[q] * div_u;
+  for (int e = threadIdx.x; e < M_K * MR; e += THREADS) {
+    const int j = j0 + e % MR;
+    const bool in = j < g.nlat;
+    stage(D + O_M + e, A.M + (in ? (e / MR) * MS + (int64_t)i * g.nlat + j : 0),
+          in);
   }
-  // curvature of (u . grad) u
-  adv[0] = adv[0] + (-(ul * ul + up * up) / r);
-  adv[1] = adv[1] + (ur * ul / r + up * up * tanl / r);
-  adv[2] = adv[2] + (ur * up / r - ul * up * tanl / r);
+  stage_commit();
+}
 
-  // Coriolis: none on the shell in the reference mode
-  T cor[3] = {T(0), T(0), T(0)};
-  if (physical_coriolis) {
-    T om_r = omega * sinl, om_l = omega * cosl;
-    cor[0] = T(2) * om_l * up;
-    cor[1] = T(-2) * om_r * up;
-    cor[2] = T(2) * (om_r * ul - om_l * ur);
+// after this thread's copies of a plane arrived: the pole ring's sign
+// (POLE_FLIP) on its copies of u_lat and u_lon
+template <typename T>
+__device__ __forceinline__ void pole_signs(const Dims& g, T* D, int j0) {
+  for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
+    const int jj = j0 - 2 + e / PW;
+    if (jj < 0 || jj >= g.nlat) {
+      D[O_F + PH * PW + e] = -D[O_F + PH * PW + e];
+      D[O_F + 2 * PH * PW + e] = -D[O_F + 2 * PH * PW + e];
+    }
   }
+}
 
-  // buoyancy (radial gravity only)
-  T rho = T(1) - beta * (Tf[c] - T_ref);
-  T buoy_r = (perturbation ? rho - rho_bg : rho) * m(M_GR);
-
-  // explicit curvature corrections of the vector Laplacian
-  const T dlat_lo = m(M_DLAT_LO), dlat_hi = m(M_DLAT_HI), dlon = m(M_DLON);
-  auto lat_of = [&](const T* F, const Rules<T>& R) {
-    return [=, &g, &R](int q) { return get_lat<T>(g, F, R, i, q, k); };
-  };
-  auto lon_of = [&](const T* F) {
-    return [=, &g](int q) { return F[g.cell(i, j, g.wrap(q))]; };
-  };
-  T dlat_ur = cgrad<T>(lat_of(u0, R_ur), j, dlat_lo, dlat_hi);
-  T dlat_ul = cgrad<T>(lat_of(u1, R_ut), j, dlat_lo, dlat_hi);
-  T dlon_ur = cgrad<T>(lon_of(u0), k, dlon, dlon);
-  T dlon_ul = cgrad<T>(lon_of(u1), k, dlon, dlon);
-  T dlon_up = cgrad<T>(lon_of(u2), k, dlon, dlon);
-  T rcos = r * cosl;
-  T visc[3];
-  visc[0] = T(-2) * ur / (r * r)
-            - T(2) / r * (dlat_ul - ul * tanl / r + dlon_up);
-  visc[1] = T(2) / r * dlat_ur - ul / (rcos * rcos)
-            + T(2) * tanl / r * dlon_up;
-  visc[2] = T(2) / r * dlon_ur - T(2) * tanl / r * dlon_ul
-            - up / (rcos * rcos);
-
-  T gradp[3] = {T(0), T(0), T(0)};
-  if (include_gradp) {
-    auto pr = [&](int q) { return get_r<T>(g, p, R_p, q, j, k); };
-    gradp[0] = cgrad<T>(pr, i, m(M_DR_LO), m(M_DR_HI));
-    gradp[1] = cgrad<T>(lat_of(p, R_p), j, dlat_lo, dlat_hi);
-    gradp[2] = cgrad<T>(lon_of(p), k, dlon, dlon);
+// the flux of field q through lat face j0 + fr at column k0 + fc of
+// the staged plane D (0 through the pole face past the grid)
+template <typename T>
+__device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
+                                         int q, int fr, int fc, int j0) {
+  const int jf = j0 + fr, e = fr * TO + fc;
+  T flux = T(0);
+  if (jf < A.g.nlat) {
+    const T* v = D + O_F + q * PH * PW + fr * PW + fc + 2;  // cell jf - 2
+    const T uf = D[O_F1 + e];
+    flux = D[O_M + M_ALAT_LO * MR + fr]
+           * (uf * shell::face_value<T>(v[0], v[PW], v[2 * PW], v[3 * PW],
+                                        jf == 0, false, uf, A.scheme));
   }
+  S[O_XL + q * NXL + e] = flux;
+}
 
-  const T buoy[3] = {buoy_r, T(0), T(0)};
-  for (int q = 0; q < 3; ++q) {
-    T F = -adv[q] + cor[q] + buoy[q] + iRe * visc[q];
-    if (include_gradp) F = F - gradp[q];
-    rhs_u[q * N + c] = uc[q] + dt * F;
+// the flux of field q through lon face k0 + fc of tile row fr
+template <typename T>
+__device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
+                                         int q, int fr, int fc) {
+  const int e = fr * (TO + 1) + fc;
+  const T* v = D + O_F + q * PH * PW + (fr + 2) * PW + fc;  // cell kf - 2
+  const T uf = D[O_F2 + e];
+  S[O_XO + q * NXO + e] =
+      D[O_M + M_ALON * MR + fr]
+      * (uf * shell::face_value<T>(v[0], v[1], v[2], v[3], false, false, uf,
+                                   A.scheme));
+}
+
+// the lat and lon face fluxes of the 4 fields on plane D: each thread
+// the lower lat and lon faces of its cell, and threads 0..159 one of the
+// faces past the tile (lat row TL, lon column TO)
+template <typename T>
+__device__ __forceinline__ void plane_fluxes(const Args<T>& A, const T* D,
+                                             T* S, int j0) {
+  const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
+  for (int q = 0; q < 4; ++q) {
+    lat_flux(A, D, S, q, ty, tx, j0);
+    lon_flux(A, D, S, q, ty, tx);
   }
+  const int t = threadIdx.x;
+  if (t < 4 * TO)
+    lat_flux(A, D, S, t / TO, TL, t % TO, j0);
+  else if (t < 4 * TO + 4 * TL)
+    lon_flux(A, D, S, (t - 4 * TO) / TL, (t - 4 * TO) % TL, TO);
+}
 
-  if (T_adv != nullptr) {
-    T s = advective_flux_sum<T>(g, Tf, R_T, f0, f1, f2, M, i, j, k, scheme);
-    T adv_T = s / vol - Tf[c] * div_u;
-    T_adv[c] = Tf[c] - dt_T * adv_T;
+// the advective flux sum of field Q at the thread's cell (not yet / vol),
+// in the order of the axes; carries the radial flux of face i+1
+template <int Q, typename T>
+__device__ __forceinline__ T flux_sum(const Args<T>& A, const T* S,
+                                      Win<T>& w, int i, T ar_hi, T uf_up) {
+  T fup = T(0);
+  if (i + 1 < A.g.nr)
+    fup = ar_hi * (uf_up * shell::face_value<T>(w.m1, w.c, w.p1, w.p2, false, false,
+                                       uf_up, A.scheme));
+  const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
+  const T* XL = S + O_XL + Q * NXL;
+  const T* XO = S + O_XO + Q * NXO;
+  T acc = fup - w.flo;
+  acc = acc + (XL[(ty + 1) * TO + tx] - XL[ty * TO + tx]);
+  acc = acc + (XO[ty * (TO + 1) + tx + 1] - XO[ty * (TO + 1) + tx]);
+  w.flo = fup;
+  return acc;
+}
+
+template <int Q, typename T>
+__device__ __forceinline__ void win_start(const Args<T>& A, const T* F,
+                                          Win<T>& w, int64_t plane,
+                                          int64_t jk, int i, T wall, T uf,
+                                          T ar_lo) {
+  const Dims& g = A.g;
+  const T m2 = col<Q>(F, g, plane, jk, i - 2, wall);
+  w.m1 = col<Q>(F, g, plane, jk, i - 1, wall);
+  w.c = col<Q>(F, g, plane, jk, i, wall);
+  w.p1 = col<Q>(F, g, plane, jk, i + 1, wall);
+  w.flo = ar_lo * (uf * shell::face_value<T>(m2, w.m1, w.c, w.p1, i == 0, false, uf,
+                                    A.scheme));
+}
+
+template <typename T>
+__device__ __forceinline__ void win_shift(Win<T>& w) {
+  w.m1 = w.c;
+  w.c = w.p1;
+  w.p1 = w.p2;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
+    forcing_kernel(const Args<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);
+  PROBE_START;
+  const Dims& g = A.g;
+  const int64_t N = g.n_cells();
+  const int64_t plane = (int64_t)g.nlat * g.nlon;
+  const int64_t MS = (int64_t)g.nr * g.nlat;
+  int blk = blockIdx.x;
+  const int bo = blk % A.nbo;
+  blk /= A.nbo;
+  const int bl = blk % A.nbl, bc = blk / A.nbl;
+  const int j0 = bl * TL, k0 = bo * TO;
+  const int ib = bc * A.RS, ie = min(g.nr, ib + A.RS);
+  const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
+  const int j = j0 + ty, k = k0 + tx;
+  const bool own = j < g.nlat && k < g.nlon;
+  const int jc = min(j, g.nlat - 1);
+  const int64_t jk = (int64_t)jc * g.nlon + wrap_any(k, g.nlon);
+  const T* u0 = A.u;
+  const T* u1 = A.u + N;
+  const T* u2 = A.u + 2 * N;
+  const T wall = A.T_wall[jk];
+
+  // the lat rows of the tile, and the first plane
+  for (int e = threadIdx.x; e < L_K * TL; e += THREADS)
+    stage(S + O_LAT + e, A.lat + (e / TL) * g.nlat + min(j0 + e % TL, g.nlat - 1),
+          true);
+  stage_plane(A, S, ib, j0, k0);
+
+  // the windows at the first plane, and the flux through its lower face
+  Win<T> w0, w1, w2, wT;
+  {
+    const T uf = A.f0[ib * plane + jk];
+    const T ar_lo = A.M[M_AR_LO * MS + (int64_t)ib * g.nlat + jc];
+    win_start<0>(A, u0, w0, plane, jk, ib, wall, uf, ar_lo);
+    win_start<1>(A, u1, w1, plane, jk, ib, wall, uf, ar_lo);
+    win_start<2>(A, u2, w2, plane, jk, ib, wall, uf, ar_lo);
+    win_start<3>(A, A.Tf, wT, plane, jk, ib, wall, uf, ar_lo);
+  }
+  T p_m1 = pcol(A.p, g, plane, jk, ib - 1), p_c = pcol(A.p, g, plane, jk, ib);
+  T f0_c = A.f0[ib * plane + jk];
+
+  for (int i = ib; i < ie; ++i) {
+    T* D = S + ((i - ib) & 1) * PLANE;
+    __syncthreads();  // the readers of the other buffer (plane i-1) are done
+    PROBE(10);
+    const bool next = i + 1 < ie;
+    if (next) stage_plane(A, S + ((i + 1 - ib) & 1) * PLANE, i + 1, j0, k0);
+    // the column's next radial cells, while the planes are in flight
+    w0.p2 = col<0>(u0, g, plane, jk, i + 2, wall);
+    w1.p2 = col<1>(u1, g, plane, jk, i + 2, wall);
+    w2.p2 = col<2>(u2, g, plane, jk, i + 2, wall);
+    wT.p2 = col<3>(A.Tf, g, plane, jk, i + 2, wall);
+    const T p_p1 = pcol(A.p, g, plane, jk, i + 1);
+    const T f0_n = i + 1 < g.nr ? A.f0[(int64_t)(i + 1) * plane + jk] : T(0);
+    if (next)
+      stage_wait<1>();
+    else
+      stage_wait<0>();
+    pole_signs(g, D, j0);
+    __syncthreads();
+    PROBE(11);
+    plane_fluxes(A, D, S, j0);
+    __syncthreads();
+    PROBE(12);
+
+    // ---- the cell (i, j, k) -------------------------------------------
+    const T* Mt = D + O_M + ty;
+    auto m = [&](int ch) { return Mt[ch * MR]; };
+    const T ar_hi = m(M_AR_HI);
+    const T s0 = flux_sum<0>(A, S, w0, i, ar_hi, f0_n);
+    const T s1 = flux_sum<1>(A, S, w1, i, ar_hi, f0_n);
+    const T s2 = flux_sum<2>(A, S, w2, i, ar_hi, f0_n);
+    const T sT = flux_sum<3>(A, S, wT, i, ar_hi, f0_n);
+    // the cell's values; the windows move up a plane now, so that the
+    // plane above's cells are not live through the arithmetic below
+    const T ur = w0.c, ul = w1.c, up = w2.c, Tc = wT.c;
+    win_shift(w0);
+    win_shift(w1);
+    win_shift(w2);
+    win_shift(wT);
+    if (own) {
+      const T* L = S + O_LAT + ty;
+      const T cosl = L[L_COS * TL], tanl = L[L_TAN * TL],
+              sinl = L[L_SIN * TL], icos = L[L_ICOS * TL];
+      const T ivol = m(M_IVOL), ir = m(M_IR);
+      // div(u_f), shared by the three momentum components and T
+      const T* F1f = D + O_F1;
+      const T* F2f = D + O_F2;
+      const T dq_r = (i + 1 < g.nr ? ar_hi * f0_n : T(0)) - m(M_AR_LO) * f0_c;
+      const T dq_l = (j + 1 < g.nlat ? m(M_ALAT_HI) * F1f[(ty + 1) * TO + tx]
+                                     : T(0))
+                     - m(M_ALAT_LO) * F1f[ty * TO + tx];
+      const T alon = m(M_ALON);
+      const T dq_o = alon * F2f[ty * (TO + 1) + tx + 1]
+                     - alon * F2f[ty * (TO + 1) + tx];
+      const T div_u = ((dq_r + dq_l) + dq_o) * ivol;
+
+      T adv0 = s0 * ivol - ur * div_u;
+      T adv1 = s1 * ivol - ul * div_u;
+      T adv2 = s2 * ivol - up * div_u;
+      // curvature of (u . grad) u
+      adv0 = adv0 + (-(ul * ul + up * up) * ir);
+      adv1 = adv1 + (ur * ul * ir + up * up * tanl * ir);
+      adv2 = adv2 + (ur * up * ir - ul * up * tanl * ir);
+
+      // Coriolis: none on the shell in the reference mode
+      T cor0 = T(0), cor1 = T(0), cor2 = T(0);
+      if (A.physical_coriolis) {
+        const T om_r = A.omega * sinl, om_l = A.omega * cosl;
+        cor0 = T(2) * om_l * up;
+        cor1 = T(-2) * om_r * up;
+        cor2 = T(2) * (om_r * ul - om_l * ur);
+      }
+
+      // buoyancy (radial gravity only)
+      const T rho = T(1) - A.beta * (Tc - A.T_ref);
+      const T buoy_r = (A.perturbation ? rho - A.rho_bg : rho) * m(M_GR);
+
+      // explicit curvature corrections of the vector Laplacian
+      const T idlat_lo = m(M_IDLAT_LO), idlat_hi = m(M_IDLAT_HI),
+              idlon = m(M_IDLON);
+      const int cc = (ty + 2) * PW + tx + 2;
+      const T* F0 = D + O_F;
+      const T* F1 = F0 + PH * PW;
+      const T* F2 = F1 + PH * PW;
+      const T dlat_ur = cgrad(F0[cc - PW], ur, F0[cc + PW], idlat_lo, idlat_hi);
+      const T dlat_ul = cgrad(F1[cc - PW], ul, F1[cc + PW], idlat_lo, idlat_hi);
+      const T dlon_ur = cgrad(F0[cc - 1], ur, F0[cc + 1], idlon, idlon);
+      const T dlon_ul = cgrad(F1[cc - 1], ul, F1[cc + 1], idlon, idlon);
+      const T dlon_up = cgrad(F2[cc - 1], up, F2[cc + 1], idlon, idlon);
+      const T irc = ir * icos;
+      const T visc0 = T(-2) * ur * (ir * ir)
+                      - T(2) * ir * (dlat_ul - ul * tanl * ir + dlon_up);
+      const T visc1 = T(2) * ir * dlat_ur - ul * (irc * irc)
+                      + T(2) * tanl * ir * dlon_up;
+      const T visc2 = T(2) * ir * dlon_ur - T(2) * tanl * ir * dlon_ul
+                      - up * (irc * irc);
+
+      T F0v = -adv0 + cor0 + buoy_r + A.iRe * visc0;
+      T F1v = -adv1 + cor1 + A.iRe * visc1;
+      T F2v = -adv2 + cor2 + A.iRe * visc2;
+      if (A.include_gradp) {
+        const T* P = D + O_P;
+        const int pc = (ty + 1) * QW + tx + 1;
+        F0v = F0v - cgrad(p_m1, p_c, p_p1, m(M_IDR_LO), m(M_IDR_HI));
+        F1v = F1v - cgrad(P[pc - QW], p_c, P[pc + QW], idlat_lo, idlat_hi);
+        F2v = F2v - cgrad(P[pc - 1], p_c, P[pc + 1], idlon, idlon);
+      }
+      const int64_t cell = (int64_t)i * plane + (int64_t)j * g.nlon + k;
+      A.rhs_u[cell] = ur + A.dt * F0v;
+      A.rhs_u[N + cell] = ul + A.dt * F1v;
+      A.rhs_u[2 * N + cell] = up + A.dt * F2v;
+      const T adv_T = sT * ivol - Tc * div_u;
+      A.T_adv[cell] = Tc - A.dt_T * adv_T;
+    }
+    PROBE(13);
+    p_m1 = p_c;
+    p_c = p_p1;
+    f0_c = f0_n;
   }
 }
 
 template <typename T>
-int launch(int nr, int nlat, int nlon, const T* u, const T* f0, const T* f1,
-           const T* f2, const T* Tf, const T* p, const T* T_wall, const T* M,
-           const T* lat, double dt, double dt_T, double beta, double T_ref,
-           double rho_bg, double iRe, double omega, int scheme,
-           int physical_coriolis, int perturbation, int include_gradp,
-           T* rhs_u, T* T_adv, void* stream) {
-  Dims g{nr, nlat, nlon};
-  const int64_t N = (int64_t)nr * nlat * nlon;
-  const int block = 256;
-  const unsigned grid = (unsigned)((N + block - 1) / block);
-  forcing_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      g, u, f0, f1, f2, Tf, p, T_wall, M, lat, T(dt), T(dt_T), T(beta),
-      T(T_ref), T(rho_bg), T(iRe), T(omega), scheme, physical_coriolis,
-      perturbation, include_gradp, rhs_u, T_adv);
+int launch(int nr, int nlat, int nlon, int RS, const T* u, const T* f0,
+           const T* f1, const T* f2, const T* Tf, const T* p,
+           const T* T_wall, const T* M, const T* lat, double dt,
+           double dt_T, double beta, double T_ref, double rho_bg, double iRe,
+           double omega, int scheme, int physical_coriolis, int perturbation,
+           int include_gradp, T* rhs_u, T* T_adv, void* stream) {
+  Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,
+            (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M, lat,
+            T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg), T(iRe), T(omega),
+            scheme, physical_coriolis, perturbation, include_gradp, rhs_u,
+            T_adv};
+  const int smem = SMEM_VALUES * (int)sizeof(T);
+  static bool smem_set = false;
+  if (!smem_set && smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        forcing_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    smem_set = true;
+  }
+  const unsigned grid = (unsigned)(((nr + RS - 1) / RS) * A.nbl * A.nbo);
+  forcing_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 #define FORCING_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int nr, int nlat, int nlon, const T* u, const T* f0,  \
-                      const T* f1, const T* f2, const T* Tf, const T* p,    \
-                      const T* T_wall, const T* M, const T* lat, double dt, \
-                      double dt_T, double beta, double T_ref,               \
-                      double rho_bg, double iRe, double omega, int scheme,  \
-                      int physical_coriolis, int perturbation,              \
-                      int include_gradp, T* rhs_u, T* T_adv,                \
-                      void* stream) {                                       \
-    return launch<T>(nr, nlat, nlon, u, f0, f1, f2, Tf, p, T_wall, M, lat,  \
-                     dt, dt_T, beta, T_ref, rho_bg, iRe, omega, scheme,     \
-                     physical_coriolis, perturbation, include_gradp,        \
-                     rhs_u, T_adv, stream);                                 \
+  extern "C" int NAME(int nr, int nlat, int nlon, int RS, const T* u,       \
+                      const T* f0, const T* f1, const T* f2, const T* Tf,   \
+                      const T* p, const T* T_wall, const T* M,              \
+                      const T* lat, double dt, double dt_T, double beta,    \
+                      double T_ref, double rho_bg, double iRe,              \
+                      double omega, int scheme, int physical_coriolis,      \
+                      int perturbation, int include_gradp, T* rhs_u,        \
+                      T* T_adv, void* stream) {                             \
+    return launch<T>(nr, nlat, nlon, RS, u, f0, f1, f2, Tf, p, T_wall, M,   \
+                     lat, dt, dt_T, beta, T_ref, rho_bg, iRe, omega,        \
+                     scheme, physical_coriolis, perturbation,               \
+                     include_gradp, rhs_u, T_adv, stream);                  \
   }
 
 FORCING_ENTRY(dp_forcing_f32, float)

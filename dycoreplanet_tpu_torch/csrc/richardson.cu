@@ -12,256 +12,516 @@
 // velocities of u*, the raw Poisson right-hand side -vol*div(u*)/dt and
 // the fixed-order sums [|r_u|^2, |b_u|^2, |r_T|^2, |b_T|^2, sum(rhs)].
 //
-// Bound: device-memory traffic. Unfused, each sweep reads and writes
-// the 4 iterate and 4 residual channels; the least traffic for the same
-// work is the 5 input fields (rhs_u, rhs_T, T0) read once and the 8
-// output fields (u*, T_new, three faces, rhs_raw) written once: 13
-// fields (~55 MB at 32x128x256 f32), against ~60 operations per cell
-// per operator apply.
+// Bound: device-memory traffic. The least traffic for the work is the 5
+// input fields (rhs_u, rhs_T, T0) read once and the 8 output fields (u*,
+// T_new, three faces, rhs_raw) written once: 13 fields (~55 MB at
+// 32x128x256 f32), against ~60 operations per cell per operator apply.
 //
-// Design (a first, unfused version): launches from this source, all on
-// the caller's stream —
-//   1. init: x = x0, r = b - A x0 for the 4 channels;
-//   2. one sweep per Richardson iteration over the channels still
-//      iterating: x += r/D, r' = r - A(r/D), ping-pong residual buffers
-//      (the neighbour's r/D is recomputed from its r, no dx buffer);
-//   3. head: faces, divergence, Poisson RHS and the per-block partial
-//      sums (fixed-order shared-memory tree);
-//   4. one-block fixed-order reduction of the partials.
-// The operator is the ghost-based weak Laplacian itself (no wall BCs
-// folded into metrics), one thread per cell. No float atomics: the sums
-// are bitwise reproducible run to run.
+// Design: one launch per call (ops/richardson.py `plan`). A block owns an
+// RB x TL x TO tile and stages its inputs on a halo of depth
+// E = max(iters) + 1 in shared memory; each sweep then runs on a region
+// one cell smaller (redundant recompute on a shrinking halo), so iterates
+// and residuals never go to device memory:
+//   * the wall rules are metric algebra (the JAX kernel's _chans64): the
+//     operator is L v = sum_faces c (v_nbr - v) + Dl v with the wall-face
+//     conductances c = area/dist zeroed and the ANTISYM ghost folded into
+//     the per-channel diagonal Dl; the pole faces have zero area. Cells
+//     beyond a wall or a pole hold 0 with all-zero tables, so the sweep
+//     has no ghost branches, and 1/D comes as a table: no divides;
+//   * the metric is lon-invariant: every table is (i, j) and sits in
+//     shared memory once per block;
+//   * the four channels are independent until the divergence, so the
+//     block walks them in turn through one set of buffers, adding each
+//     velocity component's face-flux difference to the divergence;
+//   * every input box is staged with cp.async (no register round trip,
+//     all of a thread's copies in flight at once), and the next
+//     channel's x box streams in while a channel computes;
+//   * the stencil loops give each thread a short segment of a row, so
+//     that the row's (i, j) tables and its lon neighbours stay in
+//     registers; whatever touches device memory (staging, outputs) gives
+//     neighbouring lanes neighbouring cells, so that it coalesces;
+//   * the five sums are per-thread, then warp shuffles and the warps'
+//     partials in a fixed order, then a fixed-order second pass by the
+//     last block to finish (an integer atomic counter; no float
+//     atomics): bitwise reproducible.
+// Iteration counts whose halo does not fit shared memory run as several
+// passes (groups of sweeps); the iterates and the tracked residuals go
+// through device memory between passes.
 #include "shell_common.cuh"
 
 namespace {
 
 using shell::Dims;
-using shell::Ref;
+using shell::for_box;
+using shell::for_rows;
+using shell::stage;
+using shell::stage_commit;
+using shell::stage_wait;
+using shell::wrap_any;
 
-constexpr int BLOCK = 256;
+constexpr int THREADS = 256;
 
-// metric channels at (i, j)
+// channels of the (K, nr, nlat) table stack (ops/richardson.py
+// `static_tables`: the first 15 in the order of the JAX kernel's _chans64)
 enum {
-  M_VOL = 0, M_AR_LO, M_AR_HI, M_ALAT_LO, M_ALAT_HI, M_ALON,
-  M_DR_LO, M_DR_HI, M_DLAT_LO, M_DLAT_HI, M_DLON,
-  M_LD0, M_LD1, M_LD2, M_LD3,  // -weak_lap diagonals per channel
-  M_K
+  M_VOL = 0, M_CR_LO, M_CR_HI, M_CL_LO, M_CL_HI, M_CO,
+  M_LD0, M_LD1, M_LD2, M_LD3,
+  M_AR_LO, M_ALAT_LO, M_ALON, M_DL_UR, M_DL_OTH, M_AR_HI, M_ALAT_HI, M_K
+};
+// the per-block shared tables: the channels the kernel reads, then 1/D of
+// the four channels
+constexpr int S_K = 17;
+__constant__ int kTableSource[13] = {
+    M_VOL, M_CR_LO, M_CR_HI, M_CL_LO, M_CL_HI, M_CO, M_DL_UR, M_DL_OTH,
+    M_AR_LO, M_AR_HI, M_ALAT_LO, M_ALAT_HI, M_ALON};
+enum {
+  S_VOL = 0, S_CR_LO, S_CR_HI, S_CL_LO, S_CL_HI, S_CO, S_DL_UR, S_DL_OTH,
+  S_AR_LO, S_AR_HI, S_ALAT_LO, S_ALAT_HI, S_ALON, S_INVD
 };
 
-// channel c: 0 u_r, 1 u_lat, 2 u_lon, 3 T (homogeneous BCs)
-__device__ __forceinline__ int hi_rule(int c) {
-  return c == 0 ? shell::ANTISYM : shell::NEUMANN;
-}
-__device__ __forceinline__ float pole_sign(int c) {
-  return (c == 1 || c == 2) ? -1.f : 1.f;
-}
-
 template <typename T>
-struct Ctx {
+struct Pass {
   Dims g;
-  const T* M;
-  int64_t MS;  // nr * nlat
-  __device__ __forceinline__ T m(int ch, int i, int j) const {
-    return M[ch * MS + g.lm(i, j)];
-  }
+  int RB, TL, TO, E;       // tile and halo depth
+  int nbo, nbl;            // tiles along lon and lat
+  const T* M;              // (M_K, nr, nlat)
+  const T* invD;           // (4, nr, nlat): 1 / (vol + coef Ld)
+  const T* xu_in;          // (3, N) iterate in; rhs_u on the first pass
+  const T* xT_in;          // (N)
+  const T* rhs_u;          // b_u = vol * rhs_u
+  const T* rhs_T;          // b_T = rhs_T
+  const T* ru_in;          // (3, N) residual of the previous pass, or null:
+  const T* rT_in;          //   r = b - A x0 (the first pass)
+  T* ru_out;               // (3, N) / (N): residual for the next pass
+  T* rT_out;
+  int n_u, n_T;            // sweeps of this pass
+  int last;                // emit the head and the sums
+  T coef_u, coef_T, dt;
+  T* xu_out;
+  T* xT_out;
+  T* f0;
+  T* f1;
+  T* f2;
+  T* rhs_raw;
+  T* parts;                // (gridDim.x, 5)
+  unsigned* counter;       // zero between calls
+  T* sums;                 // (5)
 };
 
-// Jacobi denominator D = vol + coef * Ld of channel c at (i, j)
+constexpr int WARPS = THREADS / 32;
+
+// fixed-order sum over a warp (lane 0 gets it)
 template <typename T>
-__device__ __forceinline__ T diag_of(const Ctx<T>& X, int c, int i, int j,
-                                     T coef) {
-  return X.m(M_VOL, i, j) + coef * X.m(M_LD0 + c, i, j);
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// weak Laplacian of the field v(.) at (i, j, k) for channel c, where
-// v(idx, ii, jj) reads the interior cell idx at (ii, jj); ghosts follow
-// the channel's homogeneous rules
-template <typename T, typename V>
-__device__ __forceinline__ T weak_lap(const Ctx<T>& X, const V& v, int c,
-                                      int i, int j, int k) {
-  const Dims& g = X.g;
-  const T f = v(g.cell(i, j, k), i, j);
-  auto rv = [&](int q) {
-    Ref r = shell::ref_r(g, q, j, k, shell::ANTISYM, hi_rule(c));
-    int ii = q < 0 ? 0 : (q >= g.nr ? g.nr - 1 : q);
-    return T(r.sign) * v(r.idx, ii, j);
-  };
-  auto lv = [&](int q) {
-    Ref r = shell::ref_lat(g, i, q, k, pole_sign(c));
-    int jj = q < 0 ? 0 : (q >= g.nlat ? g.nlat - 1 : q);
-    return T(r.sign) * v(r.idx, i, jj);
-  };
-  auto ov = [&](int q) { return v(g.cell(i, j, g.wrap(q)), i, j); };
-
-  T agl = X.m(M_AR_LO, i, j) * ((f - rv(i - 1)) / X.m(M_DR_LO, i, j));
-  T agh = X.m(M_AR_HI, i, j) * ((rv(i + 1) - f) / X.m(M_DR_HI, i, j));
-  T out = agh - agl;
-  agl = X.m(M_ALAT_LO, i, j) * ((f - lv(j - 1)) / X.m(M_DLAT_LO, i, j));
-  agh = X.m(M_ALAT_HI, i, j) * ((lv(j + 1) - f) / X.m(M_DLAT_HI, i, j));
-  out = out + (agh - agl);
-  const T alon = X.m(M_ALON, i, j), dlon = X.m(M_DLON, i, j);
-  agl = alon * ((f - ov(k - 1)) / dlon);
-  agh = alon * ((ov(k + 1) - f) / dlon);
-  return out + (agh - agl);
-}
-
+// fixed-order totals over the block of five per-thread values (valid in
+// thread 0): warp sums, then warp 0 over the warps' partials
 template <typename T>
-__global__ void rich_init(Dims g, const T* __restrict__ M,
-                          const T* __restrict__ rhs_u,
-                          const T* __restrict__ rhs_T,
-                          const T* __restrict__ T0, T coef_u, T coef_T,
-                          T* __restrict__ x_u, T* __restrict__ x_T,
-                          T* __restrict__ r_u, T* __restrict__ r_T) {
-  const int64_t N = g.n_cells();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  int i, j, k;
-  g.coords(c, i, j, k);
-  Ctx<T> X{g, M, (int64_t)g.nr * g.nlat};
-  const T vol = X.m(M_VOL, i, j);
-  for (int q = 0; q < 3; ++q) {
-    const T* x0 = rhs_u + q * N;
-    auto v = [&](int64_t idx, int, int) { return x0[idx]; };
-    T Ax = vol * x0[c] - coef_u * weak_lap<T>(X, v, q, i, j, k);
-    x_u[q * N + c] = x0[c];
-    r_u[q * N + c] = vol * x0[c] - Ax;  // b = vol * rhs_u
+__device__ __forceinline__ void block_sum5(T& a, T& b, T& c, T& d, T& e,
+                                           T* red) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  c = warp_sum(c);
+  d = warp_sum(d);
+  e = warp_sum(e);
+  if (l == 0) {
+    red[w] = a;
+    red[WARPS + w] = b;
+    red[2 * WARPS + w] = c;
+    red[3 * WARPS + w] = d;
+    red[4 * WARPS + w] = e;
   }
-  auto v = [&](int64_t idx, int, int) { return T0[idx]; };
-  T Ax = vol * T0[c] - coef_T * weak_lap<T>(X, v, 3, i, j, k);
-  x_T[c] = T0[c];
-  r_T[c] = rhs_T[c] - Ax;
+  __syncthreads();
+  if (w == 0) {
+    a = warp_sum(l < WARPS ? red[l] : T(0));
+    b = warp_sum(l < WARPS ? red[WARPS + l] : T(0));
+    c = warp_sum(l < WARPS ? red[2 * WARPS + l] : T(0));
+    d = warp_sum(l < WARPS ? red[3 * WARPS + l] : T(0));
+    e = warp_sum(l < WARPS ? red[4 * WARPS + l] : T(0));
+  }
+  __syncthreads();
 }
 
-template <typename T>
-__global__ void rich_sweep(Dims g, const T* __restrict__ M, T coef_u,
-                           T coef_T, int active_u, int active_T,
-                           const T* __restrict__ ru_in,
-                           T* __restrict__ ru_out,
-                           const T* __restrict__ rT_in,
-                           T* __restrict__ rT_out, T* __restrict__ x_u,
-                           T* __restrict__ x_T) {
+// kRB, kTL, kTO, kE: the tile and halo as compile-time constants (the
+// bench's plan, so that box strides and divisions fold), or 0 to take
+// them from the pass at run time (every other plan)
+template <typename T, int kRB, int kTL, int kTO, int kE>
+__global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ bool is_last;
+  PROBE_START;
+  const Dims& g = P.g;
   const int64_t N = g.n_cells();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  int i, j, k;
-  g.coords(c, i, j, k);
-  Ctx<T> X{g, M, (int64_t)g.nr * g.nlat};
-  const T vol = X.m(M_VOL, i, j);
+  const int RB = kRB ? kRB : P.RB, TL = kTL ? kTL : P.TL;
+  const int TO = kTO ? kTO : P.TO, E = kE ? kE : P.E;
+  int blk = blockIdx.x;
+  const int bo = blk % P.nbo;
+  blk /= P.nbo;
+  const int bl = blk % P.nbl, br = blk / P.nbl;
+  const int i0 = br * RB, j0 = bl * TL, k0 = bo * TO;
+  // level 0 (the x box, halo E) and level 1 (the r / dx boxes, halo E-1)
+  const int XA = RB + 2 * E, XB = TL + 2 * E, XC = TO + 2 * E;
+  const int RA = XA - 2, RBx = XB - 2, RC = XC - 2;
+  const int nX = XA * XB * XC, nR = RA * RBx * RC;
+  const int nTile = RB * TL * TO, nTab = XA * XB;
+  // two x boxes: channel q + 1's is staged while channel q computes
+  T* sxb = reinterpret_cast<T*>(smem_raw);
+  T* sr = sxb + 2 * nX;
+  T* sdx = sr + nR;
+  T* sdiv = sdx + nR;
+  T* stab = sdiv + nTile;
+  T* sred = stab + S_K * nTab;
+  const int64_t MS = (int64_t)g.nr * g.nlat;
+  // the global row (i, j, 0) of box row (a, b) at halo h, or -1 beyond
+  // a wall or a pole
+  auto row_of = [&](int a, int b, int h) -> int64_t {
+    const int gi = i0 - h + a, gj = j0 - h + b;
+    if (gi < 0 || gi >= g.nr || gj < 0 || gj >= g.nlat) return -1;
+    return g.cell(gi, gj, 0);
+  };
+  // stage an nA x nB x nC box of `src` at halo h into dst: rows beyond
+  // a wall or a pole are zero, longitude wraps; neighbouring lanes copy
+  // neighbouring cells, so each copy instruction coalesces
+  auto stage_box = [&](T* dst, const T* src, int nA, int nB, int nC, int h) {
+    for_box<THREADS>(nA, nB, nC, [&](int a, int b, int c) {
+      const int64_t row = row_of(a, b, h);
+      stage(dst + (a * nB + b) * nC + c,
+            src + (row < 0 ? 0 : row + wrap_any(k0 - h + c, g.nlon)),
+            row >= 0);
+    });
+  };
+  // is tile row (a, b) in the grid, and its cell c
+  auto own_row = [&](int a, int b) {
+    return a >= 0 && a < RB && b >= 0 && b < TL && i0 + a < g.nr &&
+           j0 + b < g.nlat;
+  };
+  auto own_col = [&](int c) { return c >= 0 && c < TO && k0 + c < g.nlon; };
+
+  // tables of the (i, j) box, zero beyond the walls and the poles
+  for (int e = threadIdx.x; e < nTab; e += blockDim.x) {
+    const int gi = i0 - E + e / XB, gj = j0 - E + e % XB;
+    const bool in = gi >= 0 && gi < g.nr && gj >= 0 && gj < g.nlat;
+    const int64_t mi = in ? (int64_t)gi * g.nlat + gj : 0;
+#pragma unroll
+    for (int s = 0; s < 13; ++s)
+      stage(stab + s * nTab + e, P.M + kTableSource[s] * MS + mi, in);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      stage(stab + (S_INVD + q) * nTab + e, P.invD + q * MS + mi, in);
+  }
+
+  // x of channel q on the level-0 box, into buffer q % 2
+  auto stage_x = [&](int q) {
+    stage_box(sxb + (q & 1) * nX, q < 3 ? P.xu_in + q * N : P.xT_in, XA, XB,
+              XC, E);
+    stage_commit();
+  };
+  stage_x(0);
+
+  T s_ru = T(0), s_bu = T(0), s_rT = T(0), s_bT = T(0), s_rhs = T(0);
+  const int sAx = XB * XC, sAr = RBx * RC;
+
   for (int q = 0; q < 4; ++q) {
     const bool mom = q < 3;
-    if (mom ? !active_u : !active_T) continue;
-    const T coef = mom ? coef_u : coef_T;
-    const T* rin = mom ? ru_in + q * N : rT_in;
-    // dx = r / D at any cell, recomputed from its residual
-    auto dx = [&](int64_t idx, int ii, int jj) {
-      return rin[idx] / diag_of<T>(X, q, ii, jj, coef);
-    };
-    const T d = dx(c, i, j);
-    T Ad = vol * d - coef * weak_lap<T>(X, dx, q, i, j, k);
-    if (mom) {
-      x_u[q * N + c] = x_u[q * N + c] + d;
-      ru_out[q * N + c] = rin[c] - Ad;
+    const int n = mom ? P.n_u : P.n_T;
+    const T coef = mom ? P.coef_u : P.coef_T;
+    const T* xin = mom ? P.xu_in + q * N : P.xT_in;
+    const T* bsrc = mom ? P.rhs_u + q * N : P.rhs_T;
+    const T* rin = mom ? (P.ru_in ? P.ru_in + q * N : nullptr) : P.rT_in;
+    // x0 is b's source (first momentum pass; a caller's T0 = rhs_T)
+    const bool b_is_x = xin == bsrc;
+    const int dl = q == 0 ? S_DL_UR : S_DL_OTH;
+    const T* tinv = stab + (S_INVD + q) * nTab;
+
+    T* sx = sxb + (q & 1) * nX;
+    // stage on level 1 the previous pass's r (into sr) or b unless it is
+    // x0 (into sdx), and the next channel's x; the previous channel's
+    // readers are done: the loop ends in a barrier
+    const T* l1 = rin != nullptr ? rin : (b_is_x ? nullptr : bsrc);
+    if (l1 != nullptr)
+      stage_box(rin != nullptr ? sr : sdx, l1, RA, RBx, RC, E - 1);
+    stage_commit();
+    if (q < 3) {
+      stage_x(q + 1);
+      stage_wait<1>();
     } else {
-      x_T[c] = x_T[c] + d;
-      rT_out[c] = rin[c] - Ad;
+      stage_wait<0>();
     }
-  }
-}
+    __syncthreads();
+    PROBE(0);
 
-template <typename T>
-__global__ void rich_head(Dims g, const T* __restrict__ M,
-                          const T* __restrict__ u_star,
-                          const T* __restrict__ r_u,
-                          const T* __restrict__ r_T,
-                          const T* __restrict__ rhs_u,
-                          const T* __restrict__ rhs_T, T dt,
-                          T* __restrict__ f0, T* __restrict__ f1,
-                          T* __restrict__ f2, T* __restrict__ rhs_raw,
-                          T* __restrict__ parts) {
-  const int64_t N = g.n_cells();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  T s_ru = T(0), s_bu = T(0), s_rT = T(0), s_bT = T(0), s_rhs = T(0);
-  if (c < N) {
-    int i, j, k;
-    g.coords(c, i, j, k);
-    const shell::HeadMetric hm{M_VOL, M_AR_LO, M_AR_HI, M_ALAT_LO,
-                               M_ALAT_HI, M_ALON};
-    T a0, a1, a2, rhs;
-    shell::faces_div_cell<T>(g, u_star, M, hm, i, j, k, dt, a0, a1, a2, rhs);
-    f0[c] = a0;
-    f1[c] = a1;
-    f2[c] = a2;
-    rhs_raw[c] = rhs;
-    const T vol = M[g.lm(i, j)];
-    for (int q = 0; q < 3; ++q) {
-      T r = r_u[q * N + c];
-      T b = vol * rhs_u[q * N + c];
+    // L v along a row segment in conductance form: v at ix (strides sA
+    // radial, sB lat, 1 lon), the row's tables in registers, the lon
+    // neighbours carried; emit(j, v, Lv) for each cell
+    auto lap_row = [&](const T* v, int ix, int len, int sA, int sB, int t,
+                       auto&& emit) {
+      const T crl = stab[S_CR_LO * nTab + t], crh = stab[S_CR_HI * nTab + t];
+      const T cll = stab[S_CL_LO * nTab + t], clh = stab[S_CL_HI * nTab + t];
+      const T co = stab[S_CO * nTab + t], dlv = stab[dl * nTab + t];
+      T vm = v[ix - 1], f = v[ix];
+      for (int j = 0; j < len; ++j, ++ix) {
+        const T vp = v[ix + 1];
+        T acc = crl * (v[ix - sA] - f);
+        acc = acc + crh * (v[ix + sA] - f);
+        acc = acc + cll * (v[ix - sB] - f);
+        acc = acc + clh * (v[ix + sB] - f);
+        acc = acc + co * ((vm - f) + (vp - f));
+        emit(j, f, acc + dlv * f);
+        vm = f;
+        f = vp;
+      }
+    };
+
+    // first pass: r = b - A x on level 1, and |b|^2 over the tile
+    if (rin == nullptr) {
+      for_rows<THREADS>(RA, RBx, RC, [&](int a, int b, int c0, int len) {
+        const int t = (a + 1) * XB + b + 1;
+        const T vol = stab[S_VOL * nTab + t];
+        const int ir0 = (a * RBx + b) * RC + c0;
+        const bool sum_b = P.last && own_row(a + 1 - E, b + 1 - E);
+        lap_row(sx, t * XC + c0 + 1, len, sAx, XC, t, [&](int j, T x, T Lx) {
+          T bv = b_is_x ? x : sdx[ir0 + j];
+          if (mom) bv = vol * bv;
+          sr[ir0 + j] = bv - (vol * x - coef * Lx);
+          if (sum_b && own_col(c0 + j + 1 - E)) {
+            if (mom)
+              s_bu += bv * bv;
+            else
+              s_bT += bv * bv;
+          }
+        });
+      });
+      __syncthreads();
+    }
+    PROBE(1);
+
+    // sweeps: dx on level s, r on level s + 1
+    for (int s = 1; s <= n; ++s) {
+      const int o = s - 1;
+      for_rows<THREADS>(RA - 2 * o, RBx - 2 * o, RC - 2 * o,
+               [&](int a, int b, int c0, int len) {
+                 const int t = (a + s) * XB + b + s;
+                 const T iD = tinv[t];
+                 const int ir = ((a + o) * RBx + b + o) * RC + c0 + o;
+                 const int ix = t * XC + c0 + s;
+                 for (int j = 0; j < len; ++j) {
+                   const T d = sr[ir + j] * iD;
+                   sdx[ir + j] = d;
+                   sx[ix + j] += d;
+                 }
+               });
+      __syncthreads();
+      for_rows<THREADS>(RA - 2 * s, RBx - 2 * s, RC - 2 * s,
+               [&](int a, int b, int c0, int len) {
+                 const int t = (a + s + 1) * XB + b + s + 1;
+                 const T vol = stab[S_VOL * nTab + t];
+                 const int ir0 = ((a + s) * RBx + b + s) * RC + c0 + s;
+                 lap_row(sdx, ir0, len, sAr, RC, t, [&](int j, T d, T Ld) {
+                   sr[ir0 + j] = sr[ir0 + j] - (vol * d - coef * Ld);
+                 });
+               });
+      __syncthreads();
+    }
+    PROBE(2);
+
+    // the tile: iterate out (and the residual, before a later pass); on
+    // the last pass |r|^2 and this component's faces and divergence term
+    // (shell::faces_div_cell's arithmetic, in its order)
+    T* xout = mom ? P.xu_out + q * N : P.xT_out;
+    T* rout = mom ? P.ru_out + q * N : P.rT_out;
+    for_box<THREADS>(RB, TL, TO, [&](int a, int b, int c) {
+      if (!own_row(a, b) || !own_col(c)) return;
+      const int gi = i0 + a, gj = j0 + b;
+      const int64_t cg = g.cell(gi, gj, k0 + c);
+      const int t = (a + E) * XB + b + E;
+      const int ix = t * XC + c + E;
+      const T x = sx[ix];
+      const T r = sr[((a + E - 1) * RBx + b + E - 1) * RC + c + E - 1];
+      xout[cg] = x;
+      if (!P.last) {
+        rout[cg] = r;
+        return;
+      }
+      const T vol = stab[S_VOL * nTab + t];
+      if (rin != nullptr) {  // a later pass: |b|^2 from device memory
+        const T bv = mom ? vol * bsrc[cg] : bsrc[cg];
+        if (mom)
+          s_bu += bv * bv;
+        else
+          s_bT += bv * bv;
+      }
+      if (!mom) {
+        s_rT += r * r;
+        return;
+      }
       s_ru += r * r;
-      s_bu += b * b;
-    }
-    s_rT = r_T[c] * r_T[c];
-    s_bT = rhs_T[c] * rhs_T[c];
-    s_rhs = rhs;
+      T f, aq_up, a_lo;
+      T* fout;
+      if (q == 0) {
+        f = gi == 0 ? T(0) : T(0.5) * (sx[ix - sAx] + x);
+        aq_up = gi + 1 < g.nr
+                    ? stab[S_AR_HI * nTab + t] * (T(0.5) * (x + sx[ix + sAx]))
+                    : T(0);
+        a_lo = stab[S_AR_LO * nTab + t];
+        fout = P.f0;
+      } else if (q == 1) {
+        f = gj == 0 ? T(0) : T(0.5) * (sx[ix - XC] + x);
+        aq_up = gj + 1 < g.nlat
+                    ? stab[S_ALAT_HI * nTab + t] * (T(0.5) * (x + sx[ix + XC]))
+                    : T(0);
+        a_lo = stab[S_ALAT_LO * nTab + t];
+        fout = P.f1;
+      } else {
+        f = T(0.5) * (sx[ix - 1] + x);
+        aq_up = stab[S_ALON * nTab + t] * (T(0.5) * (x + sx[ix + 1]));
+        a_lo = stab[S_ALON * nTab + t];
+        fout = P.f2;
+      }
+      fout[cg] = f;
+      const T d = aq_up - a_lo * f;
+      const int id = (a * TL + b) * TO + c;
+      sdiv[id] = q == 0 ? d : sdiv[id] + d;
+    });
+    __syncthreads();
+    PROBE(3);
   }
-  shell::block_sum<T, BLOCK>(s_ru, parts, 5, 0);
-  shell::block_sum<T, BLOCK>(s_bu, parts, 5, 1);
-  shell::block_sum<T, BLOCK>(s_rT, parts, 5, 2);
-  shell::block_sum<T, BLOCK>(s_bT, parts, 5, 3);
-  shell::block_sum<T, BLOCK>(s_rhs, parts, 5, 4);
+  if (!P.last) return;
+
+  // Poisson right-hand side of the tile
+  for_box<THREADS>(RB, TL, TO, [&](int a, int b, int c) {
+    if (!own_row(a, b) || !own_col(c)) return;
+    const T vol = stab[S_VOL * nTab + (a + E) * XB + b + E];
+    const T div = sdiv[(a * TL + b) * TO + c] / vol;
+    const T rhs = (-vol) * div / P.dt;
+    P.rhs_raw[g.cell(i0 + a, j0 + b, k0 + c)] = rhs;
+    s_rhs += rhs;
+  });
+
+  PROBE(4);
+  // per-block partials, then the last block to finish sums them
+  block_sum5(s_ru, s_bu, s_rT, s_bT, s_rhs, sred);
+  if (threadIdx.x == 0) {
+    T* out = P.parts + (int64_t)blockIdx.x * 5;
+    out[0] = s_ru;
+    out[1] = s_bu;
+    out[2] = s_rT;
+    out[3] = s_bT;
+    out[4] = s_rhs;
+    __threadfence();
+    is_last = atomicAdd(P.counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  PROBE(5);
+  if (!is_last) return;
+  __threadfence();
+  T t0 = T(0), t1 = T(0), t2 = T(0), t3 = T(0), t4 = T(0);
+  for (int p = threadIdx.x; p < (int)gridDim.x; p += blockDim.x) {
+    const T* in = P.parts + (int64_t)p * 5;
+    t0 += __ldcg(in);
+    t1 += __ldcg(in + 1);
+    t2 += __ldcg(in + 2);
+    t3 += __ldcg(in + 3);
+    t4 += __ldcg(in + 4);
+  }
+  block_sum5(t0, t1, t2, t3, t4, sred);
+  if (threadIdx.x == 0) {
+    P.sums[0] = t0;
+    P.sums[1] = t1;
+    P.sums[2] = t2;
+    P.sums[3] = t3;
+    P.sums[4] = t4;
+    *P.counter = 0u;
+  }
 }
 
 template <typename T>
-int launch(int nr, int nlat, int nlon, const T* M, const T* rhs_u,
-           const T* rhs_T, const T* T0, double dt, double iRe, double iPe,
-           double dt_T_factor, int iters_u, int iters_T, T* u_star,
-           T* T_new, T* ru_a, T* ru_b, T* rT_a, T* rT_b, T* f0, T* f1, T* f2,
-           T* rhs_raw, T* parts, T* sums, void* stream) {
-  Dims g{nr, nlat, nlon};
-  const int64_t N = (int64_t)nr * nlat * nlon;
-  const unsigned grid = (unsigned)((N + BLOCK - 1) / BLOCK);
-  cudaStream_t s = (cudaStream_t)stream;
-  const T dt_t = T(dt);
-  const T coef_u = dt_t * T(iRe);
-  const T coef_T = (dt_t * T(dt_T_factor)) * T(iPe);
-  rich_init<T><<<grid, BLOCK, 0, s>>>(g, M, rhs_u, rhs_T, T0, coef_u, coef_T,
-                                      u_star, T_new, ru_a, rT_a);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  T *ru_in = ru_a, *ru_out = ru_b, *rT_in = rT_a, *rT_out = rT_b;
-  const int n_sweeps = iters_u > iters_T ? iters_u : iters_T;
-  for (int it = 0; it < n_sweeps; ++it) {
-    const int au = it < iters_u, aT = it < iters_T;
-    rich_sweep<T><<<grid, BLOCK, 0, s>>>(g, M, coef_u, coef_T, au, aT,
-                                         ru_in, ru_out, rT_in, rT_out,
-                                         u_star, T_new);
-    err = (int)cudaGetLastError();
+int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
+           int smem_bytes, const T* M, const T* invD, const T* xu_in,
+           const T* xT_in, const T* rhs_u, const T* rhs_T, const T* ru_in,
+           const T* rT_in, double dt,
+           double iRe, double iPe, double dt_T_factor, int n_u, int n_T,
+           int last, T* xu_out, T* xT_out, T* ru_out, T* rT_out, T* f0,
+           T* f1, T* f2, T* rhs_raw, T* parts, unsigned* counter, T* sums,
+           void* stream) {
+  // the bench's plan runs a compile-time instance, which takes about 12%
+  // less time on an H100 than the run-time-tiled one on the same plan
+  // (PERF.md, Findings); -DK1_RUNTIME_TILE (scripts/probe_k1_k2.py) runs
+  // every plan on the latter
+#ifdef K1_RUNTIME_TILE
+  const bool bench = false;
+#else
+  const bool bench = RB == 8 && TL == 8 && TO == 32 && E == 2;
+#endif
+  void (*kernel)(const Pass<T>) =
+      bench ? rich_fused<T, 8, 8, 32, 2> : rich_fused<T, 0, 0, 0, 0>;
+  static int smem_set[2] = {48 * 1024, 48 * 1024};
+  if (smem_bytes > smem_set[bench]) {
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err) return err;
-    if (au) { T* t = ru_in; ru_in = ru_out; ru_out = t; }
-    if (aT) { T* t = rT_in; rT_in = rT_out; rT_out = t; }
+    smem_set[bench] = smem_bytes;
   }
-  rich_head<T><<<grid, BLOCK, 0, s>>>(g, M, u_star, ru_in, rT_in, rhs_u,
-                                      rhs_T, dt_t, f0, f1, f2, rhs_raw,
-                                      parts);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  shell::reduce_partials<T, BLOCK><<<1, BLOCK, 0, s>>>(parts, (int)grid, 5,
-                                                       sums);
+  Pass<T> P;
+  P.g = Dims{nr, nlat, nlon};
+  P.RB = RB;
+  P.TL = TL;
+  P.TO = TO;
+  P.E = E;
+  P.nbo = (nlon + TO - 1) / TO;
+  P.nbl = (nlat + TL - 1) / TL;
+  const int nbr = (nr + RB - 1) / RB;
+  P.M = M;
+  P.invD = invD;
+  P.xu_in = xu_in;
+  P.xT_in = xT_in;
+  P.rhs_u = rhs_u;
+  P.rhs_T = rhs_T;
+  P.ru_in = ru_in;
+  P.rT_in = rT_in;
+  P.ru_out = ru_out;
+  P.rT_out = rT_out;
+  P.n_u = n_u;
+  P.n_T = n_T;
+  P.last = last;
+  const T dt_t = T(dt);
+  P.coef_u = dt_t * T(iRe);
+  P.coef_T = (dt_t * T(dt_T_factor)) * T(iPe);
+  P.dt = dt_t;
+  P.xu_out = xu_out;
+  P.xT_out = xT_out;
+  P.f0 = f0;
+  P.f1 = f1;
+  P.f2 = f2;
+  P.rhs_raw = rhs_raw;
+  P.parts = parts;
+  P.counter = counter;
+  P.sums = sums;
+  const unsigned grid = (unsigned)(nbr * P.nbl * P.nbo);
+  kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define RICHARDSON_ENTRY(NAME, T)                                             \
-  extern "C" int NAME(int nr, int nlat, int nlon, const T* M, const T* rhs_u, \
-                      const T* rhs_T, const T* T0, double dt, double iRe,     \
-                      double iPe, double dt_T_factor, int iters_u,            \
-                      int iters_T, T* u_star, T* T_new, T* ru_a, T* ru_b,     \
-                      T* rT_a, T* rT_b, T* f0, T* f1, T* f2, T* rhs_raw,      \
-                      T* parts, T* sums, void* stream) {                      \
-    return launch<T>(nr, nlat, nlon, M, rhs_u, rhs_T, T0, dt, iRe, iPe,       \
-                     dt_T_factor, iters_u, iters_T, u_star, T_new, ru_a,      \
-                     ru_b, rT_a, rT_b, f0, f1, f2, rhs_raw, parts, sums,      \
-                     stream);                                                 \
+#define RICHARDSON_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(int nr, int nlat, int nlon, int RB, int TL, int TO,      \
+                      int E, int smem_bytes, const T* M, const T* invD,        \
+                      const T* xu_in, const T* xT_in, const T* rhs_u,          \
+                      const T* rhs_T, const T* ru_in, const T* rT_in,          \
+                      double dt, double iRe, double iPe, double dt_T_factor,   \
+                      int n_u, int n_T, int last, T* xu_out, T* xT_out,        \
+                      T* ru_out, T* rT_out, T* f0, T* f1, T* f2, T* rhs_raw,   \
+                      T* parts, unsigned* counter, T* sums, void* stream) {    \
+    return launch<T>(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD,       \
+                     xu_in, xT_in, rhs_u, rhs_T, ru_in, rT_in, dt, iRe, iPe,   \
+                     dt_T_factor, n_u, n_T, last, xu_out, xT_out, ru_out,      \
+                     rT_out, f0, f1, f2, rhs_raw, parts, counter, sums,        \
+                     stream);                                                  \
   }
 
 RICHARDSON_ENTRY(dp_richardson_f32, float)

@@ -9,17 +9,49 @@
 // faces: entry i is the face below cell i; the hi-wall face is an
 // implicit zero.
 //
-// On one GPU the whole field sits in device memory, so the ghost rules
-// of ops/bc.py are index arithmetic on global loads:
+// The ghost rules of ops/bc.py:
 //   * longitude is periodic: index k wraps;
 //   * latitude ghosts (POLE / POLE_FLIP): the ring value at lon + pi,
 //     times +1 (u_r, T, p) or -1 (u_lat, u_lon);
 //   * radial ghosts: NEUMANN (copy), ANTISYM (negate) or DIRICHLET
 //     (2 * wall value - interior).
+// K3 and K5 apply them as index arithmetic on global loads; K1 and K2
+// stage tiles in shared memory and apply them while staging (below).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Cycle probes at the phase boundaries of K1 and K2, compiled in only
+// with -DK_PROBE (kernel_lib.use_macros; scripts/probe_k1_k2.py): thread
+// 0 of each block adds the cycles since its previous probe to
+// g_probe[k]. Without the flag both macros are empty.
+#ifdef K_PROBE
+__device__ unsigned long long g_probe[32];
+extern "C" int probe_read(unsigned long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, g_probe, sizeof(g_probe));
+}
+extern "C" int probe_zero() {
+  unsigned long long z[32] = {0};
+  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));
+}
+#define PROBE_START long long probe_t_ = clock64()
+#define PROBE(k)                                                        \
+  do {                                                                  \
+    if (threadIdx.x == 0) {                                             \
+      const long long t_ = clock64();                                   \
+      atomicAdd(&g_probe[k], (unsigned long long)(t_ - probe_t_));      \
+      probe_t_ = t_;                                                    \
+    }                                                                   \
+  } while (0)
+#else
+#define PROBE_START \
+  do {              \
+  } while (0)
+#define PROBE(k) \
+  do {           \
+  } while (0)
+#endif
 
 namespace shell {
 
@@ -48,31 +80,7 @@ struct Dims {
   }
 };
 
-enum RadialRule { NEUMANN = 0, ANTISYM = 1, DIRICHLET = 2 };
 enum Scheme { MUSCL = 0, UPWIND = 1, CENTERED = 2 };
-
-// A ghost-aware read resolves to an interior cell and a sign:
-// value = sign * f[idx] (+ offset for DIRICHLET, handled by the caller).
-struct Ref {
-  int64_t idx;
-  float sign;  // +1 or -1: exact in float and double
-};
-
-// radial neighbour m in [-1, nr] of cell (., j, k)
-__device__ __forceinline__ Ref ref_r(const Dims& g, int m, int j, int k,
-                                     int lo, int hi) {
-  if (m < 0) return Ref{g.cell(0, j, k), lo == ANTISYM ? -1.f : 1.f};
-  if (m >= g.nr) return Ref{g.cell(g.nr - 1, j, k), hi == ANTISYM ? -1.f : 1.f};
-  return Ref{g.cell(m, j, k), 1.f};
-}
-
-// latitude neighbour m in [-1, nlat] of cell (i, ., k); pole = +1 / -1
-__device__ __forceinline__ Ref ref_lat(const Dims& g, int i, int m, int k,
-                                       float pole) {
-  if (m < 0) return Ref{g.cell(i, 0, g.antipode(k)), pole};
-  if (m >= g.nlat) return Ref{g.cell(i, g.nlat - 1, g.antipode(k)), pole};
-  return Ref{g.cell(i, m, k), 1.f};
-}
 
 template <typename T>
 __device__ __forceinline__ T guard();
@@ -82,32 +90,29 @@ template <>
 __device__ __forceinline__ double guard<double>() { return 1e-300; }
 
 // van Leer limited slope: harmonic mean of the one-sided differences,
-// zero at extrema (the JAX function's 1e-300 guard rounds to 0 in f32)
+// zero at extrema (the JAX function's 1e-300 guard rounds to 0 in f32);
+// the quotient is formed on every lane and then selected, so that a warp
+// does not diverge on the sign
 template <typename T>
 __device__ __forceinline__ T van_leer(T a, T b) {
-  T ab = a * b;
-  return ab > T(0) ? T(2) * ab / (a + b + guard<T>()) : T(0);
+  const T ab = a * b;
+  const T q = T(2) * ab / (a + b + guard<T>());
+  return ab > T(0) ? q : T(0);
 }
 
-// MUSCL slope of cell m along an axis of n cells; a ghost cell's slope
-// is 0 because the second ghost replicates the first
-template <typename T, typename Get>
-__device__ __forceinline__ T slope_at(const Get& get, int m, int n,
-                                      bool periodic) {
-  if (!periodic && (m < 0 || m >= n)) return T(0);
-  T v = get(m);
-  return van_leer<T>(v - get(m - 1), get(m + 1) - v);
-}
-
-// upwind-biased value at the left face of cell c (velocity uf there)
-template <typename T, typename Get>
-__device__ __forceinline__ T face_value(const Get& get, int c, int n,
-                                        bool periodic, T uf, int scheme) {
-  T vm = get(c - 1), v = get(c);
-  if (scheme == CENTERED) return T(0.5) * (vm + v);
-  if (scheme == UPWIND) return uf > T(0) ? vm : v;
-  return uf > T(0) ? vm + T(0.5) * slope_at<T>(get, c - 1, n, periodic)
-                   : v - T(0.5) * slope_at<T>(get, c, n, periodic);
+// upwind-biased value at a face with velocity uf from the four cells
+// around it (a b | c d); gl / gr: the cell b / c is a ghost, whose
+// slope is 0 (the second ghost replicates the first). One limiter per
+// face: the upwind side's slope is selected before it is formed.
+template <typename T>
+__device__ __forceinline__ T face_value(T a, T b, T c, T d, bool gl, bool gr,
+                                        T uf, int scheme) {
+  if (scheme == CENTERED) return T(0.5) * (b + c);
+  const bool up = uf > T(0);
+  if (scheme == UPWIND) return up ? b : c;
+  const T s = van_leer<T>(up ? b - a : c - b, up ? c - b : d - c);
+  const T slope = (up ? gl : gr) ? T(0) : s;
+  return up ? b + T(0.5) * slope : c - T(0.5) * slope;
 }
 
 // Projection head of one cell (shared by the Richardson kernel K1 and
@@ -151,6 +156,81 @@ __device__ __forceinline__ void faces_div_cell(
   T vol = m(hm.vol);
   div = div / vol;
   rhs = (-vol) * div / dt;
+}
+
+// ---------------------------------------------------------------------
+// Tile staging (K1, K2): a block copies a box of a field into shared
+// memory with the ghost rules applied as it goes, so that its compute
+// loops read no ghost index.
+
+// any integer k to [0, n): periodic longitude, also for halos wider
+// than the grid
+__device__ __forceinline__ int wrap_any(int k, int n) {
+  if ((unsigned)k >= (unsigned)n) {
+    k %= n;
+    if (k < 0) k += n;
+  }
+  return k;
+}
+
+// f(a, b, c) over an nA x nB x nC box, c fastest, cells dealt to the NT
+// threads of the block round-robin; the indices advance by carries, not
+// divisions
+template <int NT, typename F>
+__device__ __forceinline__ void for_box(int nA, int nB, int nC, F&& f) {
+  const int n = nA * nB * nC;
+  int e = threadIdx.x;
+  if (e >= n) return;
+  int c = e % nC, t = e / nC;
+  int b = t % nB, a = t / nB;
+  const int step = NT;
+  const int dc = step % nC, tq = step / nC;
+  const int db = tq % nB, da = tq / nB;
+  for (; e < n; e += step) {
+    f(a, b, c);
+    c += dc;
+    b += db;
+    a += da;
+    if (c >= nC) { c -= nC; ++b; }
+    if (b >= nB) { b -= nB; ++a; }
+  }
+}
+
+// f(a, b, c0, len) over the rows of an nA x nB x nC box, each row cut
+// into segments of at most 8 cells of nearly equal length, the segments
+// dealt to the threads round-robin: a thread walks its segment along c,
+// so that the row's (i, j) values and its neighbours along c stay in
+// registers
+template <int NT, typename F>
+__device__ __forceinline__ void for_rows(int nA, int nB, int nC, F&& f) {
+  const int nseg = (nC + 7) / 8;
+  const int L = (nC + nseg - 1) / nseg;
+  for_box<NT>(nA, nB, nseg, [&](int a, int b, int s) {
+    const int c0 = s * L;
+    if (c0 < nC) f(a, b, c0, min(L, nC - c0));
+  });
+}
+
+// One value from device to shared memory without a register round trip
+// (cp.async, sm_80 and later), so a thread keeps many copies in flight;
+// valid = false writes zero and reads nothing (src must still be a
+// mapped address). Complete with stage_commit + stage_wait, then a
+// barrier before other threads read the value.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"((int)sizeof(T)),
+               "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Fixed-order sum of one value per thread into out[blockIdx.x * stride

@@ -11,9 +11,11 @@ Replaces the Pallas kernel ``ShellForcingPallas._build_call``
 
 Kernel source: csrc/forcing.cu. Bound: device-memory traffic — u, the
 three face velocities, T and p read, rhs_u and T_adv written: 12 fields,
-~50 MB at 32x128x256 f32. Design: one thread per cell; the periodic lon
-wrap, the pole ring at lon + pi and the radial wall mirrors are index
-arithmetic on global loads (no rolls, no halo arrays).
+~50 MB at 32x128x256 f32. Design (2.5-D): a block owns an 8 x 32 lat-lon
+tile and marches along the radius over ``plan(shape)``'s chunk of
+planes, staging each plane with its lateral ghosts in shared memory and
+keeping the radial neighbours in registers; each face flux is computed
+once.
 """
 
 from __future__ import annotations
@@ -35,6 +37,30 @@ FIELDS_MOVED = 12
 # reconstruction and flux, divergence form), div(u_f) 12, curvature 20,
 # Coriolis 10, buoyancy 5, viscous curvature 61, grad p 20, the update 23
 OPS_PER_CELL = 480
+
+TILE = (8, 32)          # csrc/forcing.cu TL, TO: one thread per tile cell
+RADIAL_CHUNK = 16       # planes a block marches over
+
+
+def shared_bytes(itemsize: int) -> int:
+    """Dynamic shared memory of one block (csrc/forcing.cu SMEM_VALUES):
+    two staged planes (u0, u1, u2, T with halo 2, p with halo 1, the lat
+    and lon face velocities, 13 metric rows), the 4 fields' lat and lon
+    face fluxes, and the tile's 4 lat rows."""
+    tl, to = TILE
+    n_xl, n_xo = (tl + 1) * to, tl * (to + 1)
+    plane = (4 * (tl + 4) * (to + 4) + (tl + 2) * (to + 2) + n_xl + n_xo
+             + 13 * (tl + 1))
+    return itemsize * (2 * plane + 4 * (n_xl + n_xo) + 4 * tl)
+
+
+def plan(shape):
+    """(planes per block, tiles along (radial, lat, lon)) of one launch:
+    block b owns radial chunk b // (n_lat_tiles * n_lon_tiles)."""
+    nr, nlat, nlon = shape
+    rs = min(RADIAL_CHUNK, nr)
+    return rs, (-(-nr // rs), -(-nlat // TILE[0]), -(-nlon // TILE[1]))
+
 
 _SCHEMES = {"muscl": 0, "upwind": 1, "centered": 2}
 
@@ -63,11 +89,18 @@ class ShellForcing:
         self.dt_T_factor = float(dt_T_factor)
         ch = kl.shell_channels(geo)
         g_r = kl.lon_invariant(self.gravity[0], "gravity")
-        self._M64 = np.stack([ch[k] for k in (
-            "vol", "ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon", "dr_lo",
-            "dr_hi", "dlat_lo", "dlat_hi", "dlon", "rc")] + [g_r])
+        # the kernel's lon-invariant tables (csrc/forcing.cu M_*): areas,
+        # and the reciprocals of the volume, the face distances and the
+        # radius, so that it multiplies where the plain version divides
+        self._M64 = np.stack(
+            [1.0 / ch["vol"]]
+            + [ch[k] for k in ("ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon")]
+            + [1.0 / ch[k] for k in ("dr_lo", "dr_hi", "dlat_lo", "dlat_hi",
+                                     "dlon", "rc")] + [g_r])
         lat = np.asarray(geo.axes[1].centers, np.float64)
-        self._lat64 = np.stack([np.cos(lat), np.tan(lat), lat])
+        # cos, tan, lat (-> sin in the working dtype), 1 / cos
+        self._lat64 = np.stack([np.cos(lat), np.tan(lat), lat,
+                                1.0 / np.cos(lat)])
         self._T_wall = np.array(np.broadcast_to(np.asarray(T_wall),
                                                 geo.cell_shape[1:]))
         self._dev = {}
@@ -120,14 +153,8 @@ class ShellForcing:
                                           dt * self.dt_T_factor))
 
     # ------------------------------------------------------------------
-    def __call__(self, u, u_faces, T, pres, dt):
-        if u.device.type == "cpu":
-            return self.plain(u, u_faces, T, pres, dt)
-        shp = self.geo.cell_shape
-        dev, dtype = kl.require_cuda("forcing", {
-            "u": (u, (3,) + shp), "u_faces[0]": (u_faces[0], shp),
-            "u_faces[1]": (u_faces[1], shp), "u_faces[2]": (u_faces[2], shp),
-            "T": (T, shp), "p": (pres, shp)})
+    def _launch(self, u, u_faces, T, pres, dt):
+        dev, dtype = u.device, u.dtype
         key = (str(dev), dtype)
         consts = self._dev.get(key)
         if consts is None:
@@ -144,15 +171,15 @@ class ShellForcing:
         if fn is None:
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             fn = kl.bind("forcing.cu", f"dp_forcing_{sfx}",
-                         [I, I, I] + [P] * 9 + [D] * 7 + [I] * 4
+                         [I] * 4 + [P] * 9 + [D] * 7 + [I] * 4
                          + [P, P, P])
             self._fn[sfx] = fn
         rhs_u = torch.empty_like(u)
         T_adv = torch.empty_like(T)
         p = kl.ptr
-        nr, nlat, nlon = shp
+        shp = self.geo.cell_shape
         dtf = float(dt)
-        kl.check(fn(nr, nlat, nlon, p(u), p(u_faces[0]), p(u_faces[1]),
+        kl.check(fn(*shp, plan(shp)[0], p(u), p(u_faces[0]), p(u_faces[1]),
                     p(u_faces[2]), p(T), p(pres), p(T_wall), p(M), p(lat),
                     dtf, dtf * self.dt_T_factor, self.beta, self.T_ref,
                     self.rho_background, self.one_over_Re, self.omega_hat,
@@ -161,5 +188,16 @@ class ShellForcing:
                     int(self.buoyancy == "perturbation"),
                     int(self.include_gradp), p(rhs_u), p(T_adv),
                     kl.stream_of(u)), "forcing kernel")
-        self.launches += 1
         return rhs_u, T_adv
+
+    def __call__(self, u, u_faces, T, pres, dt):
+        if u.device.type == "cpu":
+            return self.plain(u, u_faces, T, pres, dt)
+        shp = self.geo.cell_shape
+        kl.require_cuda("forcing", {
+            "u": (u, (3,) + shp), "u_faces[0]": (u_faces[0], shp),
+            "u_faces[1]": (u_faces[1], shp), "u_faces[2]": (u_faces[2], shp),
+            "T": (T, shp), "p": (pres, shp)})
+        out = self._launch(u, u_faces, T, pres, dt)
+        self.launches += 1
+        return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,6 +37,13 @@ HEADERS = ("shell_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the most shared memory one block may use on an H100 (227 KB, dynamic,
+# after cudaFuncSetAttribute above 48 KB)
+SMEM_PER_BLOCK = 232448
+
+# extra nvcc flags (use_macros), part of the build key, so that the
+# libraries of different macros coexist
+_DEFINES: Tuple[str, ...] = ()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per source (register / shared-memory use from ptxas -v)
 BUILD_LOG: Dict[str, str] = {}
@@ -52,8 +60,18 @@ def _nvcc() -> str:
                        "of dycoreplanet_tpu_torch are built from source")
 
 
+def use_macros(*names: str) -> None:
+    """From now on in this process, build and load the kernels with these
+    preprocessor macros defined (scripts/probe_k1_k2.py): K_PROBE, the
+    cycle probes of shell_common.cuh; K1_RUNTIME_TILE, K1 without its
+    compile-time instance. Wrappers made afterwards bind those libraries."""
+    global _DEFINES
+    _DEFINES = tuple(f"-D{n}" for n in names)
+    _LIBS.clear()
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _DEFINES).encode())
     for name in HEADERS + SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode())
@@ -78,7 +96,7 @@ def build_all() -> float:
     procs = []
     for src in todo:
         tmp = f"{lib_path(src)}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+        cmd = [nvcc, *NVCC_FLAGS, *_DEFINES, "-I", CSRC, "-o", tmp,
                os.path.join(CSRC, src)]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -94,6 +112,46 @@ def build_all() -> float:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_summary(source: str):
+    """Per kernel of one built source, from ptxas -v: registers, stack
+    frame, spill stores and loads, static shared bytes. Kernel names are
+    demangled by the toolkit's cu++filt where it runs, else left mangled."""
+    out, cur = [], None
+    for line in BUILD_LOG.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None,
+                   "stack_bytes": None, "spill_stores": None,
+                   "spill_loads": None, "smem_bytes": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(s.group(1)) if s else 0
+    if not out:
+        return out
+    try:
+        filt = subprocess.run(
+            [os.path.join(os.path.dirname(_nvcc()), "cu++filt"), "-p",
+             *(r["kernel"] for r in out)], capture_output=True, text=True)
+    except OSError:
+        return out
+    names = filt.stdout.splitlines()
+    if filt.returncode == 0 and len(names) == len(out):
+        for r, name in zip(out, names):
+            r["kernel"] = name
+    return out
 
 
 def library(source: str) -> ctypes.CDLL:

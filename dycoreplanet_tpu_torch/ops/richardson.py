@@ -1,7 +1,7 @@
 """K1: the fast path's implicit stage — fixed-iteration Jacobi-Richardson
 solves of the momentum and temperature Helmholtz systems with exactly
-tracked residuals, plus the pre-Poisson projection head — as hand-written
-CUDA kernels beside the plain PyTorch version.
+tracked residuals, plus the pre-Poisson projection head — as a
+hand-written CUDA kernel beside the plain PyTorch version.
 
 Replaces the Pallas kernel ``HelmholtzRichardsonPallas._build_call``
 (dycoreplanet_tpu/ops/pallas_richardson.py:348). Solves
@@ -11,20 +11,24 @@ Replaces the Pallas kernel ``HelmholtzRichardsonPallas._build_call``
 
 and emits the left-face velocities of u* and the compatibility-corrected
 Poisson right-hand side, with the norms the model's honesty gate reads.
-Kernel source: csrc/richardson.cu (init, one sweep per iteration, head,
-fixed-order reduction). Bound: device-memory traffic — 13 fields moved
-at the least (rhs_u, rhs_T, T0 read; u*, T_new, three faces, rhs
-written), ~55 MB at 32x128x256 f32.
+Kernel source: csrc/richardson.cu, one launch per call: a block stages
+its tile on a halo of depth ``max(iters) + 1`` in shared memory and runs
+every sweep there (:func:`plan` sizes it), with the wall rules folded
+into lon-invariant tables (:func:`static_tables`). Bound: device-memory
+traffic — 13 fields moved at the least (rhs_u, rhs_T, T0 read; u*,
+T_new, three faces, rhs written), ~55 MB at 32x128x256 f32.
 
 The plain version is deliberately the straightforward composition the
 JAX package runs on the CPU: ``solvers.fixed.richardson_solve`` over the
 ghost-based ``weak_laplacian`` and the plain projection head, so an
-error in the kernel's ghost or metric handling shows in the comparison.
+error in the kernel's tables or tiling shows in the comparison.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -43,11 +47,113 @@ FIELDS_MOVED = 13
 OPS_PER_CHANNEL_APPLY = 30
 OPS_PER_CELL_HEAD = 40
 
+THREADS = 256             # csrc/richardson.cu THREADS
+SHARED_TABLES = 17        # csrc/richardson.cu S_K: 13 metric channels + 4 1/D
+# tiles (radial, lat, lon) in order of preference; the first whose halo
+# fits shared memory is taken, each clipped to the grid
+TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8),
+         (2, 4, 8), (2, 2, 8), (2, 2, 4), (1, 2, 4), (1, 1, 4), (1, 1, 2),
+         (1, 1, 1))
+
+
+@dataclass(frozen=True)
+class PassPlan:
+    """One launch of the kernel: ``n_u`` / ``n_T`` sweeps on a tile with a
+    halo of depth ``halo`` (= max(n_u, n_T) + 1)."""
+    n_u: int
+    n_T: int
+    halo: int
+    tile: Tuple[int, int, int]
+    grid: Tuple[int, int, int]     # tiles along (radial, lat, lon)
+    smem_bytes: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def shared_bytes(tile, halo: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block (csrc/richardson.cu's layout):
+    two x boxes on the tile + halo (this channel's and the next one's),
+    r and dx on the tile + halo - 1, the divergence of the tile, the
+    (i, j) tables and the warps' five partial sums."""
+    RB, TL, TO = tile
+    XA, XB, XC = RB + 2 * halo, TL + 2 * halo, TO + 2 * halo
+    n_x = XA * XB * XC
+    n_r = (XA - 2) * (XB - 2) * (XC - 2)
+    return itemsize * (2 * n_x + 2 * n_r + RB * TL * TO
+                       + SHARED_TABLES * XA * XB + 5 * (THREADS // 32))
+
+
+def _tile_for(shape, halo, itemsize, limit):
+    for t in TILES:
+        t = tuple(min(a, n) for a, n in zip(t, shape))
+        if shared_bytes(t, halo, itemsize) <= limit:
+            return t
+    return None
+
+
+def plan(shape, itemsize: int, iters_u: int, iters_T: int,
+         smem_limit: int = kl.SMEM_PER_BLOCK - 16) -> Tuple[PassPlan, ...]:
+    """The launches of one call. One pass with halo max(iters) + 1 when a
+    tile fits ``smem_limit`` (16 bytes are left for the kernel's static
+    shared flag); otherwise the sweeps run in groups, one pass each,
+    through device memory."""
+    group = max(iters_u, iters_T)
+    while group > 1 and _tile_for(shape, group + 1, itemsize,
+                                  smem_limit) is None:
+        group -= 1
+    passes = []
+    ru, rT = iters_u, iters_T
+    while True:
+        nu, nT = min(ru, group), min(rT, group)
+        ru, rT = ru - nu, rT - nT
+        halo = max(nu, nT) + 1
+        tile = _tile_for(shape, halo, itemsize, smem_limit)
+        if tile is None:
+            raise ValueError(f"no Richardson tile fits {smem_limit} bytes "
+                             f"of shared memory")
+        grid = tuple(-(-n // t) for n, t in zip(shape, tile))
+        passes.append(PassPlan(nu, nT, halo, tile, grid,
+                               shared_bytes(tile, halo, itemsize)))
+        if ru == 0 and rT == 0:
+            return tuple(passes)
+
+
+def static_tables(geo: Geometry, helm_diags, T_diag) -> np.ndarray:
+    """(17, nr, nlat) float64 lon-invariant tables of the kernel. The
+    first 15 channels are the JAX kernel's ``_chans64``
+    (pallas_richardson.py:185-219): vol; the radial conductances
+    area/dist with the wall faces zeroed; the lat conductances (zero at
+    the poles, whose faces have no area); the lon conductance; the four
+    -weak_lap diagonals; the left-face areas ar_lo, alat_lo and alon; the
+    ANTISYM wall ghosts folded into diagonal adjustments for u_r and for
+    the other channels. Then ar_hi and alat_hi for the projection head."""
+    ch = kl.shell_channels(geo)
+    nr = geo.cell_shape[0]
+    cr_lo = ch["ar_lo"] / ch["dr_lo"]
+    cr_hi = ch["ar_hi"] / ch["dr_hi"]
+    cr_lo_z, cr_hi_z = cr_lo.copy(), cr_hi.copy()
+    cr_lo_z[0] = 0.0
+    cr_hi_z[nr - 1] = 0.0
+    dl_oth = np.zeros_like(cr_lo)
+    dl_oth[0] = -2.0 * cr_lo[0]
+    dl_ur = dl_oth.copy()
+    dl_ur[nr - 1] = -2.0 * cr_hi[nr - 1]
+    Ld = kl.lon_invariant(helm_diags, "helm_diags")       # (3, nr, nlat)
+    Ld_T = kl.lon_invariant(T_diag, "T_diag")
+    return np.stack([
+        ch["vol"], cr_lo_z, cr_hi_z,
+        ch["alat_lo"] / ch["dlat_lo"], ch["alat_hi"] / ch["dlat_hi"],
+        ch["alon"] / ch["dlon"], Ld[0], Ld[1], Ld[2], Ld_T,
+        ch["ar_lo"], ch["alat_lo"], ch["alon"], dl_ur, dl_oth,
+        ch["ar_hi"], ch["alat_hi"]])
+
 
 class ShellRichardson:
     """Callable (rhs_u, rhs_T, T0, dt) -> (u_star, T_new,
     (uf0, uf1, uf2, rhs_phi), (rnorm_u, bnorm_u, rnorm_T, bnorm_T)).
-    CPU tensors take the plain version; CUDA tensors launch the kernels."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
 
     def __init__(self, geo: Geometry, *, one_over_Re: float,
                  one_over_Pe: float, nse_interval: int,
@@ -63,25 +169,30 @@ class ShellRichardson:
         self.u_specs, self.T_specs_hom = u_specs, T_specs_hom
         self.helm_diags = np.asarray(helm_diags)
         self.T_diag = np.asarray(T_diag)
-        ch = kl.shell_channels(geo)
-        Ld = kl.lon_invariant(self.helm_diags, "helm_diags")   # (3, nr, nlat)
-        Ld_T = kl.lon_invariant(self.T_diag, "T_diag")
-        self._M64 = np.stack([ch[k] for k in (
-            "vol", "ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon", "dr_lo",
-            "dr_hi", "dlat_lo", "dlat_hi", "dlon")] + list(Ld) + [Ld_T])
-        self._M = {}
+        self.tables64 = static_tables(geo, self.helm_diags, self.T_diag)
+        self._dev = {}       # (device, dtype) -> tables, counter
+        self._inv = {}       # (device, dtype) -> (dt, 1/D tables)
         self._fn = {}
         self.launches = 0
+
+    def plan(self, dtype: torch.dtype) -> Tuple[PassPlan, ...]:
+        return plan(self.geo.cell_shape, torch.finfo(dtype).bits // 8,
+                    self.iters_u, self.iters_T)
+
+    def coefs(self, dt, dtype):
+        """coef_u = dt/Re and coef_T = dt_T/Pe, rounded as the kernel and
+        the plain version take them."""
+        npd = kl.NP_DTYPE[dtype]
+        return (float(npd(dt) * npd(self.one_over_Re)),
+                float(npd(npd(dt) * npd(self.dt_T_factor))
+                      * npd(self.one_over_Pe)))
 
     # ------------------------------------------------------------------
     def plain(self, rhs_u, rhs_T, T0, dt):
         geo = self.geo
         dtype = rhs_u.dtype
-        npd = kl.NP_DTYPE[dtype]
         vol = st.metric(geo, "vol", 0, rhs_u)
-        coef = float(npd(dt) * npd(self.one_over_Re))
-        kT = float(npd(npd(dt) * npd(self.dt_T_factor))
-                   * npd(self.one_over_Pe))
+        coef, kT = self.coefs(dt, dtype)
         hd = torch.as_tensor(self.helm_diags, dtype=dtype,
                              device=rhs_u.device)
         td = torch.as_tensor(self.T_diag, dtype=dtype, device=rhs_u.device)
@@ -108,45 +219,78 @@ class ShellRichardson:
                  res_T.residual_norm, torch.sqrt(_dot(rhs_T, rhs_T))))
 
     # ------------------------------------------------------------------
-    def __call__(self, rhs_u, rhs_T, T0, dt):
-        if rhs_u.device.type == "cpu":
-            return self.plain(rhs_u, rhs_T, T0, dt)
-        shp = self.geo.cell_shape
-        dev, dtype = kl.require_cuda("richardson", {
-            "rhs_u": (rhs_u, (3,) + shp), "rhs_T": (rhs_T, shp),
-            "T0": (T0, shp)})
+    def _tables(self, dt, dev, dtype):
+        """The static tables and the launch counter of (dev, dtype), and
+        the 1/D tables of this dt (rebuilt when dt changes)."""
         key = (str(dev), dtype)
-        if key not in self._M:
-            self._M[key] = torch.as_tensor(self._M64, dtype=dtype,
-                                           device=dev).contiguous()
+        consts = self._dev.get(key)
+        if consts is None:
+            consts = (torch.as_tensor(self.tables64, dtype=dtype,
+                                      device=dev).contiguous(),
+                      torch.zeros(1, dtype=torch.int32, device=dev))
+            self._dev[key] = consts
+        M = consts[0]
+        inv = self._inv.get(key)
+        if inv is None or inv[0] != float(dt):
+            cu, cT = self.coefs(dt, dtype)
+            coef4 = torch.tensor([cu, cu, cu, cT], dtype=dtype, device=dev)
+            inv = (float(dt), (1.0 / (M[0][None] + coef4[:, None, None]
+                                      * M[6:10])).contiguous())
+            self._inv[key] = inv
+        return M, inv[1], consts[1]
+
+    def _launch(self, rhs_u, rhs_T, T0, dt):
+        dev, dtype = rhs_u.device, rhs_u.dtype
+        M, invD, counter = self._tables(dt, dev, dtype)
         sfx = kl.suffix(dtype)
         fn = self._fn.get(sfx)
         if fn is None:
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             fn = kl.bind("richardson.cu", f"dp_richardson_{sfx}",
-                         [I, I, I, P, P, P, P, D, D, D, D, I, I]
-                         + [P] * 13)
+                         [I] * 8 + [P] * 8 + [D] * 4 + [I] * 3 + [P] * 12)
             self._fn[sfx] = fn
+        shp = self.geo.cell_shape
         nr, nlat, nlon = shp
         new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
-        u_star, ru_a, ru_b = (new(3, nr, nlat, nlon) for _ in range(3))
-        T_new, rT_a, rT_b, f0, f1, f2, rhs_raw = (
-            new(nr, nlat, nlon) for _ in range(7))
-        nblk = (nr * nlat * nlon + 255) // 256
-        parts = new(nblk, 5)
+        u_star, T_new = new(3, *shp), new(*shp)
+        f0, f1, f2, rhs_raw = (new(*shp) for _ in range(4))
+        passes = self.plan(dtype)
+        parts = new(passes[-1].n_blocks, 5)
         sums = new(5)
+        # iterates and residuals between passes ping-pong through two
+        # scratch sets (x_u, x_T, r_u, r_T)
+        scratch = [(new(3, *shp), new(*shp), new(3, *shp), new(*shp))
+                   for _ in range(min(2, len(passes) - 1))]
         p = kl.ptr
-        kl.check(fn(nr, nlat, nlon, p(self._M[key]), p(rhs_u), p(rhs_T),
-                    p(T0), float(dt), self.one_over_Re, self.one_over_Pe,
-                    self.dt_T_factor, self.iters_u, self.iters_T, p(u_star),
-                    p(T_new), p(ru_a), p(ru_b), p(rT_a), p(rT_b), p(f0),
-                    p(f1), p(f2), p(rhs_raw), p(parts), p(sums),
-                    kl.stream_of(rhs_u)), "richardson kernels")
-        self.launches += 1
+        null = ctypes.c_void_p(None)
+        ins = (p(rhs_u), p(T0), null, null)
+        for n, ps in enumerate(passes):
+            last = n == len(passes) - 1
+            outs = ((p(u_star), p(T_new), null, null) if last
+                    else tuple(p(t) for t in scratch[n % 2]))
+            kl.check(fn(nr, nlat, nlon, *ps.tile, ps.halo, ps.smem_bytes,
+                        p(M), p(invD), ins[0], ins[1], p(rhs_u), p(rhs_T),
+                        ins[2], ins[3], float(dt), self.one_over_Re,
+                        self.one_over_Pe, self.dt_T_factor, ps.n_u, ps.n_T,
+                        int(last), *outs, p(f0), p(f1), p(f2), p(rhs_raw),
+                        p(parts), p(counter), p(sums), kl.stream_of(rhs_u)),
+                     "richardson kernel")
+            ins = outs
         rhs_phi = rhs_raw - sums[4] / float(self.geo.n_cells)
         norms = torch.sqrt(sums[:4])
         return (u_star, T_new, (f0, f1, f2, rhs_phi),
                 (norms[0], norms[1], norms[2], norms[3]))
+
+    def __call__(self, rhs_u, rhs_T, T0, dt):
+        if rhs_u.device.type == "cpu":
+            return self.plain(rhs_u, rhs_T, T0, dt)
+        shp = self.geo.cell_shape
+        kl.require_cuda("richardson", {
+            "rhs_u": (rhs_u, (3,) + shp), "rhs_T": (rhs_T, shp),
+            "T0": (T0, shp)})
+        out = self._launch(rhs_u, rhs_T, T0, dt)
+        self.launches += 1
+        return out
 
 
 def ops_per_cell(iters_u: int, iters_T: int) -> int:

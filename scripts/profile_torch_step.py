@@ -28,8 +28,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-HAND = ("forcing_kernel", "rich_init", "rich_sweep", "rich_head",
-        "faces_div_kernel", "reduce_partials", "correct_kernel", "thomas_")
+HAND = ("forcing_kernel", "rich_fused", "faces_div_kernel",
+        "reduce_partials", "correct_kernel", "thomas_")
 GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
 
 

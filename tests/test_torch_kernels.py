@@ -11,7 +11,9 @@ CPU tensors (which take the plain PyTorch versions), held against
     the field scale.
 
 The CUDA kernels themselves run only on a card: the test marked
-``cuda`` holds them against the plain versions there and skips here.
+``cuda`` holds them against the plain versions there (K1 and K2 also at
+a shape no tile divides, one smaller than a tile, four iteration pairs,
+f32 and f64) and skips here.
 """
 
 import numpy as np
@@ -302,6 +304,61 @@ def test_correct_plain_vs_pallas_interpret_f32(incremental):
 
 
 # ---------------------------------------------------------------- card
+def _k1_k2_match_plain(shape, dtype, device):
+    """K2, then K1 at the iteration pairs (1,1), (2,1), (1,3), (3,3) on
+    K2's output, against their plain versions on one grid: K2 1e-5 x
+    scale (f64 1e-12); K1 iterates and faces rtol = atol = 2e-6 (f64
+    1e-12), rhs_phi rtol 1e-4, atol 2e-5 x scale (f64 1e-11); the b norms
+    rtol 1e-5 (f64 1e-12); each residual norm rn within 0.1 rn + 2 eps
+    |r_pre|, r_pre the plain residual one sweep earlier (the versions
+    round the last update r - A (r/D) differently, by about an ulp of
+    r_pre a cell), and within eps |b| (the honesty gate's f32 floor is 16
+    eps |b|)."""
+    import copy
+
+    from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
+
+    f32 = dtype == "float32"
+    _, tm = _models(dtype, shape)
+    m = BoussinesqModel(tm.params, device=device)
+    npd = np.float32 if f32 else np.float64
+    u, f0, f1, f2, T, pres = [torch.as_tensor(x, device=device)
+                              for x in _fields(tm, 11, npd)]
+    dt = 0.004
+    args = (u, (f0, f1, f2), T, pres, dt)
+    got, want = m._forcing(*args), m._forcing.plain(*args)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= (1e-5 if f32 else 1e-12) * scale
+    rhs_T = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        shape).astype(npd), device=device)
+    eps = float(np.finfo(npd).eps)
+    tol = 2e-6 if f32 else 1e-12
+    for iu, iT in [(1, 1), (2, 1), (1, 3), (3, 3)]:
+        rk = ShellRichardson(
+            m.geo, one_over_Re=m.one_over_Re, one_over_Pe=m.one_over_Pe,
+            nse_interval=m.params.NSE_solver_interval,
+            helm_diags=m.helm_diags, T_diag=m.T_diag, iters_u=iu,
+            iters_T=iT, u_specs=m.u_specs, T_specs_hom=m.T_specs_hom)
+        a1 = (got[0], rhs_T, T, dt)
+        g1, w1 = rk(*a1), rk.plain(*a1)
+        for g, w in [(g1[0], w1[0]), (g1[1], w1[1])] + list(
+                zip(g1[2][:3], w1[2][:3])):
+            np.testing.assert_allclose(_np(g), _np(w), rtol=tol, atol=tol)
+        sc = float(w1[2][3].abs().max()) + 1e-30
+        np.testing.assert_allclose(
+            _np(g1[2][3]), _np(w1[2][3]), rtol=1e-4 if f32 else 1e-11,
+            atol=(2e-5 if f32 else 1e-11) * sc)
+        short = copy.copy(rk)
+        short.iters_u, short.iters_T = iu - 1, iT - 1
+        pre = [float(x) for x in short.plain(*a1)[3]]
+        gn, wn = [float(x) for x in g1[3]], [float(x) for x in w1[3]]
+        for r, b in ((0, 1), (2, 3)):
+            assert abs(gn[b] - wn[b]) <= (1e-5 if f32 else 1e-12) * wn[b]
+            assert abs(gn[r] - wn[r]) <= 0.1 * wn[r] + 2 * eps * pre[r]
+            assert abs(gn[r] - wn[r]) <= eps * wn[b]
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On a card: each CUDA kernel against its plain version (the same
@@ -351,3 +408,7 @@ def test_cuda_kernels_match_plain_versions():
     assert m._proj.faces_div_count.launches == 1
     assert m._proj.correct_count.launches == 1
     assert m._tridiag.launches == 2
+    # K1 and K2 at a shape no tile divides and one smaller than a tile
+    for shape in [(6, 20, 36), (4, 8, 16)]:
+        for dtype in ["float32", "float64"]:
+            _k1_k2_match_plain(shape, dtype, "cuda")
