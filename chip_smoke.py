@@ -8,15 +8,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
      (forcing), K1 (Richardson + projection head, with its four norms),
-     K3 (faces_div), K5 (correct), and K4 (tridiag) on the momentum
-     systems of the direct Helmholtz solve, each against its plain
-     PyTorch version on the card, with errors, the mean device time of
-     one call over 50 back-to-back calls, and the roofline bound; the
-     whole direct Helmholtz solve's residual; K2 and K1 (iteration pairs
-     (1,1), (2,1), (1,3), (3,3), and (3,3) in groups of sweeps) at the
-     bench shape, a shape no tile divides (6x20x36) and one smaller than
-     a tile (4x8x16), in f32 and f64; the f64 instantiations of K3-K5 at
-     8x16x32;
+     K3 (faces_div), K5 (correct), and K4 (tridiag) on the momentum and
+     the temperature systems of the direct Helmholtz solves, each
+     against its plain PyTorch version on the card, with errors, the
+     mean device time of one call over 50 back-to-back calls, and the
+     roofline bound; K4 also at every n of K4_NS in three layouts, f32
+     and f64, with NaN where it must not read and its operands checked
+     unchanged; the whole direct Helmholtz solve's residual; K2 and K1
+     (iteration pairs (1,1), (2,1), (1,3), (3,3), and (3,3) in groups
+     of sweeps) at the bench shape, a shape no tile divides (6x20x36)
+     and one smaller than a tile (4x8x16), in f32 and f64; the f64
+     instantiations of K3-K5 at 8x16x32;
   4. main path: BoussinesqModel.run, 20 gated steps at 32x128x256 f32
      with the bench opt-ins, after 2 warm-up steps — zero escalations,
      finite fields, small post-projection divergence, K2, K1 and K5
@@ -25,8 +27,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      K5 launch once, and the result agrees with the fast step;
   6. direct-Helmholtz path (`helmholtz solver = direct`): 20 gated steps
      at 32x128x256 f32 — zero escalations, K2, K3 and K5 once and K4
-     twice a step, no K1; one step_strong; one direct step against the
-     default model's full-CG step_strong;
+     twice a step, no K1, no operand copied for K4; one step_strong;
+     one direct step against the default model's full-CG step_strong;
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, and on a
      copy of it with `set helmholtz solver = direct`;
   8. one JSON line with every kernel's numbers, then, last, the
@@ -153,6 +155,10 @@ def check_norms(name, got, want, pre, dtype):
 
 
 PAIRS = ((1, 1), (2, 1), (1, 3), (3, 3))
+# K4's system sizes checked: 600 rows exceed what a block of 32 threads
+# stages in shared memory (at most 593 in f32), so the general kernel
+# solves them
+K4_NS = (1, 2, 5, 32, 33, 40, 600)
 
 
 def check_k1_k2(dev, shape, dtype_name):
@@ -201,6 +207,66 @@ def check_k1_k2(dev, shape, dtype_name):
                     rk.plain(*a1), short_norms(rk, a1), m.torch_dtype)
     passes.append(len(rk.plan(m.torch_dtype)))
     return e2, max(e1, e), passes, max(nr, r)
+
+
+def check_k4(name, tk, sys4, want, tol):
+    """K4 on one system (lower, diag, upper, rhs) against the plain
+    version's `want`, within rtol = atol = tol: with NaN in lower[0] and
+    upper[n-1], which neither reads, and every operand bitwise unchanged
+    by the call. Returns the max abs error."""
+    import torch
+
+    low, diag, up, rhs = (a.clone() for a in sys4)
+    low[0] = float("nan")
+    up[-1] = float("nan")
+    before = [a.clone() for a in (low, diag, up, rhs)]
+    got = tk(low, diag, up, rhs)
+    torch.cuda.synchronize()
+    bits = {4: torch.int32, 8: torch.int64}[rhs.element_size()]
+    for a, b in zip((low, diag, up, rhs), before):
+        if not torch.equal(a.view(bits), b.view(bits)):
+            fail(f"{name}: the kernel changed a caller's operand")
+    return compare(name, (got,), (want,), tol, tol)
+
+
+def check_k4_cases(dev):
+    """K4 against its plain version on seeded diagonally dominant
+    systems: n in K4_NS (the staged kernel, and the general one above
+    what a block stages), m = 3 x 2 x 131 (not a multiple of 4), f32
+    (rtol = atol = 1e-5 x scale) and f64 (1e-12 x scale), in three
+    layouts: the direct solver's (lower and upper one value a row,
+    diag broadcast over an axis of size 2), lower and upper one value a
+    row with a full diag, and four full arrays. Returns the max abs
+    error."""
+    import torch
+    from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        def r(shape):
+            return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+        for n in K4_NS:
+            for lshape, dshape in (((n, 1, 1, 1), (n, 3, 1, 131)),
+                                   ((n, 1, 1, 1), (n, 3, 2, 131)),
+                                   ((n, 3, 2, 131), (n, 3, 2, 131))):
+                low, up = -r(lshape), -r(lshape)
+                diag = 2.0 + r(dshape)
+                rhs = 2 * r((n, 3, 2, 131)) - 1
+                tk = TridiagSolve()
+                want = tk.plain(low, diag, up, rhs)
+                sc = float(want.abs().max())
+                tol = (1e-5 if dtype == torch.float32 else 1e-12) * sc
+                err = max(err, check_k4(
+                    f"K4 tridiag n {n} {dtype} lower {lshape} diag "
+                    f"{dshape}", tk, (low, diag, up, rhs), want, tol))
+                if tk.launches != 1 or tk.copies != 0:
+                    fail(f"K4 tridiag n {n}: {tk.launches} launches, "
+                         f"{tk.copies} copies (expected 1, 0)")
+    phase(f"K4 tridiag, n {list(K4_NS)}, m 786, f32 and f64, three "
+          f"layouts: max abs err {err:.3e} (rtol=atol=1e-5 x scale f32, "
+          f"1e-12 x scale f64)")
+    return err
 
 
 def direct_params(p):
@@ -380,7 +446,11 @@ def main() -> None:
                        bound_by=b_by, library_ms=None))
 
     # K4: the radial tridiagonal systems of the direct Helmholtz solves
-    # of a `helmholtz solver = direct` model, from its K2 right-hand side
+    # of a `helmholtz solver = direct` model, from its K2 right-hand side,
+    # as the solver passes them (lower and upper one value a row, diag
+    # broadcast over the real/imaginary axis): no operand copied, lower[0]
+    # and upper[n-1] never read (NaN there), the caller's operands left
+    # bitwise unchanged
     dmodel = BoussinesqModel(direct_params(bench_params(BENCH_SHAPE)),
                              device=dev)
     ds0 = seed_developed_flow(dmodel)
@@ -389,54 +459,44 @@ def main() -> None:
                           * dmodel.dtype.type(dmodel.one_over_Re))
     b_u = dmodel._vol_t[None] * rhs_ud
     tk = dmodel._tridiag
-    k4_rows = []
+    k4_rows = {}
     for what, solver, b, c in (
             ("momentum", dmodel.helmholtz_direct, b_u, coef),
             ("temperature", dmodel.temperature_direct,
              (dmodel._vol_t * T_advd)[None], kT)):
         sys4 = solver.systems(b, c)
         n4, m4 = sys4[3].shape[0], sys4[3][0].numel()
-        g4 = tk(*sys4)
         w4 = tk.plain(*sys4)
-        torch.cuda.synchronize()
         sc = float(w4.abs().max())
-        err4 = compare(f"K4 tridiag ({what})", (g4,), (w4,), 1e-5 * sc,
-                       1e-5 * sc)
+        err4 = check_k4(f"K4 tridiag ({what})", tk, sys4, w4, 1e-5 * sc)
+        if tk.copies:
+            fail(f"K4 tridiag ({what}): the wrapper copied {tk.copies} "
+                 f"operand(s) of the direct solver")
         ms = time_ms(lambda: tk(*sys4))
         pms = time_ms(lambda: tk.plain(*sys4))
-        # the operands as passed (lower, upper: one value a row; diag
-        # broadcast over the real/imaginary axis) and x
+        # the operands as passed and x
         b_ms, b_by = bound_of(4 * k4.values_moved(*sys4),
                               k4.OPS_PER_VALUE * n4 * m4)
-        # aside: the four operands materialized to (n, m), as the wrapper
-        # hands them to the kernel, and x
-        mat_ms, _ = bound(n4 * m4, 5, k4.OPS_PER_VALUE)
-        phase(f"K4 tridiag, {what} systems (n {n4}, m {m4}): max abs err "
-              f"{err4:.3e} (rtol=atol=1e-5 x scale {sc:.3e}), kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms * 1e3:.1f} us "
-              f"({b_by}; with the operands materialized to (n, m) "
-              f"{mat_ms * 1e3:.1f} us)")
-        k4_rows.append((err4, ms, pms, b_ms, b_by))
-    # the general kernel (c' in the wrapper's copy of upper), for n above
-    # the register kernel's
-    seeded = torch.Generator(device=dev).manual_seed(0)
-    gen = [torch.rand(40, 33024, device=dev, generator=seeded)
-           for _ in range(4)]
-    gen[1] += 3.0
-    upper_in = gen[2].clone()
-    err4g = compare("K4 tridiag (n = 40, general kernel)", (tk(*gen),),
-                    (tk.plain(*gen),), 1e-5, 1e-5)
-    if not torch.equal(gen[2], upper_in):
-        fail("K4 tridiag (n = 40): the caller's upper was overwritten")
-    phase(f"K4 tridiag, general kernel (n 40, m 33024): max abs err "
-          f"{err4g:.3e} (rtol=atol=1e-5)")
-    err4, ms, pms, b_ms, b_by = k4_rows[0]
+        lay = k4.layout(*sys4, pair=tk.pair)
+        phase(f"K4 tridiag, {what} systems (n {n4}, m {m4}; {lay.cols} "
+              f"threads, pair {lay.pair}): max abs err {err4:.3e} "
+              f"(rtol=atol=1e-5 x scale {sc:.3e}), kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, bound {b_ms * 1e3:.1f} us ({b_by}; "
+              f"operands as passed), 0 operands copied")
+        k4_rows[what] = dict(max_abs_err=err4, ms=ms, plain_ms=pms,
+                             bound_ms=b_ms, bound_by=b_by)
+    # any n (the staged kernel up to its limit, the general one above),
+    # m not a multiple of 4, f32 and f64, the operands broadcast as the
+    # direct solver passes them, scalar-per-row coefficients, full arrays
+    err4c = check_k4_cases(dev)
+    err4 = max([r["max_abs_err"] for r in k4_rows.values()] + [err4c])
     report.append(dict(name="K4 tridiag", route="cuda",
                        source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
                        replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
-                       max_abs_err=max(err4, k4_rows[1][0], err4g), ms=ms,
-                       plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None))
+                       max_abs_err=err4, library_ms=None,
+                       **{k: v for k, v in k4_rows["momentum"].items()
+                          if k != "max_abs_err"},
+                       by_system=k4_rows))
     # the whole direct solve: ||vol x - c L(x) - b|| / ||b||
     x_u = dmodel.helmholtz_direct.solve(b_u, coef)
     resid = dmodel._vol_t[None] * x_u - coef * torch.stack([
@@ -569,6 +629,9 @@ def main() -> None:
                "tridiag": 2 * N_STEPS, "correct": N_STEPS}
     if dl != want_dl:
         fail(f"direct-path launches {dl}, expected {want_dl}")
+    if dmodel._tridiag.copies:
+        fail(f"direct path: K4's wrapper copied {dmodel._tridiag.copies} "
+             f"operand(s)")
     ms_step = wall / N_STEPS * 1e3
     phase(f"direct path: {N_STEPS} gated steps, 0 escalations, launches "
           f"{dl}, max|div u| first/last/max {ddivs[0]:.3e}/{ddivs[-1]:.3e}/"

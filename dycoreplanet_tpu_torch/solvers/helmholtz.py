@@ -120,7 +120,9 @@ class ShellHelmholtzDirect:
 
     def to(self, device) -> "ShellHelmholtzDirect":
         """Move the constants to ``device``."""
-        self._t = {k: torch.as_tensor(getattr(self, k), device=device)
+        # C-contiguous, so that diag (formed from them) is too
+        self._t = {k: torch.as_tensor(np.ascontiguousarray(getattr(self, k)),
+                                      device=device)
                    for k in ("_F", "_G", "_V", "_v", "_trd", "_lam", "_low",
                              "_up")}
         return self

@@ -14,7 +14,10 @@ reports
   * a torch.profiler window over the same steps: device time by kernel,
     grouped into the hand-written kernels (K1-K5), matrix products (the
     Poisson and Helmholtz transforms) and other PyTorch kernels, and the
-    device's busy share of the window.
+    device's busy share of the window;
+  * K4's launches one by one, told apart by their order in the step
+    (the momentum solve comes before the temperature solve), and the
+    copy kernels a step (PyTorch kernels named *copy*).
 The last line of standard output is one JSON object with these numbers.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -28,6 +31,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+# K4's launches in the order of a direct step
+K4_ORDER = ("momentum", "temperature")
 HAND = ("forcing_kernel", "rich_fused", "faces_div_kernel",
         "reduce_partials", "correct_kernel", "thomas_")
 GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
@@ -111,6 +116,17 @@ def main() -> int:
         if t_us > 0:
             rows.append((e.key, t_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
+    # K4 launch by launch, in the order of the step
+    k4 = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "thomas_" in e.name),
+                key=lambda e: e.time_range.start)
+    k4_ms = {}
+    for i, e in enumerate(k4):
+        what = K4_ORDER[i % len(K4_ORDER)]
+        k4_ms[what] = k4_ms.get(what, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    k4_ms = {k: v / n for k, v in k4_ms.items()}
+    copies = [r for r in rows if "copy" in r[0].lower()]
     device_ms = sum(r[1] for r in rows)
     cats = {}
     for name, ms, cnt in rows:
@@ -128,6 +144,13 @@ def main() -> int:
     print("device time by group (ms/step, launches/step):")
     for c, (ms, cnt) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         print(f"  {c:40s} {ms / n:9.4f}  {cnt / n:7.1f}")
+    if k4:
+        print(f"K4 launches: {len(k4) / n:.1f}/step; ms/step by launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in k4_ms.items()))
+    print(f"copy kernels: {sum(r[2] for r in copies) / n:.1f}/step, "
+          f"{sum(r[1] for r in copies) / n:.4f} ms/step")
+    for kname, ms, cnt in copies:
+        print(f"  {ms / n:9.4f}  {cnt / n:7.1f}  {kname[:90]}")
     print("top kernels (ms/step, launches/step):")
     for kname, ms, cnt in rows[:20]:
         print(f"  {ms / n:9.4f}  {cnt / n:7.1f}  {kname[:90]}")
@@ -143,6 +166,9 @@ def main() -> int:
         "busy_share": device_ms / window_ms,
         "groups_ms_per_step": {c: v[0] / n for c, v in cats.items()},
         "launches_per_step": sum(r[2] for r in rows) / n,
+        "k4_ms_per_step": k4_ms,
+        "copy_launches_per_step": sum(r[2] for r in copies) / n,
+        "copy_ms_per_step": sum(r[1] for r in copies) / n,
     }))
     return 0
 

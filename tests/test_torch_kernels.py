@@ -13,8 +13,11 @@ CPU tensors (which take the plain PyTorch versions), held against
 The CUDA kernels themselves run only on a card: the test marked
 ``cuda`` holds them against the plain versions there (K1 and K2 also at
 a shape no tile divides, one smaller than a tile, four iteration pairs,
-f32 and f64) and skips here.
+f32 and f64; K4, the tridiagonal solve, at seven n, two layouts, f32
+and f64, and on the direct solver's systems) and skips here.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ from dycoreplanet_tpu.solvers.fixed import richardson_solve as j_rich
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.models import BoussinesqModel
 from dycoreplanet_tpu_torch.ops import stencil as tm_st
+from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from tests.test_torch_helmholtz import _random_spd_tridiag
 
 
@@ -314,8 +318,6 @@ def _k1_k2_match_plain(shape, dtype, device):
     round the last update r - A (r/D) differently, by about an ulp of
     r_pre a cell), and within eps |b| (the honesty gate's f32 floor is 16
     eps |b|)."""
-    import copy
-
     from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
 
     f32 = dtype == "float32"
@@ -388,26 +390,49 @@ def test_cuda_kernels_match_plain_versions():
     args = (got[0], got3[:3], phi, pres, dt, tm_st.volume_mean(m.geo, phi))
     for g, w in zip(m._proj.correct(*args), m._proj.correct_plain(*args)):
         np.testing.assert_allclose(_np(g), _np(w), rtol=2e-6, atol=2e-6)
-    # K4: the register kernel (n <= 32) and the general one (n > 32);
-    # neither reads lower[0] or upper[n-1]
+    # K4 at any n (600 rows exceed what a block stages in shared memory:
+    # the general kernel), m = 786 (not a multiple of 4), f32 and f64, the
+    # coefficients full or broadcast as the direct solver passes them;
+    # lower[0] and upper[n-1] never read, the operands bitwise unchanged
     rng = np.random.RandomState(0)
-    for n in (32, 40):
-        low, diag, up = (torch.as_tensor(a, device="cuda") for a in
-                         _random_spd_tridiag(rng, n, (3, 700)))
-        rhs = torch.as_tensor(rng.randn(n, 3, 700), device="cuda")
-        want = m._tridiag.plain(low, diag, up, rhs)
-        low[0] = float("nan")
-        up[-1] = float("nan")
-        up_in = up.clone()
-        got4 = m._tridiag(low, diag, up, rhs)
-        np.testing.assert_allclose(_np(got4), _np(want), rtol=1e-12,
-                                   atol=1e-12)
-        # the general kernel writes c' into the wrapper's own copy
-        assert torch.equal(up[:-1], up_in[:-1])
+    for dtype in (np.float32, np.float64):
+        for n in (1, 2, 5, 32, 33, 40, 600):
+            for bcast in (False, True):
+                low, diag, up = (a.astype(dtype) for a in _random_spd_tridiag(
+                    rng, n, (3, 2, 131)))
+                if bcast:          # one value a row, diag over the pair
+                    low, up = low[:, :1, :1, :1], up[:, :1, :1, :1]
+                    diag = diag[:, :, :1] + 2.0
+                ops = [torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+                       for a in (low, diag, up,
+                                 rng.randn(n, 3, 2, 131).astype(dtype))]
+                want = m._tridiag.plain(*ops)
+                ops[0][0] = float("nan")
+                ops[2][-1] = float("nan")
+                before = [a.clone() for a in ops]
+                tk = TridiagSolve()
+                got4 = tk(*ops)
+                sc = float(want.abs().max())
+                tol = (1e-5 if dtype == np.float32 else 1e-12) * sc
+                np.testing.assert_allclose(_np(got4), _np(want), rtol=tol,
+                                           atol=tol)
+                assert (tk.launches, tk.copies) == (1, 0)
+                bits = torch.int32 if dtype == np.float32 else torch.int64
+                for a, b in zip(ops, before):
+                    assert torch.equal(a.view(bits), b.view(bits))
+    # the direct solver's systems, as it passes them
+    p = copy.deepcopy(tm.params)
+    p.numerics.helmholtz_solver = "direct"
+    d = BoussinesqModel(p, device="cuda")
+    sys4 = d.helmholtz_direct.systems(d._vol_t[None] * u, 0.004)
+    want = d._tridiag.plain(*sys4)
+    np.testing.assert_allclose(
+        _np(d._tridiag(*sys4)), _np(want), rtol=1e-5,
+        atol=1e-5 * float(want.abs().max()))
+    assert (d._tridiag.launches, d._tridiag.copies) == (1, 0)
     assert m._forcing.launches == 1 and m._richardson.launches == 1
     assert m._proj.faces_div_count.launches == 1
     assert m._proj.correct_count.launches == 1
-    assert m._tridiag.launches == 2
     # K1 and K2 at a shape no tile divides and one smaller than a tile
     for shape in [(6, 20, 36), (4, 8, 16)]:
         for dtype in ["float32", "float64"]:
