@@ -5,32 +5,50 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. the card: torch's device name, and nvidia-smi's name + power limit;
-  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+     and no spill in K1's residual-free (TRACK = false) instances;
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
      (forcing), K1 (Richardson + projection head, with its four norms),
+     K1u (K1's residual-free variant: the -1 sentinel, the b norms),
      K3 (faces_div), K5 (correct), and K4 (tridiag) on the momentum and
      the temperature systems of the direct Helmholtz solves, each
      against its plain PyTorch version on the card, with errors, the
      mean device time of one call over 50 back-to-back calls, and the
      roofline bound; K4 also at every n of K4_NS in three layouts, f32
      and f64, with NaN where it must not read and its operands checked
-     unchanged; the whole direct Helmholtz solve's residual; K2 and K1
-     (iteration pairs (1,1), (2,1), (1,3), (3,3), and (3,3) in groups
-     of sweeps) at the bench shape, a shape no tile divides (6x20x36)
-     and one smaller than a tile (4x8x16), in f32 and f64; the f64
-     instantiations of K3-K5 at 8x16x32;
+     unchanged; the whole direct Helmholtz solve's residual; K2, K1 and
+     K1u (iteration pairs (1,1), (2,1), (1,3), (3,3), and (3,3) in
+     groups of sweeps) at the bench shape, a shape no tile divides
+     (6x20x36) and one smaller than a tile (4x8x16), in f32 and f64; the
+     f64 instantiations of K3-K5 at 8x16x32;
   4. main path: BoussinesqModel.run, 20 gated steps at 32x128x256 f32
      with the bench opt-ins, after 2 warm-up steps — zero escalations,
      finite fields, small post-projection divergence, K2, K1 and K5
-     launched on every step, K3 and K4 never;
+     launched on every step, K3 and K4 never; then the same 20 steps as
+     one multi_step chunk, a CUDA graph replay (after the chunk that
+     captures it), against the run: its state, its rows against the
+     run's records, the hand kernels one replay runs on the device
+     (counted by torch.profiler; the replay calls no wrapper), one
+     replay, host ms/step of both, the capture's peak memory; without
+     collected diagnostics; and with one graph kept (the cap: graphs
+     dropped and captured anew, the results unchanged);
   5. escalated path: one step_strong from the same state — K2, K3 and
-     K5 launch once, and the result agrees with the fast step;
-  6. direct-Helmholtz path (`helmholtz solver = direct`): 20 gated steps
-     at 32x128x256 f32 — zero escalations, K2, K3 and K5 once and K4
-     twice a step, no K1, no operand copied for K4; one step_strong;
-     one direct step against the default model's full-CG step_strong;
-  7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, and on a
-     copy of it with `set helmholtz solver = direct`;
+     K5 launch once, and the result agrees with the fast step; then a
+     forced miss in a multi_step chunk (a corrupted fast-diagonalization
+     constant): one escalation, the chunk redone with CG from the
+     original state equals a step_strong loop;
+  6. the other paths at full width, each as run and as a multi_step
+     graph from the same state, the two compared: `helmholtz solver =
+     direct` (zero escalations, K2, K3 and K5 once and K4 twice a step,
+     no K1, no operand copied for K4; one step_strong; one direct step
+     against the default model's full-CG step_strong), `residual check
+     interval = 4` (K1 on 5 steps, K1u on 15, residuals -1 on the
+     unchecked steps) and `NSE solver interval = 2` (every other step a
+     temperature substep: K1, K2 and K5 on 10 steps);
+  7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
+     of it with `set helmholtz solver = direct`, and with `--chunk 4` on
+     the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
+     (graph chunks);
   8. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -43,6 +61,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_STEPS = 20
@@ -108,6 +127,69 @@ def check_k1(name, got, want, pre, dtype):
     return err, check_norms(name, got[3], want[3], pre, dtype)
 
 
+def check_k1u(name, got, want, dtype):
+    """K1u against its plain version: iterates, faces and rhs_phi at
+    check_k1's tolerances, the residual norms exactly the -1 sentinel in
+    both, the b norms at check_norms' rtol 1e-5 (f64 1e-12). Returns the
+    max abs error of the fields."""
+    import torch
+
+    f32 = dtype == torch.float32
+    tol = 2e-6 if f32 else 1e-12
+    err = compare(f"{name} iterates/faces", (got[0], got[1]) + tuple(
+        got[2][:3]), (want[0], want[1]) + tuple(want[2][:3]), tol, tol)
+    sc = float(want[2][3].abs().max()) + 1e-30
+    err = max(err, compare(f"{name} rhs_phi", (got[2][3],), (want[2][3],),
+                           1e-4 if f32 else 1e-11,
+                           (2e-5 if f32 else 1e-11) * sc))
+    g = [float(x) for x in got[3]]
+    w = [float(x) for x in want[3]]
+    if not g[0] == g[2] == w[0] == w[2] == -1.0:
+        fail(f"{name}: residual norms {g[0]!r}, {g[2]!r} (plain {w[0]!r}, "
+             f"{w[2]!r}), expected the sentinel -1")
+    rtol_b = 1e-5 if f32 else 1e-12
+    for b in (1, 3):
+        if not abs(g[b] - w[b]) <= rtol_b * w[b]:
+            fail(f"{name}: b norm {g[b]!r} vs plain {w[b]!r} (rtol {rtol_b})")
+    return err
+
+
+def same_bits(a, b):
+    """Whether two tuples of K1 outputs (u*, T, (faces, rhs_phi)) are
+    bitwise equal."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(
+        (a[0], a[1]) + tuple(a[2]), (b[0], b[1]) + tuple(b[2])))
+
+
+def rel_diff(a, b):
+    """Largest scale-relative difference over u, p, T and the faces of
+    two states."""
+    out = 0.0
+    for x, y in zip((a.u, a.p, a.T) + tuple(a.u_faces),
+                    (b.u, b.p, b.T) + tuple(b.u_faces)):
+        out = max(out, float((x - y).abs().max()
+                             / y.abs().max().clamp_min(1e-30)))
+    return out
+
+
+def drive(model, fn):
+    """Run fn() on the model with every kernel's launch count set to 0
+    just before and read just after: (fn's result, the counts, host
+    seconds up to a synchronize)."""
+    import torch
+
+    for k in model.kernels().values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {name: k.launches for name, k in model.kernels().items()}, wall
+
+
 def short_norms(rk, args):
     """The plain version's residual norms (rn_u, rn_T) one sweep short of
     rk's iteration counts (after no sweep: |b - A x0|)."""
@@ -162,10 +244,12 @@ K4_NS = (1, 2, 5, 32, 33, 40, 600)
 
 
 def check_k1_k2(dev, shape, dtype_name):
-    """K2, then K1 at every iteration pair of PAIRS on K2's output and
-    at (3, 3) in groups of sweeps, against their plain versions on one
-    grid. Returns (K2 err, K1 err, K1 launches of one call at each, the
-    worst residual-norm ratio of check_norms)."""
+    """K2, then K1 and K1u at every iteration pair of PAIRS on K2's
+    output and at (3, 3) in groups of sweeps, against their plain
+    versions on one grid. Returns (K2 err, K1 err, K1 launches of one
+    call at each, the worst residual-norm ratio of check_norms, K1u err,
+    K1u launches of one call at each, whether K1u's outputs equal K1's
+    bitwise at every pair)."""
     import torch
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import (
@@ -186,27 +270,39 @@ def check_k1_k2(dev, shape, dtype_name):
     kT = m._scalar(m.dtype.type(BENCH_DT) * m.dtype.type(m.one_over_Pe))
     a1 = (g2[0], m._vol_t * g2[1] + kT * m._T_lap_offset_t, s.T, BENCH_DT)
     e1, nr, passes = 0.0, 0.0, []
-    for iu, iT in PAIRS:
-        rk = ShellRichardson(
+    e1u, passes_u, bitwise = 0.0, [], True
+
+    def make(iu, iT, track):
+        return ShellRichardson(
             m.geo, one_over_Re=m.one_over_Re, one_over_Pe=m.one_over_Pe,
             nse_interval=m.params.NSE_solver_interval,
             helm_diags=m.helm_diags, T_diag=m.T_diag, iters_u=iu,
-            iters_T=iT, u_specs=m.u_specs, T_specs_hom=m.T_specs_hom)
-        e, r = check_k1(f"K1 {label} iters ({iu},{iT})", rk(*a1),
-                        rk.plain(*a1), short_norms(rk, a1), m.torch_dtype)
-        e1, nr = max(e1, e), max(nr, r)
-        passes.append(len(rk.plan(m.torch_dtype)))
+            iters_T=iT, u_specs=m.u_specs, T_specs_hom=m.T_specs_hom,
+            track_residual=track)
+
     # the sweeps in groups through device memory, as for iteration
     # counts whose halo no tile's shared memory holds: (3, 3) in two
     # passes or more under a limit of 2,500 values of shared memory
     itemsize = torch.finfo(m.torch_dtype).bits // 8
-    rk.plan = lambda dtype: k1.plan(shape, itemsize, 3, 3,
-                                    smem_limit=2500 * itemsize)
-    rk.iters_u = rk.iters_T = 3
-    e, r = check_k1(f"K1 {label} iters (3,3) in groups", rk(*a1),
-                    rk.plain(*a1), short_norms(rk, a1), m.torch_dtype)
-    passes.append(len(rk.plan(m.torch_dtype)))
-    return e2, max(e1, e), passes, max(nr, r)
+    for iu, iT, grouped in [p + (False,) for p in PAIRS] + [(3, 3, True)]:
+        what = f"{label} iters ({iu},{iT}){' in groups' if grouped else ''}"
+        rk, rku = make(iu, iT, True), make(iu, iT, False)
+        if grouped:
+            for r_, track in ((rk, True), (rku, False)):
+                r_.plan = (lambda dtype, track=track: k1.plan(
+                    shape, itemsize, 3, 3, smem_limit=2500 * itemsize,
+                    track=track))
+        g1 = rk(*a1)
+        e, r = check_k1(f"K1 {what}", g1, rk.plain(*a1),
+                        short_norms(rk, a1), m.torch_dtype)
+        e1, nr = max(e1, e), max(nr, r)
+        passes.append(len(rk.plan(m.torch_dtype)))
+        g1u = rku(*a1)
+        e1u = max(e1u, check_k1u(f"K1u {what}", g1u, rku.plain(*a1),
+                                 m.torch_dtype))
+        passes_u.append(len(rku.plan(m.torch_dtype)))
+        bitwise = bitwise and same_bits(g1, g1u)
+    return e2, e1, passes, nr, e1u, passes_u, bitwise
 
 
 def check_k4(name, tk, sys4, want, tol):
@@ -275,8 +371,107 @@ def direct_params(p):
     return p
 
 
+def interval_params(p):
+    """The same configuration with `residual check interval = 4`."""
+    p.numerics.residual_check_interval = 4
+    return p
+
+
+def nse2_params(p):
+    """The same configuration with `NSE solver interval = 2`."""
+    p.NSE_solver_interval = 2
+    return p
+
+
+def replay_launches(label, model, fn, want):
+    """Run fn(), a multi_step call that replays one captured chunk, and
+    count the hand kernels it ran on the device (torch.profiler, by
+    kernel name): one replay, no kernel wrapper called (a replay goes
+    through none), and the device's counts `want`. Returns (fn's result,
+    the counts)."""
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        device_launches)
+
+    rep = model.chunk_graphs.replays
+    for k in model.kernels().values():
+        k.launches = 0
+    out, counts = device_launches(fn, model.kernels())
+    if model.chunk_graphs.replays != rep + 1:
+        fail(f"{label}: the chunk took {model.chunk_graphs.replays - rep} "
+             f"replays, expected 1")
+    called = {name: k.launches for name, k in model.kernels().items()
+              if k.launches}
+    if called:
+        fail(f"{label}: the replay called kernel wrappers {called}")
+    if counts != want:
+        fail(f"{label}: the replay ran the hand kernels {counts} times on "
+             f"the device, expected {want}")
+    return out, counts
+
+
+def graph_vs_run(label, model, s0, want, run_out=None):
+    """One path at full width as BoussinesqModel.run and as one
+    multi_step chunk of N_STEPS from the same state (a CUDA graph; the
+    first chunk captures it): both zero escalations; the run's wrapper
+    launches and the replay's device kernels (replay_launches) `want`;
+    one replay; states within 1e-6 of each other (expected bitwise); the
+    chunk's rows against the run's records. `run_out`: the run's
+    (result, launches, seconds) when the caller drove it. Returns (run
+    launches, the replay's device kernels, run ms/step, graph ms/step
+    (host clock, unprofiled), the chunk's state and rows)."""
+    import torch
+    from dycoreplanet_tpu_torch.models.presets import BENCH_DT
+
+    if run_out is None:
+        model.run(max_steps=2, state=s0)
+        run_out = drive(model, lambda: model.run(max_steps=N_STEPS,
+                                                 state=s0))
+    (s_run, hist), l_run, w_run = run_out
+    if l_run != want:
+        fail(f"{label}: run launches {l_run}, expected {want}")
+
+    def chunk():
+        s, packed, _ = model.multi_step(s0, BENCH_DT, N_STEPS)
+        return s, packed.cpu().numpy()   # the rows, one copy
+
+    model.multi_step(s0, BENCH_DT, N_STEPS)         # capture, replay
+    (s_g, rows), l_g = replay_launches(label, model, chunk, want)
+    _, _, w_g = drive(model, chunk)                 # timed, unprofiled
+    if model.escalations != 0:
+        fail(f"{label}: {model.escalations} escalation(s)")
+    for x in (s_g.u, s_g.p, s_g.T) + tuple(s_g.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{label}: the graph chunk produced non-finite fields")
+    rel = rel_diff(s_g, s_run)
+    if not rel <= 1e-6:
+        fail(f"{label}: graph chunk vs run: max rel diff {rel:.3e} > 1e-6")
+    keys = ("cfl", "max_velocity", "T_min", "T_max", "div_norm",
+            "poisson_iters", "temperature_iters")
+    rec = [[h[k] for k in keys] for h in hist]
+    same_rows = bool((rows[:, :7] == rec).all())
+    for j, (r, h) in enumerate(zip(rows, hist)):
+        if (int(r[5]), int(r[6])) != (h["poisson_iters"],
+                                      h["temperature_iters"]):
+            fail(f"{label}: row {j} iterations {r[5:7]} vs run {h}")
+        for k, v in zip(keys[:4], r[:4]):
+            if not abs(float(v) - h[k]) <= 1e-5 * abs(h[k]) + 1e-30:
+                fail(f"{label}: row {j} {k} {float(v)!r} vs run {h[k]!r}")
+        if not float(r[4]) < 1e-4:
+            fail(f"{label}: row {j} post-projection divergence {r[4]:.3e}")
+    if not (rows[:, 10] == 1.0).all():
+        fail(f"{label}: a graph step's solver_ok is 0")
+    ms_run, ms_g = w_run / N_STEPS * 1e3, w_g / N_STEPS * 1e3
+    phase(f"{label}: multi_step graph of {N_STEPS} steps vs run: max rel "
+          f"diff {rel:.3e} (bitwise {rel == 0.0}), rows == records "
+          f"{same_rows}, device kernels of the replay {l_g} (profiler; run "
+          f"wrapper launches {l_run}), 1 replay a chunk, no wrapper called, "
+          f"0 escalations; host ms/step run {ms_run:.4f}, graph {ms_g:.4f}")
+    return l_run, l_g, ms_run, ms_g, s_g, rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -286,6 +481,7 @@ def main() -> None:
         import dycoreplanet_tpu_torch
         from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
         from dycoreplanet_tpu_torch.models import BoussinesqModel
+        from dycoreplanet_tpu_torch.models.graphs import MAX_GRAPHS
         from dycoreplanet_tpu_torch.models.presets import (
             BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
         from dycoreplanet_tpu_torch.ops import forcing as k2
@@ -327,6 +523,22 @@ def main() -> None:
                   f"{r['spill_stores']}/{r['spill_loads']} bytes spill "
                   f"stores/loads, {r['smem_bytes']} bytes static smem",
                   flush=True)
+    # K1's residual-free instances: the TRACK template argument false
+    # (demangled "(bool)0" or "false", mangled "Lb0E")
+    k1u_ptxas = [r for r in ptxas["richardson.cu"]
+                 if "rich_fused" in r["kernel"]
+                 and any(k in r["kernel"] for k in ("false", "(bool)0",
+                                                     "Lb0E"))]
+    if len(k1u_ptxas) != 4:
+        fail(f"expected 4 residual-free K1 instances in richardson.cu's "
+             f"ptxas output, found {[r['kernel'] for r in k1u_ptxas]}")
+    for r in k1u_ptxas:
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"K1u instance {r['kernel']} spills")
+    phase("K1u (TRACK = false) instances: " + "; ".join(
+        f"{r['kernel']} {r['registers']} registers, "
+        f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
+        for r in k1u_ptxas))
 
     # ---- 3. kernel checks ---------------------------------------------
     dev = torch.device("cuda")
@@ -400,6 +612,39 @@ def main() -> None:
                        max_abs_err=err1, ms=ms, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None,
                        ptxas=ptxas["richardson.cu"]))
+
+    # K1u: K1's residual-free variant, as the `residual check interval =
+    # 4` model runs it between checks, on the same inputs
+    imodel = BoussinesqModel(interval_params(bench_params(BENCH_SHAPE)),
+                             device=dev)
+    rku = imodel._richardson_free
+    g1u = rku(*args1)
+    w1u = rku.plain(*args1)
+    torch.cuda.synchronize()
+    err1u = check_k1u("K1u", g1u, w1u, torch.float32)
+    # the variant leaves u*, T, the faces and rhs_phi as K1 has them
+    k1u_bitwise = same_bits(g1, g1u)
+    d_k1 = max(float((x - y).abs().max()) for x, y in zip(
+        (g1[0], g1[1]) + tuple(g1[2]), (g1u[0], g1u[1]) + tuple(g1u[2])))
+    ms, pms = time_ms(lambda: rku(*args1)), time_ms(lambda: rku.plain(*args1))
+    b_ms, b_by = bound(n_cells, k1.FIELDS_MOVED,
+                       k1.ops_per_cell(rku.iters_u, rku.iters_T, track=False))
+    plan_u = rku.plan(torch.float32)
+    phase(f"K1u richardson (residual-free): max abs err {err1u:.3e} "
+          f"(iterates/faces rtol=atol=2e-6, rhs_phi rtol 1e-4 atol 2e-5 x "
+          f"scale), norms {[float(x) for x in g1u[3]]} (sentinel -1, b "
+          f"norms rtol 1e-5), against K1's kernel max |diff| {d_k1:.3e} "
+          f"(bitwise {k1u_bitwise}); halo {plan_u[0].halo} (K1 "
+          f"{rk.plan(torch.float32)[0].halo}), kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b_ms * 1e3:.1f} us ({b_by})")
+    k1u_row = dict(name="K1u richardson_free", route="cuda",
+                   source="dycoreplanet_tpu_torch/csrc/richardson.cu",
+                   replaces="dycoreplanet_tpu/ops/pallas_richardson.py:348",
+                   variant="track_residual=False, dycoreplanet_tpu/ops/"
+                           "pallas_richardson.py:133-142, 332-337, 523-528",
+                   max_abs_err=err1u, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, ptxas=k1u_ptxas)
+    report.append(k1u_row)
 
     # K3: faces_div on the K1 iterate
     u_star = g1[0]
@@ -512,13 +757,16 @@ def main() -> None:
     # smaller than a tile, every iteration pair, f32 and f64
     for shape in (BENCH_SHAPE, (6, 20, 36), (4, 8, 16)):
         for dname in ("float32", "float64"):
-            e2, e1, passes, nr = check_k1_k2(dev, shape, dname)
+            e2, e1, passes, nr, e1u, passes_u, bits = check_k1_k2(
+                dev, shape, dname)
             report[0]["max_abs_err"] = max(report[0]["max_abs_err"], e2)
             report[1]["max_abs_err"] = max(report[1]["max_abs_err"], e1)
-            phase(f"K2 / K1 at {shape} {dname}: max abs err {e2:.3e} / "
-                  f"{e1:.3e} (K1 iteration pairs {list(PAIRS)} and (3,3) "
-                  f"in groups, launches a call {passes}; worst residual "
-                  f"norm {nr:.3g} x tol)")
+            k1u_row["max_abs_err"] = max(k1u_row["max_abs_err"], e1u)
+            phase(f"K2 / K1 / K1u at {shape} {dname}: max abs err {e2:.3e} "
+                  f"/ {e1:.3e} / {e1u:.3e} (iteration pairs {list(PAIRS)} "
+                  f"and (3,3) in groups, launches a call K1 {passes}, K1u "
+                  f"{passes_u}; worst residual norm {nr:.3g} x tol; K1u "
+                  f"bitwise equal to K1: {bits})")
 
     # the optional float64 instantiations of K3-K5, at a small grid: the
     # kernels and their plain versions then differ only by reassociation
@@ -545,14 +793,8 @@ def main() -> None:
     # two warm-up steps first: the first Poisson solve pays the BLAS
     # library's one-time set-up, which is not a per-step cost
     model.run(max_steps=2, state=s0)
-    for k in model.kernels().values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s_end, hist = model.run(max_steps=N_STEPS, state=s0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in model.kernels().items()}
+    run_out = drive(model, lambda: model.run(max_steps=N_STEPS, state=s0))
+    (s_end, hist), launches, wall = run_out
     if len(hist) != N_STEPS:
         fail(f"main path ran {len(hist)} steps, expected {N_STEPS}")
     if model.escalations != 0:
@@ -576,6 +818,89 @@ def main() -> None:
           f"(host clock incl. the per-step diagnostics read), "
           f"{n_cells / (wall / N_STEPS):.4e} grid points/s")
     by_path = {name: {"main": n} for name, n in launches.items()}
+
+    def record(label, counts):
+        for name, n in counts.items():
+            by_path.setdefault(name, {})[label] = n
+
+    # ---- 4b. the main path as multi_step: one CUDA graph a chunk -------
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.multi_step(s0, BENCH_DT, N_STEPS)     # warm-up, capture, replay
+    torch.cuda.synchronize()
+    mem_peak = torch.cuda.max_memory_allocated()
+    _, l_g, _, ms_graph, s_graph, _ = graph_vs_run(
+        "main path", model, s0, want_l, run_out)
+    replay_by_path = {name: {"graph": n} for name, n in l_g.items()}
+
+    def record_replay(label, counts):
+        for name, n in counts.items():
+            replay_by_path.setdefault(name, {})[label] = n
+
+    # without collected diagnostics: the last step's row, solver_ok the
+    # AND over the chunk; the same state. Its graph is a second key: the
+    # memory it adds is what one more kept graph costs
+    graphs = model.chunk_graphs
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    model.multi_step(s0, BENCH_DT, N_STEPS, collect_diagnostics=False)
+    torch.cuda.synchronize()
+    mem2 = torch.cuda.memory_allocated()
+
+    def no_diag():
+        return model.multi_step(s0, BENCH_DT, N_STEPS,
+                                collect_diagnostics=False)
+
+    (s_nc, packed_nc, _), l_nc = replay_launches(
+        "multi_step without diagnostics", model, no_diag, want_l)
+    _, _, w_nc = drive(model, no_diag)
+    if tuple(packed_nc.shape) != (1, 14) or float(packed_nc[0, 10]) != 1.0:
+        fail(f"multi_step without diagnostics: packed {packed_nc.tolist()}")
+    if rel_diff(s_nc, s_graph) > 1e-6:
+        fail(f"multi_step without diagnostics: rel diff "
+             f"{rel_diff(s_nc, s_graph):.3e} to the collecting chunk")
+    # the graph cap: with one graph kept, a chunk of another length is
+    # captured into the shared pool and both kept graphs are dropped, the
+    # 20-step chunk is then captured anew and drops it, and so on; the
+    # results stay the first graphs' (two chunks of 10 = one of 20)
+    n_kept, graphs.max_graphs = len(graphs), 1
+    caps = graphs.captures
+    torch.cuda.synchronize()
+    mem_kept = torch.cuda.memory_allocated()
+    s_half, _, _ = model.multi_step(s0, BENCH_DT, N_STEPS // 2,
+                                    collect_diagnostics=False)
+    s_ev, _, _ = model.multi_step(s0, BENCH_DT, N_STEPS)
+    s_two, _, _ = model.multi_step(s_half, BENCH_DT, N_STEPS // 2,
+                                   collect_diagnostics=False)
+    d_ev, d_two = rel_diff(s_ev, s_graph), rel_diff(s_two, s_graph)
+    del s_half, s_ev, s_two          # the memory of the graphs alone
+    torch.cuda.synchronize()
+    mem_one = torch.cuda.memory_allocated()
+    # dropped graphs' memory is reused, and a capture holds nothing
+    # beyond its graph (PyTorch's per-stream cuBLAS workspace: one side
+    # stream serves every capture)
+    if (graphs.captures != caps + 3 or len(graphs) != 1
+            or not d_ev <= 1e-6 or not d_two <= 1e-6
+            or mem_one > mem_kept):
+        fail(f"graph cap 1: {graphs.captures - caps} captures (expected 3), "
+             f"{len(graphs)} kept, rel diff {d_ev:.3e} (recaptured) / "
+             f"{d_two:.3e} (two chunks of {N_STEPS // 2}) to the first "
+             f"graph's state, memory {(mem_one - mem_kept) / 2**20:+.1f} "
+             f"MiB against {n_kept} kept")
+    graphs.max_graphs = MAX_GRAPHS
+    phase(f"main path as multi_step: {graphs.captures} graphs captured, "
+          f"{graphs.replays} replays; without collected diagnostics "
+          f"{w_nc / N_STEPS * 1e3:.4f} ms/step, device kernels {l_nc}, rel "
+          f"diff {rel_diff(s_nc, s_graph):.3e} to the collecting chunk; peak "
+          f"memory of the first chunk {mem_peak / 2**20:.1f} MiB "
+          f"({(mem_peak - mem0) / 2**20:.1f} MiB above the "
+          f"{mem0 / 2**20:.1f} MiB before it); the second graph (the "
+          f"second of {n_kept} kept) added {(mem2 - mem1) / 2**20:.1f} MiB; "
+          f"with 1 graph kept: 3 captures, rel diff {d_ev:.3e} recaptured, "
+          f"{d_two:.3e} as two chunks of {N_STEPS // 2}, memory against "
+          f"{n_kept} kept {(mem_one - mem_kept) / 2**20:+.1f} MiB; host "
+          f"ms/step run {ms_step:.4f}, graph {ms_graph:.4f}")
 
     # ---- 5. escalated path --------------------------------------------
     s_fast, d_fast = model.step(s_end, BENCH_DT)
@@ -604,16 +929,40 @@ def main() -> None:
     for name, n in delta.items():
         by_path[name]["escalated"] = n
 
+    # a forced miss inside a multi_step chunk: a fresh model whose
+    # fast-diagonalization constant is corrupted, so that the Poisson
+    # spot-check fails on the first step; the chunk (a graph) misses and
+    # is redone with full CG from the original state
+    fm = BoussinesqModel(bench_params(BENCH_SHAPE), device=dev)
+    fm.poisson_spectral._inv_denom = 3.0 * fm.poisson_spectral._inv_denom
+    fm.poisson_spectral.to(dev)
+    sf = seed_developed_flow(fm)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        s_fm, rows_fm, _ = fm.multi_step(sf, BENCH_DT, 4)
+    if fm.escalations != 1 or not warned:
+        fail(f"forced miss: {fm.escalations} escalation(s), "
+             f"{len(warned)} warning(s), expected 1 and 1")
+    if fm.chunk_graphs is None or fm.chunk_graphs.replays != 1:
+        fail("forced miss: the fast chunk did not run as a graph")
+    if not bool((rows_fm[:, 10] == 1).all()):
+        fail("forced miss: the CG chunk did not converge")
+    w_fm = sf
+    for _ in range(4):
+        w_fm, _ = fm.step_strong(w_fm, BENCH_DT)
+    rel_fm = rel_diff(s_fm, w_fm)
+    if not rel_fm <= 1e-6:
+        fail(f"forced miss: the CG chunk vs a step_strong loop: rel diff "
+             f"{rel_fm:.3e} > 1e-6")
+    phase(f"forced miss in a multi_step chunk of 4: 1 escalation, the chunk "
+          f"redone with CG (poisson iters {rows_fm[:, 5].tolist()}), vs a "
+          f"step_strong loop max rel diff {rel_fm:.3e}")
+    del fm, sf, s_fm, w_fm
+
     # ---- 6. direct-Helmholtz path -------------------------------------
     dmodel.run(max_steps=2, state=ds0)
-    for k in dmodel.kernels().values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ds_end, dhist = dmodel.run(max_steps=N_STEPS, state=ds0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    dl = {name: k.launches for name, k in dmodel.kernels().items()}
+    drun = drive(dmodel, lambda: dmodel.run(max_steps=N_STEPS, state=ds0))
+    (ds_end, dhist), dl, wall = drun
     if len(dhist) != N_STEPS:
         fail(f"direct path ran {len(dhist)} steps, expected {N_STEPS}")
     if dmodel.escalations != 0:
@@ -661,20 +1010,67 @@ def main() -> None:
     phase(f"direct path: step_strong launches {delta}, poisson CG iters "
           f"{dd_strong.poisson_iters}; rel |u_direct - u_cg| {rel:.3e} "
           f"(tol {tol:.3e})")
+    _, l_dg, _, _, _, _ = graph_vs_run("direct path", dmodel, ds0, want_dl,
+                                       drun)
+    record_replay("direct_graph", l_dg)
+
+    # `residual check interval = 4`: K1 with its tracked residuals on
+    # steps 0, 4, ..., K1u between them
+    want_il = {"forcing": N_STEPS, "richardson": N_STEPS // 4,
+               "richardson_free": N_STEPS - N_STEPS // 4, "faces_div": 0,
+               "correct": N_STEPS, "tridiag": 0}
+    l_ir, l_ig, _, _, _, irows = graph_vs_run(
+        "residual check interval 4", imodel, s0, want_il)
+    checked = np.arange(N_STEPS) % 4 == 0
+    for slot, what in ((7, "helmholtz"), (9, "temperature")):
+        if not ((irows[~checked, slot] == -1.0).all()
+                and (irows[checked, slot] >= 0.0).all()):
+            fail(f"residual check interval 4: {what} residuals "
+                 f"{irows[:, slot].tolist()}, expected -1 on the unchecked "
+                 f"steps only")
+    phase(f"residual check interval 4: helmholtz residuals of the chunk "
+          f"{irows[:, 7].tolist()} (-1: not checked)")
+    record("interval", l_ir)
+    record_replay("interval_graph", l_ig)
+
+    # `NSE solver interval = 2`: every other step a temperature substep
+    nmodel = BoussinesqModel(nse2_params(bench_params(BENCH_SHAPE)),
+                             device=dev)
+    half = N_STEPS // 2
+    want_nl = {"forcing": half, "richardson": half, "faces_div": 0,
+               "correct": half, "tridiag": 0}
+    l_nr, l_ng, _, _, _, nrows = graph_vs_run(
+        "NSE solver interval 2", nmodel, s0, want_nl)
+    if not (nrows[1::2, 5] == 0).all():
+        fail("NSE solver interval 2: a temperature substep reports "
+             "Poisson iterations")
+    record("nse2", l_nr)
+    record_replay("nse2_graph", l_ng)
+    del nmodel
 
     # ---- 7. CLI --------------------------------------------------------
     classic = os.path.join(HERE, "data",
                            "aqua_planet_shell_test_3d-classic.prm")
     with tempfile.TemporaryDirectory() as tmp:
-        direct_prm = os.path.join(tmp, "classic-direct.prm")
-        with open(classic) as f, open(direct_prm, "w") as g:
-            # a subsection read again merges into the first one
-            g.write(f.read() + "\nsubsection Numerics\n"
-                    "  set helmholtz solver = direct\nend\n")
-        for label, prm in (("classic", classic), ("direct", direct_prm)):
+        extra = {"direct": "subsection Numerics\n"
+                           "  set helmholtz solver = direct\nend\n",
+                 "fixed-dt": "subsection Boussinesq Model\n"
+                             "  set adapt time step = false\n"
+                             "  set final time = 10\nend\n"}
+        prms = {}
+        for label, text in extra.items():
+            prms[label] = os.path.join(tmp, f"classic-{label}.prm")
+            with open(classic) as f, open(prms[label], "w") as g:
+                # a subsection read again merges into the first one
+                g.write(f.read() + "\n" + text)
+        for label, prm, chunk in (
+                ("classic", classic, []), ("direct", prms["direct"], []),
+                ("classic --chunk 4", classic, ["--chunk", "4"]),
+                ("fixed dt --chunk 4", prms["fixed-dt"], ["--chunk", "4"])):
+            steps = "8" if chunk else "3"
             cli = subprocess.run(
                 [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm,
-                 "--max-steps", "3", "--no-output"],
+                 "--max-steps", steps, "--no-output"] + chunk,
                 cwd=HERE, capture_output=True, text=True, timeout=600)
             if cli.returncode != 0:
                 fail(f"CLI ({label}) rc {cli.returncode}:\n"
@@ -685,14 +1081,19 @@ def main() -> None:
                   f"{div_lines[-1] if div_lines else 'none'})")
 
     # ---- 8. report -----------------------------------------------------
-    # launches: the count on the path the kernel serves (K1, K2, K5: the
-    # main path; K3, K4: the direct path), and the count on every path
+    # launches: the wrappers' count on the path the kernel serves (K1,
+    # K2, K5: the main path; K3, K4: the direct path; K1u: interval
+    # mode), and on every eager path; replay_launches_by_path: the
+    # device kernels torch.profiler counted in one replay of each path's
+    # 20-step graph
     own = {"richardson": "main", "forcing": "main", "correct": "main",
-           "faces_div": "direct", "tridiag": "direct"}
+           "faces_div": "direct", "tridiag": "direct",
+           "richardson_free": "interval"}
     for r in report:
         name = r["name"].split()[1]
         r["launches"] = by_path[name][own[name]]
         r["launches_by_path"] = by_path[name]
+        r["replay_launches_by_path"] = replay_by_path[name]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ source/main.cxx:20-159): ``-p`` parameter file (a template is written
 and the run aborts if it is missing), the dimensionless-number table,
 per-step diagnostics and timer summaries, catch-all error reporting.
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
-VTK output, checkpoints and ``--chunk`` are not ported yet and refused
+``--chunk N`` advances N steps per ``multi_step`` call (a CUDA graph on
+the card when dt is fixed) and pulls the chunk's diagnostics to the host
+in one copy. VTK output and checkpoints are not ported yet and refused
 (ROADMAP.md).
 """
 
@@ -62,7 +64,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-output", action="store_true",
                         help="skip VTK output (required: not ported yet)")
     parser.add_argument("--chunk", type=int, default=1,
-                        help="steps per on-device chunk (not ported yet)")
+                        help="steps per multi_step chunk (one CUDA graph "
+                             "replay on the card when dt is fixed)")
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="checkpoint every N steps (not ported yet)")
     parser.add_argument("--restart", default=None,
@@ -98,9 +101,6 @@ def main(argv=None) -> int:
             raise ValueError(
                 "no direct solver implemented. Aborting. "
                 "(reference parity: boussinesq_model.tpp:1886-1894 throws)")
-        if args.chunk > 1:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP.md: multi_step / --chunk)")
         return _run(params, args)
     except Exception as exc:  # reference main.cxx:128-156 catch-all
         print("----------------------------------------------------",
@@ -132,6 +132,12 @@ def _run(params, args) -> int:
     def sync():
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
+
+    if args.chunk > 1:
+        rc = _run_chunked(params, args, model, state, timers)
+        print("----------------------------------------")
+        print(timers.summary())
+        return rc
 
     dt = params.time_step
     time_index = 0.0
@@ -175,4 +181,46 @@ def _run(params, args) -> int:
 
     print("----------------------------------------")
     print(timers.summary())
+    return 0
+
+
+def _run_chunked(params, args, model, state, timers) -> int:
+    """``--chunk N`` steps per ``multi_step`` call, with adaptive dt and
+    NSE-interval sub-cycling inside the chunk: one device->host copy of
+    the chunk's diagnostics replaces the per-step reads of the
+    reference-style loop (the JAX package's ``_run_chunked``)."""
+    from dycoreplanet_tpu_torch.models.boussinesq import StepDiagnostics
+
+    dt = params.time_step
+    time_index = 0.0
+    n = 0
+    while time_index <= params.final_time:
+        chunk = args.chunk
+        if args.max_steps is not None:
+            chunk = min(chunk, args.max_steps - n)
+            if chunk <= 0:
+                break
+        with timers.scope("step: NSE + temperature solve (chunked)"):
+            # multi_step redoes the chunk with full CG if any
+            # fixed-iteration solve missed its tolerance (reference
+            # NoConvergence retry, tpp:1203-1232)
+            state, packed, dt_out = model.multi_step(
+                state, dt, chunk, collect_diagnostics=True,
+                adaptive=params.adapt_time_step)
+            rows = packed.cpu().numpy()       # one copy for the chunk
+        for j in range(chunk):
+            d = StepDiagnostics(rows[j], 3)
+            print("----------------------------------------")
+            print(f"Time step {n + j} "
+                  f"(dt carried in the chunk | final time={params.final_time})")
+            print(f"   Max of local CFL numbers: {d.cfl:.6g}")
+            print(f"   Max velocity (dimensionless): {d.max_velocity:.6g}")
+            print(f"   Temperature range: [{d.T_min:.6g}, {d.T_max:.6g}]")
+            print(f"   Post-projection max |div u|: {d.div_norm:.3g}")
+        dt = float(dt_out)
+        time_index = float(state.time)
+        n += chunk
+        if params.adapt_time_step:
+            print(f"   New time step (dimensionless): {dt:.6g}")
+        print(timers.summary())
     return 0

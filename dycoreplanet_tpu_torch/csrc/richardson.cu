@@ -47,6 +47,17 @@
 // Iteration counts whose halo does not fit shared memory run as several
 // passes (groups of sweeps); the iterates and the tracked residuals go
 // through device memory between passes.
+//
+// TRACK = false is the residual-free variant (the JAX kernel's
+// track_residual=False, pallas_richardson.py:133-142): the steps between
+// two honesty checks (`residual check interval` > 1) skip each system's
+// last residual update r <- r - A (r/D) and the residual sums. The
+// iterates, faces and right-hand side are the tracked kernel's, the
+// b-norm partials and the right-hand side total are still summed, and
+// the last pass stages the smaller halo max(iters_u + 1, iters_T): u*
+// needs one ring beyond the tile for the faces, T none. At (1, 1)
+// iterations both stage a halo of 2, and a cell takes 4 operator applies
+// (one per channel) instead of 8.
 #include "shell_common.cuh"
 
 namespace {
@@ -149,8 +160,9 @@ __device__ __forceinline__ void block_sum5(T& a, T& b, T& c, T& d, T& e,
 
 // kRB, kTL, kTO, kE: the tile and halo as compile-time constants (the
 // bench's plan, so that box strides and divisions fold), or 0 to take
-// them from the pass at run time (every other plan)
-template <typename T, int kRB, int kTL, int kTO, int kE>
+// them from the pass at run time (every other plan). TRACK: the exactly
+// tracked residuals, or the residual-free variant (see the top)
+template <typename T, int kRB, int kTL, int kTO, int kE, bool TRACK>
 __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ bool is_last;
@@ -316,6 +328,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
                  }
                });
       __syncthreads();
+      // residual-free: the last sweep of the last pass leaves r as it is
+      if (!TRACK && P.last && s == n) break;
       for_rows<THREADS>(RA - 2 * s, RBx - 2 * s, RC - 2 * s,
                [&](int a, int b, int c0, int len) {
                  const int t = (a + s + 1) * XB + b + s + 1;
@@ -356,10 +370,10 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
           s_bT += bv * bv;
       }
       if (!mom) {
-        s_rT += r * r;
+        if (TRACK) s_rT += r * r;
         return;
       }
-      s_ru += r * r;
+      if (TRACK) s_ru += r * r;
       T f, aq_up, a_lo;
       T* fout;
       if (q == 0) {
@@ -447,7 +461,7 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
            double iRe, double iPe, double dt_T_factor, int n_u, int n_T,
            int last, T* xu_out, T* xT_out, T* ru_out, T* rT_out, T* f0,
            T* f1, T* f2, T* rhs_raw, T* parts, unsigned* counter, T* sums,
-           void* stream) {
+           int track, void* stream) {
   // the bench's plan runs a compile-time instance, which takes about 12%
   // less time on an H100 than the run-time-tiled one on the same plan
   // (PERF.md, Findings); -DK1_RUNTIME_TILE (scripts/probe_k1_k2.py) runs
@@ -458,13 +472,17 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   const bool bench = RB == 8 && TL == 8 && TO == 32 && E == 2;
 #endif
   void (*kernel)(const Pass<T>) =
-      bench ? rich_fused<T, 8, 8, 32, 2> : rich_fused<T, 0, 0, 0, 0>;
-  static int smem_set[2] = {48 * 1024, 48 * 1024};
-  if (smem_bytes > smem_set[bench]) {
+      track ? (bench ? rich_fused<T, 8, 8, 32, 2, true>
+                     : rich_fused<T, 0, 0, 0, 0, true>)
+            : (bench ? rich_fused<T, 8, 8, 32, 2, false>
+                     : rich_fused<T, 0, 0, 0, 0, false>);
+  const int v = 2 * (track != 0) + bench;
+  static int smem_set[4] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+  if (smem_bytes > smem_set[v]) {
     int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err) return err;
-    smem_set[bench] = smem_bytes;
+    smem_set[v] = smem_bytes;
   }
   Pass<T> P;
   P.g = Dims{nr, nlat, nlon};
@@ -516,11 +534,12 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
                       double dt, double iRe, double iPe, double dt_T_factor,   \
                       int n_u, int n_T, int last, T* xu_out, T* xT_out,        \
                       T* ru_out, T* rT_out, T* f0, T* f1, T* f2, T* rhs_raw,   \
-                      T* parts, unsigned* counter, T* sums, void* stream) {    \
+                      T* parts, unsigned* counter, T* sums, int track,         \
+                      void* stream) {                                          \
     return launch<T>(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD,       \
                      xu_in, xT_in, rhs_u, rhs_T, ru_in, rT_in, dt, iRe, iPe,   \
                      dt_T_factor, n_u, n_T, last, xu_out, xT_out, ru_out,      \
-                     rT_out, f0, f1, f2, rhs_raw, parts, counter, sums,        \
+                     rT_out, f0, f1, f2, rhs_raw, parts, counter, sums, track, \
                      stream);                                                  \
   }
 

@@ -1,15 +1,84 @@
-"""Device time of one call of a function that enqueues CUDA work.
+"""Device time of one call of a function that enqueues CUDA work, and the
+hand-written kernels it runs on the device.
 
-Used by ``chip_smoke.py`` and ``scripts/probe_k1_k2.py``.
+Used by ``chip_smoke.py``, ``scripts/probe_k1_k2.py``,
+``scripts/probe_replay_counts.py`` and ``scripts/profile_torch_step.py``.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Dict, Iterable, Optional
 
 import torch
 
 _CYCLES_PER_MS = []
+
+# host seconds of device idle kept on either side of a profiled call
+# (scripts/probe_replay_counts.py)
+PAD_S = 0.05
+
+# the device kernel each wrapper of BoussinesqModel.kernels() launches, by
+# a part of its name (K3's wrapper also launches a reduce_partials kernel,
+# K1's and K1u's instances differ in their TRACK template argument)
+KERNEL_NAMES = {"forcing": "forcing_kernel", "richardson": "rich_fused",
+                "faces_div": "faces_div_kernel", "correct": "correct_kernel",
+                "tridiag": "thomas_"}
+
+
+def wrapper_of(kernel: str) -> Optional[str]:
+    """The name in ``BoussinesqModel.kernels()`` of the wrapper that
+    launches the device kernel named ``kernel``, or None."""
+    for wrapper, part in KERNEL_NAMES.items():
+        if part in kernel:
+            if wrapper == "richardson":
+                tail = kernel.split(part, 1)[1].split(">", 1)[0]
+                if "false" in tail or "(bool)0" in tail:
+                    return "richardson_free"
+            return wrapper
+    return None
+
+
+def profiled(fn, pad_s: float = PAD_S):
+    """Run fn() under torch.profiler, the device idle for ``pad_s``
+    seconds of host time on either side of it: (fn's result, the
+    profiler). The profiler keeps only the device activities whose
+    times, as converted to the host's clock, fall inside its window, and
+    that conversion has put kernels milliseconds before the call that
+    launched them: unpadded, the first kernels of fn can be lost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return out, prof
+
+
+def count_kernels(prof, names: Iterable[str]) -> Dict[str, int]:
+    """The hand-written kernels of a profile, by wrapper name: {name:
+    count} for every name of ``names``."""
+    from torch.autograd import DeviceType
+
+    counts: Dict[str, int] = {name: 0 for name in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            w = wrapper_of(e.name)
+            if w in counts:
+                counts[w] += 1
+    return counts
+
+
+def device_launches(fn, names: Iterable[str]):
+    """Run fn() under torch.profiler and count the hand-written kernels
+    that ran on the device, by wrapper name: (fn's result, {name:
+    count} for every name of ``names``). Unlike the wrappers' own
+    ``launches``, this counts the kernels a CUDA graph replay runs."""
+    out, prof = profiled(fn)
+    return out, count_kernels(prof, names)
 
 
 def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:

@@ -26,6 +26,17 @@ model's ``_explicit_forcing`` and ``_advected_temperature`` are
 ``ShellForcing.explicit_forcing`` / ``.advected_temperature`` here, the
 plain version of K2 (ops/forcing.py).
 
+With ``residual check interval`` = M > 1 the tracked K1 (and its gate)
+runs on every M-th step and K1's residual-free variant K1u in between
+(residual norms -1, "not checked"); ``run`` then rewinds a missed check
+over the unchecked window. With ``NSE solver interval`` > 1 the steps
+between NSE solves are temperature-only substeps
+(``temperature_step``: plain PyTorch transport and a Richardson, CG or
+direct temperature solve, as in the JAX package). ``multi_step`` runs a
+chunk of steps with the chunk-level gate and escalation; on the card a
+chunk with a fixed dt that runs no CG is one replay of a captured CUDA
+graph (models/graphs.py).
+
 This slice runs the 3D spherical shell, standard (advective)
 personality, incremental projection, with the Richardson/CG or the
 direct Helmholtz solves. Every other configuration raises
@@ -35,7 +46,9 @@ another path.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -57,6 +70,7 @@ from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues)
 from dycoreplanet_tpu_torch.solvers.cg import cg
+from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
 from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
 
@@ -77,29 +91,17 @@ class StepDiagnostics:
     for slot as in the JAX package: [cfl, max|u|, T_min, T_max,
     max|div u|, poisson_iters, temperature_iters, helmholtz_residual,
     poisson_residual, temperature_residual, solver_ok, helmholtz_iters
-    x3]. The host pays one device->host copy when a field is first
-    read. Iteration counts / residuals of -1 mean "direct solve, not
-    measured"."""
+    x3] (``BoussinesqModel._pack``). The host pays one device->host
+    copy when a field is first read; a host row (numpy, one row of a
+    multi_step chunk already pulled) is read as it is. Iteration counts
+    / residuals of -1 mean "direct solve, not measured" or, for the
+    residuals in interval mode, "not checked on this step"."""
 
-    def __init__(self, packed: torch.Tensor, dim: int):
+    def __init__(self, packed, dim: int):
         self.packed = packed
         self._dim = dim
-        self._host_vals: Optional[np.ndarray] = None
-
-    @staticmethod
-    def pack(cfl, max_velocity, T_min, T_max, div_norm, poisson_iters,
-             temperature_iters, helmholtz_iters, helmholtz_residual=0.0,
-             poisson_residual=0.0, temperature_residual=0.0,
-             solver_ok=1.0, device=None) -> torch.Tensor:
-        def f32(v):
-            return torch.as_tensor(v, device=device).to(
-                torch.float32).reshape(())
-        head = [f32(v) for v in (
-            cfl, max_velocity, T_min, T_max, div_norm, poisson_iters,
-            temperature_iters, helmholtz_residual, poisson_residual,
-            temperature_residual, solver_ok)]
-        helm = [f32(v) for v in helmholtz_iters]
-        return torch.stack(head + helm)
+        self._host_vals: Optional[np.ndarray] = (
+            packed if isinstance(packed, np.ndarray) else None)
 
     def _h(self) -> np.ndarray:
         if self._host_vals is None:
@@ -171,11 +173,6 @@ def _unsupported(params: Parameters) -> Optional[str]:
         return f"remaining solvers: poisson solver = {num.poisson_solver}"
     if num.temperature_advection == "semi-lagrangian":
         return "semi-Lagrangian temperature transport"
-    if num.residual_check_interval > 1:
-        return ("residual check interval > 1 (K1 without residual "
-                "tracking, with the rewind)")
-    if params.NSE_solver_interval > 1:
-        return "NSE solver interval > 1 temperature substeps"
     if (num.helmholtz_solver != "direct" and num.fixed_solver_iters <= 0
             and num.momentum_fixed_iters > 0):
         return ("remaining solvers: momentum fixed iters > 0 with fixed "
@@ -210,6 +207,7 @@ class BoussinesqModel:
                 f"not ported yet (ROADMAP.md: {item})")
         self.device = resolve_device(device)
         self.params = params
+        self._consts: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
         self.geo = geometry if geometry is not None else make_geometry(params)
         if self.geo.kind != "shell":
             raise NotImplementedError(
@@ -264,6 +262,24 @@ class BoussinesqModel:
                 iters_u=self.momentum_iters,
                 iters_T=num.fixed_solver_iters,
                 u_specs=self.u_specs, T_specs_hom=self.T_specs_hom)
+        # residual-free variant [K1u] for the steps between honesty
+        # checks (`residual check interval` > 1): the same iterates, fewer
+        # stencil applies, residual norms -1
+        self._richardson_free = None
+        if (self._richardson is not None
+                and num.residual_check_interval > 1):
+            self._richardson_free = ShellRichardson(
+                geo, one_over_Re=self.one_over_Re,
+                one_over_Pe=self.one_over_Pe,
+                nse_interval=params.NSE_solver_interval,
+                helm_diags=self.helm_diags, T_diag=self.T_diag,
+                iters_u=self.momentum_iters,
+                iters_T=num.fixed_solver_iters,
+                u_specs=self.u_specs, T_specs_hom=self.T_specs_hom,
+                track_residual=False)
+        # the CUDA graphs of multi_step's chunks (models/graphs.py),
+        # made at the first chunk on the card
+        self.chunk_graphs = None
         # True: every solve of the step takes the full CG path (the
         # strong retry of the host-level NoConvergence handling)
         self._force_cg = False
@@ -285,11 +301,56 @@ class BoussinesqModel:
                "tridiag": self._tridiag}
         if self._richardson is not None:
             out["richardson"] = self._richardson
+        if self._richardson_free is not None:
+            out["richardson_free"] = self._richardson_free
         return out
+
+    def _prepare_dt(self, dt: float) -> None:
+        """Fill the dt-dependent tables the step reads (K1's 1/D tables)
+        for ``dt`` on the model's device: a CUDA graph captured with this
+        dt calls it before each replay (models/graphs.py)."""
+        for rk in (self._richardson, self._richardson_free):
+            if rk is not None:
+                rk.tables(self._scalar(dt), self.device, self.torch_dtype)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.array(a), dtype=self.torch_dtype,
                                device=self.device)
+
+    def _const(self, value, dtype=torch.float32) -> torch.Tensor:
+        """A 0-d device constant, made once (by a fill kernel, no host
+        copy) and reused: the step's Python numbers (iteration counts,
+        sentinels) reach the packed diagnostics through these, so that a
+        step can be captured into a CUDA graph. A graph's warm-up makes
+        every constant its capture reads; one first asked for during a
+        capture would hold nothing until a replay, so that raises."""
+        key = (float(value), dtype)
+        t = self._consts.get(key)
+        if t is None:
+            if (self.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"constant {value!r} first made during a CUDA graph "
+                    "capture (the warm-up did not reach it)")
+            t = torch.full((), float(value), dtype=dtype, device=self.device)
+            self._consts[key] = t
+        return t
+
+    def _f32(self, v) -> torch.Tensor:
+        """One slot of the packed diagnostics: a 0-d float32 tensor."""
+        if not torch.is_tensor(v):
+            return self._const(v)
+        return v.to(torch.float32).reshape(())
+
+    def _pack(self, cfl, max_velocity, T_min, T_max, div_norm,
+              poisson_iters, temperature_iters, helmholtz_iters,
+              helmholtz_residual=0.0, poisson_residual=0.0,
+              temperature_residual=0.0, solver_ok=1.0) -> torch.Tensor:
+        """The packed diagnostics vector (slot order: StepDiagnostics)."""
+        return torch.stack([self._f32(v) for v in (
+            cfl, max_velocity, T_min, T_max, div_norm, poisson_iters,
+            temperature_iters, helmholtz_residual, poisson_residual,
+            temperature_residual, solver_ok, *helmholtz_iters)])
 
     def _scalar(self, x) -> float:
         """A Python float holding ``x`` rounded to the working dtype."""
@@ -418,13 +479,22 @@ class BoussinesqModel:
             for c in range(3))
 
     # ------------------------------------------------------------------
-    def _step_body(self, state: State, dt: float):
+    def _dt_T(self, dt: float) -> float:
+        """The temperature substep dt / NSE solver interval, rounded to
+        the working dtype (the step's time increment)."""
+        return self._scalar(self._scalar(dt) / self.params.NSE_solver_interval)
+
+    def _step_impl(self, state: State, dt: float, full: bool = True):
+        """One NSE step. Returns (new_state, packed diagnostics, ok): ok
+        is the gate's verdict as a 0-d float32 tensor (1 or 0). With
+        ``full=False`` only the gate's reductions run and packed is None
+        (the earlier steps of a multi_step chunk without diagnostics)."""
         geo = self.geo
         p = self.params
         vol = self._vol_t
         u, u_faces, pres, T = state.u, state.u_faces, state.p, state.T
         dt = self._scalar(dt)
-        dt_T = self._scalar(dt / p.NSE_solver_interval)
+        dt_T = self._dt_T(dt)
 
         # ---------------- explicit forcing from step n [K2] -----------
         rhs_u, T_adv = self._forcing(u, u_faces, T, pres, dt)
@@ -436,11 +506,22 @@ class BoussinesqModel:
             # fused implicit stage [K1]: both Richardson solves + the
             # projection head
             rk = self._richardson
+            if (self._richardson_free is not None and state.step_number
+                    % p.numerics.residual_check_interval != 0):
+                # `residual check interval` = M > 1: the tracked
+                # residuals and their gate run on every M-th step; in
+                # between the residual-free variant [K1u] reports -1
+                rk = self._richardson_free
             u_star, T_new, prefused, (rn_u, bn_u, rn_T, bn_T) = \
                 rk(rhs_u, rhs_T, T, dt)
             eps16 = 16.0 * float(np.finfo(self.dtype).eps)
-            helm_ok = rn_u <= max(p.numerics.helmholtz_tol, eps16) * bn_u
-            T_ok = rn_T <= max(p.numerics.temperature_tol, eps16) * bn_T
+            # rn < 0: not checked on this step (interval mode)
+            helm_ok = torch.logical_or(
+                rn_u < 0,
+                rn_u <= max(p.numerics.helmholtz_tol, eps16) * bn_u)
+            T_ok = torch.logical_or(
+                rn_T < 0,
+                rn_T <= max(p.numerics.temperature_tol, eps16) * bn_T)
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt,
                                                   prefused=prefused)
@@ -455,43 +536,84 @@ class BoussinesqModel:
             T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
                 rhs_T, kT, T)
 
+        new_state = State(u=u_new, u_faces=tuple(new_faces), p=p_new,
+                          T=T_new, time=state.time + dt_T,
+                          step_number=state.step_number + 1)
+        ok = torch.logical_and(momentum_ok, T_ok)
+        if not full:
+            return new_state, None, self._f32(ok)
         # ---------------- diagnostics ----------------------------------
         speed = st.cell_max_speed(geo, u_new)
         cfl = torch.max(torch.clamp(speed, min=1e-10) / self._diameter_t)
         div_new = st.divergence(geo, new_faces)
-        packed = StepDiagnostics.pack(
+        packed = self._pack(
             cfl, torch.max(speed), torch.min(T_new), torch.max(T_new),
             torch.max(torch.abs(div_new)), poisson_iters, T_iters,
             helm_iters, helmholtz_residual=helm_rnorm,
             poisson_residual=poisson_rnorm, temperature_residual=T_rnorm,
-            solver_ok=torch.logical_and(momentum_ok, T_ok),
-            device=self.device)
-        new_state = State(u=u_new, u_faces=tuple(new_faces), p=p_new,
-                          T=T_new, time=state.time + dt_T,
-                          step_number=state.step_number + 1)
-        return new_state, StepDiagnostics(packed, 3)
+            solver_ok=ok)
+        return new_state, packed, packed[10]
+
+    def _temperature_step_impl(self, state: State, dt: float,
+                               full: bool = True):
+        """Temperature-only substep with the velocity frozen — the steps
+        between NSE solves when ``NSE solver interval`` > 1 (JAX model:
+        ``_temperature_step_body``; reference: the run loop solves the
+        NSE every interval-th step and the temperature every step,
+        boussinesq_model.tpp:1875-1905). Plain PyTorch transport and the
+        temperature solve (Richardson, CG or direct), as in the JAX
+        package, which runs no Pallas kernel here. Returns as
+        ``_step_impl``."""
+        geo = self.geo
+        T = state.T
+        dt_T = self._dt_T(dt)
+        T_adv = self._forcing.advected_temperature(state.u_faces, T, dt_T)
+        kT = self._scalar(self.dtype.type(dt_T)
+                          * self.dtype.type(self.one_over_Pe))
+        rhs_T = self._vol_t * T_adv + kT * self._T_lap_offset_t
+        T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+            rhs_T, kT, T)
+        new_state = state._replace(T=T_new, time=state.time + dt_T,
+                                   step_number=state.step_number + 1)
+        if not full:
+            return new_state, None, self._f32(T_ok)
+        speed = st.cell_max_speed(geo, state.u)
+        packed = self._pack(
+            torch.max(torch.clamp(speed, min=1e-10) / self._diameter_t),
+            torch.max(speed), torch.min(T_new), torch.max(T_new),
+            torch.max(torch.abs(st.divergence(geo, list(state.u_faces)))),
+            0, T_iters, [0] * 3, temperature_residual=T_rnorm,
+            solver_ok=T_ok)
+        return new_state, packed, packed[10]
 
     # ------------------------------------------------------------------
     def _solve_temperature_system(self, rhs_T, kT, x0):
         """(vol - kT * weak_lap_hom) T = rhs_T, direct when configured,
-        else by Jacobi-CG (reference: temperature CG at 1e-12*rhs,
-        tpp:1426-1440). Returns (T_new, iterations, residual_norm,
-        converged); -1 = direct, not measured."""
+        else by fixed-iteration Jacobi-Richardson (``fixed solver iters``
+        > 0, not under ``_force_cg``) or Jacobi-CG (reference:
+        temperature CG at 1e-12*rhs, tpp:1426-1440). Returns (T_new,
+        iterations, residual_norm, converged); -1 = direct, not
+        measured."""
         if self.temperature_direct is not None:
             T_new = self.temperature_direct.solve(rhs_T[None], kT)[0]
-            return (T_new, -1, torch.tensor(-1.0, device=self.device),
-                    torch.tensor(True, device=self.device))
+            return (T_new, -1, self._const(-1.0),
+                    self._const(True, torch.bool))
         geo = self.geo
         vol = self._vol_t
+        num = self.params.numerics
         diag_T = vol + kT * self._T_diag_t
 
         def temp_op(x):
             return vol * x - kT * st.weak_laplacian(geo, x, self.T_specs_hom)
 
-        res = cg(temp_op, rhs_T, x0=x0,
-                 rtol=self.params.numerics.temperature_tol,
-                 maxiter=self.params.numerics.max_cg_iters,
-                 preconditioner=lambda r: r / diag_T)
+        k_fix = 0 if self._force_cg else num.fixed_solver_iters
+        if k_fix > 0:
+            res = richardson_solve(temp_op, rhs_T, x0, diag=diag_T,
+                                   iters=k_fix, rtol=num.temperature_tol)
+        else:
+            res = cg(temp_op, rhs_T, x0=x0, rtol=num.temperature_tol,
+                     maxiter=num.max_cg_iters,
+                     preconditioner=lambda r: r / diag_T)
         return res.x, res.iterations, res.residual_norm, res.converged
 
     def _solve_pressure_poisson(self, rhs_phi):
@@ -502,8 +624,8 @@ class BoussinesqModel:
         solve (replaced by the spot-check in _project_velocity)."""
         if not self._force_cg:
             phi, iters = self.poisson_spectral.solve(rhs_phi)
-            return (phi, iters, torch.tensor(-1.0, device=self.device),
-                    torch.tensor(True, device=self.device))
+            return (phi, iters, self._const(-1.0),
+                    self._const(True, torch.bool))
         res = cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
                  rhs_phi, rtol=self.params.numerics.poisson_tol,
                  maxiter=self.params.numerics.max_cg_iters,
@@ -524,8 +646,7 @@ class BoussinesqModel:
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt)
             return (u_new, p_new, new_faces, [-1] * 3, poisson_iters,
-                    torch.tensor(-1.0, device=self.device), poisson_rnorm,
-                    poisson_ok)
+                    self._const(-1.0), poisson_rnorm, poisson_ok)
 
         def helm_op(x):
             return vol[None] * x - coef * torch.stack([
@@ -595,25 +716,147 @@ class BoussinesqModel:
                 poisson_ok)
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _strong(self, on: bool = True):
+        """Every solve inside takes the full CG path (``on``)."""
+        old = self._force_cg
+        self._force_cg = old or on
+        try:
+            yield
+        finally:
+            self._force_cg = old
+
     def step(self, state: State, dt: float):
         """One time step; returns (new_state, diagnostics). Diagnostics
         stay on the device until a field is read (one packed copy)."""
-        return self._step_body(state, dt)
+        new_state, packed, _ = self._step_impl(state, dt)
+        return new_state, StepDiagnostics(packed, 3)
 
     def step_strong(self, state: State, dt: float):
         """Redo one step with the full CG solves — the escalation taken
         when ``diagnostics.solver_ok`` is False on the fast path
         (reference: boussinesq_model.tpp:1203-1232)."""
-        old = self._force_cg
-        self._force_cg = True
-        try:
-            return self._step_body(state, dt)
-        finally:
-            self._force_cg = old
+        with self._strong():
+            new_state, packed, _ = self._step_impl(state, dt)
+        return new_state, StepDiagnostics(packed, 3)
 
-    def multi_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md: multi_step / --chunk)")
+    def temperature_step(self, state: State, dt: float):
+        """One temperature-only substep (``NSE solver interval`` > 1)."""
+        new_state, packed, _ = self._temperature_step_impl(state, dt)
+        return new_state, StepDiagnostics(packed, 3)
+
+    def temperature_step_strong(self, state: State, dt: float):
+        with self._strong():
+            new_state, packed, _ = self._temperature_step_impl(state, dt)
+        return new_state, StepDiagnostics(packed, 3)
+
+    # ------------------------------------------------------------------
+    def _next_dt(self, packed: torch.Tensor) -> float:
+        """The CFL time step from a step's packed diagnostics, rounded as
+        the JAX package's scan computes it (in the working dtype)."""
+        npd = self.dtype.type
+        deg = max(self.params.temperature_degree,
+                  self.params.nse_velocity_degree)
+        cfl = max(npd(float(packed[0])), npd(1e-30))
+        return float(npd(self._dt_scaling_const()) / (npd(deg) * cfl))
+
+    def _chunk(self, state: State, dt: float, n_steps: int,
+               collect: bool, adaptive: bool):
+        """The steps of one multi_step chunk, eagerly (on the card also
+        the body that models/graphs.py captures). Each step is an NSE
+        step or a temperature substep by ``step_number % NSE solver
+        interval``. With ``adaptive`` the CFL dt is recomputed after
+        every step whose new step count is an interval boundary (one
+        device->host read each). Returns (state, packed[n_steps, k] or
+        packed[1, k], dt_out)."""
+        interval = self.params.NSE_solver_interval
+        dt_now = self._scalar(dt)
+        rows, okmin, packed = [], None, None
+        for j in range(n_steps):
+            full = collect or adaptive or j == n_steps - 1
+            impl = (self._step_impl if state.step_number % interval == 0
+                    else self._temperature_step_impl)
+            state, packed, ok = impl(state, dt_now, full)
+            okmin = ok if okmin is None else torch.minimum(okmin, ok)
+            if collect:
+                rows.append(packed)
+            if adaptive and state.step_number % interval == 0:
+                dt_now = self._next_dt(packed)
+        if collect:
+            return state, torch.stack(rows), dt_now
+        # solver_ok reports the AND over every step of the chunk
+        last = torch.cat([packed[:10], okmin.reshape(1), packed[11:]])
+        return state, last[None], dt_now
+
+    def _graphable(self, adaptive: bool, force_cg: bool) -> bool:
+        """Whether a chunk runs as a CUDA graph: on the card, with a
+        fixed dt (``dt`` reaches K1, K2 and K5 as a host double, so an
+        adaptive chunk's graph would be stale after its first boundary),
+        and no CG solve (the CG loop reads its stopping test back every
+        iteration: escalated chunks, and ``fixed solver iters`` = 0
+        without the direct Helmholtz solves)."""
+        no_cg = (self.params.numerics.fixed_solver_iters > 0
+                 or self.helmholtz_direct is not None)
+        return (self.device.type == "cuda" and not adaptive
+                and not force_cg and no_cg)
+
+    def multi_step(self, state: State, dt: float, n_steps: int,
+                   collect_diagnostics: bool = True, adaptive: bool = False,
+                   force_cg: bool = False):
+        """Advance ``n_steps`` steps in one chunk — the JAX package's
+        jitted ``lax.scan`` (models/boussinesq.py multi_step); on the
+        card a chunk with a fixed dt that runs no CG is one replay of a
+        captured CUDA graph (models/graphs.py), one host launch instead
+        of ~120 a step. ``NSE solver interval`` sub-cycling and, with
+        ``adaptive=True``, the CFL dt at interval boundaries run inside
+        the chunk.
+
+        Returns (final_state, packed[n_steps, k], dt_out), the rows
+        pulled to the host in one copy; with ``collect_diagnostics=
+        False`` only the last step's diagnostics are computed (packed[1,
+        k]), its solver_ok the AND over every step (each step still runs
+        the gate's reductions).
+
+        The gate: if any step of a fast chunk misses, the whole chunk is
+        redone with full CG from the original state (host-level
+        NoConvergence retry, reference boussinesq_model.tpp:1203-1232),
+        and the escalation window counts down by ``n_steps`` on clean
+        strong chunks. Escalated and adaptive chunks run eagerly."""
+        if n_steps < 1:
+            raise ValueError(f"multi_step needs n_steps >= 1, not {n_steps}")
+        escalated = self._strong_steps_left > 0
+        if escalated:
+            # escalation window: straight to full CG, no doomed fast try
+            force_cg = True
+        if self._graphable(adaptive, force_cg):
+            if self.chunk_graphs is None:
+                from dycoreplanet_tpu_torch.models.graphs import ChunkGraphs
+                self.chunk_graphs = ChunkGraphs(self)
+            out = self.chunk_graphs.run(state, dt, n_steps,
+                                        collect_diagnostics)
+        else:
+            with self._strong(force_cg):
+                out = self._chunk(state, dt, n_steps, collect_diagnostics,
+                                  adaptive)
+        if self.params.numerics.fixed_solver_iters > 0:
+            ok = float(out[1][:, 10].min())     # one pull per chunk
+            if not force_cg:
+                if ok < 0.5:
+                    warnings.warn(
+                        "fixed-iteration solver missed tolerance; retrying "
+                        "chunk with full CG (fast path retried after "
+                        f"{self._fast_penalty()} clean strong steps)",
+                        RuntimeWarning, stacklevel=2)
+                    self._escalate()
+                    return self.multi_step(state, dt, n_steps,
+                                           collect_diagnostics, adaptive,
+                                           force_cg=True)
+                # clean fast chunk: reset the repeat-miss penalty
+                self._fast_penalty_now = self._fast_rearm_steps
+            elif escalated and ok >= 0.5:
+                self._strong_steps_left = max(
+                    0, self._strong_steps_left - n_steps)
+        return out
 
     # ------------------------------------------------------------------
     def _dt_scaling_const(self) -> float:
@@ -641,8 +884,9 @@ class BoussinesqModel:
             state: Optional[State] = None) -> Tuple[State, List[Dict]]:
         """Time loop mirroring the reference's run()
         (boussinesq_model.tpp:1785-1927) with the re-arming CG
-        escalation. Starts from ``state`` (default: the initial state).
-        Returns the final state and per-step diagnostic records."""
+        escalation, the JAX package's run line for line. Starts from
+        ``state`` (default: the initial state). Returns the final state
+        and per-step diagnostic records."""
         p = self.params
         if state is None:
             state = self.initial_state()
@@ -650,25 +894,60 @@ class BoussinesqModel:
         history: List[Dict] = []
         time_index = float(state.time)
         n = 0
+        # `residual check interval` = M > 1: NSE residuals are evaluated
+        # on every M-th NSE step only. Keep a snapshot of the last
+        # verified state, so that a checked-step miss rewinds and redoes
+        # the whole unchecked window under the full-CG escalation window
+        use_rewind = (p.numerics.residual_check_interval > 1
+                      and p.numerics.fixed_solver_iters > 0)
+        chk_snapshot = ((state, 0, time_index, dt, 0) if use_rewind
+                        else None)
         while time_index <= p.final_time:
             if max_steps is not None and n >= max_steps:
                 break
+            # NSE solved at step 0 and every interval-th step; the other
+            # iterations advance temperature only (reference:
+            # boussinesq_model.tpp:1867-1905)
+            nse_step = n % p.NSE_solver_interval == 0
             state_prev = state
             escalated = self._strong_steps_left > 0
             if escalated:
                 # escalation window: full-CG steps; each clean one counts
                 # toward re-arming the fast path
-                state, diag = self.step_strong(state, dt)
+                if nse_step:
+                    state, diag = self.step_strong(state, dt)
+                else:
+                    state, diag = self.temperature_step_strong(state, dt)
                 if diag.solver_ok:
                     self._strong_steps_left -= 1
-            else:
+            elif nse_step:
                 state, diag = self.step(state, dt)
+            else:
+                state, diag = self.temperature_step(state, dt)
             if not escalated and p.numerics.fixed_solver_iters > 0:
                 if not diag.solver_ok:
-                    # redo the step with full CG (NoConvergence retry)
                     self._escalate()
-                    state, diag = self.step_strong(state_prev, dt)
+                    if (chk_snapshot is not None and nse_step
+                            and chk_snapshot[1] < n):
+                        # interval-mode rewind: the unchecked steps since
+                        # the last verified state carry no residual
+                        # evidence of their own; discard them all and
+                        # redo the window under the escalation just
+                        # opened (at most M * interval - 1 re-steps)
+                        state, n, time_index, dt, hlen = chk_snapshot
+                        self._strong_steps_left = max(
+                            self._strong_steps_left,
+                            len(history) - hlen + 1)
+                        del history[hlen:]
+                        continue
+                    # redo the step with full CG (NoConvergence retry)
+                    if nse_step:
+                        state, diag = self.step_strong(state_prev, dt)
+                    else:
+                        state, diag = self.temperature_step_strong(
+                            state_prev, dt)
                 else:
+                    # clean fast step: reset the repeat-miss penalty
                     self._fast_penalty_now = self._fast_rearm_steps
             rec = {
                 "step": n,
@@ -687,6 +966,15 @@ class BoussinesqModel:
                 callback(state, rec)
             time_index += dt / p.NSE_solver_interval
             n += 1
+            # adaptive dt (reference: recompute only for step > 0 at
+            # NSE-interval boundaries, tpp:1845-1850)
             if p.adapt_time_step and n % p.NSE_solver_interval == 0:
                 dt = self.compute_time_step(float(diag.cfl))
+            # interval mode: advance the verified snapshot on NSE steps
+            # whose residuals were evaluated (checked fast steps, strong
+            # redos, escalation-window steps) and passed
+            if (chk_snapshot is not None and nse_step and diag.solver_ok
+                    and (escalated
+                         or float(diag.helmholtz_residual) >= 0.0)):
+                chk_snapshot = (state, n, time_index, dt, len(history))
         return state, history

@@ -45,7 +45,8 @@ SMEM_PER_BLOCK = 232448
 # libraries of different macros coexist
 _DEFINES: Tuple[str, ...] = ()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output per source (register / shared-memory use from ptxas -v)
+# nvcc's output per source built by this process (register / shared-memory
+# use from ptxas -v); it is also saved beside each library
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -108,6 +109,9 @@ def build_all() -> float:
         if proc.returncode != 0:
             failed.append(f"--- {src} (rc {proc.returncode})\n{out}")
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", f"{lib_path(src)}.log")
             os.replace(tmp, lib_path(src))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -117,9 +121,14 @@ def build_all() -> float:
 def ptxas_summary(source: str):
     """Per kernel of one built source, from ptxas -v: registers, stack
     frame, spill stores and loads, static shared bytes. Kernel names are
-    demangled by the toolkit's cu++filt where it runs, else left mangled."""
+    demangled by the toolkit's cu++filt where it runs, else left mangled.
+    A library built by an earlier process is read from its saved log."""
+    log = BUILD_LOG.get(source)
+    if log is None and os.path.exists(f"{lib_path(source)}.log"):
+        with open(f"{lib_path(source)}.log") as f:
+            log = f.read()
     out, cur = [], None
-    for line in BUILD_LOG.get(source, "").splitlines():
+    for line in (log or "").splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = {"kernel": m.group(1), "registers": None,
@@ -145,7 +154,7 @@ def ptxas_summary(source: str):
         filt = subprocess.run(
             [os.path.join(os.path.dirname(_nvcc()), "cu++filt"), "-p",
              *(r["kernel"] for r in out)], capture_output=True, text=True)
-    except OSError:
+    except (OSError, RuntimeError):     # no toolkit here: names stay mangled
         return out
     names = filt.stdout.splitlines()
     if filt.returncode == 0 and len(names) == len(out):

@@ -18,6 +18,15 @@ into lon-invariant tables (:func:`static_tables`). Bound: device-memory
 traffic — 13 fields moved at the least (rhs_u, rhs_T, T0 read; u*,
 T_new, three faces, rhs written), ~55 MB at 32x128x256 f32.
 
+``track_residual=False`` is K1's residual-free variant (the JAX
+kernel's ``track_residual=False``, pallas_richardson.py:133-142, 332-337,
+523-528), which the model runs on the steps between two honesty checks
+when ``residual check interval`` > 1: the same iterates, faces and
+right-hand side without each system's last residual update, a halo of
+``max(iters_u + 1, iters_T)`` on the last pass, and the residual norms
+returned as the -1 sentinel ("not checked"); the b-norms are still
+computed. Same kernel source, a compile-time ``TRACK = false`` instance.
+
 The plain version is deliberately the straightforward composition the
 JAX package runs on the CPU: ``solvers.fixed.richardson_solve`` over the
 ghost-based ``weak_laplacian`` and the plain projection head, so an
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +51,8 @@ from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 
 FIELDS_MOVED = 13
 # floating-point operations per cell: ~30 per weak-Laplacian apply to
-# one channel, (iters + 1) applies for each of the 4 channels, plus the
-# projection head and the norms
+# one channel, (iters + 1) applies for each of the 4 channels (iters for
+# the residual-free variant), plus the projection head and the norms
 OPS_PER_CHANNEL_APPLY = 30
 OPS_PER_CELL_HEAD = 40
 
@@ -59,7 +68,8 @@ TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8),
 @dataclass(frozen=True)
 class PassPlan:
     """One launch of the kernel: ``n_u`` / ``n_T`` sweeps on a tile with a
-    halo of depth ``halo`` (= max(n_u, n_T) + 1)."""
+    halo of depth ``halo`` (= max(n_u, n_T) + 1; on the last pass of the
+    residual-free variant max(n_u + 1, n_T))."""
     n_u: int
     n_T: int
     halo: int
@@ -94,11 +104,13 @@ def _tile_for(shape, halo, itemsize, limit):
 
 
 def plan(shape, itemsize: int, iters_u: int, iters_T: int,
-         smem_limit: int = kl.SMEM_PER_BLOCK - 16) -> Tuple[PassPlan, ...]:
+         smem_limit: int = kl.SMEM_PER_BLOCK - 16,
+         track: bool = True) -> Tuple[PassPlan, ...]:
     """The launches of one call. One pass with halo max(iters) + 1 when a
     tile fits ``smem_limit`` (16 bytes are left for the kernel's static
     shared flag); otherwise the sweeps run in groups, one pass each,
-    through device memory."""
+    through device memory. ``track=False`` (the residual-free variant):
+    the last pass needs no residual, so its halo is max(n_u + 1, n_T)."""
     group = max(iters_u, iters_T)
     while group > 1 and _tile_for(shape, group + 1, itemsize,
                                   smem_limit) is None:
@@ -108,7 +120,8 @@ def plan(shape, itemsize: int, iters_u: int, iters_T: int,
     while True:
         nu, nT = min(ru, group), min(rT, group)
         ru, rT = ru - nu, rT - nT
-        halo = max(nu, nT) + 1
+        last = ru == 0 and rT == 0
+        halo = max(nu, nT) + 1 if track or not last else max(nu + 1, nT)
         tile = _tile_for(shape, halo, itemsize, smem_limit)
         if tile is None:
             raise ValueError(f"no Richardson tile fits {smem_limit} bytes "
@@ -116,7 +129,7 @@ def plan(shape, itemsize: int, iters_u: int, iters_T: int,
         grid = tuple(-(-n // t) for n, t in zip(shape, tile))
         passes.append(PassPlan(nu, nT, halo, tile, grid,
                                shared_bytes(tile, halo, itemsize)))
-        if ru == 0 and rT == 0:
+        if last:
             return tuple(passes)
 
 
@@ -150,15 +163,27 @@ def static_tables(geo: Geometry, helm_diags, T_diag) -> np.ndarray:
         ch["ar_hi"], ch["alat_hi"]])
 
 
+class DeviceTables(NamedTuple):
+    """The kernel's tensors on one (device, dtype)."""
+    M: torch.Tensor          # the static tables (static_tables)
+    counter: torch.Tensor    # the last-block counter (resets itself)
+    invD: torch.Tensor       # the 1/D tables of ``dt``, refilled in place
+    dt: Optional[float]      # the dt invD holds (None: not yet filled)
+    neg1: torch.Tensor       # the -1 sentinel of the residual-free norms
+
+
 class ShellRichardson:
     """Callable (rhs_u, rhs_T, T0, dt) -> (u_star, T_new,
     (uf0, uf1, uf2, rhs_phi), (rnorm_u, bnorm_u, rnorm_T, bnorm_T)).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``track_residual=False``: the residual-free variant, rnorm_u and
+    rnorm_T -1."""
 
     def __init__(self, geo: Geometry, *, one_over_Re: float,
                  one_over_Pe: float, nse_interval: int,
                  helm_diags: np.ndarray, T_diag: np.ndarray,
-                 iters_u: int, iters_T: int, u_specs, T_specs_hom):
+                 iters_u: int, iters_T: int, u_specs, T_specs_hom,
+                 track_residual: bool = True):
         if iters_u < 1 or iters_T < 1:
             raise ValueError("the Richardson kernel needs >= 1 iteration")
         self.geo = geo
@@ -166,18 +191,18 @@ class ShellRichardson:
         self.one_over_Pe = float(one_over_Pe)
         self.dt_T_factor = 1.0 / float(nse_interval)
         self.iters_u, self.iters_T = int(iters_u), int(iters_T)
+        self.track_residual = bool(track_residual)
         self.u_specs, self.T_specs_hom = u_specs, T_specs_hom
         self.helm_diags = np.asarray(helm_diags)
         self.T_diag = np.asarray(T_diag)
         self.tables64 = static_tables(geo, self.helm_diags, self.T_diag)
-        self._dev = {}       # (device, dtype) -> tables, counter
-        self._inv = {}       # (device, dtype) -> (dt, 1/D tables)
+        self._dev = {}           # (device, dtype) -> DeviceTables
         self._fn = {}
         self.launches = 0
 
     def plan(self, dtype: torch.dtype) -> Tuple[PassPlan, ...]:
         return plan(self.geo.cell_shape, torch.finfo(dtype).bits // 8,
-                    self.iters_u, self.iters_T)
+                    self.iters_u, self.iters_T, track=self.track_residual)
 
     def coefs(self, dt, dtype):
         """coef_u = dt/Re and coef_T = dt_T/Pe, rounded as the kernel and
@@ -205,11 +230,12 @@ class ShellRichardson:
         def temp_op(x):
             return vol * x - kT * st.weak_laplacian(geo, x, self.T_specs_hom)
 
+        track = self.track_residual
         res_u = richardson_solve(helm_op, vol[None] * rhs_u, rhs_u,
                                  diag=vol[None] + coef * hd,
-                                 iters=self.iters_u)
+                                 iters=self.iters_u, track_residual=track)
         res_T = richardson_solve(temp_op, rhs_T, T0, diag=vol + kT * td,
-                                 iters=self.iters_T)
+                                 iters=self.iters_T, track_residual=track)
         uf0, uf1, uf2, rhs_raw, total = faces_div_plain(
             geo, self.u_specs, res_u.x, dt)
         rhs_phi = rhs_raw - total / float(geo.n_cells)
@@ -219,35 +245,41 @@ class ShellRichardson:
                  res_T.residual_norm, torch.sqrt(_dot(rhs_T, rhs_T))))
 
     # ------------------------------------------------------------------
-    def _tables(self, dt, dev, dtype):
-        """The static tables and the launch counter of (dev, dtype), and
-        the 1/D tables of this dt (rebuilt when dt changes)."""
+    def tables(self, dt, dev, dtype) -> DeviceTables:
+        """The kernel's tensors on (dev, dtype), with the 1/D tables of
+        ``dt``. The 1/D tables are one buffer per (dev, dtype), refilled
+        in place by kernels (no host copy) when dt changes, so that a CUDA
+        graph that reads them stays valid if this is called with the
+        graph's dt before each replay (``BoussinesqModel._prepare_dt``)."""
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         key = (str(dev), dtype)
-        consts = self._dev.get(key)
-        if consts is None:
-            consts = (torch.as_tensor(self.tables64, dtype=dtype,
-                                      device=dev).contiguous(),
-                      torch.zeros(1, dtype=torch.int32, device=dev))
-            self._dev[key] = consts
-        M = consts[0]
-        inv = self._inv.get(key)
-        if inv is None or inv[0] != float(dt):
+        c = self._dev.get(key)
+        if c is None:
+            M = torch.as_tensor(self.tables64, dtype=dtype,
+                                device=dev).contiguous()
+            c = DeviceTables(M, torch.zeros(1, dtype=torch.int32, device=dev),
+                             torch.empty_like(M[6:10]), None,
+                             torch.full((), -1.0, dtype=dtype, device=dev))
+        if c.dt != float(dt):
             cu, cT = self.coefs(dt, dtype)
-            coef4 = torch.tensor([cu, cu, cu, cT], dtype=dtype, device=dev)
-            inv = (float(dt), (1.0 / (M[0][None] + coef4[:, None, None]
-                                      * M[6:10])).contiguous())
-            self._inv[key] = inv
-        return M, inv[1], consts[1]
+            torch.reciprocal(c.M[0][None] + cu * c.M[6:9], out=c.invD[:3])
+            torch.reciprocal(c.M[0] + cT * c.M[9], out=c.invD[3])
+            c = c._replace(dt=float(dt))
+        self._dev[key] = c
+        return c
 
     def _launch(self, rhs_u, rhs_T, T0, dt):
         dev, dtype = rhs_u.device, rhs_u.dtype
-        M, invD, counter = self._tables(dt, dev, dtype)
+        M, counter, invD, _, neg1 = self.tables(dt, dev, dtype)
         sfx = kl.suffix(dtype)
         fn = self._fn.get(sfx)
         if fn is None:
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             fn = kl.bind("richardson.cu", f"dp_richardson_{sfx}",
-                         [I] * 8 + [P] * 8 + [D] * 4 + [I] * 3 + [P] * 12)
+                         [I] * 8 + [P] * 8 + [D] * 4 + [I] * 3 + [P] * 11
+                         + [I, P])
             self._fn[sfx] = fn
         shp = self.geo.cell_shape
         nr, nlat, nlon = shp
@@ -273,13 +305,16 @@ class ShellRichardson:
                         ins[2], ins[3], float(dt), self.one_over_Re,
                         self.one_over_Pe, self.dt_T_factor, ps.n_u, ps.n_T,
                         int(last), *outs, p(f0), p(f1), p(f2), p(rhs_raw),
-                        p(parts), p(counter), p(sums), kl.stream_of(rhs_u)),
+                        p(parts), p(counter), p(sums),
+                        int(self.track_residual), kl.stream_of(rhs_u)),
                      "richardson kernel")
             ins = outs
         rhs_phi = rhs_raw - sums[4] / float(self.geo.n_cells)
         norms = torch.sqrt(sums[:4])
+        rn_u, rn_T = ((norms[0], norms[2]) if self.track_residual
+                      else (neg1, neg1))
         return (u_star, T_new, (f0, f1, f2, rhs_phi),
-                (norms[0], norms[1], norms[2], norms[3]))
+                (rn_u, norms[1], rn_T, norms[3]))
 
     def __call__(self, rhs_u, rhs_T, T0, dt):
         if rhs_u.device.type == "cpu":
@@ -293,7 +328,10 @@ class ShellRichardson:
         return out
 
 
-def ops_per_cell(iters_u: int, iters_T: int) -> int:
-    """Operations per cell of one K1 call (for the roofline bound)."""
-    applies = 3 * (iters_u + 1) + (iters_T + 1)
+def ops_per_cell(iters_u: int, iters_T: int, track: bool = True) -> int:
+    """Operations per cell of one K1 call (for the roofline bound): each
+    channel's operator applies are r = b - A x0 and one residual update a
+    sweep, less the last one without residual tracking."""
+    extra = 1 if track else 0
+    applies = 3 * (iters_u + extra) + (iters_T + extra)
     return applies * OPS_PER_CHANNEL_APPLY + OPS_PER_CELL_HEAD

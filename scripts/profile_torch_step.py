@@ -2,22 +2,37 @@
 """Where one step of the PyTorch port spends its time on the card.
 
     python3 scripts/profile_torch_step.py [--steps 10] [--trace out.json]
-                                          [--helmholtz direct]
+        [--helmholtz direct] [--nse-interval K]
+        [--residual-check-interval M] [--chunk N]
 
 Runs the flagship configuration (models/presets.py: shell 32x128x256
 f32, bench opt-ins, seeded developed flow) on CUDA — with `--helmholtz
-direct`, the same configuration with `helmholtz solver = direct` — and
+direct`, the same configuration with `helmholtz solver = direct`; with
+`--nse-interval K` / `--residual-check-interval M` those settings — and
 reports
-  * host-clock ms/step two ways: reading the step diagnostics every step
-    (as BoussinesqModel.run does) and enqueueing all steps before one
-    synchronize;
-  * a torch.profiler window over the same steps: device time by kernel,
-    grouped into the hand-written kernels (K1-K5), matrix products (the
-    Poisson and Helmholtz transforms) and other PyTorch kernels, and the
-    device's busy share of the window;
+  * host-clock ms/step of the eager loop two ways: reading the step's
+    solver_ok every step (the gate, as BoussinesqModel.run does) and
+    enqueueing all steps before one synchronize; the steps are NSE steps
+    or temperature substeps by step_number, as run dispatches them;
+  * a torch.profiler window over the same eager steps: device time by
+    kernel, grouped into the hand-written kernels (K1-K5; K1 and its
+    residual-free variant K1u told apart by their TRACK template
+    argument), matrix products (the Poisson and Helmholtz transforms)
+    and other PyTorch kernels, the device's busy share of the window,
+    device kernels a step and host launches a step (kernel and graph
+    launch calls of the CUDA runtime and its low-level API, cuLaunch*);
   * K4's launches one by one, told apart by their order in the step
     (the momentum solve comes before the temperature solve), and the
-    copy kernels a step (PyTorch kernels named *copy*).
+    copy kernels a step (PyTorch kernels named *copy*);
+  * with `--chunk N`: the same steps through `multi_step` in chunks of N
+    steps, one CUDA graph replay a chunk (after one chunk that captures
+    the graph): host-clock ms/step with the chunk's diagnostics pulled,
+    a profiler window over the replays (device time, busy share, host
+    launches a step), device ms/step between CUDA events around
+    back-to-back replays, host-clock ms/step without collected
+    diagnostics (the JAX bench's form of multi_step), and
+    `torch.cuda.max_memory_allocated` of the first chunk (its capture
+    included) against that of the eager steps.
 The last line of standard output is one JSON object with these numbers.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -36,6 +51,11 @@ K4_ORDER = ("momentum", "temperature")
 HAND = ("forcing_kernel", "rich_fused", "faces_div_kernel",
         "reduce_partials", "correct_kernel", "thomas_")
 GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
+# host-side calls that launch device work (kernels or graphs)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+# K1 and its residual-free variant, by the wrapper that launches them
+K1_VARIANT = {"richardson": "K1", "richardson_free": "K1u"}
 
 
 def _category(name: str) -> str:
@@ -46,14 +66,62 @@ def _category(name: str) -> str:
     return "other PyTorch kernels"
 
 
+def _window(prof, n, window_ms):
+    """Device time, launches and groups of one profiled window of n
+    steps."""
+    from torch.autograd import DeviceType
+    from dycoreplanet_tpu_torch.diagnostics.device_time import wrapper_of
+
+    rows, host_launches = [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            if e.key in LAUNCH_CALLS:
+                host_launches += e.count
+            continue
+        t_us = getattr(e, "self_device_time_total", None)
+        if t_us is None:
+            t_us = e.self_cuda_time_total
+        if t_us > 0:
+            rows.append((e.key, t_us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    cats, k1 = {}, {}
+    for name, ms, cnt in rows:
+        c = _category(name)
+        ms0, cnt0 = cats.get(c, (0.0, 0))
+        cats[c] = (ms0 + ms, cnt0 + cnt)
+        v = K1_VARIANT.get(wrapper_of(name))
+        if v is not None:
+            ms0, cnt0 = k1.get(v, (0.0, 0))
+            k1[v] = (ms0 + ms, cnt0 + cnt)
+    return {
+        "rows": rows,
+        "device_ms_per_step": device_ms / n,
+        "busy_share": device_ms / window_ms,
+        "kernels_per_step": sum(r[2] for r in rows) / n,
+        "host_launches_per_step": host_launches / n,
+        "groups_ms_per_step": {c: v[0] / n for c, v in cats.items()},
+        "groups_kernels_per_step": {c: v[1] / n for c, v in cats.items()},
+        "k1_ms_per_step": {v: t[0] / n for v, t in k1.items()},
+        "k1_launches_per_step": {v: t[1] / n for v, t in k1.items()},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--trace", default=None,
-                    help="write a chrome trace of the profiled window")
+                    help="write a chrome trace of the eager window")
     ap.add_argument("--helmholtz", choices=("auto", "direct"),
                     default="auto", help="the `helmholtz solver` setting")
+    ap.add_argument("--nse-interval", type=int, default=1,
+                    help="the `NSE solver interval` setting")
+    ap.add_argument("--residual-check-interval", type=int, default=1,
+                    help="the `residual check interval` setting")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="also run multi_step in chunks of this many steps "
+                         "(CUDA graph replays)")
     args = ap.parse_args()
 
     import torch
@@ -63,59 +131,68 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
+    from dycoreplanet_tpu_torch.diagnostics.device_time import PAD_S
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import (
         BENCH_DT, bench_params, seed_developed_flow)
 
     params = bench_params()
     params.numerics.helmholtz_solver = args.helmholtz
+    params.NSE_solver_interval = args.nse_interval
+    params.numerics.residual_check_interval = args.residual_check_interval
     model = BoussinesqModel(params, device="cuda")
     s = seed_developed_flow(model)
+
+    def eager_step(state):
+        if state.step_number % params.NSE_solver_interval == 0:
+            return model.step(state, BENCH_DT)
+        return model.temperature_step(state, BENCH_DT)
+
     for _ in range(args.warmup):
-        s, d = model.step(s, BENCH_DT)
+        s, d = eager_step(s)
         d.solver_ok
     torch.cuda.synchronize()
 
+    # every measured window (and chunk) starts from s at step_number 0,
+    # so that each runs the same sequence of steps and substeps
     n = args.steps
+    period = args.nse_interval * args.residual_check_interval
+    s = s._replace(step_number=0)
+    missed = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s1 = s
     for _ in range(n):
-        s1, d = model.step(s1, BENCH_DT)
-        if not d.solver_ok:            # the gate's per-step read
-            print("profile_torch_step: a step missed its tolerance",
-                  file=sys.stderr)
+        s1, d = eager_step(s1)
+        missed += not d.solver_ok         # the gate's per-step read
     torch.cuda.synchronize()
     ms_gated = (time.perf_counter() - t0) / n * 1e3
+    eager_peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
     s1 = s
     for _ in range(n):
-        s1, d = model.step(s1, BENCH_DT)
+        s1, d = eager_step(s1)
     torch.cuda.synchronize()
     ms_enqueue = (time.perf_counter() - t0) / n * 1e3
 
+    # the device idles PAD_S on either side of a profiled window, so that
+    # the profiler's clock conversion loses no kernel at the edges
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
         t0 = time.perf_counter()
         s1 = s
         for _ in range(n):
-            s1, d = model.step(s1, BENCH_DT)
+            s1, d = eager_step(s1)
             d.solver_ok
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PAD_S)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t_us = getattr(e, "self_device_time_total", None)
-        if t_us is None:
-            t_us = e.self_cuda_time_total
-        if t_us > 0:
-            rows.append((e.key, t_us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    eager = _window(prof, n, window_ms)
+    rows = eager.pop("rows")
     # K4 launch by launch, in the order of the step
     k4 = sorted((e for e in prof.events()
                  if e.device_type == DeviceType.CUDA and "thomas_" in e.name),
@@ -127,23 +204,26 @@ def main() -> int:
             e.time_range.end - e.time_range.start) / 1e3
     k4_ms = {k: v / n for k, v in k4_ms.items()}
     copies = [r for r in rows if "copy" in r[0].lower()]
-    device_ms = sum(r[1] for r in rows)
-    cats = {}
-    for name, ms, cnt in rows:
-        c = _category(name)
-        ms0, cnt0 = cats.get(c, (0.0, 0))
-        cats[c] = (ms0 + ms, cnt0 + cnt)
 
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name}; helmholtz solver = {args.helmholtz}")
-    print(f"ms/step (host clock): {ms_gated:.4f} reading the diagnostics "
-          f"every step, {ms_enqueue:.4f} enqueued ahead")
-    print(f"profiled window: {window_ms:.3f} ms for {n} steps; device "
-          f"kernels {device_ms:.3f} ms -> busy share "
-          f"{device_ms / window_ms:.4f}")
-    print("device time by group (ms/step, launches/step):")
-    for c, (ms, cnt) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {c:40s} {ms / n:9.4f}  {cnt / n:7.1f}")
+    print(f"device: {name}; helmholtz solver = {args.helmholtz}, NSE "
+          f"solver interval = {args.nse_interval}, residual check interval "
+          f"= {args.residual_check_interval}")
+    print(f"eager ms/step (host clock): {ms_gated:.4f} reading the gate "
+          f"every step, {ms_enqueue:.4f} enqueued ahead ({missed} missed)")
+    print(f"eager profiled window: {window_ms:.3f} ms for {n} steps; device "
+          f"kernels {eager['device_ms_per_step'] * n:.3f} ms -> busy share "
+          f"{eager['busy_share']:.4f}; {eager['kernels_per_step']:.1f} "
+          f"device kernels and {eager['host_launches_per_step']:.1f} host "
+          f"launches a step")
+    print("device time by group (ms/step, kernels/step):")
+    for c, ms in sorted(eager["groups_ms_per_step"].items(),
+                        key=lambda kv: -kv[1]):
+        print(f"  {c:40s} {ms:9.4f}  "
+              f"{eager['groups_kernels_per_step'][c]:7.1f}")
+    for v, ms in sorted(eager["k1_ms_per_step"].items()):
+        print(f"  {v}: {ms:.4f} ms/step in "
+              f"{eager['k1_launches_per_step'][v]:.2f} launches/step")
     if k4:
         print(f"K4 launches: {len(k4) / n:.1f}/step; ms/step by launch: "
               + ", ".join(f"{k} {v:.4f}" for k, v in k4_ms.items()))
@@ -158,18 +238,110 @@ def main() -> int:
         print("profile_torch_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    print(json.dumps({
-        "device": name, "helmholtz_solver": args.helmholtz, "steps": n,
-        "ms_per_step_gated": ms_gated,
-        "ms_per_step_enqueued": ms_enqueue,
-        "device_ms_per_step": device_ms / n,
-        "busy_share": device_ms / window_ms,
-        "groups_ms_per_step": {c: v[0] / n for c, v in cats.items()},
-        "launches_per_step": sum(r[2] for r in rows) / n,
+    out = {
+        "device": name, "helmholtz_solver": args.helmholtz,
+        "nse_interval": args.nse_interval,
+        "residual_check_interval": args.residual_check_interval,
+        "steps": n, "ms_per_step_gated": ms_gated,
+        "ms_per_step_enqueued": ms_enqueue, "eager_missed": missed,
+        "eager_peak_bytes": eager_peak, **eager,
         "k4_ms_per_step": k4_ms,
         "copy_launches_per_step": sum(r[2] for r in copies) / n,
         "copy_ms_per_step": sum(r[1] for r in copies) / n,
-    }))
+    }
+
+    if args.chunk:
+        N = args.chunk
+        if n % N or N % period:
+            print(f"profile_torch_step: --steps {n} must be a multiple of "
+                  f"--chunk {N}, and --chunk of the intervals' product "
+                  f"{period}", file=sys.stderr)
+            return 1
+        chunks = n // N
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.multi_step(s, BENCH_DT, N)            # capture + replay
+        torch.cuda.synchronize()
+        graph_peak = torch.cuda.max_memory_allocated()
+        graphs = model.chunk_graphs
+        esc0 = model.escalations
+
+        def replay_chunks():
+            s1 = s
+            for _ in range(chunks):
+                s1, packed, _ = model.multi_step(s1, BENCH_DT, N)
+                packed.cpu()                 # the chunk's one pull
+            return s1
+
+        replay_chunks()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay_chunks()
+        torch.cuda.synchronize()
+        ms_chunked = (time.perf_counter() - t0) / n * 1e3
+        # the JAX bench's form: no collected diagnostics, only the
+        # gate's pull a chunk
+        model.multi_step(s, BENCH_DT, N, collect_diagnostics=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s1 = s
+        for _ in range(chunks):
+            s1, _, _ = model.multi_step(s1, BENCH_DT, N,
+                                        collect_diagnostics=False)
+        torch.cuda.synchronize()
+        ms_bench_form = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as gprof:
+            time.sleep(PAD_S)
+            t0 = time.perf_counter()
+            replay_chunks()
+            torch.cuda.synchronize()
+            gwindow_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PAD_S)
+        graph = _window(gprof, n, gwindow_ms)
+        graph.pop("rows")
+        # device time between events around back-to-back replays (no
+        # pull between chunks), behind a device sleep
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10 ** 8)
+        a.record()
+        s1 = s
+        for _ in range(chunks):
+            s1, _, _ = graphs.run(s1, BENCH_DT, N, True)
+        b.record()
+        b.synchronize()
+        ev_ms = a.elapsed_time(b) / n
+        if model.escalations != esc0:
+            print("profile_torch_step: a chunk escalated", file=sys.stderr)
+            return 1
+        print(f"multi_step, chunks of {N} (CUDA graph replays; "
+              f"{graphs.captures} capture(s), {graphs.replays} replays):")
+        print(f"  ms/step (host clock, the chunk's diagnostics pulled): "
+              f"{ms_chunked:.4f}; without collected diagnostics "
+              f"{ms_bench_form:.4f}")
+        print(f"  profiled window: {gwindow_ms:.3f} ms for {n} steps; device "
+              f"kernels {graph['device_ms_per_step'] * n:.3f} ms -> busy "
+              f"share {graph['busy_share']:.4f}; "
+              f"{graph['kernels_per_step']:.1f} device kernels and "
+              f"{graph['host_launches_per_step']:.2f} host launches a step")
+        print(f"  device ms/step between events around {chunks} "
+              f"back-to-back replays: {ev_ms:.4f}")
+        for v, ms in sorted(graph["k1_ms_per_step"].items()):
+            print(f"  {v}: {ms:.4f} ms/step in "
+                  f"{graph['k1_launches_per_step'][v]:.2f} launches/step")
+        print(f"  max memory allocated: first chunk (capture) "
+              f"{graph_peak / 2**20:.1f} MiB ({(graph_peak - base) / 2**20:.1f}"
+              f" MiB above the {base / 2**20:.1f} MiB before it); eager steps "
+              f"{eager_peak / 2**20:.1f} MiB")
+        out["chunk"] = dict(graph, chunk=N, ms_per_step=ms_chunked,
+                            ms_per_step_no_diagnostics=ms_bench_form,
+                            event_device_ms_per_step=ev_ms,
+                            peak_bytes=graph_peak, bytes_before=base,
+                            captures=graphs.captures,
+                            replays=graphs.replays)
+    print(json.dumps(out))
     return 0
 
 

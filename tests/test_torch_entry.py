@@ -116,9 +116,6 @@ def test_cli_refuses_what_is_not_ported(capsys):
 
     assert main(["-p", PRM, "--max-steps", "1", "--device", "cpu"]) != 0
     assert "VTK output not yet ported" in capsys.readouterr().err
-    assert main(["-p", PRM, "--no-output", "--chunk", "4",
-                 "--device", "cpu"]) != 0
-    assert "multi_step / --chunk" in capsys.readouterr().err
     assert main(["-p", PRM, "--no-output", "--restart", "ckpt",
                  "--device", "cpu"]) != 0
     assert "checkpoints not yet ported" in capsys.readouterr().err

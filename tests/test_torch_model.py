@@ -198,11 +198,10 @@ def test_without_cuda_no_device_raises(monkeypatch):
 
 @pytest.mark.parametrize("setting", [
     ("use_FEEC_solver", True), ("cuboid_geometry", True),
-    ("space_dimension", 2), ("NSE_solver_interval", 2),
+    ("space_dimension", 2),
     ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
     ("numerics.poisson_solver", "mg"),
     ("numerics.temperature_advection", "semi-lagrangian"),
-    ("numerics.residual_check_interval", 4),
     ("numerics.momentum_solver", "coupled"),
 ])
 def test_unsupported_configurations_raise(setting):
@@ -212,9 +211,3 @@ def test_unsupported_configurations_raise(setting):
     setattr(obj, name.split(".")[-1], value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         BoussinesqModel(p, device="cpu")
-
-
-def test_multi_step_raises():
-    m = BoussinesqModel(_params(Parameters), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.multi_step(m.initial_state(), 0.01, 4)
