@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. the card: torch's device name, and nvidia-smi's name + power limit;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-     and no spill in K1's residual-free (TRACK = false) instances;
+     and no spill in K1's residual-free (TRACK = false) instances nor in
+     K2m's (ADVECT_T = false);
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
      (forcing), K1 (Richardson + projection head, with its four norms),
      K1u (K1's residual-free variant: the -1 sentinel, the b norms),
@@ -20,7 +21,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      K1u (iteration pairs (1,1), (2,1), (1,3), (3,3), and (3,3) in
      groups of sweeps) at the bench shape, a shape no tile divides
      (6x20x36) and one smaller than a tile (4x8x16), in f32 and f64; the
-     f64 instantiations of K3-K5 at 8x16x32;
+     f64 instantiations of K3-K5 at 8x16x32; K2m (the forcing without
+     the fused temperature transport, for `temperature advection =
+     semi-lagrangian`) at the same three shapes, f32 and f64, and the
+     resident blocks an SM of K2 and K2m; the semi-Lagrangian transport
+     on the card against the same function in f64 on the CPU;
   4. main path: BoussinesqModel.run, 20 gated steps at 32x128x256 f32
      with the bench opt-ins, after 2 warm-up steps — zero escalations,
      finite fields, small post-projection divergence, K2, K1 and K5
@@ -44,17 +49,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      against the default model's full-CG step_strong), `residual check
      interval = 4` (K1 on 5 steps, K1u on 15, residuals -1 on the
      unchecked steps) and `NSE solver interval = 2` (every other step a
-     temperature substep: K1, K2 and K5 on 10 steps);
+     temperature substep: K1, K2 and K5 on 10 steps); then the
+     semi-Lagrangian path (`temperature advection = semi-lagrangian`):
+     K2m, K1 and K5 every step, the fused K2 never, graph and run
+     bitwise equal, on the default path, the direct path and at `NSE
+     solver interval = 2` (the transport in every step and substep);
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
-     (graph chunks);
+     (graph chunks); on a semi-Lagrangian copy, and on one with a fixed
+     dt with `--chunk 4`;
   8. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -383,19 +394,59 @@ def nse2_params(p):
     return p
 
 
+def sl_params(p):
+    """The same configuration with `temperature advection =
+    semi-lagrangian`."""
+    p.numerics.temperature_advection = "semi-lagrangian"
+    return p
+
+
+# every hand kernel's wrapper name that a replay's device kernels are
+# counted under on every path (a path without the wrapper: 0)
+REPLAY_NAMES = ("forcing", "forcing_momentum")
+
+
+def check_k2m(dev, shape, dtype_name):
+    """K2m, the forcing without the fused transport, against its plain
+    version on the seeded developed flow of a semi-Lagrangian model:
+    atol 1e-5 x scale (f64 1e-12 x scale), one launch, rhs_u alone.
+    Returns the max abs error."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, bench_params, seed_developed_flow)
+
+    m = BoussinesqModel(sl_params(bench_params(shape, dtype=dtype_name)),
+                        device=dev)
+    s = seed_developed_flow(m)
+    args = (s.u, s.u_faces, s.T, s.p, BENCH_DT)
+    got, want = m._forcing(*args), m._forcing.plain(*args)
+    label = f"K2m {shape} {dtype_name}"
+    if not torch.is_tensor(got) or m._forcing.launches != 1:
+        fail(f"{label}: expected rhs_u alone from one launch")
+    f32 = m.torch_dtype == torch.float32
+    scale = float(want.abs().max())
+    return compare(label, (got,), (want,), 0.0 if f32 else 1e-12,
+                   (1e-5 if f32 else 1e-12) * scale)
+
+
 def replay_launches(label, model, fn, want):
     """Run fn(), a multi_step call that replays one captured chunk, and
     count the hand kernels it ran on the device (torch.profiler, by
     kernel name): one replay, no kernel wrapper called (a replay goes
-    through none), and the device's counts `want`. Returns (fn's result,
-    the counts)."""
+    through none), and the device's counts `want`, with 0 for every
+    other name of the model's wrappers and of REPLAY_NAMES (the fused K2
+    on the semi-Lagrangian paths, K2m on the others). Returns (fn's
+    result, the counts)."""
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
         device_launches)
 
     rep = model.chunk_graphs.replays
     for k in model.kernels().values():
         k.launches = 0
-    out, counts = device_launches(fn, model.kernels())
+    names = dict.fromkeys(list(model.kernels()) + list(REPLAY_NAMES))
+    want = {**dict.fromkeys(names, 0), **want}
+    out, counts = device_launches(fn, names)
     if model.chunk_graphs.replays != rep + 1:
         fail(f"{label}: the chunk took {model.chunk_graphs.replays - rep} "
              f"replays, expected 1")
@@ -409,13 +460,14 @@ def replay_launches(label, model, fn, want):
     return out, counts
 
 
-def graph_vs_run(label, model, s0, want, run_out=None):
+def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
     """One path at full width as BoussinesqModel.run and as one
     multi_step chunk of N_STEPS from the same state (a CUDA graph; the
     first chunk captures it): both zero escalations; the run's wrapper
     launches and the replay's device kernels (replay_launches) `want`;
-    one replay; states within 1e-6 of each other (expected bitwise); the
-    chunk's rows against the run's records. `run_out`: the run's
+    one replay; states within 1e-6 of each other (expected bitwise;
+    required with `bitwise`); the chunk's rows against the run's
+    records. `run_out`: the run's
     (result, launches, seconds) when the caller drove it. Returns (run
     launches, the replay's device kernels, run ms/step, graph ms/step
     (host clock, unprofiled), the chunk's state and rows)."""
@@ -443,8 +495,9 @@ def graph_vs_run(label, model, s0, want, run_out=None):
         if not bool(torch.isfinite(x).all()):
             fail(f"{label}: the graph chunk produced non-finite fields")
     rel = rel_diff(s_g, s_run)
-    if not rel <= 1e-6:
-        fail(f"{label}: graph chunk vs run: max rel diff {rel:.3e} > 1e-6")
+    if not rel <= (0.0 if bitwise else 1e-6):
+        fail(f"{label}: graph chunk vs run: max rel diff {rel:.3e} > "
+             f"{0.0 if bitwise else 1e-6}")
     keys = ("cfl", "max_velocity", "T_min", "T_max", "div_norm",
             "poisson_iters", "temperature_iters")
     rec = [[h[k] for k in keys] for h in hist]
@@ -539,6 +592,21 @@ def main() -> None:
         f"{r['kernel']} {r['registers']} registers, "
         f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
         for r in k1u_ptxas))
+    # K2m: forcing_kernel's ADVECT_T argument false, in f32 and f64
+    k2m_ptxas = [r for r in ptxas["forcing.cu"]
+                 if "forcing_kernel" in r["kernel"]
+                 and any(k in r["kernel"] for k in ("false", "(bool)0",
+                                                     "Lb0E"))]
+    if len(k2m_ptxas) != 2:
+        fail(f"expected 2 K2m (ADVECT_T = false) instances in forcing.cu's "
+             f"ptxas output, found {[r['kernel'] for r in k2m_ptxas]}")
+    for r in k2m_ptxas:
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"K2m instance {r['kernel']} spills")
+    phase("K2m (ADVECT_T = false) instances: " + "; ".join(
+        f"{r['kernel']} {r['registers']} registers, "
+        f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
+        for r in k2m_ptxas))
 
     # ---- 3. kernel checks ---------------------------------------------
     dev = torch.device("cuda")
@@ -561,12 +629,82 @@ def main() -> None:
     phase(f"K2 forcing: max abs err {err2:.3e} (tol {1e-5 * scale:.3e} = "
           f"1e-5 x scale), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"bound {b_ms * 1e3:.1f} us ({b_by})")
+    occ2 = fk.occupancy(torch.float32)
     report.append(dict(name="K2 forcing", route="cuda",
                        source="dycoreplanet_tpu_torch/csrc/forcing.cu",
                        replaces="dycoreplanet_tpu/ops/pallas_stencil.py:373",
                        max_abs_err=err2, ms=ms, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None,
-                       ptxas=ptxas["forcing.cu"]))
+                       blocks_per_sm=occ2,
+                       ptxas=[r for r in ptxas["forcing.cu"]
+                              if r not in k2m_ptxas]))
+
+    # K2m: the forcing without the fused transport, as a
+    # `temperature advection = semi-lagrangian` model runs it, on the same
+    # flow; it returns rhs_u alone
+    slmodel = BoussinesqModel(sl_params(bench_params(BENCH_SHAPE)),
+                              device=dev)
+    fm2 = slmodel._forcing
+    gm = fm2(*args2)
+    wm = fm2.plain(*args2)
+    torch.cuda.synchronize()
+    if not torch.is_tensor(gm) or fm2.advect_T:
+        fail("K2m: expected rhs_u alone")
+    sc_m = float(wm.abs().max())
+    err2m = compare("K2m forcing_momentum", (gm,), (wm,), 0.0, 1e-5 * sc_m)
+    # the same momentum forcing as K2's
+    d_k2 = float((gm - got[0]).abs().max())
+    ms, pms = time_ms(lambda: fm2(*args2)), time_ms(lambda: fm2.plain(*args2))
+    b_ms, b_by = bound(n_cells, k2.MOMENTUM_FIELDS_MOVED,
+                       k2.MOMENTUM_OPS_PER_CELL)
+    occ2m = fm2.occupancy(torch.float32)
+    phase(f"K2m forcing_momentum: max abs err {err2m:.3e} (tol "
+          f"{1e-5 * sc_m:.3e} = 1e-5 x scale), against K2's rhs_u max "
+          f"|diff| {d_k2:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}); shared memory a block "
+          f"{k2.shared_bytes(4, advect_T=False)} bytes (K2 "
+          f"{k2.shared_bytes(4)}), resident blocks an SM {occ2m} (K2 {occ2})")
+    k2m_row = dict(name="K2m forcing_momentum", route="cuda",
+                   source="dycoreplanet_tpu_torch/csrc/forcing.cu",
+                   replaces="dycoreplanet_tpu/ops/pallas_stencil.py:373",
+                   variant="advect_T=False, dycoreplanet_tpu/ops/"
+                           "pallas_stencil.py:499-514, 696-730",
+                   max_abs_err=err2m, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, blocks_per_sm=occ2m,
+                   ptxas=k2m_ptxas)
+    report.append(k2m_row)
+
+    # the semi-Lagrangian transport (PyTorch, no hand kernel) on the card
+    # against the same function in f64 on the CPU, at the step's dt_T
+    # (displacements of a few hundredths of a cell) and at 0.5 (up to
+    # the clamp at 2 cells)
+    from dycoreplanet_tpu_torch.diagnostics.device_time import profiled
+    from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
+    sl = slmodel._semi_lagrangian
+    wall = slmodel.T_specs[0]
+    sl_cpu = SemiLagrangian(slmodel.geo, [dataclasses.replace(
+        wall, lo_value=wall.lo_value.cpu().double())] + slmodel.T_specs[1:])
+    u64, T64 = s0.u.cpu().double(), s0.T.cpu().double()
+    sl_err = []
+    for dt_sl in (slmodel._dt_T(dt), 0.5):
+        g_sl = sl(s0.u, s0.T, dt_sl)
+        w_sl = sl_cpu(u64, T64, dt_sl)
+        rel = float((g_sl.cpu().double() - w_sl).abs().max()
+                    / w_sl.abs().max())
+        if not rel <= 1e-5:
+            fail(f"semi-Lagrangian transport (dt {dt_sl}): card vs f64 CPU "
+                 f"rel diff {rel:.3e} > 1e-5")
+        sl_err.append(rel)
+    sl_args = (s0.u, s0.T, slmodel._dt_T(dt))
+    sl_ms = time_ms(lambda: sl(*sl_args))
+    _, sl_prof = profiled(lambda: sl(*sl_args))
+    from torch.autograd import DeviceType
+    sl_kernels = sum(1 for e in sl_prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    phase(f"semi-Lagrangian transport at {BENCH_SHAPE} f32: card vs f64 CPU "
+          f"rel diff {sl_err[0]:.3e} (dt_T) / {sl_err[1]:.3e} (dt 0.5) (tol "
+          f"1e-5); {sl_ms:.4f} ms of device time and {sl_kernels} device "
+          f"kernels a call (one a step and one a substep)")
 
     # K1: Richardson solves + projection head, on the K2 outputs
     rhs_u, T_adv = got
@@ -762,11 +900,13 @@ def main() -> None:
             report[0]["max_abs_err"] = max(report[0]["max_abs_err"], e2)
             report[1]["max_abs_err"] = max(report[1]["max_abs_err"], e1)
             k1u_row["max_abs_err"] = max(k1u_row["max_abs_err"], e1u)
+            e2m = check_k2m(dev, shape, dname)
+            k2m_row["max_abs_err"] = max(k2m_row["max_abs_err"], e2m)
             phase(f"K2 / K1 / K1u at {shape} {dname}: max abs err {e2:.3e} "
                   f"/ {e1:.3e} / {e1u:.3e} (iteration pairs {list(PAIRS)} "
                   f"and (3,3) in groups, launches a call K1 {passes}, K1u "
                   f"{passes_u}; worst residual norm {nr:.3g} x tol; K1u "
-                  f"bitwise equal to K1: {bits})")
+                  f"bitwise equal to K1: {bits}); K2m {e2m:.3e}")
 
     # the optional float64 instantiations of K3-K5, at a small grid: the
     # kernels and their plain versions then differ only by reassociation
@@ -1048,6 +1188,46 @@ def main() -> None:
     record_replay("nse2_graph", l_ng)
     del nmodel
 
+    # `temperature advection = semi-lagrangian`: K2m and the transport in
+    # place of the fused K2, on the default path, the direct path and with
+    # temperature substeps; the model has no fused K2 wrapper, and the
+    # profiler counts none in the replay
+    ss0 = seed_developed_flow(slmodel)
+    want_sl = {"forcing_momentum": N_STEPS, "richardson": N_STEPS,
+               "faces_div": 0, "correct": N_STEPS, "tridiag": 0}
+    sl_paths = [("semi-Lagrangian", slmodel, want_sl, N_STEPS)]
+    sdmodel = BoussinesqModel(sl_params(direct_params(bench_params(
+        BENCH_SHAPE))), device=dev)
+    sl_paths.append(("semi-Lagrangian direct", sdmodel,
+                     {"forcing_momentum": N_STEPS, "faces_div": N_STEPS,
+                      "tridiag": 2 * N_STEPS, "correct": N_STEPS}, N_STEPS))
+    snmodel = BoussinesqModel(sl_params(nse2_params(bench_params(
+        BENCH_SHAPE))), device=dev)
+    sl_paths.append(("semi-Lagrangian NSE solver interval 2", snmodel,
+                     {"forcing_momentum": half, "richardson": half,
+                      "faces_div": 0, "correct": half, "tridiag": 0},
+                     N_STEPS))
+    for label, m_sl, want_s, n_sl in sl_paths:
+        if "forcing" in m_sl.kernels():
+            fail(f"{label}: the model has a fused K2 wrapper")
+        m_sl.run(max_steps=2, state=ss0)
+        sl_calls = m_sl._semi_lagrangian.calls
+        run_sl = drive(m_sl, lambda: m_sl.run(max_steps=N_STEPS, state=ss0))
+        sl_calls = m_sl._semi_lagrangian.calls - sl_calls
+        if sl_calls != n_sl:
+            fail(f"{label}: {sl_calls} semi-Lagrangian transports in "
+                 f"{N_STEPS} steps, expected {n_sl}")
+        l_sr, l_sg, ms_sr, ms_sg, _, _ = graph_vs_run(
+            label, m_sl, ss0, want_s, run_sl, bitwise=True)
+        phase(f"{label}: the transport ran {sl_calls} times in {N_STEPS} "
+              f"steps; wrapper launches {l_sr} and forcing 0 (no fused K2 "
+              f"wrapper); the replay's device kernels {l_sg}")
+        key = {"semi-Lagrangian": "sl", "semi-Lagrangian direct": "sl_direct",
+               "semi-Lagrangian NSE solver interval 2": "sl_nse2"}[label]
+        record(key, l_sr)
+        record_replay(f"{key}_graph", l_sg)
+    del sdmodel, snmodel
+
     # ---- 7. CLI --------------------------------------------------------
     classic = os.path.join(HERE, "data",
                            "aqua_planet_shell_test_3d-classic.prm")
@@ -1057,6 +1237,10 @@ def main() -> None:
                  "fixed-dt": "subsection Boussinesq Model\n"
                              "  set adapt time step = false\n"
                              "  set final time = 10\nend\n"}
+        sl = ("subsection Numerics\n"
+              "  set temperature advection = semi-lagrangian\nend\n")
+        extra["sl"] = sl
+        extra["sl-fixed-dt"] = sl + extra["fixed-dt"]
         prms = {}
         for label, text in extra.items():
             prms[label] = os.path.join(tmp, f"classic-{label}.prm")
@@ -1066,7 +1250,10 @@ def main() -> None:
         for label, prm, chunk in (
                 ("classic", classic, []), ("direct", prms["direct"], []),
                 ("classic --chunk 4", classic, ["--chunk", "4"]),
-                ("fixed dt --chunk 4", prms["fixed-dt"], ["--chunk", "4"])):
+                ("fixed dt --chunk 4", prms["fixed-dt"], ["--chunk", "4"]),
+                ("semi-Lagrangian", prms["sl"], []),
+                ("semi-Lagrangian fixed dt --chunk 4", prms["sl-fixed-dt"],
+                 ["--chunk", "4"])):
             steps = "8" if chunk else "3"
             cli = subprocess.run(
                 [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm,
@@ -1083,12 +1270,12 @@ def main() -> None:
     # ---- 8. report -----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
-    # mode), and on every eager path; replay_launches_by_path: the
+    # mode; K2m: the semi-Lagrangian path), and on every eager path; replay_launches_by_path: the
     # device kernels torch.profiler counted in one replay of each path's
     # 20-step graph
     own = {"richardson": "main", "forcing": "main", "correct": "main",
            "faces_div": "direct", "tridiag": "direct",
-           "richardson_free": "interval"}
+           "richardson_free": "interval", "forcing_momentum": "sl"}
     for r in report:
         name = r["name"].split()[1]
         r["launches"] = by_path[name][own[name]]

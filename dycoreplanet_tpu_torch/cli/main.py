@@ -9,7 +9,8 @@ per-step diagnostics and timer summaries, catch-all error reporting.
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--chunk N`` advances N steps per ``multi_step`` call (a CUDA graph on
 the card when dt is fixed) and pulls the chunk's diagnostics to the host
-in one copy. VTK output and checkpoints are not ported yet and refused
+in one copy. VTK output, checkpoints and the solver residual trails of
+``solver diagnostics level`` >= 3 are not ported yet and refused
 (ROADMAP.md).
 """
 
@@ -90,6 +91,13 @@ def main(argv=None) -> int:
     if args.checkpoint_every or args.restart:
         print("ERROR: checkpoints not yet ported (ROADMAP.md: VTK output "
               "and checkpoints)", file=sys.stderr)
+        return 1
+    if params.solver_diagnostics_print_level >= 3:
+        # the JAX CLI prints per-solver residual trails here (its
+        # model.step_verbose); the port has no step_verbose yet
+        print("ERROR: solver residual trails (solver diagnostics level >= "
+              "3) not yet ported (ROADMAP.md: VTK output and checkpoints)",
+              file=sys.stderr)
         return 1
 
     try:

@@ -1,20 +1,24 @@
 // K2: explicit forcing of the shell standard (advective) personality,
-// with the temperature transport fused in the same pass.
+// with the temperature transport fused in the same pass; and K2m, the
+// same forcing without the transport (forcing_kernel<T, false>).
 //
 // Replaces the Pallas kernel ShellForcingPallas._build_call
-// (dycoreplanet_tpu/ops/pallas_stencil.py:373). Computes, per cell,
+// (dycoreplanet_tpu/ops/pallas_stencil.py:373), with advect_T = true
+// (K2) and false (K2m, the semi-Lagrangian temperature path). Computes,
+// per cell,
 //
 //   rhs_u = u + dt * ( -(adv(u) + curv(u)) + cor(u) + buoy(T)
 //                      + visc_curv(u) / Re - grad p )
-//   T_adv = T - dt_T * (div(u_f T) - T div(u_f))
+//   T_adv = T - dt_T * (div(u_f T) - T div(u_f))          (K2 only)
 //
 // with MUSCL (van Leer) / upwind / centred face reconstruction, the
 // ghost rules of ops/bc.py and a Dirichlet inner wall for T.
 //
-// Bound: device-memory traffic. It reads u (3 fields), the three face
+// Bound: device-memory traffic. K2 reads u (3 fields), the three face
 // velocities, T and p, and writes rhs_u (3) and T_adv: 12 fields of
 // nr*nlat*nlon values (~50 MB at 32x128x256 f32), against roughly
-// 480 floating-point operations per cell.
+// 480 floating-point operations per cell. K2m reads the same 8 and
+// writes rhs_u: 11 fields (~46 MB), ~390 operations per cell.
 //
 // Design (2.5-D): a block of 8 x 32 threads owns a TL x TO = 8 x 32
 // lat-lon tile and marches along the radius over a chunk of planes
@@ -39,7 +43,11 @@
 //     dealt evenly to the threads;
 //   * no local arrays, so that ptxas keeps everything in registers, and
 //     __launch_bounds__ for two blocks an SM in f32 (one in f64, whose
-//     registers are twice as wide).
+//     registers are twice as wide);
+//   * K2m (ADVECT_T = false) stages u0, u1, u2 only, forms no T flux and
+//     reads T at the cell alone (buoyancy), one coalesced load a plane:
+//     its planes and flux arrays in shared memory hold 3 fields, not 4
+//     (Lay<false>), and it reads no T_wall and writes no T_adv.
 #include "shell_common.cuh"
 
 namespace {
@@ -65,18 +73,24 @@ enum {
 // lat rows: cos, tan, sin, 1 / cos
 enum { L_COS = 0, L_TAN, L_SIN, L_ICOS, L_K };
 
-// one staged plane: offsets (in values) into its buffer
-constexpr int O_F = 0;                          // u0, u1, u2, T
-constexpr int O_P = O_F + 4 * PH * PW;          // p
-constexpr int O_F1 = O_P + (TL + 2) * QW;       // lat face velocities
-constexpr int O_F2 = O_F1 + NXL;                // lon face velocities
-constexpr int O_M = O_F2 + NXO;                 // metric rows
-constexpr int PLANE = O_M + M_K * MR;
-// the block's shared memory: two planes, the face fluxes, the lat rows
-constexpr int O_XL = 2 * PLANE;                 // 4 fields' lat fluxes
-constexpr int O_XO = O_XL + 4 * NXL;            // 4 fields' lon fluxes
-constexpr int O_LAT = O_XO + 4 * NXO;
-constexpr int SMEM_VALUES = O_LAT + L_K * TL;
+// the shared-memory layout (in values) of a block; NF fields staged with
+// halo 2: u0, u1, u2 and, with the transport, T
+template <bool ADVECT_T>
+struct Lay {
+  static constexpr int NF = ADVECT_T ? 4 : 3;
+  // one staged plane: offsets into its buffer
+  static constexpr int O_F = 0;                      // u0, u1, u2(, T)
+  static constexpr int O_P = O_F + NF * PH * PW;     // p
+  static constexpr int O_F1 = O_P + (TL + 2) * QW;   // lat face velocities
+  static constexpr int O_F2 = O_F1 + NXL;            // lon face velocities
+  static constexpr int O_M = O_F2 + NXO;             // metric rows
+  static constexpr int PLANE = O_M + M_K * MR;
+  // the block's shared memory: two planes, the face fluxes, the lat rows
+  static constexpr int O_XL = 2 * PLANE;             // NF fields' lat fluxes
+  static constexpr int O_XO = O_XL + NF * NXL;       // NF fields' lon fluxes
+  static constexpr int O_LAT = O_XO + NF * NXO;
+  static constexpr int SMEM_VALUES = O_LAT + L_K * TL;
+};
 
 template <typename T>
 struct Args {
@@ -150,32 +164,34 @@ __device__ __forceinline__ int64_t plane_src(const Dims& g, int j0, int k0,
 }
 
 // stage plane i into buffer D (asynchronous; one commit group)
-template <typename T>
+template <bool ADVECT_T, typename T>
 __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
                                             int j0, int k0) {
+  using Y = Lay<ADVECT_T>;
   const Dims& g = A.g;
   const int64_t N = g.n_cells();
   const int64_t pi = (int64_t)i * g.nlat * g.nlon;
   for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
     const int r = e / PW, c = e % PW;
     const int64_t idx = pi + plane_src(g, j0, k0, r, c);
-    stage(D + O_F + e, A.u + idx, true);
-    stage(D + O_F + PH * PW + e, A.u + N + idx, true);
-    stage(D + O_F + 2 * PH * PW + e, A.u + 2 * N + idx, true);
-    stage(D + O_F + 3 * PH * PW + e, A.Tf + idx, true);
+    stage(D + Y::O_F + e, A.u + idx, true);
+    stage(D + Y::O_F + PH * PW + e, A.u + N + idx, true);
+    stage(D + Y::O_F + 2 * PH * PW + e, A.u + 2 * N + idx, true);
+    if constexpr (ADVECT_T)
+      stage(D + Y::O_F + 3 * PH * PW + e, A.Tf + idx, true);
     if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
-      stage(D + O_P + (r - 1) * QW + c - 1, A.p + idx, true);
+      stage(D + Y::O_P + (r - 1) * QW + c - 1, A.p + idx, true);
   }
   for (int e = threadIdx.x; e < NXL; e += THREADS) {
     const int jf = j0 + e / TO;
     const bool in = jf < g.nlat;
-    stage(D + O_F1 + e,
+    stage(D + Y::O_F1 + e,
           A.f1 + (in ? pi + (int64_t)jf * g.nlon + wrap_any(k0 + e % TO, g.nlon)
                      : 0), in);
   }
   for (int e = threadIdx.x; e < NXO; e += THREADS) {
     const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
-    stage(D + O_F2 + e,
+    stage(D + Y::O_F2 + e,
           A.f2 + pi + (int64_t)jj * g.nlon + wrap_any(k0 + e % (TO + 1), g.nlon),
           true);
   }
@@ -183,85 +199,90 @@ __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
   for (int e = threadIdx.x; e < M_K * MR; e += THREADS) {
     const int j = j0 + e % MR;
     const bool in = j < g.nlat;
-    stage(D + O_M + e, A.M + (in ? (e / MR) * MS + (int64_t)i * g.nlat + j : 0),
-          in);
+    stage(D + Y::O_M + e,
+          A.M + (in ? (e / MR) * MS + (int64_t)i * g.nlat + j : 0), in);
   }
   stage_commit();
 }
 
 // after this thread's copies of a plane arrived: the pole ring's sign
 // (POLE_FLIP) on its copies of u_lat and u_lon
-template <typename T>
+template <bool ADVECT_T, typename T>
 __device__ __forceinline__ void pole_signs(const Dims& g, T* D, int j0) {
+  using Y = Lay<ADVECT_T>;
   for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
     const int jj = j0 - 2 + e / PW;
     if (jj < 0 || jj >= g.nlat) {
-      D[O_F + PH * PW + e] = -D[O_F + PH * PW + e];
-      D[O_F + 2 * PH * PW + e] = -D[O_F + 2 * PH * PW + e];
+      D[Y::O_F + PH * PW + e] = -D[Y::O_F + PH * PW + e];
+      D[Y::O_F + 2 * PH * PW + e] = -D[Y::O_F + 2 * PH * PW + e];
     }
   }
 }
 
 // the flux of field q through lat face j0 + fr at column k0 + fc of
 // the staged plane D (0 through the pole face past the grid)
-template <typename T>
+template <bool ADVECT_T, typename T>
 __device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
                                          int q, int fr, int fc, int j0) {
+  using Y = Lay<ADVECT_T>;
   const int jf = j0 + fr, e = fr * TO + fc;
   T flux = T(0);
   if (jf < A.g.nlat) {
-    const T* v = D + O_F + q * PH * PW + fr * PW + fc + 2;  // cell jf - 2
-    const T uf = D[O_F1 + e];
-    flux = D[O_M + M_ALAT_LO * MR + fr]
+    const T* v = D + Y::O_F + q * PH * PW + fr * PW + fc + 2;  // cell jf - 2
+    const T uf = D[Y::O_F1 + e];
+    flux = D[Y::O_M + M_ALAT_LO * MR + fr]
            * (uf * shell::face_value<T>(v[0], v[PW], v[2 * PW], v[3 * PW],
                                         jf == 0, false, uf, A.scheme));
   }
-  S[O_XL + q * NXL + e] = flux;
+  S[Y::O_XL + q * NXL + e] = flux;
 }
 
 // the flux of field q through lon face k0 + fc of tile row fr
-template <typename T>
+template <bool ADVECT_T, typename T>
 __device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
                                          int q, int fr, int fc) {
+  using Y = Lay<ADVECT_T>;
   const int e = fr * (TO + 1) + fc;
-  const T* v = D + O_F + q * PH * PW + (fr + 2) * PW + fc;  // cell kf - 2
-  const T uf = D[O_F2 + e];
-  S[O_XO + q * NXO + e] =
-      D[O_M + M_ALON * MR + fr]
+  const T* v = D + Y::O_F + q * PH * PW + (fr + 2) * PW + fc;  // cell kf - 2
+  const T uf = D[Y::O_F2 + e];
+  S[Y::O_XO + q * NXO + e] =
+      D[Y::O_M + M_ALON * MR + fr]
       * (uf * shell::face_value<T>(v[0], v[1], v[2], v[3], false, false, uf,
                                    A.scheme));
 }
 
-// the lat and lon face fluxes of the 4 fields on plane D: each thread
-// the lower lat and lon faces of its cell, and threads 0..159 one of the
-// faces past the tile (lat row TL, lon column TO)
-template <typename T>
+// the lat and lon face fluxes of the NF fields on plane D: each thread
+// the lower lat and lon faces of its cell, and threads 0..NF*(TO+TL)-1
+// one of the faces past the tile (lat row TL, lon column TO)
+template <bool ADVECT_T, typename T>
 __device__ __forceinline__ void plane_fluxes(const Args<T>& A, const T* D,
                                              T* S, int j0) {
+  constexpr int NF = Lay<ADVECT_T>::NF;
   const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
-  for (int q = 0; q < 4; ++q) {
-    lat_flux(A, D, S, q, ty, tx, j0);
-    lon_flux(A, D, S, q, ty, tx);
+  for (int q = 0; q < NF; ++q) {
+    lat_flux<ADVECT_T>(A, D, S, q, ty, tx, j0);
+    lon_flux<ADVECT_T>(A, D, S, q, ty, tx);
   }
   const int t = threadIdx.x;
-  if (t < 4 * TO)
-    lat_flux(A, D, S, t / TO, TL, t % TO, j0);
-  else if (t < 4 * TO + 4 * TL)
-    lon_flux(A, D, S, (t - 4 * TO) / TL, (t - 4 * TO) % TL, TO);
+  if (t < NF * TO)
+    lat_flux<ADVECT_T>(A, D, S, t / TO, TL, t % TO, j0);
+  else if (t < NF * TO + NF * TL)
+    lon_flux<ADVECT_T>(A, D, S, (t - NF * TO) / TL, (t - NF * TO) % TL, TO);
 }
 
 // the advective flux sum of field Q at the thread's cell (not yet / vol),
 // in the order of the axes; carries the radial flux of face i+1
-template <int Q, typename T>
+template <int Q, bool ADVECT_T, typename T>
 __device__ __forceinline__ T flux_sum(const Args<T>& A, const T* S,
                                       Win<T>& w, int i, T ar_hi, T uf_up) {
+  using Y = Lay<ADVECT_T>;
   T fup = T(0);
   if (i + 1 < A.g.nr)
     fup = ar_hi * (uf_up * shell::face_value<T>(w.m1, w.c, w.p1, w.p2, false, false,
                                        uf_up, A.scheme));
   const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
-  const T* XL = S + O_XL + Q * NXL;
-  const T* XO = S + O_XO + Q * NXO;
+  const T* XL = S + Y::O_XL + Q * NXL;
+  const T* XO = S + Y::O_XO + Q * NXO;
   T acc = fup - w.flo;
   acc = acc + (XL[(ty + 1) * TO + tx] - XL[ty * TO + tx]);
   acc = acc + (XO[ty * (TO + 1) + tx + 1] - XO[ty * (TO + 1) + tx]);
@@ -290,9 +311,10 @@ __device__ __forceinline__ void win_shift(Win<T>& w) {
   w.p1 = w.p2;
 }
 
-template <typename T>
+template <typename T, bool ADVECT_T>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     forcing_kernel(const Args<T> A) {
+  using Y = Lay<ADVECT_T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* S = reinterpret_cast<T*>(smem_raw);
   PROBE_START;
@@ -314,13 +336,14 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   const T* u0 = A.u;
   const T* u1 = A.u + N;
   const T* u2 = A.u + 2 * N;
-  const T wall = A.T_wall[jk];
+  // T's inner-wall value: only the transport reads it
+  const T wall = ADVECT_T ? A.T_wall[jk] : T(0);
 
   // the lat rows of the tile, and the first plane
   for (int e = threadIdx.x; e < L_K * TL; e += THREADS)
-    stage(S + O_LAT + e, A.lat + (e / TL) * g.nlat + min(j0 + e % TL, g.nlat - 1),
-          true);
-  stage_plane(A, S, ib, j0, k0);
+    stage(S + Y::O_LAT + e,
+          A.lat + (e / TL) * g.nlat + min(j0 + e % TL, g.nlat - 1), true);
+  stage_plane<ADVECT_T>(A, S, ib, j0, k0);
 
   // the windows at the first plane, and the flux through its lower face
   Win<T> w0, w1, w2, wT;
@@ -330,58 +353,67 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     win_start<0>(A, u0, w0, plane, jk, ib, wall, uf, ar_lo);
     win_start<1>(A, u1, w1, plane, jk, ib, wall, uf, ar_lo);
     win_start<2>(A, u2, w2, plane, jk, ib, wall, uf, ar_lo);
-    win_start<3>(A, A.Tf, wT, plane, jk, ib, wall, uf, ar_lo);
+    if constexpr (ADVECT_T)
+      win_start<3>(A, A.Tf, wT, plane, jk, ib, wall, uf, ar_lo);
   }
   T p_m1 = pcol(A.p, g, plane, jk, ib - 1), p_c = pcol(A.p, g, plane, jk, ib);
   T f0_c = A.f0[ib * plane + jk];
 
   for (int i = ib; i < ie; ++i) {
-    T* D = S + ((i - ib) & 1) * PLANE;
+    T* D = S + ((i - ib) & 1) * Y::PLANE;
     __syncthreads();  // the readers of the other buffer (plane i-1) are done
     PROBE(10);
     const bool next = i + 1 < ie;
-    if (next) stage_plane(A, S + ((i + 1 - ib) & 1) * PLANE, i + 1, j0, k0);
+    if (next)
+      stage_plane<ADVECT_T>(A, S + ((i + 1 - ib) & 1) * Y::PLANE, i + 1, j0,
+                            k0);
     // the column's next radial cells, while the planes are in flight
     w0.p2 = col<0>(u0, g, plane, jk, i + 2, wall);
     w1.p2 = col<1>(u1, g, plane, jk, i + 2, wall);
     w2.p2 = col<2>(u2, g, plane, jk, i + 2, wall);
-    wT.p2 = col<3>(A.Tf, g, plane, jk, i + 2, wall);
+    T Tcell = T(0);  // K2m: T at the cell, for the buoyancy alone
+    if constexpr (ADVECT_T)
+      wT.p2 = col<3>(A.Tf, g, plane, jk, i + 2, wall);
+    else
+      Tcell = A.Tf[i * plane + jk];
     const T p_p1 = pcol(A.p, g, plane, jk, i + 1);
     const T f0_n = i + 1 < g.nr ? A.f0[(int64_t)(i + 1) * plane + jk] : T(0);
     if (next)
       stage_wait<1>();
     else
       stage_wait<0>();
-    pole_signs(g, D, j0);
+    pole_signs<ADVECT_T>(g, D, j0);
     __syncthreads();
     PROBE(11);
-    plane_fluxes(A, D, S, j0);
+    plane_fluxes<ADVECT_T>(A, D, S, j0);
     __syncthreads();
     PROBE(12);
 
     // ---- the cell (i, j, k) -------------------------------------------
-    const T* Mt = D + O_M + ty;
+    const T* Mt = D + Y::O_M + ty;
     auto m = [&](int ch) { return Mt[ch * MR]; };
     const T ar_hi = m(M_AR_HI);
-    const T s0 = flux_sum<0>(A, S, w0, i, ar_hi, f0_n);
-    const T s1 = flux_sum<1>(A, S, w1, i, ar_hi, f0_n);
-    const T s2 = flux_sum<2>(A, S, w2, i, ar_hi, f0_n);
-    const T sT = flux_sum<3>(A, S, wT, i, ar_hi, f0_n);
+    const T s0 = flux_sum<0, ADVECT_T>(A, S, w0, i, ar_hi, f0_n);
+    const T s1 = flux_sum<1, ADVECT_T>(A, S, w1, i, ar_hi, f0_n);
+    const T s2 = flux_sum<2, ADVECT_T>(A, S, w2, i, ar_hi, f0_n);
+    T sT = T(0);
+    if constexpr (ADVECT_T) sT = flux_sum<3, ADVECT_T>(A, S, wT, i, ar_hi, f0_n);
     // the cell's values; the windows move up a plane now, so that the
     // plane above's cells are not live through the arithmetic below
-    const T ur = w0.c, ul = w1.c, up = w2.c, Tc = wT.c;
+    const T ur = w0.c, ul = w1.c, up = w2.c;
+    const T Tc = ADVECT_T ? wT.c : Tcell;
     win_shift(w0);
     win_shift(w1);
     win_shift(w2);
-    win_shift(wT);
+    if constexpr (ADVECT_T) win_shift(wT);
     if (own) {
-      const T* L = S + O_LAT + ty;
+      const T* L = S + Y::O_LAT + ty;
       const T cosl = L[L_COS * TL], tanl = L[L_TAN * TL],
               sinl = L[L_SIN * TL], icos = L[L_ICOS * TL];
       const T ivol = m(M_IVOL), ir = m(M_IR);
       // div(u_f), shared by the three momentum components and T
-      const T* F1f = D + O_F1;
-      const T* F2f = D + O_F2;
+      const T* F1f = D + Y::O_F1;
+      const T* F2f = D + Y::O_F2;
       const T dq_r = (i + 1 < g.nr ? ar_hi * f0_n : T(0)) - m(M_AR_LO) * f0_c;
       const T dq_l = (j + 1 < g.nlat ? m(M_ALAT_HI) * F1f[(ty + 1) * TO + tx]
                                      : T(0))
@@ -416,7 +448,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       const T idlat_lo = m(M_IDLAT_LO), idlat_hi = m(M_IDLAT_HI),
               idlon = m(M_IDLON);
       const int cc = (ty + 2) * PW + tx + 2;
-      const T* F0 = D + O_F;
+      const T* F0 = D + Y::O_F;
       const T* F1 = F0 + PH * PW;
       const T* F2 = F1 + PH * PW;
       const T dlat_ur = cgrad(F0[cc - PW], ur, F0[cc + PW], idlat_lo, idlat_hi);
@@ -436,7 +468,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       T F1v = -adv1 + cor1 + A.iRe * visc1;
       T F2v = -adv2 + cor2 + A.iRe * visc2;
       if (A.include_gradp) {
-        const T* P = D + O_P;
+        const T* P = D + Y::O_P;
         const int pc = (ty + 1) * QW + tx + 1;
         F0v = F0v - cgrad(p_m1, p_c, p_p1, m(M_IDR_LO), m(M_IDR_HI));
         F1v = F1v - cgrad(P[pc - QW], p_c, P[pc + QW], idlat_lo, idlat_hi);
@@ -446,8 +478,10 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       A.rhs_u[cell] = ur + A.dt * F0v;
       A.rhs_u[N + cell] = ul + A.dt * F1v;
       A.rhs_u[2 * N + cell] = up + A.dt * F2v;
-      const T adv_T = sT * ivol - Tc * div_u;
-      A.T_adv[cell] = Tc - A.dt_T * adv_T;
+      if constexpr (ADVECT_T) {
+        const T adv_T = sT * ivol - Tc * div_u;
+        A.T_adv[cell] = Tc - A.dt_T * adv_T;
+      }
     }
     PROBE(13);
     p_m1 = p_c;
@@ -456,46 +490,64 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-template <typename T>
-int launch(int nr, int nlat, int nlon, int RS, const T* u, const T* f0,
-           const T* f1, const T* f2, const T* Tf, const T* p,
-           const T* T_wall, const T* M, const T* lat, double dt,
-           double dt_T, double beta, double T_ref, double rho_bg, double iRe,
-           double omega, int scheme, int physical_coriolis, int perturbation,
-           int include_gradp, T* rhs_u, T* T_adv, void* stream) {
-  Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,
-            (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M, lat,
-            T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg), T(iRe), T(omega),
-            scheme, physical_coriolis, perturbation, include_gradp, rhs_u,
-            T_adv};
-  const int smem = SMEM_VALUES * (int)sizeof(T);
+template <typename T, bool ADVECT_T>
+int launch(const Args<T>& A, void* stream) {
+  const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
   static bool smem_set = false;
   if (!smem_set && smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        forcing_kernel<T, ADVECT_T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
     smem_set = true;
   }
-  const unsigned grid = (unsigned)(((nr + RS - 1) / RS) * A.nbl * A.nbo);
-  forcing_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(A);
+  const unsigned grid =
+      (unsigned)(((A.g.nr + A.RS - 1) / A.RS) * A.nbl * A.nbo);
+  forcing_kernel<T, ADVECT_T>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM of one instance (the dynamic shared memory of its
+// launch), into *blocks
+template <typename T, bool ADVECT_T>
+int occupancy(int* blocks) {
+  const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        forcing_kernel<T, ADVECT_T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, forcing_kernel<T, ADVECT_T>, THREADS, smem);
 }
 
 }  // namespace
 
+// NAME: one launch, K2 with advect_T != 0 (T_wall read, T_adv written),
+// else K2m (T_wall and T_adv unused, may be null). NAME_occupancy:
+// resident blocks an SM of that instance.
 #define FORCING_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int nr, int nlat, int nlon, int RS, const T* u,       \
-                      const T* f0, const T* f1, const T* f2, const T* Tf,   \
-                      const T* p, const T* T_wall, const T* M,              \
-                      const T* lat, double dt, double dt_T, double beta,    \
-                      double T_ref, double rho_bg, double iRe,              \
+  extern "C" int NAME(int advect_T, int nr, int nlat, int nlon, int RS,     \
+                      const T* u, const T* f0, const T* f1, const T* f2,    \
+                      const T* Tf, const T* p, const T* T_wall,             \
+                      const T* M, const T* lat, double dt, double dt_T,     \
+                      double beta, double T_ref, double rho_bg, double iRe, \
                       double omega, int scheme, int physical_coriolis,      \
                       int perturbation, int include_gradp, T* rhs_u,        \
                       T* T_adv, void* stream) {                             \
-    return launch<T>(nr, nlat, nlon, RS, u, f0, f1, f2, Tf, p, T_wall, M,   \
-                     lat, dt, dt_T, beta, T_ref, rho_bg, iRe, omega,        \
-                     scheme, physical_coriolis, perturbation,               \
-                     include_gradp, rhs_u, T_adv, stream);                  \
+    const Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,         \
+                    (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M,  \
+                    lat, T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg),      \
+                    T(iRe), T(omega), scheme, physical_coriolis,            \
+                    perturbation, include_gradp, rhs_u, T_adv};             \
+    return advect_T ? launch<T, true>(A, stream)                            \
+                    : launch<T, false>(A, stream);                          \
+  }                                                                         \
+  extern "C" int NAME##_occupancy(int advect_T, int* blocks) {              \
+    return advect_T ? occupancy<T, true>(blocks)                            \
+                    : occupancy<T, false>(blocks);                          \
   }
 
 FORCING_ENTRY(dp_forcing_f32, float)

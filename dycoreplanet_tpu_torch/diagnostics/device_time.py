@@ -19,11 +19,13 @@ _CYCLES_PER_MS = []
 PAD_S = 0.05
 
 # the device kernel each wrapper of BoussinesqModel.kernels() launches, by
-# a part of its name (K3's wrapper also launches a reduce_partials kernel,
-# K1's and K1u's instances differ in their TRACK template argument)
+# a part of its name (K3's wrapper also launches a reduce_partials kernel)
 KERNEL_NAMES = {"forcing": "forcing_kernel", "richardson": "rich_fused",
                 "faces_div": "faces_div_kernel", "correct": "correct_kernel",
                 "tridiag": "thomas_"}
+# the wrappers of the instances whose last template argument is false:
+# K1u (TRACK) and K2m (ADVECT_T)
+VARIANTS = {"richardson": "richardson_free", "forcing": "forcing_momentum"}
 
 
 def wrapper_of(kernel: str) -> Optional[str]:
@@ -31,10 +33,10 @@ def wrapper_of(kernel: str) -> Optional[str]:
     launches the device kernel named ``kernel``, or None."""
     for wrapper, part in KERNEL_NAMES.items():
         if part in kernel:
-            if wrapper == "richardson":
+            if wrapper in VARIANTS:
                 tail = kernel.split(part, 1)[1].split(">", 1)[0]
                 if "false" in tail or "(bool)0" in tail:
-                    return "richardson_free"
+                    return VARIANTS[wrapper]
             return wrapper
     return None
 

@@ -22,9 +22,13 @@ reference's NoConvergence retry, boussinesq_model.tpp:1203-1232. With
 solves whose radial tridiagonals go through K4 (solvers/helmholtz.py,
 ops/tridiag.py), followed by K3; only the Poisson spot-check gates
 them. Every projection ends in the correction kernel K5. The JAX
-model's ``_explicit_forcing`` and ``_advected_temperature`` are
-``ShellForcing.explicit_forcing`` / ``.advected_temperature`` here, the
-plain version of K2 (ops/forcing.py).
+model's ``_explicit_forcing`` and Eulerian ``_advected_temperature``
+are ``ShellForcing.explicit_forcing`` / ``.advected_temperature`` here,
+the plain version of K2 (ops/forcing.py). With ``temperature advection =
+semi-lagrangian`` the step runs K2m, the forcing without the transport,
+and the temperature is transported by ops/semi_lagrangian.py with the
+cell velocity of step n, in the NSE step and in every temperature
+substep (``_advected_temperature``).
 
 With ``residual check interval`` = M > 1 the tracked K1 (and its gate)
 runs on every M-th step and K1's residual-free variant K1u in between
@@ -65,6 +69,7 @@ from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
 from dycoreplanet_tpu_torch.ops.projection import (
     ShellProjection, apply_wall_face_values)
 from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
+from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
@@ -171,8 +176,6 @@ def _unsupported(params: Parameters) -> Optional[str]:
         return "bf16"
     if num.poisson_solver in ("cg", "mg"):
         return f"remaining solvers: poisson solver = {num.poisson_solver}"
-    if num.temperature_advection == "semi-lagrangian":
-        return "semi-Lagrangian temperature transport"
     if (num.helmholtz_solver != "direct" and num.fixed_solver_iters <= 0
             and num.momentum_fixed_iters > 0):
         return ("remaining solvers: momentum fixed iters > 0 with fixed "
@@ -246,7 +249,15 @@ class BoussinesqModel:
             include_gradp=num.projection == "incremental",
             u_specs=self.u_specs, p_specs=self.p_specs,
             T_specs=self.T_specs, T_wall=self.T_wall,
-            dt_T_factor=1.0 / params.NSE_solver_interval)
+            dt_T_factor=1.0 / params.NSE_solver_interval,
+            advect_T=num.temperature_advection == "eulerian")
+        # semi-Lagrangian temperature transport (K = 2 ghost layers, the
+        # JAX package's default), its tables on the device from the start
+        self._semi_lagrangian = None
+        if num.temperature_advection == "semi-lagrangian":
+            self._semi_lagrangian = SemiLagrangian(geo, self.T_specs)
+            self._semi_lagrangian.tables(self._vol_t.device,
+                                         self.torch_dtype)
         self._proj = ShellProjection(
             geo, self.u_specs, self.p_specs,
             incremental=num.projection == "incremental")
@@ -295,7 +306,8 @@ class BoussinesqModel:
     def kernels(self) -> Dict[str, object]:
         """The kernel wrappers of the step, by name (their ``launches``
         count the CUDA launches)."""
-        out = {"forcing": self._forcing,
+        forcing = "forcing" if self._forcing.advect_T else "forcing_momentum"
+        out = {forcing: self._forcing,
                "faces_div": self._proj.faces_div_count,
                "correct": self._proj.correct_count,
                "tridiag": self._tridiag}
@@ -496,8 +508,12 @@ class BoussinesqModel:
         dt = self._scalar(dt)
         dt_T = self._dt_T(dt)
 
-        # ---------------- explicit forcing from step n [K2] -----------
-        rhs_u, T_adv = self._forcing(u, u_faces, T, pres, dt)
+        # ------- explicit forcing from step n [K2, or K2m + transport] --
+        if self._forcing.advect_T:
+            rhs_u, T_adv = self._forcing(u, u_faces, T, pres, dt)
+        else:
+            rhs_u = self._forcing(u, u_faces, T, pres, dt)
+            T_adv = self._advected_temperature(u, u_faces, T, dt_T)
         kT = self._scalar(self.dtype.type(dt_T)
                           * self.dtype.type(self.one_over_Pe))
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
@@ -567,7 +583,7 @@ class BoussinesqModel:
         geo = self.geo
         T = state.T
         dt_T = self._dt_T(dt)
-        T_adv = self._forcing.advected_temperature(state.u_faces, T, dt_T)
+        T_adv = self._advected_temperature(state.u, state.u_faces, T, dt_T)
         kT = self._scalar(self.dtype.type(dt_T)
                           * self.dtype.type(self.one_over_Pe))
         rhs_T = self._vol_t * T_adv + kT * self._T_lap_offset_t
@@ -585,6 +601,15 @@ class BoussinesqModel:
             0, T_iters, [0] * 3, temperature_residual=T_rnorm,
             solver_ok=T_ok)
         return new_state, packed, packed[10]
+
+    def _advected_temperature(self, u, u_faces, T, dt_T):
+        """T after the explicit transport sub-step: the semi-Lagrangian
+        departure-point interpolation with the cell velocity ``u``, or the
+        Eulerian T - dt_T u . grad T with the face velocities (JAX model:
+        ``_advected_temperature``)."""
+        if self._semi_lagrangian is not None:
+            return self._semi_lagrangian(u, T, dt_T)
+        return self._forcing.advected_temperature(u_faces, T, dt_T)
 
     # ------------------------------------------------------------------
     def _solve_temperature_system(self, rhs_T, kT, x0):

@@ -59,10 +59,13 @@ def _as_tensor(value, like: torch.Tensor):
 
 
 def ghost(f: torch.Tensor, d: int, end: str, rule: BC, value,
-          lon_axis: int = -1) -> torch.Tensor:
-    """One ghost slice (thickness 1) for axis ``d`` of ``f``."""
-    interior = (_take(f, d, slice(0, 1)) if end == "lo"
-                else _take(f, d, slice(f.shape[d] - 1, None)))
+          lon_axis: int = -1, k: int = 1) -> torch.Tensor:
+    """One ghost slice (thickness 1) for axis ``d`` of ``f``, at distance
+    k from the wall (reflection through the wall: the mirror partner of
+    ghost k is interior cell k-1)."""
+    n = f.shape[d]
+    interior = (_take(f, d, slice(k - 1, k)) if end == "lo"
+                else _take(f, d, slice(n - k, n - k + 1)))
     if rule == BC.NEUMANN:
         return interior
     if rule == BC.DIRICHLET:
@@ -87,3 +90,23 @@ def pad_axis(f: torch.Tensor, d: int, spec: Optional[BCSpec],
         lo = ghost(f, d, "lo", spec.lo, spec.lo_value, lon_axis)
         hi = ghost(f, d, "hi", spec.hi, spec.hi_value, lon_axis)
     return torch.cat([lo, f, hi], dim=d)
+
+
+def pad_axis_width(f: torch.Tensor, d: int, spec: Optional[BCSpec],
+                   periodic: bool, width: int,
+                   lon_axis: int = -1) -> torch.Tensor:
+    """``f`` extended by ``width`` ghost layers at each end of axis ``d``
+    (reflection-consistent for every rule; periodic wraps). Used by
+    wide-stencil consumers (semi-Lagrangian transport)."""
+    n = f.shape[d]
+    if periodic:
+        parts = [_take(f, d, slice(n - width, n)), f,
+                 _take(f, d, slice(0, width))]
+    else:
+        if spec is None:
+            raise ValueError("wall axis requires a BCSpec")
+        parts = ([ghost(f, d, "lo", spec.lo, spec.lo_value, lon_axis, k)
+                  for k in range(width, 0, -1)] + [f]
+                 + [ghost(f, d, "hi", spec.hi, spec.hi_value, lon_axis, k)
+                    for k in range(1, width + 1)])
+    return torch.cat(parts, dim=d)

@@ -1,21 +1,25 @@
 """K2: the explicit forcing of the shell standard personality, with the
-temperature transport fused in, as a hand-written CUDA kernel beside its
-plain PyTorch version.
+temperature transport fused in, and K2m, the same forcing without the
+transport, as hand-written CUDA kernels beside their plain PyTorch
+versions.
 
-Replaces the Pallas kernel ``ShellForcingPallas._build_call``
-(dycoreplanet_tpu/ops/pallas_stencil.py:373). Computes
+They replace the Pallas kernel ``ShellForcingPallas._build_call``
+(dycoreplanet_tpu/ops/pallas_stencil.py:373) with ``advect_T`` true (K2)
+and false (K2m: the semi-Lagrangian temperature path, where the
+transport is ops/semi_lagrangian.py), and compute
 
     rhs_u = u + dt * ( -(adv u + curv u) + cor u + buoy T
                        + visc_curv u / Re - grad p )
-    T_adv = T - dt_T * u . grad T        (Dirichlet inner wall for T)
+    T_adv = T - dt_T * u . grad T        (K2 only; Dirichlet inner wall)
 
-Kernel source: csrc/forcing.cu. Bound: device-memory traffic — u, the
-three face velocities, T and p read, rhs_u and T_adv written: 12 fields,
-~50 MB at 32x128x256 f32. Design (2.5-D): a block owns an 8 x 32 lat-lon
-tile and marches along the radius over ``plan(shape)``'s chunk of
-planes, staging each plane with its lateral ghosts in shared memory and
-keeping the radial neighbours in registers; each face flux is computed
-once.
+Kernel source: csrc/forcing.cu (``forcing_kernel<T, ADVECT_T>``). Bound:
+device-memory traffic — u, the three face velocities, T and p read,
+rhs_u and T_adv written: 12 fields, ~50 MB at 32x128x256 f32 (K2m: 11
+fields, ~46 MB). Design (2.5-D): a block owns an 8 x 32 lat-lon tile and
+marches along the radius over ``plan(shape)``'s chunk of planes, staging
+each plane with its lateral ghosts in shared memory and keeping the
+radial neighbours in registers; each face flux is computed once. K2m
+stages u alone and reads T at the cell.
 """
 
 from __future__ import annotations
@@ -37,21 +41,27 @@ FIELDS_MOVED = 12
 # reconstruction and flux, divergence form), div(u_f) 12, curvature 20,
 # Coriolis 10, buoyancy 5, viscous curvature 61, grad p 20, the update 23
 OPS_PER_CELL = 480
+# K2m: u, the face velocities, T and p read, rhs_u written; 3 advected
+# fields, the update without T's 5
+MOMENTUM_FIELDS_MOVED = 11
+MOMENTUM_OPS_PER_CELL = 390
 
 TILE = (8, 32)          # csrc/forcing.cu TL, TO: one thread per tile cell
 RADIAL_CHUNK = 16       # planes a block marches over
 
 
-def shared_bytes(itemsize: int) -> int:
-    """Dynamic shared memory of one block (csrc/forcing.cu SMEM_VALUES):
-    two staged planes (u0, u1, u2, T with halo 2, p with halo 1, the lat
-    and lon face velocities, 13 metric rows), the 4 fields' lat and lon
-    face fluxes, and the tile's 4 lat rows."""
+def shared_bytes(itemsize: int, advect_T: bool = True) -> int:
+    """Dynamic shared memory of one block (csrc/forcing.cu
+    Lay::SMEM_VALUES): two staged planes (u0, u1, u2 and, with the
+    transport, T with halo 2, p with halo 1, the lat and lon face
+    velocities, 13 metric rows), those fields' lat and lon face fluxes,
+    and the tile's 4 lat rows."""
     tl, to = TILE
+    nf = 4 if advect_T else 3
     n_xl, n_xo = (tl + 1) * to, tl * (to + 1)
-    plane = (4 * (tl + 4) * (to + 4) + (tl + 2) * (to + 2) + n_xl + n_xo
+    plane = (nf * (tl + 4) * (to + 4) + (tl + 2) * (to + 2) + n_xl + n_xo
              + 13 * (tl + 1))
-    return itemsize * (2 * plane + 4 * (n_xl + n_xo) + 4 * tl)
+    return itemsize * (2 * plane + nf * (n_xl + n_xo) + 4 * tl)
 
 
 def plan(shape):
@@ -66,16 +76,18 @@ _SCHEMES = {"muscl": 0, "upwind": 1, "centered": 2}
 
 
 class ShellForcing:
-    """Callable (u, u_faces, T, p, dt) -> (rhs_u, T_adv). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    """Callable (u, u_faces, T, p, dt) -> (rhs_u, T_adv) with
+    ``advect_T`` (K2), else -> rhs_u (K2m). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
 
     def __init__(self, geo: Geometry, *, beta: float, T_ref: float,
                  rho_background: float, gravity: np.ndarray,
                  one_over_Re: float, omega_hat: float, coriolis_mode: str,
                  buoyancy: str, scheme: str, include_gradp: bool,
                  u_specs, p_specs, T_specs, T_wall: np.ndarray,
-                 dt_T_factor: float = 1.0):
+                 dt_T_factor: float = 1.0, advect_T: bool = True):
         self.geo = geo
+        self.advect_T = bool(advect_T)
         self.beta, self.T_ref = float(beta), float(T_ref)
         self.rho_background = float(rho_background)
         self.gravity = np.asarray(gravity)          # (3, *cells)
@@ -147,10 +159,24 @@ class ShellForcing:
         return T - dt_T * adv_T
 
     def plain(self, u, u_faces, T, pres, dt):
-        """Plain PyTorch version: (u + dt * forcing, T_adv)."""
-        return (u + dt * self.explicit_forcing(u, u_faces, pres, T),
-                self.advected_temperature(u_faces, T,
-                                          dt * self.dt_T_factor))
+        """Plain PyTorch version: (u + dt * forcing, T_adv), or u + dt *
+        forcing without the transport."""
+        rhs_u = u + dt * self.explicit_forcing(u, u_faces, pres, T)
+        if not self.advect_T:
+            return rhs_u
+        return rhs_u, self.advected_temperature(u_faces, T,
+                                                dt * self.dt_T_factor)
+
+    def occupancy(self, dtype: torch.dtype) -> int:
+        """Resident blocks an SM of this wrapper's kernel instance on the
+        card (CUDA's occupancy calculator at its launch's block size and
+        shared memory)."""
+        blocks = ctypes.c_int(0)
+        fn = kl.bind("forcing.cu", f"dp_forcing_{kl.suffix(dtype)}_occupancy",
+                     [ctypes.c_int, ctypes.c_void_p])
+        kl.check(fn(int(self.advect_T), ctypes.byref(blocks)),
+                 "forcing occupancy")
+        return blocks.value
 
     # ------------------------------------------------------------------
     def _launch(self, u, u_faces, T, pres, dt):
@@ -171,24 +197,27 @@ class ShellForcing:
         if fn is None:
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             fn = kl.bind("forcing.cu", f"dp_forcing_{sfx}",
-                         [I] * 4 + [P] * 9 + [D] * 7 + [I] * 4
+                         [I] * 5 + [P] * 9 + [D] * 7 + [I] * 4
                          + [P, P, P])
             self._fn[sfx] = fn
         rhs_u = torch.empty_like(u)
-        T_adv = torch.empty_like(T)
+        T_adv = torch.empty_like(T) if self.advect_T else None
         p = kl.ptr
         shp = self.geo.cell_shape
         dtf = float(dt)
-        kl.check(fn(*shp, plan(shp)[0], p(u), p(u_faces[0]), p(u_faces[1]),
-                    p(u_faces[2]), p(T), p(pres), p(T_wall), p(M), p(lat),
-                    dtf, dtf * self.dt_T_factor, self.beta, self.T_ref,
+        kl.check(fn(int(self.advect_T), *shp, plan(shp)[0], p(u),
+                    p(u_faces[0]), p(u_faces[1]), p(u_faces[2]), p(T),
+                    p(pres), p(T_wall) if self.advect_T else None, p(M),
+                    p(lat), dtf, dtf * self.dt_T_factor, self.beta,
+                    self.T_ref,
                     self.rho_background, self.one_over_Re, self.omega_hat,
                     _SCHEMES[self.scheme],
                     int(self.coriolis_mode == "physical"),
                     int(self.buoyancy == "perturbation"),
-                    int(self.include_gradp), p(rhs_u), p(T_adv),
+                    int(self.include_gradp), p(rhs_u),
+                    p(T_adv) if self.advect_T else None,
                     kl.stream_of(u)), "forcing kernel")
-        return rhs_u, T_adv
+        return (rhs_u, T_adv) if self.advect_T else rhs_u
 
     def __call__(self, u, u_faces, T, pres, dt):
         if u.device.type == "cpu":

@@ -4,12 +4,13 @@
     python3 scripts/profile_torch_step.py [--steps 10] [--trace out.json]
         [--helmholtz direct] [--nse-interval K]
         [--residual-check-interval M] [--chunk N]
+        [--temperature-advection semi-lagrangian]
 
 Runs the flagship configuration (models/presets.py: shell 32x128x256
 f32, bench opt-ins, seeded developed flow) on CUDA — with `--helmholtz
 direct`, the same configuration with `helmholtz solver = direct`; with
-`--nse-interval K` / `--residual-check-interval M` those settings — and
-reports
+`--nse-interval K` / `--residual-check-interval M` /
+`--temperature-advection` those settings — and reports
   * host-clock ms/step of the eager loop two ways: reading the step's
     solver_ok every step (the gate, as BoussinesqModel.run does) and
     enqueueing all steps before one synchronize; the steps are NSE steps
@@ -17,10 +18,15 @@ reports
   * a torch.profiler window over the same eager steps: device time by
     kernel, grouped into the hand-written kernels (K1-K5; K1 and its
     residual-free variant K1u told apart by their TRACK template
-    argument), matrix products (the Poisson and Helmholtz transforms)
-    and other PyTorch kernels, the device's busy share of the window,
-    device kernels a step and host launches a step (kernel and graph
-    launch calls of the CUDA runtime and its low-level API, cuLaunch*);
+    argument, K2 and K2m by ADVECT_T), matrix products (the Poisson and
+    Helmholtz transforms) and other PyTorch kernels, the device's busy
+    share of the window, device kernels a step and host launches a step
+    (kernel and graph launch calls of the CUDA runtime and its low-level
+    API, cuLaunch*);
+  * with the semi-Lagrangian transport: the device time of one call
+    (CUDA events around back-to-back calls) and its device kernels (a
+    profiled call), on the state the steps start from; an NSE step and
+    a temperature substep each make one such call;
   * K4's launches one by one, told apart by their order in the step
     (the momentum solve comes before the temperature solve), and the
     copy kernels a step (PyTorch kernels named *copy*);
@@ -54,8 +60,9 @@ GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
 # host-side calls that launch device work (kernels or graphs)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
-# K1 and its residual-free variant, by the wrapper that launches them
-K1_VARIANT = {"richardson": "K1", "richardson_free": "K1u"}
+# the instances of K1 and K2, by the wrapper that launches them
+VARIANT = {"richardson": "K1", "richardson_free": "K1u", "forcing": "K2",
+           "forcing_momentum": "K2m"}
 
 
 def _category(name: str) -> str:
@@ -85,15 +92,15 @@ def _window(prof, n, window_ms):
             rows.append((e.key, t_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    cats, k1 = {}, {}
+    cats, var = {}, {}
     for name, ms, cnt in rows:
         c = _category(name)
         ms0, cnt0 = cats.get(c, (0.0, 0))
         cats[c] = (ms0 + ms, cnt0 + cnt)
-        v = K1_VARIANT.get(wrapper_of(name))
+        v = VARIANT.get(wrapper_of(name))
         if v is not None:
-            ms0, cnt0 = k1.get(v, (0.0, 0))
-            k1[v] = (ms0 + ms, cnt0 + cnt)
+            ms0, cnt0 = var.get(v, (0.0, 0))
+            var[v] = (ms0 + ms, cnt0 + cnt)
     return {
         "rows": rows,
         "device_ms_per_step": device_ms / n,
@@ -102,8 +109,8 @@ def _window(prof, n, window_ms):
         "host_launches_per_step": host_launches / n,
         "groups_ms_per_step": {c: v[0] / n for c, v in cats.items()},
         "groups_kernels_per_step": {c: v[1] / n for c, v in cats.items()},
-        "k1_ms_per_step": {v: t[0] / n for v, t in k1.items()},
-        "k1_launches_per_step": {v: t[1] / n for v, t in k1.items()},
+        "variant_ms_per_step": {v: t[0] / n for v, t in var.items()},
+        "variant_launches_per_step": {v: t[1] / n for v, t in var.items()},
     }
 
 
@@ -119,6 +126,10 @@ def main() -> int:
                     help="the `NSE solver interval` setting")
     ap.add_argument("--residual-check-interval", type=int, default=1,
                     help="the `residual check interval` setting")
+    ap.add_argument("--temperature-advection",
+                    choices=("eulerian", "semi-lagrangian"),
+                    default="eulerian",
+                    help="the `temperature advection` setting")
     ap.add_argument("--chunk", type=int, default=0,
                     help="also run multi_step in chunks of this many steps "
                          "(CUDA graph replays)")
@@ -131,7 +142,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
-    from dycoreplanet_tpu_torch.diagnostics.device_time import PAD_S
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        PAD_S, profiled, time_ms)
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import (
         BENCH_DT, bench_params, seed_developed_flow)
@@ -140,6 +152,7 @@ def main() -> int:
     params.numerics.helmholtz_solver = args.helmholtz
     params.NSE_solver_interval = args.nse_interval
     params.numerics.residual_check_interval = args.residual_check_interval
+    params.numerics.temperature_advection = args.temperature_advection
     model = BoussinesqModel(params, device="cuda")
     s = seed_developed_flow(model)
 
@@ -205,10 +218,19 @@ def main() -> int:
     k4_ms = {k: v / n for k, v in k4_ms.items()}
     copies = [r for r in rows if "copy" in r[0].lower()]
 
+    sl_out = None
+    if model._semi_lagrangian is not None:
+        sl_args = (s.u, s.T, model._dt_T(BENCH_DT))
+        sl_ms = time_ms(lambda: model._semi_lagrangian(*sl_args))
+        _, sl_prof = profiled(lambda: model._semi_lagrangian(*sl_args))
+        sl_out = {"ms_per_call": sl_ms, "kernels_per_call": sum(
+            1 for e in sl_prof.events() if e.device_type == DeviceType.CUDA)}
+
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; helmholtz solver = {args.helmholtz}, NSE "
           f"solver interval = {args.nse_interval}, residual check interval "
-          f"= {args.residual_check_interval}")
+          f"= {args.residual_check_interval}, temperature advection = "
+          f"{args.temperature_advection}")
     print(f"eager ms/step (host clock): {ms_gated:.4f} reading the gate "
           f"every step, {ms_enqueue:.4f} enqueued ahead ({missed} missed)")
     print(f"eager profiled window: {window_ms:.3f} ms for {n} steps; device "
@@ -221,12 +243,16 @@ def main() -> int:
                         key=lambda kv: -kv[1]):
         print(f"  {c:40s} {ms:9.4f}  "
               f"{eager['groups_kernels_per_step'][c]:7.1f}")
-    for v, ms in sorted(eager["k1_ms_per_step"].items()):
+    for v, ms in sorted(eager["variant_ms_per_step"].items()):
         print(f"  {v}: {ms:.4f} ms/step in "
-              f"{eager['k1_launches_per_step'][v]:.2f} launches/step")
+              f"{eager['variant_launches_per_step'][v]:.2f} launches/step")
     if k4:
         print(f"K4 launches: {len(k4) / n:.1f}/step; ms/step by launch: "
               + ", ".join(f"{k} {v:.4f}" for k, v in k4_ms.items()))
+    if sl_out is not None:
+        print(f"semi-Lagrangian transport: {sl_out['ms_per_call']:.4f} ms of "
+              f"device time and {sl_out['kernels_per_call']} device kernels "
+              f"a call (one a step, one a substep)")
     print(f"copy kernels: {sum(r[2] for r in copies) / n:.1f}/step, "
           f"{sum(r[1] for r in copies) / n:.4f} ms/step")
     for kname, ms, cnt in copies:
@@ -242,7 +268,8 @@ def main() -> int:
         "device": name, "helmholtz_solver": args.helmholtz,
         "nse_interval": args.nse_interval,
         "residual_check_interval": args.residual_check_interval,
-        "steps": n, "ms_per_step_gated": ms_gated,
+        "temperature_advection": args.temperature_advection,
+        "semi_lagrangian": sl_out, "steps": n, "ms_per_step_gated": ms_gated,
         "ms_per_step_enqueued": ms_enqueue, "eager_missed": missed,
         "eager_peak_bytes": eager_peak, **eager,
         "k4_ms_per_step": k4_ms,
@@ -328,9 +355,10 @@ def main() -> int:
               f"{graph['host_launches_per_step']:.2f} host launches a step")
         print(f"  device ms/step between events around {chunks} "
               f"back-to-back replays: {ev_ms:.4f}")
-        for v, ms in sorted(graph["k1_ms_per_step"].items()):
+        for v, ms in sorted(graph["variant_ms_per_step"].items()):
             print(f"  {v}: {ms:.4f} ms/step in "
-                  f"{graph['k1_launches_per_step'][v]:.2f} launches/step")
+                  f"{graph['variant_launches_per_step'][v]:.2f} "
+                  f"launches/step")
         print(f"  max memory allocated: first chunk (capture) "
               f"{graph_peak / 2**20:.1f} MiB ({(graph_peak - base) / 2**20:.1f}"
               f" MiB above the {base / 2**20:.1f} MiB before it); eager steps "

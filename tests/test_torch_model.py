@@ -201,7 +201,6 @@ def test_without_cuda_no_device_raises(monkeypatch):
     ("space_dimension", 2),
     ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
     ("numerics.poisson_solver", "mg"),
-    ("numerics.temperature_advection", "semi-lagrangian"),
     ("numerics.momentum_solver", "coupled"),
 ])
 def test_unsupported_configurations_raise(setting):
