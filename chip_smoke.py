@@ -54,11 +54,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      K2m, K1 and K5 every step, the fused K2 never, graph and run
      bitwise equal, on the default path, the direct path and at `NSE
      solver interval = 2` (the transport in every step and substep);
+  6b. the 2D annulus at work size (data/aqua_planet_test_2d.prm at its
+     own `initial global refinement` = 8: 256 x 3072 cells, f32, its dt):
+     the direct path (K4 twice a step, no shell kernel built) and, at
+     the prm's own refinement 4, the default path (Richardson, no hand
+     kernel) as 20 gated steps through run and as one multi_step graph,
+     bitwise equal, 0 escalations, max|div u| <= 1e-4; K4 on
+     AnnulusHelmholtzDirect's momentum and temperature systems as it
+     passes them, from the direct run's last state (every column block
+     nonzero), f32 and f64, against its plain version (no operand
+     copied, no pair axis); the default path at work size through run
+     (two sweeps miss the f32 gate there, as in the JAX model: CG
+     repairs every miss) and its 20 fast steps as one graph replay
+     against the same steps eagerly, bitwise; a forced miss repaired by
+     CG; one step of each path on the card against the f64 CPU step;
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
      (graph chunks); on a semi-Lagrangian copy, and on one with a fixed
-     dt with `--chunk 4`;
+     dt with `--chunk 4`; on data/aqua_planet.prm and
+     data/aqua_planet_test_2d.prm (5 steps each), and on the latter with
+     `--chunk 4`;
   8. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -404,6 +420,13 @@ def sl_params(p):
 # every hand kernel's wrapper name that a replay's device kernels are
 # counted under on every path (a path without the wrapper: 0)
 REPLAY_NAMES = ("forcing", "forcing_momentum")
+# the shell's hand kernels, none of which an annulus model builds or runs
+SHELL_NAMES = ("forcing", "forcing_momentum", "richardson",
+               "richardson_free", "faces_div", "correct")
+# the annulus at work size: aqua_planet_test_2d.prm at its own resolution
+# knob `initial global refinement` = 8 (256 x 3072 cells), its own dt
+ANNULUS_PRM = "aqua_planet_test_2d.prm"
+ANNULUS_REFINEMENT = 8
 
 
 def check_k2m(dev, shape, dtype_name):
@@ -436,15 +459,17 @@ def replay_launches(label, model, fn, want):
     kernel name): one replay, no kernel wrapper called (a replay goes
     through none), and the device's counts `want`, with 0 for every
     other name of the model's wrappers and of REPLAY_NAMES (the fused K2
-    on the semi-Lagrangian paths, K2m on the others). Returns (fn's
-    result, the counts)."""
+    on the semi-Lagrangian paths, K2m on the others), and on the annulus
+    of SHELL_NAMES (no shell kernel). Returns (fn's result, the
+    counts)."""
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
         device_launches)
 
     rep = model.chunk_graphs.replays
     for k in model.kernels().values():
         k.launches = 0
-    names = dict.fromkeys(list(model.kernels()) + list(REPLAY_NAMES))
+    names = dict.fromkeys(list(model.kernels()) + list(REPLAY_NAMES) + (
+        list(SHELL_NAMES) if model.geo.kind == "annulus" else []))
     want = {**dict.fromkeys(names, 0), **want}
     out, counts = device_launches(fn, names)
     if model.chunk_graphs.replays != rep + 1:
@@ -467,13 +492,13 @@ def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
     launches and the replay's device kernels (replay_launches) `want`;
     one replay; states within 1e-6 of each other (expected bitwise;
     required with `bitwise`); the chunk's rows against the run's
-    records. `run_out`: the run's
-    (result, launches, seconds) when the caller drove it. Returns (run
-    launches, the replay's device kernels, run ms/step, graph ms/step
-    (host clock, unprofiled), the chunk's state and rows)."""
+    records, at the model's own dt (the time step `run` takes). `run_out`:
+    the run's (result, launches, seconds) when the caller drove it.
+    Returns (run launches, the replay's device kernels, run ms/step, graph
+    ms/step (host clock, unprofiled), the chunk's state and rows)."""
     import torch
-    from dycoreplanet_tpu_torch.models.presets import BENCH_DT
 
+    dt = model.params.time_step
     if run_out is None:
         model.run(max_steps=2, state=s0)
         run_out = drive(model, lambda: model.run(max_steps=N_STEPS,
@@ -483,10 +508,10 @@ def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
         fail(f"{label}: run launches {l_run}, expected {want}")
 
     def chunk():
-        s, packed, _ = model.multi_step(s0, BENCH_DT, N_STEPS)
+        s, packed, _ = model.multi_step(s0, dt, N_STEPS)
         return s, packed.cpu().numpy()   # the rows, one copy
 
-    model.multi_step(s0, BENCH_DT, N_STEPS)         # capture, replay
+    model.multi_step(s0, dt, N_STEPS)               # capture, replay
     (s_g, rows), l_g = replay_launches(label, model, chunk, want)
     _, _, w_g = drive(model, chunk)                 # timed, unprofiled
     if model.escalations != 0:
@@ -520,6 +545,303 @@ def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
           f"wrapper launches {l_run}), 1 replay a chunk, no wrapper called, "
           f"0 escalations; host ms/step run {ms_run:.4f}, graph {ms_g:.4f}")
     return l_run, l_g, ms_run, ms_g, s_g, rows
+
+
+def annulus_params(dtype="float32", refinement=ANNULUS_REFINEMENT,
+                   **numerics):
+    """ANNULUS_PRM at `refinement` with `numerics` settings; its physics,
+    walls, dt and tolerances are the prm's own."""
+    from dycoreplanet_tpu_torch.base.params import Parameters
+
+    p = Parameters.from_file(os.path.join(HERE, "data", ANNULUS_PRM))
+    p.initial_global_refinement = refinement
+    p.numerics.dtype = dtype
+    for k, v in numerics.items():
+        setattr(p.numerics, k, v)
+    return p
+
+
+def check_annulus_k4(dev, model, state, dtype_name):
+    """K4 on the two radial systems of an annulus direct step at work
+    size (AnnulusHelmholtzDirect's layout as it passes it: lower and
+    upper one value a row, diag (nr, C, 2nm), rhs a strided view of the
+    (C, nr, 2nm) transform), from `state`'s forcing (a developed flow,
+    so that every column block C of the right-hand side and of the
+    solution is nonzero, which the check requires), against its plain
+    version on the card: rtol = atol = 1e-5 x scale (f64 1e-12 x
+    scale), NaN in lower[0] and upper[n-1], the operands unchanged, no
+    operand copied. Returns {system: numbers}."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+
+    m = model
+    dt = m._scalar(m.params.time_step)
+    dt_T = m._dt_T(dt)
+    rhs_u = state.u + dt * m._plain_forcing.explicit_forcing(
+        state.u, state.u_faces, state.p, state.T)
+    T_adv = m._advected_temperature(state.u, state.u_faces, state.T, dt_T)
+    coef = m._scalar(m.dtype.type(dt) * m.dtype.type(m.one_over_Re))
+    kT = m._scalar(m.dtype.type(dt_T) * m.dtype.type(m.one_over_Pe))
+    f32 = m.torch_dtype == torch.float32
+    tk = m._tridiag
+    rows = {}
+    for what, solver, b, c in (
+            ("momentum", m.helmholtz_direct, m._vol_t[None] * rhs_u, coef),
+            ("temperature", m.temperature_direct,
+             (m._vol_t * T_adv)[None], kT)):
+        sys4 = solver.systems(b, c)
+        lay = k4.layout(*sys4, pair=tk.pair)
+        n4, m4 = sys4[3].shape[0], sys4[3][0].numel()
+        if lay.copied or lay.pair_axis is not None:
+            fail(f"K4 annulus {what} {dtype_name}: layout copies "
+                 f"{lay.copied}, pair axis {lay.pair_axis}")
+        w4 = tk.plain(*sys4)
+        for c in range(sys4[3].shape[1]):
+            if not (bool(sys4[3][:, c].abs().max() > 0)
+                    and bool(w4[:, c].abs().max() > 0)):
+                fail(f"K4 annulus {what} {dtype_name}: column block {c} of "
+                     "the right-hand side or of the solution is all zeros")
+        sc = float(w4.abs().max())
+        tol = (1e-5 if f32 else 1e-12) * sc
+        copies0 = tk.copies
+        err = check_k4(f"K4 tridiag annulus ({what}, {dtype_name})", tk,
+                       sys4, w4, tol)
+        if tk.copies != copies0:
+            fail(f"K4 annulus {what}: the wrapper copied an operand")
+        ms = time_ms(lambda: tk(*sys4))
+        pms = time_ms(lambda: tk.plain(*sys4))
+        itemsize = sys4[3].element_size()
+        b_ms, b_by = bound_of(itemsize * k4.values_moved(*sys4),
+                              k4.OPS_PER_VALUE * n4 * m4)
+        cols = [size for size, _ in lay.axes]
+        phase(f"K4 tridiag, annulus {what} systems {dtype_name} (n {n4}, "
+              f"columns {cols}, rhs strides {tuple(sys4[3].stride())}, "
+              f"{tk.plan(lay, sys4[3].device)[0]} threads a block; every "
+              f"column block nonzero): 0 "
+              f"operands copied, no pair axis, max abs err {err:.3e} (tol "
+              f"{tol:.3e} = {'1e-5' if f32 else '1e-12'} x scale), kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms * 1e3:.2f} us "
+              f"({b_by}; {k4.values_moved(*sys4)} values moved)")
+        rows[what] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by, n=n4, columns=cols,
+                          copies=0)
+    return rows
+
+
+def annulus_phases(dev):
+    """The annulus (ANNULUS_PRM, f32): the direct path at work size
+    (ANNULUS_REFINEMENT; K4 twice a step, no shell kernel built) and the
+    default path (Richardson with every residual tracked; no hand kernel)
+    at the prm's own refinement 4, where its two sweeps meet the gate, as
+    20 gated steps through run and as one multi_step graph, bitwise
+    equal, 0 escalations; K4 in AnnulusHelmholtzDirect's layout at work
+    size from the direct run's last state, f32 and f64; the default path
+    at work size, where two sweeps miss the f32 gate and every miss is
+    redone with CG, and its fast chunk as a graph against the same steps
+    eagerly; a forced miss repaired by CG; one step of each path at work
+    size on the card against the f64 CPU step from the same state.
+    Returns (K4's rows by system, run launches by path, replay device
+    kernels by path)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.convert import (
+        state_from_numpy, state_to_numpy)
+
+    t0 = time.perf_counter()
+    dmodel = BoussinesqModel(annulus_params(helmholtz_solver="direct"),
+                             device=dev)
+    geo = dmodel.geo
+    if geo.kind != "annulus" or set(dmodel.kernels()) != {"tridiag"}:
+        fail(f"annulus model: geometry {geo.kind}, kernels "
+             f"{list(dmodel.kernels())}")
+    if any(getattr(dmodel, k) is not None for k in (
+            "_forcing", "_proj", "_richardson", "_richardson_free")):
+        fail("annulus model: a shell kernel wrapper was built")
+    dt = dmodel.params.time_step
+    s0 = dmodel.initial_state()
+    phase(f"annulus {ANNULUS_PRM} at refinement {ANNULUS_REFINEMENT}: "
+          f"{geo.cell_shape} = {geo.n_cells} cells f32, dt {dt}; direct "
+          f"model built in {time.perf_counter() - t0:.1f} s, kernels "
+          f"{list(dmodel.kernels())}")
+
+    # ---- the graphable paths: 20 gated steps through run and as a graph
+    by_path, replay_by_path, ends = {}, {}, {}
+    small = BoussinesqModel(annulus_params(refinement=4), device=dev)
+    for label, model, want in (
+            ("annulus direct", dmodel, {"tridiag": 2 * N_STEPS}),
+            ("annulus default (refinement 4)", small, {"tridiag": 0})):
+        if set(model.kernels()) != {"tridiag"}:
+            fail(f"{label}: kernels {list(model.kernels())}")
+        s_init = model.initial_state()
+        model.run(max_steps=2, state=s_init)
+        run_out = drive(model, lambda: model.run(max_steps=N_STEPS,
+                                                 state=s_init))
+        (s_end, hist), launches, wall = run_out
+        check_annulus_run(label, model, s_end, hist)
+        l_r, l_g, ms_r, ms_g, _, _ = graph_vs_run(
+            label, model, s_init, want, run_out, bitwise=True)
+        _, d_last = model.step(s_end, dt)
+        phase(f"{label} {model.geo.cell_shape}: {N_STEPS} gated steps, 0 "
+              f"escalations, launches {launches}, {describe(hist, d_last)}; "
+              f"host ms/step run {ms_r:.4f}, graph {ms_g:.4f}")
+        key = "annulus_direct" if "direct" in label else "annulus_default"
+        by_path[key] = l_r
+        replay_by_path[key + "_graph"] = l_g
+        ends[label] = (model, s_end)
+
+    # ---- K4 in the annulus layout, f32 and f64, from the direct run's
+    # last state: both velocity components carry a nonzero forcing there
+    # (from the initial state, at rest, u_phi's right-hand side is 0)
+    k4_rows = {}
+    s_dev = ends["annulus direct"][1]
+    for what, r in check_annulus_k4(dev, dmodel, s_dev, "float32").items():
+        k4_rows[f"annulus_{what}"] = r
+    d64 = BoussinesqModel(annulus_params("float64",
+                                         helmholtz_solver="direct"),
+                          device=dev)
+    s64 = state_from_numpy(d64, *state_to_numpy(s_dev))
+    for what, r in check_annulus_k4(dev, d64, s64, "float64").items():
+        k4_rows[f"annulus_{what}_f64"] = r
+    del d64, s64
+
+    # ---- the default path at work size: every fast step misses the
+    # gate, and run redoes it with CG and opens the escalation window
+    amodel = BoussinesqModel(annulus_params(), device=dev)
+    run_out = drive(amodel, lambda: amodel.run(max_steps=N_STEPS, state=s0))
+    (a_end, a_hist), a_launches, a_wall = run_out
+    check_annulus_run("annulus default", amodel, a_end, a_hist,
+                      escalated=True)
+    _, d_fast = amodel.step(a_end, dt)
+    phase(f"annulus default {geo.cell_shape}: {N_STEPS} gated steps through "
+          f"run, {amodel.escalations} escalation(s) (two Richardson sweeps "
+          f"miss the f32 gate: the fast step's residuals helmholtz "
+          f"{d_fast.helmholtz_residual:.3e} temperature "
+          f"{d_fast.temperature_residual:.3e}, solver_ok "
+          f"{d_fast.solver_ok}), every step redone or run with CG, "
+          f"launches {a_launches}, {describe(a_hist, d_fast)}; host "
+          f"ms/step {a_wall / N_STEPS * 1e3:.4f}")
+    by_path["annulus_default_work_size"] = a_launches
+    ends["annulus default"] = (amodel, a_end)
+
+    # ---- the default path's fast chunk at work size as a graph: the 20
+    # fast steps of a multi_step chunk before the gate's verdict (which
+    # then redoes the chunk with CG), replayed and eager, bitwise equal,
+    # the missed steps the same
+    from dycoreplanet_tpu_torch.models.graphs import ChunkGraphs
+
+    amodel.chunk_graphs = ChunkGraphs(amodel)
+    amodel.chunk_graphs.run(s0, dt, N_STEPS, True)      # capture, replay
+    (s_gf, rows_gf, _), l_gf = replay_launches(
+        "annulus default fast chunk", amodel,
+        lambda: amodel.chunk_graphs.run(s0, dt, N_STEPS, True), {})
+    s_ef, rows_ef, _ = amodel._chunk(s0, dt, N_STEPS, True, False)
+    rel_f = rel_diff(s_gf, s_ef)
+    if not (rel_f == 0.0 and torch.equal(rows_gf, rows_ef)):
+        fail(f"annulus default fast chunk {geo.cell_shape}: graph vs eager "
+             f"max rel diff {rel_f:.3e}, rows equal "
+             f"{bool(torch.equal(rows_gf, rows_ef))}; expected bitwise")
+    missed = int((rows_gf[:, 10] < 0.5).sum())
+    phase(f"annulus default fast chunk {geo.cell_shape}: {N_STEPS} fast "
+          f"steps as one graph replay vs eagerly: bitwise equal states and "
+          f"rows, {missed} of {N_STEPS} steps miss the gate in both, "
+          f"device kernels of the replay {l_gf}")
+    replay_by_path["annulus_default_work_size_fast_graph"] = l_gf
+    del s_gf, s_ef
+
+    # ---- a forced miss on the default path: the chunk redone with CG
+    fm = BoussinesqModel(annulus_params(refinement=4), device=dev)
+    fm.poisson_spectral._inv_denom = 3.0 * fm.poisson_spectral._inv_denom
+    fm.poisson_spectral.to(dev)
+    sf = fm.initial_state()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        s_fm, rows_fm, _ = fm.multi_step(sf, dt, 4)
+    if fm.escalations != 1 or not warned:
+        fail(f"annulus forced miss: {fm.escalations} escalation(s), "
+             f"{len(warned)} warning(s), expected 1 and 1")
+    if fm.chunk_graphs is None or fm.chunk_graphs.replays != 1:
+        fail("annulus forced miss: the fast chunk did not run as a graph")
+    if not bool((rows_fm[:, 10] == 1).all()):
+        fail("annulus forced miss: the CG chunk did not converge")
+    w_fm = sf
+    for _ in range(4):
+        w_fm, _ = fm.step_strong(w_fm, dt)
+    rel_fm = rel_diff(s_fm, w_fm)
+    if not rel_fm <= 1e-6:
+        fail(f"annulus forced miss: the CG chunk vs a step_strong loop: "
+             f"rel diff {rel_fm:.3e} > 1e-6")
+    phase(f"annulus forced miss in a multi_step chunk of 4 (refinement 4): "
+          f"1 escalation, the chunk redone with CG (poisson iters "
+          f"{rows_fm[:, 5].tolist()}, temperature iters "
+          f"{rows_fm[:, 6].tolist()}), vs a step_strong loop max rel diff "
+          f"{rel_fm:.3e}")
+    del fm, s_fm, w_fm
+
+    # ---- one step on the card against the f64 CPU step, same state
+    for label in ("annulus direct", "annulus default"):
+        model, s_end = ends[label]
+        numerics = ({"helmholtz_solver": "direct"} if "direct" in label
+                    else {})
+        cpu = BoussinesqModel(annulus_params("float64", **numerics),
+                              device="cpu")
+        u, faces, p, T, time_, n = state_to_numpy(s_end)
+        s_cpu, _ = cpu.step(state_from_numpy(cpu, u, faces, p, T, time_, n),
+                            dt)
+        s_card, _ = model.step(s_end, dt)
+        worst = {}
+        for name, x, y in zip(("u", "p", "T", "uf0", "uf1"),
+                              (s_card.u, s_card.p, s_card.T)
+                              + tuple(s_card.u_faces),
+                              (s_cpu.u, s_cpu.p, s_cpu.T)
+                              + tuple(s_cpu.u_faces)):
+            worst[name] = float((x.cpu().double() - y).abs().max()
+                                / y.abs().max().clamp_min(1e-30))
+        if not max(worst.values()) <= 1e-4:
+            fail(f"{label}: one step on the card vs the f64 CPU step: rel "
+                 f"diff {worst} > 1e-4")
+        phase(f"{label} {geo.cell_shape}: one step on the card (f32) vs the "
+              f"f64 CPU step from the same state: max rel diff of the field "
+              f"scale " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + " (tol 1e-4)")
+        del cpu
+    phase(f"annulus phases {time.perf_counter() - t0:.1f} s")
+    return k4_rows, by_path, replay_by_path
+
+
+def check_annulus_run(label, model, s_end, hist, escalated=False):
+    """A 20-step annulus run: all steps, finite fields, max|div u| <=
+    1e-4, no operand copied for K4, and 0 escalations (or, with
+    `escalated`, at least one)."""
+    import torch
+
+    if len(hist) != N_STEPS:
+        fail(f"{label}: {len(hist)} steps")
+    if (model.escalations == 0) == escalated:
+        fail(f"{label}: {model.escalations} escalation(s)")
+    for x in (s_end.u, s_end.p, s_end.T) + tuple(s_end.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{label}: non-finite fields")
+    divs = [h["div_norm"] for h in hist]
+    if not max(divs) <= 1e-4:
+        fail(f"{label}: post-projection divergence {max(divs):.3e} > 1e-4")
+    if model._tridiag.copies:
+        fail(f"{label}: K4's wrapper copied {model._tridiag.copies} "
+             "operand(s)")
+
+
+def describe(hist, diag):
+    """A run's divergence, speed, CFL and T range, and the solver numbers
+    of one more step."""
+    return (f"max|div u| {max(h['div_norm'] for h in hist):.3e}, max|u| "
+            f"{hist[-1]['max_velocity']:.4e}, max CFL "
+            f"{max(h['cfl'] for h in hist):.3e}, T range "
+            f"[{hist[-1]['T_min']:.4f}, {hist[-1]['T_max']:.4f}], "
+            f"iterations helmholtz {diag.helmholtz_iters.tolist()} poisson "
+            f"{diag.poisson_iters} temperature {diag.temperature_iters}, "
+            f"residuals helmholtz {diag.helmholtz_residual:.3e} poisson "
+            f"{diag.poisson_residual:.3e} temperature "
+            f"{diag.temperature_residual:.3e}")
 
 
 def main() -> None:
@@ -1228,6 +1550,17 @@ def main() -> None:
         record_replay(f"{key}_graph", l_sg)
     del sdmodel, snmodel
 
+    # ---- 6b. the annulus ----------------------------------------------
+    k4_annulus, a_paths, a_replays = annulus_phases(dev)
+    k4_row = next(r for r in report if r["name"] == "K4 tridiag")
+    k4_row["by_system"].update(k4_annulus)
+    k4_row["max_abs_err"] = max([k4_row["max_abs_err"]] + [
+        r["max_abs_err"] for r in k4_annulus.values()])
+    for label, counts in a_paths.items():
+        record(label, counts)
+    for label, counts in a_replays.items():
+        record_replay(label, counts)
+
     # ---- 7. CLI --------------------------------------------------------
     classic = os.path.join(HERE, "data",
                            "aqua_planet_shell_test_3d-classic.prm")
@@ -1247,14 +1580,22 @@ def main() -> None:
             with open(classic) as f, open(prms[label], "w") as g:
                 # a subsection read again merges into the first one
                 g.write(f.read() + "\n" + text)
+        annulus = {name: os.path.join(HERE, "data", f"{name}.prm")
+                   for name in ("aqua_planet", "aqua_planet_test_2d")}
         for label, prm, chunk in (
                 ("classic", classic, []), ("direct", prms["direct"], []),
                 ("classic --chunk 4", classic, ["--chunk", "4"]),
                 ("fixed dt --chunk 4", prms["fixed-dt"], ["--chunk", "4"]),
                 ("semi-Lagrangian", prms["sl"], []),
                 ("semi-Lagrangian fixed dt --chunk 4", prms["sl-fixed-dt"],
-                 ["--chunk", "4"])):
-            steps = "8" if chunk else "3"
+                 ["--chunk", "4"]),
+                ("aqua_planet.prm", annulus["aqua_planet"], []),
+                ("aqua_planet_test_2d.prm", annulus["aqua_planet_test_2d"],
+                 []),
+                ("aqua_planet_test_2d.prm --chunk 4",
+                 annulus["aqua_planet_test_2d"], ["--chunk", "4"])):
+            steps = "8" if chunk else ("5" if "aqua_planet" in label
+                                       else "3")
             cli = subprocess.run(
                 [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm,
                  "--max-steps", steps, "--no-output"] + chunk,
@@ -1270,7 +1611,8 @@ def main() -> None:
     # ---- 8. report -----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
-    # mode; K2m: the semi-Lagrangian path), and on every eager path; replay_launches_by_path: the
+    # mode; K2m: the semi-Lagrangian path), and on every eager path (K4
+    # also on the annulus direct path); replay_launches_by_path: the
     # device kernels torch.profiler counted in one replay of each path's
     # 20-step graph
     own = {"richardson": "main", "forcing": "main", "correct": "main",

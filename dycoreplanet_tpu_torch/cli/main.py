@@ -217,7 +217,7 @@ def _run_chunked(params, args, model, state, timers) -> int:
                 adaptive=params.adapt_time_step)
             rows = packed.cpu().numpy()       # one copy for the chunk
         for j in range(chunk):
-            d = StepDiagnostics(rows[j], 3)
+            d = StepDiagnostics(rows[j], model.geo.dim)
             print("----------------------------------------")
             print(f"Time step {n + j} "
                   f"(dt carried in the chunk | final time={params.final_time})")

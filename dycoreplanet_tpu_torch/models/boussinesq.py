@@ -1,5 +1,6 @@
-"""BoussinesqModel — the shell standard-personality time stepper on
-PyTorch (counterpart of the JAX package's ``models/boussinesq.py``).
+"""BoussinesqModel — the standard-personality time stepper of the shell
+and the annulus on PyTorch (counterpart of the JAX package's
+``models/boussinesq.py``).
 
 Solves the nondimensional rotating buoyancy Boussinesq system with the
 IMEX-Euler splitting and the incremental pressure projection:
@@ -23,8 +24,8 @@ solves whose radial tridiagonals go through K4 (solvers/helmholtz.py,
 ops/tridiag.py), followed by K3; only the Poisson spot-check gates
 them. Every projection ends in the correction kernel K5. The JAX
 model's ``_explicit_forcing`` and Eulerian ``_advected_temperature``
-are ``ShellForcing.explicit_forcing`` / ``.advected_temperature`` here,
-the plain version of K2 (ops/forcing.py). With ``temperature advection =
+are ``Forcing.explicit_forcing`` / ``.advected_temperature`` here
+(ops/forcing.py), the plain version of K2 on the shell. With ``temperature advection =
 semi-lagrangian`` the step runs K2m, the forcing without the transport,
 and the temperature is transported by ops/semi_lagrangian.py with the
 cell velocity of step n, in the NSE step and in every temperature
@@ -41,11 +42,21 @@ chunk of steps with the chunk-level gate and escalation; on the card a
 chunk with a fixed dt that runs no CG is one replay of a captured CUDA
 graph (models/graphs.py).
 
-This slice runs the 3D spherical shell, standard (advective)
-personality, incremental projection, with the Richardson/CG or the
-direct Helmholtz solves. Every other configuration raises
-``NotImplementedError`` naming its ROADMAP.md item; none quietly runs
-another path.
+On the 2D annulus the JAX package builds none of its Pallas kernels
+but K4 (its factories return None off the shell), and neither does the
+port: the step is the model's own plain PyTorch, operation for operation
+the JAX package's jnp path (``_explicit_forcing``, the Eulerian
+``_advected_temperature``, Jacobi-Richardson solves that track every
+residual, with CG escalation, the projection and the annulus
+fast-diagonalization Poisson solve), chosen when the model is built
+from ``geo.kind``. With ``helmholtz solver = direct`` the annulus
+Helmholtz solves run K4, two launches a step.
+
+This slice runs the 3D spherical shell and the 2D annulus, standard
+(advective) personality, incremental projection, with the
+Richardson/CG or the direct Helmholtz solves. Every other configuration
+raises ``NotImplementedError`` naming its ROADMAP.md item; none quietly
+runs another path.
 """
 
 from __future__ import annotations
@@ -65,9 +76,9 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
 from dycoreplanet_tpu_torch.ops.diagonal import weak_laplacian_diagonal
-from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
+from dycoreplanet_tpu_torch.ops.forcing import Forcing, ShellForcing
 from dycoreplanet_tpu_torch.ops.projection import (
-    ShellProjection, apply_wall_face_values)
+    ShellProjection, cell_to_faces, correct_plain, faces_div_plain)
 from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
 from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
@@ -83,7 +94,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 class State(NamedTuple):
-    u: torch.Tensor                     # (3, *cells) velocity, local frame
+    u: torch.Tensor                     # (dim, *cells) velocity, local frame
     u_faces: Tuple[torch.Tensor, ...]   # cell-shaped LEFT-face velocities
     p: torch.Tensor                     # (*cells) pressure
     T: torch.Tensor                     # (*cells) temperature
@@ -96,7 +107,7 @@ class StepDiagnostics:
     for slot as in the JAX package: [cfl, max|u|, T_min, T_max,
     max|div u|, poisson_iters, temperature_iters, helmholtz_residual,
     poisson_residual, temperature_residual, solver_ok, helmholtz_iters
-    x3] (``BoussinesqModel._pack``). The host pays one device->host
+    x dim] (``BoussinesqModel._pack``). The host pays one device->host
     copy when a field is first read; a host row (numpy, one row of a
     multi_step chunk already pulled) is read as it is. Iteration counts
     / residuals of -1 mean "direct solve, not measured" or, for the
@@ -170,8 +181,11 @@ def _unsupported(params: Parameters) -> Optional[str]:
     num = params.numerics
     if params.use_FEEC_solver or num.momentum_solver == "coupled":
         return "FEEC, coupled and mimetic solvers"
-    if params.cuboid_geometry or params.space_dimension != 3:
-        return "annulus and cuboid geometries"
+    if params.cuboid_geometry:
+        return "cuboid geometry"
+    if (params.space_dimension == 2
+            and num.temperature_advection == "semi-lagrangian"):
+        return "semi-Lagrangian transport on the annulus"
     if num.dtype == "bfloat16":
         return "bf16"
     if num.poisson_solver in ("cg", "mg"):
@@ -212,9 +226,9 @@ class BoussinesqModel:
         self.params = params
         self._consts: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
         self.geo = geometry if geometry is not None else make_geometry(params)
-        if self.geo.kind != "shell":
+        if self.geo.kind not in ("shell", "annulus"):
             raise NotImplementedError(
-                "not ported yet (ROADMAP.md: annulus and cuboid geometries)")
+                "not ported yet (ROADMAP.md: cuboid geometry)")
         num = params.numerics
         self.torch_dtype = _DTYPES[num.dtype]
         self.dtype = np.dtype(num.dtype)
@@ -239,55 +253,25 @@ class BoussinesqModel:
 
         self._setup_bcs()
         self._setup_static_fields()
-        geo = self.geo
-        self._forcing = ShellForcing(
-            geo, beta=self.beta, T_ref=self.T_ref,
+        # the shell's hand kernels K1, K1u, K2 / K2m, K3 and K5; on the
+        # annulus the step is the model's plain PyTorch (the JAX package's
+        # jnp path), and only the direct solves' K4 is a hand kernel
+        forcing = dict(
+            beta=self.beta, T_ref=self.T_ref,
             rho_background=self.rho_background, gravity=self.gravity,
             one_over_Re=self.one_over_Re, omega_hat=self.omega_hat,
             coriolis_mode=self.coriolis_mode, buoyancy=num.buoyancy,
             scheme=self.advection_scheme,
             include_gradp=num.projection == "incremental",
             u_specs=self.u_specs, p_specs=self.p_specs,
-            T_specs=self.T_specs, T_wall=self.T_wall,
-            dt_T_factor=1.0 / params.NSE_solver_interval,
-            advect_T=num.temperature_advection == "eulerian")
-        # semi-Lagrangian temperature transport (K = 2 ghost layers, the
-        # JAX package's default), its tables on the device from the start
+            T_specs=self.T_specs)
+        self._forcing = self._proj = None
+        self._richardson = self._richardson_free = None
         self._semi_lagrangian = None
-        if num.temperature_advection == "semi-lagrangian":
-            self._semi_lagrangian = SemiLagrangian(geo, self.T_specs)
-            self._semi_lagrangian.tables(self._vol_t.device,
-                                         self.torch_dtype)
-        self._proj = ShellProjection(
-            geo, self.u_specs, self.p_specs,
-            incremental=num.projection == "incremental")
-        self._richardson = None
-        # the fused K1 stage runs only beside iterative temperature
-        # solves (JAX model: `self.temperature_direct is None`)
-        if num.fixed_solver_iters > 0 and self.temperature_direct is None:
-            self._richardson = ShellRichardson(
-                geo, one_over_Re=self.one_over_Re,
-                one_over_Pe=self.one_over_Pe,
-                nse_interval=params.NSE_solver_interval,
-                helm_diags=self.helm_diags, T_diag=self.T_diag,
-                iters_u=self.momentum_iters,
-                iters_T=num.fixed_solver_iters,
-                u_specs=self.u_specs, T_specs_hom=self.T_specs_hom)
-        # residual-free variant [K1u] for the steps between honesty
-        # checks (`residual check interval` > 1): the same iterates, fewer
-        # stencil applies, residual norms -1
-        self._richardson_free = None
-        if (self._richardson is not None
-                and num.residual_check_interval > 1):
-            self._richardson_free = ShellRichardson(
-                geo, one_over_Re=self.one_over_Re,
-                one_over_Pe=self.one_over_Pe,
-                nse_interval=params.NSE_solver_interval,
-                helm_diags=self.helm_diags, T_diag=self.T_diag,
-                iters_u=self.momentum_iters,
-                iters_T=num.fixed_solver_iters,
-                u_specs=self.u_specs, T_specs_hom=self.T_specs_hom,
-                track_residual=False)
+        if self.geo.kind == "shell":
+            self._build_shell_kernels(forcing)
+        # the plain forcing and Eulerian transport (ShellForcing is one)
+        self._plain_forcing = self._forcing or Forcing(self.geo, **forcing)
         # the CUDA graphs of multi_step's chunks (models/graphs.py),
         # made at the first chunk on the card
         self.chunk_graphs = None
@@ -302,10 +286,58 @@ class BoussinesqModel:
         self._strong_steps_left = 0
         self.escalations = 0
 
+    def _build_shell_kernels(self, forcing: dict) -> None:
+        """The wrappers of the shell's hand kernels (the JAX package's
+        Pallas factories build theirs on the shell only); ``forcing``:
+        ``Forcing``'s arguments."""
+        geo = self.geo
+        params = self.params
+        num = params.numerics
+        self._forcing = ShellForcing(
+            geo, **forcing, T_wall=self.T_wall,
+            dt_T_factor=1.0 / params.NSE_solver_interval,
+            advect_T=num.temperature_advection == "eulerian")
+        # semi-Lagrangian temperature transport (K = 2 ghost layers, the
+        # JAX package's default), its tables on the device from the start
+        if num.temperature_advection == "semi-lagrangian":
+            self._semi_lagrangian = SemiLagrangian(geo, self.T_specs)
+            self._semi_lagrangian.tables(self._vol_t.device,
+                                         self.torch_dtype)
+        self._proj = ShellProjection(
+            geo, self.u_specs, self.p_specs,
+            incremental=num.projection == "incremental")
+        # the fused K1 stage runs only beside iterative temperature
+        # solves (JAX model: `self.temperature_direct is None`)
+        if num.fixed_solver_iters > 0 and self.temperature_direct is None:
+            self._richardson = ShellRichardson(
+                geo, one_over_Re=self.one_over_Re,
+                one_over_Pe=self.one_over_Pe,
+                nse_interval=params.NSE_solver_interval,
+                helm_diags=self.helm_diags, T_diag=self.T_diag,
+                iters_u=self.momentum_iters,
+                iters_T=num.fixed_solver_iters,
+                u_specs=self.u_specs, T_specs_hom=self.T_specs_hom)
+        # residual-free variant [K1u] for the steps between honesty
+        # checks (`residual check interval` > 1): the same iterates, fewer
+        # stencil applies, residual norms -1
+        if (self._richardson is not None
+                and num.residual_check_interval > 1):
+            self._richardson_free = ShellRichardson(
+                geo, one_over_Re=self.one_over_Re,
+                one_over_Pe=self.one_over_Pe,
+                nse_interval=params.NSE_solver_interval,
+                helm_diags=self.helm_diags, T_diag=self.T_diag,
+                iters_u=self.momentum_iters,
+                iters_T=num.fixed_solver_iters,
+                u_specs=self.u_specs, T_specs_hom=self.T_specs_hom,
+                track_residual=False)
+
     # ------------------------------------------------------------------
     def kernels(self) -> Dict[str, object]:
         """The kernel wrappers of the step, by name (their ``launches``
-        count the CUDA launches)."""
+        count the CUDA launches); on the annulus K4's alone."""
+        if self._forcing is None:
+            return {"tridiag": self._tridiag}
         forcing = "forcing" if self._forcing.advect_T else "forcing_momentum"
         out = {forcing: self._forcing,
                "faces_div": self._proj.faces_div_count,
@@ -371,9 +403,17 @@ class BoussinesqModel:
     # ------------------------------------------------------------------
     def _setup_bcs(self) -> None:
         """Ghost rules replacing the reference's constraint sets
-        (no-slip inner / no-normal-flux outer wall, pole closure;
-        reference: boussinesq_model.tpp:259-387)."""
+        (no-slip inner / no-normal-flux outer wall, pole closure on the
+        shell, periodic phi on the annulus; reference:
+        boussinesq_model.tpp:259-387)."""
         AS, NEU = BC.ANTISYM, BC.NEUMANN
+        if self.geo.kind == "annulus":
+            self.u_specs = [
+                [BCSpec(AS, AS), None],                # u_r: zero both walls
+                [BCSpec(AS, NEU), None],               # u_phi
+            ]
+            self.p_specs = [BCSpec(NEU, NEU), None]
+            return
         PO, PF = BC.POLE, BC.POLE_FLIP
         self.u_specs = [
             [BCSpec(AS, AS), BCSpec(PO, PO), None],    # u_r
@@ -382,16 +422,28 @@ class BoussinesqModel:
         ]
         self.p_specs = [BCSpec(NEU, NEU), BCSpec(PO, PO), None]
 
-    def _cartesian(self, radii) -> np.ndarray:
-        """Cartesian points (len(radii), nlat, nlon, 3) at the given
-        radii and the cell-centre latitudes and longitudes (the
-        reference's initial-data functions are Cartesian)."""
-        axes = self.geo.axes
-        r, lat, lon = np.meshgrid(radii, axes[1].centers, axes[2].centers,
-                                  indexing="ij")
+    def _cartesian(self, axis_values) -> np.ndarray:
+        """Cartesian points (*cells, dim) at the given axis values (cell
+        centres, or one wall for an axis): the reference's initial-data
+        functions are Cartesian."""
+        if self.geo.kind == "annulus":
+            r, phi = np.meshgrid(*axis_values, indexing="ij")
+            return np.stack([r * np.cos(phi), r * np.sin(phi)], axis=-1)
+        r, lat, lon = np.meshgrid(*axis_values, indexing="ij")
         return np.stack([r * np.cos(lat) * np.cos(lon),
                          r * np.cos(lat) * np.sin(lon),
                          r * np.sin(lat)], axis=-1)
+
+    def _cell_center_coords(self) -> np.ndarray:
+        """Cartesian coordinates of the cell centres, (*cells, dim)."""
+        return self._cartesian([a.centers for a in self.geo.axes])
+
+    def _wall_coords(self) -> np.ndarray:
+        """Cartesian coordinates of the inner radial wall, (*cells[1:],
+        dim): where the Dirichlet temperature is given."""
+        axes = [a.centers for a in self.geo.axes]
+        axes[0] = self.geo.axes[0].faces[:1]
+        return self._cartesian(axes)[0]
 
     def _setup_static_fields(self) -> None:
         """Host numpy constants (the same arrays the JAX model builds)
@@ -402,31 +454,55 @@ class BoussinesqModel:
         self.vol = np.ascontiguousarray(
             np.broadcast_to(geo.vol, geo.cell_shape)).astype(dt_np)
         self.diameter = np.asarray(geo.cell_diameter(), dtype=dt_np)
+        # radial gravity: -g for r > 1, else -g sqrt(r)
+        # (core_model_data.tpp:97-106)
         r = np.broadcast_to(geo.extras["r_centers"], geo.cell_shape)
-        gvec = np.zeros((3,) + geo.cell_shape)
+        gvec = np.zeros((geo.dim,) + geo.cell_shape)
         gvec[0] = radial_gravity_scalar(
             r, params.physical_constants.gravity_constant)
         self.gravity = (self.g_hat_scale * gvec).astype(dt_np)
 
+        # hydrostatic background pressure of the constant-density part,
+        # grad p_h = g_vec_hat (a face-midpoint integral along the radius),
+        # scaled by rho_background below: output only (the well-balanced
+        # `buoyancy = perturbation` dynamics never read it), as in the
+        # JAX package
+        g_line = gvec[0].reshape(geo.cell_shape[0], -1)[:, 0]
+        dr = np.diff(geo.axes[0].centers)
+        p_line = self.g_hat_scale * np.concatenate(
+            [[0.0], np.cumsum(0.5 * (g_line[:-1] + g_line[1:]) * dr)])
+        shape1 = (geo.cell_shape[0],) + (1,) * (geo.dim - 1)
+        p_h = np.ascontiguousarray(np.broadcast_to(
+            p_line.reshape(shape1), geo.cell_shape)).astype(dt_np)
+        p_h = p_h - (p_h * self.vol).sum() / self.vol.sum()
+
         ic = TemperatureInitialValues(
-            3, float(geo.axes[0].faces[0]), float(geo.axes[0].faces[-1]),
+            geo.dim, float(geo.axes[0].faces[0]),
+            float(geo.axes[0].faces[-1]),
             width_scale=params.numerics.ic_width_scale)
         self.T_init = np.asarray(
-            ic(self._cartesian(geo.axes[0].centers).astype(dt_np)),
-            dtype=dt_np)
+            ic(self._cell_center_coords().astype(dt_np)), dtype=dt_np)
         # boundary values: the IC on the inner wall surface
         self.T_wall = np.asarray(
-            ic(self._cartesian(geo.axes[0].faces[:1])[0].astype(dt_np)),
-            dtype=dt_np)
+            ic(self._wall_coords().astype(dt_np)), dtype=dt_np)
+        # reference-state density rho(volume-mean initial T): the constant
+        # part of 1 - beta (T - T_ref) is a pure gradient absorbed into
+        # rho_background * p_hydro (with the production T_ref = 273.15 it
+        # is O(1))
         T_mean0 = float((self.T_init * self.vol).sum() / self.vol.sum())
         self.rho_background = float(1.0 - self.beta * (T_mean0 - self.T_ref))
+        self.p_hydro = (self.rho_background * p_h).astype(dt_np)
 
         NEU = BC.NEUMANN
-        self.T_specs = [BCSpec(BC.DIRICHLET, NEU,
-                               lo_value=self._tensor(self.T_wall)),
-                        BCSpec(BC.POLE, BC.POLE), None]
-        self.T_specs_hom = [BCSpec(BC.ANTISYM, NEU),
+        T_wall = self._tensor(self.T_wall)
+        if geo.kind == "annulus":
+            self.T_specs = [BCSpec(BC.DIRICHLET, NEU, lo_value=T_wall), None]
+            self.T_specs_hom = [BCSpec(BC.ANTISYM, NEU), None]
+        else:
+            self.T_specs = [BCSpec(BC.DIRICHLET, NEU, lo_value=T_wall),
                             BCSpec(BC.POLE, BC.POLE), None]
+            self.T_specs_hom = [BCSpec(BC.ANTISYM, NEU),
+                                BCSpec(BC.POLE, BC.POLE), None]
         # affine offset of the inhomogeneous-Dirichlet weak Laplacian:
         # weak_lap_inhom(x) = weak_lap_hom(x) + offset
         zero = torch.zeros(geo.cell_shape, dtype=self.torch_dtype,
@@ -434,7 +510,7 @@ class BoussinesqModel:
         self.T_lap_offset = st.weak_laplacian(
             geo, zero, self.T_specs).cpu().numpy()
 
-        # Poisson: the shell fast-diagonalization solve. "auto" resolves
+        # Poisson: the fast-diagonalization solve. "auto" resolves
         # as the JAX package does off the TPU ("highest"); every
         # precision computes full-precision transforms here and keeps
         # its residual-check tolerance
@@ -447,7 +523,7 @@ class BoussinesqModel:
             device=self.device)
         self.helm_diags = np.stack([
             (-weak_laplacian_diagonal(geo, self.u_specs[c])).astype(dt_np)
-            for c in range(3)])
+            for c in range(geo.dim)])
         self.T_diag = (
             -weak_laplacian_diagonal(geo, self.T_specs_hom)).astype(dt_np)
 
@@ -459,7 +535,8 @@ class BoussinesqModel:
         self.temperature_direct = None
         if params.numerics.helmholtz_solver == "direct":
             self.helmholtz_direct = make_helmholtz_solver(
-                geo, [self.u_specs[c][0] for c in range(3)], dtype=dt_np,
+                geo, [self.u_specs[c][0] for c in range(geo.dim)],
+                dtype=dt_np,
                 tridiag=self._tridiag, device=self.device)
             self.temperature_direct = make_helmholtz_solver(
                 geo, [self.T_specs_hom[0]], dtype=dt_np,
@@ -478,17 +555,17 @@ class BoussinesqModel:
     # ------------------------------------------------------------------
     def initial_state(self) -> State:
         shp = self.geo.cell_shape
+        dim = self.geo.dim
         z = lambda *s: torch.zeros(s, dtype=self.torch_dtype,
                                    device=self.device)
-        return State(u=z(3, *shp), u_faces=tuple(z(*shp) for _ in range(3)),
+        return State(u=z(dim, *shp),
+                     u_faces=tuple(z(*shp) for _ in range(dim)),
                      p=z(*shp), T=self._tensor(self.T_init), time=0.0,
                      step_number=0)
 
     def interp_to_faces(self, u: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Face-normal velocities of a collocated field (wall faces 0)."""
-        return tuple(apply_wall_face_values(
-            self.geo, st.to_faces(self.geo, u[c], c, self.u_specs[c][c]), c)
-            for c in range(3))
+        return tuple(cell_to_faces(self.geo, self.u_specs, u))
 
     # ------------------------------------------------------------------
     def _dt_T(self, dt: float) -> float:
@@ -508,8 +585,13 @@ class BoussinesqModel:
         dt = self._scalar(dt)
         dt_T = self._dt_T(dt)
 
-        # ------- explicit forcing from step n [K2, or K2m + transport] --
-        if self._forcing.advect_T:
+        # ------- explicit forcing from step n [K2, or K2m + transport;
+        # the model's plain PyTorch on the annulus] ----------------------
+        if self._forcing is None:
+            rhs_u = u + dt * self._plain_forcing.explicit_forcing(
+                u, u_faces, pres, T)
+            T_adv = self._advected_temperature(u, u_faces, T, dt_T)
+        elif self._forcing.advect_T:
             rhs_u, T_adv = self._forcing(u, u_faces, T, pres, dt)
         else:
             rhs_u = self._forcing(u, u_faces, T, pres, dt)
@@ -541,7 +623,7 @@ class BoussinesqModel:
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt,
                                                   prefused=prefused)
-            helm_iters = [rk.iters_u] * 3
+            helm_iters = [rk.iters_u] * geo.dim
             T_iters = rk.iters_T
             helm_rnorm, T_rnorm = rn_u, rn_T
             momentum_ok = torch.logical_and(helm_ok, poisson_ok)
@@ -598,7 +680,7 @@ class BoussinesqModel:
             torch.max(torch.clamp(speed, min=1e-10) / self._diameter_t),
             torch.max(speed), torch.min(T_new), torch.max(T_new),
             torch.max(torch.abs(st.divergence(geo, list(state.u_faces)))),
-            0, T_iters, [0] * 3, temperature_residual=T_rnorm,
+            0, T_iters, [0] * geo.dim, temperature_residual=T_rnorm,
             solver_ok=T_ok)
         return new_state, packed, packed[10]
 
@@ -609,7 +691,7 @@ class BoussinesqModel:
         ``_advected_temperature``)."""
         if self._semi_lagrangian is not None:
             return self._semi_lagrangian(u, T, dt_T)
-        return self._forcing.advected_temperature(u_faces, T, dt_T)
+        return self._plain_forcing.advected_temperature(u_faces, T, dt_T)
 
     # ------------------------------------------------------------------
     def _solve_temperature_system(self, rhs_T, kT, x0):
@@ -660,9 +742,11 @@ class BoussinesqModel:
     def _solve_momentum_projection(self, rhs_u, pres, dt):
         """Helmholtz predictor + projection: the direct solve when
         configured (under ``_force_cg`` too, as in the JAX model), else
-        full CG (the escalated path; all three components in one stacked
-        CG)."""
+        fixed-iteration Jacobi-Richardson off the shell (where K1 does
+        not run) or full CG (the escalated path), all components in one
+        stacked solve."""
         geo = self.geo
+        dim = geo.dim
         vol = self._vol_t
         coef = self._scalar(self.dtype.type(dt)
                             * self.dtype.type(self.one_over_Re))
@@ -670,30 +754,37 @@ class BoussinesqModel:
             u_star = self.helmholtz_direct.solve(vol[None] * rhs_u, coef)
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt)
-            return (u_new, p_new, new_faces, [-1] * 3, poisson_iters,
+            return (u_new, p_new, new_faces, [-1] * dim, poisson_iters,
                     self._const(-1.0), poisson_rnorm, poisson_ok)
 
         def helm_op(x):
             return vol[None] * x - coef * torch.stack([
                 st.weak_laplacian(geo, x[c], self.u_specs[c])
-                for c in range(3)])
+                for c in range(dim)])
 
         helm_diag = vol[None] + coef * self._helm_diags_t
-        res = cg(helm_op, vol[None] * rhs_u, x0=rhs_u,
-                 rtol=self.params.numerics.helmholtz_tol,
-                 maxiter=self.params.numerics.max_cg_iters,
-                 preconditioner=lambda r: r / helm_diag)
+        k_fix = 0 if self._force_cg else self.momentum_iters
+        if k_fix > 0:
+            res = richardson_solve(helm_op, vol[None] * rhs_u, rhs_u,
+                                   diag=helm_diag, iters=k_fix,
+                                   rtol=self.params.numerics.helmholtz_tol)
+        else:
+            res = cg(helm_op, vol[None] * rhs_u, x0=rhs_u,
+                     rtol=self.params.numerics.helmholtz_tol,
+                     maxiter=self.params.numerics.max_cg_iters,
+                     preconditioner=lambda r: r / helm_diag)
         (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
          poisson_ok) = self._project_velocity(res.x, pres, dt)
-        return (u_new, p_new, new_faces, [res.iterations] * 3,
+        return (u_new, p_new, new_faces, [res.iterations] * dim,
                 poisson_iters, res.residual_norm, poisson_rnorm,
                 torch.logical_and(res.converged, poisson_ok))
 
     # ------------------------------------------------------------------
     def _project_velocity(self, u_star, pres, dt, prefused=None):
-        """Faces + compatible RHS (from K1's head, or K3), Poisson solve,
-        face/cell correction [K5], residual spot-check. Returns (u_new,
-        p_new, new_faces, poisson_iters, poisson_rnorm, poisson_ok)."""
+        """Faces + compatible RHS (from K1's head, or K3; plain PyTorch on
+        the annulus), Poisson solve, face/cell correction [K5; plain on
+        the annulus], residual spot-check. Returns (u_new, p_new,
+        new_faces, poisson_iters, poisson_rnorm, poisson_ok)."""
         geo = self.geo
         p = self.params
         vol = self._vol_t
@@ -701,17 +792,25 @@ class BoussinesqModel:
             uf_star = list(prefused[:3])
             rhs_phi = prefused[3]
         else:
-            uf0, uf1, uf2, rhs_raw, total = self._proj.faces_div(u_star, dt)
-            uf_star = [uf0, uf1, uf2]
-            # compatibility: subtract the float drift of sum(rhs)
+            if self._proj is None:
+                *uf_star, rhs_raw, total = faces_div_plain(
+                    geo, self.u_specs, u_star, dt)
+            else:
+                *uf_star, rhs_raw, total = self._proj.faces_div(u_star, dt)
+            # compatibility: the constant spans the weak Laplacian's
+            # nullspace, so sum(rhs) must vanish; subtract the float drift
             rhs_phi = rhs_raw - total / float(geo.n_cells)
 
         phi, poisson_iters, poisson_rnorm, poisson_ok = \
             self._solve_pressure_poisson(rhs_phi)
 
-        u_new, f0, f1, f2, p_new = self._proj.correct(
-            u_star, uf_star, phi, pres, dt, st.volume_mean(geo, phi))
-        new_faces = [f0, f1, f2]
+        args = (u_star, uf_star, phi, pres, dt, st.volume_mean(geo, phi))
+        if self._proj is None:
+            u_new, *new_faces, p_new = correct_plain(
+                geo, self.p_specs, *args,
+                incremental=p.numerics.projection == "incremental")
+        else:
+            u_new, *new_faces, p_new = self._proj.correct(*args)
         if p.correct_pressure_to_zero_mean:
             p_new = p_new - st.volume_mean(geo, p_new)
 
@@ -725,7 +824,7 @@ class BoussinesqModel:
             bnorm = torch.sqrt(torch.sum(rhs_phi ** 2))
             epsf = float(np.finfo(self.dtype).eps)
             flux2 = None
-            for d2 in range(3):
+            for d2 in range(geo.dim):
                 t2 = torch.sum(
                     (st.metric(geo, "area_l", d2, u_star) * new_faces[d2])
                     ** 2)
@@ -734,6 +833,11 @@ class BoussinesqModel:
             prec = self.poisson_spectral.precision
             prec_tol = {"highest": 256.0 * epsf, "high": 1e-2,
                         "high-refine": 1e-3}[prec]
+            # a solver whose transforms amplify round-off beyond these
+            # floors declares its bound (the annulus fast diagonalization)
+            amp = getattr(self.poisson_spectral, "check_amp", None)
+            if amp is not None:
+                prec_tol = max(prec_tol, float(amp) * epsf)
             tol = max(p.numerics.poisson_tol, prec_tol)
             poisson_ok = rnorm <= tol * bnorm + floor
             poisson_rnorm = rnorm
@@ -755,7 +859,7 @@ class BoussinesqModel:
         """One time step; returns (new_state, diagnostics). Diagnostics
         stay on the device until a field is read (one packed copy)."""
         new_state, packed, _ = self._step_impl(state, dt)
-        return new_state, StepDiagnostics(packed, 3)
+        return new_state, StepDiagnostics(packed, self.geo.dim)
 
     def step_strong(self, state: State, dt: float):
         """Redo one step with the full CG solves — the escalation taken
@@ -763,17 +867,17 @@ class BoussinesqModel:
         (reference: boussinesq_model.tpp:1203-1232)."""
         with self._strong():
             new_state, packed, _ = self._step_impl(state, dt)
-        return new_state, StepDiagnostics(packed, 3)
+        return new_state, StepDiagnostics(packed, self.geo.dim)
 
     def temperature_step(self, state: State, dt: float):
         """One temperature-only substep (``NSE solver interval`` > 1)."""
         new_state, packed, _ = self._temperature_step_impl(state, dt)
-        return new_state, StepDiagnostics(packed, 3)
+        return new_state, StepDiagnostics(packed, self.geo.dim)
 
     def temperature_step_strong(self, state: State, dt: float):
         with self._strong():
             new_state, packed, _ = self._temperature_step_impl(state, dt)
-        return new_state, StepDiagnostics(packed, 3)
+        return new_state, StepDiagnostics(packed, self.geo.dim)
 
     # ------------------------------------------------------------------
     def _next_dt(self, packed: torch.Tensor) -> float:
@@ -885,7 +989,9 @@ class BoussinesqModel:
 
     # ------------------------------------------------------------------
     def _dt_scaling_const(self) -> float:
-        return 0.25 / (2.1 * 3 * math.sqrt(3.0))
+        dim = self.geo.dim
+        scaling = 0.25 if dim == 3 else 1.0
+        return scaling / (2.1 * dim * math.sqrt(1.0 * dim))
 
     def compute_time_step(self, cfl: float) -> float:
         """The reference's CFL formula (boussinesq_model.tpp:1104-1125)."""

@@ -29,7 +29,8 @@ replayed, one host launch a chunk:
     allocator refuses a capture into a shared pool that no live graph
     holds;
   * the state is copied into the graph's own input buffers before a
-    replay and its outputs are cloned after it (7 field copies a chunk),
+    replay and its outputs are cloned after it (2 dim + 1 field copies a
+    chunk: u, the dim face velocities, p, T; the packed rows),
     so that neither the caller's state nor the input a retry needs is
     the graph's memory;
   * all graphs of one model share one memory pool: a graph's outputs are
@@ -58,8 +59,18 @@ MAX_GRAPHS = 8
 
 class CapturedChunk(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    inputs: Tuple[torch.Tensor, ...]     # u, uf0, uf1, uf2, p, T
-    outputs: Tuple[torch.Tensor, ...]    # u, uf0, uf1, uf2, p, T, packed
+    inputs: Tuple[torch.Tensor, ...]     # u, the dim faces, p, T
+    outputs: Tuple[torch.Tensor, ...]    # u, the dim faces, p, T, packed
+
+
+def _fields(state) -> Tuple[torch.Tensor, ...]:
+    return (state.u,) + tuple(state.u_faces) + (state.p, state.T)
+
+
+def _with_fields(state, fields):
+    """``state`` holding ``fields`` (u, the faces, p, T, as _fields)."""
+    return state._replace(u=fields[0], u_faces=tuple(fields[1:-2]),
+                          p=fields[-2], T=fields[-1])
 
 
 class ChunkGraphs:
@@ -87,15 +98,13 @@ class ChunkGraphs:
                  collect: bool) -> CapturedChunk:
         m = self.model
         dev = m.device
-        fields = (state.u,) + tuple(state.u_faces) + (state.p, state.T)
-        inputs = tuple(f.clone() for f in fields)
-        static = state._replace(u=inputs[0], u_faces=inputs[1:4],
-                                p=inputs[4], T=inputs[5])
+        inputs = tuple(f.clone() for f in _fields(state))
+        static = _with_fields(state, inputs)
 
         def body():
             s, packed, _ = m._chunk(static, dt, n_steps, collect,
                                     adaptive=False)
-            return (s.u,) + tuple(s.u_faces) + (s.p, s.T, packed)
+            return _fields(s) + (packed,)
 
         self.side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.side):
@@ -119,18 +128,17 @@ class ChunkGraphs:
         while len(self._chunks) > self.max_graphs:
             del self._chunks[next(iter(self._chunks))]
         m._prepare_dt(dt)
-        fields = (state.u,) + tuple(state.u_faces) + (state.p, state.T)
-        for dst, src in zip(chunk.inputs, fields):
+        for dst, src in zip(chunk.inputs, _fields(state)):
             dst.copy_(src)
         chunk.graph.replay()
         self.replays += 1
-        u, f0, f1, f2, p, T, packed = (t.clone() for t in chunk.outputs)
+        *fields, packed = (t.clone() for t in chunk.outputs)
         time = state.time
         dt_T = m._dt_T(dt)
         for _ in range(n_steps):            # as each eager step adds it
             time = time + dt_T
-        new = state._replace(u=u, u_faces=(f0, f1, f2), p=p, T=T, time=time,
-                             step_number=state.step_number + n_steps)
+        new = _with_fields(state, fields)._replace(
+            time=time, step_number=state.step_number + n_steps)
         return new, packed, m._scalar(dt)
 
     def __len__(self) -> int:

@@ -20,6 +20,9 @@ marches along the radius over ``plan(shape)``'s chunk of planes, staging
 each plane with its lateral ghosts in shared memory and keeping the
 radial neighbours in registers; each face flux is computed once. K2m
 stages u alone and reads T at the cell.
+
+``Forcing`` is the plain version in any geometry: the annulus step runs
+it as it is, and ``ShellForcing`` adds the kernels to it.
 """
 
 from __future__ import annotations
@@ -75,22 +78,23 @@ def plan(shape):
 _SCHEMES = {"muscl": 0, "upwind": 1, "centered": 2}
 
 
-class ShellForcing:
-    """Callable (u, u_faces, T, p, dt) -> (rhs_u, T_adv) with
-    ``advect_T`` (K2), else -> rhs_u (K2m). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+class Forcing:
+    """The explicit forcing and the Eulerian temperature transport in
+    plain PyTorch, in any geometry: operation for operation the JAX
+    package's jnp path (``BoussinesqModel._explicit_forcing`` and the
+    Eulerian ``_advected_temperature``), which the JAX model runs off the
+    shell. The annulus step runs it as it is; on the shell it is the
+    plain version of K2 and K2m (``ShellForcing``)."""
 
     def __init__(self, geo: Geometry, *, beta: float, T_ref: float,
                  rho_background: float, gravity: np.ndarray,
                  one_over_Re: float, omega_hat: float, coriolis_mode: str,
                  buoyancy: str, scheme: str, include_gradp: bool,
-                 u_specs, p_specs, T_specs, T_wall: np.ndarray,
-                 dt_T_factor: float = 1.0, advect_T: bool = True):
+                 u_specs, p_specs, T_specs):
         self.geo = geo
-        self.advect_T = bool(advect_T)
         self.beta, self.T_ref = float(beta), float(T_ref)
         self.rho_background = float(rho_background)
-        self.gravity = np.asarray(gravity)          # (3, *cells)
+        self.gravity = np.asarray(gravity)          # (dim, *cells)
         self.one_over_Re = float(one_over_Re)
         self.omega_hat = float(omega_hat)
         self.coriolis_mode = coriolis_mode
@@ -98,8 +102,76 @@ class ShellForcing:
         self.scheme = scheme
         self.include_gradp = bool(include_gradp)
         self.u_specs, self.p_specs, self.T_specs = u_specs, p_specs, T_specs
+        self._plain_consts = {}
+
+    def _constants(self, like: torch.Tensor):
+        """(gravity, 1 - rho_background, beta) on ``like``'s device in its
+        dtype, made once (before a CUDA graph's capture, by its warm-up)."""
+        key = (str(like.device), like.dtype)
+        out = self._plain_consts.get(key)
+        if out is None:
+            out = tuple(torch.as_tensor(np.asarray(v), dtype=like.dtype,
+                                        device=like.device)
+                        for v in (self.gravity, 1.0 - self.rho_background,
+                                  self.beta))
+            self._plain_consts[key] = out
+        return out
+
+    def explicit_forcing(self, u, u_faces, pres, T):
+        """-adv u + cor u + buoy T + visc_curv u / Re - grad p."""
+        geo = self.geo
+        gravity, one_minus_rho_bg, beta = self._constants(T)
+        if self.buoyancy == "perturbation":
+            # rho(T) - rho_background as the JAX package's compiled step
+            # forms it: XLA folds the two constants, (1 - rho_background)
+            # - beta (T - T_ref), and contracts the product and the
+            # difference into one fused multiply-add (addcmul's), so that
+            # where T is exactly 0 (aqua_planet.prm's underflowed IC) the
+            # round-off buoyancy is the same
+            buoy = torch.addcmul(one_minus_rho_bg, T - self.T_ref, beta,
+                                 value=-1.0)[None] * gravity
+        else:
+            rho = nondim.density_scaling(self.beta, T, self.T_ref)
+            buoy = rho[None] * gravity
+        div_u = st.divergence(geo, list(u_faces))
+        adv = torch.stack([
+            st.advect_scalar(geo, u_faces, u[c], self.u_specs[c],
+                             scheme=self.scheme, form="advective",
+                             div_u=div_u)
+            for c in range(geo.dim)])
+        adv = adv + vec.advection_curvature(geo, u)
+        cor = vec.coriolis_acceleration(geo, u, self.omega_hat,
+                                        self.coriolis_mode)
+        visc_curv = self.one_over_Re * vec.vector_laplacian_curvature(
+            geo, u, self.u_specs)
+        forcing = -adv + cor + buoy + visc_curv
+        if self.include_gradp:
+            gradp = torch.stack([
+                st.centered_gradient(geo, pres, d, self.p_specs[d])
+                for d in range(geo.dim)])
+            forcing = forcing - gradp
+        return forcing
+
+    def advected_temperature(self, u_faces, T, dt_T):
+        """T - dt_T * u . grad T."""
+        adv_T = st.advect_scalar(self.geo, u_faces, T, self.T_specs,
+                                 scheme=self.scheme, form="advective")
+        return T - dt_T * adv_T
+
+
+class ShellForcing(Forcing):
+    """Callable (u, u_faces, T, p, dt) -> (rhs_u, T_adv) with
+    ``advect_T`` (K2), else -> rhs_u (K2m). CPU tensors take the plain
+    version (``Forcing``'s); CUDA tensors launch the kernel. Takes
+    ``Forcing``'s arguments, the lat-lon shell only."""
+
+    def __init__(self, geo: Geometry, *, T_wall: np.ndarray,
+                 dt_T_factor: float = 1.0, advect_T: bool = True,
+                 **forcing):
+        ch = kl.shell_channels(geo)         # raises off the lat-lon shell
+        super().__init__(geo, **forcing)
+        self.advect_T = bool(advect_T)
         self.dt_T_factor = float(dt_T_factor)
-        ch = kl.shell_channels(geo)
         g_r = kl.lon_invariant(self.gravity[0], "gravity")
         # the kernel's lon-invariant tables (csrc/forcing.cu M_*): areas,
         # and the reciprocals of the volume, the face distances and the
@@ -118,45 +190,6 @@ class ShellForcing:
         self._dev = {}
         self._fn = {}
         self.launches = 0
-
-    # ------------------------------------------------------------------
-    def explicit_forcing(self, u, u_faces, pres, T):
-        """-adv u + cor u + buoy T + visc_curv u / Re - grad p: operation
-        for operation the JAX package's
-        ``BoussinesqModel._explicit_forcing``."""
-        geo = self.geo
-        rho = nondim.density_scaling(self.beta, T, self.T_ref)
-        gravity = torch.as_tensor(self.gravity, dtype=u.dtype,
-                                  device=u.device)
-        if self.buoyancy == "perturbation":
-            buoy = (rho - self.rho_background)[None] * gravity
-        else:
-            buoy = rho[None] * gravity
-        div_u = st.divergence(geo, list(u_faces))
-        adv = torch.stack([
-            st.advect_scalar(geo, u_faces, u[c], self.u_specs[c],
-                             scheme=self.scheme, form="advective",
-                             div_u=div_u)
-            for c in range(3)])
-        adv = adv + vec.advection_curvature(geo, u)
-        cor = vec.coriolis_acceleration(geo, u, self.omega_hat,
-                                        self.coriolis_mode)
-        visc_curv = self.one_over_Re * vec.vector_laplacian_curvature(
-            geo, u, self.u_specs)
-        forcing = -adv + cor + buoy + visc_curv
-        if self.include_gradp:
-            gradp = torch.stack([
-                st.centered_gradient(geo, pres, d, self.p_specs[d])
-                for d in range(3)])
-            forcing = forcing - gradp
-        return forcing
-
-    def advected_temperature(self, u_faces, T, dt_T):
-        """T - dt_T * u . grad T (the JAX package's Eulerian
-        ``BoussinesqModel._advected_temperature``)."""
-        adv_T = st.advect_scalar(self.geo, u_faces, T, self.T_specs,
-                                 scheme=self.scheme, form="advective")
-        return T - dt_T * adv_T
 
     def plain(self, u, u_faces, T, pres, dt):
         """Plain PyTorch version: (u + dt * forcing, T_adv), or u + dt *

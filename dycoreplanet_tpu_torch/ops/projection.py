@@ -55,27 +55,35 @@ def apply_wall_face_values(geo: Geometry, uf: torch.Tensor, d: int
     return torch.cat([zero, st._sl(uf, d, slice(1, None))], dim=d)
 
 
+def cell_to_faces(geo: Geometry, u_specs, u: torch.Tensor):
+    """Face-normal velocities of a collocated field, wall faces 0."""
+    return [apply_wall_face_values(
+        geo, st.to_faces(geo, u[c], c, u_specs[c][c]), c)
+        for c in range(geo.dim)]
+
+
 def faces_div_plain(geo: Geometry, u_specs, u_star: torch.Tensor, dt):
-    """Plain PyTorch version: (uf0, uf1, uf2, rhs_raw, rhs_sum)."""
-    uf = [apply_wall_face_values(
-        geo, st.to_faces(geo, u_star[c], c, u_specs[c][c]), c)
-        for c in range(3)]
+    """Plain PyTorch version of K3, in any geometry (the JAX model's jnp
+    chain off the shell): (*faces, rhs_raw, rhs_sum)."""
+    uf = cell_to_faces(geo, u_specs, u_star)
     vol = st.metric(geo, "vol", 0, u_star)
     rhs_raw = -vol * st.divergence(geo, uf) / dt
-    return uf[0], uf[1], uf[2], rhs_raw, torch.sum(rhs_raw).reshape(1)
+    return (*uf, rhs_raw, torch.sum(rhs_raw).reshape(1))
 
 
 def correct_plain(geo: Geometry, p_specs, u_star: torch.Tensor, uf,
                   phi: torch.Tensor, pres: torch.Tensor, dt, phi_mean,
                   incremental: bool):
-    """Plain PyTorch version of K5: (u_new, f0, f1, f2, p_new)."""
+    """Plain PyTorch version of K5, in any geometry: (u_new, *faces,
+    p_new)."""
     phi = phi - phi_mean
     new_faces = []
-    for d in range(3):
+    for d in range(geo.dim):
         gphi = st.grad_left_faces(geo, phi, d, p_specs[d])
         new_faces.append(apply_wall_face_values(geo, uf[d] - dt * gphi, d))
     gradphi_c = torch.stack([
-        st.centered_gradient(geo, phi, d, p_specs[d]) for d in range(3)])
+        st.centered_gradient(geo, phi, d, p_specs[d])
+        for d in range(geo.dim)])
     u_new = u_star - dt * gradphi_c
     p_new = pres + phi if incremental else phi
     return (u_new, *new_faces, p_new)
@@ -95,6 +103,7 @@ class ShellProjection:
     kernel's launches."""
 
     def __init__(self, geo: Geometry, u_specs, p_specs, incremental: bool):
+        ch = kl.shell_channels(geo)         # raises off the lat-lon shell
         rules = (p_specs[0].lo, p_specs[0].hi, p_specs[1].lo, p_specs[1].hi)
         if rules != (BC.NEUMANN, BC.NEUMANN, BC.POLE, BC.POLE):
             raise ValueError("the correction kernel takes Neumann radial "
@@ -103,7 +112,6 @@ class ShellProjection:
         self.u_specs = u_specs
         self.p_specs = p_specs
         self.incremental = bool(incremental)
-        ch = kl.shell_channels(geo)
         self._M64 = {
             "faces_div": np.stack([ch[k] for k in (
                 "vol", "ar_lo", "ar_hi", "alat_lo", "alat_hi", "alon")]),

@@ -1,10 +1,10 @@
-"""Vector-field operators in the shell's local orthonormal basis
-(u_r, u_lat, u_lon): curvature (Christoffel) terms of the advection and
-the vector Laplacian, and the Coriolis acceleration (PyTorch).
+"""Vector-field operators in the local orthonormal bases (PyTorch):
+curvature (Christoffel) terms of the advection and the vector Laplacian,
+and the Coriolis acceleration, for the annulus (u_r, u_phi) and the
+shell (u_r, u_lat, u_lon).
 
-Counterpart of the JAX package's ``ops/vector.py`` for the shell; the
-annulus and cuboid branches are not ported yet (ROADMAP.md, "annulus and
-cuboid geometries").
+Counterpart of the JAX package's ``ops/vector.py``; the cuboid branches
+are not ported yet (ROADMAP.md, "cuboid geometry").
 """
 
 from __future__ import annotations
@@ -19,22 +19,36 @@ from dycoreplanet_tpu_torch.ops.bc import BCSpec
 from dycoreplanet_tpu_torch.ops.stencil import centered_gradient
 
 
-def _require_shell(geo: Geometry) -> None:
-    if geo.kind != "shell":
+def _require(geo: Geometry) -> None:
+    if geo.kind == "cuboid":
         raise NotImplementedError(
-            f"{geo.kind} geometry is not ported yet (ROADMAP.md: annulus "
-            "and cuboid geometries)")
+            "cuboid geometry is not ported yet (ROADMAP.md: cuboid "
+            "geometry)")
+    if geo.kind not in ("annulus", "shell"):
+        raise ValueError(geo.kind)
 
 
 def _extra(geo: Geometry, name: str, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(geo.extras[name]), dtype=like.dtype,
-                           device=like.device)
+    """A geometry extra in ``like``'s dtype and device, cached on the
+    geometry as ``stencil.metric`` caches the metrics (a step captured
+    into a CUDA graph makes no host-to-device copy)."""
+    cache = geo.extras.setdefault("_torch_extras", {})
+    key = (name, like.dtype, str(like.device))
+    t = cache.get(key)
+    if t is None:
+        t = torch.as_tensor(np.asarray(geo.extras[name]), dtype=like.dtype,
+                            device=like.device)
+        cache[key] = t
+    return t
 
 
 def advection_curvature(geo: Geometry, u: torch.Tensor) -> torch.Tensor:
-    """Extra pointwise terms of (u.grad)u in spherical coordinates."""
-    _require_shell(geo)
+    """Extra pointwise terms of (u.grad)u in curvilinear coordinates."""
+    _require(geo)
     r = _extra(geo, "r_centers", u)
+    if geo.kind == "annulus":
+        ur, up = u[0], u[1]
+        return torch.stack([-up * up / r, ur * up / r])
     tanl = _extra(geo, "tan_lat", u)
     ur, ul, up = u[0], u[1], u[2]
     return torch.stack([
@@ -48,14 +62,20 @@ def vector_laplacian_curvature(
         geo: Geometry, u: torch.Tensor,
         specs: Sequence[Sequence[Optional[BCSpec]]]) -> torch.Tensor:
     """(Delta u)_local - componentwise Delta(u_local); ``specs[c][d]`` is
-    the BC of component c along axis d."""
-    _require_shell(geo)
+    the BC of component c along axis d. centered_gradient divides by the
+    physical distances (r dphi; r dlat, r cos(lat) dlon), so the angular
+    derivatives below are physical ones."""
+    _require(geo)
     r = _extra(geo, "r_centers", u)
+    if geo.kind == "annulus":
+        ur, up = u[0], u[1]
+        dphi_up = centered_gradient(geo, up, 1, specs[1][1])
+        dphi_ur = centered_gradient(geo, ur, 1, specs[0][1])
+        return torch.stack([-ur / r**2 - 2.0 / r * dphi_up,
+                            -up / r**2 + 2.0 / r * dphi_ur])
     tanl = _extra(geo, "tan_lat", u)
     cosl = _extra(geo, "cos_lat", u)
     ur, ul, up = u[0], u[1], u[2]
-    # physical angular derivatives (centered_gradient divides by the arc
-    # distances r dlat / r cos(lat) dlon)
     dlat_ur = centered_gradient(geo, ur, 1, specs[0][1])
     dlat_ul = centered_gradient(geo, ul, 1, specs[1][1])
     dlon_ur = centered_gradient(geo, ur, 2, specs[0][2])
@@ -74,10 +94,16 @@ def vector_laplacian_curvature(
 
 def coriolis_acceleration(geo: Geometry, u: torch.Tensor, omega_hat: float,
                           mode: str = "reference") -> torch.Tensor:
-    """Coriolis acceleration in the local frame. mode='reference' gives
-    no Coriolis on the 3D shell (the reference skips it there,
-    SURVEY.md section 7.5); 'physical' applies -2 Omega x u."""
-    _require_shell(geo)
+    """Coriolis acceleration in the local frame. mode='reference'
+    reproduces the reference (SURVEY.md section 7.5): +2 (u_phi, -u_r)
+    with no Omega in 2D (cross_product_2d, boussinesq_model.tpp:663-667),
+    none on the 3D shell; 'physical' applies -2 Omega x u (2D: Omega
+    along e_z, out of the plane)."""
+    _require(geo)
+    if geo.kind == "annulus":
+        if mode == "reference":
+            return 2.0 * torch.stack([u[1], -u[0]])
+        return -2.0 * omega_hat * torch.stack([-u[1], u[0]])
     if mode == "reference":
         return torch.zeros_like(u)
     sinl = torch.sin(_extra(geo, "lat_centers", u))

@@ -1,9 +1,10 @@
-"""Initial and boundary data of the shell aqua-planet runs (numpy, host).
+"""Initial and boundary data of the shell and annulus aqua-planet runs
+(numpy, host).
 
-Counterpart of the JAX package's ``physics/initial_data.py`` for the 3D
-shell: the temperature IC is the sum of two Gaussian bumps at radii
-R0 + 0.35 dR (x-axis) and R0 + 0.65 dR (y-axis) with isotropic precision
-20/(dR/2), not rotated in 3D (reference:
+Counterpart of the JAX package's ``physics/initial_data.py``: the
+temperature IC is the sum of two Gaussian bumps at radii R0 + 0.35 dR
+(x-axis) and R0 + 0.65 dR (y-axis) with isotropic precision 20/(dR/2);
+the 2D centers are rotated twice by pi/3, the 3D ones not (reference:
 boussinesq_model_data.tpp:15-147). Velocity starts at rest. Evaluated
 once on the host in float64 and cast by the caller.
 """
@@ -13,6 +14,12 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+
+def rotation_matrix_2d(alpha: float) -> np.ndarray:
+    """2D rotation (reference: boussinesq_model_data.tpp:26-32)."""
+    c, s = math.cos(alpha), math.sin(alpha)
+    return np.asarray([[c, -s], [s, c]])
 
 
 def _gaussian(p: np.ndarray, center: np.ndarray, precision_diag: float,
@@ -26,16 +33,16 @@ def _gaussian(p: np.ndarray, center: np.ndarray, precision_diag: float,
 
 
 class TemperatureInitialValues:
-    """Double-Gaussian shell IC (3D: centers on the x/y axes, unrotated).
+    """Double-Gaussian IC of the shell (3D: centers on the x/y axes,
+    unrotated) and the annulus (2D: the reference's ``R * c * R^T`` on a
+    vector, which deal.II evaluates as R (R c), a rotation by 2 pi/3).
     ``width_scale`` > 1 widens the bumps keeping the peak value (the
     documented `ic width scale` deviation knob, PARITY.md)."""
 
     def __init__(self, dim: int, R0: float, R1: float,
                  width_scale: float = 1.0):
-        if dim != 3:
-            raise NotImplementedError(
-                "2D annulus data is not ported yet (ROADMAP.md: annulus "
-                "and cuboid geometries)")
+        if dim not in (2, 3):
+            raise ValueError(f"no {dim}D temperature IC")
         self.dim = dim
         dR = R1 - R0
         self.precision = 20.0 / (dR / 2.0) / float(width_scale) ** 2
@@ -44,6 +51,10 @@ class TemperatureInitialValues:
         self.center1[0] = R0 + dR * 0.35
         self.center2 = np.zeros(dim)
         self.center2[1] = R0 + dR * 0.65
+        if dim == 2:
+            R = rotation_matrix_2d(math.pi / 3.0)
+            self.center1 = R @ (R @ self.center1)
+            self.center2 = R @ (R @ self.center2)
 
     def __call__(self, p: np.ndarray) -> np.ndarray:
         p = np.asarray(p, np.float64)

@@ -1,6 +1,7 @@
-"""Direct (non-iterative) Helmholtz solver for the shell:
-(vol - c * weak_laplacian) x = b, the counterpart of the JAX package's
-``solvers/helmholtz.py`` (``ShellHelmholtzDirect``).
+"""Direct (non-iterative) Helmholtz solvers for the shell and the
+annulus: (vol - c * weak_laplacian) x = b, the counterpart of the JAX
+package's ``solvers/helmholtz.py`` (``ShellHelmholtzDirect``,
+``AnnulusHelmholtzDirect``).
 
 The momentum and temperature systems share the pressure operator's
 separable structure on the uniform-radius shell: vol_ij = v_i cos_j and
@@ -13,8 +14,10 @@ batched Thomas kernel K4 (ops/tridiag.py).
 Only the radial wall rule distinguishes the fields: NEUMANN walls add
 nothing, ANTISYM/DIRICHLET walls add 2*alpha_wall to the boundary
 diagonal. Inhomogeneous Dirichlet values are the caller's affine offset,
-as in the CG path. Host setup is f64 numpy, identical to the JAX
-package's; the per-mode transforms are plain matrix products
+as in the CG path. On the annulus the phi DFT alone leaves, per phi
+mode, the radial tridiagonal diag(v) + c (T_r^bc - mu_k diag(c_phi)),
+solved by K4 in the JAX solver's layout. Host setup is f64 numpy,
+identical to the JAX package's; the per-mode transforms are plain matrix products
 (``torch.einsum``) in full precision (the model disables TF32), and
 ``c`` enters only on the device side, so one solver serves every dt.
 """
@@ -30,7 +33,8 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from dycoreplanet_tpu_torch.solvers.spectral import (
-    _real_dft_pair, _uniform_radial, shell_lat_eigensystem)
+    _conductance, _mu, _real_dft_pair, _uniform_radial,
+    shell_lat_eigensystem)
 
 # wall-rule weight on the boundary diagonal of the 1D operator
 _WALL_W = {BC.NEUMANN: 0.0, BC.ANTISYM: 2.0, BC.DIRICHLET: 2.0}
@@ -157,18 +161,99 @@ class ShellHelmholtzDirect:
         return x.to(b.dtype).contiguous()
 
 
+class AnnulusHelmholtzDirect:
+    """Exact annulus solve of (vol - c*weak_laplacian) x_f = b_f for a
+    stack of C fields: the phi real DFT as a matmul pair, then per mode
+    the radial tridiagonal diag(v) + c (T_r^bc - mu_k diag(c_phi)),
+    solved by K4 (``tridiag``, shared by a model's solvers) in the JAX
+    solver's Thomas layout: systems along nr, columns (C, 2nm) with the
+    real and imaginary parts side by side along the last axis."""
+
+    def __init__(self, geo: Geometry, radial_specs: Sequence[BCSpec],
+                 dtype=np.float32, tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "annulus":
+            raise ValueError("AnnulusHelmholtzDirect needs the annulus")
+        self.geo = geo
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nr, nphi = geo.cell_shape
+        self.nm = nphi // 2 + 1
+        nc = len(radial_specs)
+
+        alpha = _conductance_full(geo, 0)[:, 0]        # (nr+1,)
+        cphi = _conductance(geo, 1)[:, 0].astype(np.float64)  # (nr,)
+        v = np.broadcast_to(np.asarray(geo.vol, np.float64),
+                            geo.cell_shape)[:, 0]      # (nr,)
+        mu2 = np.concatenate([_mu(nphi, rfft=True)] * 2)  # (2nm,)
+
+        trd = np.zeros((nc, nr))
+        low = up = None
+        for cidx, spec in enumerate(radial_specs):
+            w_lo, w_hi = _rules_of(spec)
+            d_, l_, u_ = _radial_tridiag(alpha, w_lo, w_hi)
+            trd[cidx] = d_
+            low, up = l_, u_                           # field-independent
+
+        F, G = _real_dft_pair(nphi, np.float64)
+        f = lambda x: np.asarray(x, dtype=dtype)       # host constants
+        self._F, self._G = f(F), f(G)
+        # Thomas layout: (nr, C, 2nm)
+        self._v = f(v[:, None, None])
+        self._trd = f(np.transpose(trd)[:, :, None])
+        self._shift = f(-cphi[:, None, None] * mu2[None, None, :])
+        self._low = f(low[:, None, None])
+        self._up = f(up[:, None, None])
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "AnnulusHelmholtzDirect":
+        """Move the constants to ``device`` (copies: ``_v`` is a view of
+        the geometry's read-only broadcast volume)."""
+        self._t = {k: torch.as_tensor(np.array(getattr(self, k), order="C"),
+                                      device=device)
+                   for k in ("_F", "_G", "_v", "_trd", "_shift", "_low",
+                             "_up")}
+        return self
+
+    def _consts(self, dtype):
+        acc = torch.promote_types(dtype, torch.float32)
+        return acc, {k: a.to(acc) for k, a in self._t.items()}
+
+    def systems(self, b: torch.Tensor, c: float):
+        """The radial tridiagonal systems of the solve, (lower, diag,
+        upper, rhs) as K4 takes them: lower and upper (nr, 1, 1), diag
+        (nr, C, 2nm) and rhs a (nr, C, 2nm) view of the transformed b,
+        whose memory is (C, nr, 2nm). b: (C, nr, nphi); c: the scalar
+        coefficient (rounded to the working dtype by the caller)."""
+        acc, t = self._consts(b.dtype)
+        bh = torch.einsum("kp,crp->crk", t["_F"], b.to(acc))
+        yt = torch.movedim(bh, 1, 0)                   # (nr, C, 2nm)
+        diag = t["_v"] + c * (t["_trd"] + t["_shift"])
+        return c * t["_low"], diag, c * t["_up"], yt
+
+    def solve(self, b: torch.Tensor, c: float) -> torch.Tensor:
+        """x with (vol - c weak_laplacian) x = b, per field of b."""
+        _, t = self._consts(b.dtype)
+        xt = self.tridiag(*self.systems(b, c))
+        xh = torch.movedim(xt, 0, 1)                   # (C, nr, 2nm)
+        x = torch.einsum("pk,crk->crp", t["_G"], xh)
+        return x.to(b.dtype).contiguous()
+
+
 def make_helmholtz_solver(geo: Geometry, wall_specs: Sequence[BCSpec],
                           dtype=np.float32,
                           tridiag: Optional[TridiagSolve] = None,
                           device=None):
     """Direct Helmholtz solver for a stack of fields whose radial wall
     BCSpecs are ``wall_specs``; None when the shell's radii are not
-    uniform (as in the JAX package). The annulus and cuboid solvers
-    are not ported yet."""
+    uniform (as in the JAX package). The cuboid solver is not ported
+    yet."""
+    if geo.kind == "annulus":
+        return AnnulusHelmholtzDirect(geo, wall_specs, dtype=dtype,
+                                      tridiag=tridiag, device=device)
     if geo.kind != "shell":
         raise NotImplementedError(
             f"the {geo.kind} direct Helmholtz solver is not ported yet "
-            "(ROADMAP.md: annulus and cuboid geometries)")
+            "(ROADMAP.md: cuboid geometry)")
     if not _uniform_radial(geo):
         return None
     return ShellHelmholtzDirect(geo, wall_specs, dtype=dtype,

@@ -1,23 +1,28 @@
-"""Fast-diagonalization Poisson solve for the uniform-radius shell
-(PyTorch counterpart of the JAX package's ``solvers/spectral.py``).
+"""Fast-diagonalization Poisson solves for the uniform-radius shell and
+the annulus (PyTorch counterpart of the JAX package's
+``solvers/spectral.py``).
 
-Solves -weak_laplacian(x) = b with sum(b) = 0 by diagonalizing all three
-axes with dense transforms (host f64 setup, identical to the JAX
-package's):
+Solves -weak_laplacian(x) = b with sum(b) = 0 by diagonalizing every
+axis with dense transforms (host f64 setup, identical to the JAX
+package's). Shell:
 
   lon:  real DFT as a matmul pair (F forward, its f64 pseudo-inverse G)
   lat:  per-lon-mode generalized eigentransform V_k (V_k^T M V_k = I)
   r:    the shared symmetric radial tridiagonal T_r = Q D Q^T
 
-leaving a pointwise multiply by the pseudo-inverse of (D_a + lam_{m,k});
-the Neumann nullspace's reciprocal is zeroed, callers re-normalize the
-mean. The six transforms are plain matrix products (``torch.einsum``),
-left to the BLAS library as the JAX package left them to XLA, in full
-float32 on the card (the model disables TF32).
+Annulus: the phi DFT pair and one generalized radial eigentransform W
+(T_r W = diag(c_phi) W Lambda) shared by every phi mode.
+
+What is left is a pointwise multiply by the pseudo-inverse of the
+eigenvalue sums; the Neumann nullspace's reciprocal is zeroed, callers
+re-normalize the mean. The transforms are plain matrix products
+(``torch.einsum``), left to the BLAS library as the JAX package left
+them to XLA, in full float32 on the card (the model disables TF32).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -87,13 +92,25 @@ def shell_lat_eigensystem(geo: Geometry):
 def _real_dft_pair(n: int, dtype) -> Tuple[np.ndarray, np.ndarray]:
     """(F, G): forward real-DFT matmul matrix (rows = Re then -Im of the
     rfft) and its f64 pseudo-inverse — an exact roundtrip pair."""
+    F, G = _real_dft_pair64(n)
+    return F.astype(dtype), G.astype(dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def _real_dft_pair64(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """_real_dft_pair in f64, made once per n in a process: the
+    pseudo-inverse of the (n + 2, n) matrix takes seconds at the
+    thousands of phi points of a refined annulus, and a model builds up
+    to three solvers on the same n."""
     nm = n // 2 + 1
     ll = np.arange(n)
     kk = np.arange(nm)
     ang = 2.0 * np.pi * kk[:, None] * ll[None, :] / n
     F = np.concatenate([np.cos(ang), -np.sin(ang)], axis=0)
     G = np.linalg.pinv(F, rcond=1e-12)
-    return F.astype(dtype), G.astype(dtype)
+    F.setflags(write=False)
+    G.setflags(write=False)
+    return F, G
 
 
 class ShellPoissonFastDiag:
@@ -176,6 +193,73 @@ class ShellPoissonFastDiag:
         return x, 0
 
 
+class AnnulusPoissonFastDiag:
+    """EXACT annulus solve by fast diagonalization. The radial operator
+    depends on the phi mode, A_k = T_r - mu_k diag(c_phi) with c_phi(r)
+    = dr/(r dphi); the generalized symmetric eigenproblem T_r W =
+    diag(c_phi) W Lambda (W^T diag(c_phi) W = I, host f64 via the
+    C^{-1/2} similarity) gives A_k^{-1} = W (Lambda - mu_k)^{-1} W^T for
+    every mode at once: one (nr x nr) matmul pair around a pointwise
+    multiply, between the phi DFT pair.
+
+    ``check_amp``: the residual amplification bound that the model's
+    Poisson spot-check takes (1e6 eps), as in the JAX package: the
+    generalized eigentransforms leave a relative residual of ~3.5e3 eps
+    at production aspect in f32 (working-precision conditioning, not a
+    solver defect)."""
+
+    precision = "highest"
+    check_amp = 1e6
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "annulus":
+            raise ValueError("AnnulusPoissonFastDiag needs annulus geometry")
+        self.geo = geo
+        nr, nphi = geo.cell_shape
+        ar = _conductance(geo, 0)[:, 0].astype(np.float64)    # (nr+1,)
+        cphi = _conductance(geo, 1)[:, 0].astype(np.float64)  # (nr,)
+        mu = _mu(nphi, rfft=True)                             # (nm,) <= 0
+        mu2 = np.concatenate([mu, mu])                        # re+im stack
+
+        Tr = (np.diag(ar[:-1] + ar[1:])
+              - np.diag(ar[1:-1], 1) - np.diag(ar[1:-1], -1))
+        Ms = 1.0 / np.sqrt(cphi)
+        S = Ms[:, None] * Tr * Ms[None, :]
+        lam, U = np.linalg.eigh(0.5 * (S + S.T))
+        W = Ms[:, None] * U                                   # W^T C W = I
+        lam = np.maximum(lam, 0.0)
+
+        denom = lam[:, None] - mu2[None, :]                   # (nr, 2nm)
+        tiny = 1e-10 * float(denom.max())
+        inv_denom = np.where(denom > tiny, 1.0 / np.maximum(denom, tiny), 0.0)
+
+        F, G = _real_dft_pair(nphi, np.float64)
+        f = lambda a: np.asarray(a, dtype=dtype)              # host constants
+        self._F, self._G = f(F), f(G)
+        self._W = f(W)
+        self._inv_denom = f(inv_denom)
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "AnnulusPoissonFastDiag":
+        """Move the transform constants to ``device`` (re-read after a
+        caller edits the host arrays)."""
+        self._t = {k: torch.as_tensor(getattr(self, k), device=device)
+                   for k in ("_F", "_G", "_W", "_inv_denom")}
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def solve(self, b: torch.Tensor):
+        c = self._t
+        h = torch.einsum("kp,rp->rk", c["_F"], b)
+        h = torch.einsum("ra,rk->ak", c["_W"], h)
+        h = h * c["_inv_denom"]
+        h = torch.einsum("ra,ak->rk", c["_W"], h)
+        return torch.einsum("pk,rk->rp", c["_G"], h), 0
+
+
 def _uniform_radial(geo: Geometry) -> bool:
     dr = np.diff(np.asarray(geo.axes[0].faces))
     return bool(np.allclose(dr, dr[0], rtol=1e-12, atol=0.0))
@@ -184,12 +268,14 @@ def _uniform_radial(geo: Geometry) -> bool:
 def make_poisson_solver(geo: Geometry, dtype=np.float32,
                         precision: str = "highest", refine_op=None,
                         device=None):
-    """The shell-uniform branch of the JAX package's factory; the other
-    geometries and the non-uniform shell raise."""
+    """The annulus and shell-uniform branches of the JAX package's
+    factory; the cuboid and the non-uniform shell raise."""
+    if geo.kind == "annulus":
+        return AnnulusPoissonFastDiag(geo, dtype=dtype, device=device)
     if geo.kind != "shell":
         raise NotImplementedError(
             f"{geo.kind} Poisson solvers are not ported yet (ROADMAP.md: "
-            "annulus and cuboid geometries)")
+            "cuboid geometry)")
     if not _uniform_radial(geo):
         raise NotImplementedError(
             "the non-uniform radial shell (ShellPoissonSpectral) is not "

@@ -5,12 +5,17 @@
         [--helmholtz direct] [--nse-interval K]
         [--residual-check-interval M] [--chunk N]
         [--temperature-advection semi-lagrangian]
+        [--prm FILE | --geometry annulus]
 
 Runs the flagship configuration (models/presets.py: shell 32x128x256
 f32, bench opt-ins, seeded developed flow) on CUDA — with `--helmholtz
 direct`, the same configuration with `helmholtz solver = direct`; with
 `--nse-interval K` / `--residual-check-interval M` /
-`--temperature-advection` those settings — and reports
+`--temperature-advection` those settings. With `--prm FILE` it runs that
+parameter file instead, in f32 at its own grid and dt from its initial
+state; `--geometry annulus` runs data/aqua_planet_test_2d.prm at
+`initial global refinement = 8`, the annulus of 256 x 3072 cells (the
+prm's own grid is 16 x 192). It reports
   * host-clock ms/step of the eager loop two ways: reading the step's
     solver_ok every step (the gate, as BoussinesqModel.run does) and
     enqueueing all steps before one synchronize; the steps are NSE steps
@@ -133,6 +138,13 @@ def main() -> int:
     ap.add_argument("--chunk", type=int, default=0,
                     help="also run multi_step in chunks of this many steps "
                          "(CUDA graph replays)")
+    ap.add_argument("--prm", default=None,
+                    help="run this parameter file (f32, its own grid, dt "
+                         "and initial state) instead of the flagship")
+    ap.add_argument("--geometry", choices=("shell", "annulus"),
+                    default="shell",
+                    help="annulus: data/aqua_planet_test_2d.prm at "
+                         "refinement 8 (256 x 3072)")
     args = ap.parse_args()
 
     import torch
@@ -148,18 +160,32 @@ def main() -> int:
     from dycoreplanet_tpu_torch.models.presets import (
         BENCH_DT, bench_params, seed_developed_flow)
 
-    params = bench_params()
+    if args.geometry == "annulus":
+        args.prm = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "data", "aqua_planet_test_2d.prm")
+    if args.prm is None:
+        params = bench_params()
+    else:
+        from dycoreplanet_tpu_torch.base.params import Parameters
+
+        params = Parameters.from_file(args.prm)
+        params.numerics.dtype = "float32"
+        if args.geometry == "annulus":
+            params.initial_global_refinement = 8
     params.numerics.helmholtz_solver = args.helmholtz
     params.NSE_solver_interval = args.nse_interval
     params.numerics.residual_check_interval = args.residual_check_interval
     params.numerics.temperature_advection = args.temperature_advection
     model = BoussinesqModel(params, device="cuda")
-    s = seed_developed_flow(model)
+    if args.prm is None:
+        s, dt = seed_developed_flow(model), BENCH_DT
+    else:
+        s, dt = model.initial_state(), params.time_step
 
     def eager_step(state):
         if state.step_number % params.NSE_solver_interval == 0:
-            return model.step(state, BENCH_DT)
-        return model.temperature_step(state, BENCH_DT)
+            return model.step(state, dt)
+        return model.temperature_step(state, dt)
 
     for _ in range(args.warmup):
         s, d = eager_step(s)
@@ -220,13 +246,15 @@ def main() -> int:
 
     sl_out = None
     if model._semi_lagrangian is not None:
-        sl_args = (s.u, s.T, model._dt_T(BENCH_DT))
+        sl_args = (s.u, s.T, model._dt_T(dt))
         sl_ms = time_ms(lambda: model._semi_lagrangian(*sl_args))
         _, sl_prof = profiled(lambda: model._semi_lagrangian(*sl_args))
         sl_out = {"ms_per_call": sl_ms, "kernels_per_call": sum(
             1 for e in sl_prof.events() if e.device_type == DeviceType.CUDA)}
 
     name = torch.cuda.get_device_name(0)
+    print(f"configuration: {args.prm or 'flagship (models/presets.py)'}, "
+          f"{model.geo.kind} {model.geo.cell_shape}, dt {dt}")
     print(f"device: {name}; helmholtz solver = {args.helmholtz}, NSE "
           f"solver interval = {args.nse_interval}, residual check interval "
           f"= {args.residual_check_interval}, temperature advection = "
@@ -265,7 +293,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     out = {
-        "device": name, "helmholtz_solver": args.helmholtz,
+        "device": name, "prm": args.prm, "geometry": model.geo.kind,
+        "cells": list(model.geo.cell_shape), "dt": dt,
+        "helmholtz_solver": args.helmholtz,
         "nse_interval": args.nse_interval,
         "residual_check_interval": args.residual_check_interval,
         "temperature_advection": args.temperature_advection,
@@ -288,7 +318,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        model.multi_step(s, BENCH_DT, N)            # capture + replay
+        model.multi_step(s, dt, N)            # capture + replay
         torch.cuda.synchronize()
         graph_peak = torch.cuda.max_memory_allocated()
         graphs = model.chunk_graphs
@@ -297,7 +327,7 @@ def main() -> int:
         def replay_chunks():
             s1 = s
             for _ in range(chunks):
-                s1, packed, _ = model.multi_step(s1, BENCH_DT, N)
+                s1, packed, _ = model.multi_step(s1, dt, N)
                 packed.cpu()                 # the chunk's one pull
             return s1
 
@@ -309,12 +339,12 @@ def main() -> int:
         ms_chunked = (time.perf_counter() - t0) / n * 1e3
         # the JAX bench's form: no collected diagnostics, only the
         # gate's pull a chunk
-        model.multi_step(s, BENCH_DT, N, collect_diagnostics=False)
+        model.multi_step(s, dt, N, collect_diagnostics=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s1 = s
         for _ in range(chunks):
-            s1, _, _ = model.multi_step(s1, BENCH_DT, N,
+            s1, _, _ = model.multi_step(s1, dt, N,
                                         collect_diagnostics=False)
         torch.cuda.synchronize()
         ms_bench_form = (time.perf_counter() - t0) / n * 1e3
@@ -336,7 +366,7 @@ def main() -> int:
         a.record()
         s1 = s
         for _ in range(chunks):
-            s1, _, _ = graphs.run(s1, BENCH_DT, N, True)
+            s1, _, _ = graphs.run(s1, dt, N, True)
         b.record()
         b.synchronize()
         ev_ms = a.elapsed_time(b) / n

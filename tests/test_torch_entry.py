@@ -1,7 +1,9 @@
-"""The PyTorch port through its entry points, on CPU: the
-``shell_3d_classic`` golden trajectory replayed through the port's
-``step`` (at tests/test_golden.py's tolerances), the CLI, and the rule
-that the package imports neither JAX nor the JAX package."""
+"""The PyTorch port through its entry points, on CPU: the golden
+trajectories of the configurations it runs (``shell_3d_classic``,
+``annulus_2d``, ``aqua_planet_production`` and
+``aqua_planet_production_dynamic``) replayed through the port's ``step``
+(at tests/test_golden.py's tolerances), the CLI, and the rule that the
+package imports neither JAX nor the JAX package."""
 
 import json
 import os
@@ -9,6 +11,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from tests.golden_trajectories import (
     CASES, GOLDEN_PATH, N_STEPS, SNAP_STEPS, _snapshot)
@@ -42,8 +45,12 @@ def _run_case_port(name):
     return {"rows": rows, "fields": snaps}
 
 
-def test_shell_classic_golden_through_port():
-    name = "shell_3d_classic"
+@pytest.mark.parametrize("name", [
+    "shell_3d_classic", "annulus_2d", "aqua_planet_production",
+    "aqua_planet_production_dynamic"])
+def test_shell_classic_golden_through_port(name):
+    """The goldens of the configurations the port runs (the shell and
+    the annulus, standard personality), replayed through its step."""
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)[name]
     got = _run_case_port(name)

@@ -198,15 +198,21 @@ def test_without_cuda_no_device_raises(monkeypatch):
 
 @pytest.mark.parametrize("setting", [
     ("use_FEEC_solver", True), ("cuboid_geometry", True),
-    ("space_dimension", 2),
+    (("space_dimension", 2), ("cuboid_geometry", True)),
+    (("space_dimension", 2),
+     ("numerics.temperature_advection", "semi-lagrangian")),
     ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
     ("numerics.poisson_solver", "mg"),
     ("numerics.momentum_solver", "coupled"),
 ])
 def test_unsupported_configurations_raise(setting):
+    """Each refused configuration; a pair of settings is applied
+    together (the 2D cuboid, and the annulus with the semi-Lagrangian
+    transport: the annulus itself runs, tests/test_torch_annulus.py)."""
     p = _params(Parameters)
-    name, value = setting
-    obj = p.numerics if name.startswith("numerics.") else p
-    setattr(obj, name.split(".")[-1], value)
+    for name, value in (setting if isinstance(setting[0], tuple)
+                        else (setting,)):
+        obj = p.numerics if name.startswith("numerics.") else p
+        setattr(obj, name.split(".")[-1], value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         BoussinesqModel(p, device="cpu")
