@@ -68,6 +68,18 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      repairs every miss) and its 20 fast steps as one graph replay
      against the same steps eagerly, bitwise; a forced miss repaired by
      CG; one step of each path on the card against the f64 CPU step;
+  6c. the shell step on a mesh of shards, all on the one card, for the
+     meshes 2 x 2 and 2 x 4 at 32x128x256 on the seeded developed flow
+     (BoussinesqModel.prepare_sharded): K2o and K1o (the forcing and
+     Richardson kernels in their operands halo mode) on every shard
+     against their plain versions, f32 and f64, with phase 3's
+     tolerances, and the shards' outputs stitched together against K2 and
+     K1; 20 gated steps through run, f32: 0 escalations, max|div u| <=
+     1e-4, K2o and K1o A x B times a step and no single-device kernel,
+     the state within 1e-4 of max|u| of the single-device run's (phase
+     4), a second run bitwise the first; one shard's kernel, plain and
+     bound times; the mesh step's device ms, kernels and host launches a
+     step (torch.profiler) beside the single-device eager step's;
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
@@ -809,6 +821,277 @@ def annulus_phases(dev):
     return k4_rows, by_path, replay_by_path
 
 
+# the meshes of the mesh phase (6c), all shards on the one card: 2 x 4 is
+# what build_mesh makes of 8 devices (the JAX package's default), and the
+# path whose launches the kernels line reports
+MESHES = ((2, 2), (2, 4))
+MAIN_MESH = (2, 4)
+# host-side calls that launch device work (scripts/profile_torch_step.py)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def mesh_model(dev, mesh_shape, dtype="float32"):
+    """The bench model prepared for a mesh of A x B shards on dev."""
+    import numpy as np
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import BENCH_SHAPE, bench_params
+    from dycoreplanet_tpu_torch.parallel.mesh import Mesh
+
+    A, B = mesh_shape
+    model = BoussinesqModel(bench_params(BENCH_SHAPE, dtype), device=dev)
+    return model.prepare_sharded(
+        Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon")))
+
+
+def step_profile(fn, n):
+    """Device ms, device kernels and host launches a step of fn(), which
+    runs n steps, from one torch.profiler window; and the device ms a
+    step of each hand kernel, by wrapper name."""
+    from torch.autograd import DeviceType
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        profiled, wrapper_of)
+
+    _, prof = profiled(fn)
+    dev_ms = kernels = launches = 0.0
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            if e.key in LAUNCH_CALLS:
+                launches += e.count
+            continue
+        t_us = getattr(e, "self_device_time_total", None)
+        if t_us is None:
+            t_us = e.self_cuda_time_total
+        if t_us > 0:
+            dev_ms += t_us / 1e3
+            kernels += e.count
+            w = wrapper_of(e.key)
+            if w is not None:
+                by[w] = by.get(w, 0.0) + t_us / 1e3 / n
+    return {"device_ms_per_step": dev_ms / n, "kernels_per_step": kernels / n,
+            "host_launches_per_step": launches / n, "kernel_ms_per_step": by}
+
+
+def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
+    """K2o and K1o on every shard of a mesh at the bench shape, on the
+    seeded developed flow, against their plain versions with phase 3's
+    tolerances (K2o 1e-5 x scale, f64 1e-12; K1o iterates and faces rtol
+    = atol = 2e-6, f64 1e-12, rhs_raw rtol 1e-4 and atol 2e-5 x scale, f64
+    1e-11; the shard's sums: |b|^2 rtol 1e-5 (f64 1e-12), |r| within 0.1
+    |r| + 4 eps |b|), and the shards' outputs stitched together against the
+    single-device K2 and K1. With ``timing``: shard (0, 0)'s wrapper and
+    plain times and its bound. Returns (K2o error, K1o error, timings)."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+    from dycoreplanet_tpu_torch.parallel.halo import halo_pad
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        build, shard_state, unshard_field)
+    from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+    model = mesh_model(dev, mesh_shape, dtype_name)
+    f32 = model.torch_dtype == torch.float32
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(BENCH_DT)
+    mesh = model._mesh.mesh
+    sh = shard_state(s0, model.geo, mesh)
+    kf, kr = model._mesh.forcing.kern, model._mesh.richardson.kern
+    nr, nl, no = kf.local_shape
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh)
+    what = f"{mesh_shape[0]}x{mesh_shape[1]} {dtype_name}"
+    tol2 = 1e-5 if f32 else 1e-12
+    out2, err2 = {}, 0.0
+    args2 = {}
+    for (a, b), u in sh.u.items():
+        args2[a, b] = (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                       sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+        got = kf.call_operands(*args2[a, b])
+        want = kf.plain_operands(*args2[a, b])
+        torch.cuda.synchronize()
+        sc = max(float(w.abs().max()) for w in want)
+        err2 = max(err2, compare(f"K2o {what} shard {(a, b)}", got, want,
+                                 0.0, tol2 * sc))
+        out2[a, b] = got
+    k2_out = model._forcing(s0.u, s0.u_faces, s0.T, s0.p, dt)
+    sc = max(float(w.abs().max()) for w in k2_out)
+    d2 = compare(f"K2o {what} stitched vs K2", [unshard_field(build(
+        mesh, lambda a, b: out2[a, b][i])) for i in range(2)], k2_out, 0.0,
+        tol2 * sc)
+    # K1o on K2o's outputs: rhs_T as the step forms it
+    kT = model._scalar(model.dtype.type(dt) * model.dtype.type(
+        model.one_over_Pe))
+    ops = model._mesh.ops
+    rhs_u = build(mesh, lambda a, b: out2[a, b][0])
+    rhs_T = build(mesh, lambda a, b: ops.vol[a, b] * out2[a, b][1]
+                  + kT * ops.T_lap_offset[a, b])
+    GH = kr.GH
+    st5 = rhs_u.map(lambda u, r, t: torch.cat([u, r[None], t[None]]),
+                    rhs_T, sh.T)
+    st5 = halo_pad(st5, mesh, "lon", 3, width=GH, periodic=True)
+    st5 = halo_pad(st5, mesh, "lat", 2, width=GH, periodic=False)
+    tol1 = 2e-6 if f32 else 1e-12
+    eps = float(torch.finfo(model.torch_dtype).eps)
+    out1, err1 = {}, 0.0
+    args1 = {}
+    for (a, b), e in st5.items():
+        args1[a, b] = (e[:3], e[3], e[4], dt, (a * nl, b * no))
+        got = kr.call_operands(*args1[a, b])
+        want = kr.plain_operands(*args1[a, b])
+        torch.cuda.synchronize()
+        err1 = max(err1, compare(f"K1o {what} shard {(a, b)}", got[:5],
+                                 want[:5], tol1, tol1))
+        sc1 = float(want[5].abs().max()) + 1e-30
+        err1 = max(err1, compare(f"K1o {what} rhs_raw shard {(a, b)}",
+                                 (got[5],), (want[5],),
+                                 1e-4 if f32 else 1e-11,
+                                 (2e-5 if f32 else 1e-11) * sc1))
+        g = [float(x) for x in got[6]]
+        w = [float(x) for x in want[6]]
+        for k in (1, 3):
+            if not abs(g[k] - w[k]) <= (1e-5 if f32 else 1e-12) * w[k]:
+                fail(f"K1o {what} shard {(a, b)}: |b|^2 {g[k]!r} vs plain "
+                     f"{w[k]!r}")
+        for r, bb in ((0, 1), (2, 3)):
+            rg, rw = g[r] ** 0.5, w[r] ** 0.5
+            if not abs(rg - rw) <= 0.1 * rw + 4 * eps * w[bb] ** 0.5:
+                fail(f"K1o {what} shard {(a, b)}: |r| {rg!r} vs plain "
+                     f"{rw!r}")
+        out1[a, b] = got
+    k1_out = model._richardson(unshard_field(rhs_u), unshard_field(rhs_T),
+                               s0.T, dt)
+    d1 = compare(f"K1o {what} stitched vs K1", [unshard_field(build(
+        mesh, lambda a, b: out1[a, b][i])) for i in range(5)],
+        [k1_out[0], k1_out[1]] + list(k1_out[2][:3]), tol1, tol1)
+    phase(f"K2o / K1o {what}: every shard against its plain version, max "
+          f"abs err {err2:.3e} / {err1:.3e}; stitched against K2 / K1 "
+          f"{d2:.3e} / {d1:.3e}")
+    times = None
+    if timing:
+        itemsize = 4 if f32 else 8
+        cells = nr * nl * no
+        halo_vals = sum(t.numel() for t in halos[0, 0].values())
+        b2_ms, b2_by = bound_of(
+            (k2.FIELDS_MOVED * cells + halo_vals) * itemsize,
+            k2.OPS_PER_CELL * cells)
+        ext = nr * (nl + 2 * GH) * (no + 2 * GH)
+        b1_ms, b1_by = bound_of(
+            (5 * ext + 8 * cells) * itemsize,
+            k1.ops_per_cell(kr.iters_u, kr.iters_T) * cells)
+        times = {
+            "K2o": dict(ms=time_ms(lambda: kf.call_operands(*args2[0, 0])),
+                        plain_ms=time_ms(
+                            lambda: kf.plain_operands(*args2[0, 0]), reps=5),
+                        bound_ms=b2_ms, bound_by=b2_by),
+            "K1o": dict(ms=time_ms(lambda: kr.call_operands(*args1[0, 0])),
+                        plain_ms=time_ms(
+                            lambda: kr.plain_operands(*args1[0, 0]), reps=5),
+                        bound_ms=b1_ms, bound_by=b1_by)}
+        for name, t in times.items():
+            phase(f"{name} {what}, one shard {kf.local_shape}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    return max(err2, d2), max(err1, d1), times
+
+
+def mesh_phases(dev, s0, s_single, single_model):
+    """6c: the shell step on a mesh of shards on the one card, for each
+    mesh of MESHES at the bench shape and flow: K2o and K1o against their
+    plain versions (f32 and f64) and against K2 and K1; 20 gated steps
+    through run (0 escalations, max|div u| <= 1e-4, K2o and K1o A x B
+    times a step, no single-device kernel); the state after them within
+    1e-4 of the scale of the single-device run's (``s_single``, the same
+    20 steps from ``s0``); a second run bitwise the first; the mesh
+    step's device ms, kernels and host launches a step beside the
+    single-device eager step's. Returns ({mesh label: launches}, the
+    K1o and K2o rows' numbers)."""
+    import torch
+    from dycoreplanet_tpu_torch.parallel.mesh import shard_state, unshard_state
+
+    t0 = time.perf_counter()
+    launches, rows = {}, {"K1o": {}, "K2o": {}}
+    for mesh_shape in MESHES:
+        A, B = mesh_shape
+        label = f"mesh_{A}x{B}"
+        errs = {}
+        for dname in ("float32", "float64"):
+            e2, e1, times = check_mesh_kernels(
+                dev, mesh_shape, dname, timing=dname == "float32")
+            errs[dname] = (e2, e1)
+            if times is not None:
+                for k in ("K1o", "K2o"):
+                    rows[k][label] = dict(times[k])
+        model = mesh_model(dev, mesh_shape)
+        st0 = shard_state(s0, model.geo, model._mesh.mesh)
+        model.run(max_steps=2, state=st0)             # warm-up
+        (s_end, hist), counts, wall = drive(
+            model, lambda: model.run(max_steps=N_STEPS, state=st0))
+        want = {name: 0 for name in counts}
+        want.update(forcing_operands=N_STEPS * A * B,
+                    richardson_operands=N_STEPS * A * B)
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        if model.escalations != 0 or len(hist) != N_STEPS:
+            fail(f"{label}: {model.escalations} escalation(s), "
+                 f"{len(hist)} steps")
+        g = unshard_state(s_end)
+        for x in (g.u, g.p, g.T) + tuple(g.u_faces):
+            if not bool(torch.isfinite(x).all()):
+                fail(f"{label}: non-finite fields")
+        div_max = max(h["div_norm"] for h in hist)
+        if not div_max <= 1e-4:
+            fail(f"{label}: max|div u| {div_max:.3e} > 1e-4")
+        du = float((g.u - s_single.u).abs().max())
+        u_sc = float(s_single.u.abs().max())
+        if not du <= 1e-4 * u_sc:
+            fail(f"{label}: max|u_mesh - u_single| {du:.3e} > 1e-4 x "
+                 f"{u_sc:.3e}")
+        s_again, _ = model.run(max_steps=N_STEPS, state=st0)
+        again = unshard_state(s_again)
+        if not all(torch.equal(x, y) for x, y in zip(
+                (g.u, g.p, g.T) + tuple(g.u_faces),
+                (again.u, again.p, again.T) + tuple(again.u_faces))):
+            fail(f"{label}: two runs from the same state differ")
+        launches[label] = counts
+        prof_m = step_profile(
+            lambda: model.run(max_steps=5, state=st0), 5)
+        for k, w in (("K1o", "richardson_operands"),
+                     ("K2o", "forcing_operands")):
+            ms = prof_m["kernel_ms_per_step"].get(w, 0.0)
+            rows[k][label].update(
+                in_step_ms=ms, in_step_ms_per_shard=ms / (A * B),
+                launches_per_step=A * B,
+                step_device_ms=prof_m["device_ms_per_step"],
+                step_kernels=prof_m["kernels_per_step"],
+                step_host_launches=prof_m["host_launches_per_step"])
+        rows["K2o"][label]["max_abs_err"] = max(
+            e[0] for e in errs.values())
+        rows["K1o"][label]["max_abs_err"] = max(
+            e[1] for e in errs.values())
+        phase(f"{label} {model.geo.cell_shape} f32: {N_STEPS} gated steps, "
+              f"0 escalations, launches {counts}, max|div u| "
+              f"{div_max:.3e}, max|u_mesh - u_single| {du:.3e} "
+              f"({du / u_sc:.3e} of max|u|), a second run bitwise equal, "
+              f"{wall / N_STEPS * 1e3:.3f} ms/step (host clock); device "
+              f"{prof_m['device_ms_per_step']:.4f} ms/step in "
+              f"{prof_m['kernels_per_step']:.1f} kernels, "
+              f"{prof_m['host_launches_per_step']:.1f} host launches a "
+              f"step; K2o {rows['K2o'][label]['in_step_ms']:.4f} ms and K1o "
+              f"{rows['K1o'][label]['in_step_ms']:.4f} ms a step")
+        del model
+    prof_1 = step_profile(
+        lambda: single_model.run(max_steps=5, state=s0), 5)
+    phase(f"single-device eager step, same flow: device "
+          f"{prof_1['device_ms_per_step']:.4f} ms/step in "
+          f"{prof_1['kernels_per_step']:.1f} kernels, "
+          f"{prof_1['host_launches_per_step']:.1f} host launches a step")
+    phase(f"mesh phases {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
 def check_annulus_run(label, model, s_end, hist, escalated=False):
     """A 20-step annulus run: all steps, finite fields, max|div u| <=
     1e-4, no operand copied for K4, and 0 escalations (or, with
@@ -854,7 +1137,8 @@ def main() -> None:
              "CUDA card")
     try:
         import dycoreplanet_tpu_torch
-        from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+        from dycoreplanet_tpu_torch.diagnostics.device_time import (
+            time_ms, wrapper_of)
         from dycoreplanet_tpu_torch.models import BoussinesqModel
         from dycoreplanet_tpu_torch.models.graphs import MAX_GRAPHS
         from dycoreplanet_tpu_torch.models.presets import (
@@ -898,37 +1182,31 @@ def main() -> None:
                   f"{r['spill_stores']}/{r['spill_loads']} bytes spill "
                   f"stores/loads, {r['smem_bytes']} bytes static smem",
                   flush=True)
-    # K1's residual-free instances: the TRACK template argument false
-    # (demangled "(bool)0" or "false", mangled "Lb0E")
-    k1u_ptxas = [r for r in ptxas["richardson.cu"]
-                 if "rich_fused" in r["kernel"]
-                 and any(k in r["kernel"] for k in ("false", "(bool)0",
-                                                     "Lb0E"))]
-    if len(k1u_ptxas) != 4:
-        fail(f"expected 4 residual-free K1 instances in richardson.cu's "
-             f"ptxas output, found {[r['kernel'] for r in k1u_ptxas]}")
-    for r in k1u_ptxas:
-        if r["spill_stores"] or r["spill_loads"]:
-            fail(f"K1u instance {r['kernel']} spills")
-    phase("K1u (TRACK = false) instances: " + "; ".join(
-        f"{r['kernel']} {r['registers']} registers, "
-        f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
-        for r in k1u_ptxas))
-    # K2m: forcing_kernel's ADVECT_T argument false, in f32 and f64
-    k2m_ptxas = [r for r in ptxas["forcing.cu"]
-                 if "forcing_kernel" in r["kernel"]
-                 and any(k in r["kernel"] for k in ("false", "(bool)0",
-                                                     "Lb0E"))]
-    if len(k2m_ptxas) != 2:
-        fail(f"expected 2 K2m (ADVECT_T = false) instances in forcing.cu's "
-             f"ptxas output, found {[r['kernel'] for r in k2m_ptxas]}")
-    for r in k2m_ptxas:
-        if r["spill_stores"] or r["spill_loads"]:
-            fail(f"K2m instance {r['kernel']} spills")
-    phase("K2m (ADVECT_T = false) instances: " + "; ".join(
-        f"{r['kernel']} {r['registers']} registers, "
-        f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
-        for r in k2m_ptxas))
+    # the instances of K1 and K2 by their template arguments
+    # (diagnostics/device_time.py wrapper_of: K1u's TRACK and K2m's
+    # ADVECT_T false, K1o's and K2o's OPS true), each without spills
+    by_wrapper = {}
+    for src in ("richardson.cu", "forcing.cu"):
+        for r in ptxas[src]:
+            by_wrapper.setdefault(wrapper_of(r["kernel"]), []).append(r)
+    for wname, label, n_inst in (
+            ("richardson_free", "K1u (TRACK = false)", 4),
+            ("forcing_momentum", "K2m (ADVECT_T = false)", 2),
+            ("richardson_operands", "K1o (OPS = true)", 2),
+            ("forcing_operands", "K2o (OPS = true)", 2)):
+        rows = by_wrapper.get(wname, [])
+        if len(rows) != n_inst:
+            fail(f"expected {n_inst} {label} instances in ptxas's output, "
+                 f"found {[r['kernel'] for r in rows]}")
+        for r in rows:
+            if r["spill_stores"] or r["spill_loads"]:
+                fail(f"{label} instance {r['kernel']} spills")
+        phase(f"{label} instances: " + "; ".join(
+            f"{r['kernel']} {r['registers']} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} bytes spill"
+            for r in rows))
+    k1u_ptxas, k2m_ptxas = (by_wrapper["richardson_free"],
+                            by_wrapper["forcing_momentum"])
 
     # ---- 3. kernel checks ---------------------------------------------
     dev = torch.device("cuda")
@@ -958,8 +1236,7 @@ def main() -> None:
                        max_abs_err=err2, ms=ms, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None,
                        blocks_per_sm=occ2,
-                       ptxas=[r for r in ptxas["forcing.cu"]
-                              if r not in k2m_ptxas]))
+                       ptxas=by_wrapper["forcing"]))
 
     # K2m: the forcing without the fused transport, as a
     # `temperature advection = semi-lagrangian` model runs it, on the same
@@ -1071,7 +1348,7 @@ def main() -> None:
                        replaces="dycoreplanet_tpu/ops/pallas_richardson.py:348",
                        max_abs_err=err1, ms=ms, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None,
-                       ptxas=ptxas["richardson.cu"]))
+                       ptxas=by_wrapper["richardson"]))
 
     # K1u: K1's residual-free variant, as the `residual check interval =
     # 4` model runs it between checks, on the same inputs
@@ -1561,6 +1838,26 @@ def main() -> None:
     for label, counts in a_replays.items():
         record_replay(label, counts)
 
+    # ---- 6c. the mesh --------------------------------------------------
+    mesh_launches, mesh_rows = mesh_phases(dev, s0, s_end, model)
+    for label, counts in mesh_launches.items():
+        record(label, counts)
+    for name, wname, src, rep in (
+            ("K2o forcing_operands", "forcing_operands", "forcing.cu",
+             "dycoreplanet_tpu/ops/pallas_stencil.py:373"),
+            ("K1o richardson_operands", "richardson_operands",
+             "richardson.cu",
+             "dycoreplanet_tpu/ops/pallas_richardson.py:348")):
+        by_mesh = mesh_rows[name[:3]]
+        main = by_mesh[f"mesh_{MAIN_MESH[0]}x{MAIN_MESH[1]}"]
+        report.append(dict(
+            name=name, route="cuda", source=f"dycoreplanet_tpu_torch/csrc/{src}",
+            replaces=rep, variant="halo_mode=operands (per shard)",
+            max_abs_err=max(r["max_abs_err"] for r in by_mesh.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None, by_mesh=by_mesh, ptxas=by_wrapper[wname]))
+
     # ---- 7. CLI --------------------------------------------------------
     classic = os.path.join(HERE, "data",
                            "aqua_planet_shell_test_3d-classic.prm")
@@ -1615,14 +1912,16 @@ def main() -> None:
     # also on the annulus direct path); replay_launches_by_path: the
     # device kernels torch.profiler counted in one replay of each path's
     # 20-step graph
+    main_mesh = f"mesh_{MAIN_MESH[0]}x{MAIN_MESH[1]}"
     own = {"richardson": "main", "forcing": "main", "correct": "main",
            "faces_div": "direct", "tridiag": "direct",
-           "richardson_free": "interval", "forcing_momentum": "sl"}
+           "richardson_free": "interval", "forcing_momentum": "sl",
+           "richardson_operands": main_mesh, "forcing_operands": main_mesh}
     for r in report:
         name = r["name"].split()[1]
         r["launches"] = by_path[name][own[name]]
         r["launches_by_path"] = by_path[name]
-        r["replay_launches_by_path"] = replay_by_path[name]
+        r["replay_launches_by_path"] = replay_by_path.get(name, {})
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

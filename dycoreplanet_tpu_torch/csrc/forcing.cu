@@ -1,6 +1,7 @@
 // K2: explicit forcing of the shell standard (advective) personality,
-// with the temperature transport fused in the same pass; and K2m, the
-// same forcing without the transport (forcing_kernel<T, false>).
+// with the temperature transport fused in the same pass; K2m, the same
+// forcing without the transport (forcing_kernel<T, false, false>); and
+// K2o, K2 on one shard of a mesh (forcing_kernel<T, true, true>, below).
 //
 // Replaces the Pallas kernel ShellForcingPallas._build_call
 // (dycoreplanet_tpu/ops/pallas_stencil.py:373), with advect_T = true
@@ -110,6 +111,18 @@ struct Args {
   int scheme, physical_coriolis, perturbation, include_gradp;
   T* rhs_u;
   T* T_adv;
+  // the metric table's rows (nlat; K2o: the shard's plus one), and the
+  // array's first row in the global grid and the global nlat (K2: 0, nlat)
+  int mrows, j_off, nlat_glob;
+  // K2o's ghost operands (ops/forcing.py HALO_SHAPES); null for K2
+  const T* HLu;
+  const T* HLp;
+  const T* HLf1;
+  const T* HOu;
+  const T* HOp;
+  const T* HOf2;
+  const T* HLT;
+  const T* HOT;
 };
 
 // radial window of one advected field along the thread's column
@@ -163,44 +176,114 @@ __device__ __forceinline__ int64_t plane_src(const Dims& g, int j0, int k0,
   return (int64_t)row * g.nlon + kk;
 }
 
+// K2o: the source of staged position (jj, kk) (shard coordinates) of a
+// field F with ghost width w: the shard, a lat ghost row of HL (nr, 2w,
+// nlon), a lon ghost column of HO (nr, nlat, 2w), or null (a corner,
+// which no stencil reads, or past the ghosts of a tile that overhangs
+// the shard)
+template <typename T>
+__device__ __forceinline__ const T* ghost_src(const Dims& g, int i, int jj,
+                                              int kk, const T* F, const T* HL,
+                                              const T* HO, int w) {
+  const bool jin = jj >= 0 && jj < g.nlat, kin = kk >= 0 && kk < g.nlon;
+  if (jin && kin) return F + ((int64_t)i * g.nlat + jj) * g.nlon + kk;
+  if (kin) {
+    const int s = jj < 0 ? jj + w : jj - g.nlat + w;
+    if (s >= 0 && s < 2 * w)
+      return HL + ((int64_t)i * 2 * w + s) * g.nlon + kk;
+  } else if (jin) {
+    const int s = kk < 0 ? kk + w : kk - g.nlon + w;
+    if (s >= 0 && s < 2 * w)
+      return HO + ((int64_t)i * g.nlat + jj) * 2 * w + s;
+  }
+  return nullptr;
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_or_zero(T* dst, const T* src,
+                                              const T* any) {
+  stage(dst, src != nullptr ? src : any, src != nullptr);
+}
+
 // stage plane i into buffer D (asynchronous; one commit group)
-template <bool ADVECT_T, typename T>
+template <bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
                                             int j0, int k0) {
   using Y = Lay<ADVECT_T>;
   const Dims& g = A.g;
   const int64_t N = g.n_cells();
   const int64_t pi = (int64_t)i * g.nlat * g.nlon;
-  for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
-    const int r = e / PW, c = e % PW;
-    const int64_t idx = pi + plane_src(g, j0, k0, r, c);
-    stage(D + Y::O_F + e, A.u + idx, true);
-    stage(D + Y::O_F + PH * PW + e, A.u + N + idx, true);
-    stage(D + Y::O_F + 2 * PH * PW + e, A.u + 2 * N + idx, true);
-    if constexpr (ADVECT_T)
-      stage(D + Y::O_F + 3 * PH * PW + e, A.Tf + idx, true);
-    if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
-      stage(D + Y::O_P + (r - 1) * QW + c - 1, A.p + idx, true);
+  if constexpr (OPS) {
+    const int64_t nHL = (int64_t)g.nr * 4 * g.nlon;  // HLu's component stride
+    const int64_t nHO = (int64_t)g.nr * g.nlat * 4;  // HOu's
+    for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
+      const int r = e / PW, c = e % PW;
+      const int jj = j0 - 2 + r, kk = k0 - 2 + c;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        stage_or_zero(D + Y::O_F + q * PH * PW + e,
+                      ghost_src(g, i, jj, kk, A.u + q * N, A.HLu + q * nHL,
+                                A.HOu + q * nHO, 2),
+                      A.u);
+      if constexpr (ADVECT_T)
+        stage_or_zero(D + Y::O_F + 3 * PH * PW + e,
+                      ghost_src(g, i, jj, kk, A.Tf, A.HLT, A.HOT, 2), A.Tf);
+      if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
+        stage_or_zero(D + Y::O_P + (r - 1) * QW + c - 1,
+                      ghost_src(g, i, jj, kk, A.p, A.HLp, A.HOp, 1), A.p);
+    }
+    // lat faces j0..j0+TL: row nlat is the next shard's first (HLf1)
+    for (int e = threadIdx.x; e < NXL; e += THREADS) {
+      const int jf = j0 + e / TO, kf = k0 + e % TO;
+      const T* src = nullptr;
+      if (kf < g.nlon)
+        src = jf < g.nlat ? A.f1 + pi + (int64_t)jf * g.nlon + kf
+              : (jf == g.nlat ? A.HLf1 + (int64_t)i * g.nlon + kf : nullptr);
+      stage_or_zero(D + Y::O_F1 + e, src, A.f1);
+    }
+    // lon faces k0..k0+TO: column nlon is the next shard's first (HOf2)
+    for (int e = threadIdx.x; e < NXO; e += THREADS) {
+      const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
+      const int kf = k0 + e % (TO + 1);
+      const T* src = kf < g.nlon ? A.f2 + pi + (int64_t)jj * g.nlon + kf
+                     : (kf == g.nlon ? A.HOf2 + (int64_t)i * g.nlat + jj
+                                     : nullptr);
+      stage_or_zero(D + Y::O_F2 + e, src, A.f2);
+    }
+  } else {
+    for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
+      const int r = e / PW, c = e % PW;
+      const int64_t idx = pi + plane_src(g, j0, k0, r, c);
+      stage(D + Y::O_F + e, A.u + idx, true);
+      stage(D + Y::O_F + PH * PW + e, A.u + N + idx, true);
+      stage(D + Y::O_F + 2 * PH * PW + e, A.u + 2 * N + idx, true);
+      if constexpr (ADVECT_T)
+        stage(D + Y::O_F + 3 * PH * PW + e, A.Tf + idx, true);
+      if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
+        stage(D + Y::O_P + (r - 1) * QW + c - 1, A.p + idx, true);
+    }
+    for (int e = threadIdx.x; e < NXL; e += THREADS) {
+      const int jf = j0 + e / TO;
+      const bool in = jf < g.nlat;
+      stage(D + Y::O_F1 + e,
+            A.f1 + (in ? pi + (int64_t)jf * g.nlon
+                             + wrap_any(k0 + e % TO, g.nlon)
+                       : 0), in);
+    }
+    for (int e = threadIdx.x; e < NXO; e += THREADS) {
+      const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
+      stage(D + Y::O_F2 + e,
+            A.f2 + pi + (int64_t)jj * g.nlon
+                + wrap_any(k0 + e % (TO + 1), g.nlon),
+            true);
+    }
   }
-  for (int e = threadIdx.x; e < NXL; e += THREADS) {
-    const int jf = j0 + e / TO;
-    const bool in = jf < g.nlat;
-    stage(D + Y::O_F1 + e,
-          A.f1 + (in ? pi + (int64_t)jf * g.nlon + wrap_any(k0 + e % TO, g.nlon)
-                     : 0), in);
-  }
-  for (int e = threadIdx.x; e < NXO; e += THREADS) {
-    const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
-    stage(D + Y::O_F2 + e,
-          A.f2 + pi + (int64_t)jj * g.nlon + wrap_any(k0 + e % (TO + 1), g.nlon),
-          true);
-  }
-  const int64_t MS = (int64_t)g.nr * g.nlat;
+  const int64_t MS = (int64_t)g.nr * A.mrows;
   for (int e = threadIdx.x; e < M_K * MR; e += THREADS) {
     const int j = j0 + e % MR;
-    const bool in = j < g.nlat;
+    const bool in = j < A.mrows;
     stage(D + Y::O_M + e,
-          A.M + (in ? (e / MR) * MS + (int64_t)i * g.nlat + j : 0), in);
+          A.M + (in ? (e / MR) * MS + (int64_t)i * A.mrows + j : 0), in);
   }
   stage_commit();
 }
@@ -227,12 +310,13 @@ __device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
   using Y = Lay<ADVECT_T>;
   const int jf = j0 + fr, e = fr * TO + fc;
   T flux = T(0);
-  if (jf < A.g.nlat) {
+  if (A.j_off + jf < A.nlat_glob) {
     const T* v = D + Y::O_F + q * PH * PW + fr * PW + fc + 2;  // cell jf - 2
     const T uf = D[Y::O_F1 + e];
     flux = D[Y::O_M + M_ALAT_LO * MR + fr]
            * (uf * shell::face_value<T>(v[0], v[PW], v[2 * PW], v[3 * PW],
-                                        jf == 0, false, uf, A.scheme));
+                                        A.j_off + jf == 0, false, uf,
+                                        A.scheme));
   }
   S[Y::O_XL + q * NXL + e] = flux;
 }
@@ -311,7 +395,7 @@ __device__ __forceinline__ void win_shift(Win<T>& w) {
   w.p1 = w.p2;
 }
 
-template <typename T, bool ADVECT_T>
+template <typename T, bool ADVECT_T, bool OPS>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     forcing_kernel(const Args<T> A) {
   using Y = Lay<ADVECT_T>;
@@ -321,7 +405,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   const Dims& g = A.g;
   const int64_t N = g.n_cells();
   const int64_t plane = (int64_t)g.nlat * g.nlon;
-  const int64_t MS = (int64_t)g.nr * g.nlat;
+  const int64_t MS = (int64_t)g.nr * A.mrows;
   int blk = blockIdx.x;
   const int bo = blk % A.nbo;
   blk /= A.nbo;
@@ -343,13 +427,13 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   for (int e = threadIdx.x; e < L_K * TL; e += THREADS)
     stage(S + Y::O_LAT + e,
           A.lat + (e / TL) * g.nlat + min(j0 + e % TL, g.nlat - 1), true);
-  stage_plane<ADVECT_T>(A, S, ib, j0, k0);
+  stage_plane<ADVECT_T, OPS>(A, S, ib, j0, k0);
 
   // the windows at the first plane, and the flux through its lower face
   Win<T> w0, w1, w2, wT;
   {
     const T uf = A.f0[ib * plane + jk];
-    const T ar_lo = A.M[M_AR_LO * MS + (int64_t)ib * g.nlat + jc];
+    const T ar_lo = A.M[M_AR_LO * MS + (int64_t)ib * A.mrows + jc];
     win_start<0>(A, u0, w0, plane, jk, ib, wall, uf, ar_lo);
     win_start<1>(A, u1, w1, plane, jk, ib, wall, uf, ar_lo);
     win_start<2>(A, u2, w2, plane, jk, ib, wall, uf, ar_lo);
@@ -365,8 +449,8 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     PROBE(10);
     const bool next = i + 1 < ie;
     if (next)
-      stage_plane<ADVECT_T>(A, S + ((i + 1 - ib) & 1) * Y::PLANE, i + 1, j0,
-                            k0);
+      stage_plane<ADVECT_T, OPS>(A, S + ((i + 1 - ib) & 1) * Y::PLANE, i + 1,
+                                 j0, k0);
     // the column's next radial cells, while the planes are in flight
     w0.p2 = col<0>(u0, g, plane, jk, i + 2, wall);
     w1.p2 = col<1>(u1, g, plane, jk, i + 2, wall);
@@ -382,7 +466,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       stage_wait<1>();
     else
       stage_wait<0>();
-    pole_signs<ADVECT_T>(g, D, j0);
+    if constexpr (!OPS) pole_signs<ADVECT_T>(g, D, j0);
     __syncthreads();
     PROBE(11);
     plane_fluxes<ADVECT_T>(A, D, S, j0);
@@ -415,8 +499,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       const T* F1f = D + Y::O_F1;
       const T* F2f = D + Y::O_F2;
       const T dq_r = (i + 1 < g.nr ? ar_hi * f0_n : T(0)) - m(M_AR_LO) * f0_c;
-      const T dq_l = (j + 1 < g.nlat ? m(M_ALAT_HI) * F1f[(ty + 1) * TO + tx]
-                                     : T(0))
+      const T dq_l = (A.j_off + j + 1 < A.nlat_glob
+                          ? m(M_ALAT_HI) * F1f[(ty + 1) * TO + tx]
+                          : T(0))
                      - m(M_ALAT_LO) * F1f[ty * TO + tx];
       const T alon = m(M_ALON);
       const T dq_o = alon * F2f[ty * (TO + 1) + tx + 1]
@@ -490,20 +575,20 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-template <typename T, bool ADVECT_T>
+template <typename T, bool ADVECT_T, bool OPS>
 int launch(const Args<T>& A, void* stream) {
   const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
   static bool smem_set = false;
   if (!smem_set && smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T, ADVECT_T>,
+        forcing_kernel<T, ADVECT_T, OPS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
     smem_set = true;
   }
   const unsigned grid =
       (unsigned)(((A.g.nr + A.RS - 1) / A.RS) * A.nbl * A.nbo);
-  forcing_kernel<T, ADVECT_T>
+  forcing_kernel<T, ADVECT_T, OPS>
       <<<grid, THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
@@ -515,39 +600,62 @@ int occupancy(int* blocks) {
   const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T, ADVECT_T>,
+        forcing_kernel<T, ADVECT_T, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
   }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, forcing_kernel<T, ADVECT_T>, THREADS, smem);
+      blocks, forcing_kernel<T, ADVECT_T, false>, THREADS, smem);
 }
 
 }  // namespace
 
 // NAME: one launch, K2 with advect_T != 0 (T_wall read, T_adv written),
 // else K2m (T_wall and T_adv unused, may be null). NAME_occupancy:
-// resident blocks an SM of that instance.
+// resident blocks an SM of that instance. NAME_operands: one launch of
+// K2o on a shard of nr x nlat x nlon cells whose first row is global row
+// j_off of nlat_glob, with its ghost operands and a metric table of
+// nlat + 1 rows (the transport fused: K2mo is not built).
+#define FORCING_ARGS(T)                                                   \
+  int nr, int nlat, int nlon, int RS, const T *u, const T *f0,            \
+      const T *f1, const T *f2, const T *Tf, const T *p, const T *T_wall, \
+      const T *M, const T *lat, double dt, double dt_T, double beta,      \
+      double T_ref, double rho_bg, double iRe, double omega, int scheme,  \
+      int physical_coriolis, int perturbation, int include_gradp,         \
+      T *rhs_u, T *T_adv
+#define FORCING_INIT(T, MROWS, JOFF, NLATG)                                \
+  Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,                \
+            (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M, lat,    \
+            T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg), T(iRe),          \
+            T(omega), scheme, physical_coriolis, perturbation,             \
+            include_gradp, rhs_u, T_adv, MROWS, JOFF, NLATG,               \
+            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,          \
+            nullptr, nullptr}
 #define FORCING_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int advect_T, int nr, int nlat, int nlon, int RS,     \
-                      const T* u, const T* f0, const T* f1, const T* f2,    \
-                      const T* Tf, const T* p, const T* T_wall,             \
-                      const T* M, const T* lat, double dt, double dt_T,     \
-                      double beta, double T_ref, double rho_bg, double iRe, \
-                      double omega, int scheme, int physical_coriolis,      \
-                      int perturbation, int include_gradp, T* rhs_u,        \
-                      T* T_adv, void* stream) {                             \
-    const Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,         \
-                    (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M,  \
-                    lat, T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg),      \
-                    T(iRe), T(omega), scheme, physical_coriolis,            \
-                    perturbation, include_gradp, rhs_u, T_adv};             \
-    return advect_T ? launch<T, true>(A, stream)                            \
-                    : launch<T, false>(A, stream);                          \
+  extern "C" int NAME(int advect_T, FORCING_ARGS(T), void* stream) {        \
+    const FORCING_INIT(T, nlat, 0, nlat);                                   \
+    return advect_T ? launch<T, true, false>(A, stream)                     \
+                    : launch<T, false, false>(A, stream);                   \
   }                                                                         \
   extern "C" int NAME##_occupancy(int advect_T, int* blocks) {              \
     return advect_T ? occupancy<T, true>(blocks)                            \
                     : occupancy<T, false>(blocks);                          \
+  }                                                                         \
+  extern "C" int NAME##_operands(FORCING_ARGS(T), int j_off, int nlat_glob, \
+                                 const T* HLu, const T* HLp, const T* HLf1, \
+                                 const T* HOu, const T* HOp, const T* HOf2, \
+                                 const T* HLT, const T* HOT,                \
+                                 void* stream) {                            \
+    FORCING_INIT(T, nlat + 1, j_off, nlat_glob);                            \
+    A.HLu = HLu;                                                            \
+    A.HLp = HLp;                                                            \
+    A.HLf1 = HLf1;                                                          \
+    A.HOu = HOu;                                                            \
+    A.HOp = HOp;                                                            \
+    A.HOf2 = HOf2;                                                          \
+    A.HLT = HLT;                                                            \
+    A.HOT = HOT;                                                            \
+    return launch<T, true, true>(A, stream);                                \
   }
 
 FORCING_ENTRY(dp_forcing_f32, float)

@@ -58,6 +58,20 @@
 // needs one ring beyond the tile for the faces, T none. At (1, 1)
 // iterations both stage a halo of 2, and a cell takes 4 operator applies
 // (one per channel) instead of 8.
+//
+// OPS = true is K1o, the per-shard kernel of a run on a mesh
+// (parallel/sharded_richardson.py): the Pallas kernel's "operands" halo
+// mode (pallas_richardson.py:104-116, 238-313). Its inputs are one
+// shard's block extended by GH = max(iters) + 1 cells on both sides of
+// lat and lon, the neighbours' cells from the halo exchange (zeros past
+// a pole), and its tables are the shard's lat-extended slab (ops/
+// richardson.py `shard_tables`: the global tables clipped at the poles,
+// the lat face areas at face nlat). So staging reads at an offset of GH
+// with no wrap, and the iterate shrinks over the extended region as over
+// the radial halo: cells past a pole are finite and cross no face of
+// nonzero area. The outputs are the shard's owned cells and its five
+// sums, which the caller adds across the mesh in a fixed order. Always
+// tracked, one pass, and tiled at run time.
 #include "shell_common.cuh"
 
 namespace {
@@ -117,6 +131,10 @@ struct Pass {
   T* parts;                // (gridDim.x, 5)
   unsigned* counter;       // zero between calls
   T* sums;                 // (5)
+  // the inputs' lat and lon extents and the ghost depth (K1: nlat, nlon,
+  // 0); the grid's first row in the global grid and the global nlat (K1:
+  // 0, nlat)
+  int eL, eO, GH, j_off, nlat_glob;
 };
 
 constexpr int WARPS = THREADS / 32;
@@ -162,13 +180,16 @@ __device__ __forceinline__ void block_sum5(T& a, T& b, T& c, T& d, T& e,
 // bench's plan, so that box strides and divisions fold), or 0 to take
 // them from the pass at run time (every other plan). TRACK: the exactly
 // tracked residuals, or the residual-free variant (see the top)
-template <typename T, int kRB, int kTL, int kTO, int kE, bool TRACK>
+template <typename T, int kRB, int kTL, int kTO, int kE, bool TRACK, bool OPS>
 __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ bool is_last;
   PROBE_START;
   const Dims& g = P.g;
   const int64_t N = g.n_cells();
+  // the inputs' component stride, and the tables' rows (K1: N, nlat)
+  const int64_t NI = (int64_t)g.nr * P.eL * P.eO;
+  const int TR = OPS ? P.eL : g.nlat;
   const int RB = kRB ? kRB : P.RB, TL = kTL ? kTL : P.TL;
   const int TO = kTO ? kTO : P.TO, E = kE ? kE : P.E;
   int blk = blockIdx.x;
@@ -188,23 +209,30 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   T* sdiv = sdx + nR;
   T* stab = sdiv + nTile;
   T* sred = stab + S_K * nTab;
-  const int64_t MS = (int64_t)g.nr * g.nlat;
-  // the global row (i, j, 0) of box row (a, b) at halo h, or -1 beyond
-  // a wall or a pole
+  const int64_t MS = (int64_t)g.nr * TR;
+  // the input row (i, j, 0) of box row (a, b) at halo h, or -1 beyond a
+  // wall or a pole (K1o: beyond the extended block)
   auto row_of = [&](int a, int b, int h) -> int64_t {
     const int gi = i0 - h + a, gj = j0 - h + b;
-    if (gi < 0 || gi >= g.nr || gj < 0 || gj >= g.nlat) return -1;
-    return g.cell(gi, gj, 0);
+    if (gi < 0 || gi >= g.nr) return -1;
+    if (OPS) {
+      const int ej = gj + P.GH;
+      return ej < 0 || ej >= P.eL ? -1 : ((int64_t)gi * P.eL + ej) * P.eO;
+    }
+    return gj < 0 || gj >= g.nlat ? -1 : g.cell(gi, gj, 0);
   };
   // stage an nA x nB x nC box of `src` at halo h into dst: rows beyond
-  // a wall or a pole are zero, longitude wraps; neighbouring lanes copy
-  // neighbouring cells, so each copy instruction coalesces
+  // a wall or a pole are zero, longitude wraps (K1o: the extended block
+  // holds the neighbours' columns); neighbouring lanes copy neighbouring
+  // cells, so each copy instruction coalesces
   auto stage_box = [&](T* dst, const T* src, int nA, int nB, int nC, int h) {
     for_box<THREADS>(nA, nB, nC, [&](int a, int b, int c) {
       const int64_t row = row_of(a, b, h);
+      const int ec = k0 - h + c + P.GH;
+      const bool in = row >= 0 && (!OPS || (ec >= 0 && ec < P.eO));
       stage(dst + (a * nB + b) * nC + c,
-            src + (row < 0 ? 0 : row + wrap_any(k0 - h + c, g.nlon)),
-            row >= 0);
+            src + (in ? row + (OPS ? ec : wrap_any(k0 - h + c, g.nlon)) : 0),
+            in);
     });
   };
   // is tile row (a, b) in the grid, and its cell c
@@ -214,11 +242,12 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   };
   auto own_col = [&](int c) { return c >= 0 && c < TO && k0 + c < g.nlon; };
 
-  // tables of the (i, j) box, zero beyond the walls and the poles
+  // tables of the (i, j) box, zero beyond the walls and the poles (K1o:
+  // beyond the walls and the shard's slab)
   for (int e = threadIdx.x; e < nTab; e += blockDim.x) {
-    const int gi = i0 - E + e / XB, gj = j0 - E + e % XB;
-    const bool in = gi >= 0 && gi < g.nr && gj >= 0 && gj < g.nlat;
-    const int64_t mi = in ? (int64_t)gi * g.nlat + gj : 0;
+    const int gi = i0 - E + e / XB, tj = j0 - E + e % XB + P.GH;
+    const bool in = gi >= 0 && gi < g.nr && tj >= 0 && tj < TR;
+    const int64_t mi = in ? (int64_t)gi * TR + tj : 0;
 #pragma unroll
     for (int s = 0; s < 13; ++s)
       stage(stab + s * nTab + e, P.M + kTableSource[s] * MS + mi, in);
@@ -229,7 +258,7 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
 
   // x of channel q on the level-0 box, into buffer q % 2
   auto stage_x = [&](int q) {
-    stage_box(sxb + (q & 1) * nX, q < 3 ? P.xu_in + q * N : P.xT_in, XA, XB,
+    stage_box(sxb + (q & 1) * nX, q < 3 ? P.xu_in + q * NI : P.xT_in, XA, XB,
               XC, E);
     stage_commit();
   };
@@ -242,8 +271,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     const bool mom = q < 3;
     const int n = mom ? P.n_u : P.n_T;
     const T coef = mom ? P.coef_u : P.coef_T;
-    const T* xin = mom ? P.xu_in + q * N : P.xT_in;
-    const T* bsrc = mom ? P.rhs_u + q * N : P.rhs_T;
+    const T* xin = mom ? P.xu_in + q * NI : P.xT_in;
+    const T* bsrc = mom ? P.rhs_u + q * NI : P.rhs_T;
     const T* rin = mom ? (P.ru_in ? P.ru_in + q * N : nullptr) : P.rT_in;
     // x0 is b's source (first momentum pass; a caller's T0 = rhs_T)
     const bool b_is_x = xin == bsrc;
@@ -384,8 +413,9 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
         a_lo = stab[S_AR_LO * nTab + t];
         fout = P.f0;
       } else if (q == 1) {
-        f = gj == 0 ? T(0) : T(0.5) * (sx[ix - XC] + x);
-        aq_up = gj + 1 < g.nlat
+        // the pole faces by the global row
+        f = P.j_off + gj == 0 ? T(0) : T(0.5) * (sx[ix - XC] + x);
+        aq_up = P.j_off + gj + 1 < P.nlat_glob
                     ? stab[S_ALAT_HI * nTab + t] * (T(0.5) * (x + sx[ix + XC]))
                     : T(0);
         a_lo = stab[S_ALAT_LO * nTab + t];
@@ -461,23 +491,27 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
            double iRe, double iPe, double dt_T_factor, int n_u, int n_T,
            int last, T* xu_out, T* xT_out, T* ru_out, T* rT_out, T* f0,
            T* f1, T* f2, T* rhs_raw, T* parts, unsigned* counter, T* sums,
-           int track, void* stream) {
+           int track, int eL, int eO, int GH, int j_off, int nlat_glob,
+           void* stream) {
   // the bench's plan runs a compile-time instance, which takes about 12%
   // less time on an H100 than the run-time-tiled one on the same plan
   // (PERF.md, Findings); -DK1_RUNTIME_TILE (scripts/probe_k1_k2.py) runs
-  // every plan on the latter
+  // every plan on the latter. K1o (GH > 0) runs the run-time-tiled one.
+  const bool ops = GH > 0;
 #ifdef K1_RUNTIME_TILE
   const bool bench = false;
 #else
-  const bool bench = RB == 8 && TL == 8 && TO == 32 && E == 2;
+  const bool bench = !ops && RB == 8 && TL == 8 && TO == 32 && E == 2;
 #endif
   void (*kernel)(const Pass<T>) =
-      track ? (bench ? rich_fused<T, 8, 8, 32, 2, true>
-                     : rich_fused<T, 0, 0, 0, 0, true>)
-            : (bench ? rich_fused<T, 8, 8, 32, 2, false>
-                     : rich_fused<T, 0, 0, 0, 0, false>);
-  const int v = 2 * (track != 0) + bench;
-  static int smem_set[4] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+      ops ? rich_fused<T, 0, 0, 0, 0, true, true>
+      : track ? (bench ? rich_fused<T, 8, 8, 32, 2, true, false>
+                       : rich_fused<T, 0, 0, 0, 0, true, false>)
+              : (bench ? rich_fused<T, 8, 8, 32, 2, false, false>
+                       : rich_fused<T, 0, 0, 0, 0, false, false>);
+  const int v = ops ? 4 : 2 * (track != 0) + bench;
+  static int smem_set[5] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024,
+                            48 * 1024};
   if (smem_bytes > smem_set[v]) {
     int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -519,6 +553,11 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   P.parts = parts;
   P.counter = counter;
   P.sums = sums;
+  P.eL = eL;
+  P.eO = eO;
+  P.GH = GH;
+  P.j_off = j_off;
+  P.nlat_glob = nlat_glob;
   const unsigned grid = (unsigned)(nbr * P.nbl * P.nbo);
   kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
@@ -526,21 +565,30 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
 
 }  // namespace
 
-#define RICHARDSON_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int nr, int nlat, int nlon, int RB, int TL, int TO,      \
-                      int E, int smem_bytes, const T* M, const T* invD,        \
-                      const T* xu_in, const T* xT_in, const T* rhs_u,          \
-                      const T* rhs_T, const T* ru_in, const T* rT_in,          \
-                      double dt, double iRe, double iPe, double dt_T_factor,   \
-                      int n_u, int n_T, int last, T* xu_out, T* xT_out,        \
-                      T* ru_out, T* rT_out, T* f0, T* f1, T* f2, T* rhs_raw,   \
-                      T* parts, unsigned* counter, T* sums, int track,         \
-                      void* stream) {                                          \
-    return launch<T>(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD,       \
-                     xu_in, xT_in, rhs_u, rhs_T, ru_in, rT_in, dt, iRe, iPe,   \
-                     dt_T_factor, n_u, n_T, last, xu_out, xT_out, ru_out,      \
-                     rT_out, f0, f1, f2, rhs_raw, parts, counter, sums, track, \
-                     stream);                                                  \
+// NAME: one pass of K1 / K1u on the whole grid. NAME_operands: K1o, one
+// tracked pass on a shard of nr x nlat x nlon owned cells whose inputs
+// (and tables) are extended by GH cells in lat and lon (extents eL, eO),
+// the shard's first row being global row j_off of nlat_glob.
+#define RICHARDSON_ARGS(T)                                                   \
+  int nr, int nlat, int nlon, int RB, int TL, int TO, int E, int smem_bytes, \
+      const T *M, const T *invD, const T *xu_in, const T *xT_in,             \
+      const T *rhs_u, const T *rhs_T, const T *ru_in, const T *rT_in,        \
+      double dt, double iRe, double iPe, double dt_T_factor, int n_u,        \
+      int n_T, int last, T *xu_out, T *xT_out, T *ru_out, T *rT_out, T *f0,  \
+      T *f1, T *f2, T *rhs_raw, T *parts, unsigned *counter, T *sums
+#define RICHARDSON_CALL(track, eL, eO, GH, j_off, nlat_glob)                  \
+  launch(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD, xu_in, xT_in,   \
+         rhs_u, rhs_T, ru_in, rT_in, dt, iRe, iPe, dt_T_factor, n_u, n_T,    \
+         last, xu_out, xT_out, ru_out, rT_out, f0, f1, f2, rhs_raw, parts,   \
+         counter, sums, track, eL, eO, GH, j_off, nlat_glob, stream)
+#define RICHARDSON_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(RICHARDSON_ARGS(T), int track, void* stream) {         \
+    return RICHARDSON_CALL(track, nlat, nlon, 0, 0, nlat);                   \
+  }                                                                          \
+  extern "C" int NAME##_operands(RICHARDSON_ARGS(T), int GH, int j_off,      \
+                                 int nlat_glob, void* stream) {              \
+    return RICHARDSON_CALL(1, nlat + 2 * GH, nlon + 2 * GH, GH, j_off,       \
+                           nlat_glob);                                       \
   }
 
 RICHARDSON_ENTRY(dp_richardson_f32, float)

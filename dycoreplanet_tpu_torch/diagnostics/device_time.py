@@ -23,9 +23,26 @@ PAD_S = 0.05
 KERNEL_NAMES = {"forcing": "forcing_kernel", "richardson": "rich_fused",
                 "faces_div": "faces_div_kernel", "correct": "correct_kernel",
                 "tridiag": "thomas_"}
-# the wrappers of the instances whose last template argument is false:
-# K1u (TRACK) and K2m (ADVECT_T)
-VARIANTS = {"richardson": "richardson_free", "forcing": "forcing_momentum"}
+# the instances of K1 and K2 by their template arguments: (the argument's
+# position, the wrapper when it is false) for K1u (TRACK) and K2m
+# (ADVECT_T), and the position of OPS, true for K1o and K2o
+VARIANTS = {"richardson": (5, "richardson_free"),
+            "forcing": (1, "forcing_momentum")}
+OPERANDS = {"richardson": (6, "richardson_operands"),
+            "forcing": (2, "forcing_operands")}
+
+
+def template_args(kernel: str, part: str):
+    """The template arguments of a demangled kernel name after ``part``."""
+    tail = kernel.split(part, 1)[1]
+    if not tail.startswith("<"):
+        return []
+    return [a.strip() for a in tail[1:].split(">", 1)[0].split(",")]
+
+
+def is_false(arg: str) -> bool:
+    """Whether a demangled bool template argument is false."""
+    return arg in ("false", "(bool)0", "0")
 
 
 def wrapper_of(kernel: str) -> Optional[str]:
@@ -33,10 +50,14 @@ def wrapper_of(kernel: str) -> Optional[str]:
     launches the device kernel named ``kernel``, or None."""
     for wrapper, part in KERNEL_NAMES.items():
         if part in kernel:
-            if wrapper in VARIANTS:
-                tail = kernel.split(part, 1)[1].split(">", 1)[0]
-                if "false" in tail or "(bool)0" in tail:
-                    return VARIANTS[wrapper]
+            args = template_args(kernel, part)
+            if wrapper in OPERANDS:
+                at, name = OPERANDS[wrapper]
+                if len(args) > at and not is_false(args[at]):
+                    return name
+                at, name = VARIANTS[wrapper]
+                if len(args) > at and is_false(args[at]):
+                    return name
             return wrapper
     return None
 

@@ -52,6 +52,14 @@ fast-diagonalization Poisson solve), chosen when the model is built
 from ``geo.kind``. With ``helmholtz solver = direct`` the annulus
 Helmholtz solves run K4, two launches a step.
 
+On a mesh of shards (``prepare_sharded``, one process, the shards on
+one or more devices; parallel/) the shell step runs the forcing and the
+Richardson stage as K2o and K1o on every shard (parallel/sharded_pallas.py,
+parallel/sharded_richardson.py), the Poisson solve as
+``ShardedShellPoissonFastDiag``, and the rest in plain PyTorch on the
+shards (parallel/sharded_step.py): ``step``, ``run`` and ``multi_step``
+take a sharded state and run eagerly.
+
 This slice runs the 3D spherical shell and the 2D annulus, standard
 (advective) personality, incremental projection, with the
 Richardson/CG or the direct Helmholtz solves. Every other configuration
@@ -82,6 +90,8 @@ from dycoreplanet_tpu_torch.ops.projection import (
 from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
 from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    Mesh, is_sharded, shard_state)
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues)
@@ -100,6 +110,15 @@ class State(NamedTuple):
     T: torch.Tensor                     # (*cells) temperature
     time: float
     step_number: int
+
+
+class _MeshStages(NamedTuple):
+    """The stages of the mesh step (``prepare_sharded``)."""
+    mesh: Mesh
+    forcing: object          # ShardedShellForcing (K2o on every shard)
+    richardson: object       # ShardedShellRichardson (K1o on every shard)
+    poisson: object          # ShardedShellPoissonFastDiag
+    ops: object              # ShardedShellStep: the plain rest
 
 
 class StepDiagnostics:
@@ -198,6 +217,19 @@ def _unsupported(params: Parameters) -> Optional[str]:
     return None
 
 
+# the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
+# refuses
+MESH_ANNULUS = "multi-device: the annulus on the mesh"
+MESH_PATHS = ("multi-device: direct, SL, NSE-interval and graph chunks on "
+              "the mesh")
+MESH_CG = "multi-device: CG, escalation and the plain path on the mesh"
+
+
+def _not_on_mesh(item: str, what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} on a mesh is not ported yet "
+                               f"(ROADMAP.md: {item})")
+
+
 def resolve_device(device) -> torch.device:
     """CUDA unless the caller asks for the CPU; no silent fallback."""
     if device is None:
@@ -285,6 +317,8 @@ class BoussinesqModel:
         self._fast_rearm_cap = 1024
         self._strong_steps_left = 0
         self.escalations = 0
+        # the mesh step's stages (prepare_sharded)
+        self._mesh = None
 
     def _build_shell_kernels(self, forcing: dict) -> None:
         """The wrappers of the shell's hand kernels (the JAX package's
@@ -347,7 +381,85 @@ class BoussinesqModel:
             out["richardson"] = self._richardson
         if self._richardson_free is not None:
             out["richardson_free"] = self._richardson_free
+        if self._mesh is not None:
+            out["forcing_operands"] = self._mesh.forcing.kern
+            out["richardson_operands"] = self._mesh.richardson.kern
         return out
+
+    # ------------------------------------------------------------------
+    def prepare_sharded(self, mesh: Mesh) -> "BoussinesqModel":
+        """Set this model up for sharded states on ``mesh`` (a ("lat",
+        "lon") Mesh, parallel/mesh.py; its first shard on the model's
+        device): the forcing as K2o and the Richardson stage as K1o on
+        every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
+        (the JAX package's ``prepare_sharded`` on a platform that runs
+        its kernels). ``step``, ``run`` and ``multi_step`` then take
+        sharded states (``parallel.mesh.shard_state``); global states
+        still run the single-device step. Configurations the JAX package
+        runs on its GSPMD plain path, or that this slice does not bring
+        to the mesh, raise NotImplementedError naming their ROADMAP.md
+        item; shards too thin for the forcing's halos raise ValueError,
+        as in the JAX package."""
+        from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
+            ShardedShellForcing)
+        from dycoreplanet_tpu_torch.parallel.sharded_richardson import (
+            make_sharded_richardson)
+        from dycoreplanet_tpu_torch.parallel.sharded_step import (
+            ShardedShellStep)
+        from dycoreplanet_tpu_torch.solvers.spectral import (
+            ShardedShellPoissonFastDiag)
+
+        num = self.params.numerics
+        if self.geo.kind != "shell":
+            raise _not_on_mesh(MESH_ANNULUS, f"the {self.geo.kind}")
+        if self.helmholtz_direct is not None:
+            raise _not_on_mesh(MESH_PATHS, "helmholtz solver = direct")
+        if self._semi_lagrangian is not None:
+            raise _not_on_mesh(MESH_PATHS, "semi-Lagrangian transport")
+        if self.params.NSE_solver_interval > 1:
+            raise _not_on_mesh(MESH_PATHS, "NSE solver interval > 1")
+        if mesh.axis_names != ("lat", "lon"):
+            raise ValueError(f"a shell mesh has axes ('lat', 'lon'), not "
+                             f"{mesh.axis_names}")
+        if mesh.device(0, 0) != self.device:
+            raise ValueError(f"the mesh's first shard lies on "
+                             f"{mesh.device(0, 0)}, the model on "
+                             f"{self.device}")
+        forcing = ShardedShellForcing(self._forcing, mesh)
+        richardson = make_sharded_richardson(self, mesh)
+        if richardson is None:
+            raise _not_on_mesh(
+                MESH_CG, "a configuration outside the sharded Richardson "
+                "stage's gates (fixed solver iters > 0, a mesh that divides "
+                "the grid, max(iters) + 1 within one radial block and one "
+                "shard)")
+        if num.residual_check_interval > 1:
+            warnings.warn(
+                f"prepare_sharded: residual check interval = "
+                f"{num.residual_check_interval} has no sharded kernel "
+                "variant; running per-step residual checks on the mesh",
+                RuntimeWarning, stacklevel=2)
+        self._mesh = _MeshStages(
+            mesh, forcing, richardson,
+            ShardedShellPoissonFastDiag(self.poisson_spectral, mesh),
+            ShardedShellStep(self, mesh))
+        return self
+
+    def sharded_kernels(self) -> Dict[str, str]:
+        """Which implementation each hot stage of the mesh step runs, as
+        the JAX package reports it (its ``sharded_kernels``), so that a
+        dropped opt-in is visible."""
+        if self._mesh is None:
+            raise ValueError("sharded_kernels: call prepare_sharded first")
+        report = {"forcing": "pallas-sharded",
+                  "richardson": "pallas-sharded",
+                  "poisson": type(self._mesh.poisson).__name__}
+        M_chk = self.params.numerics.residual_check_interval
+        if M_chk > 1:
+            report["residual_check_interval"] = (
+                f"requested {M_chk}, running per-step (no sharded "
+                "residual-free variant)")
+        return report
 
     def _prepare_dt(self, dt: float) -> None:
         """Fill the dt-dependent tables the step reads (K1's 1/D tables)
@@ -578,6 +690,8 @@ class BoussinesqModel:
         is the gate's verdict as a 0-d float32 tensor (1 or 0). With
         ``full=False`` only the gate's reductions run and packed is None
         (the earlier steps of a multi_step chunk without diagnostics)."""
+        if is_sharded(state):
+            return self._mesh_step_impl(state, dt, full)
         geo = self.geo
         p = self.params
         vol = self._vol_t
@@ -649,6 +763,66 @@ class BoussinesqModel:
             torch.max(torch.abs(div_new)), poisson_iters, T_iters,
             helm_iters, helmholtz_residual=helm_rnorm,
             poisson_residual=poisson_rnorm, temperature_residual=T_rnorm,
+            solver_ok=ok)
+        return new_state, packed, packed[10]
+
+    def _mesh_step_impl(self, state: State, dt: float, full: bool = True):
+        """``_step_impl`` on a sharded state: K2o, K1o, the sharded Poisson
+        solve and the plain rest on the shards; the gate's verdict and the
+        packed diagnostics on the model's device (the mesh's first)."""
+        mesh = self._mesh
+        if mesh is None:
+            raise ValueError("a sharded state needs prepare_sharded first")
+        if self._force_cg:
+            raise _not_on_mesh(MESH_CG, "a full-CG (escalated) step")
+        ops = mesh.ops
+        p = self.params
+        u, u_faces, pres, T = state.u, state.u_faces, state.p, state.T
+        dt = self._scalar(dt)
+        dt_T = self._dt_T(dt)
+        rhs_u, T_adv = mesh.forcing(u, u_faces, T, pres, dt)
+        kT = self._scalar(self.dtype.type(dt_T)
+                          * self.dtype.type(self.one_over_Pe))
+        rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                          ops.T_lap_offset)
+        rk = mesh.richardson
+        u_star, T_new, (uf0, uf1, uf2, rhs_phi), (rn_u, bn_u, rn_T, bn_T) = \
+            rk(rhs_u, rhs_T, T, dt)
+        eps16 = 16.0 * float(np.finfo(self.dtype).eps)
+        helm_ok = rn_u <= max(p.numerics.helmholtz_tol, eps16) * bn_u
+        T_ok = rn_T <= max(p.numerics.temperature_tol, eps16) * bn_T
+
+        # the projection (_project_velocity's fast path)
+        phi, _ = mesh.poisson.solve(rhs_phi)
+        u_new, new_faces, p_new = ops.correct(
+            self.p_specs, u_star, (uf0, uf1, uf2), phi, pres, dt,
+            p.numerics.projection == "incremental")
+        if p.correct_pressure_to_zero_mean:
+            mean = ops.volume_mean(p_new)
+            p_new = p_new.map(lambda x: x - mean[x.device])
+        div_new = ops.divergence(new_faces)
+        vol_div = div_new.map(lambda d, v: torch.sum((v * d) ** 2), ops.vol)
+        rnorm = torch.sqrt(ops.total(vol_div)) / dt
+        bnorm = torch.sqrt(ops.total(rhs_phi.map(lambda r: torch.sum(r ** 2))))
+        epsf = float(np.finfo(self.dtype).eps)
+        floor = 16.0 * epsf * torch.sqrt(ops.face_flux2(new_faces)) / dt
+        tol = self._poisson_check_tol(mesh.poisson)
+        poisson_ok = rnorm <= tol * bnorm + floor
+
+        new_state = State(u=u_new, u_faces=new_faces, p=p_new, T=T_new,
+                          time=state.time + dt_T,
+                          step_number=state.step_number + 1)
+        ok = torch.logical_and(torch.logical_and(helm_ok, poisson_ok), T_ok)
+        if not full:
+            return new_state, None, self._f32(ok)
+        speed = u_new.map(lambda x: st.cell_max_speed(self.geo, x))
+        cfl = ops.max(speed.map(lambda sp, d: torch.clamp(sp, min=1e-10) / d,
+                                ops.diameter))
+        packed = self._pack(
+            cfl, ops.max(speed), ops.min(T_new), ops.max(T_new),
+            ops.max(div_new.map(torch.abs)), 0, rk.iters_T,
+            [rk.iters_u] * self.geo.dim, helmholtz_residual=rn_u,
+            poisson_residual=rnorm, temperature_residual=rn_T,
             solver_ok=ok)
         return new_state, packed, packed[10]
 
@@ -830,19 +1004,24 @@ class BoussinesqModel:
                     ** 2)
                 flux2 = t2 if flux2 is None else flux2 + t2
             floor = 16.0 * epsf * torch.sqrt(flux2) / dt
-            prec = self.poisson_spectral.precision
-            prec_tol = {"highest": 256.0 * epsf, "high": 1e-2,
-                        "high-refine": 1e-3}[prec]
-            # a solver whose transforms amplify round-off beyond these
-            # floors declares its bound (the annulus fast diagonalization)
-            amp = getattr(self.poisson_spectral, "check_amp", None)
-            if amp is not None:
-                prec_tol = max(prec_tol, float(amp) * epsf)
-            tol = max(p.numerics.poisson_tol, prec_tol)
+            tol = self._poisson_check_tol(self.poisson_spectral)
             poisson_ok = rnorm <= tol * bnorm + floor
             poisson_rnorm = rnorm
         return (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
                 poisson_ok)
+
+    def _poisson_check_tol(self, solver) -> float:
+        """The residual spot-check's relative tolerance for a fast
+        Poisson solver: per precision as in the JAX package
+        (boussinesq.py:1284-1294), or the bound a solver whose transforms
+        amplify round-off declares (the annulus fast diagonalization)."""
+        epsf = float(np.finfo(self.dtype).eps)
+        prec_tol = {"highest": 256.0 * epsf, "high": 1e-2,
+                    "high-refine": 1e-3}[solver.precision]
+        amp = getattr(solver, "check_amp", None)
+        if amp is not None:
+            prec_tol = max(prec_tol, float(amp) * epsf)
+        return max(self.params.numerics.poisson_tol, prec_tol)
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -957,7 +1136,7 @@ class BoussinesqModel:
         if escalated:
             # escalation window: straight to full CG, no doomed fast try
             force_cg = True
-        if self._graphable(adaptive, force_cg):
+        if not is_sharded(state) and self._graphable(adaptive, force_cg):
             if self.chunk_graphs is None:
                 from dycoreplanet_tpu_torch.models.graphs import ChunkGraphs
                 self.chunk_graphs = ChunkGraphs(self)
@@ -1021,6 +1200,8 @@ class BoussinesqModel:
         p = self.params
         if state is None:
             state = self.initial_state()
+            if self._mesh is not None:
+                state = shard_state(state, self.geo, self._mesh.mesh)
         dt = p.time_step
         history: List[Dict] = []
         time_index = float(state.time)

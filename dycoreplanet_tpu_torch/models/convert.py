@@ -1,5 +1,7 @@
 """Carry a model state across the host boundary as numpy arrays — the
-way the tests hand a state of the JAX package to the port and back."""
+way the tests hand a state of the JAX package to the port and back. A
+JAX state, global or sharded, reads as global numpy arrays; the port's
+sharded states are cut onto the model's mesh and gathered back here."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from dycoreplanet_tpu_torch.models.boussinesq import BoussinesqModel, State
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    is_sharded, shard_state, unshard_state)
 
 
 def state_from_numpy(model: BoussinesqModel, u, u_faces: Sequence, p, T,
@@ -21,9 +25,23 @@ def state_from_numpy(model: BoussinesqModel, u, u_faces: Sequence, p, T,
                  time=float(time), step_number=int(step_number))
 
 
+def sharded_state_from_numpy(model: BoussinesqModel, u, u_faces: Sequence,
+                             p, T, time: float = 0.0,
+                             step_number: int = 0) -> State:
+    """state_from_numpy cut onto the model's mesh (prepare_sharded)."""
+    if model._mesh is None:
+        raise ValueError("sharded_state_from_numpy: call prepare_sharded "
+                         "first")
+    return shard_state(state_from_numpy(model, u, u_faces, p, T, time,
+                                        step_number), model.geo,
+                       model._mesh.mesh)
+
+
 def state_to_numpy(state: State) -> Tuple:
     """(u, (uf0, ..., uf_{dim-1}), p, T, time, step_number) as
-    numpy/host."""
+    numpy/host, global arrays (a sharded state is gathered)."""
+    if is_sharded(state):
+        state = unshard_state(state, "cpu")
     h = lambda x: x.detach().cpu().numpy()
     return (h(state.u), tuple(h(f) for f in state.u_faces), h(state.p),
             h(state.T), float(state.time), int(state.step_number))

@@ -23,11 +23,22 @@ stages u alone and reads T at the cell.
 
 ``Forcing`` is the plain version in any geometry: the annulus step runs
 it as it is, and ``ShellForcing`` adds the kernels to it.
+
+``halo_mode="operands"`` is K2o, K2 on one shard of a mesh (the Pallas
+kernel's operands mode, pallas_stencil.py:116-131, 280-319, 708-719;
+driven by parallel/sharded_pallas.py): the call takes the shard's block
+and its lat and lon ghosts as the eight operands of ``halo_shapes``,
+pole closure already applied, and the shard's global offset, from which
+the wrapper cuts its metric, lat rows and T_wall. The kernel is
+``forcing_kernel<T, true, true>``; the plain version pads the block with
+the ghosts, runs ``Forcing`` on the padded block's geometry
+(mesh.shard_geometry) and crops.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +48,8 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import kernel_lib as kl
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops import vector as vec
+from dycoreplanet_tpu_torch.ops.bc import BCSpec
+from dycoreplanet_tpu_torch.parallel.mesh import block, crop, shard_geometry
 
 FIELDS_MOVED = 12
 # floating-point operations per cell, counted from csrc/forcing.cu with
@@ -76,6 +89,28 @@ def plan(shape):
 
 
 _SCHEMES = {"muscl": 0, "upwind": 1, "centered": 2}
+
+
+def halo_shapes(local_shape):
+    """The operands mode's ghost operands and their shapes for a shard of
+    (nr, nlat, nlon) cells: two lat rows each side of u and T, one of p,
+    the next shard's first lat face (zero past the pole); the same
+    columns along lon. Rows and columns are ordered [g_-w .. g_-1, g_+1
+    .. g_+w]."""
+    nr, nl, no = local_shape
+    return {"HLu": (3, nr, 4, no), "HLp": (nr, 2, no), "HLf1": (nr, 1, no),
+            "HOu": (3, nr, nl, 4), "HOp": (nr, nl, 2), "HOf2": (nr, nl, 1),
+            "HLT": (nr, 4, no), "HOT": (nr, nl, 4)}
+
+
+class _Shard(NamedTuple):
+    """What the operands mode keeps for one shard."""
+    plain: "Forcing"         # Forcing on the shard padded by two cells
+    M: np.ndarray            # the metric's rows j0 .. j0 + nl (the last:
+                             # the next shard's first, zero past the pole)
+    lat: np.ndarray          # the lat rows j0 .. j0 + nl - 1
+    T_wall: np.ndarray       # the shard's block of T_wall
+    dev: dict                # (device, dtype) -> (M, lat, T_wall) tensors
 
 
 class Forcing:
@@ -167,9 +202,21 @@ class ShellForcing(Forcing):
 
     def __init__(self, geo: Geometry, *, T_wall: np.ndarray,
                  dt_T_factor: float = 1.0, advect_T: bool = True,
-                 **forcing):
+                 halo_mode: str = "local", local_shape=None, **forcing):
         ch = kl.shell_channels(geo)         # raises off the lat-lon shell
         super().__init__(geo, **forcing)
+        if halo_mode not in ("local", "operands"):
+            raise ValueError(f"unknown halo mode {halo_mode!r}")
+        if halo_mode == "operands" and not advect_T:
+            raise NotImplementedError(
+                "not ported yet (ROADMAP.md: multi-device: direct, SL, "
+                "NSE-interval and graph chunks on the mesh; K2mo)")
+        # "local": the whole grid; "operands": one shard of local_shape,
+        # its ghosts as operands
+        self.halo_mode = halo_mode
+        self.local_shape = (tuple(local_shape) if halo_mode == "operands"
+                            else geo.cell_shape)
+        self._shards = {}        # offset -> the shard's plain Forcing
         self.advect_T = bool(advect_T)
         self.dt_T_factor = float(dt_T_factor)
         g_r = kl.lon_invariant(self.gravity[0], "gravity")
@@ -252,7 +299,146 @@ class ShellForcing(Forcing):
                     kl.stream_of(u)), "forcing kernel")
         return (rhs_u, T_adv) if self.advect_T else rhs_u
 
+    # ------------------------------------------------------------------
+    # operands mode (K2o): one shard of a mesh
+    def build_local_halos(self, u, u_faces, T, pres):
+        """The operands for the whole grid as one shard (a 1 x 1 mesh on
+        u's device): lat ghosts from the pole closure, lon ghosts from the
+        periodic wrap; the mesh path builds the same layout from its
+        neighbours (parallel/sharded_pallas.py)."""
+        from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded
+        from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
+            forcing_halos)
+
+        one = lambda x: Sharded([[x]])
+        mesh = Mesh([[u.device]], ("lat", "lon"))
+        return forcing_halos(one(u), tuple(one(f) for f in u_faces),
+                             one(T), one(pres), mesh)[0, 0]
+
+    def _shard(self, offset) -> _Shard:
+        """The shard's plain Forcing and kernel tables, made on first
+        use."""
+        sh = self._shards.get(offset)
+        if sh is None:
+            nr, nl, no = self.local_shape
+            j0, k0 = offset
+            geo = shard_geometry(self.geo, j0, nl, k0, no, pad=2)
+            T_specs = [BCSpec(self.T_specs[0].lo, self.T_specs[0].hi,
+                              lo_value=block(self._T_wall, j0, nl, k0, no,
+                                             2))] + list(self.T_specs[1:])
+            fo = Forcing(geo, beta=self.beta, T_ref=self.T_ref,
+                         rho_background=self.rho_background,
+                         gravity=block(self.gravity, j0, nl, k0, no, 2),
+                         one_over_Re=self.one_over_Re,
+                         omega_hat=self.omega_hat,
+                         coriolis_mode=self.coriolis_mode,
+                         buoyancy=self.buoyancy, scheme=self.scheme,
+                         include_gradp=self.include_gradp,
+                         u_specs=self.u_specs, p_specs=self.p_specs,
+                         T_specs=T_specs)
+            M = np.zeros(self._M64.shape[:2] + (nl + 1,))
+            top = min(j0 + nl + 1, self.geo.cell_shape[1])
+            M[:, :, :top - j0] = self._M64[:, :, j0:top]
+            sh = _Shard(fo, M, self._lat64[:, j0:j0 + nl],
+                        self._T_wall[j0:j0 + nl, k0:k0 + no], {})
+            self._shards[offset] = sh
+        return sh
+
+    def plain_operands(self, u, u_faces, T, pres, dt, halos, offset):
+        """Plain version of K2o: the block padded by two cells with the
+        ghost operands (corners, which no axis-wise stencil reads, zero),
+        ``Forcing`` on the padded block's geometry, cropped. Returns
+        (rhs_u, T_adv)."""
+        fo = self._shard(offset).plain
+        H = halos
+
+        def pad(x, HL, HO, w):
+            out = x.new_zeros(x.shape[:-2] + (x.shape[-2] + 4,
+                                              x.shape[-1] + 4))
+            hi = -2 + w if w < 2 else None
+            out[..., 2:-2, 2:-2] = x
+            out[..., 2 - w:2, 2:-2] = HL[..., :w, :]
+            out[..., -2:hi, 2:-2] = HL[..., w:, :]
+            out[..., 2:-2, 2 - w:2] = HO[..., :w]
+            out[..., 2:-2, -2:hi] = HO[..., w:]
+            return out
+
+        def seam(x, HL=None, HO=None):
+            # a face array with the next shard's first row / column past
+            # the block (the only pad faces an owned cell reads)
+            out = x.new_zeros(x.shape[:-2] + (x.shape[-2] + 4,
+                                              x.shape[-1] + 4))
+            out[..., 2:-2, 2:-2] = x
+            if HL is not None:
+                out[..., -2:-1, 2:-2] = HL
+            if HO is not None:
+                out[..., 2:-2, -2:-1] = HO
+            return out
+
+        up = pad(u, H["HLu"], H["HOu"], 2)
+        fp = (seam(u_faces[0]), seam(u_faces[1], HL=H["HLf1"]),
+              seam(u_faces[2], HO=H["HOf2"]))
+        Tp = pad(T, H["HLT"], H["HOT"], 2)
+        pp = pad(pres, H["HLp"], H["HOp"], 1)
+        rhs_u = up + dt * fo.explicit_forcing(up, fp, pp, Tp)
+        T_adv = fo.advected_temperature(fp, Tp, dt * self.dt_T_factor)
+        return crop(rhs_u, 2).contiguous(), crop(T_adv, 2).contiguous()
+
+    def call_operands(self, u, u_faces, T, pres, dt, halos, offset):
+        """K2o on one shard whose first cell is global (row, column)
+        ``offset``, its ghosts ``halos`` (``halo_shapes``): (rhs_u, T_adv)
+        on the shard. CPU tensors take the plain version; CUDA tensors
+        launch the kernel."""
+        if self.halo_mode != "operands":
+            raise ValueError("call_operands is the operands mode's")
+        if u.device.type == "cpu":
+            return self.plain_operands(u, u_faces, T, pres, dt, halos,
+                                       offset)
+        shp = self.local_shape
+        dev, dtype = kl.require_cuda("forcing (operands)", {
+            "u": (u, (3,) + shp), "u_faces[0]": (u_faces[0], shp),
+            "u_faces[1]": (u_faces[1], shp), "u_faces[2]": (u_faces[2], shp),
+            "T": (T, shp), "p": (pres, shp),
+            **{k: (halos[k], s) for k, s in halo_shapes(shp).items()}})
+        sh = self._shard(offset)
+        key = (str(dev), dtype)
+        tabs = sh.dev.get(key)
+        if tabs is None:
+            lat = sh.lat.copy()
+            lat[2] = np.sin(lat[2].astype(kl.NP_DTYPE[dtype]))
+            tabs = tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+                         .contiguous() for a in (sh.M, lat, sh.T_wall))
+            sh.dev[key] = tabs
+        M, lat, T_wall = tabs
+        sfx = kl.suffix(dtype)
+        fn = self._fn.get(("operands", sfx))
+        if fn is None:
+            P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+            fn = kl.bind("forcing.cu", f"dp_forcing_{sfx}_operands",
+                         [I] * 4 + [P] * 9 + [D] * 7 + [I] * 4 + [P, P]
+                         + [I, I] + [P] * 8 + [P])
+            self._fn[("operands", sfx)] = fn
+        rhs_u, T_adv = torch.empty_like(u), torch.empty_like(T)
+        p = kl.ptr
+        dtf = float(dt)
+        kl.check(fn(*shp, plan(shp)[0], p(u), p(u_faces[0]), p(u_faces[1]),
+                    p(u_faces[2]), p(T), p(pres), p(T_wall), p(M), p(lat),
+                    dtf, dtf * self.dt_T_factor, self.beta, self.T_ref,
+                    self.rho_background, self.one_over_Re, self.omega_hat,
+                    _SCHEMES[self.scheme],
+                    int(self.coriolis_mode == "physical"),
+                    int(self.buoyancy == "perturbation"),
+                    int(self.include_gradp), p(rhs_u), p(T_adv),
+                    offset[0], self.geo.cell_shape[1],
+                    *(p(halos[k]) for k in ("HLu", "HLp", "HLf1", "HOu",
+                                            "HOp", "HOf2", "HLT", "HOT")),
+                    kl.stream_of(u)), "forcing kernel (operands)")
+        self.launches += 1
+        return rhs_u, T_adv
+
     def __call__(self, u, u_faces, T, pres, dt):
+        if self.halo_mode != "local":
+            raise ValueError("the operands mode is called by call_operands")
         if u.device.type == "cpu":
             return self.plain(u, u_faces, T, pres, dt)
         shp = self.geo.cell_shape

@@ -27,6 +27,17 @@ right-hand side without each system's last residual update, a halo of
 returned as the -1 sentinel ("not checked"); the b-norms are still
 computed. Same kernel source, a compile-time ``TRACK = false`` instance.
 
+``halo_mode="operands"`` is K1o, K1 on one shard of a mesh (the JAX
+kernel's operands mode, pallas_richardson.py:104-116, 238-313; driven by
+parallel/sharded_richardson.py): :meth:`ShellRichardson.call_operands`
+takes the shard's inputs extended by ``GH`` = max(iters) + 1 cells on
+both sides of lat and lon (the halo exchange's, zeros past a pole) and
+returns the owned cells and the shard's five raw sums, which the caller
+adds across the mesh. Its tables are the shard's lat-extended slab
+(:meth:`ShellRichardson.build_shard_metrics`). Same kernel source, the
+``OPS = true`` instance; its plain version runs the plain solves and
+head on the extended block (mesh.shard_geometry) and crops.
+
 The plain version is deliberately the straightforward composition the
 JAX package runs on the CPU: ``solvers.fixed.richardson_solve`` over the
 ghost-based ``weak_laplacian`` and the plain projection head, so an
@@ -46,6 +57,7 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import kernel_lib as kl
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.projection import faces_div_plain
+from dycoreplanet_tpu_torch.parallel.mesh import block, crop, shard_geometry
 from dycoreplanet_tpu_torch.solvers.cg import _dot
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 
@@ -183,9 +195,14 @@ class ShellRichardson:
                  one_over_Pe: float, nse_interval: int,
                  helm_diags: np.ndarray, T_diag: np.ndarray,
                  iters_u: int, iters_T: int, u_specs, T_specs_hom,
-                 track_residual: bool = True):
+                 track_residual: bool = True, halo_mode: str = "rolls",
+                 local_shape: Optional[Tuple[int, int, int]] = None):
         if iters_u < 1 or iters_T < 1:
             raise ValueError("the Richardson kernel needs >= 1 iteration")
+        if halo_mode not in ("rolls", "operands"):
+            raise ValueError(f"unknown halo mode {halo_mode!r}")
+        if halo_mode == "operands" and not track_residual:
+            raise ValueError("the operands mode tracks every residual")
         self.geo = geo
         self.one_over_Re = float(one_over_Re)
         self.one_over_Pe = float(one_over_Pe)
@@ -196,12 +213,20 @@ class ShellRichardson:
         self.helm_diags = np.asarray(helm_diags)
         self.T_diag = np.asarray(T_diag)
         self.tables64 = static_tables(geo, self.helm_diags, self.T_diag)
-        self._dev = {}           # (device, dtype) -> DeviceTables
+        # "rolls": the whole grid; "operands": one shard of local_shape,
+        # inputs extended by GH cells in lat and lon
+        self.halo_mode = halo_mode
+        self.local_shape = (tuple(local_shape) if halo_mode == "operands"
+                            else geo.cell_shape)
+        self.GH = (max(self.iters_u, self.iters_T) + 1
+                   if halo_mode == "operands" else 0)
+        self._dev = {}           # (device, dtype[, shard row]) -> DeviceTables
+        self._geos = {}          # shard offset -> extended shard geometry
         self._fn = {}
         self.launches = 0
 
     def plan(self, dtype: torch.dtype) -> Tuple[PassPlan, ...]:
-        return plan(self.geo.cell_shape, torch.finfo(dtype).bits // 8,
+        return plan(self.local_shape, torch.finfo(dtype).bits // 8,
                     self.iters_u, self.iters_T, track=self.track_residual)
 
     def coefs(self, dt, dtype):
@@ -245,20 +270,24 @@ class ShellRichardson:
                  res_T.residual_norm, torch.sqrt(_dot(rhs_T, rhs_T))))
 
     # ------------------------------------------------------------------
-    def tables(self, dt, dev, dtype) -> DeviceTables:
+    def tables(self, dt, dev, dtype, j0: Optional[int] = None
+               ) -> DeviceTables:
         """The kernel's tensors on (dev, dtype), with the 1/D tables of
-        ``dt``. The 1/D tables are one buffer per (dev, dtype), refilled
-        in place by kernels (no host copy) when dt changes, so that a CUDA
-        graph that reads them stays valid if this is called with the
-        graph's dt before each replay (``BoussinesqModel._prepare_dt``)."""
+        ``dt``; with ``j0``, those of the operands mode's lat shard whose
+        first row is j0 (the slab of :meth:`build_shard_metrics`). The 1/D
+        tables are one buffer per key, refilled in place by kernels (no
+        host copy) when dt changes, so that a CUDA graph that reads them
+        stays valid if this is called with the graph's dt before each
+        replay (``BoussinesqModel._prepare_dt``)."""
         dev = torch.device(dev)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        key = (str(dev), dtype)
+        key = (str(dev), dtype, j0)
         c = self._dev.get(key)
         if c is None:
-            M = torch.as_tensor(self.tables64, dtype=dtype,
-                                device=dev).contiguous()
+            host = (self.tables64 if j0 is None
+                    else self._slab(j0, self.local_shape[1]))
+            M = torch.as_tensor(host, dtype=dtype, device=dev).contiguous()
             c = DeviceTables(M, torch.zeros(1, dtype=torch.int32, device=dev),
                              torch.empty_like(M[6:10]), None,
                              torch.full((), -1.0, dtype=dtype, device=dev))
@@ -316,7 +345,154 @@ class ShellRichardson:
         return (u_star, T_new, (f0, f1, f2, rhs_phi),
                 (rn_u, norms[1], rn_T, norms[3]))
 
+    # ------------------------------------------------------------------
+    # operands mode (K1o): one shard of a mesh
+    def _slab(self, j0: int, nl: int) -> np.ndarray:
+        """(17, nr, nl + 2 GH) float64 tables of the lat shard whose first
+        row is j0: rows j0 - GH .. j0 + nl + GH, clipped at the poles like
+        the radial walls (the rows past a pole cross no face of nonzero
+        area), except the lat face areas (channels 11 and 16), which are
+        indexed by face and clipped at face nlat, so that the flux area
+        past a pole is exactly 0."""
+        nlat = self.geo.cell_shape[1]
+        GH = self.GH
+        rows = np.arange(j0 - GH, j0 + nl + GH)
+        out = self.tables64[:, :, np.clip(rows, 0, nlat - 1)].copy()
+        ch = kl.shell_channels(self.geo)
+        area_l = np.concatenate([ch["alat_lo"], ch["alat_hi"][:, -1:]], 1)
+        out[11] = area_l[:, np.clip(rows, 0, nlat)]
+        out[16] = area_l[:, np.clip(rows + 1, 0, nlat)]
+        return out
+
+    def build_shard_metrics(self, n_lat_shards: int) -> np.ndarray:
+        """(A, 17, nr, nlat / A + 2 GH) float64: the tables of every lat
+        shard (lon sharding needs none: every channel is lon-invariant).
+        The JAX kernel's 15 channels are the first 15, with the same lat
+        extension and clipping (pallas_richardson.py:238-276)."""
+        if self.halo_mode != "operands":
+            raise ValueError("build_shard_metrics is the operands mode's")
+        nlat = self.geo.cell_shape[1]
+        if nlat % n_lat_shards:
+            raise ValueError(f"nlat {nlat} not divisible by {n_lat_shards}")
+        nl = nlat // n_lat_shards
+        return np.stack([self._slab(a * nl, nl)
+                         for a in range(n_lat_shards)])
+
+    def _shard_geometry(self, offset):
+        g = self._geos.get(offset)
+        if g is None:
+            nr, nl, no = self.local_shape
+            g = shard_geometry(self.geo, offset[0], nl, offset[1], no,
+                               pad=self.GH)
+            self._geos[offset] = g
+        return g
+
+    def plain_operands(self, ru_e, rT_e, T0_e, dt, offset):
+        """Plain version of K1o: the solves of :meth:`plain` and the
+        projection head on the extended block (its geometry the global
+        metric there), cropped to the owned cells; the five sums over
+        them (|r_u|^2, |b_u|^2, |r_T|^2, |b_T|^2, sum rhs_raw). The block
+        is GH cells deep, so the garbage that the block's own edge rules
+        make spreads no further than GH - 1 cells in by the last residual
+        update."""
+        geo = self._shard_geometry(offset)
+        GH = self.GH
+        nr, nl, no = self.local_shape
+        j0, k0 = offset
+        dtype, dev = ru_e.dtype, ru_e.device
+        vol = st.metric(geo, "vol", 0, ru_e)
+        coef, kT = self.coefs(dt, dtype)
+        t = lambda a: torch.as_tensor(block(a, j0, nl, k0, no, GH),
+                                      dtype=dtype, device=dev)
+        hd, td = t(self.helm_diags), t(self.T_diag)
+
+        def helm_op(x):
+            return vol[None] * x - coef * torch.stack([
+                st.weak_laplacian(geo, x[c], self.u_specs[c])
+                for c in range(3)])
+
+        def temp_op(x):
+            return vol * x - kT * st.weak_laplacian(geo, x, self.T_specs_hom)
+
+        def solve(op, b, x, diag, iters):
+            # solvers.fixed.richardson_solve's loop, keeping r
+            r = b - op(x)
+            for _ in range(iters):
+                dx = r / diag
+                x = x + dx
+                r = r - op(dx)
+            return x, r
+
+        b_u = vol[None] * ru_e
+        xu, r_u = solve(helm_op, b_u, ru_e, vol[None] + coef * hd,
+                        self.iters_u)
+        xT, r_T = solve(temp_op, rT_e, T0_e, vol + kT * td, self.iters_T)
+        f0, f1, f2, rhs_raw, _ = faces_div_plain(geo, self.u_specs, xu, dt)
+        c = lambda x: crop(x, GH).contiguous()
+        f1 = c(f1)
+        if j0 == 0:     # the pole face (global face 0) carries nothing
+            f1[:, 0] = 0.0
+        rhs_raw = c(rhs_raw)
+        sq = lambda x: torch.sum(c(x) * c(x))
+        parts = torch.stack([sq(r_u), sq(b_u), sq(r_T), sq(rT_e),
+                             torch.sum(rhs_raw)])
+        return c(xu), c(xT), c(f0), f1, c(f2), rhs_raw, parts
+
+    def call_operands(self, ru_e, rT_e, T0_e, dt, offset):
+        """K1o on one shard whose first cell is global (row, column)
+        ``offset``: (u_star, T_new, uf0, uf1, uf2, rhs_raw, parts), the
+        owned cells and the five raw sums. CPU tensors take the plain
+        version; CUDA tensors launch the kernel."""
+        if self.halo_mode != "operands":
+            raise ValueError("call_operands is the operands mode's")
+        if ru_e.device.type == "cpu":
+            return self.plain_operands(ru_e, rT_e, T0_e, dt, offset)
+        nr, nl, no = self.local_shape
+        ext = (nr, nl + 2 * self.GH, no + 2 * self.GH)
+        kl.require_cuda("richardson (operands)", {
+            "rhs_u": (ru_e, (3,) + ext), "rhs_T": (rT_e, ext),
+            "T0": (T0_e, ext)})
+        out = self._launch_operands(ru_e, rT_e, T0_e, dt, offset)
+        self.launches += 1
+        return out
+
+    def _launch_operands(self, ru_e, rT_e, T0_e, dt, offset):
+        dev, dtype = ru_e.device, ru_e.dtype
+        j0 = offset[0]
+        M, counter, invD, _, _ = self.tables(dt, dev, dtype, j0)
+        passes = self.plan(dtype)
+        if len(passes) != 1 or passes[0].halo != self.GH:
+            raise ValueError(f"the operands mode runs one pass of halo "
+                             f"{self.GH}; the plan is {passes}")
+        ps = passes[0]
+        sfx = kl.suffix(dtype)
+        fn = self._fn.get(("operands", sfx))
+        if fn is None:
+            P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+            fn = kl.bind("richardson.cu", f"dp_richardson_{sfx}_operands",
+                         [I] * 8 + [P] * 8 + [D] * 4 + [I] * 3 + [P] * 11
+                         + [I, I, I, P])
+            self._fn[("operands", sfx)] = fn
+        nr, nl, no = self.local_shape
+        new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+        u_star, T_new = new(3, nr, nl, no), new(nr, nl, no)
+        f0, f1, f2, rhs_raw = (new(nr, nl, no) for _ in range(4))
+        parts, sums = new(ps.n_blocks, 5), new(5)
+        p = kl.ptr
+        null = ctypes.c_void_p(None)
+        kl.check(fn(nr, nl, no, *ps.tile, ps.halo, ps.smem_bytes, p(M),
+                    p(invD), p(ru_e), p(T0_e), p(ru_e), p(rT_e), null, null,
+                    float(dt), self.one_over_Re, self.one_over_Pe,
+                    self.dt_T_factor, ps.n_u, ps.n_T, 1, p(u_star),
+                    p(T_new), null, null, p(f0), p(f1), p(f2), p(rhs_raw),
+                    p(parts), p(counter), p(sums), self.GH, j0,
+                    self.geo.cell_shape[1], kl.stream_of(ru_e)),
+                 "richardson kernel (operands)")
+        return u_star, T_new, f0, f1, f2, rhs_raw, sums
+
     def __call__(self, rhs_u, rhs_T, T0, dt):
+        if self.halo_mode != "rolls":
+            raise ValueError("the operands mode is called by call_operands")
         if rhs_u.device.type == "cpu":
             return self.plain(rhs_u, rhs_T, T0, dt)
         shp = self.geo.cell_shape

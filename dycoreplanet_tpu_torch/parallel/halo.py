@@ -1,0 +1,186 @@
+"""Halo exchange and reductions over a mesh of shards (counterpart of the
+JAX package's ``parallel/halo.py``).
+
+The JAX functions run inside ``shard_map`` and move data with
+``lax.ppermute`` and ``lax.psum``. Here one process holds every shard,
+so a ppermute is a copy of the edge slab to the neighbour's device
+(``Tensor.to``: a peer copy between cards, no copy on one device), and
+a psum is a sum of the shards' partials in a fixed order (a major, b
+minor), on the first device, copied to each device once: two runs give
+the same bits, and no float atomics are used.
+
+On a non-periodic mesh axis the missing neighbour contributes zeros,
+as ``ppermute`` does; the pole closure of the lat axis (the boundary
+ring at lon + pi) is :func:`half_turn`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
+
+
+def ring_perms(n: int, periodic: bool) -> Tuple[list, list]:
+    """Source->dest pairs for the forward (i -> i+1) and backward
+    (i -> i-1) ring shifts along a mesh axis of size n."""
+    if periodic:
+        fwd = [(i, (i + 1) % n) for i in range(n)]
+        bwd = [((i + 1) % n, i) for i in range(n)]
+    else:
+        fwd = [(i, i + 1) for i in range(n - 1)]
+        bwd = [(i + 1, i) for i in range(n - 1)]
+    return fwd, bwd
+
+
+_AXIS = {"lat": 0, "lon": 1}
+
+
+def _permute(src: Sharded, mesh: Mesh, axis_name: str, perm) -> Sharded:
+    """ppermute along one mesh axis: shard dst gets src's block on its own
+    device, zeros where no pair names it."""
+    ax = _AXIS[axis_name]
+    frm = {d: s for s, d in perm}
+
+    def get(a, b):
+        idx = (a, b)
+        s = frm.get(idx[ax])
+        if s is None:
+            return torch.zeros_like(src[a, b])
+        at = (s, b) if ax == 0 else (a, s)
+        return src[at].to(mesh.device(a, b))
+
+    return build(mesh, get)
+
+
+def exchange_ghosts(x: Sharded, mesh: Mesh, axis_name: str, array_axis: int,
+                    *, width: int = 1, periodic: bool = True
+                    ) -> Tuple[Sharded, Sharded]:
+    """(lo_ghost, hi_ghost) layers of ``width`` cells from the ring
+    neighbours along ``axis_name``: lo_ghost holds the left neighbour's
+    top edge, hi_ghost the right neighbour's bottom edge; zeros at the
+    ends of a non-periodic axis."""
+    fwd, bwd = ring_perms(mesh.shape[axis_name], periodic)
+    hi_edge = x.map(lambda t: t.narrow(array_axis, t.shape[array_axis]
+                                       - width, width))
+    lo_edge = x.map(lambda t: t.narrow(array_axis, 0, width))
+    # my hi edge travels forward to become my right neighbour's lo ghost
+    return (_permute(hi_edge, mesh, axis_name, fwd),
+            _permute(lo_edge, mesh, axis_name, bwd))
+
+
+def halo_pad(x: Sharded, mesh: Mesh, axis_name: str, array_axis: int, *,
+             width: int = 1, periodic: bool = True) -> Sharded:
+    """Each shard extended by ``width`` ghost layers at both ends of
+    ``array_axis`` (the shard plus its halo: the reference's "locally
+    relevant" index set)."""
+    lo, hi = exchange_ghosts(x, mesh, axis_name, array_axis, width=width,
+                             periodic=periodic)
+    return x.map(lambda t, l, h: torch.cat([l, t, h], dim=array_axis),
+                 lo, hi)
+
+
+def psum(x: Sharded, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
+    """The sum over every shard of equal-shaped partials, in shard order
+    on the first device, then one copy a distinct device: {device:
+    total}."""
+    devs = mesh.distinct_devices()
+    tot = None
+    for _, t in x.items():
+        t = t.to(devs[0])
+        tot = t if tot is None else tot + t
+    return {d: tot if d == devs[0] else tot.to(d) for d in devs}
+
+
+def pmax(x: Sharded, mesh: Mesh) -> torch.Tensor:
+    """The largest of equal-shaped partials, elementwise, on the first
+    device."""
+    dev = mesh.distinct_devices()[0]
+    out = None
+    for _, t in x.items():
+        t = t.to(dev)
+        out = t if out is None else torch.maximum(out, t)
+    return out
+
+
+def half_turn(rows: Sharded, mesh: Mesh) -> Sharded:
+    """The global half-turn longitude roll of a lat ring cut over the lon
+    shards: shard (a, b) gets the ring's values at lon + pi over its own
+    columns. For an even number B of lon shards that is the block of shard
+    b + B/2 (a shard permute); for odd B the half turn falls inside a
+    shard, and each shard's values come from two neighbouring shards
+    (B = 1: the local roll by nlon/2)."""
+    A, B = mesh.shape["lat"], mesh.shape["lon"]
+    no = rows[0, 0].shape[-1]
+    nlon = B * no
+
+    def get(a, b):
+        dev = mesh.device(a, b)
+        start = (b * no + nlon // 2) % nlon
+        parts: List[torch.Tensor] = []
+        c = 0
+        while c < no:
+            s, col = divmod((start + c) % nlon, no)
+            take = min(no - col, no - c)
+            parts.append(rows[a, s][..., col:col + take].to(dev))
+            c += take
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    return build(mesh, get)
+
+
+def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
+    """[g_-width..g_-1, g_+1..g_+width] lat rows (axis -2) of every shard:
+    the neighbours' rows, and on the edge lat shards the pole closure,
+    the boundary ring at lon + pi (times ``sign``: a number, or a Sharded
+    of factors broadcast over the leading axes, for POLE_FLIP components)
+    repeated ``width`` times. ``sign=None``: zeros beyond the poles, as a
+    non-periodic exchange gives."""
+    A = mesh.shape["lat"]
+    ax = x[0, 0].dim() - 2
+    lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width, periodic=False)
+    if sign is None:
+        return lo.map(lambda l, h: torch.cat([l, h], dim=ax), hi)
+    first = half_turn(x.map(lambda t: t.narrow(ax, 0, 1)), mesh)
+    last = half_turn(x.map(lambda t: t.narrow(ax, t.shape[ax] - 1, 1)), mesh)
+
+    def rows(a, b):
+        lo_ab, hi_ab = lo[a, b], hi[a, b]
+        s = sign[a, b] if isinstance(sign, Sharded) else sign
+        if a == 0:
+            lo_ab = torch.cat([first[a, b] * s] * width, dim=ax)
+        if a == A - 1:
+            hi_ab = torch.cat([last[a, b] * s] * width, dim=ax)
+        return torch.cat([lo_ab, hi_ab], dim=ax)
+
+    return build(mesh, rows)
+
+
+def lon_halo(x: Sharded, mesh: Mesh, width: int) -> Sharded:
+    """[g_-width..g_-1, g_+1..g_+width] lon columns (periodic)."""
+    ax = x[0, 0].dim() - 1
+    lo, hi = exchange_ghosts(x, mesh, "lon", ax, width=width, periodic=True)
+    return lo.map(lambda l, h: torch.cat([l, h], dim=ax), hi)
+
+
+def pad_block(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
+    """Every shard padded by ``width`` cells on both sides of lat and lon
+    from its neighbours (lat ghosts as :func:`lat_halo`, lon periodic);
+    the corners, which no axis-wise stencil reads, are zero."""
+    LH = lat_halo(x, mesh, width, sign)
+    LO = lon_halo(x, mesh, width)
+
+    def pad(t, lh, lo):
+        w = width
+        out = t.new_zeros(t.shape[:-2] + (t.shape[-2] + 2 * w,
+                                          t.shape[-1] + 2 * w))
+        out[..., w:-w, w:-w] = t
+        out[..., :w, w:-w] = lh[..., :w, :]
+        out[..., -w:, w:-w] = lh[..., w:, :]
+        out[..., w:-w, :w] = lo[..., :w]
+        out[..., w:-w, -w:] = lo[..., w:]
+        return out
+
+    return x.map(pad, LH, LO)

@@ -1,0 +1,86 @@
+"""The forcing on a mesh: K2o, the forcing kernel in its operands halo
+mode, on every shard (counterpart of the JAX package's
+``parallel/sharded_pallas.py``).
+
+Each shard runs the same kernel with its lat and lon ghost layers as
+operands (ops/forcing.py ``halo_shapes``), fetched from its neighbours
+by ``parallel.halo``. The pole ghost rows of the two edge lat shards are
+the boundary ring at lon + pi (``halo.half_turn``), the tangential
+components sign-flipped (``_flip_vec``'s pattern), both rows of a side
+the same ring. The lat face velocity of the next shard's first row is
+zero past the top pole (a non-periodic exchange gives zeros there).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
+from dycoreplanet_tpu_torch.parallel.halo import (
+    exchange_ghosts, lat_halo, lon_halo)
+from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
+
+# the pole sign pattern of a stacked [u_r, u_lat, u_lon] row (POLE for
+# u_r, POLE_FLIP for the tangential components: the local basis flips
+# across the pole), as a factor broadcast over (3, nr, rows, nlon)
+_FLIP_VEC = (1.0, -1.0, -1.0)
+
+
+def _flip_vec(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(_FLIP_VEC, dtype=like.dtype,
+                        device=like.device).reshape(3, 1, 1, 1)
+
+
+def forcing_halos(u: Sharded, u_faces, T: Sharded, pres: Sharded,
+                  mesh: Mesh) -> Sharded:
+    """Every shard's ghost operands of K2o (ops/forcing.py
+    ``halo_shapes``), as a Sharded of dicts."""
+    HLu = lat_halo(u, mesh, 2, sign=u.map(_flip_vec))
+    HLp = lat_halo(pres, mesh, 1, sign=1.0)
+    _, HLf1 = exchange_ghosts(u_faces[1], mesh, "lat", 1, width=1,
+                              periodic=False)     # top shard: 0 = pole
+    HOu = lon_halo(u, mesh, 2)
+    HOp = lon_halo(pres, mesh, 1)
+    _, HOf2 = exchange_ghosts(u_faces[2], mesh, "lon", 2, width=1,
+                              periodic=True)
+    named = dict(HLu=HLu, HLp=HLp, HLf1=HLf1, HOu=HOu, HOp=HOp, HOf2=HOf2,
+                 HLT=lat_halo(T, mesh, 2, sign=1.0), HOT=lon_halo(T, mesh, 2))
+    return build(mesh, lambda a, b: {k: v[a, b].contiguous()
+                                     for k, v in named.items()})
+
+
+class ShardedShellForcing:
+    """The shell forcing on a ("lat", "lon") mesh: ``__call__(u, u_faces,
+    T, pres, dt)`` on Sharded fields -> (rhs_u, T_adv), Sharded, as
+    ShellForcing's on global arrays."""
+
+    def __init__(self, base: ShellForcing, mesh: Mesh):
+        nr, nlat, nlon = base.geo.cell_shape
+        A, B = int(mesh.shape["lat"]), int(mesh.shape["lon"])
+        if nlat % A or nlon % B:
+            raise ValueError("grid not divisible by mesh")
+        self.local = (nr, nlat // A, nlon // B)
+        if self.local[1] < 2 or self.local[2] < 2:
+            # width-2 ghost layers need >= 2 interior rows per shard
+            raise ValueError(
+                f"shard too thin for width-2 halos: local {self.local}")
+        self.mesh = mesh
+        # per-shard kernel: identical physics, ghosts as operands
+        self.kern = ShellForcing(
+            base.geo, beta=base.beta, T_ref=base.T_ref,
+            rho_background=base.rho_background, gravity=base.gravity,
+            one_over_Re=base.one_over_Re, omega_hat=base.omega_hat,
+            coriolis_mode=base.coriolis_mode, buoyancy=base.buoyancy,
+            scheme=base.scheme, include_gradp=base.include_gradp,
+            u_specs=base.u_specs, p_specs=base.p_specs,
+            T_specs=base.T_specs, T_wall=base._T_wall,
+            dt_T_factor=base.dt_T_factor, advect_T=base.advect_T,
+            halo_mode="operands", local_shape=self.local)
+
+    def __call__(self, u: Sharded, u_faces, T: Sharded, pres: Sharded, dt):
+        halos = forcing_halos(u, u_faces, T, pres, self.mesh)
+        _, nl, no = self.local
+        out = build(self.mesh, lambda a, b: self.kern.call_operands(
+            u[a, b], tuple(f[a, b] for f in u_faces), T[a, b], pres[a, b],
+            dt, halos[a, b], (a * nl, b * no)))
+        return (out.map(lambda o: o[0]), out.map(lambda o: o[1]))

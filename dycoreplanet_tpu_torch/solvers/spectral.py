@@ -260,6 +260,79 @@ class AnnulusPoissonFastDiag:
         return torch.einsum("pk,rk->rp", c["_G"], h), 0
 
 
+class ShardedShellPoissonFastDiag:
+    """ShellPoissonFastDiag on a ("lat", "lon") mesh (the JAX class,
+    spectral.py:697-780), whose only collective is one field-sized sum a
+    solve: each shard contracts its own lon columns of F and lat rows of
+    V, and a fixed-order sum of the shards' partials (``halo.psum``)
+    completes both forward transforms. The eigen-space work (the radial
+    transform and the divide) gives the same result on every shard; it
+    runs once for each distinct device of the mesh, not once a shard (on
+    one card the shards would repeat it). The backward transforms are
+    local: each shard applies its own rows of V and G. ``precision`` is
+    the base solver's (the model's spot-check tolerance; the
+    "high-refine" pass needs the global operator and is not run here)."""
+
+    def __init__(self, base: ShellPoissonFastDiag, mesh):
+        from dycoreplanet_tpu_torch.parallel.mesh import local_shape
+
+        self.geo = base.geo
+        self.nm = base.nm
+        self.mesh = mesh
+        self.precision = base.precision
+        _, nl, no = local_shape(base.geo, mesh)
+        self._local = (nl, no)
+        self._host = {k: getattr(base, k)
+                      for k in ("_F", "_G", "_V", "_Q", "_inv_denom")}
+        self._dev = {}
+
+    def _consts(self, a: int, b: int, dev):
+        """The shard's F columns, G rows and V lat rows, and the
+        replicated Q and 1/denominator, on dev."""
+        key = (a, b, str(dev))
+        c = self._dev.get(key)
+        if c is None:
+            nl, no = self._local
+            h = self._host
+            t = lambda x: torch.as_tensor(np.ascontiguousarray(x),
+                                          device=dev)
+            c = (t(h["_F"][:, b * no:(b + 1) * no]),
+                 t(h["_G"][b * no:(b + 1) * no]),
+                 t(h["_V"][:, a * nl:(a + 1) * nl]),
+                 t(h["_Q"]), t(h["_inv_denom"]))
+            self._dev[key] = c
+        return c
+
+    def solve(self, rhs):
+        from dycoreplanet_tpu_torch.parallel.halo import psum
+        from dycoreplanet_tpu_torch.parallel.mesh import build
+
+        mesh = self.mesh
+        nm = self.nm
+
+        def forward(a, b):
+            F, _, V, _, _ = self._consts(a, b, mesh.device(a, b))
+            bh = torch.einsum("kl,ijl->ijk", F, rhs[a, b])
+            bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=2)
+            return torch.einsum("kjm,ijsk->imsk", V, bs)
+
+        yh = psum(build(mesh, forward), mesh)     # THE solver all-reduce
+        xh = {}
+        for dev, y in yh.items():
+            _, _, _, Q, inv = self._consts(0, 0, dev)
+            zh = torch.einsum("ia,imsk->amsk", Q, y)
+            xh[dev] = torch.einsum("ia,amsk->imsk", Q, zh * inv)
+
+        def backward(a, b):
+            dev = mesh.device(a, b)
+            _, G, V, _, _ = self._consts(a, b, dev)
+            xs = torch.einsum("kjm,imsk->ijsk", V, xh[dev])
+            xk = torch.cat([xs[:, :, 0, :], xs[:, :, 1, :]], dim=2)
+            return torch.einsum("lk,ijk->ijl", G, xk)
+
+        return build(mesh, backward), 0
+
+
 def _uniform_radial(geo: Geometry) -> bool:
     dr = np.diff(np.asarray(geo.axes[0].faces))
     return bool(np.allclose(dr, dr[0], rtol=1e-12, atol=0.0))

@@ -67,7 +67,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 # the instances of K1 and K2, by the wrapper that launches them
 VARIANT = {"richardson": "K1", "richardson_free": "K1u", "forcing": "K2",
-           "forcing_momentum": "K2m"}
+           "forcing_momentum": "K2m", "richardson_operands": "K1o",
+           "forcing_operands": "K2o"}
 
 
 def _category(name: str) -> str:

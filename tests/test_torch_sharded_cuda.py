@@ -1,0 +1,130 @@
+"""K1o and K2o, the Richardson and forcing kernels in their operands halo
+mode, on a CUDA card: on every shard of a mesh whose shards all lie on
+the card, each against its plain version on the same operands, and the
+shards' outputs stitched together against the single-device kernels K1
+and K2. Imports neither JAX nor the JAX package, so that it runs on a
+machine with a card and no JAX; it skips without a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from dycoreplanet_tpu_torch.models import BoussinesqModel
+from dycoreplanet_tpu_torch.models.presets import (
+    bench_params, seed_developed_flow)
+from dycoreplanet_tpu_torch.parallel.halo import halo_pad
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    Mesh, build, shard_state, unshard_field)
+from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+
+def _close(got, want, rtol, atol, what):
+    err = float((got - want).abs().max())
+    lim = float((atol + rtol * want.abs()).min())
+    assert bool(((got - want).abs() <= atol + rtol * want.abs()).all()), (
+        f"{what}: max |diff| {err:.3e} (rtol {rtol}, atol {atol:.3e}, "
+        f"tightest limit {lim:.3e})")
+
+
+def kernel_checks(shape, mesh_shape, dtype, iters=(1, 1)):
+    """K2o and K1o against their plain versions on every shard of a mesh
+    on the card, and stitched against K2 and K1; returns the max abs
+    errors (K2o, K1o)."""
+    p = bench_params(shape, dtype)
+    p.numerics.momentum_fixed_iters, p.numerics.fixed_solver_iters = iters
+    dev = torch.device("cuda")
+    model = BoussinesqModel(p, device=dev)
+    A, B = mesh_shape
+    mesh = Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon"))
+    model.prepare_sharded(mesh)
+    f32 = model.torch_dtype == torch.float32
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(2e-3)
+    sh = shard_state(s0, model.geo, mesh)
+    forcing, rich = model._mesh.forcing, model._mesh.richardson
+    kf, kr = forcing.kern, rich.kern
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh)
+    _, nl, no = kf.local_shape
+
+    # K2o: every shard, kernel against plain
+    out2 = {}
+    err2 = 0.0
+    for (a, b), u in sh.u.items():
+        args = (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+        got = kf.call_operands(*args)
+        want = kf.plain_operands(*args)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("rhs_u", "T_adv")):
+            sc = float(w.abs().max())
+            tol = (1e-5 if f32 else 1e-12) * sc
+            _close(g, w, 0.0, tol, f"K2o {name} shard {(a, b)}")
+            err2 = max(err2, float((g - w).abs().max()))
+        out2[a, b] = got
+    # stitched against the single-device kernel K2
+    k2 = model._forcing(s0.u, s0.u_faces, s0.T, s0.p, dt)
+    for i, name in enumerate(("rhs_u", "T_adv")):
+        st_ = unshard_field(build(mesh, lambda a, b: out2[a, b][i]))
+        sc = float(k2[i].abs().max())
+        _close(st_, k2[i], 0.0, (1e-5 if f32 else 1e-12) * sc,
+               f"K2o stitched vs K2 {name}")
+
+    # K1o on K2's outputs, as the step runs it
+    rhs_u = build(mesh, lambda a, b: out2[a, b][0])
+    rhs_T = build(mesh, lambda a, b: out2[a, b][1])
+    GH = kr.GH
+    st5 = rhs_u.map(lambda u, r, t: torch.cat([u, r[None], t[None]]),
+                    rhs_T, sh.T)
+    st5 = halo_pad(st5, mesh, "lon", 3, width=GH, periodic=True)
+    st5 = halo_pad(st5, mesh, "lat", 2, width=GH, periodic=False)
+    tol = 2e-6 if f32 else 1e-12
+    err1 = 0.0
+    outs = {}
+    for (a, b), e in st5.items():
+        args = (e[:3], e[3], e[4], dt, (a * nl, b * no))
+        got = kr.call_operands(*args)
+        want = kr.plain_operands(*args)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got[:5], want[:5],
+                              ("u_star", "T_new", "f0", "f1", "f2")):
+            _close(g, w, tol, tol, f"K1o {name} shard {(a, b)}")
+            err1 = max(err1, float((g - w).abs().max()))
+        sc = float(want[5].abs().max()) + 1e-30
+        _close(got[5], want[5], 1e-4 if f32 else 1e-11,
+               (2e-5 if f32 else 1e-11) * sc, f"K1o rhs_raw shard {(a, b)}")
+        gs, ws = got[6].double().cpu(), want[6].double().cpu()
+        eps = float(torch.finfo(model.torch_dtype).eps)
+        for k in (1, 3):            # |b|^2: plain sums
+            assert abs(gs[k] - ws[k]) <= (1e-5 if f32 else 1e-12) * ws[k]
+        for r, bb in ((0, 1), (2, 3)):  # |r|: 0.1 rn + 4 eps |b|
+            rg, rw = float(gs[r]) ** 0.5, float(ws[r]) ** 0.5
+            assert abs(rg - rw) <= 0.1 * rw + 4 * eps * float(ws[bb]) ** 0.5
+        assert abs(gs[4] - ws[4]) <= (1e-4 if f32 else 1e-11) * float(
+            want[5].abs().sum())
+        outs[a, b] = got
+    # stitched against the single-device kernel K1 (same rhs): u*, T and
+    # the faces; rhs_raw through rhs_phi's compatibility shift
+    k1 = model._richardson(unshard_field(rhs_u), unshard_field(rhs_T),
+                           s0.T, dt)
+    for i, w in enumerate((k1[0], k1[1]) + tuple(k1[2][:3])):
+        g = unshard_field(build(mesh, lambda a, b: outs[a, b][i]))
+        _close(g, w, tol, tol, f"K1o stitched vs K1 output {i}")
+    assert kf.launches == A * B and kr.launches == A * B, "launches"
+    return err2, err1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_k1o_k2o_match_plain_versions(dtype):
+    """On a card: K2o and K1o on meshes of 2 x 4 and 2 x 2 shards, at a
+    small shell, at one whose shards no tile divides, and with two sweeps
+    (halo 3), each shard against its plain version, and the stitched
+    outputs against K2 and K1 (f32: K2o 1e-5 x scale, K1o rtol = atol =
+    2e-6; f64: 1e-12)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    for shape, mesh_shape, iters in (((8, 16, 32), (2, 4), (1, 1)),
+                                     ((6, 20, 36), (2, 2), (1, 1)),
+                                     ((8, 16, 32), (2, 2), (2, 2)),
+                                     ((4, 8, 16), (2, 4), (1, 1))):
+        kernel_checks(shape, mesh_shape, dtype, iters)
