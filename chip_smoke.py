@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. the card: torch's device name, and nvidia-smi's name + power limit;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-     and no spill in K1's residual-free (TRACK = false) instances nor in
-     K2m's (ADVECT_T = false);
+     and no spill in K1's residual-free (TRACK = false) instances, in
+     K2m's (ADVECT_T = false), nor in the operands-mode instances of K1o,
+     K2o and K2mo;
   3. kernel checks at 32x128x256 f32 on a seeded developed flow: K2
      (forcing), K1 (Richardson + projection head, with its four norms),
      K1u (K1's residual-free variant: the -1 sentinel, the b norms),
@@ -80,6 +81,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      4), a second run bitwise the first; one shard's kernel, plain and
      bound times; the mesh step's device ms, kernels and host launches a
      step (torch.profiler) beside the single-device eager step's;
+  6d. the semi-Lagrangian transport and temperature substeps on the same
+     meshes: K2mo (the forcing without the fused transport in its
+     operands mode) on every shard against its plain version, f32 and
+     f64, with phase 3's K2m tolerances, and the stitched shards against
+     K2m; the stitched sharded SL transport bitwise the single-device
+     one; 20 gated steps through run, f32, of the SL model at `NSE solver
+     interval` = 1 and = 2 (both meshes) and of the Eulerian model at =
+     2 (2 x 2): 0 escalations, max|div u| <= 1e-4, K2mo (or K2o) and K1o
+     A x B times an NSE step and no other forcing kernel, the transport
+     on the shards every step (SL) or substep (Eulerian), the state
+     within 1e-4 of max|u| of the single-device run's (phase 6), a
+     second run bitwise the first; K2mo's wrapper, plain and bound times
+     and its in-step time; the SL mesh step's device ms, kernels and host
+     launches a step beside the single-device SL eager step's;
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
@@ -431,10 +446,13 @@ def sl_params(p):
 
 # every hand kernel's wrapper name that a replay's device kernels are
 # counted under on every path (a path without the wrapper: 0)
-REPLAY_NAMES = ("forcing", "forcing_momentum")
+REPLAY_NAMES = ("forcing", "forcing_momentum", "forcing_operands",
+                "forcing_momentum_operands", "richardson_operands")
 # the shell's hand kernels, none of which an annulus model builds or runs
 SHELL_NAMES = ("forcing", "forcing_momentum", "richardson",
-               "richardson_free", "faces_div", "correct")
+               "richardson_free", "faces_div", "correct",
+               "forcing_operands", "forcing_momentum_operands",
+               "richardson_operands")
 # the annulus at work size: aqua_planet_test_2d.prm at its own resolution
 # knob `initial global refinement` = 8 (256 x 3072 cells), its own dt
 ANNULUS_PRM = "aqua_planet_test_2d.prm"
@@ -471,7 +489,8 @@ def replay_launches(label, model, fn, want):
     kernel name): one replay, no kernel wrapper called (a replay goes
     through none), and the device's counts `want`, with 0 for every
     other name of the model's wrappers and of REPLAY_NAMES (the fused K2
-    on the semi-Lagrangian paths, K2m on the others), and on the annulus
+    on the semi-Lagrangian paths, K2m on the others, the operands-mode
+    kernels, which no graph runs), and on the annulus
     of SHELL_NAMES (no shell kernel). Returns (fn's result, the
     counts)."""
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
@@ -831,15 +850,17 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
-def mesh_model(dev, mesh_shape, dtype="float32"):
-    """The bench model prepared for a mesh of A x B shards on dev."""
+def mesh_model(dev, mesh_shape, dtype="float32", options=lambda p: p):
+    """The bench model (with ``options`` applied to its parameters)
+    prepared for a mesh of A x B shards on dev."""
     import numpy as np
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import BENCH_SHAPE, bench_params
     from dycoreplanet_tpu_torch.parallel.mesh import Mesh
 
     A, B = mesh_shape
-    model = BoussinesqModel(bench_params(BENCH_SHAPE, dtype), device=dev)
+    model = BoussinesqModel(options(bench_params(BENCH_SHAPE, dtype)),
+                            device=dev)
     return model.prepare_sharded(
         Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon")))
 
@@ -997,6 +1018,53 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     return max(err2, d2), max(err1, d1), times
 
 
+def check_mesh_run(label, model, st0, want, s_ref, n_transport):
+    """20 gated steps through run on a mesh from the sharded state st0,
+    the wrappers' launches counted (every name of the model's wrappers
+    not in ``want`` 0): 0 escalations, finite fields, max|div u| <= 1e-4,
+    the transport on the shards called ``n_transport`` times, the state
+    within 1e-4 of max|u| of the single-device state ``s_ref`` after the
+    same steps, and a second run bitwise the first. Returns (launches,
+    max|u - u_ref|, max|u_ref|, max|div u|, host seconds)."""
+    import torch
+    from dycoreplanet_tpu_torch.parallel.mesh import unshard_state
+
+    model.run(max_steps=2, state=st0)             # warm-up
+    tr = model._mesh.transport
+    calls = tr.calls
+    (s_end, hist), counts, wall = drive(
+        model, lambda: model.run(max_steps=N_STEPS, state=st0))
+    calls = tr.calls - calls
+    want = {**{name: 0 for name in counts}, **want}
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    if calls != n_transport:
+        fail(f"{label}: the transport on the shards ran {calls} times in "
+             f"{N_STEPS} steps, expected {n_transport}")
+    if model.escalations != 0 or len(hist) != N_STEPS:
+        fail(f"{label}: {model.escalations} escalation(s), "
+             f"{len(hist)} steps")
+    g = unshard_state(s_end)
+    for x in (g.u, g.p, g.T) + tuple(g.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{label}: non-finite fields")
+    div_max = max(h["div_norm"] for h in hist)
+    if not div_max <= 1e-4:
+        fail(f"{label}: max|div u| {div_max:.3e} > 1e-4")
+    du = float((g.u - s_ref.u).abs().max())
+    u_sc = float(s_ref.u.abs().max())
+    if not du <= 1e-4 * u_sc:
+        fail(f"{label}: max|u_mesh - u_single| {du:.3e} > 1e-4 x "
+             f"{u_sc:.3e}")
+    s_again, _ = model.run(max_steps=N_STEPS, state=st0)
+    again = unshard_state(s_again)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (g.u, g.p, g.T) + tuple(g.u_faces),
+            (again.u, again.p, again.T) + tuple(again.u_faces))):
+        fail(f"{label}: two runs from the same state differ")
+    return counts, du, u_sc, div_max, wall
+
+
 def mesh_phases(dev, s0, s_single, single_model):
     """6c: the shell step on a mesh of shards on the one card, for each
     mesh of MESHES at the bench shape and flow: K2o and K1o against their
@@ -1008,8 +1076,7 @@ def mesh_phases(dev, s0, s_single, single_model):
     step's device ms, kernels and host launches a step beside the
     single-device eager step's. Returns ({mesh label: launches}, the
     K1o and K2o rows' numbers)."""
-    import torch
-    from dycoreplanet_tpu_torch.parallel.mesh import shard_state, unshard_state
+    from dycoreplanet_tpu_torch.parallel.mesh import shard_state
 
     t0 = time.perf_counter()
     launches, rows = {}, {"K1o": {}, "K2o": {}}
@@ -1026,35 +1093,10 @@ def mesh_phases(dev, s0, s_single, single_model):
                     rows[k][label] = dict(times[k])
         model = mesh_model(dev, mesh_shape)
         st0 = shard_state(s0, model.geo, model._mesh.mesh)
-        model.run(max_steps=2, state=st0)             # warm-up
-        (s_end, hist), counts, wall = drive(
-            model, lambda: model.run(max_steps=N_STEPS, state=st0))
-        want = {name: 0 for name in counts}
-        want.update(forcing_operands=N_STEPS * A * B,
-                    richardson_operands=N_STEPS * A * B)
-        if counts != want:
-            fail(f"{label}: launches {counts}, expected {want}")
-        if model.escalations != 0 or len(hist) != N_STEPS:
-            fail(f"{label}: {model.escalations} escalation(s), "
-                 f"{len(hist)} steps")
-        g = unshard_state(s_end)
-        for x in (g.u, g.p, g.T) + tuple(g.u_faces):
-            if not bool(torch.isfinite(x).all()):
-                fail(f"{label}: non-finite fields")
-        div_max = max(h["div_norm"] for h in hist)
-        if not div_max <= 1e-4:
-            fail(f"{label}: max|div u| {div_max:.3e} > 1e-4")
-        du = float((g.u - s_single.u).abs().max())
-        u_sc = float(s_single.u.abs().max())
-        if not du <= 1e-4 * u_sc:
-            fail(f"{label}: max|u_mesh - u_single| {du:.3e} > 1e-4 x "
-                 f"{u_sc:.3e}")
-        s_again, _ = model.run(max_steps=N_STEPS, state=st0)
-        again = unshard_state(s_again)
-        if not all(torch.equal(x, y) for x, y in zip(
-                (g.u, g.p, g.T) + tuple(g.u_faces),
-                (again.u, again.p, again.T) + tuple(again.u_faces))):
-            fail(f"{label}: two runs from the same state differ")
+        counts, du, u_sc, div_max, wall = check_mesh_run(
+            label, model, st0, {"forcing_operands": N_STEPS * A * B,
+                                "richardson_operands": N_STEPS * A * B},
+            s_single, 0)
         launches[label] = counts
         prof_m = step_profile(
             lambda: model.run(max_steps=5, state=st0), 5)
@@ -1089,6 +1131,161 @@ def mesh_phases(dev, s0, s_single, single_model):
           f"{prof_1['kernels_per_step']:.1f} kernels, "
           f"{prof_1['host_launches_per_step']:.1f} host launches a step")
     phase(f"mesh phases {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def check_mesh_sl(dev, mesh_shape, dtype_name, timing=False):
+    """K2mo on every shard of a mesh at the bench shape, on the seeded
+    developed flow of a semi-Lagrangian model, against its plain version
+    with phase 3's K2m tolerance (1e-5 x scale, f64 1e-12 x scale), and
+    the shards' outputs stitched together against the single-device K2m;
+    the sharded SL transport stitched together, bitwise the single-device
+    transport. With ``timing``: shard (0, 0)'s wrapper and plain times and
+    its bound. Returns (K2mo error, timings)."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        build, shard_state, unshard_field)
+    from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+    model = mesh_model(dev, mesh_shape, dtype_name, sl_params)
+    f32 = model.torch_dtype == torch.float32
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(BENCH_DT)
+    mesh = model._mesh.mesh
+    sh = shard_state(s0, model.geo, mesh)
+    kf = model._mesh.forcing.kern
+    if kf.advect_T:
+        fail("K2mo: the SL mesh model's forcing carries the transport")
+    nr, nl, no = kf.local_shape
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh, advect_T=False)
+    what = f"{mesh_shape[0]}x{mesh_shape[1]} {dtype_name}"
+    tol = 1e-5 if f32 else 1e-12
+    out, args, err = {}, {}, 0.0
+    for (a, b), u in sh.u.items():
+        args[a, b] = (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                      sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+        got = kf.call_operands(*args[a, b])
+        want = kf.plain_operands(*args[a, b])
+        torch.cuda.synchronize()
+        if not torch.is_tensor(got):
+            fail(f"K2mo {what}: expected rhs_u alone")
+        err = max(err, compare(f"K2mo {what} shard {(a, b)}", (got,),
+                               (want,), 0.0, tol * float(want.abs().max())))
+        out[a, b] = got
+    k2m = model._forcing(s0.u, s0.u_faces, s0.T, s0.p, dt)
+    d2 = compare(f"K2mo {what} stitched vs K2m",
+                 (unshard_field(build(mesh, lambda a, b: out[a, b])),),
+                 (k2m,), 0.0, tol * float(k2m.abs().max()))
+    dt_T = model._dt_T(dt)
+    single = model._semi_lagrangian(s0.u, s0.T, dt_T)
+    shd = unshard_field(model._mesh.transport(sh.u, sh.u_faces, sh.T, dt_T))
+    torch.cuda.synchronize()
+    if not torch.equal(shd, single):
+        fail(f"SL transport {what}: the shards stitched together differ "
+             f"from the single-device transport by "
+             f"{float((shd - single).abs().max()):.3e}")
+    phase(f"K2mo {what}: every shard against its plain version, max abs "
+          f"err {err:.3e}; stitched against K2m {d2:.3e}; the sharded SL "
+          f"transport stitched bitwise the single-device one")
+    times = None
+    if timing:
+        itemsize = 4 if f32 else 8
+        cells = nr * nl * no
+        halo_vals = sum(t.numel() for t in halos[0, 0].values())
+        b_ms, b_by = bound_of(
+            (k2.MOMENTUM_FIELDS_MOVED * cells + halo_vals) * itemsize,
+            k2.MOMENTUM_OPS_PER_CELL * cells)
+        times = dict(ms=time_ms(lambda: kf.call_operands(*args[0, 0])),
+                     plain_ms=time_ms(lambda: kf.plain_operands(*args[0, 0]),
+                                      reps=5),
+                     bound_ms=b_ms, bound_by=b_by)
+        phase(f"K2mo {what}, one shard {kf.local_shape}: kernel "
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+              f"bound {b_ms * 1e3:.2f} us ({b_by})")
+    return max(err, d2), times
+
+
+def mesh_sl_phases(dev, ss0, s0, refs, sl_model):
+    """6d: the semi-Lagrangian transport and the temperature substeps on
+    the meshes of MESHES at the bench shape, all shards on the one card:
+    K2mo against its plain version (f32 and f64) and against K2m, the
+    sharded SL transport bitwise the single-device one; 20 gated steps
+    through run of the SL model at NSE solver interval 1 and 2 from the
+    SL flow ``ss0``, and on 2 x 2 of the Eulerian model at NSE solver
+    interval 2 from ``s0``, each against the single-device run's state
+    ``refs[label]`` (phase 6): 0 escalations, max|div u| <= 1e-4, K2mo or
+    K2o and K1o A x B times an NSE step and no other forcing kernel, the
+    transport on the shards every SL step and every Eulerian substep, a
+    second run bitwise the first; the SL mesh step's device ms, kernels
+    and host launches a step beside the single-device SL eager step's
+    (``sl_model``). Returns ({path label: launches}, the K2mo row's
+    numbers by mesh)."""
+    from dycoreplanet_tpu_torch.parallel.mesh import shard_state
+
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    half = N_STEPS // 2
+    for mesh_shape in MESHES:
+        A, B = mesh_shape
+        tag = f"{A}x{B}"
+        errs = []
+        for dname in ("float32", "float64"):
+            e, times = check_mesh_sl(dev, mesh_shape, dname,
+                                     timing=dname == "float32")
+            errs.append(e)
+            if times is not None:
+                rows[f"sl_mesh_{tag}"] = dict(times)
+        paths = [("sl", sl_params, ss0, N_STEPS, "forcing_momentum_operands",
+                  N_STEPS),
+                 ("sl_nse2", lambda p: sl_params(nse2_params(p)), ss0, half,
+                  "forcing_momentum_operands", N_STEPS)]
+        if mesh_shape == (2, 2):
+            paths.append(("nse2", nse2_params, s0, half, "forcing_operands",
+                          half))
+        for key, options, flow, n_nse, forcing, n_tr in paths:
+            label = f"{key}_mesh_{tag}"
+            model = mesh_model(dev, mesh_shape, options=options)
+            st0 = shard_state(flow, model.geo, model._mesh.mesh)
+            counts, du, u_sc, div_max, wall = check_mesh_run(
+                label, model, st0, {forcing: n_nse * A * B,
+                                    "richardson_operands": n_nse * A * B},
+                refs[key], n_tr)
+            launches[label] = counts
+            msg = (f"{label} {model.geo.cell_shape} f32: {N_STEPS} gated "
+                   f"steps, 0 escalations, launches {counts}, the transport "
+                   f"on the shards {n_tr} times, max|div u| {div_max:.3e}, "
+                   f"max|u_mesh - u_single| {du:.3e} ({du / u_sc:.3e} of "
+                   f"max|u|), a second run bitwise equal, "
+                   f"{wall / N_STEPS * 1e3:.3f} ms/step (host clock)")
+            if key == "sl":
+                prof = step_profile(
+                    lambda: model.run(max_steps=5, state=st0), 5)
+                ms = prof["kernel_ms_per_step"].get(forcing, 0.0)
+                rows[label].update(
+                    max_abs_err=max(errs), in_step_ms=ms,
+                    in_step_ms_per_shard=ms / (A * B),
+                    launches_per_step=A * B,
+                    step_device_ms=prof["device_ms_per_step"],
+                    step_kernels=prof["kernels_per_step"],
+                    step_host_launches=prof["host_launches_per_step"])
+                msg += (f"; device {prof['device_ms_per_step']:.4f} ms/step "
+                        f"in {prof['kernels_per_step']:.1f} kernels, "
+                        f"{prof['host_launches_per_step']:.1f} host launches "
+                        f"a step; K2mo {ms:.4f} ms a step")
+            phase(msg)
+            del model
+    prof_1 = step_profile(lambda: sl_model.run(max_steps=5, state=ss0), 5)
+    phase(f"single-device SL eager step, same flow: device "
+          f"{prof_1['device_ms_per_step']:.4f} ms/step in "
+          f"{prof_1['kernels_per_step']:.1f} kernels, "
+          f"{prof_1['host_launches_per_step']:.1f} host launches a step")
+    for r in rows.values():
+        r["single_device_sl_step_device_ms"] = prof_1["device_ms_per_step"]
+    phase(f"mesh SL and substep phases {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -1193,7 +1390,9 @@ def main() -> None:
             ("richardson_free", "K1u (TRACK = false)", 4),
             ("forcing_momentum", "K2m (ADVECT_T = false)", 2),
             ("richardson_operands", "K1o (OPS = true)", 2),
-            ("forcing_operands", "K2o (OPS = true)", 2)):
+            ("forcing_operands", "K2o (OPS = true)", 2),
+            ("forcing_momentum_operands",
+             "K2mo (ADVECT_T = false, OPS = true)", 2)):
         rows = by_wrapper.get(wname, [])
         if len(rows) != n_inst:
             fail(f"expected {n_inst} {label} instances in ptxas's output, "
@@ -1778,8 +1977,11 @@ def main() -> None:
     half = N_STEPS // 2
     want_nl = {"forcing": half, "richardson": half, "faces_div": 0,
                "correct": half, "tridiag": 0}
-    l_nr, l_ng, _, _, _, nrows = graph_vs_run(
+    l_nr, l_ng, _, _, s_nse2, nrows = graph_vs_run(
         "NSE solver interval 2", nmodel, s0, want_nl)
+    # the single-device states after 20 steps that phase 6d's mesh runs
+    # are held against (a graph chunk's: run's to 1e-6, SL's bitwise)
+    mesh_refs = {"nse2": s_nse2}
     if not (nrows[1::2, 5] == 0).all():
         fail("NSE solver interval 2: a temperature substep reports "
              "Poisson iterations")
@@ -1816,7 +2018,7 @@ def main() -> None:
         if sl_calls != n_sl:
             fail(f"{label}: {sl_calls} semi-Lagrangian transports in "
                  f"{N_STEPS} steps, expected {n_sl}")
-        l_sr, l_sg, ms_sr, ms_sg, _, _ = graph_vs_run(
+        l_sr, l_sg, ms_sr, ms_sg, s_sl, _ = graph_vs_run(
             label, m_sl, ss0, want_s, run_sl, bitwise=True)
         phase(f"{label}: the transport ran {sl_calls} times in {N_STEPS} "
               f"steps; wrapper launches {l_sr} and forcing 0 (no fused K2 "
@@ -1825,6 +2027,7 @@ def main() -> None:
                "semi-Lagrangian NSE solver interval 2": "sl_nse2"}[label]
         record(key, l_sr)
         record_replay(f"{key}_graph", l_sg)
+        mesh_refs[key] = s_sl
     del sdmodel, snmodel
 
     # ---- 6b. the annulus ----------------------------------------------
@@ -1857,6 +2060,25 @@ def main() -> None:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, by_mesh=by_mesh, ptxas=by_wrapper[wname]))
+
+    # ---- 6d. the SL transport and the temperature substeps on the mesh -
+    sl_mesh_launches, k2mo_rows = mesh_sl_phases(dev, ss0, s0, mesh_refs,
+                                                 slmodel)
+    for label, counts in sl_mesh_launches.items():
+        record(label, counts)
+    main_sl = k2mo_rows[f"sl_mesh_{MAIN_MESH[0]}x{MAIN_MESH[1]}"]
+    report.append(dict(
+        name="K2mo forcing_momentum_operands", route="cuda",
+        source="dycoreplanet_tpu_torch/csrc/forcing.cu",
+        replaces="dycoreplanet_tpu/ops/pallas_stencil.py:373",
+        variant="halo_mode=operands, advect_T=False (per shard), "
+                "dycoreplanet_tpu/ops/pallas_stencil.py:116-131, 280-319, "
+                "499-514, 696-730",
+        max_abs_err=max(r["max_abs_err"] for r in k2mo_rows.values()),
+        ms=main_sl["ms"], plain_ms=main_sl["plain_ms"],
+        bound_ms=main_sl["bound_ms"], bound_by=main_sl["bound_by"],
+        library_ms=None, by_mesh=k2mo_rows,
+        ptxas=by_wrapper["forcing_momentum_operands"]))
 
     # ---- 7. CLI --------------------------------------------------------
     classic = os.path.join(HERE, "data",
@@ -1908,7 +2130,8 @@ def main() -> None:
     # ---- 8. report -----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
-    # mode; K2m: the semi-Lagrangian path), and on every eager path (K4
+    # mode; K2m: the semi-Lagrangian path; K1o, K2o: the mesh 2 x 4; K2mo:
+    # the SL mesh 2 x 4), and on every eager path (K4
     # also on the annulus direct path); replay_launches_by_path: the
     # device kernels torch.profiler counted in one replay of each path's
     # 20-step graph
@@ -1916,7 +2139,8 @@ def main() -> None:
     own = {"richardson": "main", "forcing": "main", "correct": "main",
            "faces_div": "direct", "tridiag": "direct",
            "richardson_free": "interval", "forcing_momentum": "sl",
-           "richardson_operands": main_mesh, "forcing_operands": main_mesh}
+           "richardson_operands": main_mesh, "forcing_operands": main_mesh,
+           "forcing_momentum_operands": f"sl_{main_mesh}"}
     for r in report:
         name = r["name"].split()[1]
         r["launches"] = by_path[name][own[name]]

@@ -1,7 +1,8 @@
 // K2: explicit forcing of the shell standard (advective) personality,
 // with the temperature transport fused in the same pass; K2m, the same
 // forcing without the transport (forcing_kernel<T, false, false>); and
-// K2o, K2 on one shard of a mesh (forcing_kernel<T, true, true>, below).
+// K2o and K2mo, K2 and K2m on one shard of a mesh (forcing_kernel<T,
+// true, true> and <T, false, true>, below).
 //
 // Replaces the Pallas kernel ShellForcingPallas._build_call
 // (dycoreplanet_tpu/ops/pallas_stencil.py:373), with advect_T = true
@@ -48,7 +49,11 @@
 //   * K2m (ADVECT_T = false) stages u0, u1, u2 only, forms no T flux and
 //     reads T at the cell alone (buoyancy), one coalesced load a plane:
 //     its planes and flux arrays in shared memory hold 3 fields, not 4
-//     (Lay<false>), and it reads no T_wall and writes no T_adv.
+//     (Lay<false>), and it reads no T_wall and writes no T_adv;
+//   * K2o / K2mo (OPS = true) stage a tile's halo from the shard where it
+//     lies in the shard and from the ghost operands where it leaves it
+//     (the exchange applied the pole roll and sign); K2mo stages no T
+//     ghost, reading T at the cell as K2m does, and takes no HLT / HOT.
 #include "shell_common.cuh"
 
 namespace {
@@ -114,7 +119,8 @@ struct Args {
   // the metric table's rows (nlat; K2o: the shard's plus one), and the
   // array's first row in the global grid and the global nlat (K2: 0, nlat)
   int mrows, j_off, nlat_glob;
-  // K2o's ghost operands (ops/forcing.py HALO_SHAPES); null for K2
+  // K2o's ghost operands (ops/forcing.py halo_shapes); null for K2, and
+  // HLT, HOT null for K2mo
   const T* HLu;
   const T* HLp;
   const T* HLf1;
@@ -612,10 +618,11 @@ int occupancy(int* blocks) {
 
 // NAME: one launch, K2 with advect_T != 0 (T_wall read, T_adv written),
 // else K2m (T_wall and T_adv unused, may be null). NAME_occupancy:
-// resident blocks an SM of that instance. NAME_operands: one launch of
-// K2o on a shard of nr x nlat x nlon cells whose first row is global row
-// j_off of nlat_glob, with its ghost operands and a metric table of
-// nlat + 1 rows (the transport fused: K2mo is not built).
+// resident blocks an SM of that instance. NAME_operands: one launch on a
+// shard of nr x nlat x nlon cells whose first row is global row j_off of
+// nlat_glob, with its ghost operands and a metric table of nlat + 1
+// rows: K2o with advect_T != 0, else K2mo (T_wall, T_adv, HLT and HOT
+// unused, may be null).
 #define FORCING_ARGS(T)                                                   \
   int nr, int nlat, int nlon, int RS, const T *u, const T *f0,            \
       const T *f1, const T *f2, const T *Tf, const T *p, const T *T_wall, \
@@ -641,7 +648,8 @@ int occupancy(int* blocks) {
     return advect_T ? occupancy<T, true>(blocks)                            \
                     : occupancy<T, false>(blocks);                          \
   }                                                                         \
-  extern "C" int NAME##_operands(FORCING_ARGS(T), int j_off, int nlat_glob, \
+  extern "C" int NAME##_operands(int advect_T, FORCING_ARGS(T), int j_off,  \
+                                 int nlat_glob,                             \
                                  const T* HLu, const T* HLp, const T* HLf1, \
                                  const T* HOu, const T* HOp, const T* HOf2, \
                                  const T* HLT, const T* HOT,                \
@@ -655,7 +663,8 @@ int occupancy(int* blocks) {
     A.HOf2 = HOf2;                                                          \
     A.HLT = HLT;                                                            \
     A.HOT = HOT;                                                            \
-    return launch<T, true, true>(A, stream);                                \
+    return advect_T ? launch<T, true, true>(A, stream)                      \
+                    : launch<T, false, true>(A, stream);                    \
   }
 
 FORCING_ENTRY(dp_forcing_f32, float)

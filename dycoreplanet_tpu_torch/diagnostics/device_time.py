@@ -25,11 +25,11 @@ KERNEL_NAMES = {"forcing": "forcing_kernel", "richardson": "rich_fused",
                 "tridiag": "thomas_"}
 # the instances of K1 and K2 by their template arguments: (the argument's
 # position, the wrapper when it is false) for K1u (TRACK) and K2m
-# (ADVECT_T), and the position of OPS, true for K1o and K2o
+# (ADVECT_T), and the position of OPS, true for K1o, K2o and K2mo (the
+# operands mode of K2m: "forcing_momentum_operands")
 VARIANTS = {"richardson": (5, "richardson_free"),
             "forcing": (1, "forcing_momentum")}
-OPERANDS = {"richardson": (6, "richardson_operands"),
-            "forcing": (2, "forcing_operands")}
+OPERANDS = {"richardson": 6, "forcing": 2}
 
 
 def template_args(kernel: str, part: str):
@@ -52,12 +52,12 @@ def wrapper_of(kernel: str) -> Optional[str]:
         if part in kernel:
             args = template_args(kernel, part)
             if wrapper in OPERANDS:
-                at, name = OPERANDS[wrapper]
-                if len(args) > at and not is_false(args[at]):
-                    return name
+                at = OPERANDS[wrapper]
+                ops = len(args) > at and not is_false(args[at])
                 at, name = VARIANTS[wrapper]
-                if len(args) > at and is_false(args[at]):
-                    return name
+                name = (name if len(args) > at and is_false(args[at])
+                        else wrapper)
+                return f"{name}_operands" if ops else name
             return wrapper
     return None
 

@@ -57,8 +57,12 @@ one or more devices; parallel/) the shell step runs the forcing and the
 Richardson stage as K2o and K1o on every shard (parallel/sharded_pallas.py,
 parallel/sharded_richardson.py), the Poisson solve as
 ``ShardedShellPoissonFastDiag``, and the rest in plain PyTorch on the
-shards (parallel/sharded_step.py): ``step``, ``run`` and ``multi_step``
-take a sharded state and run eagerly.
+shards (parallel/sharded_step.py); a semi-Lagrangian model runs K2mo
+(K2m's operands mode) and the transport on the shards
+(parallel/sharded_transport.py), and temperature substeps run the
+transport and the Richardson temperature solve on the shards.
+``step``, ``temperature_step``, ``run`` and ``multi_step`` take a
+sharded state and run eagerly.
 
 This slice runs the 3D spherical shell and the 2D annulus, standard
 (advective) personality, incremental projection, with the
@@ -115,10 +119,13 @@ class State(NamedTuple):
 class _MeshStages(NamedTuple):
     """The stages of the mesh step (``prepare_sharded``)."""
     mesh: Mesh
-    forcing: object          # ShardedShellForcing (K2o on every shard)
+    forcing: object          # ShardedShellForcing (K2o, or K2mo for SL,
+                             # on every shard)
     richardson: object       # ShardedShellRichardson (K1o on every shard)
     poisson: object          # ShardedShellPoissonFastDiag
     ops: object              # ShardedShellStep: the plain rest
+    transport: object        # ShardedSemiLagrangian (SL: every step and
+                             # substep) or ShardedEulerian (the substeps)
 
 
 class StepDiagnostics:
@@ -220,8 +227,7 @@ def _unsupported(params: Parameters) -> Optional[str]:
 # the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
 # refuses
 MESH_ANNULUS = "multi-device: the annulus on the mesh"
-MESH_PATHS = ("multi-device: direct, SL, NSE-interval and graph chunks on "
-              "the mesh")
+MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
 MESH_CG = "multi-device: CG, escalation and the plain path on the mesh"
 
 
@@ -382,7 +388,9 @@ class BoussinesqModel:
         if self._richardson_free is not None:
             out["richardson_free"] = self._richardson_free
         if self._mesh is not None:
-            out["forcing_operands"] = self._mesh.forcing.kern
+            kf = self._mesh.forcing.kern
+            out["forcing_operands" if kf.advect_T
+                else "forcing_momentum_operands"] = kf
             out["richardson_operands"] = self._mesh.richardson.kern
         return out
 
@@ -390,10 +398,12 @@ class BoussinesqModel:
     def prepare_sharded(self, mesh: Mesh) -> "BoussinesqModel":
         """Set this model up for sharded states on ``mesh`` (a ("lat",
         "lon") Mesh, parallel/mesh.py; its first shard on the model's
-        device): the forcing as K2o and the Richardson stage as K1o on
-        every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
-        (the JAX package's ``prepare_sharded`` on a platform that runs
-        its kernels). ``step``, ``run`` and ``multi_step`` then take
+        device): the forcing as K2o (K2mo with the semi-Lagrangian
+        transport) and the Richardson stage as K1o on every shard, the
+        Poisson solve as ``ShardedShellPoissonFastDiag`` (the JAX
+        package's ``prepare_sharded`` on a platform that runs its
+        kernels), the temperature transport on the shards. ``step``,
+        ``temperature_step``, ``run`` and ``multi_step`` then take
         sharded states (``parallel.mesh.shard_state``); global states
         still run the single-device step. Configurations the JAX package
         runs on its GSPMD plain path, or that this slice does not bring
@@ -406,6 +416,8 @@ class BoussinesqModel:
             make_sharded_richardson)
         from dycoreplanet_tpu_torch.parallel.sharded_step import (
             ShardedShellStep)
+        from dycoreplanet_tpu_torch.parallel.sharded_transport import (
+            ShardedEulerian, ShardedSemiLagrangian)
         from dycoreplanet_tpu_torch.solvers.spectral import (
             ShardedShellPoissonFastDiag)
 
@@ -414,10 +426,6 @@ class BoussinesqModel:
             raise _not_on_mesh(MESH_ANNULUS, f"the {self.geo.kind}")
         if self.helmholtz_direct is not None:
             raise _not_on_mesh(MESH_PATHS, "helmholtz solver = direct")
-        if self._semi_lagrangian is not None:
-            raise _not_on_mesh(MESH_PATHS, "semi-Lagrangian transport")
-        if self.params.NSE_solver_interval > 1:
-            raise _not_on_mesh(MESH_PATHS, "NSE solver interval > 1")
         if mesh.axis_names != ("lat", "lon"):
             raise ValueError(f"a shell mesh has axes ('lat', 'lon'), not "
                              f"{mesh.axis_names}")
@@ -439,10 +447,13 @@ class BoussinesqModel:
                 f"{num.residual_check_interval} has no sharded kernel "
                 "variant; running per-step residual checks on the mesh",
                 RuntimeWarning, stacklevel=2)
+        transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
+                     if self._semi_lagrangian is not None
+                     else ShardedEulerian(forcing.kern, mesh))
         self._mesh = _MeshStages(
             mesh, forcing, richardson,
             ShardedShellPoissonFastDiag(self.poisson_spectral, mesh),
-            ShardedShellStep(self, mesh))
+            ShardedShellStep(self, mesh), transport)
         return self
 
     def sharded_kernels(self) -> Dict[str, str]:
@@ -767,9 +778,10 @@ class BoussinesqModel:
         return new_state, packed, packed[10]
 
     def _mesh_step_impl(self, state: State, dt: float, full: bool = True):
-        """``_step_impl`` on a sharded state: K2o, K1o, the sharded Poisson
-        solve and the plain rest on the shards; the gate's verdict and the
-        packed diagnostics on the model's device (the mesh's first)."""
+        """``_step_impl`` on a sharded state: K2o (or K2mo and the sharded
+        semi-Lagrangian transport), K1o, the sharded Poisson solve and the
+        plain rest on the shards; the gate's verdict and the packed
+        diagnostics on the model's device (the mesh's first)."""
         mesh = self._mesh
         if mesh is None:
             raise ValueError("a sharded state needs prepare_sharded first")
@@ -780,7 +792,11 @@ class BoussinesqModel:
         u, u_faces, pres, T = state.u, state.u_faces, state.p, state.T
         dt = self._scalar(dt)
         dt_T = self._dt_T(dt)
-        rhs_u, T_adv = mesh.forcing(u, u_faces, T, pres, dt)
+        if mesh.forcing.kern.advect_T:
+            rhs_u, T_adv = mesh.forcing(u, u_faces, T, pres, dt)
+        else:
+            rhs_u = mesh.forcing(u, u_faces, T, pres, dt)
+            T_adv = mesh.transport(u, u_faces, T, dt_T)
         kT = self._scalar(self.dtype.type(dt_T)
                           * self.dtype.type(self.one_over_Pe))
         rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
@@ -836,6 +852,8 @@ class BoussinesqModel:
         temperature solve (Richardson, CG or direct), as in the JAX
         package, which runs no Pallas kernel here. Returns as
         ``_step_impl``."""
+        if is_sharded(state):
+            return self._mesh_temperature_step_impl(state, dt, full)
         geo = self.geo
         T = state.T
         dt_T = self._dt_T(dt)
@@ -855,6 +873,45 @@ class BoussinesqModel:
             torch.max(speed), torch.min(T_new), torch.max(T_new),
             torch.max(torch.abs(st.divergence(geo, list(state.u_faces)))),
             0, T_iters, [0] * geo.dim, temperature_residual=T_rnorm,
+            solver_ok=T_ok)
+        return new_state, packed, packed[10]
+
+    def _mesh_temperature_step_impl(self, state: State, dt: float,
+                                    full: bool = True):
+        """``_temperature_step_impl`` on a sharded state: the transport
+        (parallel/sharded_transport.py) and the Richardson temperature
+        solve on the shards (parallel/sharded_step.py), the diagnostics of
+        the frozen velocity from the fixed-order maxima. A full-CG
+        (escalated) substep is not on the mesh: it raises."""
+        mesh = self._mesh
+        if mesh is None:
+            raise ValueError("a sharded state needs prepare_sharded first")
+        if self._force_cg:
+            raise _not_on_mesh(MESH_CG, "a full-CG (escalated) temperature "
+                               "substep")
+        ops = mesh.ops
+        num = self.params.numerics
+        T = state.T
+        dt_T = self._dt_T(dt)
+        T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)
+        kT = self._scalar(self.dtype.type(dt_T)
+                          * self.dtype.type(self.one_over_Pe))
+        rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                          ops.T_lap_offset)
+        T_new, T_iters, T_rnorm, T_ok = ops.temperature_solve(
+            self.T_specs_hom, rhs_T, kT, T, num.fixed_solver_iters,
+            num.temperature_tol)
+        new_state = state._replace(T=T_new, time=state.time + dt_T,
+                                   step_number=state.step_number + 1)
+        if not full:
+            return new_state, None, self._f32(T_ok)
+        speed = state.u.map(lambda x: st.cell_max_speed(self.geo, x))
+        packed = self._pack(
+            ops.max(speed.map(lambda sp, d: torch.clamp(sp, min=1e-10) / d,
+                              ops.diameter)),
+            ops.max(speed), ops.min(T_new), ops.max(T_new),
+            ops.max(ops.divergence(state.u_faces).map(torch.abs)), 0,
+            T_iters, [0] * self.geo.dim, temperature_residual=T_rnorm,
             solver_ok=T_ok)
         return new_state, packed, packed[10]
 

@@ -26,13 +26,16 @@ it as it is, and ``ShellForcing`` adds the kernels to it.
 
 ``halo_mode="operands"`` is K2o, K2 on one shard of a mesh (the Pallas
 kernel's operands mode, pallas_stencil.py:116-131, 280-319, 708-719;
-driven by parallel/sharded_pallas.py): the call takes the shard's block
-and its lat and lon ghosts as the eight operands of ``halo_shapes``,
-pole closure already applied, and the shard's global offset, from which
-the wrapper cuts its metric, lat rows and T_wall. The kernel is
-``forcing_kernel<T, true, true>``; the plain version pads the block with
-the ghosts, runs ``Forcing`` on the padded block's geometry
-(mesh.shard_geometry) and crops.
+driven by parallel/sharded_pallas.py), and with ``advect_T`` false
+K2mo, K2m on one shard (pallas_stencil.py:499-514, 696-730: what a
+semi-Lagrangian model runs on a mesh): the call takes the shard's block
+and its lat and lon ghosts as the operands of ``halo_shapes`` (eight;
+six without the transport, which needs no T ghost), pole closure
+already applied, and the shard's global offset, from which the wrapper
+cuts its metric, lat rows and T_wall. The kernels are
+``forcing_kernel<T, true, true>`` and ``<T, false, true>``; the plain
+version pads the block with the ghosts, runs ``Forcing`` on the padded
+block's geometry (mesh.shard_geometry) and crops.
 """
 
 from __future__ import annotations
@@ -91,16 +94,18 @@ def plan(shape):
 _SCHEMES = {"muscl": 0, "upwind": 1, "centered": 2}
 
 
-def halo_shapes(local_shape):
+def halo_shapes(local_shape, advect_T: bool = True):
     """The operands mode's ghost operands and their shapes for a shard of
-    (nr, nlat, nlon) cells: two lat rows each side of u and T, one of p,
-    the next shard's first lat face (zero past the pole); the same
-    columns along lon. Rows and columns are ordered [g_-w .. g_-1, g_+1
-    .. g_+w]."""
+    (nr, nlat, nlon) cells: two lat rows each side of u and, with the
+    transport, T, one of p, the next shard's first lat face (zero past
+    the pole); the same columns along lon. Rows and columns are ordered
+    [g_-w .. g_-1, g_+1 .. g_+w]."""
     nr, nl, no = local_shape
-    return {"HLu": (3, nr, 4, no), "HLp": (nr, 2, no), "HLf1": (nr, 1, no),
-            "HOu": (3, nr, nl, 4), "HOp": (nr, nl, 2), "HOf2": (nr, nl, 1),
-            "HLT": (nr, 4, no), "HOT": (nr, nl, 4)}
+    out = {"HLu": (3, nr, 4, no), "HLp": (nr, 2, no), "HLf1": (nr, 1, no),
+           "HOu": (3, nr, nl, 4), "HOp": (nr, nl, 2), "HOf2": (nr, nl, 1)}
+    if advect_T:
+        out.update(HLT=(nr, 4, no), HOT=(nr, nl, 4))
+    return out
 
 
 class _Shard(NamedTuple):
@@ -207,10 +212,6 @@ class ShellForcing(Forcing):
         super().__init__(geo, **forcing)
         if halo_mode not in ("local", "operands"):
             raise ValueError(f"unknown halo mode {halo_mode!r}")
-        if halo_mode == "operands" and not advect_T:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP.md: multi-device: direct, SL, "
-                "NSE-interval and graph chunks on the mesh; K2mo)")
         # "local": the whole grid; "operands": one shard of local_shape,
         # its ghosts as operands
         self.halo_mode = halo_mode
@@ -313,7 +314,8 @@ class ShellForcing(Forcing):
         one = lambda x: Sharded([[x]])
         mesh = Mesh([[u.device]], ("lat", "lon"))
         return forcing_halos(one(u), tuple(one(f) for f in u_faces),
-                             one(T), one(pres), mesh)[0, 0]
+                             one(T), one(pres), mesh,
+                             advect_T=self.advect_T)[0, 0]
 
     def _shard(self, offset) -> _Shard:
         """The shard's plain Forcing and kernel tables, made on first
@@ -344,28 +346,26 @@ class ShellForcing(Forcing):
             self._shards[offset] = sh
         return sh
 
-    def plain_operands(self, u, u_faces, T, pres, dt, halos, offset):
-        """Plain version of K2o: the block padded by two cells with the
-        ghost operands (corners, which no axis-wise stencil reads, zero),
-        ``Forcing`` on the padded block's geometry, cropped. Returns
-        (rhs_u, T_adv)."""
-        fo = self._shard(offset).plain
-        H = halos
+    @staticmethod
+    def _pad(x, HL, HO, w):
+        """A block padded by two cells with ``w`` ghost rows and columns
+        (the rest of the pad, and the corners, which no axis-wise stencil
+        reads, zero)."""
+        out = x.new_zeros(x.shape[:-2] + (x.shape[-2] + 4, x.shape[-1] + 4))
+        hi = -2 + w if w < 2 else None
+        out[..., 2:-2, 2:-2] = x
+        out[..., 2 - w:2, 2:-2] = HL[..., :w, :]
+        out[..., -2:hi, 2:-2] = HL[..., w:, :]
+        out[..., 2:-2, 2 - w:2] = HO[..., :w]
+        out[..., 2:-2, -2:hi] = HO[..., w:]
+        return out
 
-        def pad(x, HL, HO, w):
-            out = x.new_zeros(x.shape[:-2] + (x.shape[-2] + 4,
-                                              x.shape[-1] + 4))
-            hi = -2 + w if w < 2 else None
-            out[..., 2:-2, 2:-2] = x
-            out[..., 2 - w:2, 2:-2] = HL[..., :w, :]
-            out[..., -2:hi, 2:-2] = HL[..., w:, :]
-            out[..., 2:-2, 2 - w:2] = HO[..., :w]
-            out[..., 2:-2, -2:hi] = HO[..., w:]
-            return out
-
+    @staticmethod
+    def _pad_faces(u_faces, HLf1, HOf2):
+        """The face arrays padded by two cells, with the next shard's first
+        lat face row and lon face column past the block (the only pad
+        faces an owned cell reads)."""
         def seam(x, HL=None, HO=None):
-            # a face array with the next shard's first row / column past
-            # the block (the only pad faces an owned cell reads)
             out = x.new_zeros(x.shape[:-2] + (x.shape[-2] + 4,
                                               x.shape[-1] + 4))
             out[..., 2:-2, 2:-2] = x
@@ -375,20 +375,46 @@ class ShellForcing(Forcing):
                 out[..., 2:-2, -2:-1] = HO
             return out
 
-        up = pad(u, H["HLu"], H["HOu"], 2)
-        fp = (seam(u_faces[0]), seam(u_faces[1], HL=H["HLf1"]),
-              seam(u_faces[2], HO=H["HOf2"]))
-        Tp = pad(T, H["HLT"], H["HOT"], 2)
-        pp = pad(pres, H["HLp"], H["HOp"], 1)
-        rhs_u = up + dt * fo.explicit_forcing(up, fp, pp, Tp)
-        T_adv = fo.advected_temperature(fp, Tp, dt * self.dt_T_factor)
-        return crop(rhs_u, 2).contiguous(), crop(T_adv, 2).contiguous()
+        return (seam(u_faces[0]), seam(u_faces[1], HL=HLf1),
+                seam(u_faces[2], HO=HOf2))
+
+    def transport_operands(self, u_faces, T, dt_T, halos, offset):
+        """The Eulerian T - dt_T u . grad T on one shard from the ghosts
+        HLT, HOT, HLf1 and HOf2 of ``halos``: ``Forcing``'s
+        advected_temperature on the block padded by two cells, with the
+        padded block's geometry, cropped (plain PyTorch: the operands
+        mode's transport, and on a mesh the Eulerian temperature
+        substep's)."""
+        fo = self._shard(offset).plain
+        H = halos
+        Tp = self._pad(T, H["HLT"], H["HOT"], 2)
+        fp = self._pad_faces(u_faces, H["HLf1"], H["HOf2"])
+        return crop(fo.advected_temperature(fp, Tp, dt_T), 2).contiguous()
+
+    def plain_operands(self, u, u_faces, T, pres, dt, halos, offset):
+        """Plain version of K2o and K2mo: the block padded by two cells
+        with the ghost operands, ``Forcing`` on the padded block's geometry
+        (mesh.shard_geometry), cropped. Returns (rhs_u, T_adv) with the
+        transport (``transport_operands``), else rhs_u. The forcing reads
+        T at the cell alone (the buoyancy)."""
+        fo = self._shard(offset).plain
+        H = halos
+        up = self._pad(u, H["HLu"], H["HOu"], 2)
+        fp = self._pad_faces(u_faces, H["HLf1"], H["HOf2"])
+        pp = self._pad(pres, H["HLp"], H["HOp"], 1)
+        Tp = torch.nn.functional.pad(T, (2, 2, 2, 2))
+        rhs_u = crop(up + dt * fo.explicit_forcing(up, fp, pp, Tp),
+                     2).contiguous()
+        if not self.advect_T:
+            return rhs_u
+        return rhs_u, self.transport_operands(
+            u_faces, T, dt * self.dt_T_factor, halos, offset)
 
     def call_operands(self, u, u_faces, T, pres, dt, halos, offset):
-        """K2o on one shard whose first cell is global (row, column)
-        ``offset``, its ghosts ``halos`` (``halo_shapes``): (rhs_u, T_adv)
-        on the shard. CPU tensors take the plain version; CUDA tensors
-        launch the kernel."""
+        """K2o (K2mo without the transport) on one shard whose first cell
+        is global (row, column) ``offset``, its ghosts ``halos``
+        (``halo_shapes``): (rhs_u, T_adv) on the shard, or rhs_u. CPU
+        tensors take the plain version; CUDA tensors launch the kernel."""
         if self.halo_mode != "operands":
             raise ValueError("call_operands is the operands mode's")
         if u.device.type == "cpu":
@@ -399,7 +425,8 @@ class ShellForcing(Forcing):
             "u": (u, (3,) + shp), "u_faces[0]": (u_faces[0], shp),
             "u_faces[1]": (u_faces[1], shp), "u_faces[2]": (u_faces[2], shp),
             "T": (T, shp), "p": (pres, shp),
-            **{k: (halos[k], s) for k, s in halo_shapes(shp).items()}})
+            **{k: (halos[k], s)
+               for k, s in halo_shapes(shp, self.advect_T).items()}})
         sh = self._shard(offset)
         key = (str(dev), dtype)
         tabs = sh.dev.get(key)
@@ -415,26 +442,30 @@ class ShellForcing(Forcing):
         if fn is None:
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             fn = kl.bind("forcing.cu", f"dp_forcing_{sfx}_operands",
-                         [I] * 4 + [P] * 9 + [D] * 7 + [I] * 4 + [P, P]
+                         [I] * 5 + [P] * 9 + [D] * 7 + [I] * 4 + [P, P]
                          + [I, I] + [P] * 8 + [P])
             self._fn[("operands", sfx)] = fn
-        rhs_u, T_adv = torch.empty_like(u), torch.empty_like(T)
+        rhs_u = torch.empty_like(u)
+        T_adv = torch.empty_like(T) if self.advect_T else None
         p = kl.ptr
+        opt = lambda x: p(x) if self.advect_T else None
         dtf = float(dt)
-        kl.check(fn(*shp, plan(shp)[0], p(u), p(u_faces[0]), p(u_faces[1]),
-                    p(u_faces[2]), p(T), p(pres), p(T_wall), p(M), p(lat),
+        kl.check(fn(int(self.advect_T), *shp, plan(shp)[0], p(u),
+                    p(u_faces[0]), p(u_faces[1]), p(u_faces[2]), p(T),
+                    p(pres), opt(T_wall), p(M), p(lat),
                     dtf, dtf * self.dt_T_factor, self.beta, self.T_ref,
                     self.rho_background, self.one_over_Re, self.omega_hat,
                     _SCHEMES[self.scheme],
                     int(self.coriolis_mode == "physical"),
                     int(self.buoyancy == "perturbation"),
-                    int(self.include_gradp), p(rhs_u), p(T_adv),
+                    int(self.include_gradp), p(rhs_u), opt(T_adv),
                     offset[0], self.geo.cell_shape[1],
                     *(p(halos[k]) for k in ("HLu", "HLp", "HLf1", "HOu",
-                                            "HOp", "HOf2", "HLT", "HOT")),
+                                            "HOp", "HOf2")),
+                    *(opt(halos.get(k)) for k in ("HLT", "HOT")),
                     kl.stream_of(u)), "forcing kernel (operands)")
         self.launches += 1
-        return rhs_u, T_adv
+        return (rhs_u, T_adv) if self.advect_T else rhs_u
 
     def __call__(self, u, u_faces, T, pres, dt):
         if self.halo_mode != "local":

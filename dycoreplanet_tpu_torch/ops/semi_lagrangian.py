@@ -46,14 +46,67 @@ def center_spacing(geo: Geometry, d: int) -> np.ndarray:
     return np.broadcast_to(m, geo.cell_shape)
 
 
+def make_tables(h64: np.ndarray, K: int, device, dtype):
+    """The tables of the interpolation on cells of shape h64.shape[1:]
+    (``h64``: the cells' widths, (dim, *cells)) from a field padded by K
+    per axis: (cell widths, flat index of each cell in the padded field,
+    the padded field's strides (dim, 1, ...) and the corner offsets
+    (2^dim, 1, ...), both int64), on ``device``."""
+    n = h64.shape[1:]
+    padded = [s + 2 * K for s in n]
+    strides = np.array([int(np.prod(padded[d + 1:])) for d in range(len(n))],
+                       np.int64)
+    base = np.zeros(n, np.int64)
+    for d in range(len(n)):
+        shape = [1] * len(n)
+        shape[d] = n[d]
+        base = base + (np.arange(n[d]) + K).reshape(shape) * strides[d]
+    corners = np.array([int(np.dot(c, strides)) for c in
+                        itertools.product((0, 1), repeat=len(n))], np.int64)
+    one = (1,) * len(n)
+    return (torch.as_tensor(h64, dtype=dtype, device=device),
+            torch.as_tensor(base, device=device),
+            torch.as_tensor(strides.reshape((-1,) + one), device=device),
+            torch.as_tensor(corners.reshape((-1,) + one), device=device))
+
+
+def interpolate(u: torch.Tensor, p: torch.Tensor, dt, tables, K: int
+                ) -> torch.Tensor:
+    """The departure-point interpolation of ``p``, a field padded by K
+    ghost layers per axis, with the cell velocities ``u`` (dim, *cells)
+    and ``tables`` (``make_tables``) for those cells: the transported
+    field, (*cells)."""
+    h, base, strides, corners = tables
+    dim = u.shape[0]
+    s = torch.clamp(dt * u / h, -K, K)
+    # the lower of the two offsets with a nonzero hat weight, kept in
+    # the window [-K, K - 1] (at s = -K the upper one carries 1)
+    lo = torch.clamp(torch.floor(-s), -K, K - 1)
+    w_lo = torch.clamp(1.0 - torch.abs(s + lo), min=0.0)
+    w_hi = torch.clamp(1.0 - torch.abs(s + (lo + 1.0)), min=0.0)
+    idx = base + (lo.to(torch.int64) * strides).sum(0)
+    vals = p.reshape(-1)[idx[None] + corners]
+    # the product weights of the 2^dim corners, axis 0 outermost
+    # (the JAX function's order: ((w_0 * w_1) * w_2))
+    w = torch.stack([w_lo, w_hi], 1)          # (dim, 2, *cells)
+    wc = w[0]
+    for d in range(1, dim):
+        wc = wc.unsqueeze(d) * w[d].reshape((1,) * d + tuple(w[d].shape))
+    terms = wc.reshape((-1,) + tuple(u.shape[1:])) * vals
+    out = terms[0]
+    for c in range(1, terms.shape[0]):
+        out = out + terms[c]
+    return out
+
+
 class SemiLagrangian:
     """Callable (u, f, dt) -> f at the backward departure points x - dt u,
     for one geometry, one set of ghost rules ``specs`` (one per axis, None
-    for a periodic one) and ``ghost_width`` K. The cell widths and the
-    cells' flat indices into the padded field are device tensors made
-    once per (device, dtype), so that a call makes no host copy (it runs
-    inside a CUDA graph's capture). ``calls`` counts the calls (a graph
-    replay makes none)."""
+    for a periodic one) and ``ghost_width`` K: ``pad`` and then
+    ``interpolate``. The cell widths and the cells' flat indices into the
+    padded field are device tensors made once per (device, dtype), so
+    that a call makes no host copy (it runs inside a CUDA graph's
+    capture). ``calls`` counts the calls (a graph replay makes none)."""
 
     def __init__(self, geo: Geometry, specs: Sequence[Optional[BCSpec]],
                  ghost_width: int = 2):
@@ -65,64 +118,29 @@ class SemiLagrangian:
         self.calls = 0
 
     def tables(self, device, dtype):
-        """(cell widths (dim, *cells), flat index of each cell in the
-        padded field, the padded field's strides (dim, 1, ...) and the
-        corner offsets (2^dim, 1, ...), both int64) on ``device``."""
+        """``make_tables`` for the geometry's cells on ``device``, made
+        once."""
         key = (str(device), dtype)
         t = self._dev.get(key)
         if t is None:
-            n = self.geo.cell_shape
-            K = self.K
-            padded = [s + 2 * K for s in n]
-            strides = np.array([int(np.prod(padded[d + 1:]))
-                                for d in range(len(n))], np.int64)
-            base = np.zeros(n, np.int64)
-            for d in range(len(n)):
-                shape = [1] * len(n)
-                shape[d] = n[d]
-                base = base + (np.arange(n[d]) + K).reshape(shape) * strides[d]
-            corners = np.array([int(np.dot(c, strides)) for c in
-                                itertools.product((0, 1), repeat=len(n))],
-                               np.int64)
-            one = (1,) * len(n)
-            t = (torch.as_tensor(self._h64, dtype=dtype, device=device),
-                 torch.as_tensor(base, device=device),
-                 torch.as_tensor(strides.reshape((-1,) + one), device=device),
-                 torch.as_tensor(corners.reshape((-1,) + one), device=device))
-            self._dev[key] = t
+            t = self._dev[key] = make_tables(self._h64, self.K, device, dtype)
         return t
+
+    def pad(self, f: torch.Tensor) -> torch.Tensor:
+        """``f`` with K ghost layers per axis, wall axes first: a Dirichlet
+        value is shaped for the unpadded slice of the later axes."""
+        geo = self.geo
+        for d in range(geo.dim):
+            f = pad_axis_width(f, d, self.specs[d], geo.axes[d].periodic,
+                               self.K)
+        return f
 
     def __call__(self, u: torch.Tensor, f: torch.Tensor, dt) -> torch.Tensor:
         """``u`` (dim, *cells) cell velocities, ``f`` (*cells): the
         transported field (not a tendency)."""
         self.calls += 1
-        geo = self.geo
-        dim, K = geo.dim, self.K
-        h, base, strides, corners = self.tables(f.device, f.dtype)
-        # K ghost layers per axis, wall axes first: a Dirichlet value is
-        # shaped for the unpadded slice of the later axes
-        p = f
-        for d in range(dim):
-            p = pad_axis_width(p, d, self.specs[d], geo.axes[d].periodic, K)
-        s = torch.clamp(dt * u / h, -K, K)
-        # the lower of the two offsets with a nonzero hat weight, kept in
-        # the window [-K, K - 1] (at s = -K the upper one carries 1)
-        lo = torch.clamp(torch.floor(-s), -K, K - 1)
-        w_lo = torch.clamp(1.0 - torch.abs(s + lo), min=0.0)
-        w_hi = torch.clamp(1.0 - torch.abs(s + (lo + 1.0)), min=0.0)
-        idx = base + (lo.to(torch.int64) * strides).sum(0)
-        vals = p.reshape(-1)[idx[None] + corners]
-        # the product weights of the 2^dim corners, axis 0 outermost
-        # (the JAX function's order: ((w_0 * w_1) * w_2))
-        w = torch.stack([w_lo, w_hi], 1)          # (dim, 2, *cells)
-        wc = w[0]
-        for d in range(1, dim):
-            wc = wc.unsqueeze(d) * w[d].reshape((1,) * d + tuple(w[d].shape))
-        terms = wc.reshape((-1,) + f.shape) * vals
-        out = terms[0]
-        for c in range(1, terms.shape[0]):
-            out = out + terms[c]
-        return out
+        return interpolate(u, self.pad(f), dt,
+                           self.tables(f.device, f.dtype), self.K)
 
 
 def semi_lagrangian_transport(geo: Geometry, u: torch.Tensor,

@@ -105,6 +105,24 @@ def pmax(x: Sharded, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def _half_turn_at(rows: Sharded, mesh: Mesh, a: int, b: int
+                  ) -> torch.Tensor:
+    """Shard (a, b)'s part of :func:`half_turn`."""
+    B = mesh.shape["lon"]
+    no = rows[0, 0].shape[-1]
+    nlon = B * no
+    dev = mesh.device(a, b)
+    start = (b * no + nlon // 2) % nlon
+    parts: List[torch.Tensor] = []
+    c = 0
+    while c < no:
+        s, col = divmod((start + c) % nlon, no)
+        take = min(no - col, no - c)
+        parts.append(rows[a, s][..., col:col + take].to(dev))
+        c += take
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
 def half_turn(rows: Sharded, mesh: Mesh) -> Sharded:
     """The global half-turn longitude roll of a lat ring cut over the lon
     shards: shard (a, b) gets the ring's values at lon + pi over its own
@@ -112,23 +130,7 @@ def half_turn(rows: Sharded, mesh: Mesh) -> Sharded:
     b + B/2 (a shard permute); for odd B the half turn falls inside a
     shard, and each shard's values come from two neighbouring shards
     (B = 1: the local roll by nlon/2)."""
-    A, B = mesh.shape["lat"], mesh.shape["lon"]
-    no = rows[0, 0].shape[-1]
-    nlon = B * no
-
-    def get(a, b):
-        dev = mesh.device(a, b)
-        start = (b * no + nlon // 2) % nlon
-        parts: List[torch.Tensor] = []
-        c = 0
-        while c < no:
-            s, col = divmod((start + c) % nlon, no)
-            take = min(no - col, no - c)
-            parts.append(rows[a, s][..., col:col + take].to(dev))
-            c += take
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-
-    return build(mesh, get)
+    return build(mesh, lambda a, b: _half_turn_at(rows, mesh, a, b))
 
 
 def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
@@ -184,3 +186,43 @@ def pad_block(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
         return out
 
     return x.map(pad, LH, LO)
+
+
+def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
+    """Every shard padded by ``width`` cells along each axis as ops/bc.py
+    ``pad_axis_width`` pads the whole field, axis after axis (the
+    semi-Lagrangian transport's pad, whose 2^3-corner gather reads the
+    diagonal cells too):
+
+      1. the radial axis, locally: ``r_pad(a, b, t)`` pads shard (a, b)'s
+         block ``t`` with its wall ghosts (None: no radial pad);
+      2. lat of the r-padded shard: the neighbours' rows, and past a pole
+         ghost k is interior row k - 1 at lon + pi (the POLE rule), in
+         the order [g_w .. g_1 | f | g_1 .. g_w] (not :func:`lat_halo`'s
+         repeated boundary ring);
+      3. lon (periodic) of the (r, lat)-padded shard, so that the corners
+         carry the lat ghosts, as the single-device wrap does.
+    """
+    if r_pad is not None:
+        x = build(mesh, lambda a, b: r_pad(a, b, x[a, b]))
+    A = mesh.shape["lat"]
+    ax = x[0, 0].dim() - 2
+    n = x[0, 0].shape[ax]
+    if n < width:
+        raise ValueError(f"a shard of {n} lat rows cannot give {width} "
+                         "ghost rows")
+    lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width, periodic=False)
+    first = x.map(lambda t: t.narrow(ax, 0, width))
+    last = x.map(lambda t: t.narrow(ax, n - width, width))
+
+    def pole(rows, a, b):
+        # ghost k (k = 1 nearest) mirrors interior row k - 1
+        return _half_turn_at(rows, mesh, a, b).flip(ax)
+
+    def lat(a, b):
+        lo_ab = pole(first, a, b) if a == 0 else lo[a, b]
+        hi_ab = pole(last, a, b) if a == A - 1 else hi[a, b]
+        return torch.cat([lo_ab, x[a, b], hi_ab], dim=ax)
+
+    return halo_pad(build(mesh, lat), mesh, "lon", ax + 1, width=width,
+                    periodic=True)

@@ -1,6 +1,7 @@
 """The forcing on a mesh: K2o, the forcing kernel in its operands halo
-mode, on every shard (counterpart of the JAX package's
-``parallel/sharded_pallas.py``).
+mode, on every shard, or K2mo, the same without the fused temperature
+transport, for a semi-Lagrangian model (counterpart of the JAX
+package's ``parallel/sharded_pallas.py``).
 
 Each shard runs the same kernel with its lat and lon ghost layers as
 operands (ops/forcing.py ``halo_shapes``), fetched from its neighbours
@@ -31,28 +32,49 @@ def _flip_vec(like: torch.Tensor) -> torch.Tensor:
                         device=like.device).reshape(3, 1, 1, 1)
 
 
-def forcing_halos(u: Sharded, u_faces, T: Sharded, pres: Sharded,
-                  mesh: Mesh) -> Sharded:
-    """Every shard's ghost operands of K2o (ops/forcing.py
-    ``halo_shapes``), as a Sharded of dicts."""
-    HLu = lat_halo(u, mesh, 2, sign=u.map(_flip_vec))
-    HLp = lat_halo(pres, mesh, 1, sign=1.0)
+def face_seams(u_faces, mesh: Mesh) -> dict:
+    """The next shard's first lat face (zero past the top pole) and lon
+    face, each a Sharded: HLf1, HOf2 of ops/forcing.py ``halo_shapes``."""
     _, HLf1 = exchange_ghosts(u_faces[1], mesh, "lat", 1, width=1,
-                              periodic=False)     # top shard: 0 = pole
-    HOu = lon_halo(u, mesh, 2)
-    HOp = lon_halo(pres, mesh, 1)
+                              periodic=False)
     _, HOf2 = exchange_ghosts(u_faces[2], mesh, "lon", 2, width=1,
                               periodic=True)
-    named = dict(HLu=HLu, HLp=HLp, HLf1=HLf1, HOu=HOu, HOp=HOp, HOf2=HOf2,
-                 HLT=lat_halo(T, mesh, 2, sign=1.0), HOT=lon_halo(T, mesh, 2))
+    return dict(HLf1=HLf1, HOf2=HOf2)
+
+
+def transport_halos(u_faces, T: Sharded, mesh: Mesh) -> dict:
+    """The ghosts of the Eulerian temperature transport on a mesh, each a
+    Sharded: the face seams and two T rows each side (the pole ring at
+    lon + pi, both rows the same) and columns (HLT, HOT)."""
+    return dict(face_seams(u_faces, mesh),
+                HLT=lat_halo(T, mesh, 2, sign=1.0), HOT=lon_halo(T, mesh, 2))
+
+
+def per_shard(named: dict, mesh: Mesh) -> Sharded:
+    """A dict of Sharded operands as a Sharded of dicts, each operand
+    contiguous."""
     return build(mesh, lambda a, b: {k: v[a, b].contiguous()
                                      for k, v in named.items()})
 
 
+def forcing_halos(u: Sharded, u_faces, T: Sharded, pres: Sharded,
+                  mesh: Mesh, advect_T: bool = True) -> Sharded:
+    """Every shard's ghost operands of K2o, or without the transport of
+    K2mo (no T ghosts, as in the JAX ``_local_step``), by the names of
+    ops/forcing.py ``halo_shapes``, as a Sharded of dicts."""
+    named = (transport_halos(u_faces, T, mesh) if advect_T
+             else face_seams(u_faces, mesh))
+    named.update(HLu=lat_halo(u, mesh, 2, sign=u.map(_flip_vec)),
+                 HLp=lat_halo(pres, mesh, 1, sign=1.0),
+                 HOu=lon_halo(u, mesh, 2), HOp=lon_halo(pres, mesh, 1))
+    return per_shard(named, mesh)
+
+
 class ShardedShellForcing:
     """The shell forcing on a ("lat", "lon") mesh: ``__call__(u, u_faces,
-    T, pres, dt)`` on Sharded fields -> (rhs_u, T_adv), Sharded, as
-    ShellForcing's on global arrays."""
+    T, pres, dt)`` on Sharded fields -> (rhs_u, T_adv), Sharded, or rhs_u
+    alone without the transport (K2mo), as ShellForcing's on global
+    arrays."""
 
     def __init__(self, base: ShellForcing, mesh: Mesh):
         nr, nlat, nlon = base.geo.cell_shape
@@ -78,9 +100,12 @@ class ShardedShellForcing:
             halo_mode="operands", local_shape=self.local)
 
     def __call__(self, u: Sharded, u_faces, T: Sharded, pres: Sharded, dt):
-        halos = forcing_halos(u, u_faces, T, pres, self.mesh)
+        halos = forcing_halos(u, u_faces, T, pres, self.mesh,
+                              self.kern.advect_T)
         _, nl, no = self.local
         out = build(self.mesh, lambda a, b: self.kern.call_operands(
             u[a, b], tuple(f[a, b] for f in u_faces), T[a, b], pres[a, b],
             dt, halos[a, b], (a * nl, b * no)))
+        if not self.kern.advect_T:
+            return out
         return (out.map(lambda o: o[0]), out.map(lambda o: o[1]))

@@ -2,7 +2,9 @@
 package leaves to GSPMD around its sharded kernels (the right-hand side
 of the temperature solve, the face and cell correction of the
 projection, the volume means, the divergence spot-check and the packed
-diagnostics' reductions).
+diagnostics' reductions; in a temperature substep the Jacobi-Richardson
+temperature solve). The temperature transport on the mesh is
+parallel/sharded_transport.py.
 
 Each stencil runs the port's plain operator on the shard padded by one
 cell from its neighbours (``halo.pad_block``: lat rows from the
@@ -52,6 +54,7 @@ class ShardedShellStep:
         self.vol = self.cut(model.vol, model.torch_dtype)
         self.T_lap_offset = self.cut(model.T_lap_offset, model.torch_dtype)
         self.diameter = self.cut(model.diameter, model.torch_dtype)
+        self.T_diag = self.cut(model.T_diag, model.torch_dtype)
         self.total_vol = psum(self.vol.map(torch.sum), mesh)
 
     def cut(self, a: np.ndarray, dtype) -> Sharded:
@@ -122,6 +125,39 @@ class ShardedShellStep:
                 out = t if out is None else out + t
             return out
         return self.total(build(self.mesh, one))
+
+    def weak_laplacian(self, x: Sharded, specs) -> Sharded:
+        """st.weak_laplacian of a scalar on every shard, from the shard
+        padded by one cell (the pole ghosts: the ring at lon + pi, the
+        POLE rule of ``specs``' lat axis)."""
+        xp = pad_block(x, self.mesh, 1, sign=1.0)
+        return build(self.mesh, lambda a, b: crop(st.weak_laplacian(
+            self.geo_pad[a, b], xp[a, b], specs), 1))
+
+    def temperature_solve(self, specs_hom, rhs_T: Sharded, kT, x0: Sharded,
+                          iters: int, rtol: float):
+        """(vol - kT weak_lap_hom) T = rhs_T by ``iters`` Jacobi-Richardson
+        sweeps on the shards (solvers/fixed.py ``richardson_solve``: the
+        residual tracked exactly, one exchange an apply), the residual and
+        b norms from the fixed-order sums: (T, iterations, residual norm,
+        converged), the norm and the verdict on the first device."""
+        vol = self.vol
+        diag = vol.map(lambda v, d: v + kT * d, self.T_diag)
+
+        def op(x):
+            return x.map(lambda t, v, w: v * t - kT * w, vol,
+                         self.weak_laplacian(x, specs_hom))
+
+        x = x0
+        r = rhs_T.map(torch.sub, op(x))
+        for _ in range(iters):
+            dx = r.map(torch.div, diag)
+            x = x.map(torch.add, dx)
+            r = r.map(torch.sub, op(dx))
+        eps = torch.finfo(rhs_T[0, 0].dtype).eps
+        rnorm = torch.sqrt(self.total(r.map(lambda t: torch.sum(t * t))))
+        bnorm = torch.sqrt(self.total(rhs_T.map(lambda t: torch.sum(t * t))))
+        return x, iters, rnorm, rnorm <= max(rtol, 16.0 * eps) * bnorm
 
     def max(self, f: Sharded) -> torch.Tensor:
         return pmax(f.map(torch.max), self.mesh)

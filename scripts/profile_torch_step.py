@@ -68,7 +68,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 # the instances of K1 and K2, by the wrapper that launches them
 VARIANT = {"richardson": "K1", "richardson_free": "K1u", "forcing": "K2",
            "forcing_momentum": "K2m", "richardson_operands": "K1o",
-           "forcing_operands": "K2o"}
+           "forcing_operands": "K2o", "forcing_momentum_operands": "K2mo"}
 
 
 def _category(name: str) -> str:

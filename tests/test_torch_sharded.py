@@ -421,8 +421,6 @@ def test_interval_mode_runs_per_step_checks_on_the_mesh():
 @pytest.mark.parametrize("over,item", [
     ({"space_dimension": 2}, MESH_ANNULUS),
     ({"numerics.helmholtz_solver": "direct"}, MESH_PATHS),
-    ({"numerics.temperature_advection": "semi-lagrangian"}, MESH_PATHS),
-    ({"NSE_solver_interval": 2}, MESH_PATHS),
     ({"numerics.fixed_solver_iters": 0}, MESH_CG),
 ])
 def test_refused_configurations_name_their_item(over, item):

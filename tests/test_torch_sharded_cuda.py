@@ -1,8 +1,9 @@
 """K1o and K2o, the Richardson and forcing kernels in their operands halo
+mode, and K2mo, the forcing without the temperature transport in that
 mode, on a CUDA card: on every shard of a mesh whose shards all lie on
 the card, each against its plain version on the same operands, and the
-shards' outputs stitched together against the single-device kernels K1
-and K2. Imports neither JAX nor the JAX package, so that it runs on a
+shards' outputs stitched together against the single-device kernels K1,
+K2 and K2m. Imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX; it skips without a card."""
 
 import numpy as np
@@ -128,3 +129,56 @@ def test_cuda_k1o_k2o_match_plain_versions(dtype):
                                      ((8, 16, 32), (2, 2), (2, 2)),
                                      ((4, 8, 16), (2, 4), (1, 1))):
         kernel_checks(shape, mesh_shape, dtype, iters)
+
+
+def k2mo_checks(shape, mesh_shape, dtype):
+    """K2mo against its plain version on every shard of a mesh on the card
+    (a semi-Lagrangian model: six ghost operands, rhs_u alone), and the
+    stitched shards against K2m; returns the max abs error."""
+    p = bench_params(shape, dtype)
+    p.numerics.temperature_advection = "semi-lagrangian"
+    dev = torch.device("cuda")
+    model = BoussinesqModel(p, device=dev)
+    A, B = mesh_shape
+    mesh = Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon"))
+    model.prepare_sharded(mesh)
+    f32 = model.torch_dtype == torch.float32
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(2e-3)
+    sh = shard_state(s0, model.geo, mesh)
+    kf = model._mesh.forcing.kern
+    assert not kf.advect_T
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh, advect_T=False)
+    _, nl, no = kf.local_shape
+    out, err = {}, 0.0
+    for (a, b), u in sh.u.items():
+        args = (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+        got = kf.call_operands(*args)
+        want = kf.plain_operands(*args)
+        torch.cuda.synchronize()
+        assert torch.is_tensor(got)
+        tol = (1e-5 if f32 else 1e-12) * float(want.abs().max())
+        _close(got, want, 0.0, tol, f"K2mo shard {(a, b)}")
+        err = max(err, float((got - want).abs().max()))
+        out[a, b] = got
+    k2m = model._forcing(s0.u, s0.u_faces, s0.T, s0.p, dt)
+    _close(unshard_field(build(mesh, lambda a, b: out[a, b])), k2m, 0.0,
+           (1e-5 if f32 else 1e-12) * float(k2m.abs().max()),
+           "K2mo stitched vs K2m")
+    assert kf.launches == A * B, "launches"
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_k2mo_matches_plain_version(dtype):
+    """On a card: K2mo on meshes of 2 x 4 and 2 x 2 shards, at a small
+    shell and at one whose shards no tile divides, each shard against its
+    plain version and the stitched outputs against K2m (f32 1e-5 x scale,
+    f64 1e-12 x scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    for shape in ((8, 16, 32), (6, 20, 36)):
+        for mesh_shape in ((2, 4), (2, 2)):
+            k2mo_checks(shape, mesh_shape, dtype)
