@@ -79,8 +79,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      1e-4, K2o and K1o A x B times a step and no single-device kernel,
      the state within 1e-4 of max|u| of the single-device run's (phase
      4), a second run bitwise the first; one shard's kernel, plain and
-     bound times; the mesh step's device ms, kernels and host launches a
-     step (torch.profiler) beside the single-device eager step's;
+     bound times, and K2o's launch plan (its radial chunk, blocks and
+     the card's resident slots: ops/forcing.py plan_operands); the mesh
+     step's device ms, kernels and host launches a step (torch.profiler)
+     beside the single-device eager step's;
   6d. the semi-Lagrangian transport and temperature substeps on the same
      meshes: K2mo (the forcing without the fused transport in its
      operands mode) on every shard against its plain version, f32 and
@@ -92,9 +94,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      A x B times an NSE step and no other forcing kernel, the transport
      on the shards every step (SL) or substep (Eulerian), the state
      within 1e-4 of max|u| of the single-device run's (phase 6), a
-     second run bitwise the first; K2mo's wrapper, plain and bound times
-     and its in-step time; the SL mesh step's device ms, kernels and host
-     launches a step beside the single-device SL eager step's;
+     second run bitwise the first; K2mo's wrapper, plain and bound times,
+     launch plan and in-step time; the SL mesh step's device ms, kernels
+     and host launches a step beside the single-device SL eager step's;
   7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
@@ -894,6 +896,25 @@ def step_profile(fn, n):
             "host_launches_per_step": launches / n, "kernel_ms_per_step": by}
 
 
+def launch_plan(kf, dev, dtype):
+    """The operands launch of K2o / K2mo on one shard, as its wrapper plans
+    it on this card: {rs, blocks, slots, per_sm, smem_bytes} and a line
+    that says it."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+
+    rs, grid, slots = kf.operands_plan(dev, dtype)
+    per_sm = kf.occupancy(dtype)
+    plan = dict(rs=rs, blocks=grid[0] * grid[1] * grid[2], slots=slots,
+                per_sm=per_sm, smem_bytes=k2.shared_bytes(
+                    torch.tensor([], dtype=dtype).element_size(),
+                    kf.advect_T, operands=True))
+    return plan, (f"launch a shard {kf.local_shape}: RS {rs}, "
+                  f"{plan['blocks']} blocks, {slots} resident slots "
+                  f"({slots // per_sm} SMs x {per_sm}), "
+                  f"{plan['smem_bytes']} bytes of shared memory a block")
+
+
 def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     """K2o and K1o on every shard of a mesh at the bench shape, on the
     seeded developed flow, against their plain versions with phase 3's
@@ -987,9 +1008,10 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     d1 = compare(f"K1o {what} stitched vs K1", [unshard_field(build(
         mesh, lambda a, b: out1[a, b][i])) for i in range(5)],
         [k1_out[0], k1_out[1]] + list(k1_out[2][:3]), tol1, tol1)
+    plan2, plan_msg = launch_plan(kf, dev, model.torch_dtype)
     phase(f"K2o / K1o {what}: every shard against its plain version, max "
           f"abs err {err2:.3e} / {err1:.3e}; stitched against K2 / K1 "
-          f"{d2:.3e} / {d1:.3e}")
+          f"{d2:.3e} / {d1:.3e}; K2o {plan_msg}")
     times = None
     if timing:
         itemsize = 4 if f32 else 8
@@ -1006,7 +1028,7 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
             "K2o": dict(ms=time_ms(lambda: kf.call_operands(*args2[0, 0])),
                         plain_ms=time_ms(
                             lambda: kf.plain_operands(*args2[0, 0]), reps=5),
-                        bound_ms=b2_ms, bound_by=b2_by),
+                        bound_ms=b2_ms, bound_by=b2_by, launch=plan2),
             "K1o": dict(ms=time_ms(lambda: kr.call_operands(*args1[0, 0])),
                         plain_ms=time_ms(
                             lambda: kr.plain_operands(*args1[0, 0]), reps=5),
@@ -1188,9 +1210,11 @@ def check_mesh_sl(dev, mesh_shape, dtype_name, timing=False):
         fail(f"SL transport {what}: the shards stitched together differ "
              f"from the single-device transport by "
              f"{float((shd - single).abs().max()):.3e}")
+    plan, plan_msg = launch_plan(kf, dev, model.torch_dtype)
     phase(f"K2mo {what}: every shard against its plain version, max abs "
           f"err {err:.3e}; stitched against K2m {d2:.3e}; the sharded SL "
-          f"transport stitched bitwise the single-device one")
+          f"transport stitched bitwise the single-device one; K2mo "
+          f"{plan_msg}")
     times = None
     if timing:
         itemsize = 4 if f32 else 8
@@ -1202,7 +1226,7 @@ def check_mesh_sl(dev, mesh_shape, dtype_name, timing=False):
         times = dict(ms=time_ms(lambda: kf.call_operands(*args[0, 0])),
                      plain_ms=time_ms(lambda: kf.plain_operands(*args[0, 0]),
                                       reps=5),
-                     bound_ms=b_ms, bound_by=b_by)
+                     bound_ms=b_ms, bound_by=b_by, launch=plan)
         phase(f"K2mo {what}, one shard {kf.local_shape}: kernel "
               f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
               f"bound {b_ms * 1e3:.2f} us ({b_by})")

@@ -54,6 +54,33 @@
 //     lies in the shard and from the ghost operands where it leaves it
 //     (the exchange applied the pole roll and sign); K2mo stages no T
 //     ghost, reading T at the cell as K2m does, and takes no HLT / HOT.
+//
+// K2o / K2mo on a shard (a quarter or an eighth of the grid) are bound by
+// the card's fill, not by its bytes: at K2's 16 planes a block, a shard
+// gives 32-64 blocks for 264 resident slots (132 SMs x 2), and the time
+// is one block's march, whatever the shard's size. So:
+//   * the radial chunk comes from the shard and the card (ops/forcing.py
+//     `plan_operands`: the fewest planes a resident slot marches, then
+//     the longest chunk, since each block repeats the prologue), down to
+//     one plane a block;
+//   * staging goes by rows, not by elements: each staged row of each
+//     field picks its source once (the shard's row, a lat ghost row of
+//     HL*, or zero past the ghosts) and goes as 16-byte cp.async chunks
+//     into rows that start on a 16-byte boundary at lon k0 - 4
+//     (Lay<…, true>: pitch TO + 8, k0 at column 4), the lon halo with
+//     the interior where it lies in the shard; at the shard's lon edge a
+//     field's two ghosts on that side are one pair in HO*, one copy
+//     (p's and the lon faces' one ghost a side go value by value). Where
+//     16-byte copies cannot be aligned (nlon not a multiple of 16 bytes'
+//     values, or a row operand's base pointer off a 16-byte boundary:
+//     Args::vec false) every value goes on its own. TMA boxes are not
+//     used: a tile's rows come from up to three arrays (the shard, HL*,
+//     HO*) with per-row sources, which one box cannot describe, and the
+//     copies stay in the threads' commit groups that the double buffer
+//     waits on.
+// What bounds them now is the staging's per-copy instructions (choosing
+// each chunk's source, once a plane) and the radial window's loads, both
+// repeated by every block (PERF.md §6-7, PR 10).
 #include "shell_common.cuh"
 
 namespace {
@@ -79,18 +106,31 @@ enum {
 // lat rows: cos, tan, sin, 1 / cos
 enum { L_COS = 0, L_TAN, L_SIN, L_ICOS, L_K };
 
+// a region's size in values, rounded up to 16 bytes in the operands mode
+template <bool OPS>
+constexpr int al(int n) {
+  return OPS ? (n + 3) / 4 * 4 : n;
+}
+
 // the shared-memory layout (in values) of a block; NF fields staged with
-// halo 2: u0, u1, u2 and, with the transport, T
-template <bool ADVECT_T>
+// halo 2: u0, u1, u2 and, with the transport, T. The operands mode (OPS)
+// starts every staged row (a field's and p's at lon k0 - 4) and every
+// region on a 16-byte boundary, for its 16-byte copies.
+template <bool ADVECT_T, bool OPS = false>
 struct Lay {
   static constexpr int NF = ADVECT_T ? 4 : 3;
+  // row pitches, and the column of lon k0 in a row: the fields (halo 2),
+  // p (halo 1), the lon faces (k0..k0+TO)
+  static constexpr int FP = OPS ? TO + 8 : PW, FK = OPS ? 4 : 2;
+  static constexpr int PP = OPS ? TO + 8 : QW, PK = OPS ? 4 : 1;
+  static constexpr int XW = OPS ? TO + 4 : TO + 1;
   // one staged plane: offsets into its buffer
-  static constexpr int O_F = 0;                      // u0, u1, u2(, T)
-  static constexpr int O_P = O_F + NF * PH * PW;     // p
-  static constexpr int O_F1 = O_P + (TL + 2) * QW;   // lat face velocities
-  static constexpr int O_F2 = O_F1 + NXL;            // lon face velocities
-  static constexpr int O_M = O_F2 + NXO;             // metric rows
-  static constexpr int PLANE = O_M + M_K * MR;
+  static constexpr int O_F = 0;                             // u0, u1, u2(, T)
+  static constexpr int O_P = O_F + NF * PH * FP;            // p
+  static constexpr int O_F1 = O_P + al<OPS>((TL + 2) * PP); // lat faces
+  static constexpr int O_F2 = O_F1 + al<OPS>(NXL);          // lon faces
+  static constexpr int O_M = O_F2 + al<OPS>(TL * XW);       // metric rows
+  static constexpr int PLANE = O_M + al<OPS>(M_K * MR);
   // the block's shared memory: two planes, the face fluxes, the lat rows
   static constexpr int O_XL = 2 * PLANE;             // NF fields' lat fluxes
   static constexpr int O_XO = O_XL + NF * NXL;       // NF fields' lon fluxes
@@ -129,6 +169,10 @@ struct Args {
   const T* HOf2;
   const T* HLT;
   const T* HOT;
+  // K2o: whether every staged row's interior may go as 16-byte copies
+  // (nlon a multiple of 16 bytes' values, the row operands 16-byte
+  // aligned); 0 for K2
+  int vec;
 };
 
 // radial window of one advected field along the thread's column
@@ -182,79 +226,140 @@ __device__ __forceinline__ int64_t plane_src(const Dims& g, int j0, int k0,
   return (int64_t)row * g.nlon + kk;
 }
 
-// K2o: the source of staged position (jj, kk) (shard coordinates) of a
-// field F with ghost width w: the shard, a lat ghost row of HL (nr, 2w,
-// nlon), a lon ghost column of HO (nr, nlat, 2w), or null (a corner,
-// which no stencil reads, or past the ghosts of a tile that overhangs
-// the shard)
+// K2o: the source rows of a staged row jj (shard coordinates) of a field
+// with wl lat ghost rows before the shard and wh after (HL: (nr, wl + wh,
+// nlon), rows [g_-wl .. g_-1, g_+1 .. g_+wh]): R, the shard's row or a
+// ghost row of HL, and G, the row's lon ghosts in HO ((nr, nlat, gw));
+// null where there is none (past the ghosts, and G of a lat ghost row: a
+// corner, which no stencil reads)
 template <typename T>
-__device__ __forceinline__ const T* ghost_src(const Dims& g, int i, int jj,
-                                              int kk, const T* F, const T* HL,
-                                              const T* HO, int w) {
-  const bool jin = jj >= 0 && jj < g.nlat, kin = kk >= 0 && kk < g.nlon;
-  if (jin && kin) return F + ((int64_t)i * g.nlat + jj) * g.nlon + kk;
-  if (kin) {
-    const int s = jj < 0 ? jj + w : jj - g.nlat + w;
-    if (s >= 0 && s < 2 * w)
-      return HL + ((int64_t)i * 2 * w + s) * g.nlon + kk;
-  } else if (jin) {
-    const int s = kk < 0 ? kk + w : kk - g.nlon + w;
-    if (s >= 0 && s < 2 * w)
-      return HO + ((int64_t)i * g.nlat + jj) * 2 * w + s;
+__device__ __forceinline__ void row_src(const Dims& g, int i, int jj,
+                                        const T* F, const T* HL, int wl,
+                                        int wh, const T* HO, int gw,
+                                        const T*& R, const T*& G) {
+  R = G = nullptr;
+  if (jj >= 0 && jj < g.nlat) {
+    R = F + ((int64_t)i * g.nlat + jj) * g.nlon;
+    if (HO != nullptr) G = HO + ((int64_t)i * g.nlat + jj) * gw;
+  } else if (jj < 0 ? jj >= -wl : jj - g.nlat < wh) {
+    R = HL + ((int64_t)i * (wl + wh) + (jj < 0 ? jj + wl : wl + jj - g.nlat))
+                 * g.nlon;
   }
-  return nullptr;
 }
 
+// K2o: stage column kk (shard coordinates) of a row with sources R and G
+// (row_src; ow[l|h] lon ghosts before and after the shard) into dst: the
+// row inside the shard, G beside it, zero past the ghosts
 template <typename T>
-__device__ __forceinline__ void stage_or_zero(T* dst, const T* src,
-                                              const T* any) {
+__device__ __forceinline__ void stage_col(T* dst, const T* R, const T* G,
+                                          int kk, int nlon, int owl,
+                                          int owh, const T* any) {
+  const T* src = nullptr;
+  if (kk >= 0 && kk < nlon) {
+    if (R != nullptr) src = R + kk;
+  } else if (G != nullptr && (kk < 0 ? kk >= -owl : kk - nlon < owh)) {
+    src = G + (kk < 0 ? kk + owl : owl + kk - nlon);
+  }
   stage(dst, src != nullptr ? src : any, src != nullptr);
+}
+
+// two values from device to shared memory (8 bytes in f32, 16 in f64),
+// both addresses aligned to their size; valid = false writes zeros
+template <typename T>
+__device__ __forceinline__ void stage_pair(T* dst, const T* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(2 * (int)sizeof(T)),
+               "r"(valid ? 2 * (int)sizeof(T) : 0)
+               : "memory");
+}
+
+// K2o: chunk c of a staged row whose column 0 is lon kb, V = 16 bytes'
+// values at lon kk = kb + c V, from the row's sources R and G (row_src,
+// ow[l|h] lon ghosts before and after the shard). With vec, the chunk is
+// one 16-byte copy where it lies in the shard; past the shard's lon edge
+// (nlon and kk multiples of V, so a chunk lies wholly in or out) a
+// halo-2 field's ghosts [g_-2, g_-1] and [g_+1, g_+2], each a pair in G,
+// land on a pair of the chunk, one copy each, and the rest is zero;
+// other rows (p, the faces) take their few ghosts value by value. Without
+// vec, every value on its own.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* drow, const T* R, const T* G,
+                                            int kb, int c, int nlon, int owl,
+                                            int owh, bool vec,
+                                            const T* any) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int kk = kb + c * V;
+  T* dst = drow + c * V;
+  if (vec && (R == nullptr || (kk >= 0 && kk + V <= nlon))) {
+    shell::stage16(dst, R != nullptr ? R + kk : any, R != nullptr);
+  } else if (vec && owl == 2) {
+#pragma unroll
+    for (int q = 0; q < V; q += 2) {
+      const T* src = G == nullptr ? nullptr
+                     : kk + q == -2 ? G
+                     : kk + q == nlon ? G + 2 : nullptr;
+      stage_pair(dst + q, src != nullptr ? src : any, src != nullptr);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      stage_col(dst + v, R, G, kk + v, nlon, owl, owh, any);
+  }
 }
 
 // stage plane i into buffer D (asynchronous; one commit group)
 template <bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
                                             int j0, int k0) {
-  using Y = Lay<ADVECT_T>;
+  using Y = Lay<ADVECT_T, OPS>;
   const Dims& g = A.g;
   const int64_t N = g.n_cells();
   const int64_t pi = (int64_t)i * g.nlat * g.nlon;
   if constexpr (OPS) {
+    constexpr int V = 16 / (int)sizeof(T);
+    constexpr int NC = (TO + 8) / V;      // chunks of a field or p row
+    constexpr int N1C = TO / V;           // of a lat face row
+    constexpr int N2C = (TO + V) / V;     // of a lon face row (k0..k0+TO)
     const int64_t nHL = (int64_t)g.nr * 4 * g.nlon;  // HLu's component stride
     const int64_t nHO = (int64_t)g.nr * g.nlat * 4;  // HOu's
-    for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
-      const int r = e / PW, c = e % PW;
-      const int jj = j0 - 2 + r, kk = k0 - 2 + c;
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-        stage_or_zero(D + Y::O_F + q * PH * PW + e,
-                      ghost_src(g, i, jj, kk, A.u + q * N, A.HLu + q * nHL,
-                                A.HOu + q * nHO, 2),
-                      A.u);
-      if constexpr (ADVECT_T)
-        stage_or_zero(D + Y::O_F + 3 * PH * PW + e,
-                      ghost_src(g, i, jj, kk, A.Tf, A.HLT, A.HOT, 2), A.Tf);
-      if (r >= 1 && r <= TL + 2 && c >= 1 && c <= TO + 2)
-        stage_or_zero(D + Y::O_P + (r - 1) * QW + c - 1,
-                      ghost_src(g, i, jj, kk, A.p, A.HLp, A.HOp, 1), A.p);
+    const bool vec = A.vec != 0;
+    // u0, u1, u2 (and T): PH rows from lon k0 - 4, halo 2
+    for (int e = threadIdx.x; e < Y::NF * PH * NC; e += THREADS) {
+      const int q = e / (PH * NC), r = e / NC % PH;
+      const bool isT = ADVECT_T && q == 3;
+      const T *R, *G;
+      row_src(g, i, j0 - 2 + r, isT ? A.Tf : A.u + q * N,
+              isT ? A.HLT : A.HLu + q * nHL, 2, 2,
+              isT ? A.HOT : A.HOu + q * nHO, 4, R, G);
+      stage_chunk(D + Y::O_F + (q * PH + r) * Y::FP, R, G, k0 - 4, e % NC,
+                  g.nlon, 2, 2, vec, A.u);
     }
-    // lat faces j0..j0+TL: row nlat is the next shard's first (HLf1)
-    for (int e = threadIdx.x; e < NXL; e += THREADS) {
-      const int jf = j0 + e / TO, kf = k0 + e % TO;
-      const T* src = nullptr;
-      if (kf < g.nlon)
-        src = jf < g.nlat ? A.f1 + pi + (int64_t)jf * g.nlon + kf
-              : (jf == g.nlat ? A.HLf1 + (int64_t)i * g.nlon + kf : nullptr);
-      stage_or_zero(D + Y::O_F1 + e, src, A.f1);
-    }
-    // lon faces k0..k0+TO: column nlon is the next shard's first (HOf2)
-    for (int e = threadIdx.x; e < NXO; e += THREADS) {
-      const int jj = min(j0 + e / (TO + 1), g.nlat - 1);
-      const int kf = k0 + e % (TO + 1);
-      const T* src = kf < g.nlon ? A.f2 + pi + (int64_t)jj * g.nlon + kf
-                     : (kf == g.nlon ? A.HOf2 + (int64_t)i * g.nlat + jj
-                                     : nullptr);
-      stage_or_zero(D + Y::O_F2 + e, src, A.f2);
+    // p (TL + 2 rows from lon k0 - 4, halo 1); the lat faces j0 .. j0 +
+    // TL, whose row nlat is the next shard's first (HLf1); the lon faces
+    // k0 .. k0 + TO of TL rows, whose column nlon is the next shard's
+    // first (HOf2)
+    constexpr int NP = (TL + 2) * NC, N1 = (TL + 1) * N1C, N2 = TL * N2C;
+    for (int e = threadIdx.x; e < NP + N1 + N2; e += THREADS) {
+      const T *R, *G;
+      if (e < NP) {
+        const int r = e / NC;
+        row_src(g, i, j0 - 1 + r, A.p, A.HLp, 1, 1, A.HOp, 2, R, G);
+        stage_chunk(D + Y::O_P + r * Y::PP, R, G, k0 - 4, e % NC, g.nlon, 1,
+                    1, vec, A.u);
+      } else if (e < NP + N1) {
+        const int r = (e - NP) / N1C;
+        row_src(g, i, j0 + r, A.f1, A.HLf1, 0, 1, (const T*)nullptr, 0, R,
+                G);
+        stage_chunk(D + Y::O_F1 + r * TO, R, G, k0, (e - NP) % N1C, g.nlon,
+                    0, 0, vec, A.u);
+      } else {
+        const int r = (e - NP - N1) / N2C;
+        row_src(g, i, j0 + r, A.f2, (const T*)nullptr, 0, 0, A.HOf2, 1, R,
+                G);
+        stage_chunk(D + Y::O_F2 + r * Y::XW, R, G, k0, (e - NP - N1) % N2C,
+                    g.nlon, 0, 1, vec, A.u);
+      }
     }
   } else {
     for (int e = threadIdx.x; e < PH * PW; e += THREADS) {
@@ -310,31 +415,34 @@ __device__ __forceinline__ void pole_signs(const Dims& g, T* D, int j0) {
 
 // the flux of field q through lat face j0 + fr at column k0 + fc of
 // the staged plane D (0 through the pole face past the grid)
-template <bool ADVECT_T, typename T>
+template <bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
                                          int q, int fr, int fc, int j0) {
-  using Y = Lay<ADVECT_T>;
+  using Y = Lay<ADVECT_T, OPS>;
   const int jf = j0 + fr, e = fr * TO + fc;
   T flux = T(0);
   if (A.j_off + jf < A.nlat_glob) {
-    const T* v = D + Y::O_F + q * PH * PW + fr * PW + fc + 2;  // cell jf - 2
+    // cell jf - 2
+    const T* v = D + Y::O_F + q * PH * Y::FP + fr * Y::FP + fc + Y::FK;
     const T uf = D[Y::O_F1 + e];
     flux = D[Y::O_M + M_ALAT_LO * MR + fr]
-           * (uf * shell::face_value<T>(v[0], v[PW], v[2 * PW], v[3 * PW],
-                                        A.j_off + jf == 0, false, uf,
-                                        A.scheme));
+           * (uf * shell::face_value<T>(v[0], v[Y::FP], v[2 * Y::FP],
+                                        v[3 * Y::FP], A.j_off + jf == 0,
+                                        false, uf, A.scheme));
   }
   S[Y::O_XL + q * NXL + e] = flux;
 }
 
 // the flux of field q through lon face k0 + fc of tile row fr
-template <bool ADVECT_T, typename T>
+template <bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
                                          int q, int fr, int fc) {
-  using Y = Lay<ADVECT_T>;
+  using Y = Lay<ADVECT_T, OPS>;
   const int e = fr * (TO + 1) + fc;
-  const T* v = D + Y::O_F + q * PH * PW + (fr + 2) * PW + fc;  // cell kf - 2
-  const T uf = D[Y::O_F2 + e];
+  // cell kf - 2
+  const T* v = D + Y::O_F + q * PH * Y::FP + (fr + 2) * Y::FP + fc
+               + (Y::FK - 2);
+  const T uf = D[Y::O_F2 + (OPS ? fr * Y::XW + fc : e)];
   S[Y::O_XO + q * NXO + e] =
       D[Y::O_M + M_ALON * MR + fr]
       * (uf * shell::face_value<T>(v[0], v[1], v[2], v[3], false, false, uf,
@@ -344,28 +452,29 @@ __device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
 // the lat and lon face fluxes of the NF fields on plane D: each thread
 // the lower lat and lon faces of its cell, and threads 0..NF*(TO+TL)-1
 // one of the faces past the tile (lat row TL, lon column TO)
-template <bool ADVECT_T, typename T>
+template <bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ void plane_fluxes(const Args<T>& A, const T* D,
                                              T* S, int j0) {
   constexpr int NF = Lay<ADVECT_T>::NF;
   const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
   for (int q = 0; q < NF; ++q) {
-    lat_flux<ADVECT_T>(A, D, S, q, ty, tx, j0);
-    lon_flux<ADVECT_T>(A, D, S, q, ty, tx);
+    lat_flux<ADVECT_T, OPS>(A, D, S, q, ty, tx, j0);
+    lon_flux<ADVECT_T, OPS>(A, D, S, q, ty, tx);
   }
   const int t = threadIdx.x;
   if (t < NF * TO)
-    lat_flux<ADVECT_T>(A, D, S, t / TO, TL, t % TO, j0);
+    lat_flux<ADVECT_T, OPS>(A, D, S, t / TO, TL, t % TO, j0);
   else if (t < NF * TO + NF * TL)
-    lon_flux<ADVECT_T>(A, D, S, (t - NF * TO) / TL, (t - NF * TO) % TL, TO);
+    lon_flux<ADVECT_T, OPS>(A, D, S, (t - NF * TO) / TL, (t - NF * TO) % TL,
+                            TO);
 }
 
 // the advective flux sum of field Q at the thread's cell (not yet / vol),
 // in the order of the axes; carries the radial flux of face i+1
-template <int Q, bool ADVECT_T, typename T>
+template <int Q, bool ADVECT_T, bool OPS, typename T>
 __device__ __forceinline__ T flux_sum(const Args<T>& A, const T* S,
                                       Win<T>& w, int i, T ar_hi, T uf_up) {
-  using Y = Lay<ADVECT_T>;
+  using Y = Lay<ADVECT_T, OPS>;
   T fup = T(0);
   if (i + 1 < A.g.nr)
     fup = ar_hi * (uf_up * shell::face_value<T>(w.m1, w.c, w.p1, w.p2, false, false,
@@ -404,7 +513,7 @@ __device__ __forceinline__ void win_shift(Win<T>& w) {
 template <typename T, bool ADVECT_T, bool OPS>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     forcing_kernel(const Args<T> A) {
-  using Y = Lay<ADVECT_T>;
+  using Y = Lay<ADVECT_T, OPS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* S = reinterpret_cast<T*>(smem_raw);
   PROBE_START;
@@ -434,6 +543,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     stage(S + Y::O_LAT + e,
           A.lat + (e / TL) * g.nlat + min(j0 + e % TL, g.nlat - 1), true);
   stage_plane<ADVECT_T, OPS>(A, S, ib, j0, k0);
+  PROBE(14);
 
   // the windows at the first plane, and the flux through its lower face
   Win<T> w0, w1, w2, wT;
@@ -448,6 +558,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   }
   T p_m1 = pcol(A.p, g, plane, jk, ib - 1), p_c = pcol(A.p, g, plane, jk, ib);
   T f0_c = A.f0[ib * plane + jk];
+  PROBE(15);
 
   for (int i = ib; i < ie; ++i) {
     T* D = S + ((i - ib) & 1) * Y::PLANE;
@@ -475,7 +586,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     if constexpr (!OPS) pole_signs<ADVECT_T>(g, D, j0);
     __syncthreads();
     PROBE(11);
-    plane_fluxes<ADVECT_T>(A, D, S, j0);
+    plane_fluxes<ADVECT_T, OPS>(A, D, S, j0);
     __syncthreads();
     PROBE(12);
 
@@ -483,11 +594,12 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     const T* Mt = D + Y::O_M + ty;
     auto m = [&](int ch) { return Mt[ch * MR]; };
     const T ar_hi = m(M_AR_HI);
-    const T s0 = flux_sum<0, ADVECT_T>(A, S, w0, i, ar_hi, f0_n);
-    const T s1 = flux_sum<1, ADVECT_T>(A, S, w1, i, ar_hi, f0_n);
-    const T s2 = flux_sum<2, ADVECT_T>(A, S, w2, i, ar_hi, f0_n);
+    const T s0 = flux_sum<0, ADVECT_T, OPS>(A, S, w0, i, ar_hi, f0_n);
+    const T s1 = flux_sum<1, ADVECT_T, OPS>(A, S, w1, i, ar_hi, f0_n);
+    const T s2 = flux_sum<2, ADVECT_T, OPS>(A, S, w2, i, ar_hi, f0_n);
     T sT = T(0);
-    if constexpr (ADVECT_T) sT = flux_sum<3, ADVECT_T>(A, S, wT, i, ar_hi, f0_n);
+    if constexpr (ADVECT_T)
+      sT = flux_sum<3, ADVECT_T, OPS>(A, S, wT, i, ar_hi, f0_n);
     // the cell's values; the windows move up a plane now, so that the
     // plane above's cells are not live through the arithmetic below
     const T ur = w0.c, ul = w1.c, up = w2.c;
@@ -510,8 +622,8 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
                           : T(0))
                      - m(M_ALAT_LO) * F1f[ty * TO + tx];
       const T alon = m(M_ALON);
-      const T dq_o = alon * F2f[ty * (TO + 1) + tx + 1]
-                     - alon * F2f[ty * (TO + 1) + tx];
+      const T dq_o = alon * F2f[ty * Y::XW + tx + 1]
+                     - alon * F2f[ty * Y::XW + tx];
       const T div_u = ((dq_r + dq_l) + dq_o) * ivol;
 
       T adv0 = s0 * ivol - ur * div_u;
@@ -538,12 +650,14 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       // explicit curvature corrections of the vector Laplacian
       const T idlat_lo = m(M_IDLAT_LO), idlat_hi = m(M_IDLAT_HI),
               idlon = m(M_IDLON);
-      const int cc = (ty + 2) * PW + tx + 2;
+      const int cc = (ty + 2) * Y::FP + tx + Y::FK;
       const T* F0 = D + Y::O_F;
-      const T* F1 = F0 + PH * PW;
-      const T* F2 = F1 + PH * PW;
-      const T dlat_ur = cgrad(F0[cc - PW], ur, F0[cc + PW], idlat_lo, idlat_hi);
-      const T dlat_ul = cgrad(F1[cc - PW], ul, F1[cc + PW], idlat_lo, idlat_hi);
+      const T* F1 = F0 + PH * Y::FP;
+      const T* F2 = F1 + PH * Y::FP;
+      const T dlat_ur =
+          cgrad(F0[cc - Y::FP], ur, F0[cc + Y::FP], idlat_lo, idlat_hi);
+      const T dlat_ul =
+          cgrad(F1[cc - Y::FP], ul, F1[cc + Y::FP], idlat_lo, idlat_hi);
       const T dlon_ur = cgrad(F0[cc - 1], ur, F0[cc + 1], idlon, idlon);
       const T dlon_ul = cgrad(F1[cc - 1], ul, F1[cc + 1], idlon, idlon);
       const T dlon_up = cgrad(F2[cc - 1], up, F2[cc + 1], idlon, idlon);
@@ -560,9 +674,10 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       T F2v = -adv2 + cor2 + A.iRe * visc2;
       if (A.include_gradp) {
         const T* P = D + Y::O_P;
-        const int pc = (ty + 1) * QW + tx + 1;
+        const int pc = (ty + 1) * Y::PP + tx + Y::PK;
         F0v = F0v - cgrad(p_m1, p_c, p_p1, m(M_IDR_LO), m(M_IDR_HI));
-        F1v = F1v - cgrad(P[pc - QW], p_c, P[pc + QW], idlat_lo, idlat_hi);
+        F1v = F1v - cgrad(P[pc - Y::PP], p_c, P[pc + Y::PP], idlat_lo,
+                          idlat_hi);
         F2v = F2v - cgrad(P[pc - 1], p_c, P[pc + 1], idlon, idlon);
       }
       const int64_t cell = (int64_t)i * plane + (int64_t)j * g.nlon + k;
@@ -583,7 +698,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
 
 template <typename T, bool ADVECT_T, bool OPS>
 int launch(const Args<T>& A, void* stream) {
-  const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
+  const int smem = Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(T);
   static bool smem_set = false;
   if (!smem_set && smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
@@ -601,24 +716,37 @@ int launch(const Args<T>& A, void* stream) {
 
 // resident blocks an SM of one instance (the dynamic shared memory of its
 // launch), into *blocks
-template <typename T, bool ADVECT_T>
+template <typename T, bool ADVECT_T, bool OPS>
 int occupancy(int* blocks) {
-  const int smem = Lay<ADVECT_T>::SMEM_VALUES * (int)sizeof(T);
+  const int smem = Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(T);
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T, ADVECT_T, false>,
+        forcing_kernel<T, ADVECT_T, OPS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
   }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, forcing_kernel<T, ADVECT_T, false>, THREADS, smem);
+      blocks, forcing_kernel<T, ADVECT_T, OPS>, THREADS, smem);
+}
+
+// K2o: whether every staged row may go as 16-byte copies: nlon a multiple
+// of 16 bytes' values, the row operands 16-byte aligned, and HOu / HOT
+// too, whose ghost pairs go as one copy each (HOp, HOf2: value by value)
+template <typename T>
+int rows_aligned(const Args<T>& A, bool advect_T) {
+  auto a16 = [](const T* p) { return ((uintptr_t)p & 15) == 0; };
+  return A.g.nlon % (16 / (int)sizeof(T)) == 0 && a16(A.u) && a16(A.p)
+         && a16(A.f1) && a16(A.f2) && a16(A.HLu) && a16(A.HLp)
+         && a16(A.HLf1) && a16(A.HOu)
+         && (!advect_T || (a16(A.Tf) && a16(A.HLT) && a16(A.HOT)));
 }
 
 }  // namespace
 
 // NAME: one launch, K2 with advect_T != 0 (T_wall read, T_adv written),
 // else K2m (T_wall and T_adv unused, may be null). NAME_occupancy:
-// resident blocks an SM of that instance. NAME_operands: one launch on a
+// resident blocks an SM of that instance, or with operands != 0 of the
+// operands instance (K2o, K2mo). NAME_operands: one launch on a
 // shard of nr x nlat x nlon cells whose first row is global row j_off of
 // nlat_glob, with its ghost operands and a metric table of nlat + 1
 // rows: K2o with advect_T != 0, else K2mo (T_wall, T_adv, HLT and HOT
@@ -644,9 +772,13 @@ int occupancy(int* blocks) {
     return advect_T ? launch<T, true, false>(A, stream)                     \
                     : launch<T, false, false>(A, stream);                   \
   }                                                                         \
-  extern "C" int NAME##_occupancy(int advect_T, int* blocks) {              \
-    return advect_T ? occupancy<T, true>(blocks)                            \
-                    : occupancy<T, false>(blocks);                          \
+  extern "C" int NAME##_occupancy(int advect_T, int operands,              \
+                                  int* blocks) {                            \
+    if (operands)                                                           \
+      return advect_T ? occupancy<T, true, true>(blocks)                    \
+                      : occupancy<T, false, true>(blocks);                  \
+    return advect_T ? occupancy<T, true, false>(blocks)                     \
+                    : occupancy<T, false, false>(blocks);                   \
   }                                                                         \
   extern "C" int NAME##_operands(int advect_T, FORCING_ARGS(T), int j_off,  \
                                  int nlat_glob,                             \
@@ -663,6 +795,7 @@ int occupancy(int* blocks) {
     A.HOf2 = HOf2;                                                          \
     A.HLT = HLT;                                                            \
     A.HOT = HOT;                                                            \
+    A.vec = rows_aligned(A, advect_T != 0);                                 \
     return advect_T ? launch<T, true, true>(A, stream)                      \
                     : launch<T, false, true>(A, stream);                    \
   }

@@ -224,6 +224,16 @@ __device__ __forceinline__ void stage(T* dst, const T* src, bool valid) {
                "r"(valid ? (int)sizeof(T) : 0)
                : "memory");
 }
+// 16 bytes from device to shared memory (cp.async.cg: cached in L2
+// only), both addresses 16-byte aligned; valid = false writes zeros and
+// reads nothing. Completes with stage's copies.
+__device__ __forceinline__ void stage16(void* dst, const void* src,
+                                        bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void stage_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

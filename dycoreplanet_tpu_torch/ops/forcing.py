@@ -35,7 +35,12 @@ already applied, and the shard's global offset, from which the wrapper
 cuts its metric, lat rows and T_wall. The kernels are
 ``forcing_kernel<T, true, true>`` and ``<T, false, true>``; the plain
 version pads the block with the ghosts, runs ``Forcing`` on the padded
-block's geometry (mesh.shard_geometry) and crops.
+block's geometry (mesh.shard_geometry) and crops. A shard is a fraction
+of the grid, so the operands mode takes its radial chunk from the shard
+and the card (``plan_operands``: the fewest planes a resident slot
+marches) and stages its rows as 16-byte copies
+(``shared_bytes(..., operands=True)``: every staged row on a 16-byte
+boundary).
 """
 
 from __future__ import annotations
@@ -69,17 +74,25 @@ TILE = (8, 32)          # csrc/forcing.cu TL, TO: one thread per tile cell
 RADIAL_CHUNK = 16       # planes a block marches over
 
 
-def shared_bytes(itemsize: int, advect_T: bool = True) -> int:
+def shared_bytes(itemsize: int, advect_T: bool = True,
+                 operands: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/forcing.cu
     Lay::SMEM_VALUES): two staged planes (u0, u1, u2 and, with the
     transport, T with halo 2, p with halo 1, the lat and lon face
     velocities, 13 metric rows), those fields' lat and lon face fluxes,
-    and the tile's 4 lat rows."""
+    and the tile's 4 lat rows. The operands mode's rows are TO + 8 wide
+    (p's too, the lon faces' TO + 4), each region rounded up to 16
+    bytes."""
     tl, to = TILE
     nf = 4 if advect_T else 3
     n_xl, n_xo = (tl + 1) * to, tl * (to + 1)
-    plane = (nf * (tl + 4) * (to + 4) + (tl + 2) * (to + 2) + n_xl + n_xo
-             + 13 * (tl + 1))
+    if operands:
+        r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+        plane = (nf * (tl + 4) * (to + 8) + r4((tl + 2) * (to + 8))
+                 + r4(n_xl) + r4(tl * (to + 4)) + r4(13 * (tl + 1)))
+    else:
+        plane = (nf * (tl + 4) * (to + 4) + (tl + 2) * (to + 2) + n_xl
+                 + n_xo + 13 * (tl + 1))
     return itemsize * (2 * plane + nf * (n_xl + n_xo) + 4 * tl)
 
 
@@ -88,6 +101,23 @@ def plan(shape):
     block b owns radial chunk b // (n_lat_tiles * n_lon_tiles)."""
     nr, nlat, nlon = shape
     rs = min(RADIAL_CHUNK, nr)
+    return rs, (-(-nr // rs), -(-nlat // TILE[0]), -(-nlon // TILE[1]))
+
+
+def plan_operands(shape, sms: int, per_sm: int):
+    """``plan`` of the operands mode on a shard of ``shape`` on a card of
+    ``sms`` SMs, each holding ``per_sm`` blocks of the instance at once
+    (slots = sms * per_sm): the radial chunk RS with the fewest planes a
+    slot marches, ceil(blocks / slots) * RS, and of those the longest,
+    whose blocks repeat the prologue least (scripts/probe_k1_k2.py:
+    PERF.md §6, PR 10). A shard with fewer (plane, tile) pairs than
+    slots gets one plane a block; at 32x128x256 (K2's grid) the rule
+    gives K2's own 16."""
+    nr, nlat, nlon = shape
+    tiles = -(-nlat // TILE[0]) * -(-nlon // TILE[1])
+    slots = sms * per_sm
+    rs = min(range(1, nr + 1), key=lambda rs: (
+        -(-(-(-nr // rs) * tiles) // slots) * rs, -rs))
     return rs, (-(-nr // rs), -(-nlat // TILE[0]), -(-nlon // TILE[1]))
 
 
@@ -237,6 +267,7 @@ class ShellForcing(Forcing):
                                                 geo.cell_shape[1:]))
         self._dev = {}
         self._fn = {}
+        self._card = {}          # (device, dtype) -> (SMs, blocks an SM)
         self.launches = 0
 
     def plain(self, u, u_faces, T, pres, dt):
@@ -250,14 +281,28 @@ class ShellForcing(Forcing):
 
     def occupancy(self, dtype: torch.dtype) -> int:
         """Resident blocks an SM of this wrapper's kernel instance on the
-        card (CUDA's occupancy calculator at its launch's block size and
-        shared memory)."""
+        card (its transport and halo mode; CUDA's occupancy calculator at
+        its launch's block size and shared memory)."""
         blocks = ctypes.c_int(0)
         fn = kl.bind("forcing.cu", f"dp_forcing_{kl.suffix(dtype)}_occupancy",
-                     [ctypes.c_int, ctypes.c_void_p])
-        kl.check(fn(int(self.advect_T), ctypes.byref(blocks)),
-                 "forcing occupancy")
+                     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        kl.check(fn(int(self.advect_T), int(self.halo_mode == "operands"),
+                    ctypes.byref(blocks)), "forcing occupancy")
         return blocks.value
+
+    def operands_plan(self, device, dtype: torch.dtype):
+        """(planes per block, grid of tiles, resident slots) of the
+        operands mode's launch on ``device``: ``plan_operands`` of the
+        shard with the card's SM count and this instance's resident
+        blocks an SM, read once a device and dtype."""
+        key = (str(device), dtype)
+        card = self._card.get(key)
+        if card is None:
+            card = (torch.cuda.get_device_properties(
+                device).multi_processor_count, self.occupancy(dtype))
+            self._card[key] = card
+        rs, grid = plan_operands(self.local_shape, *card)
+        return rs, grid, card[0] * card[1]
 
     # ------------------------------------------------------------------
     def _launch(self, u, u_faces, T, pres, dt):
@@ -428,6 +473,7 @@ class ShellForcing(Forcing):
             **{k: (halos[k], s)
                for k, s in halo_shapes(shp, self.advect_T).items()}})
         sh = self._shard(offset)
+        rs = self.operands_plan(dev, dtype)[0]
         key = (str(dev), dtype)
         tabs = sh.dev.get(key)
         if tabs is None:
@@ -450,7 +496,7 @@ class ShellForcing(Forcing):
         p = kl.ptr
         opt = lambda x: p(x) if self.advect_T else None
         dtf = float(dt)
-        kl.check(fn(int(self.advect_T), *shp, plan(shp)[0], p(u),
+        kl.check(fn(int(self.advect_T), *shp, rs, p(u),
                     p(u_faces[0]), p(u_faces[1]), p(u_faces[2]), p(T),
                     p(pres), opt(T_wall), p(M), p(lat),
                     dtf, dtf * self.dt_T_factor, self.beta, self.T_ref,

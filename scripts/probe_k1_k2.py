@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Where the tiled kernels K1 (csrc/richardson.cu) and K2 (csrc/forcing.cu)
 spend their time on the card, at the bench shape (32x128x256 f32, seeded
-developed flow).
+developed flow), and K2o / K2mo (K2 and K2m in their operands mode) on
+the bench's shards.
 
-    python3 scripts/probe_k1_k2.py
+    python3 scripts/probe_k1_k2.py [--operands-only] [--root DIR]
+
+``--operands-only`` runs the K2o / K2mo part alone; ``--root DIR``
+imports the package from the checkout at DIR (another commit unpacked
+there), so that two commits' kernels are probed in one run.
 
 Prints
   * each kernel's time (diagnostics.device_time.time_ms: mean device time
@@ -15,23 +20,32 @@ Prints
     their clock64() probes compiled in (kernel_lib.use_macros, -DK_PROBE:
     thread 0 of each block adds the cycles since the previous probe to a
     counter). A phase's cycles include the waits at its closing barrier
-    and the instruction slots the other blocks of the SM take meanwhile.
+    and the instruction slots the other blocks of the SM take meanwhile;
+  * K2o and K2mo on shard (0, 0) of the meshes 2x2 and 2x4 (32x64x128
+    and 32x64x64 f32): the time under radial chunks RS of 1, 2, 3, 4, 8
+    and 16 planes a block beside the launch plan's own (its blocks and
+    the card's resident slots), and K2o's cycles per block in each phase
+    at the 2x4 shard under the plan.
 Needs one CUDA card; exits non-zero without one.
 """
 
+import argparse
 import ctypes
 import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+
+# radial chunks of the operands sweep
+OPS_CHUNKS = (1, 2, 3, 4, 8, 16)
 
 # the probe ids of csrc/richardson.cu and csrc/forcing.cu, by phase
 PHASES = {
     "richardson.cu": {0: "staging (each channel)", 1: "r = b - A x0",
                       2: "sweeps", 3: "tile: outputs, faces",
                       4: "Poisson rhs", 5: "block sums"},
-    "forcing.cu": {10: "barrier before a plane", 11: "staging, column loads",
+    "forcing.cu": {14: "prologue: copies issued", 15: "prologue: windows",
+                   10: "barrier before a plane", 11: "staging, column loads",
                    12: "lat / lon face fluxes", 13: "cell arithmetic"},
 }
 
@@ -54,12 +68,123 @@ def k1_tiles(rk, a1, shape):
     rk.plan = default
 
 
+def probe_cycles(src, fn, blocks, calls=20):
+    """Cycles per block per call in each probe phase of ``src`` over
+    ``calls`` calls of fn (a -DK_PROBE build), printed."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import kernel_lib as kl
+
+    lib = kl.library(src)
+    fn()
+    torch.cuda.synchronize()
+    lib.probe_zero()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    h = (ctypes.c_ulonglong * 32)()
+    lib.probe_read(h)
+    names = PHASES[src]
+    per = {k: h[k] / calls / blocks for k in names}
+    total = sum(per.values())
+    print(f"{src}: {blocks} blocks, cycles per block per call {total:.0f}:")
+    for k, name in names.items():
+        print(f"  {name:30s} {per[k]:9.0f}  {per[k] / total:6.1%}")
+
+
+def shard_call(mesh_shape, sl):
+    """K2o (K2mo with ``sl``) on shard (0, 0) of the bench model on a mesh
+    of the card: (wrapper, a call of it)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.parallel.mesh import Mesh, shard_state
+    from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+    p = bench_params(BENCH_SHAPE)
+    if sl:
+        p.numerics.temperature_advection = "semi-lagrangian"
+    dev = torch.device("cuda")
+    A, B = mesh_shape
+    m = BoussinesqModel(p, device=dev).prepare_sharded(
+        Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon")))
+    sh = shard_state(seed_developed_flow(m), m.geo, m._mesh.mesh)
+    kf = m._mesh.forcing.kern
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, m._mesh.mesh,
+                          advect_T=kf.advect_T)
+    args = (sh.u[0, 0], tuple(f[0, 0] for f in sh.u_faces), sh.T[0, 0],
+            sh.p[0, 0], m._scalar(BENCH_DT), halos[0, 0], (0, 0))
+    kf.call_operands(*args)       # built and bound before any timing
+    torch.cuda.synchronize()
+    return kf, lambda: kf.call_operands(*args)
+
+
+def chunk_plan(kf, rs):
+    """Patch the operands launch plan to ``rs`` planes a block (None: back
+    to the plan itself; a parent commit's wrapper reads ``plan(shape)``):
+    (planes a block, blocks) of the launch."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+
+    name = "plan_operands" if hasattr(k2, "plan_operands") else "plan"
+    if not hasattr(k2, "_probe_default"):
+        k2._probe_default = getattr(k2, name)
+    setattr(k2, name, k2._probe_default if rs is None
+            else (lambda shape, *card, rs=rs: (rs, None)))
+    nr, nl, no = kf.local_shape
+    if rs is None:
+        rs = (kf.operands_plan(torch.device("cuda"), torch.float32)[0]
+              if name == "plan_operands" else k2.plan(kf.local_shape)[0])
+    tiles = -(-nl // k2.TILE[0]) * -(-no // k2.TILE[1])
+    return rs, -(-nr // rs) * tiles
+
+
+def operands():
+    """K2o / K2mo by radial chunk at the bench's shards, and K2o's probe
+    cycles at the 2x4 shard under the launch plan."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import kernel_lib as kl
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for sl, name in ((False, "K2o"), (True, "K2mo")):
+        for mesh_shape in ((2, 2), (2, 4)):
+            kf, run = shard_call(mesh_shape, sl)
+            occ = (kf.occupancy(torch.float32)
+                   if hasattr(kf, "operands_plan") else None)
+            rs0, blocks0 = chunk_plan(kf, None)
+            print(f"{name} {mesh_shape[0]}x{mesh_shape[1]} shard "
+                  f"{kf.local_shape} f32, {sms} SMs x {occ} resident "
+                  f"blocks: the plan's RS {rs0} ({blocks0} blocks) "
+                  f"{time_ms(run):.4f} ms", flush=True)
+            for rs in OPS_CHUNKS:
+                _, blocks = chunk_plan(kf, rs)
+                print(f"  RS {rs:2d}: {blocks:4d} blocks, "
+                      f"{time_ms(run):.4f} ms", flush=True)
+            chunk_plan(kf, None)
+    kl.use_macros("K_PROBE")
+    kf, run = shard_call((2, 4), False)
+    rs, blocks = chunk_plan(kf, None)
+    print(f"K2o 2x4 shard under the plan (RS {rs}):")
+    probe_cycles("forcing.cu", run, blocks)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--operands-only", action="store_true")
+    ap.add_argument("--root", default=ROOT)
+    opts = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(opts.root))
     import torch
 
     if not torch.cuda.is_available():
         print("probe_k1_k2: needs a CUDA card", file=sys.stderr)
         return 1
+    print(torch.cuda.get_device_name(0), flush=True)
+    if opts.operands_only:
+        operands()
+        return 0
     from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import (
@@ -67,7 +192,6 @@ def main() -> int:
     from dycoreplanet_tpu_torch.ops import forcing as k2
     from dycoreplanet_tpu_torch.ops import kernel_lib as kl
 
-    print(torch.cuda.get_device_name(0), flush=True)
     m = BoussinesqModel(bench_params(BENCH_SHAPE), device="cuda")
     s = seed_developed_flow(m)
     fk, rk = m._forcing, m._richardson
@@ -100,23 +224,9 @@ def main() -> int:
     _, grid = k2.plan(BENCH_SHAPE)
     blocks["forcing.cu"] = grid[0] * grid[1] * grid[2]
     for src, fn in (("richardson.cu", run1), ("forcing.cu", run2)):
-        lib = kl.library(src)
-        fn()
-        torch.cuda.synchronize()
-        lib.probe_zero()
-        calls = 20
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        h = (ctypes.c_ulonglong * 32)()
-        lib.probe_read(h)
-        names = PHASES[src]
-        per = {k: h[k] / calls / blocks[src] for k in names}
-        total = sum(per.values())
-        print(f"{src}: {blocks[src]} blocks, cycles per block per call "
-              f"{total:.0f}:")
-        for k, name in names.items():
-            print(f"  {name:30s} {per[k]:9.0f}  {per[k] / total:6.1%}")
+        probe_cycles(src, fn, blocks[src])
+    kl.use_macros()
+    operands()
     return 0
 
 

@@ -3,7 +3,8 @@ mode, and K2mo, the forcing without the temperature transport in that
 mode, on a CUDA card: on every shard of a mesh whose shards all lie on
 the card, each against its plain version on the same operands, and the
 shards' outputs stitched together against the single-device kernels K1,
-K2 and K2m. Imports neither JAX nor the JAX package, so that it runs on a
+K2 and K2m; K2o and K2mo also on edge shards and misaligned operands,
+and under their launch plan against one radial chunk. Imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX; it skips without a card."""
 
 import numpy as np
@@ -182,3 +183,151 @@ def test_cuda_k2mo_matches_plain_version(dtype):
     for shape in ((8, 16, 32), (6, 20, 36)):
         for mesh_shape in ((2, 4), (2, 2)):
             k2mo_checks(shape, mesh_shape, dtype)
+
+
+def shard_operands(shape, mesh_shape, dtype, sl):
+    """A model of ``shape`` prepared for a mesh of A x B shards on the card
+    (with ``sl`` the semi-Lagrangian model, whose forcing is K2mo), and
+    the operands of its forcing kernel on every shard of the seeded
+    developed flow: (kernel wrapper, {(a, b): call_operands arguments})."""
+    p = bench_params(shape, dtype)
+    if sl:
+        p.numerics.temperature_advection = "semi-lagrangian"
+    dev = torch.device("cuda")
+    model = BoussinesqModel(p, device=dev)
+    A, B = mesh_shape
+    mesh = Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon"))
+    model.prepare_sharded(mesh)
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(2e-3)
+    sh = shard_state(s0, model.geo, mesh)
+    kf = model._mesh.forcing.kern
+    assert kf.advect_T == (not sl)
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh,
+                          advect_T=kf.advect_T)
+    _, nl, no = kf.local_shape
+    return kf, {(a, b): (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                         sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+                for (a, b), u in sh.u.items()}
+
+
+def _outputs(out):
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose first value lies one value
+    (4 bytes in f32, 8 in f64) past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_k2o_shards(kf, args, dtype, what):
+    """Every shard's kernel output against its plain version (f32 1e-5 x
+    scale, f64 1e-12 x scale); returns the outputs by shard."""
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    outs = {}
+    for ab, a in args.items():
+        got = _outputs(kf.call_operands(*a))
+        want = _outputs(kf.plain_operands(*a))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _close(g, w, 0.0, tol * float(w.abs().max()),
+                   f"{what} shard {ab}")
+        outs[ab] = got
+    return outs
+
+
+def ragged_depth(mesh_shape, dtype, nlat=128, nlon=256):
+    """The least depth nr whose shard (nr, nlat / A, nlon / B) the
+    operands plan cuts into radial chunks of which the last is short, on
+    this card."""
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+
+    dev = torch.device("cuda")
+    probe = BoussinesqModel(bench_params((4, nlat, nlon), dtype),
+                            device=dev)
+    A, B = mesh_shape
+    probe.prepare_sharded(Mesh(np.array([[dev] * B] * A, dtype=object),
+                               ("lat", "lon")))
+    kf = probe._mesh.forcing.kern
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = kf.occupancy(getattr(torch, dtype))
+    for nr in range(8, 65):
+        rs = k2.plan_operands((nr, nlat // A, nlon // B), sms, per_sm)[0]
+        if nr % rs:
+            return nr
+    raise AssertionError("the operands plan cuts no depth of 8-64 into a "
+                         "short last chunk on this card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("sl", [False, True], ids=["K2o", "K2mo"])
+def test_cuda_k2o_k2mo_edge_shards(dtype, sl):
+    """On a card: K2o and K2mo on every shard against their plain versions
+    where the plan's last radial chunk is short (a 2 x 2 mesh of 128 x
+    256 at the least such depth), where nlon is not a multiple of 16
+    bytes' values (rows value by value: shards 10 x 18 in f32, 10 x 9),
+    where a shard is narrower than a tile and its rows end inside the tile
+    (8 x 36: 16-byte copies, then the ghosts at the ragged end), and with
+    every operand one value off a 16-byte boundary, which must give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    what = "K2mo" if sl else "K2o"
+    nr = ragged_depth((2, 2), dtype)
+    for shape, mesh_shape in (((nr, 128, 256), (2, 2)),
+                              ((6, 20, 36), (2, 2)), ((6, 20, 36), (2, 4)),
+                              ((8, 16, 72), (2, 2))):
+        kf, args = shard_operands(shape, mesh_shape, dtype, sl)
+        outs = check_k2o_shards(kf, args, dtype, f"{what} {shape} "
+                                f"{mesh_shape}")
+        a = args[0, 0]
+        off = (_misaligned(a[0]), tuple(_misaligned(f) for f in a[1]),
+               _misaligned(a[2]), _misaligned(a[3]), a[4],
+               {k: _misaligned(h) for k, h in a[5].items()}, a[6])
+        got = _outputs(kf.call_operands(*off))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, outs[0, 0])), (
+            f"{what} {shape}: misaligned operands change the result")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("sl", [False, True], ids=["K2o", "K2mo"])
+def test_cuda_k2o_plan_matches_one_chunk(dtype, sl, monkeypatch, capsys):
+    """On a card, at the bench's shards (32 x 128 x 256 on 2 x 2 and 2 x
+    4): the operands plan's radial chunks against one chunk of all nr
+    planes a block (the launch plan before the shard chose it), within
+    K2o's tolerance (f32 1e-5 x scale, f64 1e-12 x scale); says whether
+    they agree to the last bit (a chunk's lower face flux is formed from
+    M_AR_LO where the plane below carries it from M_AR_HI)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+
+    what = "K2mo" if sl else "K2o"
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    for mesh_shape in ((2, 2), (2, 4)):
+        kf, args = shard_operands((32, 128, 256), mesh_shape, dtype, sl)
+        rs = kf.operands_plan(torch.device("cuda"), getattr(torch, dtype))[0]
+        planned = {ab: _outputs(kf.call_operands(*a))
+                   for ab, a in args.items()}
+        with monkeypatch.context() as mp:
+            mp.setattr(k2, "plan_operands",
+                       lambda shape, sms, per_sm: (shape[0], None))
+            whole = {ab: _outputs(kf.call_operands(*a))
+                     for ab, a in args.items()}
+        torch.cuda.synchronize()
+        bitwise = True
+        for ab in args:
+            for g, w in zip(planned[ab], whole[ab]):
+                _close(g, w, 0.0, tol * float(w.abs().max()),
+                       f"{what} {mesh_shape} shard {ab}: RS {rs} vs 32")
+                bitwise = bitwise and torch.equal(g, w)
+        with capsys.disabled():
+            print(f"\n{what} {dtype} {mesh_shape}: RS {rs} vs RS 32 "
+                  f"{'bitwise equal' if bitwise else 'not bitwise equal'}")
