@@ -75,12 +75,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      Richardson kernels in their operands halo mode) on every shard
      against their plain versions, f32 and f64, with phase 3's
      tolerances, and the shards' outputs stitched together against K2 and
-     K1; 20 gated steps through run, f32: 0 escalations, max|div u| <=
-     1e-4, K2o and K1o A x B times a step and no single-device kernel,
-     the state within 1e-4 of max|u| of the single-device run's (phase
-     4), a second run bitwise the first; one shard's kernel, plain and
-     bound times, and K2o's launch plan (its radial chunk, blocks and
-     the card's resident slots: ops/forcing.py plan_operands); the mesh
+     K1; K1o under its launch plan bitwise K1o on a (8, 8, 32) tile in
+     every output cell, its sums within K1o's tolerances; 20 gated steps
+     through run, f32: 0 escalations, max|div u| <= 1e-4, K2o and K1o A
+     x B times a step and no single-device kernel, the state within 1e-4
+     of max|u| of the single-device run's (phase 4), a second run bitwise
+     the first; one shard's kernel, plain and bound times, and the
+     launch plans of K2o (its radial chunk, blocks and the card's
+     resident slots: ops/forcing.py plan_operands) and K1o (its tile,
+     blocks, resident slots and shared memory: ops/richardson.py
+     plan_operands); the mesh
      step's device ms, kernels and host launches a step (torch.profiler)
      beside the single-device eager step's;
   6d. the semi-Lagrangian transport and temperature substeps on the same
@@ -915,6 +919,66 @@ def launch_plan(kf, dev, dtype):
                   f"{plan['smem_bytes']} bytes of shared memory a block")
 
 
+def k1o_launch_plan(kr, dev, dtype):
+    """The operands launch of K1o on one shard, as its wrapper plans it on
+    this card: {tile, blocks, slots, smem_bytes} and a line that says
+    it."""
+    ps, slots = kr.operands_plan(dev, dtype)
+    plan = dict(tile=list(ps.tile), blocks=ps.n_blocks, slots=slots,
+                smem_bytes=ps.smem_bytes)
+    return plan, (f"launch a shard {kr.local_shape}: tile {ps.tile}, "
+                  f"{ps.n_blocks} blocks, {slots} resident slots, "
+                  f"{ps.smem_bytes} bytes of shared memory a block")
+
+
+def check_k1o_plan_bits(kr, args1, out1, what, f32, eps):
+    """K1o under its plan against a (8, 8, 32) tile, the launch before the
+    shard chose its tile, on every shard: u*, T_new, the faces and
+    rhs_raw bitwise equal; the five sums within the K1o tolerances (their
+    per-block partials go in another order)."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+
+    planned = k1.plan_operands
+
+    def k1_tile(shape, sms, per_sm, itemsize, iters_u, iters_T):
+        tile, halo = (8, 8, 32), max(iters_u, iters_T) + 1
+        return k1.PassPlan(iters_u, iters_T, halo, tile, tuple(
+            -(-n // t) for n, t in zip(shape, tile)), k1.shared_bytes(
+                tile, halo, itemsize, operands=True))
+
+    k1.plan_operands = k1_tile
+    kr._card.clear()
+    try:
+        ref = {ab: kr.call_operands(*a) for ab, a in args1.items()}
+        torch.cuda.synchronize()
+    finally:
+        k1.plan_operands = planned
+        kr._card.clear()
+    for ab, got in out1.items():
+        for i, name in enumerate(("u*", "T_new", "f0", "f1", "f2",
+                                  "rhs_raw")):
+            if not torch.equal(got[i], ref[ab][i]):
+                fail(f"K1o {what} shard {ab}: {name} under the plan differs "
+                     f"from the (8, 8, 32) tile's by "
+                     f"{float((got[i] - ref[ab][i]).abs().max()):.3e}")
+        g = [float(x) for x in got[6]]
+        w = [float(x) for x in ref[ab][6]]
+        for k in (1, 3):
+            if not abs(g[k] - w[k]) <= (1e-5 if f32 else 1e-12) * w[k]:
+                fail(f"K1o {what} shard {ab}: |b|^2 {g[k]!r} vs the (8, 8, "
+                     f"32) tile's {w[k]!r}")
+        for r, bb in ((0, 1), (2, 3)):
+            rg, rw = g[r] ** 0.5, w[r] ** 0.5
+            if not abs(rg - rw) <= 0.1 * rw + 4 * eps * w[bb] ** 0.5:
+                fail(f"K1o {what} shard {ab}: |r| {rg!r} vs the (8, 8, 32) "
+                     f"tile's {rw!r}")
+        if not abs(g[4] - w[4]) <= (1e-4 if f32 else 1e-11) * float(
+                ref[ab][5].abs().sum()):
+            fail(f"K1o {what} shard {ab}: sum(rhs) {g[4]!r} vs the (8, 8, "
+                 f"32) tile's {w[4]!r}")
+
+
 def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     """K2o and K1o on every shard of a mesh at the bench shape, on the
     seeded developed flow, against their plain versions with phase 3's
@@ -922,8 +986,9 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     = atol = 2e-6, f64 1e-12, rhs_raw rtol 1e-4 and atol 2e-5 x scale, f64
     1e-11; the shard's sums: |b|^2 rtol 1e-5 (f64 1e-12), |r| within 0.1
     |r| + 4 eps |b|), and the shards' outputs stitched together against the
-    single-device K2 and K1. With ``timing``: shard (0, 0)'s wrapper and
-    plain times and its bound. Returns (K2o error, K1o error, timings)."""
+    single-device K2 and K1; K1o under its plan bitwise a (8, 8, 32)
+    tile's. With ``timing``: shard (0, 0)'s wrapper and plain times and
+    its bound. Returns (K2o error, K1o error, timings)."""
     import torch
     from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
     from dycoreplanet_tpu_torch.models.presets import (
@@ -1008,10 +1073,13 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
     d1 = compare(f"K1o {what} stitched vs K1", [unshard_field(build(
         mesh, lambda a, b: out1[a, b][i])) for i in range(5)],
         [k1_out[0], k1_out[1]] + list(k1_out[2][:3]), tol1, tol1)
+    check_k1o_plan_bits(kr, args1, out1, what, f32, eps)
     plan2, plan_msg = launch_plan(kf, dev, model.torch_dtype)
+    plan1, plan1_msg = k1o_launch_plan(kr, dev, model.torch_dtype)
     phase(f"K2o / K1o {what}: every shard against its plain version, max "
           f"abs err {err2:.3e} / {err1:.3e}; stitched against K2 / K1 "
-          f"{d2:.3e} / {d1:.3e}; K2o {plan_msg}")
+          f"{d2:.3e} / {d1:.3e}; K2o {plan_msg}; K1o {plan1_msg}, every "
+          f"shard's outputs bitwise a (8, 8, 32) tile's")
     times = None
     if timing:
         itemsize = 4 if f32 else 8
@@ -1032,7 +1100,7 @@ def check_mesh_kernels(dev, mesh_shape, dtype_name, timing=False):
             "K1o": dict(ms=time_ms(lambda: kr.call_operands(*args1[0, 0])),
                         plain_ms=time_ms(
                             lambda: kr.plain_operands(*args1[0, 0]), reps=5),
-                        bound_ms=b1_ms, bound_by=b1_by)}
+                        bound_ms=b1_ms, bound_by=b1_by, launch=plan1)}
         for name, t in times.items():
             phase(f"{name} {what}, one shard {kf.local_shape}: kernel "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "

@@ -9,9 +9,9 @@ per-step diagnostics and timer summaries, catch-all error reporting.
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--chunk N`` advances N steps per ``multi_step`` call (a CUDA graph on
 the card when dt is fixed) and pulls the chunk's diagnostics to the host
-in one copy. VTK output, checkpoints and the solver residual trails of
-``solver diagnostics level`` >= 3 are not ported yet and refused
-(ROADMAP.md).
+in one copy. VTK output, checkpoints, ``--write-mesh``, ``--profile``
+and the solver residual trails of ``solver diagnostics level`` >= 3 are
+not ported yet and refused (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -67,6 +67,11 @@ def main(argv=None) -> int:
     parser.add_argument("--chunk", type=int, default=1,
                         help="steps per multi_step chunk (one CUDA graph "
                              "replay on the card when dt is fixed)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="capture a profiler trace of the run into DIR "
+                             "(not ported yet)")
+    parser.add_argument("--write-mesh", action="store_true",
+                        help="dump the mesh before running (not ported yet)")
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="checkpoint every N steps (not ported yet)")
     parser.add_argument("--restart", default=None,
@@ -91,6 +96,11 @@ def main(argv=None) -> int:
     if args.checkpoint_every or args.restart:
         print("ERROR: checkpoints not yet ported (ROADMAP.md: VTK output "
               "and checkpoints)", file=sys.stderr)
+        return 1
+    if args.profile is not None or args.write_mesh:
+        flag = "--profile" if args.profile is not None else "--write-mesh"
+        print(f"ERROR: {flag} not yet ported (ROADMAP.md: VTK output and "
+              f"checkpoints)", file=sys.stderr)
         return 1
     if params.solver_diagnostics_print_level >= 3:
         # the JAX CLI prints per-solver residual trails here (its

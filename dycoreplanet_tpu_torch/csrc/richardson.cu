@@ -72,6 +72,29 @@
 // nonzero area. The outputs are the shard's owned cells and its five
 // sums, which the caller adds across the mesh in a fixed order. Always
 // tracked, one pass, and tiled at run time.
+//
+// K1o on a shard (a quarter or an eighth of the grid) is bound by the
+// card's fill, not by its bytes: at K1's (8, 8, 32) tile a shard gives
+// 64-128 blocks for 264 resident slots (132 SMs x 2), each walking the
+// four channels in turn, so the time is one block's, whatever the
+// shard's size. So:
+//   * the tile comes from the shard and the card (ops/richardson.py
+//     `plan_operands`: the fewest rounds of resident slots, weighted by
+//     the cells of a block's boxes), down to (4, 8, 16) on a 2 x 4 shard;
+//   * the boxes are staged by rows in 16-byte cp.async chunks: in the
+//     operands mode a box row is contiguous and never wraps, and with
+//     E = GH it starts at extended column k0 (level 0) or k0 + 1 (level
+//     1), so the x box rows have a pitch rounded up to 16 bytes and the
+//     level-1 rows one more value in front (column k0 at a 16-byte
+//     boundary); the (i, j) tables likewise where their rows allow. Each
+//     chunk chooses its row's source (the extended block, or zero past a
+//     wall, a pole or the block's edge); where the operands or the row
+//     length cannot be aligned (Pass::vrow / vtab false) every value goes
+//     on its own.
+// The four channels on the four blocks of a thread-block cluster (one
+// channel a block, the divergence summed through distributed shared
+// memory) lost to one block a tile at both bench shards, f32 and f64
+// (PERF.md §6: scripts/probe_k1_k2.py's sweep), and is not kept.
 #include "shell_common.cuh"
 
 namespace {
@@ -135,6 +158,9 @@ struct Pass {
   // 0); the grid's first row in the global grid and the global nlat (K1:
   // 0, nlat)
   int eL, eO, GH, j_off, nlat_glob;
+  // K1o: the boxes' rows (vrow) and the tables' rows (vtab) go as 16-byte
+  // copies
+  int vrow, vtab;
 };
 
 constexpr int WARPS = THREADS / 32;
@@ -179,7 +205,8 @@ __device__ __forceinline__ void block_sum5(T& a, T& b, T& c, T& d, T& e,
 // kRB, kTL, kTO, kE: the tile and halo as compile-time constants (the
 // bench's plan, so that box strides and divisions fold), or 0 to take
 // them from the pass at run time (every other plan). TRACK: the exactly
-// tracked residuals, or the residual-free variant (see the top)
+// tracked residuals, or the residual-free variant (see the top). OPS:
+// K1o
 template <typename T, int kRB, int kTL, int kTO, int kE, bool TRACK, bool OPS>
 __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -200,15 +227,24 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   // level 0 (the x box, halo E) and level 1 (the r / dx boxes, halo E-1)
   const int XA = RB + 2 * E, XB = TL + 2 * E, XC = TO + 2 * E;
   const int RA = XA - 2, RBx = XB - 2, RC = XC - 2;
-  const int nX = XA * XB * XC, nR = RA * RBx * RC;
+  // row pitches: K1o's x rows rounded up to 16 bytes, its level-1 rows
+  // one value more in front (L1), so that extended column k0 starts each
+  // row on a 16-byte boundary (see the top); K1's the boxes' widths
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int L1 = OPS ? 1 : 0;
+  const int XP = OPS ? (XC + V - 1) / V * V : XC;
+  const int RP = OPS ? (RC + V) / V * V : RC;
+  const int nX = XA * XB * XP, nR = RA * RBx * RP;
   const int nTile = RB * TL * TO, nTab = XA * XB;
   // two x boxes: channel q + 1's is staged while channel q computes
   T* sxb = reinterpret_cast<T*>(smem_raw);
-  T* sr = sxb + 2 * nX;
-  T* sdx = sr + nR;
-  T* sdiv = sdx + nR;
-  T* stab = sdiv + nTile;
+  T* sr_raw = sxb + 2 * nX;
+  T* sdx_raw = sr_raw + nR;
+  T* sdiv = sdx_raw + nR;
+  T* stab = sdiv + (OPS ? (nTile + V - 1) / V * V : nTile);
   T* sred = stab + S_K * nTab;
+  T* sr = sr_raw + L1;
+  T* sdx = sdx_raw + L1;
   const int64_t MS = (int64_t)g.nr * TR;
   // the input row (i, j, 0) of box row (a, b) at halo h, or -1 beyond a
   // wall or a pole (K1o: beyond the extended block)
@@ -221,16 +257,30 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     }
     return gj < 0 || gj >= g.nlat ? -1 : g.cell(gi, gj, 0);
   };
-  // stage an nA x nB x nC box of `src` at halo h into dst: rows beyond
-  // a wall or a pole are zero, longitude wraps (K1o: the extended block
-  // holds the neighbours' columns); neighbouring lanes copy neighbouring
-  // cells, so each copy instruction coalesces
-  auto stage_box = [&](T* dst, const T* src, int nA, int nB, int nC, int h) {
+  // stage an nA x nB x nC box of `src` at halo h into dst, row (a, b) at
+  // (a nB + b) pitch + lead: rows beyond a wall or a pole are zero,
+  // longitude wraps (K1o: the extended block holds the neighbours'
+  // columns); neighbouring lanes copy neighbouring cells, so each copy
+  // instruction coalesces. K1o with vrow: whole rows of `pitch` values
+  // from extended column k0 (E = GH) in 16-byte chunks, each zero past
+  // the block's edge (eO a multiple of V: a chunk lies wholly in or out)
+  auto stage_box = [&](T* dst, const T* src, int nA, int nB, int nC,
+                       int pitch, int lead, int h) {
+    if (OPS && P.vrow) {
+      for_box<THREADS>(nA, nB, pitch / V, [&](int a, int b, int j) {
+        const int64_t row = row_of(a, b, h);
+        const int ec = k0 + j * V;
+        const bool in = row >= 0 && ec < P.eO;
+        shell::stage16(dst + (a * nB + b) * pitch + j * V,
+                       src + (in ? row + ec : 0), in);
+      });
+      return;
+    }
     for_box<THREADS>(nA, nB, nC, [&](int a, int b, int c) {
       const int64_t row = row_of(a, b, h);
       const int ec = k0 - h + c + P.GH;
       const bool in = row >= 0 && (!OPS || (ec >= 0 && ec < P.eO));
-      stage(dst + (a * nB + b) * nC + c,
+      stage(dst + (a * nB + b) * pitch + lead + c,
             src + (in ? row + (OPS ? ec : wrap_any(k0 - h + c, g.nlon)) : 0),
             in);
     });
@@ -243,29 +293,41 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   auto own_col = [&](int c) { return c >= 0 && c < TO && k0 + c < g.nlon; };
 
   // tables of the (i, j) box, zero beyond the walls and the poles (K1o:
-  // beyond the walls and the shard's slab)
-  for (int e = threadIdx.x; e < nTab; e += blockDim.x) {
-    const int gi = i0 - E + e / XB, tj = j0 - E + e % XB + P.GH;
-    const bool in = gi >= 0 && gi < g.nr && tj >= 0 && tj < TR;
-    const int64_t mi = in ? (int64_t)gi * TR + tj : 0;
+  // beyond the walls and the shard's slab). K1o with vtab: rows of XB
+  // values from extended row j0 (E = GH) in 16-byte chunks
+  if (OPS && P.vtab) {
+    for_box<THREADS>(S_K, XA, XB / V, [&](int s, int a, int j) {
+      const int gi = i0 - E + a, tj = j0 + j * V;
+      const bool in = gi >= 0 && gi < g.nr && tj < TR;
+      const T* src = s < S_INVD ? P.M + kTableSource[s] * MS
+                                : P.invD + (s - S_INVD) * MS;
+      shell::stage16(stab + s * nTab + a * XB + j * V,
+                     src + (in ? (int64_t)gi * TR + tj : 0), in);
+    });
+  } else {
+    for (int e = threadIdx.x; e < nTab; e += blockDim.x) {
+      const int gi = i0 - E + e / XB, tj = j0 - E + e % XB + P.GH;
+      const bool in = gi >= 0 && gi < g.nr && tj >= 0 && tj < TR;
+      const int64_t mi = in ? (int64_t)gi * TR + tj : 0;
 #pragma unroll
-    for (int s = 0; s < 13; ++s)
-      stage(stab + s * nTab + e, P.M + kTableSource[s] * MS + mi, in);
+      for (int s = 0; s < 13; ++s)
+        stage(stab + s * nTab + e, P.M + kTableSource[s] * MS + mi, in);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      stage(stab + (S_INVD + q) * nTab + e, P.invD + q * MS + mi, in);
+      for (int q = 0; q < 4; ++q)
+        stage(stab + (S_INVD + q) * nTab + e, P.invD + q * MS + mi, in);
+    }
   }
 
   // x of channel q on the level-0 box, into buffer q % 2
   auto stage_x = [&](int q) {
     stage_box(sxb + (q & 1) * nX, q < 3 ? P.xu_in + q * NI : P.xT_in, XA, XB,
-              XC, E);
+              XC, XP, 0, E);
     stage_commit();
   };
   stage_x(0);
 
   T s_ru = T(0), s_bu = T(0), s_rT = T(0), s_bT = T(0), s_rhs = T(0);
-  const int sAx = XB * XC, sAr = RBx * RC;
+  const int sAx = XB * XP, sAr = RBx * RP;
 
   for (int q = 0; q < 4; ++q) {
     const bool mom = q < 3;
@@ -285,7 +347,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     // readers are done: the loop ends in a barrier
     const T* l1 = rin != nullptr ? rin : (b_is_x ? nullptr : bsrc);
     if (l1 != nullptr)
-      stage_box(rin != nullptr ? sr : sdx, l1, RA, RBx, RC, E - 1);
+      stage_box(rin != nullptr ? sr_raw : sdx_raw, l1, RA, RBx, RC, RP, L1,
+                E - 1);
     stage_commit();
     if (q < 3) {
       stage_x(q + 1);
@@ -323,9 +386,9 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
       for_rows<THREADS>(RA, RBx, RC, [&](int a, int b, int c0, int len) {
         const int t = (a + 1) * XB + b + 1;
         const T vol = stab[S_VOL * nTab + t];
-        const int ir0 = (a * RBx + b) * RC + c0;
+        const int ir0 = (a * RBx + b) * RP + c0;
         const bool sum_b = P.last && own_row(a + 1 - E, b + 1 - E);
-        lap_row(sx, t * XC + c0 + 1, len, sAx, XC, t, [&](int j, T x, T Lx) {
+        lap_row(sx, t * XP + c0 + 1, len, sAx, XP, t, [&](int j, T x, T Lx) {
           T bv = b_is_x ? x : sdx[ir0 + j];
           if (mom) bv = vol * bv;
           sr[ir0 + j] = bv - (vol * x - coef * Lx);
@@ -348,8 +411,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
                [&](int a, int b, int c0, int len) {
                  const int t = (a + s) * XB + b + s;
                  const T iD = tinv[t];
-                 const int ir = ((a + o) * RBx + b + o) * RC + c0 + o;
-                 const int ix = t * XC + c0 + s;
+                 const int ir = ((a + o) * RBx + b + o) * RP + c0 + o;
+                 const int ix = t * XP + c0 + s;
                  for (int j = 0; j < len; ++j) {
                    const T d = sr[ir + j] * iD;
                    sdx[ir + j] = d;
@@ -363,8 +426,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
                [&](int a, int b, int c0, int len) {
                  const int t = (a + s + 1) * XB + b + s + 1;
                  const T vol = stab[S_VOL * nTab + t];
-                 const int ir0 = ((a + s) * RBx + b + s) * RC + c0 + s;
-                 lap_row(sdx, ir0, len, sAr, RC, t, [&](int j, T d, T Ld) {
+                 const int ir0 = ((a + s) * RBx + b + s) * RP + c0 + s;
+                 lap_row(sdx, ir0, len, sAr, RP, t, [&](int j, T d, T Ld) {
                    sr[ir0 + j] = sr[ir0 + j] - (vol * d - coef * Ld);
                  });
                });
@@ -382,9 +445,9 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
       const int gi = i0 + a, gj = j0 + b;
       const int64_t cg = g.cell(gi, gj, k0 + c);
       const int t = (a + E) * XB + b + E;
-      const int ix = t * XC + c + E;
+      const int ix = t * XP + c + E;
       const T x = sx[ix];
-      const T r = sr[((a + E - 1) * RBx + b + E - 1) * RC + c + E - 1];
+      const T r = sr[((a + E - 1) * RBx + b + E - 1) * RP + c + E - 1];
       xout[cg] = x;
       if (!P.last) {
         rout[cg] = r;
@@ -414,9 +477,9 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
         fout = P.f0;
       } else if (q == 1) {
         // the pole faces by the global row
-        f = P.j_off + gj == 0 ? T(0) : T(0.5) * (sx[ix - XC] + x);
+        f = P.j_off + gj == 0 ? T(0) : T(0.5) * (sx[ix - XP] + x);
         aq_up = P.j_off + gj + 1 < P.nlat_glob
-                    ? stab[S_ALAT_HI * nTab + t] * (T(0.5) * (x + sx[ix + XC]))
+                    ? stab[S_ALAT_HI * nTab + t] * (T(0.5) * (x + sx[ix + XP]))
                     : T(0);
         a_lo = stab[S_ALAT_LO * nTab + t];
         fout = P.f1;
@@ -483,6 +546,21 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   }
 }
 
+// raise an instance's dynamic shared memory limit to `bytes` where a
+// launch (or an occupancy query) needs more than it has (per dtype; slot:
+// K1 / K1u 0-3, K1o 4)
+template <typename T>
+int allow_smem(void (*kernel)(const Pass<T>), int slot, int bytes) {
+  static int set[5] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024,
+                       48 * 1024};
+  if (bytes <= set[slot]) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err) return err;
+  set[slot] = bytes;
+  return 0;
+}
+
 template <typename T>
 int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
            int smem_bytes, const T* M, const T* invD, const T* xu_in,
@@ -496,7 +574,9 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   // the bench's plan runs a compile-time instance, which takes about 12%
   // less time on an H100 than the run-time-tiled one on the same plan
   // (PERF.md, Findings); -DK1_RUNTIME_TILE (scripts/probe_k1_k2.py) runs
-  // every plan on the latter. K1o (GH > 0) runs the run-time-tiled one.
+  // every plan on the latter. K1o (GH > 0) runs the run-time-tiled one:
+  // compile-time instances of its plans at the bench's shards spill
+  // (PERF.md §6).
   const bool ops = GH > 0;
 #ifdef K1_RUNTIME_TILE
   const bool bench = false;
@@ -510,14 +590,8 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
               : (bench ? rich_fused<T, 8, 8, 32, 2, false, false>
                        : rich_fused<T, 0, 0, 0, 0, false, false>);
   const int v = ops ? 4 : 2 * (track != 0) + bench;
-  static int smem_set[5] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024,
-                            48 * 1024};
-  if (smem_bytes > smem_set[v]) {
-    int err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err) return err;
-    smem_set[v] = smem_bytes;
-  }
+  const int err = allow_smem<T>(kernel, v, smem_bytes);
+  if (err) return err;
   Pass<T> P;
   P.g = Dims{nr, nlat, nlon};
   P.RB = RB;
@@ -558,9 +632,30 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   P.GH = GH;
   P.j_off = j_off;
   P.nlat_glob = nlat_glob;
+  // K1o's 16-byte rows (one pass of halo GH): the extended rows a
+  // multiple of 16 bytes, every tile's first column / row on a 16-byte
+  // boundary, the operands 16-byte aligned; the tables' rows also XB = TL
+  // + 2E values a multiple of 16 bytes
+  constexpr int V = 16 / (int)sizeof(T);
+  auto a16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  P.vrow = ops && E == GH && eO % V == 0 && (TO % V == 0 || P.nbo == 1) &&
+           a16(xu_in) && a16(xT_in) && a16(rhs_u) && a16(rhs_T);
+  P.vtab = ops && E == GH && eL % V == 0 && (TL + 2 * E) % V == 0 &&
+           (TL % V == 0 || P.nbl == 1) && a16(M) && a16(invD);
   const unsigned grid = (unsigned)(nbr * P.nbl * P.nbo);
   kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM of K1o's instance with smem_bytes of dynamic
+// shared memory, into *blocks
+template <typename T>
+int occupancy(int smem_bytes, int* blocks) {
+  void (*kernel)(const Pass<T>) = rich_fused<T, 0, 0, 0, 0, true, true>;
+  const int err = allow_smem<T>(kernel, 4, smem_bytes);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, THREADS, smem_bytes);
 }
 
 }  // namespace
@@ -569,6 +664,8 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
 // tracked pass on a shard of nr x nlat x nlon owned cells whose inputs
 // (and tables) are extended by GH cells in lat and lon (extents eL, eO),
 // the shard's first row being global row j_off of nlat_glob.
+// NAME_occupancy: resident blocks an SM of K1o's instance with
+// smem_bytes of dynamic shared memory.
 #define RICHARDSON_ARGS(T)                                                   \
   int nr, int nlat, int nlon, int RB, int TL, int TO, int E, int smem_bytes, \
       const T *M, const T *invD, const T *xu_in, const T *xT_in,             \
@@ -589,6 +686,9 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
                                  int nlat_glob, void* stream) {              \
     return RICHARDSON_CALL(1, nlat + 2 * GH, nlon + 2 * GH, GH, j_off,       \
                            nlat_glob);                                       \
+  }                                                                          \
+  extern "C" int NAME##_occupancy(int smem_bytes, int* blocks) {             \
+    return occupancy<T>(smem_bytes, blocks);                                 \
   }
 
 RICHARDSON_ENTRY(dp_richardson_f32, float)

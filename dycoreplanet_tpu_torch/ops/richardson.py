@@ -36,7 +36,11 @@ returns the owned cells and the shard's five raw sums, which the caller
 adds across the mesh. Its tables are the shard's lat-extended slab
 (:meth:`ShellRichardson.build_shard_metrics`). Same kernel source, the
 ``OPS = true`` instance; its plain version runs the plain solves and
-head on the extended block (mesh.shard_geometry) and crops.
+head on the extended block (mesh.shard_geometry) and crops. A shard is
+a fraction of the grid, so the operands mode takes its tile from the
+shard and the card (:func:`plan_operands`) and stages its rows as
+16-byte copies (``shared_bytes(..., operands=True)``: rows padded to 16
+bytes).
 
 The plain version is deliberately the straightforward composition the
 JAX package runs on the CPU: ``solvers.fixed.richardson_solve`` over the
@@ -70,8 +74,12 @@ OPS_PER_CELL_HEAD = 40
 
 THREADS = 256             # csrc/richardson.cu THREADS
 SHARED_TABLES = 17        # csrc/richardson.cu S_K: 13 metric channels + 4 1/D
+# the H100's shared memory an SM, what CUDA reserves of it a block, and
+# the kernel's static shared flag
+SMEM_PER_SM, SMEM_RESERVED, SMEM_STATIC = 233472, 1024, 16
 # tiles (radial, lat, lon) in order of preference; the first whose halo
-# fits shared memory is taken, each clipped to the grid
+# fits shared memory is taken, each clipped to the grid (`plan`; K1o's
+# `plan_operands` weighs them all)
 TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8),
          (2, 4, 8), (2, 2, 8), (2, 2, 4), (1, 2, 4), (1, 1, 4), (1, 1, 2),
          (1, 1, 1))
@@ -94,16 +102,26 @@ class PassPlan:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
-def shared_bytes(tile, halo: int, itemsize: int) -> int:
+def shared_bytes(tile, halo: int, itemsize: int,
+                 operands: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/richardson.cu's layout):
     two x boxes on the tile + halo (this channel's and the next one's),
     r and dx on the tile + halo - 1, the divergence of the tile, the
-    (i, j) tables and the warps' five partial sums."""
+    (i, j) tables and the warps' five partial sums. The operands mode's
+    rows are padded for 16-byte copies (x rows to a multiple of 16 bytes,
+    level-1 rows with one more value in front, the divergence to 16
+    bytes)."""
     RB, TL, TO = tile
     XA, XB, XC = RB + 2 * halo, TL + 2 * halo, TO + 2 * halo
-    n_x = XA * XB * XC
-    n_r = (XA - 2) * (XB - 2) * (XC - 2)
-    return itemsize * (2 * n_x + 2 * n_r + RB * TL * TO
+    n_tile = RB * TL * TO
+    XP, RP = XC, XC - 2
+    if operands:
+        v = 16 // itemsize
+        r = lambda n: -(-n // v) * v  # noqa: E731
+        XP, RP, n_tile = r(XC), r(XC - 1), r(n_tile)
+    n_x = XA * XB * XP
+    n_r = (XA - 2) * (XB - 2) * RP
+    return itemsize * (2 * n_x + 2 * n_r + n_tile
                        + SHARED_TABLES * XA * XB + 5 * (THREADS // 32))
 
 
@@ -143,6 +161,44 @@ def plan(shape, itemsize: int, iters_u: int, iters_T: int,
                                shared_bytes(tile, halo, itemsize)))
         if last:
             return tuple(passes)
+
+
+def resident_per_sm(smem_bytes: int, per_sm: int) -> int:
+    """Blocks of ``smem_bytes`` of dynamic shared memory an SM holds at
+    once, at most ``per_sm`` (what the instance's registers allow)."""
+    return min(per_sm, SMEM_PER_SM // (smem_bytes + SMEM_STATIC
+                                       + SMEM_RESERVED))
+
+
+def plan_operands(shape, sms: int, per_sm: int, itemsize: int, iters_u: int,
+                  iters_T: int) -> PassPlan:
+    """K1o's launch on a shard of ``shape`` on a card of ``sms`` SMs, each
+    holding at most ``per_sm`` blocks of the instance at once (its
+    registers; shared memory may allow fewer): one pass of halo
+    max(iters) + 1 on the tile of TILES (clipped to the shard) with the
+    fewest rounds of resident slots, ceil(blocks / slots), weighted by
+    the cells of a block's x box (the four channels each stage and sweep
+    one); then the larger tile, which recomputes less halo
+    (scripts/probe_k1_k2.py: PERF.md §6). At the whole 32 x 128 x 256
+    grid this is K1's (8, 8, 32)."""
+    halo = max(iters_u, iters_T) + 1
+    best = None
+    for t in TILES:
+        tile = tuple(min(a, n) for a, n in zip(t, shape))
+        smem = shared_bytes(tile, halo, itemsize, operands=True)
+        resident = resident_per_sm(smem, per_sm)
+        if smem > kl.SMEM_PER_BLOCK - SMEM_STATIC or resident < 1:
+            continue
+        grid = tuple(-(-n // a) for n, a in zip(shape, tile))
+        rounds = -(-grid[0] * grid[1] * grid[2] // (sms * resident))
+        key = (rounds * int(np.prod([a + 2 * halo for a in tile])),
+               -int(np.prod(tile)))
+        if best is None or key < best[0]:
+            best = (key, PassPlan(iters_u, iters_T, halo, tile, grid, smem))
+    if best is None:
+        raise ValueError(f"no Richardson tile of halo {halo} fits shared "
+                         f"memory")
+    return best[1]
 
 
 def static_tables(geo: Geometry, helm_diags, T_diag) -> np.ndarray:
@@ -223,6 +279,7 @@ class ShellRichardson:
         self._dev = {}           # (device, dtype[, shard row]) -> DeviceTables
         self._geos = {}          # shard offset -> extended shard geometry
         self._fn = {}
+        self._card = {}          # (device, dtype) -> (plan, resident slots)
         self.launches = 0
 
     def plan(self, dtype: torch.dtype) -> Tuple[PassPlan, ...]:
@@ -456,15 +513,44 @@ class ShellRichardson:
         self.launches += 1
         return out
 
+    def occupancy(self, dtype: torch.dtype, smem_bytes: int = 0) -> int:
+        """Resident blocks an SM of K1o's instance with ``smem_bytes`` of
+        dynamic shared memory (CUDA's occupancy calculator at its launch's
+        block size); with none, what its registers allow."""
+        blocks = ctypes.c_int(0)
+        fn = kl.bind("richardson.cu",
+                     f"dp_richardson_{kl.suffix(dtype)}_occupancy",
+                     [ctypes.c_int, ctypes.c_void_p])
+        kl.check(fn(int(smem_bytes), ctypes.byref(blocks)),
+                 "richardson occupancy")
+        return blocks.value
+
+    def operands_plan(self, device, dtype: torch.dtype):
+        """(plan, resident slots) of the operands mode's launch on
+        ``device``: ``plan_operands`` of the shard with the card's SM count
+        and the blocks an SM that the instance's registers allow, made
+        once a device and dtype; the slots are the card's resident blocks
+        of the instance at the plan's shared memory (CUDA's count)."""
+        key = (str(device), dtype)
+        card = self._card.get(key)
+        if card is None:
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            ps = plan_operands(self.local_shape, sms, self.occupancy(dtype),
+                               torch.finfo(dtype).bits // 8, self.iters_u,
+                               self.iters_T)
+            card = (ps, sms * self.occupancy(dtype, ps.smem_bytes))
+            self._card[key] = card
+        return card
+
     def _launch_operands(self, ru_e, rT_e, T0_e, dt, offset):
         dev, dtype = ru_e.device, ru_e.dtype
         j0 = offset[0]
         M, counter, invD, _, _ = self.tables(dt, dev, dtype, j0)
-        passes = self.plan(dtype)
-        if len(passes) != 1 or passes[0].halo != self.GH:
+        ps = self.operands_plan(dev, dtype)[0]
+        if ps.halo != self.GH:
             raise ValueError(f"the operands mode runs one pass of halo "
-                             f"{self.GH}; the plan is {passes}")
-        ps = passes[0]
+                             f"{self.GH}; the plan is {ps}")
         sfx = kl.suffix(dtype)
         fn = self._fn.get(("operands", sfx))
         if fn is None:

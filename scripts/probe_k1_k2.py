@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the tiled kernels K1 (csrc/richardson.cu) and K2 (csrc/forcing.cu)
 spend their time on the card, at the bench shape (32x128x256 f32, seeded
-developed flow), and K2o / K2mo (K2 and K2m in their operands mode) on
-the bench's shards.
+developed flow), and K2o / K2mo / K1o (K2, K2m and K1 in their operands
+mode) on the bench's shards.
 
     python3 scripts/probe_k1_k2.py [--operands-only] [--root DIR]
 
-``--operands-only`` runs the K2o / K2mo part alone; ``--root DIR``
+``--operands-only`` runs the K2o / K2mo / K1o part alone; ``--root DIR``
 imports the package from the checkout at DIR (another commit unpacked
 there), so that two commits' kernels are probed in one run.
 
@@ -25,7 +25,14 @@ Prints
     and 32x64x64 f32): the time under radial chunks RS of 1, 2, 3, 4, 8
     and 16 planes a block beside the launch plan's own (its blocks and
     the card's resident slots), and K2o's cycles per block in each phase
-    at the 2x4 shard under the plan.
+    at the 2x4 shard under the plan;
+  * K1o on shard (0, 0) of the meshes 2x2 and 2x4, f32 and f64: the time
+    of every tile of ops/richardson.py TILES whose halo fits shared
+    memory, with the blocks, the shared memory, the card's resident
+    blocks of that launch and the plan's pick marked; and K1o's cycles
+    per block in each phase at the 2x4 shard under the plan (f32). A
+    parent commit without the plan: its launch's time (a (8, 8, 32)
+    tile) and cycles.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -140,9 +147,112 @@ def chunk_plan(kf, rs):
     return rs, -(-nr // rs) * tiles
 
 
+def k1o_call(mesh_shape, dtype):
+    """K1o on shard (0, 0) of the bench model on a mesh of the card, its
+    extended operands from K2o's outputs on every shard and the halo
+    exchange, as the step forms them: (wrapper, a call of it)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.parallel.halo import halo_pad
+    from dycoreplanet_tpu_torch.parallel.mesh import Mesh, build, shard_state
+    from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+    dev = torch.device("cuda")
+    A, B = mesh_shape
+    m = BoussinesqModel(bench_params(BENCH_SHAPE, str(dtype)[6:]),
+                        device=dev).prepare_sharded(
+        Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon")))
+    mesh = m._mesh.mesh
+    sh = shard_state(seed_developed_flow(m), m.geo, mesh)
+    kf, kr = m._mesh.forcing.kern, m._mesh.richardson.kern
+    dt = m._scalar(BENCH_DT)
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh)
+    _, nl, no = kr.local_shape
+    out2 = {(a, b): kf.call_operands(
+        u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b], sh.p[a, b], dt,
+        halos[a, b], (a * nl, b * no)) for (a, b), u in sh.u.items()}
+    st5 = build(mesh, lambda a, b: torch.cat(
+        [out2[a, b][0], out2[a, b][1][None], sh.T[a, b][None]]))
+    st5 = halo_pad(st5, mesh, "lon", 3, width=kr.GH, periodic=True)
+    st5 = halo_pad(st5, mesh, "lat", 2, width=kr.GH, periodic=False)
+    e = st5[0, 0]
+    args = (e[:3], e[3], e[4], dt, (0, 0))
+    kr.call_operands(*args)       # built and bound before any timing
+    torch.cuda.synchronize()
+    return kr, lambda: kr.call_operands(*args)
+
+
+def k1o_force(kr, plan):
+    """Launch K1o under ``plan`` (a PassPlan; None: its own plan)."""
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+
+    if not hasattr(k1, "_probe_default"):
+        k1._probe_default = k1.plan_operands
+    k1.plan_operands = (k1._probe_default if plan is None
+                        else (lambda *card, plan=plan: plan))
+    kr._card.clear()
+
+
+def k1o_blocks(kr, dtype):
+    """(plan text, blocks) of K1o's own launch (a parent commit: the
+    whole-grid plan on the shard)."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+
+    if not hasattr(k1, "plan_operands"):
+        ps = kr.plan(dtype)[0]
+        return f"tile {ps.tile}", ps.n_blocks
+    ps, slots = kr.operands_plan(torch.device("cuda"), dtype)
+    return f"tile {ps.tile}, {slots} resident blocks", ps.n_blocks
+
+
+def k1o_sweep():
+    """K1o by tile at the bench's shards, f32 and f64."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import kernel_lib as kl
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        itemsize = torch.finfo(dtype).bits // 8
+        for mesh_shape in ((2, 2), (2, 4)):
+            kr, run = k1o_call(mesh_shape, dtype)
+            what, blocks = k1o_blocks(kr, dtype)
+            print(f"K1o {mesh_shape[0]}x{mesh_shape[1]} shard "
+                  f"{kr.local_shape} {dtype}: the plan {what}, {blocks} "
+                  f"blocks, {time_ms(run):.4f} ms", flush=True)
+            if not hasattr(k1, "plan_operands"):
+                continue
+            ps = kr.operands_plan(torch.device("cuda"), dtype)[0]
+            seen = set()
+            for t in k1.TILES:
+                tile = tuple(min(a, n) for a, n in zip(t, kr.local_shape))
+                if tile in seen:
+                    continue
+                seen.add(tile)
+                grid = tuple(-(-n // a) for n, a in zip(kr.local_shape, tile))
+                smem = k1.shared_bytes(tile, kr.GH, itemsize, operands=True)
+                if smem > kl.SMEM_PER_BLOCK - k1.SMEM_STATIC:
+                    continue
+                plan = k1.PassPlan(kr.iters_u, kr.iters_T, kr.GH, tile, grid,
+                                   smem)
+                k1o_force(kr, plan)
+                res = sms * kr.occupancy(dtype, smem)
+                mark = "  <- the plan" if tile == ps.tile else ""
+                print(f"  {str(tile):12s} {plan.n_blocks:6d} blocks, "
+                      f"{smem:6d} bytes, {res:3d} resident: "
+                      f"{time_ms(run):.4f} ms{mark}", flush=True)
+            k1o_force(kr, None)
+
+
 def operands():
     """K2o / K2mo by radial chunk at the bench's shards, and K2o's probe
-    cycles at the 2x4 shard under the launch plan."""
+    cycles at the 2x4 shard under the launch plan; K1o by tile, and its
+    probe cycles at the 2x4 shard under its plan."""
     import torch
     from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
     from dycoreplanet_tpu_torch.ops import kernel_lib as kl
@@ -163,11 +273,16 @@ def operands():
                 print(f"  RS {rs:2d}: {blocks:4d} blocks, "
                       f"{time_ms(run):.4f} ms", flush=True)
             chunk_plan(kf, None)
+    k1o_sweep()
     kl.use_macros("K_PROBE")
     kf, run = shard_call((2, 4), False)
     rs, blocks = chunk_plan(kf, None)
     print(f"K2o 2x4 shard under the plan (RS {rs}):")
     probe_cycles("forcing.cu", run, blocks)
+    kr, run = k1o_call((2, 4), torch.float32)
+    what, blocks = k1o_blocks(kr, torch.float32)
+    print(f"K1o 2x4 shard under the plan ({what}):")
+    probe_cycles("richardson.cu", run, blocks)
 
 
 def main() -> int:

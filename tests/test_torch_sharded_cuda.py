@@ -4,8 +4,11 @@ mode, on a CUDA card: on every shard of a mesh whose shards all lie on
 the card, each against its plain version on the same operands, and the
 shards' outputs stitched together against the single-device kernels K1,
 K2 and K2m; K2o and K2mo also on edge shards and misaligned operands,
-and under their launch plan against one radial chunk. Imports neither JAX nor the JAX package, so that it runs on a
-machine with a card and no JAX; it skips without a card."""
+and under their launch plan against one radial chunk; K1o on edge
+shards, misaligned operands and an odd lon count, and under its launch
+plan (its tile from the shard and the card) against a (8, 8, 32) tile.
+Imports neither JAX nor the JAX package, so that it runs on a machine
+with a card and no JAX; it skips without a card."""
 
 import numpy as np
 import pytest
@@ -331,3 +334,149 @@ def test_cuda_k2o_plan_matches_one_chunk(dtype, sl, monkeypatch, capsys):
         with capsys.disabled():
             print(f"\n{what} {dtype} {mesh_shape}: RS {rs} vs RS 32 "
                   f"{'bitwise equal' if bitwise else 'not bitwise equal'}")
+
+
+def k1o_operands(shape, mesh_shape, dtype):
+    """A model of ``shape`` prepared for a mesh of A x B shards on the card
+    and the operands of K1o on every shard, as the step forms them from
+    K2o's outputs on the seeded developed flow: (kernel wrapper, {(a, b):
+    call_operands arguments})."""
+    p = bench_params(shape, dtype)
+    dev = torch.device("cuda")
+    model = BoussinesqModel(p, device=dev)
+    A, B = mesh_shape
+    mesh = Mesh(np.array([[dev] * B] * A, dtype=object), ("lat", "lon"))
+    model.prepare_sharded(mesh)
+    s0 = seed_developed_flow(model)
+    dt = model._scalar(2e-3)
+    sh = shard_state(s0, model.geo, mesh)
+    kf, kr = model._mesh.forcing.kern, model._mesh.richardson.kern
+    halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh)
+    _, nl, no = kr.local_shape
+    out2 = {(a, b): kf.call_operands(
+        u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b], sh.p[a, b], dt,
+        halos[a, b], (a * nl, b * no)) for (a, b), u in sh.u.items()}
+    st5 = build(mesh, lambda a, b: torch.cat(
+        [out2[a, b][0], out2[a, b][1][None], sh.T[a, b][None]]))
+    st5 = halo_pad(st5, mesh, "lon", 3, width=kr.GH, periodic=True)
+    st5 = halo_pad(st5, mesh, "lat", 2, width=kr.GH, periodic=False)
+    return kr, {(a, b): (e[:3], e[3], e[4], dt, (a * nl, b * no))
+                for (a, b), e in st5.items()}
+
+
+def check_k1o_shards(kr, args, dtype, what):
+    """Every shard's K1o against its plain version with phase 6c's K1o
+    tolerances (iterates and faces rtol = atol = 2e-6, f64 1e-12;
+    rhs_raw rtol 1e-4 and atol 2e-5 x scale, f64 1e-11); returns the
+    outputs by shard."""
+    f32 = dtype == "float32"
+    tol = 2e-6 if f32 else 1e-12
+    outs = {}
+    for ab, a in args.items():
+        got = kr.call_operands(*a)
+        want = kr.plain_operands(*a)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got[:5], want[:5],
+                              ("u_star", "T_new", "f0", "f1", "f2")):
+            _close(g, w, tol, tol, f"{what} {name} shard {ab}")
+        sc = float(want[5].abs().max()) + 1e-30
+        _close(got[5], want[5], 1e-4 if f32 else 1e-11,
+               (2e-5 if f32 else 1e-11) * sc, f"{what} rhs_raw shard {ab}")
+        outs[ab] = got
+    return outs
+
+
+def check_k1o_sums(got, want, dtype, rhs):
+    """K1o's five sums against another launch's (or the plain version's)
+    with phase 6c's tolerances: |b|^2 rtol 1e-5 (f64 1e-12), |r| within
+    0.1 |r| + 4 eps |b|, sum(rhs) within 1e-4 (f64 1e-11) of sum|rhs|."""
+    f32 = dtype == "float32"
+    eps = float(torch.finfo(getattr(torch, dtype)).eps)
+    g, w = got.double().cpu(), want.double().cpu()
+    for k in (1, 3):
+        assert abs(g[k] - w[k]) <= (1e-5 if f32 else 1e-12) * w[k]
+    for r, bb in ((0, 1), (2, 3)):
+        rg, rw = float(g[r]) ** 0.5, float(w[r]) ** 0.5
+        assert abs(rg - rw) <= 0.1 * rw + 4 * eps * float(w[bb]) ** 0.5
+    assert abs(g[4] - w[4]) <= (1e-4 if f32 else 1e-11) * float(
+        rhs.abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_k1o_edge_shards(dtype):
+    """On a card: K1o on every shard against its plain version where the
+    extended rows cannot go as 16-byte copies (shards 10 x 18: rows of
+    22 values, value by value in f32; 10 x 9: rows of 13, value by value
+    in f32 and f64), where a shard is narrower than the plan's tile, at
+    the bench's 2 x 4 shard, and with every operand one value off a
+    16-byte boundary (value by value into the same layout), which must
+    give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    for shape, mesh_shape in (((6, 20, 36), (2, 2)), ((6, 20, 36), (2, 4)),
+                              ((8, 16, 72), (2, 2)),
+                              ((32, 128, 256), (2, 4))):
+        kr, args = k1o_operands(shape, mesh_shape, dtype)
+        what = f"K1o {shape} {mesh_shape}"
+        outs = check_k1o_shards(kr, args, dtype, what)
+        a = args[0, 0]
+        got = kr.call_operands(_misaligned(a[0]), _misaligned(a[1]),
+                               _misaligned(a[2]), a[3], a[4])
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got[:6], outs[0, 0])), (
+            f"{what}: misaligned operands change the result")
+        check_k1o_sums(got[6], outs[0, 0][6], dtype, outs[0, 0][5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_k1o_odd_lon_mesh(dtype):
+    """On a card: K2o and K1o on a mesh of 2 x 3 shards (an odd lon
+    count) at 8 x 16 x 48, each shard against its plain version and the
+    stitched shards against K2 and K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    kernel_checks((8, 16, 48), (2, 3), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_k1o_plan_matches_k1_tile(dtype, monkeypatch, capsys):
+    """On a card, at the bench's shards (32 x 128 x 256 on 2 x 2 and 2 x
+    4): K1o under its launch plan (its tile from the shard and the card)
+    against a (8, 8, 32) tile, the launch before the shard chose it: u*,
+    T_new, the three faces and rhs_raw bitwise equal (every cell has the
+    same arithmetic whatever its tile), the five sums, whose per-block
+    partials go in another order, within K1o's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+
+    def k1_tile(shape, sms, per_sm, itemsize, iters_u, iters_T):
+        tile, halo = (8, 8, 32), max(iters_u, iters_T) + 1
+        return k1.PassPlan(iters_u, iters_T, halo, tile, tuple(
+            -(-n // t) for n, t in zip(shape, tile)), k1.shared_bytes(
+                tile, halo, itemsize, operands=True))
+
+    for mesh_shape in ((2, 2), (2, 4)):
+        kr, args = k1o_operands((32, 128, 256), mesh_shape, dtype)
+        ps = kr.operands_plan(torch.device("cuda"), getattr(torch, dtype))[0]
+        planned = {ab: kr.call_operands(*a) for ab, a in args.items()}
+        with monkeypatch.context() as mp:
+            mp.setattr(k1, "plan_operands", k1_tile)
+            kr._card.clear()
+            one = {ab: kr.call_operands(*a) for ab, a in args.items()}
+        kr._card.clear()
+        torch.cuda.synchronize()
+        for ab in args:
+            for i, name in enumerate(("u_star", "T_new", "f0", "f1", "f2",
+                                      "rhs_raw")):
+                assert torch.equal(planned[ab][i], one[ab][i]), (
+                    f"K1o {mesh_shape} shard {ab} {name}: plan {ps.tile} "
+                    f"vs (8, 8, 32): max |diff| "
+                    f"{float((planned[ab][i] - one[ab][i]).abs().max()):.3e}")
+            check_k1o_sums(planned[ab][6], one[ab][6], dtype, one[ab][5])
+        with capsys.disabled():
+            print(f"\nK1o {dtype} {mesh_shape}: plan {ps.tile} "
+                  f"({ps.n_blocks} blocks) vs (8, 8, 32): bitwise equal")
