@@ -101,13 +101,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      second run bitwise the first; K2mo's wrapper, plain and bound times,
      launch plan and in-step time; the SL mesh step's device ms, kernels
      and host launches a step beside the single-device SL eager step's;
-  7. the CLI on data/aqua_planet_shell_test_3d-classic.prm, on a copy
+  7. the CLI (with --no-output) on data/aqua_planet_shell_test_3d-classic.prm, on a copy
      of it with `set helmholtz solver = direct`, and with `--chunk 4` on
      the prm (adaptive dt: eager chunks) and on a copy with a fixed dt
      (graph chunks); on a semi-Lagrangian copy, and on one with a fixed
      dt with `--chunk 4`; on data/aqua_planet.prm and
      data/aqua_planet_test_2d.prm (5 steps each), and on the latter with
      `--chunk 4`;
+  7b. the CLI with output at 32x128x256 f32 on a copy of the classic prm
+     with a fixed dt of 0.0005, every file in a temp directory: (a) per
+     step with checkpoints every 2, --write-mesh and --profile (max|div
+     u| <= 1e-4 every step, mesh.vts, 5 .vts, a .pvd of 5, two
+     checkpoints, the trace naming rich_fused, forcing_kernel and
+     correct_kernel, the .vts temperature at step 4 bitwise the
+     checkpoint's T); (b) a restart from (a)'s step 2, its checkpoint
+     at its step 2 bitwise (a)'s at step 4; (c) --chunk 2 (graph
+     chunks), its .vts at step 4 byte for byte (a)'s; (d) `solver
+     diagnostics level = 3` with --profile, the Richardson trails
+     printed and the trace naming forcing_kernel and correct_kernel but
+     not rich_fused; (e) aqua_planet_test_2d.prm with output and
+     checkpoints; then the host ms of one VTK write and one checkpoint,
+     the files' sizes and the host ms/step;
   8. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -1416,6 +1430,219 @@ def describe(hist, diag):
             f"{diag.temperature_residual:.3e}")
 
 
+# ---------------------------------------------------------------- phase 7b
+OUT_SHAPE = (32, 128, 256)
+# a fixed dt at which the chunks of (c) run with 0 escalations from the
+# prm's state of rest: at the bench's 0.002 the prm's two
+# momentum Richardson sweeps miss the f32 gate at this size, so a chunk
+# is redone with CG and (c) no longer runs (a)'s steps
+OUT_DT = 0.0005
+
+
+def run_cli(label, prm, argv, timeout=600):
+    """``python -m dycoreplanet_tpu_torch -p prm argv`` on the card; fails
+    unless rc 0. Returns its stdout."""
+    cli = subprocess.run(
+        [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm] + argv,
+        cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    if cli.returncode != 0:
+        fail(f"CLI ({label}) rc {cli.returncode}:\n{cli.stdout[-2000:]}\n"
+             f"{cli.stderr[-2000:]}")
+    if "retrying chunk with full CG" in cli.stderr:
+        fail(f"CLI ({label}) escalated:\n{cli.stderr[-2000:]}")
+    return cli.stdout
+
+
+def out_prm(tmp, src, outdir, extra=""):
+    """A copy of ``src`` that writes into ``outdir`` (never into the
+    checkout), with ``extra`` appended."""
+    import re
+
+    with open(src) as f:
+        text = re.sub(r"set dirname output = .*",
+                      f"set dirname output = {outdir}", f.read())
+    path = os.path.join(tmp, os.path.basename(outdir) + ".prm")
+    with open(path, "w") as f:
+        f.write(text + "\n" + extra)
+    return path
+
+
+def vts_arrays(path):
+    """{name: float32 array} of a .vts file's decoded data blocks."""
+    import base64
+    import struct
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    out = {}
+    for a in ET.parse(path).getroot().iter("DataArray"):
+        raw = base64.b64decode(a.text.strip())
+        (n,) = struct.unpack("<I", raw[:4])
+        out[a.attrib.get("Name", "points")] = np.frombuffer(
+            raw[4:4 + n], np.float32)
+    return out
+
+
+def timer_ms(stdout, section):
+    """(ms a call, calls) of a section of the last timer table printed."""
+    rows = [ln for ln in stdout.splitlines()
+            if ln.startswith(f"| {section} ")]
+    if not rows:
+        fail(f"no timer row '{section}'")
+    cells = [c.strip() for c in rows[-1].strip("|").split("|")]
+    calls, total = int(cells[1]), float(cells[2].rstrip("s"))
+    return 1e3 * total / calls, calls
+
+
+def trace_text(trace_dir):
+    files = os.listdir(trace_dir)
+    if len(files) != 1:
+        fail(f"expected one profiler trace in {trace_dir}, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        return f.read()
+
+
+def same_file(a, b):
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def cli_output_phase(tmp):
+    """Phase 7b: the CLI with output at 32x128x256 f32 on the card, a
+    fixed dt; every file in ``tmp``. Returns the numbers it printed."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    classic = os.path.join(HERE, "data",
+                           "aqua_planet_shell_test_3d-classic.prm")
+    nr, nlat, nlon = OUT_SHAPE
+    extra = ("subsection Numerics\n"
+             f"  set n radial = {nr}\n  set n lat = {nlat}\n"
+             f"  set n lon = {nlon}\nend\n"
+             "subsection Boussinesq Model\n  set adapt time step = false\n"
+             f"  set time step = {OUT_DT}\n  set final time = 10\nend\n")
+    level3 = ("subsection Boussinesq Model\n"
+              "  set solver diagnostics level = 3\nend\n")
+    d = {k: os.path.join(tmp, f"out-{k}") for k in "abcde"}
+    prof = {k: os.path.join(tmp, f"prof-{k}") for k in "ad"}
+    ck = lambda k, n: os.path.join(d[k], f"boussinesq_ckpt_{n:06d}.npz")
+    vts = lambda k, n: os.path.join(d[k], f"boussinesq_{n:06d}.vts")
+
+    # (a) per step, checkpoints every 2, the mesh, a profiler trace
+    out_a = run_cli("7b a", out_prm(tmp, classic, d["a"], extra),
+                    ["--max-steps", "4", "--checkpoint-every", "2",
+                     "--write-mesh", "--profile", prof["a"]])
+    divs = [float(ln.split(":")[-1]) for ln in out_a.splitlines()
+            if "Post-projection max |div u|" in ln]
+    if len(divs) != 4 or not all(np.isfinite(x) and x <= 1e-4
+                                 for x in divs):
+        fail(f"7b a: max|div u| per step {divs}")
+    want = (["boussinesq.pvd", "mesh.vts"]
+            + [f"boussinesq_{n:06d}.vts" for n in range(5)]
+            + [f"boussinesq_ckpt_{n:06d}.npz{j}" for n in (2, 4)
+               for j in ("", ".json")])
+    if sorted(os.listdir(d["a"])) != sorted(want):
+        fail(f"7b a: files {sorted(os.listdir(d['a']))}, not {sorted(want)}")
+    with open(os.path.join(d["a"], "boussinesq.pvd")) as f:
+        n_pvd = f.read().count("<DataSet ")
+    if n_pvd != 5:
+        fail(f"7b a: the .pvd has {n_pvd} entries, not 5")
+    trace = trace_text(prof["a"])
+    for name in ("rich_fused", "forcing_kernel", "correct_kernel"):
+        if name not in trace:
+            fail(f"7b a: the profiler trace does not name {name}")
+    with np.load(ck("a", 4)) as z:
+        T4 = z["T"]
+        if z["T"].dtype != np.float32 or int(z["step_number"]) != 4:
+            fail(f"7b a: ckpt_000004 T {z['T'].dtype}, step "
+                 f"{int(z['step_number'])}")
+    T_vts = vts_arrays(vts("a", 4))["temperature"]
+    if T_vts.tobytes() != np.ascontiguousarray(T4.T).reshape(-1).tobytes():
+        fail("7b a: the temperature of boussinesq_000004.vts is not "
+             "ckpt_000004's T bitwise")
+    phase(f"7b (a) {OUT_SHAPE} f32 dt {OUT_DT}: 4 steps rc 0, max|div u| "
+          f"{max(divs):.3e}, mesh.vts, 5 .vts, a .pvd of 5, ckpt 2 and 4; "
+          f"the trace names rich_fused, forcing_kernel, correct_kernel; "
+          f"the .vts temperature at step 4 is the checkpoint's T bitwise")
+
+    # (b) a restart from (a)'s step 2, 2 steps: (a)'s step 4 bitwise
+    out_b = run_cli("7b b", out_prm(tmp, classic, d["b"], extra),
+                    ["--restart", ck("a", 2), "--max-steps", "2",
+                     "--checkpoint-every", "2"])
+    if f"Restarted from {ck('a', 2)} at step 2" not in out_b:
+        fail("7b b: no restart line")
+    with np.load(ck("a", 4)) as za, np.load(ck("b", 2)) as zb:
+        bad = [k for k in za.files
+               if za[k].dtype != zb[k].dtype
+               or za[k].tobytes() != zb[k].tobytes()]
+        if sorted(za.files) != sorted(zb.files) or bad:
+            fail(f"7b b: the restarted ckpt_000002 differs from (a)'s "
+                 f"ckpt_000004 in {bad}")
+    phase("7b (b) restart from (a)'s ckpt_000002, 2 steps: its "
+          "ckpt_000002 is (a)'s ckpt_000004 bitwise (u, faces, p, T, "
+          "time, step_number)")
+
+    # (c) graph chunks of 2: the same file at step 4
+    run_cli("7b c", out_prm(tmp, classic, d["c"], extra),
+            ["--chunk", "2", "--max-steps", "4"])
+    if not same_file(vts("c", 4), vts("a", 4)):
+        fail("7b c: boussinesq_000004.vts of --chunk 2 differs from (a)'s")
+    phase("7b (c) --chunk 2 (graph chunks): boussinesq_000004.vts is "
+          "(a)'s byte for byte, 0 escalations")
+
+    # (d) level 3: the trails, on the unfused branch (no K1)
+    out_d = run_cli("7b d", out_prm(tmp, classic, d["d"], extra + level3),
+                    ["--max-steps", "2", "--no-output", "--profile",
+                     prof["d"]])
+    for name in ("helmholtz richardson", "temperature richardson"):
+        n = out_d.count(f"   [{name}] ||r|| trail (2 its): ")
+        if n != 2:
+            fail(f"7b d: {n} trails of {name} with 2 iterations, not 2")
+    trace = trace_text(prof["d"])
+    if ("forcing_kernel" not in trace or "correct_kernel" not in trace
+            or "rich_fused" in trace):
+        fail("7b d: the trace must name forcing_kernel and correct_kernel "
+             "and not rich_fused")
+    trail = [ln.strip() for ln in out_d.splitlines() if "||r|| trail" in ln]
+    phase(f"7b (d) solver diagnostics level 3, 2 steps: {trail[:2]}; the "
+          f"trace names forcing_kernel and correct_kernel, not rich_fused")
+
+    # (e) the annulus prm with output and checkpoints
+    out_e = run_cli("7b e", out_prm(
+        tmp, os.path.join(HERE, "data", "aqua_planet_test_2d.prm"), d["e"]),
+        ["--max-steps", "4", "--checkpoint-every", "2"])
+    files_e = sorted(os.listdir(d["e"]))
+    if len([f for f in files_e if f.endswith(".vts")]) != 5 or \
+            not os.path.exists(ck("e", 4)):
+        fail(f"7b e: files {files_e}")
+    grid_e = [ln for ln in out_e.splitlines() if "Grid cells" in ln]
+    phase(f"7b (e) aqua_planet_test_2d.prm: rc 0, {len(files_e)} files "
+          f"({grid_e[0].strip(' |') if grid_e else ''})")
+
+    vtk_ms, vtk_calls = timer_ms(out_a, "output: vtk")
+    ck_ms, ck_calls = timer_ms(out_a, "output: checkpoint")
+    step_ms, _ = timer_ms(out_a, "step: NSE + temperature solve")
+    vtk_b, _ = timer_ms(out_b, "output: vtk")
+    ck_b, _ = timer_ms(out_b, "output: checkpoint")
+    step_b, _ = timer_ms(out_b, "step: NSE + temperature solve")
+    nums = dict(vtk_ms=vtk_ms, checkpoint_ms=ck_ms, step_ms=step_ms,
+                vtk_ms_no_profiler=vtk_b, checkpoint_ms_no_profiler=ck_b,
+                step_ms_no_profiler=step_b,
+                vts_bytes=os.path.getsize(vts("a", 4)),
+                npz_bytes=os.path.getsize(ck("a", 4)))
+    phase(f"7b output at {OUT_SHAPE} f32, host clock: output: vtk "
+          f"{vtk_ms:.1f} ms a call ({vtk_calls} calls), output: checkpoint "
+          f"{ck_ms:.1f} ms a call ({ck_calls} calls), step "
+          f"{step_ms:.1f} ms/step, all under --profile (a); without it "
+          f"(b): vtk {vtk_b:.1f} ms, checkpoint {ck_b:.1f} ms, step "
+          f"{step_b:.1f} ms/step; .vts {nums['vts_bytes']} bytes, .npz "
+          f"{nums['npz_bytes']} bytes")
+    phase(f"7b phases {time.perf_counter() - t0:.1f} s")
+    return nums
+
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -2218,6 +2445,9 @@ def main() -> None:
                          if "Post-projection" in ln]
             phase(f"CLI ({label}) rc 0 ({len(div_lines)} step(s); last: "
                   f"{div_lines[-1] if div_lines else 'none'})")
+
+        # ---- 7b. the CLI with output at work size ------------------------
+        cli_output_phase(tmp)
 
     # ---- 8. report -----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,

@@ -15,6 +15,8 @@ Layers (each mirrors its counterpart in the JAX package):
   solvers/     CG, fixed-iteration Richardson, fast-diagonalization Poisson
   models/      BoussinesqModel (shell, standard personality, projection)
   diagnostics/ timers
+  io/          VTK output (.vts, .pvd, mesh.vts, sharded .pvts) and
+               checkpoints (.npz + .json), the JAX package's formats
   cli/         ``python -m dycoreplanet_tpu_torch -p file.prm``
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``

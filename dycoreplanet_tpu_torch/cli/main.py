@@ -1,23 +1,33 @@
 """Command-line entry point of the PyTorch port:
 
-    python -m dycoreplanet_tpu_torch -p parameters.prm --no-output
+    python -m dycoreplanet_tpu_torch -p parameters.prm
 
 Counterpart of the JAX package's ``cli/main.py`` (reference executable:
 source/main.cxx:20-159): ``-p`` parameter file (a template is written
 and the run aborts if it is missing), the dimensionless-number table,
-per-step diagnostics and timer summaries, catch-all error reporting.
+per-step diagnostics and timer summaries, catch-all error reporting,
+and the VTK time series (a ``.vts`` file at step 0 and after every step
+or chunk, and the ``.pvd`` collection) in the prm's ``dirname output``.
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions.
 ``--chunk N`` advances N steps per ``multi_step`` call (a CUDA graph on
 the card when dt is fixed) and pulls the chunk's diagnostics to the host
-in one copy. VTK output, checkpoints, ``--write-mesh``, ``--profile``
-and the solver residual trails of ``solver diagnostics level`` >= 3 are
-not ported yet and refused (ROADMAP.md).
+in one copy. ``--write-mesh`` writes ``mesh.vts``, ``--checkpoint-every
+N`` a checkpoint every N steps, ``--restart FILE`` resumes from one
+(counting steps, time and dt from 0 and the prm's ``time step`` again,
+as the JAX CLI does), ``--profile DIR`` writes a torch.profiler trace
+into DIR, and ``solver diagnostics level`` >= 3 prints each solve's
+residual trail (``BoussinesqModel.step_verbose``). The checkpoints and
+the trails work per step: with ``--chunk`` they are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+
+import numpy as np
 
 
 def print_parameter_info(params, model) -> None:
@@ -63,19 +73,24 @@ def main(argv=None) -> int:
     parser.add_argument("--max-steps", type=int, default=None,
                         help="cap the number of time steps (debug)")
     parser.add_argument("--no-output", action="store_true",
-                        help="skip VTK output (required: not ported yet)")
+                        help="skip VTK output")
     parser.add_argument("--chunk", type=int, default=1,
                         help="steps per multi_step chunk (one CUDA graph "
                              "replay on the card when dt is fixed)")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="capture a profiler trace of the run into DIR "
-                             "(not ported yet)")
+                        help="write a torch.profiler trace of the run "
+                             "(CPU, and CUDA on the card) into DIR when "
+                             "it ends; meant for short runs, as every "
+                             "event is held until then")
     parser.add_argument("--write-mesh", action="store_true",
-                        help="dump the mesh before running (not ported yet)")
+                        help="dump the mesh (volumes/diameters/shards) "
+                             "to <output>/mesh.vts before running "
+                             "(reference: write_mesh_vtu)")
     parser.add_argument("--checkpoint-every", type=int, default=0,
-                        help="checkpoint every N steps (not ported yet)")
+                        help="write a checkpoint every N steps (0 = off; "
+                             "per step, without --chunk)")
     parser.add_argument("--restart", default=None,
-                        help="checkpoint to resume from (not ported yet)")
+                        help="checkpoint file to resume from")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs "
                              "the kernels' plain versions)")
@@ -89,25 +104,16 @@ def main(argv=None) -> int:
     except ParameterFileError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
-    if not args.no_output:
-        print("ERROR: VTK output not yet ported (ROADMAP.md: VTK output "
-              "and checkpoints); run with --no-output", file=sys.stderr)
+    if args.chunk > 1 and args.checkpoint_every:
+        # the JAX CLI saves nothing here, silently
+        print("ERROR: --checkpoint-every works per step, without --chunk "
+              "(ROADMAP.md: VTK output and checkpoints)", file=sys.stderr)
         return 1
-    if args.checkpoint_every or args.restart:
-        print("ERROR: checkpoints not yet ported (ROADMAP.md: VTK output "
-              "and checkpoints)", file=sys.stderr)
-        return 1
-    if args.profile is not None or args.write_mesh:
-        flag = "--profile" if args.profile is not None else "--write-mesh"
-        print(f"ERROR: {flag} not yet ported (ROADMAP.md: VTK output and "
-              f"checkpoints)", file=sys.stderr)
-        return 1
-    if params.solver_diagnostics_print_level >= 3:
-        # the JAX CLI prints per-solver residual trails here (its
-        # model.step_verbose); the port has no step_verbose yet
-        print("ERROR: solver residual trails (solver diagnostics level >= "
-              "3) not yet ported (ROADMAP.md: VTK output and checkpoints)",
-              file=sys.stderr)
+    if args.chunk > 1 and params.solver_diagnostics_print_level >= 3:
+        # the JAX CLI prints no trails here
+        print("ERROR: the solver residual trails (solver diagnostics "
+              "level >= 3) work per step, without --chunk (ROADMAP.md: VTK "
+              "output and checkpoints)", file=sys.stderr)
         return 1
 
     try:
@@ -127,13 +133,52 @@ def main(argv=None) -> int:
         return 1
 
 
+def _device_count(device) -> int:
+    """The devices a run on ``device`` could be cut over (the shards of
+    ``--write-mesh``'s map): every card on CUDA, one CPU."""
+    import torch
+
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """A torch.profiler trace of the block (CPU, and CUDA on the card),
+    exported into ``trace_dir`` when the block ends or raises."""
+    if trace_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.stop()
+        path = os.path.join(trace_dir, f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
+
+
 def _run(params, args) -> int:
     import socket
 
     import torch
 
     from dycoreplanet_tpu_torch.diagnostics.timers import TimerRegistry
+    from dycoreplanet_tpu_torch.io.checkpoint import load_checkpoint
+    from dycoreplanet_tpu_torch.io.vtk import (
+        write_mesh_vts, write_pvd, write_vts)
     from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.parallel.mesh import mesh_shape_for
 
     timers = TimerRegistry()
     with timers.scope("setup: geometry + model"):
@@ -145,17 +190,67 @@ def _run(params, args) -> int:
               f"({model.device.type})")
     print_parameter_info(params, model)
     with timers.scope("setup: initial state"):
-        state = model.initial_state()
+        if args.restart:
+            state, _ = load_checkpoint(args.restart, model.device)
+            print(f"Restarted from {args.restart} at step "
+                  f"{state.step_number}")
+        else:
+            state = model.initial_state()
+
+    # each writer creates the output directory; a run with --no-output
+    # and nothing else to write leaves none behind
+    outdir = params.dirname_output
+    if args.write_mesh:
+        print("Writing mesh to", os.path.join(outdir, "mesh.vts"))
+        write_mesh_vts(os.path.join(outdir, "mesh.vts"), model.geo,
+                       shard_map_shape=mesh_shape_for(
+                           model.geo, _device_count(model.device)))
+    pvd_entries = []
+
+    def output(state, time_index: float, step: int) -> None:
+        if args.no_output:
+            return
+        with timers.scope("output: vtk"):
+            # one device-to-host copy of u, p and T
+            dim = model.geo.dim
+            cells = model.geo.cell_shape
+            ncell = int(np.prod(cells))
+            flat = torch.cat([state.u.reshape(-1), state.p.reshape(-1),
+                              state.T.reshape(-1)]).cpu().numpy()
+            u = flat[:dim * ncell].reshape((dim,) + cells)
+            p = flat[dim * ncell:(dim + 1) * ncell].reshape(cells)
+            T = flat[(dim + 1) * ncell:].reshape(cells)
+            # under the hydrostatic split the dynamic pressure excludes
+            # the background; write the reference-comparable total too
+            scalars = {"pressure": p, "temperature": T}
+            if params.numerics.buoyancy == "perturbation":
+                scalars["pressure_total"] = p + model.p_hydro
+            fname = f"{params.filename_output}_{step:06d}.vts"
+            write_vts(os.path.join(outdir, fname), model.geo,
+                      scalars=scalars, vectors={"velocity": u})
+            pvd_entries.append({"time": time_index, "file": fname})
+            write_pvd(os.path.join(outdir, f"{params.filename_output}.pvd"),
+                      pvd_entries)
+
+    output(state, 0.0, 0)
+    with _profiled(args.profile, model.device):
+        run = _run_chunked if args.chunk > 1 else _run_steps
+        rc = run(params, args, model, state, timers, output)
+    print("----------------------------------------")
+    print(timers.summary())
+    return rc
+
+
+def _run_steps(params, args, model, state, timers, output) -> int:
+    """The reference-style loop: one step, its diagnostics, output and
+    checkpoint at a time."""
+    import torch
+
+    from dycoreplanet_tpu_torch.io.checkpoint import save_checkpoint
 
     def sync():
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
-
-    if args.chunk > 1:
-        rc = _run_chunked(params, args, model, state, timers)
-        print("----------------------------------------")
-        print(timers.summary())
-        return rc
 
     dt = params.time_step
     time_index = 0.0
@@ -167,8 +262,20 @@ def _run(params, args) -> int:
         print(f"Time step {n}:  t={time_index:.6g} -> t={time_index + dt:.6g}"
               f"  (dt={dt:.6g} | final time={params.final_time})")
         with timers.scope("step: NSE + temperature solve"):
-            state, diag = model.step(state, dt)
+            hists = None
+            if params.solver_diagnostics_print_level >= 3:
+                # per-iteration solver residual trails (the reference's
+                # deallog histories, main.cxx:89-90)
+                state, diag, hists = model.step_verbose(state, dt)
+            else:
+                state, diag = model.step(state, dt)
             sync()
+        if hists:
+            for name in sorted(hists):
+                trail = hists[name]
+                trail = trail[~np.isnan(trail)]
+                txt = "  ".join(f"{r:.3e}" for r in trail)
+                print(f"   [{name}] ||r|| trail ({trail.size} its): {txt}")
         print(f"   Max of local CFL numbers: {float(diag.cfl):.6g}")
         print(f"   Max velocity (dimensionless): {float(diag.max_velocity):.6g}")
         print(f"   Max velocity (with dimensions): "
@@ -189,6 +296,13 @@ def _run(params, args) -> int:
 
         time_index += dt / params.NSE_solver_interval
         n += 1
+        output(state, time_index, n)
+        if args.checkpoint_every and n % args.checkpoint_every == 0:
+            with timers.scope("output: checkpoint"):
+                save_checkpoint(
+                    os.path.join(params.dirname_output,
+                                 f"{params.filename_output}_ckpt_{n:06d}"),
+                    state, {"time_index": time_index, "dt": dt})
         if params.adapt_time_step and n % params.NSE_solver_interval == 0:
             dt = model.compute_time_step(float(diag.cfl))
             print(f"   New time step (dimensionless): {dt:.6g}")
@@ -196,17 +310,16 @@ def _run(params, args) -> int:
                   f"{dt * params.reference_quantities.time:.6g} s")
         if n % max(params.NSE_solver_interval, 10) == 0:
             print(timers.summary())
-
-    print("----------------------------------------")
-    print(timers.summary())
     return 0
 
 
-def _run_chunked(params, args, model, state, timers) -> int:
+def _run_chunked(params, args, model, state, timers, output) -> int:
     """``--chunk N`` steps per ``multi_step`` call, with adaptive dt and
     NSE-interval sub-cycling inside the chunk: one device->host copy of
     the chunk's diagnostics replaces the per-step reads of the
-    reference-style loop (the JAX package's ``_run_chunked``)."""
+    reference-style loop (the JAX package's ``_run_chunked``). Output is
+    written after every chunk, from the state multi_step returns (on a
+    graph replay, copies of the graph's outputs)."""
     from dycoreplanet_tpu_torch.models.boussinesq import StepDiagnostics
 
     dt = params.time_step
@@ -238,6 +351,7 @@ def _run_chunked(params, args, model, state, timers) -> int:
         dt = float(dt_out)
         time_index = float(state.time)
         n += chunk
+        output(state, time_index, n)
         if params.adapt_time_step:
             print(f"   New time step (dimensionless): {dt:.6g}")
         print(timers.summary())

@@ -1,0 +1,172 @@
+"""Checkpoint and restore of the model state (counterpart of the JAX
+package's ``io/checkpoint.py``; the reference has no checkpoints).
+
+The format is the JAX package's, so that a checkpoint written by either
+package loads in the other: one ``.npz`` with the keys ``u``, ``p``,
+``T``, ``time`` (0-d, the model's dtype), ``step_number`` (0-d int32)
+and ``u_face_{d}``, beside a ``.npz.json`` holding the caller's metadata
+and ``n_face_arrays``. The sharded form writes one ``.npz`` per shard
+and a master ``.json`` with the global shapes, dtypes and each shard's
+index ranges. Fields reach the host in one device-to-host copy (per
+shard on a mesh); a restore is bitwise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dycoreplanet_tpu_torch.models.boussinesq import State
+from dycoreplanet_tpu_torch.parallel.mesh import is_sharded, shard_state
+
+
+def _host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The tensors on the host in one device-to-host copy: their raveled
+    values cast to the widest float dtype among them, concatenated."""
+    wide = tensors[0].dtype
+    for t in tensors[1:]:
+        wide = torch.promote_types(wide, t.dtype)
+    flat = torch.cat([t.reshape(-1).to(wide) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[off:off + n].reshape(tuple(t.shape)).astype(
+            np.dtype(str(t.dtype).replace("torch.", ""))))
+        off += n
+    return out
+
+
+def _scalars(state: State, dtype) -> Tuple[np.ndarray, np.ndarray]:
+    """``time`` at the fields' dtype and ``step_number`` as int32, 0-d,
+    as the JAX package's State holds them."""
+    return np.asarray(state.time, dtype=dtype), \
+        np.asarray(state.step_number, dtype=np.int32)
+
+
+def _arrays(state: State, host: Sequence[np.ndarray]) -> dict:
+    """The checkpoint's arrays by key from the host copies of u, p, T and
+    the faces (in that order)."""
+    u, p, T, *faces = host
+    time, step = _scalars(state, u.dtype)
+    arrays = {"u": u, "p": p, "T": T, "time": time, "step_number": step}
+    for d, uf in enumerate(faces):
+        arrays[f"u_face_{d}"] = uf
+    return arrays
+
+
+def _fields(state: State):
+    return [state.u, state.p, state.T, *state.u_faces]
+
+
+def _state(arrays: dict, n_faces: int, device) -> State:
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    return State(u=t(arrays["u"]),
+                 u_faces=tuple(t(arrays[f"u_face_{d}"])
+                               for d in range(n_faces)),
+                 p=t(arrays["p"]), T=t(arrays["T"]),
+                 time=float(arrays["time"]),
+                 step_number=int(arrays["step_number"]))
+
+
+def save_checkpoint(path: str, state: State,
+                    metadata: Optional[dict] = None) -> str:
+    """Write ``state`` to ``path`` (.npz) with sidecar .json metadata."""
+    if is_sharded(state):
+        raise ValueError("a sharded state: use save_checkpoint_sharded")
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **_arrays(state, _host(_fields(state))))
+    meta = dict(metadata or {})
+    meta["n_face_arrays"] = len(state.u_faces)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+def load_checkpoint(path: str, device) -> Tuple[State, dict]:
+    """Read a checkpoint written by either package's save_checkpoint: a
+    State on ``device`` (``time`` a float, ``step_number`` an int) and
+    the metadata."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    with np.load(path) as data:
+        state = _state(data, meta["n_face_arrays"], device)
+    return state, meta
+
+
+_NAMES = ["u", "p", "T", "time", "step_number"]
+
+
+def save_checkpoint_sharded(path: str, state: State,
+                            metadata: Optional[dict] = None) -> str:
+    """Distributed checkpoint of a sharded state (parallel/mesh.py): one
+    ``{path}.shard{k:03d}.npz`` per shard holding that shard's blocks,
+    copied to the host in one copy a shard, and a master ``{path}.json``
+    with the global shapes, dtypes and index ranges — the JAX package's
+    layout, shard k being (k // B, k % B) of the A x B mesh. The global
+    array is never gathered."""
+    if not is_sharded(state):
+        raise ValueError("save_checkpoint_sharded needs a sharded state")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    n_faces = len(state.u_faces)
+    names = _NAMES + [f"u_face_{d}" for d in range(n_faces)]
+    A, B = state.p.grid
+    index_meta = {n: [] for n in names}
+    shapes = {}
+    for k, ((a, b), _) in enumerate(state.p.items()):
+        blocks = _arrays(state, _host([x[a, b] for x in _fields(state)]))
+        for name in names:
+            blk = blocks[name]
+            rng = [[0, n] for n in blk.shape]
+            if blk.ndim >= 2:
+                nl, no = blk.shape[-2:]
+                rng[-2] = [a * nl, (a + 1) * nl]
+                rng[-1] = [b * no, (b + 1) * no]
+                shapes[name] = list(blk.shape[:-2]) + [A * nl, B * no]
+            else:
+                shapes[name] = list(blk.shape)
+            index_meta[name].append(rng)
+        np.savez(f"{path}.shard{k:03d}.npz", **blocks)
+    meta = dict(metadata or {})
+    meta["n_face_arrays"] = n_faces
+    meta["n_shards"] = A * B
+    meta["global_shapes"] = {n: shapes[n] for n in names}
+    meta["dtypes"] = {n: str(blocks[n].dtype) for n in names}
+    meta["shard_indices"] = index_meta
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+def load_checkpoint_sharded(path: str, device=None, *, geo=None,
+                            mesh=None) -> Tuple[State, dict]:
+    """Restore a checkpoint written by either package's
+    save_checkpoint_sharded: the global State on ``device``, or, given
+    ``mesh`` (and the model's ``geo``), cut onto that mesh
+    (``shard_state``); and the metadata."""
+    if (device is None) == (mesh is None):
+        raise ValueError("load_checkpoint_sharded: pass device or mesh")
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    arrays = {name: np.zeros(shape, dtype=np.dtype(meta["dtypes"][name]))
+              for name, shape in meta["global_shapes"].items()}
+    for k in range(meta["n_shards"]):
+        with np.load(f"{path}.shard{k:03d}.npz") as data:
+            for name in arrays:
+                rngs = meta["shard_indices"][name][k]
+                arrays[name][tuple(slice(a, b) for a, b in rngs)] = \
+                    data[name]
+    if mesh is None:
+        return _state(arrays, meta["n_face_arrays"], device), meta
+    if geo is None:
+        raise ValueError("load_checkpoint_sharded: a mesh needs the geo")
+    state = _state(arrays, meta["n_face_arrays"], "cpu")
+    return shard_state(state, geo, mesh), meta

@@ -64,6 +64,10 @@ transport and the Richardson temperature solve on the shards.
 ``step``, ``temperature_step``, ``run`` and ``multi_step`` take a
 sharded state and run eagerly.
 
+``step_verbose`` (`solver diagnostics level` >= 3) also returns each
+solve's residual trail; as in the JAX model it takes the unfused branch
+(K1 records no iterate's residual), so K2, K3 and K5 run, not K1.
+
 This slice runs the 3D spherical shell and the 2D annulus, standard
 (advective) personality, incremental projection, with the
 Richardson/CG or the direct Helmholtz solves. Every other configuration
@@ -323,6 +327,10 @@ class BoussinesqModel:
         self._fast_rearm_cap = 1024
         self._strong_steps_left = 0
         self.escalations = 0
+        # True inside step_verbose: the solves record their residual
+        # trails into _trace_sink (`solver diagnostics level` >= 3)
+        self._solver_trace = False
+        self._trace_sink: List[Tuple[str, torch.Tensor]] = []
         # the mesh step's stages (prepare_sharded)
         self._mesh = None
 
@@ -725,9 +733,11 @@ class BoussinesqModel:
                           * self.dtype.type(self.one_over_Pe))
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
 
-        if self._richardson is not None and not self._force_cg:
+        if (self._richardson is not None and not self._force_cg
+                and not self._solver_trace):
             # fused implicit stage [K1]: both Richardson solves + the
-            # projection head
+            # projection head (not in step_verbose, as in the JAX model:
+            # K1 records no iterate's residual)
             rk = self._richardson
             if (self._richardson_free is not None and state.step_number
                     % p.numerics.residual_check_interval != 0):
@@ -947,11 +957,15 @@ class BoussinesqModel:
         k_fix = 0 if self._force_cg else num.fixed_solver_iters
         if k_fix > 0:
             res = richardson_solve(temp_op, rhs_T, x0, diag=diag_T,
-                                   iters=k_fix, rtol=num.temperature_tol)
+                                   iters=k_fix, rtol=num.temperature_tol,
+                                   record_history=self._hist_n())
+            self._stash_history("temperature richardson", res)
         else:
             res = cg(temp_op, rhs_T, x0=x0, rtol=num.temperature_tol,
                      maxiter=num.max_cg_iters,
-                     preconditioner=lambda r: r / diag_T)
+                     preconditioner=lambda r: r / diag_T,
+                     record_history=self._hist_n())
+            self._stash_history("temperature CG", res)
         return res.x, res.iterations, res.residual_norm, res.converged
 
     def _solve_pressure_poisson(self, rhs_phi):
@@ -967,7 +981,9 @@ class BoussinesqModel:
         res = cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
                  rhs_phi, rtol=self.params.numerics.poisson_tol,
                  maxiter=self.params.numerics.max_cg_iters,
-                 preconditioner=self.poisson_spectral)
+                 preconditioner=self.poisson_spectral,
+                 record_history=self._hist_n())
+        self._stash_history("poisson CG", res)
         return res.x, res.iterations, res.residual_norm, res.converged
 
     def _solve_momentum_projection(self, rhs_u, pres, dt):
@@ -998,12 +1014,16 @@ class BoussinesqModel:
         if k_fix > 0:
             res = richardson_solve(helm_op, vol[None] * rhs_u, rhs_u,
                                    diag=helm_diag, iters=k_fix,
-                                   rtol=self.params.numerics.helmholtz_tol)
+                                   rtol=self.params.numerics.helmholtz_tol,
+                                   record_history=self._hist_n())
+            self._stash_history("helmholtz richardson", res)
         else:
             res = cg(helm_op, vol[None] * rhs_u, x0=rhs_u,
                      rtol=self.params.numerics.helmholtz_tol,
                      maxiter=self.params.numerics.max_cg_iters,
-                     preconditioner=lambda r: r / helm_diag)
+                     preconditioner=lambda r: r / helm_diag,
+                     record_history=self._hist_n())
+            self._stash_history("helmholtz CG", res)
         (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
          poisson_ok) = self._project_velocity(res.x, pres, dt)
         return (u_new, p_new, new_faces, [res.iterations] * dim,
@@ -1096,6 +1116,45 @@ class BoussinesqModel:
         stay on the device until a field is read (one packed copy)."""
         new_state, packed, _ = self._step_impl(state, dt)
         return new_state, StepDiagnostics(packed, self.geo.dim)
+
+    _HIST_CAP = 48  # recorded residual-trail length per solve
+
+    def _hist_n(self) -> int:
+        """record_history length for the solver calls (0 disables;
+        reference: deallog depth from 'solver diagnostics level',
+        main.cxx:89-90)."""
+        return self._HIST_CAP if self._solver_trace else 0
+
+    def _stash_history(self, name: str, res) -> None:
+        if self._solver_trace and res.history is not None:
+            self._trace_sink.append((name, res.history))
+
+    def step_verbose(self, state: State, dt: float):
+        """One step that also returns the per-iteration residual trails
+        of its solves — the CLI path for `solver diagnostics level` >= 3
+        (JAX model: ``step_verbose``). As there, the step takes the
+        unfused branch (Richardson or CG solves, then the projection), as
+        K1 records no iterate's residual; K2 and K5 still run. The trails
+        reach the host in one copy. Returns (new_state, diagnostics,
+        {solver name: float32 numpy trail, NaN-padded to _HIST_CAP})."""
+        if is_sharded(state):
+            raise _not_on_mesh(MESH_CG, "step_verbose (the solver residual "
+                               "trails)")
+        old = self._solver_trace
+        self._solver_trace = True
+        self._trace_sink = []
+        try:
+            new_state, packed, _ = self._step_impl(state, dt)
+            sink, self._trace_sink = self._trace_sink, []
+        finally:
+            self._solver_trace = old
+        hists = {}
+        if sink:
+            flat = torch.cat([h for _, h in sink]).cpu().numpy()
+            for i, (name, _) in enumerate(sink):
+                hists[name] = flat[i * self._HIST_CAP:
+                                   (i + 1) * self._HIST_CAP]
+        return new_state, StepDiagnostics(packed, self.geo.dim), hists
 
     def step_strong(self, state: State, dt: float):
         """Redo one step with the full CG solves — the escalation taken

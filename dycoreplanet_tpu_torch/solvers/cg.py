@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``solvers/cg.py``, with its safeguards:
 Stop when ||r|| <= rtol * ||b|| (reference SolverControl semantics,
 inverse_matrix.hpp:93-120). The loop runs on the host: each iteration
 reads its stopping test back from the device. CG only runs on the
-escalated steps of the fast path.
+escalated steps of the fast path. ``record_history`` > 0 records the
+per-iteration residual norms (the solver trails of ``solver diagnostics
+level`` >= 3).
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ class CGResult(NamedTuple):
     iterations: int
     residual_norm: torch.Tensor  # scalar tensor, best ||r|| reached
     converged: torch.Tensor      # scalar bool tensor
+    # per-iteration ||r|| trail, float32, NaN-padded to the cap, when the
+    # solve was called with record_history > 0 (reference: the deallog
+    # solver histories of `solver diagnostics level` >= 3,
+    # main.cxx:89-90); None otherwise
+    history: Optional[torch.Tensor] = None
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,9 +45,12 @@ def cg(operator: Callable[[torch.Tensor], torch.Tensor],
        atol: float = 0.0,
        maxiter: int = 500,
        preconditioner: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-       divergence_factor: float = 32.0) -> CGResult:
+       divergence_factor: float = 32.0,
+       record_history: int = 0) -> CGResult:
     """Solve A x = b for an SPD matrix-free ``operator`` with an SPD
-    ``preconditioner``. Returns the best iterate seen."""
+    ``preconditioner``. Returns the best iterate seen. With
+    ``record_history`` > 0 the residual norm after iteration k goes to
+    ``history[min(k, cap - 1)]``, as in the JAX package."""
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     M = preconditioner if preconditioner is not None else (lambda r: r)
     eps = torch.finfo(b.dtype).eps
@@ -54,6 +64,9 @@ def cg(operator: Callable[[torch.Tensor], torch.Tensor],
     rz = _dot(r, z)
     rnorm = torch.sqrt(_dot(r, r))
     x_best, rbest = x, rnorm
+    cap = int(record_history)
+    hist = (torch.full((cap,), float("nan"), dtype=torch.float32,
+                       device=b.device) if cap > 0 else None)
     k = 0
     while (k < maxiter and bool(rnorm > stop)
            and bool(rnorm < divergence_factor * rbest + stop)):
@@ -68,8 +81,10 @@ def cg(operator: Callable[[torch.Tensor], torch.Tensor],
         p = z + beta * p
         rz = rz_new
         rnorm = torch.sqrt(_dot(r, r))
+        if hist is not None:
+            hist[min(k, cap - 1)] = rnorm.to(torch.float32)
         k += 1
         if bool(rnorm < rbest):
             x_best, rbest = x, rnorm
     return CGResult(x=x_best, iterations=k, residual_norm=rbest,
-                    converged=rbest <= stop)
+                    converged=rbest <= stop, history=hist)

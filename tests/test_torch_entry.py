@@ -118,14 +118,25 @@ def test_cli_runs_direct_helmholtz_on_cpu(capsys, tmp_path):
     assert "helmholtz=[-1, -1, -1]" in out and "temperature=-1" in out
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
+def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
+    """Output and checkpoints are ported: a run without --no-output
+    writes its .vts files and the .pvd into the prm's `dirname output`;
+    --restart of a missing file fails with rc 1 through the catch-all."""
     from dycoreplanet_tpu_torch.cli.main import main
 
-    assert main(["-p", PRM, "--max-steps", "1", "--device", "cpu"]) != 0
-    assert "VTK output not yet ported" in capsys.readouterr().err
-    assert main(["-p", PRM, "--no-output", "--restart", "ckpt",
-                 "--device", "cpu"]) != 0
-    assert "checkpoints not yet ported" in capsys.readouterr().err
+    prm = tmp_path / "out.prm"
+    with open(PRM) as f:
+        prm.write_text(f.read().replace(
+            "data-output-3d-shell-classic", str(tmp_path / "out")))
+    assert main(["-p", str(prm), "--max-steps", "2", "--device", "cpu"]) == 0
+    # the prm's final time (0.09) lets one step of dt 0.1 run
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "boussinesq.pvd", "boussinesq_000000.vts", "boussinesq_000001.vts"]
+    capsys.readouterr()
+    assert main(["-p", str(prm), "--no-output", "--restart",
+                 str(tmp_path / "ckpt"), "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "Exception on processing" in err and "ckpt" in err
 
 
 def test_port_imports_no_jax():

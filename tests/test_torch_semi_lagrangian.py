@@ -365,20 +365,25 @@ def test_cli_runs_semi_lagrangian_on_cpu(capsys, tmp_path, chunk):
 
 
 def test_cli_refuses_solver_diagnostics_level_3(capsys, tmp_path):
-    """The residual trails of `solver diagnostics level` >= 3 are not
-    ported: the CLI refuses instead of printing none."""
+    """The residual trails of `solver diagnostics level` >= 3 are printed
+    per step (the SL prm: the helmholtz and temperature Richardson
+    solves); with --chunk the CLI refuses, as the trails work per step."""
     from dycoreplanet_tpu_torch.cli.main import main
 
     prm = tmp_path / "level3.prm"
-    with open(PRM) as f:
+    with open(_sl_prm(tmp_path)) as f:
         prm.write_text(f.read() + "\nsubsection Boussinesq Model\n"
                        "  set solver diagnostics level = 3\nend\n")
-    for chunk in ([], ["--chunk", "2"]):
-        assert main(["-p", str(prm), "--max-steps", "1", "--no-output",
-                     "--device", "cpu"] + chunk) == 1
-        err = capsys.readouterr().err
-        assert "solver diagnostics level >= 3" in err
-        assert "ROADMAP.md: VTK output and checkpoints" in err
+    assert main(["-p", str(prm), "--max-steps", "2", "--no-output",
+                 "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for name in ("helmholtz richardson", "temperature richardson"):
+        assert out.count(f"   [{name}] ||r|| trail (2 its): ") == 2
+    assert main(["-p", str(prm), "--max-steps", "1", "--no-output",
+                 "--device", "cpu", "--chunk", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "solver diagnostics level >= 3) work per step" in err
+    assert "without --chunk" in err
 
 
 # ----------------------------------------------------------------- card
