@@ -122,7 +122,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      not rich_fused; (e) aqua_planet_test_2d.prm with output and
      checkpoints; then the host ms of one VTK write and one checkpoint,
      the files' sizes and the host ms/step;
-  8. one JSON line with every kernel's numbers, then, last, the
+  8. the FEEC personality and the coupled momentum solves (plain
+     PyTorch, as jnp in the JAX package, which runs no kernel there):
+     (a) the FEEC 3x3 FGMRES at 32x128x256 f32 with
+     aqua_planet_shell_test_3d-feec.prm's physics, the bench's dt, from
+     the seeded developed flow, 3 steps: finite, max|div u|, the outer
+     iterations and residuals and the gate's verdict, host and device
+     ms/step, kernels, host launches and host syncs a step, peak memory;
+     (b) one FEEC 3x3 step (8x16x32) and one annulus coupled step of
+     each 2x2 solve (16x192) in f64 on the card against the CPU from the
+     same state: the same outer iterations, within 1e-10; (c) FEEC with
+     `momentum solver = projection` at 32x128x256 f32 (the plain
+     rotational forcing, K1 and K5, no forcing kernel) as 20 gated steps
+     through run and as a multi_step graph, compared; (d) the annulus
+     coupled path at refinement 8 (256x3072) f32: the prm's Schur GMRES,
+     the block FGMRES, and the Schur path with `helmholtz solver =
+     direct` (K4 once a step, on the temperature solve); (e) the shell's
+     Schur 2x2 path at 16x64x128; (f) the CLI on the FEEC prm (one
+     step at its own 8x16x32);
+  9. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
@@ -1643,6 +1661,307 @@ def cli_output_phase(tmp):
 
 
 
+# ----------------------------------------------------------------- phase 8
+FEEC_PRM = "aqua_planet_shell_test_3d-feec.prm"
+# (a): FEEC 3x3 steps at the bench shape (the first counts host syncs)
+FEEC_STEPS = 3
+# (b): the card against the CPU in f64
+FEEC_SMALL = (8, 16, 32)
+# (d): annulus coupled steps at work size
+COUPLED_STEPS = 2
+# (e): the shell's Schur 2x2 path
+SCHUR_SHAPE = (16, 64, 128)
+
+
+def feec_params(shape, dtype="float32"):
+    """FEEC_PRM at `shape` (its physics and tolerances), f32 or f64, with
+    the bench's fixed dt."""
+    from dycoreplanet_tpu_torch.base.params import Parameters
+    from dycoreplanet_tpu_torch.models.presets import BENCH_DT
+
+    p = Parameters.from_file(os.path.join(HERE, "data", FEEC_PRM))
+    p.numerics.n_radial, p.numerics.n_lat, p.numerics.n_lon = shape
+    p.numerics.dtype = dtype
+    p.time_step = BENCH_DT
+    p.adapt_time_step = False
+    p.final_time = 1e9
+    return p
+
+
+def count_syncs(fn):
+    """Run fn() with CUDA's sync debug mode warning on every host
+    synchronization (a read back of a device value): (fn's result, the
+    synchronizations counted)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def coupled_steps(label, model, s0, n):
+    """n steps of a coupled model from s0 by ``step``, each step's
+    diagnostics read: finite fields, else a failure. Returns (the last
+    state, the steps' diagnostics, the wrapper launches, host ms/step)."""
+    import torch
+
+    def loop():
+        s, diags = s0, []
+        for _ in range(n):
+            s, d = model.step(s, model.params.time_step)
+            d.cfl                      # the step's one diagnostics copy
+            diags.append(d)
+        return s, diags
+
+    (s, diags), launches, wall = drive(model, loop)
+    for x in (s.u, s.p, s.T) + tuple(s.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{label}: non-finite fields")
+    return s, diags, launches, wall / n * 1e3
+
+
+def solves(diags):
+    """The outer iterations and residuals, the temperature residuals, the
+    gate's verdicts and the divergence of coupled steps."""
+    r3 = lambda v: float(f"{v:.3e}")    # noqa: E731
+    return (f"outer iterations {[d.poisson_iters for d in diags]}, outer "
+            f"residuals {[r3(d.helmholtz_residual) for d in diags]}, "
+            f"temperature residuals "
+            f"{[r3(d.temperature_residual) for d in diags]}, gate "
+            f"{[d.solver_ok for d in diags]}, max|div u| "
+            f"{[r3(d.div_norm) for d in diags]}")
+
+
+def annulus_coupled_params(dtype="float32", schur=True, **kw):
+    """annulus_params with `momentum solver = coupled`: with ``schur`` the
+    prm's own `use schur complement solver = true`, else the block
+    FGMRES."""
+    p = annulus_params(dtype, momentum_solver="coupled", **kw)
+    p.use_schur_complement_solver = schur
+    return p
+
+
+def feec_phases(dev):
+    """Phase 8, the FEEC personality and the coupled solves (plain PyTorch:
+    the JAX package runs no kernel in them) and the kernels they put on
+    new paths: (a) the FEEC 3x3 FGMRES at the bench shape, f32, FEEC_PRM's
+    physics and with the flagship's, the bench's dt, from the seeded
+    developed flow; (b) one FEEC
+    3x3 step and one annulus coupled step in f64 on the card against the
+    CPU from the same state; (c) FEEC with `momentum solver = projection`
+    and the flagship's physics (K1, K3, K5, no forcing kernel) as 20
+    gated steps through run and as a
+    multi_step graph; (d) the annulus coupled path at work size (the prm's
+    Schur GMRES, the block FGMRES, and the Schur path with `helmholtz
+    solver = direct`: K4 on the temperature solve); (e) the
+    Schur 2x2 path on the shell; (f) the CLI on FEEC_PRM. Returns (run
+    launches by path, replay device kernels by path)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.convert import (
+        state_from_numpy, state_to_numpy)
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    by_path, replay_by_path = {}, {}
+
+    # ---- (a) the FEEC 3x3 FGMRES at the bench shape ----------------------
+    # with FEEC_PRM's physics (Re 100: the solve stalls at its cap of 512
+    # outer iterations at this size, in f32 and f64, in the JAX model too;
+    # scripts/probe_coupled_gate.py) and with the flagship's (Re ~7e4), from
+    # the seeded developed flow: FEEC_STEPS steps, the first with the
+    # host syncs counted (it also pays cuBLAS's one-time set-up), the rest
+    # timed; then one step under torch.profiler, for FEEC_PRM's physics
+    # with the cap at one cycle of 16 (a 512-iteration step holds ~0.8 M
+    # kernels, whose profile takes minutes to read)
+    n_cells = int(np.prod(BENCH_SHAPE))
+    for label, params in (("FEEC prm", feec_params(BENCH_SHAPE)),
+                          ("flagship", bench_params(BENCH_SHAPE))):
+        t_a = time.perf_counter()
+        params.use_FEEC_solver = True
+        m = BoussinesqModel(params, device=dev)
+        if m.momentum_solver != "coupled" or set(m.kernels()) != {"tridiag"}:
+            fail(f"FEEC model: momentum solver {m.momentum_solver}, kernels "
+                 f"{list(m.kernels())}")
+        s0 = seed_developed_flow(m)
+        def first_step():
+            out = m.step(s0, BENCH_DT)
+            out[1].cfl                  # its diagnostics copy, counted too
+            return out
+
+        (s1, d1), n_sync = count_syncs(first_step)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s_a, diags, launches, ms_a = coupled_steps(
+            f"FEEC 3x3 ({label})", m, s1, FEEC_STEPS - 1)
+        mem_peak = torch.cuda.max_memory_allocated()
+        diags = [d1] + diags
+        cap = m.params.numerics.max_cg_iters
+        if label == "FEEC prm":
+            m.params.numerics.max_cg_iters = 16
+        d_prof = []
+        prof = step_profile(lambda: d_prof.append(m.step(s_a, BENCH_DT)[1]),
+                            1)
+        m.params.numerics.max_cg_iters = cap
+        its_prof = d_prof[0].poisson_iters
+        by_path["feec_3x3" if label == "FEEC prm"
+                else "feec_3x3_flagship"] = launches
+        its = [d.poisson_iters for d in diags]
+        ms_it = ms_a / max(sum(its[1:]) / len(its[1:]), 1)
+        tol = max(m.params.numerics.helmholtz_tol,
+                  16 * float(torch.finfo(torch.float32).eps))
+        phase(f"8 (a) FEEC 3x3 FGMRES {BENCH_SHAPE} = {n_cells} cells f32, "
+              f"{label} physics (1/Re {m.one_over_Re:.3e}), dt {BENCH_DT}, "
+              f"seeded developed flow: {FEEC_STEPS} steps finite, "
+              f"{solves(diags)} (outer rtol max(helmholtz tol, 16 eps) = "
+              f"{tol:.3e}); host {ms_a:.2f} ms/step (steps 2-{FEEC_STEPS}, "
+              f"each read back), {ms_it:.3f} ms an "
+              f"outer iteration; {n_sync} host syncs in step 1 "
+              f"({n_sync / its[0]:.2f} an outer iteration); profiled step "
+              f"({its_prof} outer iterations"
+              + (", the cap at 16" if label == "FEEC prm" else "")
+              + f"): device {prof['device_ms_per_step']:.3f} ms in "
+              f"{prof['kernels_per_step']:.0f} kernels "
+              f"({prof['host_launches_per_step']:.0f} host launches), "
+              f"{prof['device_ms_per_step'] / its_prof:.3f} device ms and "
+              f"{prof['kernels_per_step'] / its_prof:.0f} kernels an outer "
+              f"iteration; peak memory {mem_peak / 2**20:.1f} MiB "
+              f"({(mem_peak - mem0) / 2**20:.1f} above the "
+              f"{mem0 / 2**20:.1f} MiB before); launches {launches}; "
+              f"{time.perf_counter() - t_a:.1f} s" + since())
+        del m, s0, s1, s_a
+
+    # ---- (b) the card against the CPU, f64, from the same state ----------
+    cases = (("FEEC 3x3", lambda: feec_params(FEEC_SMALL, "float64")),
+             ("annulus coupled Schur", lambda: annulus_coupled_params(
+                 "float64", refinement=4)),
+             ("annulus coupled FGMRES", lambda: annulus_coupled_params(
+                 "float64", schur=False, refinement=4)))
+    for label, params in cases:
+        cpu = BoussinesqModel(params(), device="cpu")
+        card = BoussinesqModel(params(), device=dev)
+        if cpu.geo.kind == "shell":
+            s_cpu = seed_developed_flow(cpu)
+        else:
+            s_cpu = cpu.initial_state()
+            for _ in range(2):
+                s_cpu, _ = cpu.step(s_cpu, cpu.params.time_step)
+        s_card = state_from_numpy(card, *state_to_numpy(s_cpu))
+        dt = cpu.params.time_step
+        c1, dc = cpu.step(s_cpu, dt)
+        g1, dg = card.step(s_card, dt)
+        u_scale = float(c1.u.abs().max())
+        worst = {}
+        for name, x, y in zip(("u", "p", "T") + tuple(
+                f"uf{i}" for i in range(len(c1.u_faces))),
+                (g1.u, g1.p, g1.T) + tuple(g1.u_faces),
+                (c1.u, c1.p, c1.T) + tuple(c1.u_faces)):
+            scale = float(y.abs().max()) if name in ("p", "T") else u_scale
+            worst[name] = float((x.cpu() - y).abs().max()) / max(scale, 1e-300)
+        if dg.poisson_iters != dc.poisson_iters or max(worst.values()) > 1e-10:
+            fail(f"8 (b) {label} {cpu.geo.cell_shape} f64: the card's step "
+                 f"({dg.poisson_iters} outer iterations) vs the CPU's "
+                 f"({dc.poisson_iters}): rel diff {worst} (tol 1e-10)")
+        phase(f"8 (b) {label} {cpu.geo.cell_shape} f64, one step on the card "
+              f"vs the CPU from the same state: outer iterations "
+              f"{dg.poisson_iters} on both, max rel diff (u and the faces "
+              f"to max|u|, p and T to their own) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + " (tol 1e-10)" + since())
+        del cpu, card
+
+    # ---- (c) FEEC with momentum solver = projection ----------------------
+    # the flagship's physics and opt-ins: at FEEC_PRM's Re of 100 one
+    # Richardson sweep misses the f32 gate at this size, and every chunk
+    # would be redone with CG
+    p_c = bench_params(BENCH_SHAPE)
+    p_c.use_FEEC_solver = True
+    p_c.numerics.momentum_solver = "projection"
+    pm = BoussinesqModel(p_c, device=dev)
+    want_p = {"faces_div": 0, "correct": N_STEPS, "tridiag": 0,
+              "richardson": N_STEPS}
+    if pm.momentum_solver != "projection" or pm._forcing is not None:
+        fail(f"FEEC projection model: {pm.momentum_solver}, forcing "
+             f"wrapper {pm._forcing}")
+    ps0 = seed_developed_flow(pm)
+    l_pr, l_pg, ms_pr, ms_pg, s_pg, _ = graph_vs_run(
+        "8 (c) FEEC projection", pm, ps0, want_p)
+    # the chunk graph_vs_run captured, replayed under the profiler
+    pprof = step_profile(lambda: pm.multi_step(ps0, BENCH_DT, N_STEPS),
+                         N_STEPS)
+    phase(f"8 (c) FEEC projection {BENCH_SHAPE} f32 (the flagship's physics "
+          f"and opt-ins; the plain rotational forcing, K1, K5, no forcing "
+          f"kernel): {N_STEPS} gated steps, 0 "
+          f"escalations, run launches {l_pr}; graph replay "
+          f"{pprof['device_ms_per_step']:.4f} device ms/step in "
+          f"{pprof['kernels_per_step']:.1f} kernels, "
+          f"{pprof['host_launches_per_step']:.2f} host launches a step; host "
+          f"ms/step run {ms_pr:.4f}, graph {ms_pg:.4f}" + since())
+    by_path["feec_projection"] = l_pr
+    replay_by_path["feec_projection_graph"] = l_pg
+    del pm, ps0, s_pg
+
+    # ---- (d) the annulus coupled path at work size -----------------------
+    for label, kw, want_k4 in (
+            ("annulus coupled Schur", {}, 0),
+            ("annulus coupled FGMRES", {"schur": False}, 0),
+            ("annulus coupled Schur direct", {"helmholtz_solver": "direct"},
+             COUPLED_STEPS)):
+        am = BoussinesqModel(annulus_coupled_params(**kw), device=dev)
+        if set(am.kernels()) != {"tridiag"}:
+            fail(f"8 (d) {label}: kernels {list(am.kernels())}")
+        _, diags, launches, ms = coupled_steps(
+            label, am, am.initial_state(), COUPLED_STEPS)
+        if launches != {"tridiag": want_k4}:
+            fail(f"8 (d) {label}: launches {launches}, expected "
+                 f"{{'tridiag': {want_k4}}}")
+        key = label.replace(" ", "_")
+        by_path[key] = launches
+        phase(f"8 (d) {label} {am.geo.cell_shape} f32, {ANNULUS_PRM}'s "
+              f"physics and dt: {COUPLED_STEPS} steps from rest, "
+              f"{solves(diags)}, temperature iterations "
+              f"{[d.temperature_iters for d in diags]}; launches {launches}; "
+              f"host {ms:.2f} ms/step" + since())
+        del am
+
+    # ---- (e) the Schur 2x2 path on the shell -----------------------------
+    p_s = feec_params(SCHUR_SHAPE)
+    p_s.use_schur_complement_solver = True
+    sm = BoussinesqModel(p_s, device=dev)
+    _, diags, launches, ms = coupled_steps("Schur", sm,
+                                           seed_developed_flow(sm), 2)
+    by_path["feec_schur"] = launches
+    phase(f"8 (e) Schur 2x2 (GMRES around inner CG) {SCHUR_SHAPE} f32, "
+          f"{FEEC_PRM}'s physics with `use schur complement solver = "
+          f"true`, dt {BENCH_DT}: 2 steps, {solves(diags)}; launches "
+          f"{launches}; host {ms:.2f} ms/step" + since())
+    del sm
+
+    # ---- (f) the CLI -----------------------------------------------------
+    # the prm as it is: its final time lets one step of dt 0.1 run (the
+    # CPU tests run it with --chunk too, tests/test_torch_cli.py)
+    out = run_cli(FEEC_PRM, os.path.join(HERE, "data", FEEC_PRM),
+                  ["--max-steps", "3", "--no-output"])
+    its = [ln.strip() for ln in out.splitlines() if "Solver iterations" in ln]
+    divs = [ln.strip() for ln in out.splitlines() if "Post-projection" in ln]
+    if len(divs) != 1 or "FEEC (rotational, coupled 3x3)" not in out:
+        fail(f"8 (f) CLI on {FEEC_PRM}: {len(divs)} steps printed, expected "
+             f"1 (its final time 0.09, dt 0.1)")
+    phase(f"8 (f) CLI on {FEEC_PRM} --max-steps 3 --no-output: rc 0, 1 step "
+          f"(final time 0.09, dt 0.1): {its[-1]}; {divs[-1]}" + since())
+    phase(f"phase 8 {time.perf_counter() - t0:.1f} s")
+    return by_path, replay_by_path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -2449,12 +2768,20 @@ def main() -> None:
         # ---- 7b. the CLI with output at work size ------------------------
         cli_output_phase(tmp)
 
-    # ---- 8. report -----------------------------------------------------
+    # ---- 8. the FEEC personality and the coupled solves ----------------
+    feec_launches, feec_replays = feec_phases(dev)
+    for label, counts in feec_launches.items():
+        record(label, counts)
+    for label, counts in feec_replays.items():
+        record_replay(label, counts)
+
+    # ---- 9. report -----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
     # mode; K2m: the semi-Lagrangian path; K1o, K2o: the mesh 2 x 4; K2mo:
-    # the SL mesh 2 x 4), and on every eager path (K4
-    # also on the annulus direct path); replay_launches_by_path: the
+    # the SL mesh 2 x 4), and on every eager path (K4 also on the annulus
+    # direct path and the coupled paths of phase 8; K1, K3, K5 on FEEC
+    # projection); replay_launches_by_path: the
     # device kernels torch.profiler counted in one replay of each path's
     # 20-step graph
     main_mesh = f"mesh_{MAIN_MESH[0]}x{MAIN_MESH[1]}"

@@ -52,7 +52,8 @@ def print_parameter_info(params, model) -> None:
         ("Rayleigh number", f"{nondim.rayleigh_number(params.space_dimension, pc.gravity_constant, pc.expansion_coefficient, ref.temperature_change, ref.length, pc.kinematic_viscosity, pc.thermal_diffusivity):.6g}"),
         ("Geometry", model.geo.kind),
         ("Grid cells", " x ".join(str(n) for n in model.geo.cell_shape)),
-        ("Formulation", "standard (advective)"),
+        ("Formulation", "FEEC (rotational, coupled 3x3)"
+         if params.use_FEEC_solver else "standard (advective)"),
         ("Device", str(model.device)),
         ("Time step", f"{params.time_step}"),
         ("Final time", f"{params.final_time}"),

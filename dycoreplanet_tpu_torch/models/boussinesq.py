@@ -68,11 +68,30 @@ sharded state and run eagerly.
 solve's residual trail; as in the JAX model it takes the unfused branch
 (K1 records no iterate's residual), so K2, K3 and K5 run, not K1.
 
-This slice runs the 3D spherical shell and the 2D annulus, standard
-(advective) personality, incremental projection, with the
-Richardson/CG or the direct Helmholtz solves. Every other configuration
-raises ``NotImplementedError`` naming its ROADMAP.md item; none quietly
-runs another path.
+The FEEC personality (``use FEEC solver = true``) advects in the
+rotational form omega x u + grad(|u|^2 / 2) (ops/vector.py), in the
+plain forcing on every geometry: the JAX package builds no forcing
+kernel for it, so neither K2 nor K2m runs; with ``momentum solver =
+projection`` the step is otherwise the standard one (K1, K1u, K3, K5 on
+the shell). ``momentum solver = coupled`` (the default for FEEC)
+replaces the predictor and the projection by a monolithic
+velocity-pressure solve with Rhie-Chow faces, plain PyTorch as it is
+jnp in the JAX package, which runs no kernel there: the 2x2 system by
+block-preconditioned FGMRES(30) with a strong-preconditioner retry, or
+its pressure Schur complement by GMRES around an inner CG (``use schur
+complement solver``), and on the FEEC shell the 3x3
+vorticity-velocity-pressure system by flexible FGMRES(16)
+(solvers/gmres.py, linear_algebra/). Its temperature solve is the
+standard one (K4 with ``helmholtz solver = direct``). The Krylov loops
+read their stopping tests back every iteration, so coupled chunks run
+eagerly.
+
+This slice runs the 3D spherical shell and the 2D annulus, both
+personalities (FEEC in its collocated realization), incremental
+projection or the coupled solves, with the Richardson/CG or the direct
+Helmholtz solves. Every other configuration raises
+``NotImplementedError`` naming its ROADMAP.md item; none quietly runs
+another path.
 """
 
 from __future__ import annotations
@@ -85,16 +104,19 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dycoreplanet_tpu_torch import linear_algebra as la
 from dycoreplanet_tpu_torch.base import nondim
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid.factory import make_geometry
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import stencil as st
+from dycoreplanet_tpu_torch.ops import vector as vec
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
 from dycoreplanet_tpu_torch.ops.diagonal import weak_laplacian_diagonal
 from dycoreplanet_tpu_torch.ops.forcing import Forcing, ShellForcing
 from dycoreplanet_tpu_torch.ops.projection import (
-    ShellProjection, cell_to_faces, correct_plain, faces_div_plain)
+    ShellProjection, apply_wall_face_values, cell_to_faces, correct_plain,
+    faces_div_plain)
 from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
 from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
@@ -105,6 +127,7 @@ from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues)
 from dycoreplanet_tpu_torch.solvers.cg import cg
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
+from dycoreplanet_tpu_torch.solvers.gmres import gmres
 from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
 from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
 
@@ -209,7 +232,8 @@ def _unsupported(params: Parameters) -> Optional[str]:
     """The ROADMAP.md item that brings a configuration this slice does
     not run, or None."""
     num = params.numerics
-    if params.use_FEEC_solver or num.momentum_solver == "coupled":
+    if params.use_FEEC_solver and num.feec_formulation == "staggered":
+        # the mimetic C-grid personality (models/mimetic.py)
         return "FEEC, coupled and mimetic solvers"
     if params.cuboid_geometry:
         return "cuboid geometry"
@@ -291,7 +315,20 @@ class BoussinesqModel:
         self.omega_hat = ref.length * pc.omega / ref.velocity
         self.coriolis_mode = num.coriolis_mode
         self.advection_scheme = num.advection_scheme
+        self.advection_form = ("rotational" if params.use_FEEC_solver
+                               else "advective")
+        # 'auto': FEEC runs the monolithic coupled system, as the
+        # reference's FEEC configs do (boussineq_model_FEEC.tpp:1268-1477);
+        # the standard personality the projection
+        ms = num.momentum_solver
+        if ms == "auto":
+            ms = "coupled" if params.use_FEEC_solver else "projection"
+        self.momentum_solver = ms
         self.momentum_iters = num.momentum_fixed_iters or num.fixed_solver_iters
+        # the coupled FGMRES's retry with the stronger preconditioner on
+        # outer non-convergence (reference: boussinesq_model.tpp:1203-1232);
+        # the tests turn it off to show the stiff-config failure it prevents
+        self._enable_solver_fallback = True
 
         self._setup_bcs()
         self._setup_static_fields()
@@ -306,7 +343,7 @@ class BoussinesqModel:
             scheme=self.advection_scheme,
             include_gradp=num.projection == "incremental",
             u_specs=self.u_specs, p_specs=self.p_specs,
-            T_specs=self.T_specs)
+            T_specs=self.T_specs, advection_form=self.advection_form)
         self._forcing = self._proj = None
         self._richardson = self._richardson_free = None
         self._semi_lagrangian = None
@@ -335,22 +372,28 @@ class BoussinesqModel:
         self._mesh = None
 
     def _build_shell_kernels(self, forcing: dict) -> None:
-        """The wrappers of the shell's hand kernels (the JAX package's
-        Pallas factories build theirs on the shell only); ``forcing``:
+        """The wrappers of the shell's hand kernels, gated as the JAX
+        package's Pallas factories gate theirs (its
+        ``models/boussinesq.py:228-248``): on the shell only, none for the
+        coupled solves, and no forcing kernel for the rotational form
+        (its ``ops/pallas_stencil.py:1048-1049``); ``forcing``:
         ``Forcing``'s arguments."""
         geo = self.geo
         params = self.params
         num = params.numerics
-        self._forcing = ShellForcing(
-            geo, **forcing, T_wall=self.T_wall,
-            dt_T_factor=1.0 / params.NSE_solver_interval,
-            advect_T=num.temperature_advection == "eulerian")
         # semi-Lagrangian temperature transport (K = 2 ghost layers, the
         # JAX package's default), its tables on the device from the start
         if num.temperature_advection == "semi-lagrangian":
             self._semi_lagrangian = SemiLagrangian(geo, self.T_specs)
             self._semi_lagrangian.tables(self._vol_t.device,
                                          self.torch_dtype)
+        if self.momentum_solver == "coupled":
+            return
+        if self.advection_form == "advective":
+            self._forcing = ShellForcing(
+                geo, **forcing, T_wall=self.T_wall,
+                dt_T_factor=1.0 / params.NSE_solver_interval,
+                advect_T=num.temperature_advection == "eulerian")
         self._proj = ShellProjection(
             geo, self.u_specs, self.p_specs,
             incremental=num.projection == "incremental")
@@ -382,15 +425,18 @@ class BoussinesqModel:
 
     # ------------------------------------------------------------------
     def kernels(self) -> Dict[str, object]:
-        """The kernel wrappers of the step, by name (their ``launches``
-        count the CUDA launches); on the annulus K4's alone."""
-        if self._forcing is None:
-            return {"tridiag": self._tridiag}
-        forcing = "forcing" if self._forcing.advect_T else "forcing_momentum"
-        out = {forcing: self._forcing,
-               "faces_div": self._proj.faces_div_count,
-               "correct": self._proj.correct_count,
-               "tridiag": self._tridiag}
+        """The kernel wrappers the model built, by name (their
+        ``launches`` count the CUDA launches): on the annulus and for
+        the coupled solves K4's alone, for the shell's rotational
+        projection step no forcing kernel."""
+        out = {}
+        if self._forcing is not None:
+            out["forcing" if self._forcing.advect_T
+                else "forcing_momentum"] = self._forcing
+        if self._proj is not None:
+            out["faces_div"] = self._proj.faces_div_count
+            out["correct"] = self._proj.correct_count
+        out["tridiag"] = self._tridiag
         if self._richardson is not None:
             out["richardson"] = self._richardson
         if self._richardson_free is not None:
@@ -430,6 +476,13 @@ class BoussinesqModel:
             ShardedShellPoissonFastDiag)
 
         num = self.params.numerics
+        if (self.momentum_solver == "coupled"
+                or self.advection_form != "advective"):
+            # the JAX package runs these on the mesh only through GSPMD's
+            # plain path
+            raise _not_on_mesh(MESH_CG, f"the {self.momentum_solver} "
+                               f"momentum solve in the {self.advection_form} "
+                               "form")
         if self.geo.kind != "shell":
             raise _not_on_mesh(MESH_ANNULUS, f"the {self.geo.kind}")
         if self.helmholtz_direct is not None:
@@ -719,10 +772,12 @@ class BoussinesqModel:
         dt_T = self._dt_T(dt)
 
         # ------- explicit forcing from step n [K2, or K2m + transport;
-        # the model's plain PyTorch on the annulus] ----------------------
+        # the model's plain PyTorch on the annulus and in the rotational
+        # form] ----------------------------------------------------------
         if self._forcing is None:
-            rhs_u = u + dt * self._plain_forcing.explicit_forcing(
+            forcing = self._plain_forcing.explicit_forcing(
                 u, u_faces, pres, T)
+            rhs_u = u + dt * forcing
             T_adv = self._advected_temperature(u, u_faces, T, dt_T)
         elif self._forcing.advect_T:
             rhs_u, T_adv = self._forcing(u, u_faces, T, pres, dt)
@@ -733,7 +788,24 @@ class BoussinesqModel:
                           * self.dtype.type(self.one_over_Pe))
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
 
-        if (self._richardson is not None and not self._force_cg
+        if self.momentum_solver == "coupled":
+            # the monolithic saddle-point solve; the FEEC shell's is the
+            # 3x3 vorticity-velocity-pressure system. It takes the
+            # forcing without -grad p^n: the JAX model adds grad p^n back
+            if p.numerics.projection == "incremental":
+                forcing = forcing + self._grad_c(pres)
+            coupled = (self._solve_momentum_coupled_feec
+                       if p.use_FEEC_solver and geo.dim == 3
+                       and not p.use_schur_complement_solver
+                       else self._solve_momentum_coupled)
+            (u_new, p_new, new_faces, outer_iters, outer_rnorm,
+             momentum_ok) = coupled(u + dt * forcing, dt)
+            helm_iters = [outer_iters] * geo.dim
+            poisson_iters = outer_iters
+            helm_rnorm = poisson_rnorm = outer_rnorm
+            T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+                rhs_T, kT, T)
+        elif (self._richardson is not None and not self._force_cg
                 and not self._solver_trace):
             # fused implicit stage [K1]: both Richardson solves + the
             # projection head (not in step_verbose, as in the JAX model:
@@ -1101,6 +1173,213 @@ class BoussinesqModel:
         return max(self.params.numerics.poisson_tol, prec_tol)
 
     # ------------------------------------------------------------------
+    # the coupled momentum solves: plain PyTorch, as they are jnp in the
+    # JAX package, which runs no kernel there
+    def _grad_c(self, pp: torch.Tensor) -> torch.Tensor:
+        """The centred pressure gradient, (dim, *cells)."""
+        return torch.stack([
+            st.centered_gradient(self.geo, pp, d, self.p_specs[d])
+            for d in range(self.geo.dim)])
+
+    def _coupled_blocks(self, dt: float):
+        """The blocks both coupled systems share, for the Rhie-Chow
+        stabilized collocated pair: (G, D, stab, poisson_inv) with
+        G p = dt V grad_c p, D u = V div(face-averaged u), stab p = dt
+        (L_compact - L_wide) p, the pressure-velocity coupling that removes
+        the collocated checkerboard mode, and poisson_inv the exact
+        fast-diagonalization inverse of -L between zero-mean projections."""
+        geo = self.geo
+        vol = self._vol_t
+
+        def G_op(pp):
+            return dt * vol[None] * self._grad_c(pp)
+
+        def D_op(u):
+            return vol * st.divergence(geo, cell_to_faces(geo, self.u_specs,
+                                                          u))
+
+        def stab(pp):
+            return dt * (st.weak_laplacian(geo, pp, self.p_specs)
+                         - D_op(self._grad_c(pp)))
+
+        def poisson_inv(rp):
+            phi, _ = self.poisson_spectral.solve(rp - torch.mean(rp))
+            return phi - st.volume_mean(geo, phi)
+
+        return G_op, D_op, stab, poisson_inv
+
+    def _solve_momentum_coupled(self, rhs_u, dt):
+        """The monolithic velocity-pressure saddle-point solve (JAX model:
+        ``_solve_momentum_coupled``; reference: the coupled 2x2 block
+        system of solve_NSE_block_preconditioned / _Schur_complement,
+        boussinesq_model.tpp:1131-1414):
+
+            A u + G p     = V rhs_u      A = V + dt/Re (-L)
+            D u - stab(p) = 0
+
+        ``use schur complement solver`` false: FGMRES(30) on the block
+        system, right-preconditioned by the block-triangular (Poisson,
+        Jacobi) sweep; when it misses, a retry from its iterate with the
+        stronger sweep (an inner CG on the velocity block, flexible
+        FGMRES(50); reference tpp:1203-1232), a host branch where the JAX
+        model has ``lax.cond``. True: GMRES(30) on the pressure Schur
+        complement D A^{-1} G + stab, A^{-1} an inner CG to 1e-6
+        (reference tpp:1248-1414). Returns (u, p, faces, outer
+        iterations, outer residual norm, converged)."""
+        geo = self.geo
+        p = self.params
+        num = p.numerics
+        dim = geo.dim
+        vol = self._vol_t
+        coef = self._scalar(self.dtype.type(dt)
+                            * self.dtype.type(self.one_over_Re))
+
+        def A_op(u):
+            return vol[None] * u - coef * torch.stack([
+                st.weak_laplacian(geo, u[c], self.u_specs[c])
+                for c in range(dim)])
+
+        helm_diag = vol[None] + coef * self._helm_diags_t
+        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt)
+        f = vol[None] * rhs_u
+
+        if p.use_schur_complement_solver:
+            A_inv = la.inverse_operator(
+                A_op, preconditioner=lambda r: r / helm_diag, rtol=1e-6,
+                maxiter=num.max_cg_iters)
+            DAinvG = la.schur_complement(D_op, A_inv, G_op)
+            res = gmres(lambda pp: DAinvG(pp) + stab(pp), D_op(A_inv(f)),
+                        rtol=1e-6, restart=30, maxiter=num.max_cg_iters,
+                        preconditioner=lambda r: -poisson_inv(r) / dt,
+                        record_history=self._hist_n())
+            self._stash_history("schur GMRES", res)
+            p_sol = res.x
+            u_sol = A_inv(f - G_op(p_sol))
+        else:
+            def K_op(xx):
+                u, pp = xx[:dim], xx[dim]
+                return torch.cat([A_op(u) + G_op(pp),
+                                  (D_op(u) - stab(pp))[None]], 0)
+
+            def M_inv(rr):
+                ru, rp = rr[:dim], rr[dim]
+                phat = -poisson_inv(rp) / dt
+                uhat = (ru - G_op(phat)) / helm_diag
+                return torch.cat([uhat, phat[None]], 0)
+
+            def M_inv_strong(rr):
+                ru, rp = rr[:dim], rr[dim]
+                phat = -poisson_inv(rp) / dt
+                inner = cg(A_op, ru - G_op(phat), rtol=1e-6, maxiter=50,
+                           preconditioner=lambda r: r / helm_diag)
+                return torch.cat([inner.x, phat[None]], 0)
+
+            b = torch.cat([f, torch.zeros_like(f[:1])], 0)
+            res = gmres(K_op, b, rtol=num.helmholtz_tol, restart=30,
+                        maxiter=num.max_cg_iters, preconditioner=M_inv,
+                        record_history=self._hist_n())
+            self._stash_history("coupled FGMRES", res)
+            if self._enable_solver_fallback and not bool(res.converged):
+                # flexible: M_inv_strong holds an inner iterative CG
+                res = gmres(K_op, b, x0=res.x, rtol=num.helmholtz_tol,
+                            restart=50, maxiter=num.max_cg_iters,
+                            preconditioner=M_inv_strong, flexible=True,
+                            record_history=self._hist_n())
+            u_sol, p_sol = res.x[:dim], res.x[dim]
+        return self._coupled_result(u_sol, p_sol, dt, res)
+
+    def _coupled_result(self, u_sol, p_sol, dt, res):
+        """A coupled solve's return: the pressure (zero mean if asked)
+        and the Rhie-Chow faces of (u_sol, p_sol), and the outer solve's
+        iterations, residual norm and verdict."""
+        p_new = p_sol
+        if self.params.correct_pressure_to_zero_mean:
+            p_new = p_new - st.volume_mean(self.geo, p_new)
+        return (u_sol, p_new, self._rhie_chow_faces(u_sol, p_sol, dt),
+                res.iterations, res.residual_norm, res.converged)
+
+    def _rhie_chow_faces(self, u_sol, p_sol, dt):
+        """Staggered faces of a collocated coupled solve: the face-averaged
+        velocity corrected by the compact-minus-wide pressure-gradient
+        difference (discretely divergence-free to the solver's
+        tolerance)."""
+        geo = self.geo
+        ufs = cell_to_faces(geo, self.u_specs, u_sol)
+        gcfs = cell_to_faces(geo, self.u_specs, self._grad_c(p_sol))
+        return [apply_wall_face_values(
+            geo, uf - dt * (st.grad_left_faces(geo, p_sol, d, self.p_specs[d])
+                            - gcf), d)
+            for d, (uf, gcf) in enumerate(zip(ufs, gcfs))]
+
+    def _solve_momentum_coupled_feec(self, rhs_u, dt):
+        """The monolithic 3x3 vorticity-velocity-pressure solve of the FEEC
+        shell (JAX model: ``_solve_momentum_coupled_feec``; reference:
+        ExteriorCalculus solve_NSE_block_preconditioned,
+        boussineq_model_FEEC.tpp:1268-1477), on x = [w (3) | u (3) | p]:
+
+            Mw w - Cw u           = 0       (w = curl u weakly)
+            B10 w + Mu u + G p    = V rhs_u (B10 = dt/Re V curl)
+            D u - stab(p)         = 0
+
+        by flexible FGMRES(16), right-preconditioned by the
+        block-triangular sweep w -> u -> p: w_hat = Mw^{-1} rw, u_hat the
+        shifted Schur complement Mu - B10 Mw^{-1} B01 inverted by a
+        truncated Jacobi-preconditioned GMRES(3) (reference
+        shifted_schur_complement.hpp:155-171, 277-298), p_hat the exact
+        Poisson solve. The inner GMRES is nonlinear in its input, so the
+        outer solve stores its Z vectors."""
+        geo = self.geo
+        num = self.params.numerics
+        dim = geo.dim
+        vol = self._vol_t
+        k_visc = self._scalar(self.dtype.type(dt)
+                              * self.dtype.type(self.one_over_Re))
+        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt)
+
+        def curl(v):
+            return vec.curl_3d(geo, v, self.u_specs)
+
+        def mass(w):              # Mw and Mu: the diagonal mass
+            return vol[None] * w
+
+        def Mw_inv(rw):
+            return rw / vol[None]
+
+        def B01_op(u):            # the w row's coupling: -V curl u
+            return -vol[None] * curl(u)
+
+        def B10_op(w):            # the u row's: dt/Re V curl w
+            return k_visc * vol[None] * curl(w)
+
+        sh_diag = vol[None] + k_visc * self._helm_diags_t
+        shifted_inv = la.approximate_inverse(
+            la.shifted_schur_complement(mass, B10_op, Mw_inv, B01_op),
+            n_iter=3, solver="gmres", restart=3,
+            preconditioner=lambda r: r / sh_diag)
+
+        def K_op(xx):
+            w, u, pp = xx[:dim], xx[dim:2 * dim], xx[2 * dim]
+            return torch.cat([mass(w) + B01_op(u),
+                              B10_op(w) + mass(u) + G_op(pp),
+                              (D_op(u) - stab(pp))[None]], 0)
+
+        def M_inv(rr):
+            rw, ru, rp = rr[:dim], rr[dim:2 * dim], rr[2 * dim]
+            what = Mw_inv(rw)
+            uhat = shifted_inv(ru - B10_op(what))
+            phat = -poisson_inv(rp) / dt
+            return torch.cat([what, uhat, phat[None]], 0)
+
+        f = vol[None] * rhs_u
+        b = torch.cat([torch.zeros_like(f), f, torch.zeros_like(f[:1])], 0)
+        res = gmres(K_op, b, rtol=num.helmholtz_tol, restart=16,
+                    maxiter=num.max_cg_iters, preconditioner=M_inv,
+                    flexible=True, record_history=self._hist_n())
+        self._stash_history("FEEC 3x3 FGMRES", res)
+        return self._coupled_result(res.x[dim:2 * dim], res.x[2 * dim], dt,
+                                    res)
+
+    # ------------------------------------------------------------------
     @contextlib.contextmanager
     def _strong(self, on: bool = True):
         """Every solve inside takes the full CG path (``on``)."""
@@ -1216,13 +1495,15 @@ class BoussinesqModel:
         """Whether a chunk runs as a CUDA graph: on the card, with a
         fixed dt (``dt`` reaches K1, K2 and K5 as a host double, so an
         adaptive chunk's graph would be stale after its first boundary),
-        and no CG solve (the CG loop reads its stopping test back every
-        iteration: escalated chunks, and ``fixed solver iters`` = 0
-        without the direct Helmholtz solves)."""
+        and no Krylov solve (the CG and GMRES loops read their stopping
+        tests back every iteration: escalated chunks, ``fixed solver
+        iters`` = 0 without the direct Helmholtz solves, and the coupled
+        solves)."""
         no_cg = (self.params.numerics.fixed_solver_iters > 0
                  or self.helmholtz_direct is not None)
         return (self.device.type == "cuda" and not adaptive
-                and not force_cg and no_cg)
+                and not force_cg and no_cg
+                and self.momentum_solver != "coupled")
 
     def multi_step(self, state: State, dt: float, n_steps: int,
                    collect_diagnostics: bool = True, adaptive: bool = False,

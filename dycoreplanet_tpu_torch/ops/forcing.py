@@ -153,14 +153,24 @@ class Forcing:
     plain PyTorch, in any geometry: operation for operation the JAX
     package's jnp path (``BoussinesqModel._explicit_forcing`` and the
     Eulerian ``_advected_temperature``), which the JAX model runs off the
-    shell. The annulus step runs it as it is; on the shell it is the
-    plain version of K2 and K2m (``ShellForcing``)."""
+    shell and for the FEEC personality. The annulus step and the
+    rotational (FEEC) step run it as it is; on the shell it is the plain
+    version of K2 and K2m (``ShellForcing``, advective form only).
+
+    ``advection_form``: "advective" (the standard personality: the
+    scheme's face fluxes plus the curvature terms) or "rotational" (the
+    FEEC personality: omega x u + grad(|u|^2 / 2), the kinetic energy
+    with the pressure's boundary specs, as in the JAX model)."""
 
     def __init__(self, geo: Geometry, *, beta: float, T_ref: float,
                  rho_background: float, gravity: np.ndarray,
                  one_over_Re: float, omega_hat: float, coriolis_mode: str,
                  buoyancy: str, scheme: str, include_gradp: bool,
-                 u_specs, p_specs, T_specs):
+                 u_specs, p_specs, T_specs,
+                 advection_form: str = "advective"):
+        if advection_form not in ("advective", "rotational"):
+            raise ValueError(f"unknown advection form {advection_form!r}")
+        self.advection_form = advection_form
         self.geo = geo
         self.beta, self.T_ref = float(beta), float(T_ref)
         self.rho_background = float(rho_background)
@@ -203,13 +213,17 @@ class Forcing:
         else:
             rho = nondim.density_scaling(self.beta, T, self.T_ref)
             buoy = rho[None] * gravity
-        div_u = st.divergence(geo, list(u_faces))
-        adv = torch.stack([
-            st.advect_scalar(geo, u_faces, u[c], self.u_specs[c],
-                             scheme=self.scheme, form="advective",
-                             div_u=div_u)
-            for c in range(geo.dim)])
-        adv = adv + vec.advection_curvature(geo, u)
+        if self.advection_form == "advective":
+            div_u = st.divergence(geo, list(u_faces))
+            adv = torch.stack([
+                st.advect_scalar(geo, u_faces, u[c], self.u_specs[c],
+                                 scheme=self.scheme, form="advective",
+                                 div_u=div_u)
+                for c in range(geo.dim)])
+            adv = adv + vec.advection_curvature(geo, u)
+        else:
+            adv = vec.rotational_advection(geo, u, self.u_specs,
+                                           self.p_specs)
         cor = vec.coriolis_acceleration(geo, u, self.omega_hat,
                                         self.coriolis_mode)
         visc_curv = self.one_over_Re * vec.vector_laplacian_curvature(
@@ -240,6 +254,11 @@ class ShellForcing(Forcing):
                  halo_mode: str = "local", local_shape=None, **forcing):
         ch = kl.shell_channels(geo)         # raises off the lat-lon shell
         super().__init__(geo, **forcing)
+        if self.advection_form != "advective":
+            # the JAX package builds no forcing kernel for the rotational
+            # form (ops/pallas_stencil.py:1048-1049)
+            raise ValueError("the forcing kernels compute the advective "
+                             "form only")
         if halo_mode not in ("local", "operands"):
             raise ValueError(f"unknown halo mode {halo_mode!r}")
         # "local": the whole grid; "operands": one shard of local_shape,

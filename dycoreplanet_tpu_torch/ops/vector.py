@@ -1,7 +1,8 @@
 """Vector-field operators in the local orthonormal bases (PyTorch):
 curvature (Christoffel) terms of the advection and the vector Laplacian,
-and the Coriolis acceleration, for the annulus (u_r, u_phi) and the
-shell (u_r, u_lat, u_lon).
+the centred curl and the rotational (vector-invariant) advection of the
+FEEC personality, and the Coriolis acceleration, for the annulus
+(u_r, u_phi) and the shell (u_r, u_lat, u_lon).
 
 Counterpart of the JAX package's ``ops/vector.py``; the cuboid branches
 are not ported yet (ROADMAP.md, "cuboid geometry").
@@ -90,6 +91,69 @@ def vector_laplacian_curvature(
                  - 2.0 * tanl / r * dlon_ul
                  - up / (r * cosl) ** 2)
     return torch.stack([extra_r, extra_lat, extra_lon])
+
+
+def curl_2d(geo: Geometry, u: torch.Tensor,
+            specs: Sequence[Sequence[Optional[BCSpec]]]) -> torch.Tensor:
+    """Scalar vorticity zeta = (1/r)[d_r(r u_phi) - d_phi u_r] on the
+    annulus, (*cells,)."""
+    _require(geo)
+    if geo.kind != "annulus":
+        raise ValueError(geo.kind)
+    r = _extra(geo, "r_centers", u)
+    ur, up = u[0], u[1]
+    d_rup = centered_gradient(geo, r * up, 0, specs[1][0])
+    dphi_ur = centered_gradient(geo, ur, 1, specs[0][1])
+    return d_rup / r - dphi_ur
+
+
+def curl_3d(geo: Geometry, u: torch.Tensor,
+            specs: Sequence[Sequence[Optional[BCSpec]]]) -> torch.Tensor:
+    """omega = curl u in the shell's local frame, (3, *cells); the
+    centred gradients are physical derivatives (1/r d/dlat and
+    1/(r cos lat) d/dlon)."""
+    _require(geo)
+    if geo.kind != "shell":
+        raise ValueError(geo.kind)
+    r = _extra(geo, "r_centers", u)
+    cosl = _extra(geo, "cos_lat", u)
+    ur, ul, up = u[0], u[1], u[2]
+    d_cos_up = centered_gradient(geo, cosl * up, 1, specs[2][1])
+    dlon_ul = centered_gradient(geo, ul, 2, specs[1][2])
+    om_r = -d_cos_up / cosl + dlon_ul
+    d_rup = centered_gradient(geo, r * up, 0, specs[2][0])
+    dlon_ur = centered_gradient(geo, ur, 2, specs[0][2])
+    om_lat = dlon_ur - d_rup / r
+    dlat_ur = centered_gradient(geo, ur, 1, specs[0][1])
+    d_rul = centered_gradient(geo, r * ul, 0, specs[1][0])
+    om_lon = d_rul / r - dlat_ur
+    return torch.stack([om_r, om_lat, om_lon])
+
+
+def rotational_advection(
+        geo: Geometry, u: torch.Tensor,
+        specs: Sequence[Sequence[Optional[BCSpec]]],
+        ke_spec: Sequence[Optional[BCSpec]]) -> torch.Tensor:
+    """The vector-invariant (rotational) form of (u.grad)u, omega x u +
+    grad(|u|^2 / 2): the FEEC personality's advection (reference:
+    boussineq_model_FEEC.tpp:786-805). Returns (dim, *cells)."""
+    _require(geo)
+    ke = 0.5 * torch.sum(u * u, dim=0)
+    grad_ke = torch.stack([centered_gradient(geo, ke, d, ke_spec[d])
+                           for d in range(geo.dim)])
+    if geo.kind == "annulus":
+        zeta = curl_2d(geo, u, specs)
+        # (zeta e_z) x u = zeta (-u_phi, u_r) in (r, phi) components
+        rot = torch.stack([-zeta * u[1], zeta * u[0]])
+    else:
+        # the right-handed triad (x, y, z) = (lon, lat, r)
+        ar, al, ap = curl_3d(geo, u, specs)
+        br, bl, bp = u[0], u[1], u[2]
+        cx = al * br - ar * bl   # lon
+        cy = ar * bp - ap * br   # lat
+        cz = ap * bl - al * bp   # r
+        rot = torch.stack([cz, cy, cx])
+    return rot + grad_ke
 
 
 def coriolis_acceleration(geo: Geometry, u: torch.Tensor, omega_hat: float,

@@ -5,7 +5,7 @@
         [--helmholtz direct] [--nse-interval K]
         [--residual-check-interval M] [--chunk N]
         [--temperature-advection semi-lagrangian]
-        [--prm FILE | --geometry annulus]
+        [--prm FILE | --geometry annulus] [--feec projection|coupled]
 
 Runs the flagship configuration (models/presets.py: shell 32x128x256
 f32, bench opt-ins, seeded developed flow) on CUDA — with `--helmholtz
@@ -13,7 +13,10 @@ direct`, the same configuration with `helmholtz solver = direct`; with
 `--nse-interval K` / `--residual-check-interval M` /
 `--temperature-advection` those settings. With `--prm FILE` it runs that
 parameter file instead, in f32 at its own grid and dt from its initial
-state; `--geometry annulus` runs data/aqua_planet_test_2d.prm at
+state; `--feec` the flagship with `use FEEC solver = true` and that
+`momentum solver` (the rotational forcing in plain PyTorch; the coupled
+3x3 FGMRES, which reads back every iteration: no `--chunk` there);
+`--geometry annulus` runs data/aqua_planet_test_2d.prm at
 `initial global refinement = 8`, the annulus of 256 x 3072 cells (the
 prm's own grid is 16 x 192). It reports
   * host-clock ms/step of the eager loop two ways: reading the step's
@@ -142,6 +145,10 @@ def main() -> int:
     ap.add_argument("--prm", default=None,
                     help="run this parameter file (f32, its own grid, dt "
                          "and initial state) instead of the flagship")
+    ap.add_argument("--feec", choices=("projection", "coupled"),
+                    default=None,
+                    help="the flagship with `use FEEC solver = true` and "
+                         "this `momentum solver`")
     ap.add_argument("--geometry", choices=("shell", "annulus"),
                     default="shell",
                     help="annulus: data/aqua_planet_test_2d.prm at "
@@ -173,6 +180,9 @@ def main() -> int:
         params.numerics.dtype = "float32"
         if args.geometry == "annulus":
             params.initial_global_refinement = 8
+    if args.feec is not None:
+        params.use_FEEC_solver = True
+        params.numerics.momentum_solver = args.feec
     params.numerics.helmholtz_solver = args.helmholtz
     params.NSE_solver_interval = args.nse_interval
     params.numerics.residual_check_interval = args.residual_check_interval

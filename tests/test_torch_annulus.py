@@ -588,7 +588,7 @@ def test_annulus_model_builds_no_shell_kernel():
     ("numerics.temperature_advection", "semi-lagrangian",
      "semi-Lagrangian transport on the annulus"),
     ("numerics.dtype", "bfloat16", "bf16"),
-    ("numerics.momentum_solver", "coupled", "FEEC, coupled"),
+    ("numerics.poisson_solver", "cg", "remaining solvers"),
 ])
 def test_annulus_refusals_name_their_item(setting):
     p = _params(Parameters)

@@ -332,3 +332,79 @@ def test_cli_profile_exports_when_the_run_raises(tmp_path, monkeypatch,
     assert rc == 1
     assert "step failed" in capsys.readouterr().err
     assert len(os.listdir(tmp_path / "prof")) == 1
+
+
+# ------------------------------------------------------- the FEEC prm
+PRM_FEEC = os.path.join(REPO, "data", "aqua_planet_shell_test_3d-feec.prm")
+# a fixed dt of 0.01, where the 3x3 FGMRES converges every step; at the
+# prm's own dt of 0.1 it stalls at `max cg iters` (512) in both packages
+DT_001 = ("\nsubsection Boussinesq Model\n  set adapt time step = false\n"
+          "  set time step = 0.01\nend\n")
+FEEC_RUNS = {"prm": (F64 + LATER, ["--max-steps", "2"]),
+             "dt0.01": (F64 + LATER + DT_001, ["--max-steps", "2"]),
+             "dt0.01_chunk2": (F64 + LATER + DT_001,
+                               ["--max-steps", "4", "--chunk", "2"])}
+# the per-step lines and their numbers, in order of appearance
+_LINE = re.compile(r"^ *(Time step \d+|Max of local CFL numbers|"
+                   r"Max velocity \(dimensionless\)|Temperature range|"
+                   r"Solver iterations|Solver residuals|"
+                   r"Post-projection max \|div u\||"
+                   r"New time step \(dimensionless\))(.*)$", re.M)
+_NUM = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+
+
+def _printed(out):
+    """[(label, [numbers])] of the printed diagnostics (the JAX CLI
+    prints its iteration counts as np.int32(n))."""
+    return [(label, [float(v) for v in
+                     _NUM.findall(rest.replace("np.int32(", "("))])
+            for label, rest in _LINE.findall(out)]
+
+
+@pytest.fixture(scope="module")
+def jax_feec(tmp_path_factory):
+    """The JAX CLI's runs of FEEC_RUNS."""
+    out = {}
+    for label, (extra, argv) in FEEC_RUNS.items():
+        d = tmp_path_factory.mktemp(f"jax-feec-{label}")
+        out[label] = _jax_run(_prm(d / "a.prm", PRM_FEEC, d / "out", extra),
+                              argv + ["--no-output"])
+    return out
+
+
+@pytest.mark.parametrize("label", list(FEEC_RUNS))
+def test_cli_feec_prm_matches_jax_cli(tmp_path, jax_feec, label):
+    """data/aqua_planet_shell_test_3d-feec.prm (the coupled 3x3 FGMRES) in
+    f64 through both CLIs with --device cpu, as it is (adaptive dt from
+    0.1) and with a fixed dt of 0.01, per step and with --chunk 2: the
+    same lines in the same order, the iteration counts equal, every
+    other number within its print precision (6 significant digits), the
+    residuals and |div u| (round-off of the solve's right-hand side)
+    within 1e-3 relative or 1e-13. A step whose outer solve stalls at
+    the iteration cap (the prm's dt) ends on a round-off-driven iterate:
+    there the residuals and |div u| agree within a factor 4, below 1e-6."""
+    extra, argv = FEEC_RUNS[label]
+    out = _port_run(_prm(tmp_path / "a.prm", PRM_FEEC, tmp_path / "out",
+                         extra), argv + ["--no-output"])
+    assert "Formulation            : FEEC (rotational, coupled 3x3)" in out
+    got, want = _printed(out), _printed(jax_feec[label])
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert len(got) >= 12
+    stalled = False
+    for (name, g), (_, w) in zip(got, want):
+        if name == "Solver iterations":
+            assert g == w
+            stalled = w[-2] >= 512          # poisson = the outer count
+        elif name in ("Solver residuals", "Post-projection max |div u|"):
+            if stalled:
+                assert max(g + w) < 1e-6
+                np.testing.assert_allclose(np.log(g), np.log(w), rtol=0,
+                                           atol=np.log(4.0), err_msg=name)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-13,
+                                           err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=2e-6, atol=0,
+                                       err_msg=name)
+    if label == "prm":
+        assert stalled

@@ -1,7 +1,9 @@
 """The PyTorch port through its entry points, on CPU: the golden
 trajectories of the configurations it runs (``shell_3d_classic``,
-``annulus_2d``, ``aqua_planet_production`` and
-``aqua_planet_production_dynamic``) replayed through the port's ``step``
+``annulus_2d``, ``aqua_planet_production``,
+``aqua_planet_production_dynamic``, and the FEEC and coupled
+``shell_3d_feec`` and ``annulus_2d_coupled``) replayed through the port's
+``step``
 (at tests/test_golden.py's tolerances), the CLI, and the rule that the
 package imports neither JAX nor the JAX package."""
 
@@ -47,10 +49,12 @@ def _run_case_port(name):
 
 @pytest.mark.parametrize("name", [
     "shell_3d_classic", "annulus_2d", "aqua_planet_production",
-    "aqua_planet_production_dynamic"])
+    "aqua_planet_production_dynamic", "shell_3d_feec", "annulus_2d_coupled"])
 def test_shell_classic_golden_through_port(name):
     """The goldens of the configurations the port runs (the shell and
-    the annulus, standard personality), replayed through its step."""
+    the annulus: the standard personality, the FEEC shell's coupled 3x3
+    solve and the annulus's coupled 2x2 solve), replayed through its
+    step."""
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)[name]
     got = _run_case_port(name)

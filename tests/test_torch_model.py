@@ -197,18 +197,22 @@ def test_without_cuda_no_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    ("use_FEEC_solver", True), ("cuboid_geometry", True),
+    (("use_FEEC_solver", True), ("numerics.feec_formulation", "staggered")),
+    ("cuboid_geometry", True),
     (("space_dimension", 2), ("cuboid_geometry", True)),
     (("space_dimension", 2),
      ("numerics.temperature_advection", "semi-lagrangian")),
     ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
     ("numerics.poisson_solver", "mg"),
-    ("numerics.momentum_solver", "coupled"),
+    (("numerics.fixed_solver_iters", 0), ("numerics.momentum_fixed_iters", 1)),
 ])
 def test_unsupported_configurations_raise(setting):
-    """Each refused configuration; a pair of settings is applied
-    together (the 2D cuboid, and the annulus with the semi-Lagrangian
-    transport: the annulus itself runs, tests/test_torch_annulus.py)."""
+    """Each refused configuration; settings in a tuple are applied
+    together (the mimetic FEEC realization, the 2D cuboid, the annulus
+    with the semi-Lagrangian transport, Richardson momentum beside CG
+    temperature). FEEC in its collocated realization and the coupled
+    solves run (tests/test_torch_feec.py), as do the annulus
+    (tests/test_torch_annulus.py)."""
     p = _params(Parameters)
     for name, value in (setting if isinstance(setting[0], tuple)
                         else (setting,)):
