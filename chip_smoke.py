@@ -140,7 +140,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      direct` (K4 once a step, on the temperature solve); (e) the shell's
      Schur 2x2 path at 16x64x128; (f) the CLI on the FEEC prm (one
      step at its own 8x16x32);
-  9. one JSON line with every kernel's numbers, then, last, the
+  9. the cuboid (plain PyTorch, as jnp in the JAX package, which runs
+     no Pallas kernel there) and K4 in CuboidPoissonDirect's layout: (a)
+     K4 on that solver's operands (the rfft2's real and imaginary parts
+     as the pair axis) at 128^3, f32 and f64, against its plain version
+     (phase 3's K4 tolerances), no copy, the solve's residual and its
+     distance to CuboidPoissonFastDiag within the Poisson spot-check's
+     tolerance, and 5 solves through the solver, one launch each; (b)
+     data/aqua_planet_cube_test_3d.prm as it stands (the Schur GMRES) at
+     64^3 f32, 2 steps from its IC, and (c) with `use schur complement
+     solver = false` (the FEEC 3x3 FGMRES with the cuboid curls) at
+     64^3, 3 steps: outer iterations, host syncs, host and device ms,
+     kernels and busy share a step, peak memory, max|div u|, the gate;
+     (d) the standard personality on the 128^3 box: the direct path
+     (CuboidHelmholtzDirect, no K4) as 20 gated steps through run and as
+     a graph, bitwise, from its third step, and the default path through
+     run (its f32 gate missed, as in the JAX model: escalations counted)
+     with its fast chunk as a graph against the same steps eagerly,
+     bitwise; (e) the 2D slab at 256 x 1024, 20 gated steps after its
+     first, max|div u| <= 1e-4; (f) 3 f64 steps of (b), (c) and the
+     default path at 16^3 on the card against the CPU: equal
+     iterations, within 1e-12 of each field's scale; (g) the CLI on the
+     cube prm at its own 16^3, 5 steps with output into a temporary
+     directory;
+ 10. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
@@ -528,7 +551,7 @@ def replay_launches(label, model, fn, want):
     through none), and the device's counts `want`, with 0 for every
     other name of the model's wrappers and of REPLAY_NAMES (the fused K2
     on the semi-Lagrangian paths, K2m on the others, the operands-mode
-    kernels, which no graph runs), and on the annulus
+    kernels, which no graph runs), and on the annulus and the cuboid
     of SHELL_NAMES (no shell kernel). Returns (fn's result, the
     counts)."""
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
@@ -538,7 +561,7 @@ def replay_launches(label, model, fn, want):
     for k in model.kernels().values():
         k.launches = 0
     names = dict.fromkeys(list(model.kernels()) + list(REPLAY_NAMES) + (
-        list(SHELL_NAMES) if model.geo.kind == "annulus" else []))
+        list(SHELL_NAMES) if model.geo.kind != "shell" else []))
     want = {**dict.fromkeys(names, 0), **want}
     out, counts = device_launches(fn, names)
     if model.chunk_graphs.replays != rep + 1:
@@ -905,13 +928,24 @@ def mesh_model(dev, mesh_shape, dtype="float32", options=lambda p: p):
 
 def step_profile(fn, n):
     """Device ms, device kernels and host launches a step of fn(), which
-    runs n steps, from one torch.profiler window; and the device ms a
-    step of each hand kernel, by wrapper name."""
+    runs n steps, from one torch.profiler window; the device ms a step of
+    each hand kernel, by wrapper name; and the busy share: device kernel
+    time over the host time from fn's call to a synchronize after it."""
+    import torch
     from torch.autograd import DeviceType
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
         profiled, wrapper_of)
 
-    _, prof = profiled(fn)
+    window = []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        window.append(time.perf_counter() - t0)
+        return out
+
+    _, prof = profiled(timed)
     dev_ms = kernels = launches = 0.0
     by = {}
     for e in prof.key_averages():
@@ -929,7 +963,8 @@ def step_profile(fn, n):
             if w is not None:
                 by[w] = by.get(w, 0.0) + t_us / 1e3 / n
     return {"device_ms_per_step": dev_ms / n, "kernels_per_step": kernels / n,
-            "host_launches_per_step": launches / n, "kernel_ms_per_step": by}
+            "host_launches_per_step": launches / n, "kernel_ms_per_step": by,
+            "busy_share": dev_ms / (window[0] * 1e3)}
 
 
 def launch_plan(kf, dev, dtype):
@@ -1962,6 +1997,419 @@ def feec_phases(dev):
     return by_path, replay_by_path
 
 
+# ----------------------------------------------------------------- phase 9
+CUBE_PRM = "aqua_planet_cube_test_3d.prm"
+# (a): K4 in CuboidPoissonDirect's layout, and the solves through it
+CUBE_K4_SHAPE = (128, 128, 128)
+K4_SOLVES = 5
+# `initial global refinement` of (b) the prm's Schur GMRES (64^3), (c)
+# the FEEC 3x3 FGMRES (64^3: at 128^3 it takes 175 outer iterations and
+# 3.5 s a step on an H100, 120 s of the phase; PERF.md §4) and (d) the
+# standard personality (128^3)
+CUBE_SCHUR_REF, CUBE_3X3_REF, CUBE_STD_REF = 6, 6, 7
+# (e): the 2D (z, x) slab
+SLAB_SHAPE = (256, 1024)
+# (f) the card against the CPU in f64 and (g) the CLI: the prm's own 16^3
+CUBE_SMALL_REF = 4
+
+
+def cube_params(refinement, dtype="float32", schur=True, feec=True,
+                **numerics):
+    """CUBE_PRM at `refinement` (its physics, dt 0.01 and tolerances), f32
+    or f64: with ``schur`` the prm's own Schur GMRES, else the FEEC 3x3
+    FGMRES; ``feec`` False is the standard personality."""
+    from dycoreplanet_tpu_torch.base.params import Parameters
+
+    p = Parameters.from_file(os.path.join(HERE, "data", CUBE_PRM))
+    p.initial_global_refinement = refinement
+    p.numerics.dtype = dtype
+    p.use_schur_complement_solver = schur
+    p.use_FEEC_solver = feec
+    p.final_time = 1e9
+    for k, v in numerics.items():
+        setattr(p.numerics, k, v)
+    return p
+
+
+def slab_params(shape=SLAB_SHAPE, dtype="float32"):
+    """The reference's dim=2 cuboid, the (z, x) slab, at `shape`
+    (`numerics.nz` / `nx`), with the JAX package's TestCuboid2D physics
+    (tests/test_model.py): buoyancy 0.2, unit reference velocity and
+    length, T_ref 3, dt 0.01."""
+    from dycoreplanet_tpu_torch.base.params import Parameters
+
+    p = Parameters.from_text("")
+    p.space_dimension = 2
+    p.cuboid_geometry = True
+    p.numerics.nz, p.numerics.nx = shape
+    p.numerics.dtype = dtype
+    p.physical_constants.expansion_coefficient = 0.2
+    p.reference_quantities.velocity = 1.0
+    p.reference_quantities.length = 1.0
+    p.reference_quantities.temperature_ref = 3.0
+    p.time_step = 0.01
+    p.final_time = 1e9
+    return p
+
+
+def check_cuboid_k4(dev):
+    """(a): K4 on CuboidPoissonDirect's operands as it passes them (rhs
+    the rfft2's real and imaginary parts, (nz, ny, nx/2+1, 2), the pair
+    axis; diag (nz, ny, nx/2+1, 1); lower and upper one value a row) at
+    CUBE_K4_SHAPE from a seeded mean-free right-hand side, f32 and f64,
+    against its plain version (rtol = atol = 1e-5 x scale, f64 1e-12 x
+    scale; NaN in lower[0] and upper[n-1]; the operands unchanged; no
+    copy); the whole solve's residual and, mean-free, its distance to
+    CuboidPoissonFastDiag's solution, both within the model's Poisson
+    spot-check tolerance max(poisson tol 1e-8, 256 eps); K4_SOLVES
+    solves through the solver's entry point, one launch each, counted
+    from 0. Returns {dtype: numbers}."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.grid.factory import make_cuboid
+    from dycoreplanet_tpu_torch.ops import stencil as st
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+    from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
+    from dycoreplanet_tpu_torch.solvers.spectral import (
+        CuboidPoissonDirect, CuboidPoissonFastDiag)
+
+    geo = make_cuboid(*CUBE_K4_SHAPE)
+    p_specs = [BCSpec(BC.NEUMANN, BC.NEUMANN), None, None]
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        f32 = dtype == torch.float32
+        solver = CuboidPoissonDirect(geo, dtype=np.dtype(name), device=dev)
+        tk = solver.tridiag
+        gen = torch.Generator(device=dev).manual_seed(14)
+        b = torch.randn(geo.cell_shape, generator=gen, device=dev,
+                        dtype=dtype)
+        b = b - b.mean()
+        sys4 = solver.systems(b)
+        lay = k4.layout(*sys4, pair=tk.pair)
+        if lay.copied or lay.pair != 2 or not lay.row_coefficients:
+            fail(f"K4 cuboid {name}: layout copies {lay.copied}, pair "
+                 f"{lay.pair}, row coefficients {lay.row_coefficients}")
+        w4 = tk.plain(*sys4)
+        sc = float(w4.abs().max())
+        tol = (1e-5 if f32 else 1e-12) * sc
+        err = check_k4(f"K4 tridiag cuboid ({name})", tk, sys4, w4, tol)
+        ms = time_ms(lambda: tk(*sys4))
+        pms = time_ms(lambda: tk.plain(*sys4))
+        itemsize = sys4[3].element_size()
+        moved = k4.values_moved(*sys4)
+        b_ms, b_by = bound_of(itemsize * moved,
+                              k4.OPS_PER_VALUE * sys4[3].numel())
+        # the whole solve
+        x = solver.solve(b)[0]
+        res = float((-st.weak_laplacian(geo, x, p_specs) - b).norm()
+                    / b.norm())
+        xf = CuboidPoissonFastDiag(geo, dtype=np.dtype(name),
+                                   device=dev).solve(b)[0]
+        dist = float(((x - x.mean()) - (xf - xf.mean())).abs().max()
+                     / xf.abs().max())
+        tol_p = max(1e-8, 256 * float(torch.finfo(dtype).eps))
+        if not (res <= tol_p and dist <= tol_p):
+            fail(f"K4 cuboid {name}: the direct solve's residual {res:.3e}, "
+                 f"its distance to the fast diagonalization {dist:.3e} "
+                 f"(tol {tol_p:.3e})")
+        # the solver's entry point, K4_SOLVES times, counts from 0
+        tk.launches = tk.copies = 0
+        for _ in range(K4_SOLVES):
+            solver.solve(b)
+        torch.cuda.synchronize()
+        if (tk.launches, tk.copies) != (K4_SOLVES, 0):
+            fail(f"K4 cuboid {name}: {tk.launches} launches, {tk.copies} "
+                 f"copies in {K4_SOLVES} solves (expected {K4_SOLVES}, 0)")
+        cols = [size for size, _ in lay.axes]
+        phase(f"9 (a) K4 tridiag, CuboidPoissonDirect's layout "
+              f"{CUBE_K4_SHAPE} {name} (n {sys4[3].shape[0]}, columns "
+              f"{cols}, pair axis {lay.pair_axis}, rhs strides "
+              f"{tuple(sys4[3].stride())}, {tk.plan(lay, dev)[0]} threads a "
+              f"block): 0 operands copied, max abs err {err:.3e} (tol "
+              f"{tol:.3e} = {'1e-5' if f32 else '1e-12'} x scale), kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms * 1e3:.2f} us "
+              f"({b_by}; {moved} values moved); the solve's residual "
+              f"{res:.3e}, mean-free distance to CuboidPoissonFastDiag "
+              f"{dist:.3e} (tol {tol_p:.3e}); {K4_SOLVES} solves: "
+              f"{tk.launches} launches, {tk.copies} copies")
+        rows[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          launches=tk.launches, copies=tk.copies,
+                          residual=res, fastdiag_distance=dist)
+    return rows
+
+
+def coupled_cube(dev, label, params, n, profile_cap=None):
+    """(b), (c): n steps of a coupled cube model from its IC, f32, the
+    first with its host syncs counted, the rest timed with the peak
+    memory, then one step under torch.profiler, with ``profile_cap``
+    outer iterations at most (the FEEC 3x3's ~120-iteration step holds
+    ~140 k kernels, whose profile takes a minute to read; its device ms
+    a step is then the profiled ms an outer iteration times the step's
+    iterations). Returns (run launches, the numbers)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+
+    m = BoussinesqModel(params, device=dev)
+    if (m.geo.kind != "cuboid" or m.momentum_solver != "coupled"
+            or set(m.kernels()) != {"tridiag"}):
+        fail(f"9 {label}: geometry {m.geo.kind}, momentum solver "
+             f"{m.momentum_solver}, kernels {list(m.kernels())}")
+    dt = m.params.time_step
+
+    def first_step():
+        out = m.step(m.initial_state(), dt)
+        out[1].cfl                      # its diagnostics copy, counted too
+        return out
+
+    (s1, d1), n_sync = count_syncs(first_step)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s_n, diags, launches, ms = coupled_steps(label, m, s1, n - 1)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    diags = [d1] + diags
+    cap = m.params.numerics.max_cg_iters
+    if profile_cap is not None:
+        m.params.numerics.max_cg_iters = profile_cap
+    d_prof = []
+    prof = step_profile(lambda: d_prof.append(m.step(s_n, dt)[1]), 1)
+    m.params.numerics.max_cg_iters = cap
+    if launches != {"tridiag": 0}:
+        fail(f"9 {label}: launches {launches}")
+    its = [d.poisson_iters for d in diags]
+    its_prof = d_prof[0].poisson_iters
+    per_it = prof["device_ms_per_step"] / its_prof
+    dev_ms = per_it * sum(its[1:]) / len(its[1:])
+    phase(f"9 {label} {m.geo.cell_shape} = {m.geo.n_cells} cells f32, "
+          f"{CUBE_PRM}'s physics, dt {dt}, from its IC: {n} steps finite, "
+          f"{solves(diags)}; host {ms:.2f} ms/step (steps 2-{n}, each read "
+          f"back); {n_sync} host syncs in step 1 ({n_sync / its[0]:.2f} an "
+          f"outer iteration); profiled step ({its_prof} outer iterations"
+          + (f", the cap at {profile_cap}" if profile_cap else "")
+          + f"): device {prof['device_ms_per_step']:.3f} ms in "
+          f"{prof['kernels_per_step']:.0f} kernels "
+          f"({prof['host_launches_per_step']:.0f} host launches), busy "
+          f"share {prof['busy_share']:.3f}, {per_it:.3f} device ms and "
+          f"{prof['kernels_per_step'] / its_prof:.0f} kernels an outer "
+          f"iteration, so {dev_ms:.3f} device ms a step of steps 2-{n}; "
+          f"peak "
+          f"memory {peak / 2**20:.1f} MiB above the "
+          f"{mem0 / 2**20:.1f} MiB before; launches {launches}")
+    del m
+    return launches, dict(outer_iterations=its, host_syncs_step1=n_sync,
+                          host_ms_per_step=ms,
+                          device_ms_per_step=dev_ms,
+                          device_ms_per_iteration=per_it,
+                          kernels_per_iteration=(prof["kernels_per_step"]
+                                                 / its_prof),
+                          busy=prof["busy_share"], peak_mib=peak / 2**20,
+                          div=[d.div_norm for d in diags],
+                          gate=[d.solver_ok for d in diags])
+
+
+def cuboid_phases(dev):
+    """Phase 9, the cuboid (plain PyTorch: the JAX package runs no Pallas
+    kernel there) and K4 in CuboidPoissonDirect's layout: (a) K4 in that
+    layout; (b) CUBE_PRM as it stands (the Schur GMRES) and (c) with
+    the FEEC 3x3 FGMRES; (d) the standard personality at 128^3, the
+    default and the direct path, through run and as a graph; (e) the 2D
+    slab; (f) (b), (c) and (d) in f64 on the card against the CPU; (g)
+    the CLI on CUBE_PRM with output. Returns (run launches by path,
+    replay device kernels by path, K4's rows by dtype)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.graphs import ChunkGraphs
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    by_path, replay_by_path, cells = {}, {}, {}
+
+    # ---- (a) K4 in CuboidPoissonDirect's layout --------------------------
+    k4_rows = check_cuboid_k4(dev)
+    phase("9 (a) done" + since())
+
+    # ---- (b), (c) the coupled solves on the cube -------------------------
+    for key, label, params, n in (
+            ("cube_schur", "(b) cube Schur GMRES",
+             cube_params(CUBE_SCHUR_REF), 2),
+            ("cube_feec_3x3", "(c) cube FEEC 3x3 FGMRES",
+             cube_params(CUBE_3X3_REF, schur=False), 3)):
+        by_path[key], cells[key] = coupled_cube(
+            dev, label, params, n,
+            profile_cap=16 if key == "cube_feec_3x3" else None)
+        phase(f"9 {label[:3]} done" + since())
+
+    # ---- (d) the standard personality at 128^3 ---------------------------
+    # the prm's tolerances in f32 are max(tol, 16 eps) = 1.9e-6: the
+    # default path's two temperature sweeps miss them every step, and the
+    # first step from rest misses the Poisson spot-check, in the JAX model
+    # too (PERF.md). So the direct path runs from the state after its
+    # first steps (0 escalations), the default path through run with its
+    # escalations counted, and its fast chunk as a graph against the same
+    # steps eagerly
+    dm = BoussinesqModel(cube_params(CUBE_STD_REF, feec=False,
+                                     helmholtz_solver="direct"), device=dev)
+    if set(dm.kernels()) != {"tridiag"} or dm.helmholtz_direct is None:
+        fail(f"9 (d) direct: kernels {list(dm.kernels())}")
+    dt = dm.params.time_step
+    s_warm, _ = dm.run(max_steps=2)
+    dm.escalations = 0
+    dm._strong_steps_left = 0
+    l_r, l_g, ms_r, ms_g, s_g, _ = graph_vs_run(
+        "9 (d) cube direct", dm, s_warm, {"tridiag": 0}, bitwise=True)
+    prof = step_profile(lambda: dm.multi_step(s_warm, dt, N_STEPS), N_STEPS)
+    busy = prof["busy_share"]
+    phase(f"9 (d) cube direct {dm.geo.cell_shape} f32 (the standard "
+          f"personality, `helmholtz solver = direct`: full fast "
+          f"diagonalizations, no K4): {N_STEPS} gated steps from the state "
+          f"after 2, 0 escalations, graph = run bitwise; graph replay "
+          f"{prof['device_ms_per_step']:.4f} device ms/step in "
+          f"{prof['kernels_per_step']:.1f} kernels, busy share "
+          f"{busy:.3f}; host "
+          f"ms/step run {ms_r:.4f}, graph {ms_g:.4f}" + since())
+    by_path["cube_direct"] = l_r
+    replay_by_path["cube_direct_graph"] = l_g
+    cells["cube_direct"] = dict(device_ms_per_step=prof["device_ms_per_step"],
+                                kernels_per_step=prof["kernels_per_step"],
+                                busy=busy, host_ms_run=ms_r,
+                                host_ms_graph=ms_g)
+    del dm, s_warm, s_g
+
+    am = BoussinesqModel(cube_params(CUBE_STD_REF, feec=False), device=dev)
+    s0 = am.initial_state()
+    (a_end, a_hist), a_launches, a_wall = drive(
+        am, lambda: am.run(max_steps=N_STEPS, state=s0))
+    check_annulus_run("9 (d) cube default", am, a_end, a_hist,
+                      escalated=True)
+    _, d_fast = am.step(a_end, dt)
+    phase(f"9 (d) cube default {am.geo.cell_shape} f32: {N_STEPS} gated "
+          f"steps through run, {am.escalations} escalation(s) (the fast "
+          f"step's residuals helmholtz {d_fast.helmholtz_residual:.3e} "
+          f"temperature {d_fast.temperature_residual:.3e}, solver_ok "
+          f"{d_fast.solver_ok}), launches {a_launches}, "
+          f"{describe(a_hist, d_fast)}; host ms/step "
+          f"{a_wall / N_STEPS * 1e3:.4f}" + since())
+    by_path["cube_default"] = a_launches
+    am.chunk_graphs = ChunkGraphs(am)
+    am.chunk_graphs.run(s0, dt, N_STEPS, True)          # capture, replay
+    (s_gf, rows_gf, _), l_gf = replay_launches(
+        "9 (d) cube default fast chunk", am,
+        lambda: am.chunk_graphs.run(s0, dt, N_STEPS, True), {})
+    s_ef, rows_ef, _ = am._chunk(s0, dt, N_STEPS, True, False)
+    rel_f = rel_diff(s_gf, s_ef)
+    if not (rel_f == 0.0 and torch.equal(rows_gf, rows_ef)):
+        fail(f"9 (d) cube default fast chunk: graph vs eager max rel diff "
+             f"{rel_f:.3e}; expected bitwise")
+    fprof = step_profile(lambda: am.chunk_graphs.run(s0, dt, N_STEPS, True),
+                         N_STEPS)
+    missed = int((rows_gf[:, 10] < 0.5).sum())
+    phase(f"9 (d) cube default fast chunk: {N_STEPS} fast steps as one "
+          f"graph replay vs eagerly: bitwise equal states and rows, "
+          f"{missed} of {N_STEPS} steps miss the gate in both; replay "
+          f"{fprof['device_ms_per_step']:.4f} device ms/step in "
+          f"{fprof['kernels_per_step']:.1f} kernels, busy share "
+          f"{fprof['busy_share']:.3f}" + since())
+    replay_by_path["cube_default_fast_graph"] = l_gf
+    cells["cube_default"] = dict(
+        escalations=am.escalations, host_ms_run=a_wall / N_STEPS * 1e3,
+        fast_graph_device_ms_per_step=fprof["device_ms_per_step"],
+        fast_graph_kernels_per_step=fprof["kernels_per_step"],
+        fast_graph_busy=fprof["busy_share"],
+        fast_steps_missed=missed)
+    del am, s0, a_end, s_gf, s_ef
+
+    # ---- (e) the 2D slab -------------------------------------------------
+    # its first step from rest leaves max|div u| above 1e-4 in f32 (the
+    # projection's cancellation from rest; the JAX model's is 3.8e-3
+    # there too): the 20 gated steps start from the state after it
+    sm = BoussinesqModel(slab_params(), device=dev)
+    if sm.geo.cell_shape != SLAB_SHAPE or sm.geo.dim != 2:
+        fail(f"9 (e) slab: cells {sm.geo.cell_shape}")
+    s1, h1 = sm.run(max_steps=1)
+    sm.escalations = 0
+    sm._strong_steps_left = 0
+    (e_end, e_hist), e_launches, e_wall = drive(
+        sm, lambda: sm.run(max_steps=N_STEPS, state=s1))
+    if len(e_hist) != N_STEPS or not max(
+            h["div_norm"] for h in e_hist) <= 1e-4:
+        fail(f"9 (e) slab: max|div u| "
+             f"{max(h['div_norm'] for h in e_hist):.3e} > 1e-4")
+    eprof = step_profile(lambda: sm.run(max_steps=N_STEPS, state=e_end),
+                         N_STEPS)
+    _, d_e = sm.step(e_end, sm.params.time_step)
+    phase(f"9 (e) slab {SLAB_SHAPE} f32: step 1 from rest max|div u| "
+          f"{h1[0]['div_norm']:.3e}; then {N_STEPS} gated steps through run, "
+          f"{sm.escalations} escalation(s), launches {e_launches}, "
+          f"{describe(e_hist, d_e)} (<= 1e-4); host ms/step "
+          f"{e_wall / N_STEPS * 1e3:.4f}; {N_STEPS} more under the "
+          f"profiler: {eprof['device_ms_per_step']:.4f} device ms/step in "
+          f"{eprof['kernels_per_step']:.1f} kernels, busy share "
+          f"{eprof['busy_share']:.3f}" + since())
+    by_path["slab"] = e_launches
+    cells["slab"] = dict(escalations=sm.escalations,
+                         div_step1=h1[0]["div_norm"],
+                         max_div=max(h["div_norm"] for h in e_hist),
+                         host_ms_run=e_wall / N_STEPS * 1e3,
+                         device_ms_per_step=eprof["device_ms_per_step"],
+                         kernels_per_step=eprof["kernels_per_step"],
+                         busy=eprof["busy_share"])
+    del sm, s1, e_end
+
+    # ---- (f) the card against the CPU, f64 -------------------------------
+    for label, params in (
+            ("Schur", lambda: cube_params(CUBE_SMALL_REF, "float64")),
+            ("FEEC 3x3", lambda: cube_params(CUBE_SMALL_REF, "float64",
+                                             schur=False)),
+            ("standard default", lambda: cube_params(
+                CUBE_SMALL_REF, "float64", feec=False))):
+        cpu = BoussinesqModel(params(), device="cpu")
+        card = BoussinesqModel(params(), device=dev)
+        sc, sg = cpu.initial_state(), card.initial_state()
+        dt = cpu.params.time_step
+        its, worst = [], 0.0
+        for k in range(3):
+            sc, dc = cpu.step(sc, dt)
+            sg, dg = card.step(sg, dt)
+            if dg.poisson_iters != dc.poisson_iters:
+                fail(f"9 (f) {label} step {k}: {dg.poisson_iters} outer "
+                     f"iterations on the card, {dc.poisson_iters} on the CPU")
+            its.append(dg.poisson_iters)
+            for x, y in zip((sg.u, sg.p, sg.T) + tuple(sg.u_faces),
+                            (sc.u, sc.p, sc.T) + tuple(sc.u_faces)):
+                worst = max(worst, float((x.cpu() - y).abs().max()
+                                         / y.abs().max().clamp_min(1e-300)))
+        if not worst <= 1e-12:
+            fail(f"9 (f) {label}: the card vs the CPU, rel diff {worst:.3e} "
+                 f"> 1e-12")
+        phase(f"9 (f) {label} {cpu.geo.cell_shape} f64, 3 steps on the card "
+              f"vs the CPU: iterations {its} on both, max rel diff of each "
+              f"field's scale {worst:.3e} (tol 1e-12)" + since())
+        del cpu, card
+
+    # ---- (g) the CLI with output -----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = os.path.join(tmp, "cube-out")
+        prm = out_prm(tmp, os.path.join(HERE, "data", CUBE_PRM), outdir)
+        out = run_cli(CUBE_PRM, prm, ["--max-steps", "5"])
+        files = sorted(os.listdir(outdir))
+        want = [f"boussinesq_{k:06d}.vts" for k in range(6)]
+        if "Geometry               : cuboid" not in out or [
+                f for f in files if f.endswith(".vts")] != want \
+                or "boussinesq.pvd" not in files:
+            fail(f"9 (g) CLI on {CUBE_PRM}: files {files}")
+        divs = [ln.strip() for ln in out.splitlines() if "Post-projection" in ln]
+        its = [ln.strip() for ln in out.splitlines()
+               if "Solver iterations" in ln]
+        phase(f"9 (g) CLI on {CUBE_PRM} (its own 16^3) --max-steps 5 with "
+              f"output: rc 0, {len(files)} files ({files[0]} .. "
+              f"{files[-1]}); last step {its[-1]}; {divs[-1]}" + since())
+    phase(f"phase 9 {time.perf_counter() - t0:.1f} s")
+    return by_path, replay_by_path, k4_rows, cells
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -2775,7 +3223,14 @@ def main() -> None:
     for label, counts in feec_replays.items():
         record_replay(label, counts)
 
-    # ---- 9. report -----------------------------------------------------
+    # ---- 9. the cuboid and K4 in CuboidPoissonDirect's layout ----------
+    cube_launches, cube_replays, k4_cube, cube_cells = cuboid_phases(dev)
+    for label, counts in cube_launches.items():
+        record(label, counts)
+    for label, counts in cube_replays.items():
+        record_replay(label, counts)
+
+    # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
     # mode; K2m: the semi-Lagrangian path; K1o, K2o: the mesh 2 x 4; K2mo:
@@ -2795,6 +3250,22 @@ def main() -> None:
         r["launches"] = by_path[name][own[name]]
         r["launches_by_path"] = by_path[name]
         r["replay_launches_by_path"] = replay_by_path.get(name, {})
+    # K4 in CuboidPoissonDirect's layout (no model builds that solver):
+    # launches through the solver's entry point in phase 9 (a), f32
+    c32 = k4_cube["float32"]
+    report.append(dict(
+        name="K4 tridiag (CuboidPoissonDirect layout)", route="cuda",
+        source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+        replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+        variant="CuboidPoissonDirect's operands, dycoreplanet_tpu/solvers/"
+                "spectral.py:66-107: the rfft2's real and imaginary parts "
+                "as the pair axis",
+        launches=c32["launches"], max_abs_err=max(
+            r["max_abs_err"] for r in k4_cube.values()),
+        ms=c32["ms"], plain_ms=c32["plain_ms"], bound_ms=c32["bound_ms"],
+        bound_by=c32["bound_by"], library_ms=None, by_dtype=k4_cube,
+        launches_by_path={"CuboidPoissonDirect.solve": c32["launches"]},
+        replay_launches_by_path={}, cells=cube_cells))
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

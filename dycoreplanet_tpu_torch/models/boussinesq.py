@@ -1,5 +1,5 @@
-"""BoussinesqModel — the standard-personality time stepper of the shell
-and the annulus on PyTorch (counterpart of the JAX package's
+"""BoussinesqModel — the time stepper of the shell, the annulus and the
+cuboid on PyTorch (counterpart of the JAX package's
 ``models/boussinesq.py``).
 
 Solves the nondimensional rotating buoyancy Boussinesq system with the
@@ -42,15 +42,18 @@ chunk of steps with the chunk-level gate and escalation; on the card a
 chunk with a fixed dt that runs no CG is one replay of a captured CUDA
 graph (models/graphs.py).
 
-On the 2D annulus the JAX package builds none of its Pallas kernels
-but K4 (its factories return None off the shell), and neither does the
-port: the step is the model's own plain PyTorch, operation for operation
-the JAX package's jnp path (``_explicit_forcing``, the Eulerian
-``_advected_temperature``, Jacobi-Richardson solves that track every
-residual, with CG escalation, the projection and the annulus
-fast-diagonalization Poisson solve), chosen when the model is built
-from ``geo.kind``. With ``helmholtz solver = direct`` the annulus
-Helmholtz solves run K4, two launches a step.
+On the 2D annulus and the cuboid (the 3D box, periodic in x and y with
+z walls, or fully periodic, and the 2D (z, x) slab) the JAX package
+builds none of its Pallas kernels but K4 (its factories return None off
+the shell), and neither does the port: the step is the model's own plain
+PyTorch, operation for operation the JAX package's jnp path
+(``_explicit_forcing``, the Eulerian ``_advected_temperature``,
+Jacobi-Richardson solves that track every residual, with CG escalation,
+the projection and the geometry's fast-diagonalization Poisson solve),
+chosen when the model is built from ``geo.kind``. With ``helmholtz
+solver = direct`` the annulus Helmholtz solves run K4, two launches a
+step; the cuboid's are full fast diagonalizations, no K4 (the 2D slab
+has no direct solver, as in the JAX package).
 
 On a mesh of shards (``prepare_sharded``, one process, the shards on
 one or more devices; parallel/) the shell step runs the forcing and the
@@ -86,8 +89,10 @@ standard one (K4 with ``helmholtz solver = direct``). The Krylov loops
 read their stopping tests back every iteration, so coupled chunks run
 eagerly.
 
-This slice runs the 3D spherical shell and the 2D annulus, both
-personalities (FEEC in its collocated realization), incremental
+This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
+both personalities (FEEC in its collocated realization; the FEEC 3x3
+solve and the rotational form need a 3D curl, so the 2D slab runs the
+standard personality only, as in the JAX package), incremental
 projection or the coupled solves, with the Richardson/CG or the direct
 Helmholtz solves. Every other configuration raises
 ``NotImplementedError`` naming its ROADMAP.md item; none quietly runs
@@ -124,7 +129,7 @@ from dycoreplanet_tpu_torch.parallel.mesh import (
     Mesh, is_sharded, shard_state)
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
-    TemperatureInitialValues)
+    TemperatureInitialValues, TemperatureInitialValuesCuboid)
 from dycoreplanet_tpu_torch.solvers.cg import cg
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 from dycoreplanet_tpu_torch.solvers.gmres import gmres
@@ -235,8 +240,6 @@ def _unsupported(params: Parameters) -> Optional[str]:
     if params.use_FEEC_solver and num.feec_formulation == "staggered":
         # the mimetic C-grid personality (models/mimetic.py)
         return "FEEC, coupled and mimetic solvers"
-    if params.cuboid_geometry:
-        return "cuboid geometry"
     if (params.space_dimension == 2
             and num.temperature_advection == "semi-lagrangian"):
         return "semi-Lagrangian transport on the annulus"
@@ -255,6 +258,7 @@ def _unsupported(params: Parameters) -> Optional[str]:
 # the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
 # refuses
 MESH_ANNULUS = "multi-device: the annulus on the mesh"
+MESH_CUBOID = "multi-device: the cuboid on the mesh"
 MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
 MESH_CG = "multi-device: CG, escalation and the plain path on the mesh"
 
@@ -292,9 +296,6 @@ class BoussinesqModel:
         self.params = params
         self._consts: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
         self.geo = geometry if geometry is not None else make_geometry(params)
-        if self.geo.kind not in ("shell", "annulus"):
-            raise NotImplementedError(
-                "not ported yet (ROADMAP.md: cuboid geometry)")
         num = params.numerics
         self.torch_dtype = _DTYPES[num.dtype]
         self.dtype = np.dtype(num.dtype)
@@ -346,7 +347,15 @@ class BoussinesqModel:
             T_specs=self.T_specs, advection_form=self.advection_form)
         self._forcing = self._proj = None
         self._richardson = self._richardson_free = None
+        # semi-Lagrangian temperature transport (K = 2 ghost layers, the
+        # JAX package's default) on the shell and the 3D cuboid (2D
+        # geometries refuse it: _unsupported), its tables on the device
+        # from the start
         self._semi_lagrangian = None
+        if num.temperature_advection == "semi-lagrangian":
+            self._semi_lagrangian = SemiLagrangian(self.geo, self.T_specs)
+            self._semi_lagrangian.tables(self._vol_t.device,
+                                         self.torch_dtype)
         if self.geo.kind == "shell":
             self._build_shell_kernels(forcing)
         # the plain forcing and Eulerian transport (ShellForcing is one)
@@ -381,12 +390,6 @@ class BoussinesqModel:
         geo = self.geo
         params = self.params
         num = params.numerics
-        # semi-Lagrangian temperature transport (K = 2 ghost layers, the
-        # JAX package's default), its tables on the device from the start
-        if num.temperature_advection == "semi-lagrangian":
-            self._semi_lagrangian = SemiLagrangian(geo, self.T_specs)
-            self._semi_lagrangian.tables(self._vol_t.device,
-                                         self.torch_dtype)
         if self.momentum_solver == "coupled":
             return
         if self.advection_form == "advective":
@@ -483,6 +486,8 @@ class BoussinesqModel:
             raise _not_on_mesh(MESH_CG, f"the {self.momentum_solver} "
                                f"momentum solve in the {self.advection_form} "
                                "form")
+        if self.geo.kind == "cuboid":
+            raise _not_on_mesh(MESH_CUBOID, "the cuboid")
         if self.geo.kind != "shell":
             raise _not_on_mesh(MESH_ANNULUS, f"the {self.geo.kind}")
         if self.helmholtz_direct is not None:
@@ -587,11 +592,27 @@ class BoussinesqModel:
     # ------------------------------------------------------------------
     def _setup_bcs(self) -> None:
         """Ghost rules replacing the reference's constraint sets
-        (no-slip inner / no-normal-flux outer wall, pole closure on the
-        shell, periodic phi on the annulus; reference:
-        boussinesq_model.tpp:259-387)."""
+        (no-slip inner or bottom / no-normal-flux outer or top wall, pole
+        closure on the shell, periodic phi on the annulus, periodic x and
+        y on the cuboid; reference: boussinesq_model.tpp:259-387). The
+        fully periodic cuboid (``make_cuboid(periodic_z=True)``, no
+        reference analogue) has no wall anywhere."""
+        geo = self.geo
         AS, NEU = BC.ANTISYM, BC.NEUMANN
-        if self.geo.kind == "annulus":
+        if geo.kind == "cuboid" and geo.axes[0].periodic:
+            self.u_specs = [[None] * geo.dim for _ in range(geo.dim)]
+            self.p_specs = [None] * geo.dim
+            return
+        if geo.kind == "cuboid":
+            # z walls: no-slip bottom, w = 0 and free slip on top; the 2D
+            # (z, x) slab as the 3D box (planet_geometry.tpp:29-57)
+            rest = [None] * (geo.dim - 1)
+            self.u_specs = ([[BCSpec(AS, AS)] + rest]
+                            + [[BCSpec(AS, NEU)] + rest
+                               for _ in range(geo.dim - 1)])
+            self.p_specs = [BCSpec(NEU, NEU)] + rest
+            return
+        if geo.kind == "annulus":
             self.u_specs = [
                 [BCSpec(AS, AS), None],                # u_r: zero both walls
                 [BCSpec(AS, NEU), None],               # u_phi
@@ -609,7 +630,12 @@ class BoussinesqModel:
     def _cartesian(self, axis_values) -> np.ndarray:
         """Cartesian points (*cells, dim) at the given axis values (cell
         centres, or one wall for an axis): the reference's initial-data
-        functions are Cartesian."""
+        functions are Cartesian. On the cuboid the grid's axes are (z, y,
+        x), or (z, x) on the slab, and the points are in the reference's
+        (x, y, z), or (x, z), order."""
+        if self.geo.kind == "cuboid":
+            grid = np.meshgrid(*axis_values, indexing="ij")
+            return np.stack(grid[::-1], axis=-1)
         if self.geo.kind == "annulus":
             r, phi = np.meshgrid(*axis_values, indexing="ij")
             return np.stack([r * np.cos(phi), r * np.sin(phi)], axis=-1)
@@ -623,8 +649,9 @@ class BoussinesqModel:
         return self._cartesian([a.centers for a in self.geo.axes])
 
     def _wall_coords(self) -> np.ndarray:
-        """Cartesian coordinates of the inner radial wall, (*cells[1:],
-        dim): where the Dirichlet temperature is given."""
+        """Cartesian coordinates of the inner radial wall, or the
+        cuboid's bottom, (*cells[1:], dim): where the Dirichlet
+        temperature is given."""
         axes = [a.centers for a in self.geo.axes]
         axes[0] = self.geo.axes[0].faces[:1]
         return self._cartesian(axes)[0]
@@ -638,12 +665,16 @@ class BoussinesqModel:
         self.vol = np.ascontiguousarray(
             np.broadcast_to(geo.vol, geo.cell_shape)).astype(dt_np)
         self.diameter = np.asarray(geo.cell_diameter(), dtype=dt_np)
-        # radial gravity: -g for r > 1, else -g sqrt(r)
-        # (core_model_data.tpp:97-106)
-        r = np.broadcast_to(geo.extras["r_centers"], geo.cell_shape)
+        # gravity along axis 0: -g e_z on the cuboid
+        # (core_model_data.tpp:86-95); radial on the shell and the
+        # annulus, -g for r > 1, else -g sqrt(r) (tpp:97-106)
+        g0 = params.physical_constants.gravity_constant
         gvec = np.zeros((geo.dim,) + geo.cell_shape)
-        gvec[0] = radial_gravity_scalar(
-            r, params.physical_constants.gravity_constant)
+        if geo.kind == "cuboid":
+            gvec[0] = -g0
+        else:
+            r = np.broadcast_to(geo.extras["r_centers"], geo.cell_shape)
+            gvec[0] = radial_gravity_scalar(r, g0)
         self.gravity = (self.g_hat_scale * gvec).astype(dt_np)
 
         # hydrostatic background pressure of the constant-density part,
@@ -660,15 +691,21 @@ class BoussinesqModel:
             p_line.reshape(shape1), geo.cell_shape)).astype(dt_np)
         p_h = p_h - (p_h * self.vol).sum() / self.vol.sum()
 
-        ic = TemperatureInitialValues(
-            geo.dim, float(geo.axes[0].faces[0]),
-            float(geo.axes[0].faces[-1]),
-            width_scale=params.numerics.ic_width_scale)
+        if geo.kind == "cuboid":
+            ic = TemperatureInitialValuesCuboid(
+                geo.dim, geo.extras["center"], float(geo.extras["diameter"]))
+        else:
+            ic = TemperatureInitialValues(
+                geo.dim, float(geo.axes[0].faces[0]),
+                float(geo.axes[0].faces[-1]),
+                width_scale=params.numerics.ic_width_scale)
         self.T_init = np.asarray(
             ic(self._cell_center_coords().astype(dt_np)), dtype=dt_np)
-        # boundary values: the IC on the inner wall surface
-        self.T_wall = np.asarray(
-            ic(self._wall_coords().astype(dt_np)), dtype=dt_np)
+        # boundary values: the IC on the inner wall (the cuboid's bottom);
+        # none on the fully periodic cuboid
+        periodic = geo.axes[0].periodic
+        self.T_wall = (None if periodic else np.asarray(
+            ic(self._wall_coords().astype(dt_np)), dtype=dt_np))
         # reference-state density rho(volume-mean initial T): the constant
         # part of 1 - beta (T - T_ref) is a pure gradient absorbed into
         # rho_background * p_hydro (with the production T_ref = 273.15 it
@@ -678,15 +715,20 @@ class BoussinesqModel:
         self.p_hydro = (self.rho_background * p_h).astype(dt_np)
 
         NEU = BC.NEUMANN
-        T_wall = self._tensor(self.T_wall)
-        if geo.kind == "annulus":
-            self.T_specs = [BCSpec(BC.DIRICHLET, NEU, lo_value=T_wall), None]
-            self.T_specs_hom = [BCSpec(BC.ANTISYM, NEU), None]
+        if periodic:
+            self.T_specs = [None] * geo.dim
+            self.T_specs_hom = [None] * geo.dim
         else:
-            self.T_specs = [BCSpec(BC.DIRICHLET, NEU, lo_value=T_wall),
-                            BCSpec(BC.POLE, BC.POLE), None]
-            self.T_specs_hom = [BCSpec(BC.ANTISYM, NEU),
-                                BCSpec(BC.POLE, BC.POLE), None]
+            wall = BCSpec(BC.DIRICHLET, NEU,
+                          lo_value=self._tensor(self.T_wall))
+            wall_hom = BCSpec(BC.ANTISYM, NEU)
+            # the shell's lat axis closes at the poles; the annulus's and
+            # the cuboid's other axes are periodic (the JAX model lists
+            # three specs on the 2D slab too)
+            rest = {"shell": [BCSpec(BC.POLE, BC.POLE), None],
+                    "annulus": [None]}.get(geo.kind, [None, None])
+            self.T_specs = [wall] + rest
+            self.T_specs_hom = [wall_hom] + rest
         # affine offset of the inhomogeneous-Dirichlet weak Laplacian:
         # weak_lap_inhom(x) = weak_lap_hom(x) + offset
         zero = torch.zeros(geo.cell_shape, dtype=self.torch_dtype,

@@ -1,7 +1,9 @@
 """Carry a model state across the host boundary as numpy arrays — the
-way the tests hand a state of the JAX package to the port and back. A
-JAX state, global or sharded, reads as global numpy arrays; the port's
-sharded states are cut onto the model's mesh and gathered back here."""
+way the tests hand a state of the JAX package to the port and back, in
+any geometry (the shell, the annulus, the 3D cuboid and the 2D slab:
+dim velocity components and dim face arrays). A JAX state, global or
+sharded, reads as global numpy arrays; the port's sharded states are
+cut onto the model's mesh and gathered back here."""
 
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
 """Vector-field operators in the local orthonormal bases (PyTorch):
 curvature (Christoffel) terms of the advection and the vector Laplacian,
 the centred curl and the rotational (vector-invariant) advection of the
-FEEC personality, and the Coriolis acceleration, for the annulus
-(u_r, u_phi) and the shell (u_r, u_lat, u_lon).
+FEEC personality, and the Coriolis acceleration, for the cuboid (w, v,
+u) = (z, y, x) Cartesian, or (w, u) = (z, x) on the 2D slab, the
+annulus (u_r, u_phi) and the shell (u_r, u_lat, u_lon).
 
-Counterpart of the JAX package's ``ops/vector.py``; the cuboid branches
-are not ported yet (ROADMAP.md, "cuboid geometry").
+Counterpart of the JAX package's ``ops/vector.py``. The cuboid has no
+curvature terms; its curl is the physical right-handed one, restacked
+into the (z, y, x) order. A 2D curl exists on the annulus only: the
+rotational form on the 2D slab raises ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,11 +24,7 @@ from dycoreplanet_tpu_torch.ops.stencil import centered_gradient
 
 
 def _require(geo: Geometry) -> None:
-    if geo.kind == "cuboid":
-        raise NotImplementedError(
-            "cuboid geometry is not ported yet (ROADMAP.md: cuboid "
-            "geometry)")
-    if geo.kind not in ("annulus", "shell"):
+    if geo.kind not in ("cuboid", "annulus", "shell"):
         raise ValueError(geo.kind)
 
 
@@ -44,8 +43,11 @@ def _extra(geo: Geometry, name: str, like: torch.Tensor) -> torch.Tensor:
 
 
 def advection_curvature(geo: Geometry, u: torch.Tensor) -> torch.Tensor:
-    """Extra pointwise terms of (u.grad)u in curvilinear coordinates."""
+    """Extra pointwise terms of (u.grad)u in curvilinear coordinates;
+    zero on the cuboid."""
     _require(geo)
+    if geo.kind == "cuboid":
+        return torch.zeros_like(u)
     r = _extra(geo, "r_centers", u)
     if geo.kind == "annulus":
         ur, up = u[0], u[1]
@@ -65,8 +67,10 @@ def vector_laplacian_curvature(
     """(Delta u)_local - componentwise Delta(u_local); ``specs[c][d]`` is
     the BC of component c along axis d. centered_gradient divides by the
     physical distances (r dphi; r dlat, r cos(lat) dlon), so the angular
-    derivatives below are physical ones."""
+    derivatives below are physical ones. Zero on the cuboid."""
     _require(geo)
+    if geo.kind == "cuboid":
+        return torch.zeros_like(u)
     r = _extra(geo, "r_centers", u)
     if geo.kind == "annulus":
         ur, up = u[0], u[1]
@@ -109,10 +113,21 @@ def curl_2d(geo: Geometry, u: torch.Tensor,
 
 def curl_3d(geo: Geometry, u: torch.Tensor,
             specs: Sequence[Sequence[Optional[BCSpec]]]) -> torch.Tensor:
-    """omega = curl u in the shell's local frame, (3, *cells); the
-    centred gradients are physical derivatives (1/r d/dlat and
+    """omega = curl u in the local frame, (3, *cells): on the cuboid the
+    physical right-handed curl restacked into the (z, y, x) order; on the
+    shell the centred gradients are physical derivatives (1/r d/dlat and
     1/(r cos lat) d/dlon)."""
     _require(geo)
+    if geo.kind == "cuboid" and geo.dim == 3:
+        w, v, uu = u[0], u[1], u[2]     # (z, y, x) components
+
+        def grad(f, c, d):
+            return centered_gradient(geo, f, d, specs[c][d])
+
+        om_x = grad(w, 0, 1) - grad(v, 1, 0)
+        om_y = grad(uu, 2, 0) - grad(w, 0, 2)
+        om_z = grad(v, 1, 2) - grad(uu, 2, 1)
+        return torch.stack([om_z, om_y, om_x])
     if geo.kind != "shell":
         raise ValueError(geo.kind)
     r = _extra(geo, "r_centers", u)
@@ -141,10 +156,20 @@ def rotational_advection(
     ke = 0.5 * torch.sum(u * u, dim=0)
     grad_ke = torch.stack([centered_gradient(geo, ke, d, ke_spec[d])
                            for d in range(geo.dim)])
-    if geo.kind == "annulus":
+    if geo.dim == 2:
+        # on the annulus only: the 2D slab has no curl_2d (ValueError)
         zeta = curl_2d(geo, u, specs)
         # (zeta e_z) x u = zeta (-u_phi, u_r) in (r, phi) components
         rot = torch.stack([-zeta * u[1], zeta * u[0]])
+    elif geo.kind == "cuboid":
+        # the right-handed cross product in (x, y, z), components
+        # stored (z, y, x)
+        az, ay, ax = curl_3d(geo, u, specs)
+        bz, by, bx = u[0], u[1], u[2]
+        cx = ay * bz - az * by
+        cy = az * bx - ax * bz
+        cz = ax * by - ay * bx
+        rot = torch.stack([cz, cy, cx])
     else:
         # the right-handed triad (x, y, z) = (lon, lat, r)
         ar, al, ap = curl_3d(geo, u, specs)
@@ -159,15 +184,22 @@ def rotational_advection(
 def coriolis_acceleration(geo: Geometry, u: torch.Tensor, omega_hat: float,
                           mode: str = "reference") -> torch.Tensor:
     """Coriolis acceleration in the local frame. mode='reference'
-    reproduces the reference (SURVEY.md section 7.5): +2 (u_phi, -u_r)
-    with no Omega in 2D (cross_product_2d, boussinesq_model.tpp:663-667),
-    none on the 3D shell; 'physical' applies -2 Omega x u (2D: Omega
-    along e_z, out of the plane)."""
+    reproduces the reference (SURVEY.md section 7.5): +2 (u_1, -u_0)
+    with no Omega in 2D, the annulus and the slab alike
+    (cross_product_2d, boussinesq_model.tpp:663-667), -2 Omega e_z x u
+    on the 3D cuboid in either mode (tpp:616-621), none on the 3D shell;
+    'physical' applies -2 Omega x u (2D: Omega along e_z, out of the
+    plane)."""
     _require(geo)
-    if geo.kind == "annulus":
+    if geo.dim == 2:
         if mode == "reference":
             return 2.0 * torch.stack([u[1], -u[0]])
         return -2.0 * omega_hat * torch.stack([-u[1], u[0]])
+    if geo.kind == "cuboid":
+        # (0, 0, Omega) x (u_x, u_y, u_z) = (-Omega u_y, Omega u_x, 0),
+        # stored (z, y, x)
+        return -2.0 * omega_hat * torch.stack(
+            [torch.zeros_like(u[0]), u[2], -u[1]])
     if mode == "reference":
         return torch.zeros_like(u)
     sinl = torch.sin(_extra(geo, "lat_centers", u))

@@ -1,11 +1,12 @@
-"""Initial and boundary data of the shell and annulus aqua-planet runs
-(numpy, host).
+"""Initial and boundary data of the aqua-planet runs (numpy, host).
 
-Counterpart of the JAX package's ``physics/initial_data.py``: the
-temperature IC is the sum of two Gaussian bumps at radii R0 + 0.35 dR
-(x-axis) and R0 + 0.65 dR (y-axis) with isotropic precision 20/(dR/2);
-the 2D centers are rotated twice by pi/3, the 3D ones not (reference:
-boussinesq_model_data.tpp:15-147). Velocity starts at rest. Evaluated
+Counterpart of the JAX package's ``physics/initial_data.py``: on the
+shell and the annulus the temperature IC is the sum of two Gaussian
+bumps at radii R0 + 0.35 dR (x-axis) and R0 + 0.65 dR (y-axis) with
+isotropic precision 20/(dR/2); the 2D centers are rotated twice by
+pi/3, the 3D ones not (reference: boussinesq_model_data.tpp:15-147). On
+the cuboid it is one Gaussian at the domain centre
+(boussinesq_model_data.tpp:168-196). Velocity starts at rest. Evaluated
 once on the host in float64 and cast by the caller.
 """
 
@@ -62,3 +63,21 @@ class TemperatureInitialValues:
             _gaussian(p, self.center1, self.precision, self.dim)
             + _gaussian(p, self.center2, self.precision, self.dim))
 
+
+
+class TemperatureInitialValuesCuboid:
+    """The cuboid's single Gaussian at ``center`` (reference:
+    boussinesq_model_data.tpp:168-196): precision 1/(0.1 diameter)^2,
+    and the reference's divisor 2 sqrt((2 pi)^2) = 4 pi whatever the
+    dimension (tpp:189-192)."""
+
+    def __init__(self, dim: int, center, diameter: float):
+        self.dim = dim
+        self.center = np.asarray(center, np.float64)
+        self.precision = 1.0 / (0.1 * diameter) ** 2
+
+    def __call__(self, p: np.ndarray) -> np.ndarray:
+        d = np.asarray(p, np.float64) - self.center
+        quad = self.precision * np.sum(d * d, axis=-1)
+        det_sqrt = self.precision ** (self.dim / 2.0)
+        return det_sqrt * np.exp(-0.5 * quad) / (2.0 * (2.0 * math.pi))

@@ -1,7 +1,7 @@
-"""Direct (non-iterative) Helmholtz solvers for the shell and the
-annulus: (vol - c * weak_laplacian) x = b, the counterpart of the JAX
-package's ``solvers/helmholtz.py`` (``ShellHelmholtzDirect``,
-``AnnulusHelmholtzDirect``).
+"""Direct (non-iterative) Helmholtz solvers for the shell, the annulus
+and the 3D cuboid: (vol - c * weak_laplacian) x = b, the counterpart of
+the JAX package's ``solvers/helmholtz.py`` (``ShellHelmholtzDirect``,
+``AnnulusHelmholtzDirect``, ``CuboidHelmholtzDirect``).
 
 The momentum and temperature systems share the pressure operator's
 separable structure on the uniform-radius shell: vol_ij = v_i cos_j and
@@ -16,9 +16,12 @@ nothing, ANTISYM/DIRICHLET walls add 2*alpha_wall to the boundary
 diagonal. Inhomogeneous Dirichlet values are the caller's affine offset,
 as in the CG path. On the annulus the phi DFT alone leaves, per phi
 mode, the radial tridiagonal diag(v) + c (T_r^bc - mu_k diag(c_phi)),
-solved by K4 in the JAX solver's layout. Host setup is f64 numpy,
-identical to the JAX package's; the per-mode transforms are plain matrix products
-(``torch.einsum``) in full precision (the model disables TF32), and
+solved by K4 in the JAX solver's layout. On the cuboid the cell volume
+is constant, so the y and x real-DFT pairs and a z eigentransform a
+field diagonalize the operator fully: no tridiagonal is left, and no
+K4. Host setup is f64 numpy, identical to the JAX package's; the
+per-mode transforms are plain matrix products (``torch.einsum``) in
+full precision (the model disables TF32), and
 ``c`` enters only on the device side, so one solver serves every dt.
 """
 
@@ -239,21 +242,90 @@ class AnnulusHelmholtzDirect:
         return x.to(b.dtype).contiguous()
 
 
+class CuboidHelmholtzDirect:
+    """Exact cuboid solve of (vol - c*weak_laplacian) x_f = b_f by full
+    fast diagonalization (vol constant): the y and x real-DFT pairs and
+    a z eigentransform a field (its wall rules), the denominators vol +
+    c (D_z^bc + shift_{ky,kx}) formed on the device, so one solver serves
+    every c. Matrix products only (the JAX solver's einsums); no K4."""
+
+    def __init__(self, geo: Geometry, z_specs: Sequence[BCSpec],
+                 dtype=np.float32, device: Optional[torch.device] = None):
+        if geo.kind != "cuboid" or geo.dim != 3:
+            raise ValueError("CuboidHelmholtzDirect needs the 3D cuboid")
+        self.geo = geo
+        nz, ny, nx = geo.cell_shape
+        vol = np.broadcast_to(np.asarray(geo.vol, np.float64), geo.cell_shape)
+        if not np.allclose(vol, vol.flat[0]):
+            raise ValueError(
+                "cuboid direct Helmholtz requires uniform cell volume")
+        self._vol = float(vol.flat[0])
+
+        alpha = _conductance_full(geo, 0)[:, 0, 0]     # (nz+1,)
+        cy = float(_conductance(geo, 1)[0, 0, 0])
+        cx = float(_conductance(geo, 2)[0, 0, 0])
+        mu_y2 = np.concatenate([_mu(ny, rfft=True)] * 2)
+        mu_x2 = np.concatenate([_mu(nx, rfft=True)] * 2)
+        shift = -(cy * mu_y2[:, None] + cx * mu_x2[None, :])  # (2nmy,2nmx)
+
+        nc = len(z_specs)
+        Q = np.zeros((nc, nz, nz))
+        D = np.zeros((nc, nz))
+        for cidx, spec in enumerate(z_specs):
+            w_lo, w_hi = _rules_of(spec)
+            d_, l_, u_ = _radial_tridiag(alpha, w_lo, w_hi)
+            Tz = np.diag(d_) + np.diag(l_[1:], -1) + np.diag(u_[:-1], 1)
+            w, W = np.linalg.eigh(0.5 * (Tz + Tz.T))
+            Q[cidx] = W
+            D[cidx] = np.maximum(w, 0.0)
+
+        f = lambda x: np.asarray(x, dtype=dtype)       # noqa: E731
+        self._Fy, self._Gy = map(f, _real_dft_pair(ny, np.float64))
+        self._Fx, self._Gx = map(f, _real_dft_pair(nx, np.float64))
+        self._Q = f(Q)
+        self._denomK = f(D[:, :, None, None] + shift[None, None])
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "CuboidHelmholtzDirect":
+        """Move the constants to ``device``."""
+        self._t = {k: torch.as_tensor(np.ascontiguousarray(getattr(self, k)),
+                                      device=device)
+                   for k in ("_Fy", "_Gy", "_Fx", "_Gx", "_Q", "_denomK")}
+        return self
+
+    def solve(self, b: torch.Tensor, c: float) -> torch.Tensor:
+        """x with (vol - c weak_laplacian) x = b, per field of b: (C, nz,
+        ny, nx); c: the scalar coefficient (rounded to the working dtype
+        by the caller)."""
+        acc = torch.promote_types(b.dtype, torch.float32)
+        t = {k: a.to(acc) for k, a in self._t.items()}
+        h = torch.einsum("ky,czyx->czkx", t["_Fy"], b.to(acc))
+        h = torch.einsum("kx,czyx->czyk", t["_Fx"], h)
+        h = torch.einsum("cza,czyx->cayx", t["_Q"], h)
+        h = h / (self._vol + c * t["_denomK"])
+        h = torch.einsum("cza,cayx->czyx", t["_Q"], h)
+        h = torch.einsum("xk,czyk->czyx", t["_Gx"], h)
+        x = torch.einsum("yk,czkx->czyx", t["_Gy"], h)
+        return x.to(b.dtype)
+
+
 def make_helmholtz_solver(geo: Geometry, wall_specs: Sequence[BCSpec],
                           dtype=np.float32,
                           tridiag: Optional[TridiagSolve] = None,
                           device=None):
-    """Direct Helmholtz solver for a stack of fields whose radial wall
-    BCSpecs are ``wall_specs``; None when the shell's radii are not
-    uniform (as in the JAX package). The cuboid solver is not ported
-    yet."""
+    """Direct Helmholtz solver for a stack of fields whose radial (z) wall
+    BCSpecs are ``wall_specs``; None where the JAX package has none: the
+    2D slab and the shell with non-uniform radii."""
+    if geo.kind == "cuboid":
+        if geo.dim != 3:
+            return None
+        return CuboidHelmholtzDirect(geo, wall_specs, dtype=dtype,
+                                     device=device)
     if geo.kind == "annulus":
         return AnnulusHelmholtzDirect(geo, wall_specs, dtype=dtype,
                                       tridiag=tridiag, device=device)
     if geo.kind != "shell":
-        raise NotImplementedError(
-            f"the {geo.kind} direct Helmholtz solver is not ported yet "
-            "(ROADMAP.md: cuboid geometry)")
+        raise ValueError(f"unknown geometry kind {geo.kind!r}")
     if not _uniform_radial(geo):
         return None
     return ShellHelmholtzDirect(geo, wall_specs, dtype=dtype,

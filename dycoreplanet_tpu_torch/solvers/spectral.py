@@ -1,5 +1,5 @@
-"""Fast-diagonalization Poisson solves for the uniform-radius shell and
-the annulus (PyTorch counterpart of the JAX package's
+"""Fast-diagonalization Poisson solves for the uniform-radius shell, the
+annulus and the cuboid (PyTorch counterpart of the JAX package's
 ``solvers/spectral.py``).
 
 Solves -weak_laplacian(x) = b with sum(b) = 0 by diagonalizing every
@@ -11,13 +11,23 @@ package's). Shell:
   r:    the shared symmetric radial tridiagonal T_r = Q D Q^T
 
 Annulus: the phi DFT pair and one generalized radial eigentransform W
-(T_r W = diag(c_phi) W Lambda) shared by every phi mode.
+(T_r W = diag(c_phi) W Lambda) shared by every phi mode. Cuboid: the y
+and x real-DFT pairs (the operator's mode dependence is even in k, so
+the cos / sin rows of an rfft diagonalize the periodic axes) and the z
+wall tridiagonal T_z = Q D Q^T, or a third DFT pair when z is periodic
+too; the 2D (z, x) slab drops the y pair.
 
 What is left is a pointwise multiply by the pseudo-inverse of the
 eigenvalue sums; the Neumann nullspace's reciprocal is zeroed, callers
 re-normalize the mean. The transforms are plain matrix products
 (``torch.einsum``), left to the BLAS library as the JAX package left
 them to XLA, in full float32 on the card (the model disables TF32).
+
+``CuboidPoissonDirect`` is the superseded direct cuboid solve that the
+JAX package keeps and tests (``make_poisson_solver`` builds the fast
+diagonalization): an rfft2 over (y, x), then the z tridiagonals of
+every mode by the batched Thomas kernel K4 (ops/tridiag.py), the real
+and imaginary parts as K4's pair axis, in one launch.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
+from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 
 
 def _conductance(geo: Geometry, d: int) -> np.ndarray:
@@ -111,6 +122,188 @@ def _real_dft_pair64(n: int) -> Tuple[np.ndarray, np.ndarray]:
     F.setflags(write=False)
     G.setflags(write=False)
     return F, G
+
+
+def _t(a, device) -> torch.Tensor:
+    """A host constant as a C-contiguous tensor on ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+class CuboidPoissonDirect:
+    """Exact cuboid solve by an rfft2 over (y, x) and batched Thomas in z
+    (the JAX ``CuboidPoissonDirect``, which calls its ``tridiag_solve``
+    on the real and then the imaginary part). Here one call of K4
+    (``tridiag``, a TridiagSolve) solves both: the rhs is
+    ``torch.view_as_real`` of the (nz, ny, nx/2+1) transform, whose
+    trailing axis of 2 K4 takes as its pair axis; diag is (nz, ny,
+    nx/2+1, 1), broadcast along it, and lower and upper are one value a
+    row, (nz, 1, 1, 1), broadcast across every column. No operand is
+    copied. The (0, 0) mode's first cell is pinned (the nullspace's
+    particular solution with x[0] = 0); callers re-normalize the mean."""
+
+    precision = "highest"
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "cuboid" or geo.dim != 3:
+            raise ValueError("CuboidPoissonDirect needs the 3D cuboid")
+        self.geo = geo
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nz, ny, nx = geo.cell_shape
+        az = _conductance(geo, 0)[:, 0, 0]          # (nz+1,)
+        cy = float(_conductance(geo, 1)[0, 0, 0])
+        cx = float(_conductance(geo, 2)[0, 0, 0])
+        mu_y = _mu(ny, rfft=False)                   # (ny,)
+        mu_x = _mu(nx, rfft=True)                    # (nx//2+1,)
+        shift = -(cy * mu_y[:, None] + cx * mu_x[None, :])
+        diag = (az[:-1] + az[1:])[:, None, None] + shift[None]
+        diag[0, 0, 0] += az[1] if nz > 1 else 1.0
+        f = lambda a: np.asarray(a, dtype=dtype)     # noqa: E731
+        self._lower = f(-az[:-1, None, None, None])
+        self._diag = f(diag[..., None])
+        self._upper = f(-az[1:, None, None, None])
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "CuboidPoissonDirect":
+        """Move the coefficients to ``device``."""
+        self._tc = tuple(_t(a, device)
+                         for a in (self._lower, self._diag, self._upper))
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def systems(self, b: torch.Tensor):
+        """K4's operands (lower, diag, upper, rhs) for the solve of b:
+        rhs is (nz, ny, nx/2+1, 2), the real and imaginary parts of
+        b's rfft2 over (y, x)."""
+        acc = torch.promote_types(b.dtype, torch.float32)
+        bh = torch.fft.rfft2(b.to(acc), dim=(1, 2))
+        return tuple(a.to(acc) for a in self._tc) + (torch.view_as_real(bh),)
+
+    def solve(self, b: torch.Tensor):
+        xh = self.tridiag(*self.systems(b))
+        x = torch.fft.irfft2(torch.view_as_complex(xh), s=b.shape[1:],
+                             dim=(1, 2))
+        return x.to(b.dtype), 0
+
+
+class CuboidPoissonFastDiag:
+    """EXACT cuboid solve by full fast diagonalization: the y and x
+    real-DFT pairs, the z wall eigentransform Q (or, on the fully
+    periodic domain, a third real-DFT pair), and a pointwise multiply by
+    the pseudo-inverse of D_z + shift_{ky,kx} (the Neumann nullspace's
+    reciprocal zeroed)."""
+
+    precision = "highest"
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "cuboid" or geo.dim != 3:
+            raise ValueError("CuboidPoissonFastDiag needs the 3D cuboid")
+        self.geo = geo
+        nz, ny, nx = geo.cell_shape
+        cy = float(_conductance(geo, 1)[0, 0, 0])
+        cx = float(_conductance(geo, 2)[0, 0, 0])
+        mu_y2 = np.concatenate([_mu(ny, rfft=True)] * 2)
+        mu_x2 = np.concatenate([_mu(nx, rfft=True)] * 2)
+        f = lambda a: np.asarray(a, dtype=dtype)     # noqa: E731
+        self._Q = self._Fz = self._Gz = None
+        if geo.axes[0].periodic:
+            # fully periodic: z diagonalizes in the same real-DFT basis
+            cz = float(_conductance(geo, 0)[0, 0, 0])
+            D = -cz * np.concatenate([_mu(nz, rfft=True)] * 2)
+            self._Fz, self._Gz = map(f, _real_dft_pair(nz, np.float64))
+        else:
+            az = _conductance(geo, 0)[:, 0, 0].astype(np.float64)
+            Tz = (np.diag(az[:-1] + az[1:])
+                  - np.diag(az[1:-1], 1) - np.diag(az[1:-1], -1))
+            D, Q = np.linalg.eigh(0.5 * (Tz + Tz.T))
+            self._Q = f(Q)
+        shift = -(cy * mu_y2[:, None] + cx * mu_x2[None, :])
+        denom = D[:, None, None] + shift[None]
+        tiny = 1e-10 * float(denom.max())
+        inv_denom = np.where(denom > tiny, 1.0 / np.maximum(denom, tiny), 0.0)
+        self._Fy, self._Gy = map(f, _real_dft_pair(ny, np.float64))
+        self._Fx, self._Gx = map(f, _real_dft_pair(nx, np.float64))
+        self._inv_denom = f(inv_denom)
+        self.to(device if device is not None else torch.device("cpu"))
+
+    _NAMES = ("_Fy", "_Gy", "_Fx", "_Gx", "_Q", "_Fz", "_Gz", "_inv_denom")
+
+    def to(self, device) -> "CuboidPoissonFastDiag":
+        """Move the transform constants to ``device``."""
+        self._t = {k: _t(getattr(self, k), device) for k in self._NAMES
+                   if getattr(self, k) is not None}
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def solve(self, b: torch.Tensor):
+        acc = torch.promote_types(b.dtype, torch.float32)
+        c = {k: a.to(acc) for k, a in self._t.items()}
+        h = torch.einsum("ky,zyx->zkx", c["_Fy"], b.to(acc))
+        h = torch.einsum("kx,zyx->zyk", c["_Fx"], h)
+        if self._Q is not None:
+            h = torch.einsum("za,zyx->ayx", c["_Q"], h)
+            h = h * c["_inv_denom"]
+            h = torch.einsum("za,ayx->zyx", c["_Q"], h)
+        else:
+            h = torch.einsum("az,zyx->ayx", c["_Fz"], h)
+            h = h * c["_inv_denom"]
+            h = torch.einsum("za,ayx->zyx", c["_Gz"], h)
+        h = torch.einsum("xk,zyk->zyx", c["_Gx"], h)
+        x = torch.einsum("yk,zkx->zyx", c["_Gy"], h)
+        return x.to(b.dtype), 0
+
+
+class Cuboid2DPoissonFastDiag:
+    """EXACT solve on the 2D (z, x) slab (the reference's dim=2 cuboid,
+    planet_geometry.tpp:29-57): the x real-DFT pair and the z wall
+    eigentransform."""
+
+    precision = "highest"
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "cuboid" or geo.dim != 2:
+            raise ValueError("Cuboid2DPoissonFastDiag needs the 2D cuboid")
+        self.geo = geo
+        nz, nx = geo.cell_shape
+        cx = float(_conductance(geo, 1)[0, 0])
+        mu_x2 = np.concatenate([_mu(nx, rfft=True)] * 2)
+        az = _conductance(geo, 0)[:, 0].astype(np.float64)     # (nz+1,)
+        Tz = (np.diag(az[:-1] + az[1:])
+              - np.diag(az[1:-1], 1) - np.diag(az[1:-1], -1))
+        D, Q = np.linalg.eigh(0.5 * (Tz + Tz.T))
+        denom = D[:, None] - cx * mu_x2[None, :]               # (nz, 2nmx)
+        tiny = 1e-10 * float(denom.max())
+        inv = np.where(denom > tiny, 1.0 / np.maximum(denom, tiny), 0.0)
+        f = lambda a: np.asarray(a, dtype=dtype)     # noqa: E731
+        self._Fx, self._Gx = map(f, _real_dft_pair(nx, np.float64))
+        self._Q, self._inv = f(Q), f(inv)
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "Cuboid2DPoissonFastDiag":
+        """Move the transform constants to ``device``."""
+        self._t = {k: _t(getattr(self, k), device)
+                   for k in ("_Fx", "_Gx", "_Q", "_inv")}
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def solve(self, b: torch.Tensor):
+        acc = torch.promote_types(b.dtype, torch.float32)
+        c = {k: a.to(acc) for k, a in self._t.items()}
+        h = torch.einsum("kx,zx->zk", c["_Fx"], b.to(acc))
+        h = torch.einsum("za,zk->ak", c["_Q"], h)
+        h = h * c["_inv"]
+        h = torch.einsum("za,ak->zk", c["_Q"], h)
+        x = torch.einsum("xk,zk->zx", c["_Gx"], h)
+        return x.to(b.dtype), 0
 
 
 class ShellPoissonFastDiag:
@@ -341,14 +534,16 @@ def _uniform_radial(geo: Geometry) -> bool:
 def make_poisson_solver(geo: Geometry, dtype=np.float32,
                         precision: str = "highest", refine_op=None,
                         device=None):
-    """The annulus and shell-uniform branches of the JAX package's
-    factory; the cuboid and the non-uniform shell raise."""
+    """The cuboid, annulus and shell-uniform branches of the JAX
+    package's factory; the non-uniform shell raises."""
+    if geo.kind == "cuboid":
+        if geo.dim == 2:
+            return Cuboid2DPoissonFastDiag(geo, dtype=dtype, device=device)
+        return CuboidPoissonFastDiag(geo, dtype=dtype, device=device)
     if geo.kind == "annulus":
         return AnnulusPoissonFastDiag(geo, dtype=dtype, device=device)
     if geo.kind != "shell":
-        raise NotImplementedError(
-            f"{geo.kind} Poisson solvers are not ported yet (ROADMAP.md: "
-            "cuboid geometry)")
+        raise ValueError(f"unknown geometry kind {geo.kind!r}")
     if not _uniform_radial(geo):
         raise NotImplementedError(
             "the non-uniform radial shell (ShellPoissonSpectral) is not "

@@ -252,13 +252,40 @@ def test_vector_terms(mode):
 
 
 def test_vector_terms_refuse_the_cuboid():
-    geo = make_cuboid(4, 4, 4)
-    u = torch.zeros((3, 4, 4, 4), dtype=torch.float64)
-    for fn in (lambda: vec.advection_curvature(geo, u),
-               lambda: vec.coriolis_acceleration(geo, u, 1.0),
-               lambda: vec.vector_laplacian_curvature(geo, u, [[None] * 3])):
-        with pytest.raises(NotImplementedError, match="cuboid geometry"):
-            fn()
+    """Once a refusal: the cuboid's vector terms now run (their full
+    parity: tests/test_torch_cuboid.py). Curvature terms are zero, and
+    the Coriolis acceleration of either mode is -2 Omega e_z x u, the
+    JAX package's, on a seeded velocity."""
+    from dycoreplanet_tpu.grid.factory import make_cuboid as j_make_cuboid
+
+    geo, jgeo = make_cuboid(4, 4, 4), j_make_cuboid(4, 4, 4)
+    u = 0.1 * np.random.default_rng(8).standard_normal((3, 4, 4, 4))
+    tu = torch.as_tensor(u)
+    assert not vec.advection_curvature(geo, tu).any()
+    assert not vec.vector_laplacian_curvature(geo, tu, [[None] * 3] * 3).any()
+    for mode in ("reference", "physical"):
+        got = vec.coriolis_acceleration(geo, tu, 0.7, mode)
+        assert rel(got, j_vec.coriolis_acceleration(
+            jgeo, jnp.asarray(u), 0.7, mode)) <= TOL
+        np.testing.assert_allclose(_np(got[1]), -1.4 * u[2], rtol=1e-15)
+        np.testing.assert_allclose(_np(got[2]), 1.4 * u[1], rtol=1e-15)
+        assert not got[0].any()
+
+
+def test_annulus_prm_on_the_slab_runs():
+    """The annulus prm with `cuboid geometry = true` (once refused, naming
+    "cuboid geometry") is the 2D (z, x) slab at 2^4 x 2^4: one step
+    against the JAX model's, within TOL of each field's scale."""
+    p, jp = _params(Parameters), _params(JParameters)
+    for q in (p, jp):
+        q.cuboid_geometry = True
+    tm, jm = BoussinesqModel(p, device="cpu"), JModel(jp)
+    assert tm.geo.kind == "cuboid" and tm.geo.cell_shape == (16, 16)
+    (ts, td), (js, jd) = (m.step(m.initial_state(), m.params.time_step)
+                          for m in (tm, jm))
+    assert td.solver_ok == jd.solver_ok
+    for g, w in ((ts.u, js.u), (ts.p, js.p), (ts.T, js.T)):
+        assert rel(g, w) <= TOL
 
 
 @pytest.mark.parametrize("spec", ["u0", "u1", "p", "T", "Th"])
@@ -584,11 +611,11 @@ def test_annulus_model_builds_no_shell_kernel():
 
 
 @pytest.mark.parametrize("setting", [
-    ("cuboid_geometry", True, "cuboid geometry"),
     ("numerics.temperature_advection", "semi-lagrangian",
      "semi-Lagrangian transport on the annulus"),
     ("numerics.dtype", "bfloat16", "bf16"),
     ("numerics.poisson_solver", "cg", "remaining solvers"),
+    ("numerics.poisson_solver", "mg", "remaining solvers"),
 ])
 def test_annulus_refusals_name_their_item(setting):
     p = _params(Parameters)

@@ -408,3 +408,59 @@ def test_cli_feec_prm_matches_jax_cli(tmp_path, jax_feec, label):
                                        err_msg=name)
     if label == "prm":
         assert stalled
+
+
+# ------------------------------------------------------- the cube prm
+PRM_CUBE = os.path.join(REPO, "data", "aqua_planet_cube_test_3d.prm")
+LEVEL2 = ("\nsubsection Boussinesq Model\n"
+          "  set solver diagnostics level = 2\nend\n")
+CUBE_RUNS = {"steps": ["--max-steps", "3"],
+             "chunk2": ["--max-steps", "4", "--chunk", "2", "--no-output"]}
+
+
+@pytest.fixture(scope="module")
+def jax_cube(tmp_path_factory):
+    """The JAX CLI's runs of CUBE_RUNS: (stdout, output directory)."""
+    out = {}
+    for label, argv in CUBE_RUNS.items():
+        d = tmp_path_factory.mktemp(f"jax-cube-{label}")
+        out[label] = (_jax_run(_prm(d / "a.prm", PRM_CUBE, d / "out",
+                                    F64 + LEVEL2), argv), d / "out")
+    return out
+
+
+@pytest.mark.parametrize("label", list(CUBE_RUNS))
+def test_cli_cube_prm_matches_jax_cli(tmp_path, jax_cube, label):
+    """data/aqua_planet_cube_test_3d.prm (the Schur GMRES with the
+    cuboid's rotational advection, at its own 16^3, f64, with `solver
+    diagnostics level = 2`) through both CLIs with --device cpu, 3 steps
+    with output into a temporary dirname, and 4 steps in chunks of 2:
+    the same lines in the same order, the iteration counts equal, the
+    residuals and |div u| within 1e-3 relative or 1e-13, every other
+    number within its print precision; with output the same files, the
+    .pvd and the first .vts (the initial state) byte for byte."""
+    argv = CUBE_RUNS[label]
+    out = _port_run(_prm(tmp_path / "a.prm", PRM_CUBE, tmp_path / "out",
+                         F64 + LEVEL2), argv)
+    jout, jdir = jax_cube[label]
+    assert "Geometry               : cuboid" in out
+    got, want = _printed(out), _printed(jout)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert len(got) >= 12
+    for (name, g), (_, w) in zip(got, want):
+        if name == "Solver iterations":
+            assert g == w
+        elif name in ("Solver residuals", "Post-projection max |div u|"):
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-13,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=2e-6, atol=0,
+                                       err_msg=name)
+    if "--no-output" in argv:
+        assert not (tmp_path / "out").exists()
+        return
+    names = sorted(os.listdir(jdir))
+    assert names == sorted(os.listdir(tmp_path / "out"))
+    assert "boussinesq_000003.vts" in names
+    for name in ("boussinesq.pvd", "boussinesq_000000.vts"):
+        assert _bytes(jdir / name) == _bytes(tmp_path / "out" / name), name

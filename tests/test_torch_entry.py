@@ -1,8 +1,9 @@
 """The PyTorch port through its entry points, on CPU: the golden
 trajectories of the configurations it runs (``shell_3d_classic``,
 ``annulus_2d``, ``aqua_planet_production``,
-``aqua_planet_production_dynamic``, and the FEEC and coupled
-``shell_3d_feec`` and ``annulus_2d_coupled``) replayed through the port's
+``aqua_planet_production_dynamic``, the FEEC and coupled
+``shell_3d_feec`` and ``annulus_2d_coupled``, and the cube's
+``cube_3d_feec``) replayed through the port's
 ``step``
 (at tests/test_golden.py's tolerances), the CLI, and the rule that the
 package imports neither JAX nor the JAX package."""
@@ -49,12 +50,14 @@ def _run_case_port(name):
 
 @pytest.mark.parametrize("name", [
     "shell_3d_classic", "annulus_2d", "aqua_planet_production",
-    "aqua_planet_production_dynamic", "shell_3d_feec", "annulus_2d_coupled"])
+    "aqua_planet_production_dynamic", "shell_3d_feec", "annulus_2d_coupled",
+    "cube_3d_feec"])
 def test_shell_classic_golden_through_port(name):
-    """The goldens of the configurations the port runs (the shell and
-    the annulus: the standard personality, the FEEC shell's coupled 3x3
-    solve and the annulus's coupled 2x2 solve), replayed through its
-    step."""
+    """The goldens of the configurations the port runs (the shell, the
+    annulus and the cube: the standard personality, the FEEC shell's
+    coupled 3x3 solve, the annulus's coupled 2x2 solve and the cube
+    prm's Schur GMRES with the cuboid's rotational advection), replayed
+    through its step."""
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)[name]
     got = _run_case_port(name)

@@ -179,13 +179,23 @@ def test_rotational_forcing_matches_jax(jax_runs, case):
 
 
 def test_cuboid_branches_refused():
-    geo = make_cuboid(4, 4, 4)
-    u = torch.zeros((3,) + geo.cell_shape, dtype=torch.float64)
-    for fn in (lambda: vec.curl_3d(geo, u, [[None] * 3] * 3),
-               lambda: vec.rotational_advection(geo, u, [[None] * 3] * 3,
-                                                [None] * 3)):
-        with pytest.raises(NotImplementedError, match="cuboid geometry"):
-            fn()
+    """Once a refusal: the cuboid branches of ``curl_3d`` and
+    ``rotational_advection`` now run (the cube prm's steps:
+    tests/test_torch_cuboid.py). On the fully periodic 4 x 4 x 4 box and
+    a seeded velocity, each within OP_TOL of the JAX package's."""
+    from dycoreplanet_tpu.grid.factory import make_cuboid as j_make_cuboid
+
+    geo = make_cuboid(4, 4, 4, periodic_z=True)
+    jgeo = j_make_cuboid(4, 4, 4, periodic_z=True)
+    u = _field(np.random.default_rng(9), (3,) + geo.cell_shape)
+    specs = [[None] * 3] * 3
+    _close(vec.curl_3d(geo, torch.as_tensor(u), specs),
+           j_vec.curl_3d(jgeo, jnp.asarray(u), specs), OP_TOL, "curl_3d")
+    _close(vec.rotational_advection(geo, torch.as_tensor(u), specs,
+                                    [None] * 3),
+           j_vec.rotational_advection(jgeo, jnp.asarray(u), specs,
+                                      [None] * 3),
+           OP_TOL, "rotational_advection")
 
 
 # ------------------------------------------------------------ the steps

@@ -194,7 +194,18 @@ class TestShell:
 
 
 def test_other_geometries_not_ported():
-    """The cuboid's direct solver is not ported (the annulus's is:
-    tests/test_torch_annulus.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_helmholtz_solver(make_cuboid(4, 4, 4), [T_SPECS[0][0]])
+    """Once a refusal: the cuboid's direct solver (a full fast
+    diagonalization, no K4) is now ported, as the annulus's is
+    (tests/test_torch_annulus.py). On 4 x 4 x 4 with the temperature's z
+    rule it inverts (vol - c weak_laplacian) to 1e-11 (the JAX solver's
+    parity: tests/test_torch_cuboid.py)."""
+    g = make_cuboid(4, 4, 4)
+    spec = BCSpec(AS, NEU)
+    sol = make_helmholtz_solver(g, [spec], dtype=np.float64)
+    vol = float(np.asarray(g.vol).flat[0])
+    x_true = torch.as_tensor(np.random.RandomState(4).randn(1, 4, 4, 4))
+    for c in (1e-4, 3.3e-2, 0.7):
+        b = vol * x_true - c * st.weak_laplacian(
+            g, x_true[0], [spec, None, None])[None]
+        np.testing.assert_allclose(_np(sol.solve(b, c)), _np(x_true),
+                                   atol=1e-11)

@@ -198,8 +198,9 @@ def test_without_cuda_no_device_raises(monkeypatch):
 
 @pytest.mark.parametrize("setting", [
     (("use_FEEC_solver", True), ("numerics.feec_formulation", "staggered")),
-    ("cuboid_geometry", True),
-    (("space_dimension", 2), ("cuboid_geometry", True)),
+    (("cuboid_geometry", True), ("use_FEEC_solver", True),
+     ("numerics.feec_formulation", "staggered")),
+    (("cuboid_geometry", True), ("numerics.dtype", "bfloat16")),
     (("space_dimension", 2),
      ("numerics.temperature_advection", "semi-lagrangian")),
     ("numerics.dtype", "bfloat16"), ("numerics.poisson_solver", "cg"),
@@ -208,11 +209,13 @@ def test_without_cuda_no_device_raises(monkeypatch):
 ])
 def test_unsupported_configurations_raise(setting):
     """Each refused configuration; settings in a tuple are applied
-    together (the mimetic FEEC realization, the 2D cuboid, the annulus
-    with the semi-Lagrangian transport, Richardson momentum beside CG
-    temperature). FEEC in its collocated realization and the coupled
-    solves run (tests/test_torch_feec.py), as do the annulus
-    (tests/test_torch_annulus.py)."""
+    together (the mimetic FEEC realization, on the shell and on the cube
+    (the ``cube_3d_feec_staggered`` golden's), bf16 on the cuboid, the
+    annulus with the semi-Lagrangian transport, Richardson momentum
+    beside CG temperature). FEEC in its collocated realization and the
+    coupled solves run (tests/test_torch_feec.py), as do the annulus
+    (tests/test_torch_annulus.py) and the cuboid
+    (test_cuboid_configurations_run, tests/test_torch_cuboid.py)."""
     p = _params(Parameters)
     for name, value in (setting if isinstance(setting[0], tuple)
                         else (setting,)):
@@ -220,3 +223,22 @@ def test_unsupported_configurations_raise(setting):
         setattr(obj, name.split(".")[-1], value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         BoussinesqModel(p, device="cpu")
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+def test_cuboid_configurations_run(dim):
+    """The two cuboid configurations once refused here (naming "cuboid
+    geometry"): the 3D box and the 2D (z, x) slab at this file's
+    physics, f64, on the CPU: two steps through ``run``, finite,
+    divergence-free, no flow through the bottom wall."""
+    p = _params(Parameters)
+    p.cuboid_geometry = True
+    p.space_dimension = dim
+    p.numerics.nz = p.numerics.ny = p.numerics.nx = 8
+    m = BoussinesqModel(p, device="cpu")
+    assert m.geo.kind == "cuboid" and m.geo.dim == dim
+    state, hist = m.run(max_steps=2)
+    assert len(hist) == 2 and all(h["div_norm"] < 1e-9 for h in hist)
+    assert all(bool(torch.isfinite(x).all())
+               for x in (state.u, state.p, state.T))
+    assert not state.u_faces[0][0].any()
