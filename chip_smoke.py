@@ -163,7 +163,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      iterations, within 1e-12 of each field's scale; (g) the CLI on the
      cube prm at its own 16^3, 5 steps with output into a temporary
      directory;
- 10. one JSON line with every kernel's numbers, then, last, the
+ 10. the mimetic (staggered C-grid) personality (plain PyTorch, as jnp in
+     the JAX package; K4 only on the direct temperature solve) and
+     `poisson solver = cg | mg` (K4 in the multigrid line smoother's
+     layout), built by make_model: (a) the mimetic shell at 32x128x256
+     f32 from the seeded developed flow with the FEEC prm's physics
+     (the default path and `helmholtz solver = direct`) and with the
+     flagship's, 3 steps through run each: CG iterations, host syncs,
+     host and device ms a step, max|div u| <= 1e-4 after every step, K4
+     once a step on the direct path and never elsewhere, K1-K3, K5 0 on
+     the device (profiler); (b) the mimetic 128^3 box, the annulus at
+     256x3072 and the slab at 256x1024 (from its second step, held to
+     1e-3: the f32 round-off of its fast solve), 3 steps each; (c) one
+     mimetic step a geometry (and the shell's direct path) in f64 on the
+     card against the CPU: equal iterations, within 1e-12; (d) `poisson
+     solver = mg` and `= cg` on the shell at 32x128x256 f32 with the
+     bench opt-ins, 3 steps through run: Poisson iterations, K4's
+     launches (a V-cycle each preconditioner application), phi against
+     the fast diagonalization's on the seeded flow's right-hand side;
+     K4 on the line smoother's operands (radial, periodic lon 2-rhs,
+     and the lat lines' moved view) against its plain version, f32 and
+     f64, nothing copied, one launch's time against its bound; one
+     V-cycle's launches; mg on the annulus at 64x768 (periodic lines)
+     and the 64^3 box (Jacobi smoother, no K4); (e) the CLI on the FEEC prm with `feec
+     formulation = staggered`: the personality line, and a restart
+     bitwise an uninterrupted run's checkpoint;
+ 11. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
@@ -929,12 +954,13 @@ def mesh_model(dev, mesh_shape, dtype="float32", options=lambda p: p):
 def step_profile(fn, n):
     """Device ms, device kernels and host launches a step of fn(), which
     runs n steps, from one torch.profiler window; the device ms a step of
-    each hand kernel, by wrapper name; and the busy share: device kernel
-    time over the host time from fn's call to a synchronize after it."""
+    each hand kernel, by wrapper name; the busy share: device kernel
+    time over the host time from fn's call to a synchronize after it;
+    and the hand kernels of the window by wrapper name ("counts")."""
     import torch
     from torch.autograd import DeviceType
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
-        profiled, wrapper_of)
+        count_kernels, profiled, wrapper_of)
 
     window = []
 
@@ -964,7 +990,8 @@ def step_profile(fn, n):
                 by[w] = by.get(w, 0.0) + t_us / 1e3 / n
     return {"device_ms_per_step": dev_ms / n, "kernels_per_step": kernels / n,
             "host_launches_per_step": launches / n, "kernel_ms_per_step": by,
-            "busy_share": dev_ms / (window[0] * 1e3)}
+            "busy_share": dev_ms / (window[0] * 1e3),
+            "counts": count_kernels(prof, SHELL_NAMES + ("tridiag",))}
 
 
 def launch_plan(kf, dev, dtype):
@@ -2410,6 +2437,494 @@ def cuboid_phases(dev):
     return by_path, replay_by_path, k4_rows, cells
 
 
+# ---------------------------------------------------------------- phase 10
+# (a), (b): mimetic steps through run a case; (d): Poisson CG steps
+MIM_STEPS = 3
+MG_STEPS = 3
+# a profiled step with more CG iterations than this runs with the cap at
+# this many, its device ms then the profiled ms an iteration times the
+# step's iterations (a 500-iteration step holds ~10^5 kernels, whose
+# profile takes minutes to read)
+PROFILE_ITER_CAP = 64
+# (c): the card against the CPU in f64, one step a geometry
+MIM_F64_TOL = 1e-12
+
+
+def mimetic(params):
+    """`params` with `use FEEC solver = true` and `feec formulation =
+    staggered` (the mimetic C-grid model), run without end."""
+    params.use_FEEC_solver = True
+    params.numerics.feec_formulation = "staggered"
+    params.final_time = 1e9
+    return params
+
+
+def recording_steps(model):
+    """Wrap the model's step and step_strong (what run calls) so that each
+    call is kept as (its name, its diagnostics): returns that list."""
+    calls = []
+    for name in ("step", "step_strong"):
+        orig = getattr(model, name)
+
+        def wrapped(s, dt, orig=orig, name=name):
+            out = orig(s, dt)
+            calls.append((name, out[1]))
+            return out
+        setattr(model, name, wrapped)
+    return calls
+
+
+def krylov_run(label, m, s0, n, want, div_tol=1e-4):
+    """n steps of a model whose step runs a Krylov loop (the mimetic
+    momentum CG, the Poisson CG of `poisson solver = cg | mg`) through
+    run from s0: the first step's host syncs counted (a run of one step),
+    then the n steps with the wrapper launches counted from 0 (``want``:
+    the expected counts of a list of step calls, (name, diagnostics)),
+    finite fields, max|div u| <= div_tol after every step (None: recorded
+    only); then one more
+    ``step`` under torch.profiler (the CG cap at PROFILE_ITER_CAP if the
+    steps took more): device ms and kernels a step, busy share, and the
+    hand kernels on the device, by name, those ``want`` expects and no
+    other. Returns (launches, numbers)."""
+    import torch
+
+    dt = m.params.time_step
+    calls = recording_steps(m)
+    _, n_sync = count_syncs(lambda: m.run(max_steps=1, state=s0))
+    m.escalations = 0
+    m._strong_steps_left = 0
+    del calls[:]
+    (s_end, hist), launches, wall = drive(
+        m, lambda: m.run(max_steps=n, state=s0))
+    if launches != want(calls):
+        fail(f"10 {label}: launches {launches}, expected {want(calls)}")
+    diags = [d for _, d in calls]
+    if len(hist) != n:
+        fail(f"10 {label}: {len(hist)} steps, not {n}")
+    for x in (s_end.u, s_end.p, s_end.T) + tuple(s_end.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"10 {label}: non-finite fields")
+    divs = [h["div_norm"] for h in hist]
+    if div_tol is not None and not max(divs) <= div_tol:
+        fail(f"10 {label}: max|div u| per step {divs} > {div_tol}")
+    helm = [int(d.helmholtz_iters[0]) for d in diags]
+    pois = [d.poisson_iters for d in diags]
+    cap = m.params.numerics.max_cg_iters
+    capped = max(helm + pois) > PROFILE_ITER_CAP
+    if capped:
+        m.params.numerics.max_cg_iters = PROFILE_ITER_CAP
+    n_calls = len(calls)
+    prof = step_profile(lambda: m.step(s_end, dt)[1].cfl, 1)
+    m.params.numerics.max_cg_iters = cap
+    d_prof = calls[n_calls:]
+    its_prof = max(int(d_prof[-1][1].helmholtz_iters[0]),
+                   d_prof[-1][1].poisson_iters, 1)
+    its_run = sum(max(h, p_) for h, p_ in zip(helm, pois)) / n_calls
+    dev_ms = (prof["device_ms_per_step"] / its_prof * its_run if capped
+              else prof["device_ms_per_step"])
+    # K4 exactly, every kernel the step must not run 0 times; of the
+    # standard step's K1, K2 and K5 (once each) the profiler has missed
+    # the step's first hand kernels, K2 and at times K1, in eager
+    # profiles of 51k and of 4k kernels on an NVIDIA H100 (PERF.md §6),
+    # so those are held to at most once (their wrappers' counts, checked
+    # above, are exact)
+    want_prof = {**{k: 0 for k in prof["counts"]}, **want(d_prof)}
+    got = prof["counts"]
+    if (got["tridiag"] != want_prof["tridiag"]
+            or any(got[k] > n or (n == 0 and got[k])
+                   for k, n in want_prof.items())):
+        fail(f"10 {label}: the profiled step ran the hand kernels "
+             f"{got} on the device, expected {want_prof}")
+    nums = dict(steps=n, step_calls=n_calls, escalations=m.escalations,
+                helmholtz_iters=helm, poisson_iters=pois,
+                temperature_iters=[d.temperature_iters for d in diags],
+                gate=[d.solver_ok for d in diags], div=divs,
+                host_syncs_step1=n_sync, host_ms_per_step=wall / n * 1e3,
+                device_ms_per_step=dev_ms,
+                profiled_iterations=its_prof, profile_capped=capped,
+                kernels_per_step=prof["kernels_per_step"],
+                host_launches_per_step=prof["host_launches_per_step"],
+                busy=prof["busy_share"],
+                k4_ms_per_step=(prof["kernel_ms_per_step"].get("tridiag", 0.0)
+                                / its_prof * its_run if capped else
+                                prof["kernel_ms_per_step"].get("tridiag",
+                                                               0.0)),
+                profiled_counts=prof["counts"])
+    phase(f"10 {label} {m.geo.cell_shape} f32 (1/Re {m.one_over_Re:.3e}, dt "
+          f"{dt}): {n} steps through run, {n_calls} step calls, "
+          f"{m.escalations} escalation(s), CG iterations helmholtz {helm} "
+          f"poisson {pois}, temperature {nums['temperature_iters']}, gate "
+          f"{nums['gate']}, max|div u| per step "
+          f"{[float(f'{x:.3e}') for x in divs]}; launches {launches}; "
+          f"{n_sync} host syncs in step 1; host {nums['host_ms_per_step']:.2f}"
+          f" ms/step; device {dev_ms:.3f} ms/step (profiled step "
+          f"{its_prof} iterations{', capped' if capped else ''}: "
+          f"{prof['device_ms_per_step']:.3f} ms in "
+          f"{prof['kernels_per_step']:.0f} kernels, "
+          f"{prof['host_launches_per_step']:.0f} host launches, busy share "
+          f"{prof['busy_share']:.3f}, hand kernels {prof['counts']})")
+    return launches, nums
+
+
+def k4_per_step(per_call):
+    """want() of krylov_run: K4 ``per_call(diagnostics)`` times a step
+    call, no other hand kernel."""
+    return lambda calls: {"tridiag": sum(per_call(d) for _, d in calls)}
+
+
+def check_mg_k4(dev, geo, p_specs):
+    """(d): K4 on the MG line smoother's operands at level 0 of the shell
+    at BENCH_SHAPE, f32 and f64, as PoissonMultigrid.line_operands passes
+    them (the contiguous radial lines, the periodic lon lines' 2-rhs
+    pair, and the lat lines, whose residual is a moved-axis view: a
+    hierarchy relaxing along lat only), against the plain version
+    (rtol = atol = 1e-5 x scale f32, 1e-12 x scale f64; NaN in lower[0]
+    and upper[n-1]; the operands unchanged), the layout (nothing
+    copied), one launch's mean time over 50 calls, the plain version's
+    and the bound; the launches of one V-cycle. Returns {dtype: {kind:
+    numbers}} and the V-cycle's launches."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+    from dycoreplanet_tpu_torch.solvers.multigrid import PoissonMultigrid
+
+    rows, per_cycle = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        f32 = dtype == torch.float32
+        tk = k4.TridiagSolve()
+        mg = PoissonMultigrid(geo, p_specs, dtype=np.dtype(name), device=dev,
+                              tridiag=tk)
+        mg_lat = PoissonMultigrid(geo, p_specs, dtype=np.dtype(name),
+                                  device=dev, tridiag=tk,
+                                  line_axes_allowed=(1,))
+        if mg_lat.line_axes != [1]:
+            fail(f"10 (d) K4: the lat-only hierarchy relaxes along "
+                 f"{mg_lat.line_axes}")
+        gen = torch.Generator(device=dev).manual_seed(15)
+        r = torch.randn(geo.cell_shape, generator=gen, device=dev,
+                        dtype=dtype)
+        kinds = [(f"axis {a} "
+                  f"({'lon, periodic 2-rhs' if mg.specs[a] is None else 'r'})",
+                  mg, a) for a in mg.line_axes]
+        kinds.append(("axis 1 (lat, moved view)", mg_lat, 1))
+        rows[name] = {}
+        for kind, m_, axis in kinds:
+            ops = m_.line_operands(0, axis, r)
+            lay = k4.layout(*ops, pair=tk.pair)
+            if lay.copied:
+                fail(f"10 (d) K4 MG {kind} {name}: copied {lay.copied}")
+            want = tk.plain(*ops)
+            sc = float(want.abs().max())
+            tol = (1e-5 if f32 else 1e-12) * sc
+            tk.copies = 0
+            err = check_k4(f"K4 tridiag MG {kind} ({name})", tk, ops, want,
+                           tol)
+            ms = time_ms(lambda: tk(*ops))
+            pms = time_ms(lambda: tk.plain(*ops), reps=10)
+            moved = k4.values_moved(*ops)
+            b_ms, b_by = bound_of(ops[3].element_size() * moved,
+                                  k4.OPS_PER_VALUE * ops[3].numel())
+            phase(f"10 (d) K4 tridiag, MG line layout {kind} {name}: rhs "
+                  f"{tuple(ops[3].shape)} strides {tuple(ops[3].stride())}, "
+                  f"lower {tuple(ops[0].shape)} strides "
+                  f"{tuple(ops[0].stride())}, columns "
+                  f"{[size for size, _ in lay.axes]}, pair axis "
+                  f"{lay.pair_axis}, {tk.plan(lay, dev)[0]} threads a block, "
+                  f"staged {tk.plan(lay, dev)[1]}: 0 operands copied, max abs "
+                  f"err {err:.3e} (tol {tol:.3e}), operands unchanged; "
+                  f"kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}; {moved} values moved)")
+            rows[name][kind] = dict(max_abs_err=err, tol=tol, ms=ms,
+                                    plain_ms=pms, bound_ms=b_ms,
+                                    bound_by=b_by, values_moved=moved,
+                                    copies=0)
+        tk.launches = tk.copies = 0
+        mg(r)
+        torch.cuda.synchronize()
+        if (tk.launches, tk.copies) != (mg.line_solves_per_cycle(), 0):
+            fail(f"10 (d) K4 MG {name}: one V-cycle {tk.launches} launches, "
+                 f"{tk.copies} copies (expected {mg.line_solves_per_cycle()}"
+                 f", 0)")
+        per_cycle[name] = tk.launches
+        phase(f"10 (d) one V-cycle {name}: {len(mg.geos)} levels "
+              f"{[g.cell_shape for g in mg.geos]}, line axes {mg.line_axes}: "
+              f"{tk.launches} K4 launches, 0 copies")
+    return rows, per_cycle
+
+
+def mimetic_phases(dev):
+    """Phase 10, the mimetic (staggered C-grid) personality (plain
+    PyTorch, as jnp in the JAX package, K4 only on the direct temperature
+    solve) and `poisson solver = cg | mg` (K4 in the multigrid line
+    smoother's layout): (a) the mimetic shell at BENCH_SHAPE, FEEC_PRM's
+    physics, default and direct paths, then the flagship's; (b) the
+    mimetic 128^3 box, annulus at refinement 8 and 256 x 1024 slab; (c)
+    one mimetic step a geometry in f64 on the card against the CPU; (d)
+    mg and cg on the shell at BENCH_SHAPE with the bench opt-ins, K4 in
+    the MG layout, mg on the annulus and the box; (e) the CLI on FEEC_PRM
+    with `feec formulation = staggered`, and a restart. Returns (run
+    launches by path, K4 MG rows, numbers)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import make_model
+    from dycoreplanet_tpu_torch.models.convert import (
+        state_from_numpy, state_to_numpy)
+    from dycoreplanet_tpu_torch.models.mimetic import MimeticBoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import stencil as st
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    by_path, cells = {}, {}
+
+    # ---- (a) the mimetic shell at the bench shape ------------------------
+    for key, label, params, per_call in (
+            ("mimetic_shell", "(a) mimetic shell, FEEC prm",
+             feec_params(BENCH_SHAPE), lambda d: 0),
+            ("mimetic_shell_direct", "(a) mimetic shell direct, FEEC prm",
+             direct_params(feec_params(BENCH_SHAPE)), lambda d: 1),
+            ("mimetic_shell_flagship", "(a) mimetic shell, flagship",
+             bench_params(BENCH_SHAPE), lambda d: 0)):
+        m = make_model(mimetic(params), device=dev)
+        if (not isinstance(m, MimeticBoussinesqModel)
+                or set(m.kernels()) != {"tridiag"}):
+            fail(f"10 {label}: {type(m).__name__}, kernels "
+                 f"{list(m.kernels())}")
+        s0 = seed_developed_flow(m)
+        by_path[key], cells[key] = krylov_run(
+            label, m, s0, MIM_STEPS, k4_per_step(per_call))
+        phase(f"10 {label} done" + since())
+        del m, s0
+
+    # ---- (b) the box, the annulus and the slab ---------------------------
+    # the slab from the state after its first step, held to 1e-3: the
+    # mimetic projection is the fast solve alone (no spot-check, no CG
+    # repair), and Cuboid2DPoissonFastDiag's f32 round-off at 256 x 1024
+    # is ~1e-4 of |b| (ROADMAP Queue 3); its first step from rest leaves
+    # 3.0e-3 on an NVIDIA H100 80GB HBM3 at 700 W
+    for key, label, params, skip, div_tol in (
+            ("mimetic_box", "(b) mimetic box", cube_params(CUBE_STD_REF), 0,
+             1e-4),
+            ("mimetic_annulus", "(b) mimetic annulus", annulus_params(), 0,
+             1e-4),
+            ("mimetic_slab", "(b) mimetic slab", slab_params(), 1, 1e-3)):
+        m = make_model(mimetic(params), device=dev)
+        s0 = m.initial_state()
+        for _ in range(skip):
+            s0, d0 = m.step(s0, m.params.time_step)
+            phase(f"10 {label}: the first step from rest, max|div u| "
+                  f"{d0.div_norm:.3e}")
+        by_path[key], cells[key] = krylov_run(
+            label, m, s0, MIM_STEPS, k4_per_step(lambda d: 0), div_tol)
+        phase(f"10 {label} done" + since())
+        del m, s0
+
+    # ---- (c) the card against the CPU, f64 -------------------------------
+    for label, params in (
+            ("shell", lambda: feec_params(FEEC_SMALL, "float64")),
+            ("shell direct", lambda: direct_params(
+                feec_params(FEEC_SMALL, "float64"))),
+            ("box", lambda: cube_params(CUBE_SMALL_REF, "float64")),
+            ("annulus", lambda: annulus_params("float64", refinement=4)),
+            ("slab", lambda: slab_params((16, 64), "float64"))):
+        cpu = make_model(mimetic(params()), device="cpu")
+        card = make_model(mimetic(params()), device=dev)
+        if cpu.geo.kind == "shell":
+            s_cpu = seed_developed_flow(cpu)
+        else:
+            s_cpu = cpu.initial_state()
+            for _ in range(2):
+                s_cpu, _ = cpu.step(s_cpu, cpu.params.time_step)
+        s_card = state_from_numpy(card, *state_to_numpy(s_cpu))
+        dt = cpu.params.time_step
+        c1, dc = cpu.step(s_cpu, dt)
+        g1, dg = card.step(s_card, dt)
+        u_scale = float(c1.u.abs().max())
+        worst = {}
+        for name, x, y in zip(("u", "p", "T") + tuple(
+                f"uf{i}" for i in range(len(c1.u_faces))),
+                (g1.u, g1.p, g1.T) + tuple(g1.u_faces),
+                (c1.u, c1.p, c1.T) + tuple(c1.u_faces)):
+            scale = float(y.abs().max()) if name in ("p", "T") else u_scale
+            worst[name] = float((x.cpu() - y).abs().max()) / max(scale, 1e-300)
+        its = (dg.helmholtz_iters.tolist(), dg.poisson_iters)
+        if (its != (dc.helmholtz_iters.tolist(), dc.poisson_iters)
+                or max(worst.values()) > MIM_F64_TOL):
+            fail(f"10 (c) {label} {cpu.geo.cell_shape} f64: the card's step "
+                 f"(iterations {its}) vs the CPU's "
+                 f"({dc.helmholtz_iters.tolist()}, {dc.poisson_iters}): rel "
+                 f"diff {worst} (tol {MIM_F64_TOL})")
+        phase(f"10 (c) mimetic {label} {cpu.geo.cell_shape} f64, one step on "
+              f"the card vs the CPU from the same state: CG iterations "
+              f"{its[0]} on both, max rel diff (u and the faces to max|u|, "
+              f"p and T to their own) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f" (tol {MIM_F64_TOL})" + since())
+        del cpu, card
+
+    # ---- (d) poisson solver = mg and cg ----------------------------------
+    # Jacobi-CG in f32 at this size stalls at `max cg iters` (500) every
+    # step, short of max(poisson tol, 16 eps) = 1.9e-6, in the JAX model
+    # too (ROADMAP Queue 3: both packages on the CPU), leaving max|div
+    # u| 5.1e-4 after step 1: so the cg path's gate, escalation and
+    # divergence are recorded, not held; the mg path (what keeps f32 CG
+    # out of that regime) is held to its gate, 1e-4 and phi's residual
+    models = {}
+    for solver in ("mg", "cg"):
+        params = bench_params(BENCH_SHAPE)
+        params.numerics.poisson_solver = solver
+        m = make_model(params, device=dev)
+        if m.poisson_spectral is not None or (
+                (m.poisson_precond is not None) != (solver == "mg")):
+            fail(f"10 (d) {solver}: the Poisson strategy was not built")
+        mg = m.poisson_precond
+        per_cycle = mg.line_solves_per_cycle() if mg is not None else 0
+        s0 = seed_developed_flow(m)
+        key = f"poisson_{solver}_shell"
+
+        def want(calls, per_cycle=per_cycle):
+            # K2 and K5 every step; K1 on a fast step, K3 on a strong
+            # one (escalated); K4 a V-cycle an application of the
+            # preconditioner: once before CG's loop and once an iteration
+            fast = sum(name == "step" for name, _ in calls)
+            return {"forcing": len(calls), "richardson": fast,
+                    "faces_div": len(calls) - fast, "correct": len(calls),
+                    "tridiag": sum(per_cycle * (d.poisson_iters + 1)
+                                   for _, d in calls)}
+        by_path[key], cells[key] = krylov_run(
+            f"(d) shell poisson solver = {solver}", m, s0, MG_STEPS, want,
+            1e-4 if solver == "mg" else None)
+        if solver == "mg" and not all(cells[key]["gate"]):
+            fail(f"10 (d) {solver}: the gate {cells[key]['gate']}")
+        models[solver] = m
+        phase(f"10 (d) {solver} done" + since())
+    m_mg = models["mg"]
+    # phi against the fast diagonalization's on the same right-hand side
+    # (the seeded flow's projection right-hand side): MG-CG's mean-free
+    # distance held to the CG's rtol max(poisson tol, 16 eps); the true
+    # relative residuals (evaluated in f64) recorded: f32's floor on this
+    # nearly divergence-free right-hand side, ~1e-5 of |b| for the fast
+    # solve too (on the CPU at 16x64x128)
+    fd = make_model(bench_params(BENCH_SHAPE), device=dev)
+    s0 = seed_developed_flow(fd)
+    rhs = -fd._vol_t * st.divergence(fd.geo, list(s0.u_faces)) / BENCH_DT
+    rhs = rhs - rhs.mean()
+    phi_fd = fd.poisson_spectral.solve(rhs)[0]
+    rhs64 = rhs.double()
+
+    def true_res(phi):
+        r = -st.weak_laplacian(fd.geo, phi.double(), fd.p_specs) - rhs64
+        return float(r.norm() / rhs64.norm())
+
+    def mean_free(phi):
+        return phi - st.volume_mean(fd.geo, phi)
+
+    tol = max(m_mg.params.numerics.poisson_tol,
+              16 * float(torch.finfo(torch.float32).eps))
+    phi_rows = {}
+    for solver, m in models.items():
+        phi, its, rn, ok = m._solve_pressure_poisson(rhs)
+        dist = float((mean_free(phi) - mean_free(phi_fd)).norm()
+                     / mean_free(phi_fd).norm())
+        phi_rows[solver] = dict(iterations=its, residual=true_res(phi),
+                                converged=bool(ok), distance=dist)
+    if not (phi_rows["mg"]["converged"]
+            and phi_rows["mg"]["distance"] <= tol):
+        fail(f"10 (d) mg: phi {phi_rows['mg']} against the fast "
+             f"diagonalization's (tol {tol:.3e})")
+    res_fd = true_res(phi_fd)
+    phase(f"10 (d) phi on the seeded flow's projection rhs {BENCH_SHAPE} f32 "
+          f"(poisson tol {m_mg.params.numerics.poisson_tol}, CG rtol "
+          f"{tol:.3e}): MG-CG {phi_rows['mg']['iterations']} iterations "
+          f"(converged {phi_rows['mg']['converged']}), Jacobi-CG "
+          f"{phi_rows['cg']['iterations']} (converged "
+          f"{phi_rows['cg']['converged']}); |phi - phi_fd| / |phi_fd| "
+          f"(mean-free) MG {phi_rows['mg']['distance']:.3e} (tol "
+          f"{tol:.3e}), CG {phi_rows['cg']['distance']:.3e}; true relative "
+          f"residual (f64) MG {phi_rows['mg']['residual']:.3e}, CG "
+          f"{phi_rows['cg']['residual']:.3e}, fast diagonalization "
+          f"{res_fd:.3e}" + since())
+    cells["phi"] = dict(phi_rows, fastdiag_residual=res_fd)
+    del fd, models, m, s0
+    k4_rows, per_cycle = check_mg_k4(dev, m_mg.geo, m_mg.p_specs)
+    mg_cell = cells["poisson_mg_shell"]
+    k4_step = by_path["poisson_mg_shell"]["tridiag"] / MG_STEPS
+    phase(f"10 (d) K4 on the mg path: {per_cycle['float32']} launches a "
+          f"V-cycle, {k4_step:.0f} a step ({MG_STEPS} steps), "
+          f"{mg_cell['k4_ms_per_step']:.3f} device ms a step in K4 "
+          f"({mg_cell['k4_ms_per_step'] / max(k4_step, 1):.4f} ms a launch "
+          f"in the step)" + since())
+    del m_mg
+
+    # the annulus (its periodic phi lines) at refinement 6 (64 x 768) and
+    # the box (Jacobi smoother) at 64^3: at 256 x 3072 and 128^3 they took
+    # 1.26 and 0.49 s a step on the host, 34 s of the phase, on an NVIDIA
+    # H100 80GB HBM3 at 700 W
+    for key, label, params, smoother in (
+            ("poisson_mg_annulus", "(d) annulus poisson solver = mg",
+             annulus_params(refinement=6, poisson_solver="mg"), "line"),
+            ("poisson_mg_box", "(d) box poisson solver = mg",
+             cube_params(CUBE_SCHUR_REF, feec=False, poisson_solver="mg"),
+             "jacobi")):
+        params.final_time = 1e9
+        m = make_model(params, device=dev)
+        mg = m.poisson_precond
+        if mg.smoother != smoother:
+            fail(f"10 {label}: smoother {mg.smoother}")
+        per_cycle_m = mg.line_solves_per_cycle()
+        by_path[key], cells[key] = krylov_run(
+            label, m, m.initial_state(), 2,
+            k4_per_step(lambda d, c=per_cycle_m: c * (d.poisson_iters + 1)))
+        cells[key]["k4_per_cycle"] = per_cycle_m
+        phase(f"10 {label}: {len(mg.geos)} levels, line axes "
+              f"{mg.line_axes}, {per_cycle_m} K4 launches a V-cycle" + since())
+        del m
+
+    # ---- (e) the CLI ------------------------------------------------------
+    staggered = ("subsection Numerics\n  set feec formulation = staggered\n"
+                 "end\n")
+    fixed = ("subsection Boussinesq Model\n  set adapt time step = false\n"
+             "  set time step = 0.01\n  set final time = 10\nend\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(HERE, "data", FEEC_PRM)
+        out = run_cli("10 (e) mimetic", out_prm(
+            tmp, src, os.path.join(tmp, "mim"), staggered),
+            ["--max-steps", "3", "--no-output"])
+        if "Formulation            : FEEC mimetic (staggered C-grid)" \
+                not in out:
+            fail("10 (e) CLI: no mimetic personality line")
+        divs = [ln.strip() for ln in out.splitlines() if "Post-projection" in ln]
+        d = {k: os.path.join(tmp, f"mim-{k}") for k in "ab"}
+        ck = lambda k, n: os.path.join(d[k], f"boussinesq_ckpt_{n:06d}.npz")
+        run_cli("10 (e) a", out_prm(tmp, src, d["a"], staggered + fixed),
+                ["--max-steps", "4", "--checkpoint-every", "1"])
+        out_b = run_cli("10 (e) b", out_prm(tmp, src, d["b"],
+                                            staggered + fixed),
+                        ["--restart", ck("a", 2), "--max-steps", "2",
+                         "--checkpoint-every", "1"])
+        if f"Restarted from {ck('a', 2)} at step 2" not in out_b:
+            fail("10 (e) b: no restart line")
+        with np.load(ck("a", 4)) as za, np.load(ck("b", 2)) as zb:
+            bad = [k for k in za.files
+                   if za[k].dtype != zb[k].dtype
+                   or za[k].tobytes() != zb[k].tobytes()]
+            if sorted(za.files) != sorted(zb.files) or bad:
+                fail(f"10 (e) b: the restarted ckpt_000002 differs from "
+                     f"(a)'s ckpt_000004 in {bad}")
+        n_vts = len([f for f in os.listdir(d["a"]) if f.endswith(".vts")])
+        phase(f"10 (e) CLI on {FEEC_PRM} with `feec formulation = "
+              f"staggered` (its own 8x16x32): --max-steps 3 --no-output rc 0, "
+              f"the personality line; last {divs[-1] if divs else '?'}; with "
+              f"output and --checkpoint-every 1 at dt 0.01: {n_vts} .vts; a "
+              f"restart from its ckpt_000002, 2 steps: ckpt_000002 is the "
+              f"uninterrupted run's ckpt_000004 bitwise" + since())
+    phase(f"phase 10 {time.perf_counter() - t0:.1f} s")
+    return by_path, k4_rows, per_cycle, cells
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3230,6 +3745,11 @@ def main() -> None:
     for label, counts in cube_replays.items():
         record_replay(label, counts)
 
+    # ---- 10. the mimetic personality and poisson solver = cg | mg ------
+    mim_launches, k4_mg, k4_cycle, mim_cells = mimetic_phases(dev)
+    for label, counts in mim_launches.items():
+        record(label, counts)
+
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
@@ -3266,6 +3786,29 @@ def main() -> None:
         bound_by=c32["bound_by"], library_ms=None, by_dtype=k4_cube,
         launches_by_path={"CuboidPoissonDirect.solve": c32["launches"]},
         replay_launches_by_path={}, cells=cube_cells))
+    # K4 in the multigrid line smoother's layout: launches on the shell's
+    # `poisson solver = mg` path of phase 10 (d), in MG_STEPS steps; the
+    # times of one level-0 launch of the periodic lon lines' 2-rhs form,
+    # every line kind and dtype under by_dtype
+    g32 = k4_mg["float32"]
+    head = next(k for k in g32 if "periodic" in k)
+    report.append(dict(
+        name="K4 tridiag (PoissonMultigrid line layout)", route="cuda",
+        source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+        replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+        variant="the multigrid line smoother's operands, dycoreplanet_tpu/"
+                "solvers/multigrid.py:201-231: contiguous (n, ...) "
+                "coefficients, the residual's moved-axis view, the periodic "
+                f"Sherman-Morrison pair on axis 1; the times: level 0, {head}",
+        launches=mim_launches["poisson_mg_shell"]["tridiag"],
+        max_abs_err=max(r["max_abs_err"] for rows in k4_mg.values()
+                        for r in rows.values()),
+        ms=g32[head]["ms"], plain_ms=g32[head]["plain_ms"],
+        bound_ms=g32[head]["bound_ms"], bound_by=g32[head]["bound_by"],
+        library_ms=None, by_dtype=k4_mg, launches_per_vcycle=k4_cycle,
+        launches_by_path={k: v["tridiag"] for k, v in mim_launches.items()
+                          if k.startswith("poisson_mg")},
+        replay_launches_by_path={}, cells=mim_cells))
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,10 @@ def print_parameter_info(params, model) -> None:
         ("Rayleigh number", f"{nondim.rayleigh_number(params.space_dimension, pc.gravity_constant, pc.expansion_coefficient, ref.temperature_change, ref.length, pc.kinematic_viscosity, pc.thermal_diffusivity):.6g}"),
         ("Geometry", model.geo.kind),
         ("Grid cells", " x ".join(str(n) for n in model.geo.cell_shape)),
-        ("Formulation", "FEEC (rotational, coupled 3x3)"
+        ("Formulation",
+         ("FEEC mimetic (staggered C-grid)"
+          if params.numerics.feec_formulation == "staggered"
+          else "FEEC (rotational, coupled 3x3)")
          if params.use_FEEC_solver else "standard (advective)"),
         ("Device", str(model.device)),
         ("Time step", f"{params.time_step}"),
@@ -178,12 +181,12 @@ def _run(params, args) -> int:
     from dycoreplanet_tpu_torch.io.checkpoint import load_checkpoint
     from dycoreplanet_tpu_torch.io.vtk import (
         write_mesh_vts, write_pvd, write_vts)
-    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models import make_model
     from dycoreplanet_tpu_torch.parallel.mesh import mesh_shape_for
 
     timers = TimerRegistry()
     with timers.scope("setup: geometry + model"):
-        model = BoussinesqModel(params, device=args.device)
+        model = make_model(params, device=args.device)
     if params.hello_from_cluster:
         name = (torch.cuda.get_device_name(model.device)
                 if model.device.type == "cuda" else "cpu")

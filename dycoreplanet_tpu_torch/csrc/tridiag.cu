@@ -8,7 +8,12 @@
 // padded to (n, m), into VMEM and runs both recurrences there. The
 // direct Helmholtz solves of the shell call it twice a step: n = nr = 32
 // radial levels, m = C * nlat * 2 * (nlon/2 + 1) systems (99 072 for the
-// momentum stack, 33 024 for temperature, at 32x128x256).
+// momentum stack, 33 024 for temperature, at 32x128x256). The multigrid
+// line smoother of `poisson solver = mg` calls it ~104 times a V-cycle:
+// lower and upper vary per column there, and the rhs is a moved-axis
+// view of the residual, or on a periodic axis the Sherman-Morrison pair
+// [r, u] stacked on axis 1 (a batch axis, not the pair axis: its lower
+// and upper are not row-only).
 //
 // Bound: device-memory traffic. Each operand is read once as passed and
 // x written once: on the direct path lower and upper are one value a

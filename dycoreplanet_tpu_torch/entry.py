@@ -7,8 +7,10 @@ sharded step of the kernel path (K2o, K1o, the sharded Poisson solve)
 and holds it against the same step on one device. The shards lie on the
 CUDA cards round-robin (several shards a card where there are fewer
 cards than shards), or, with ``device="cpu"``, on the CPU (the kernels'
-plain versions). The JAX function's FEEC part waits for the FEEC port
-(ROADMAP.md: FEEC, coupled and mimetic solvers).
+plain versions). The JAX function's last part, the mimetic personality
+on the same mesh through GSPMD's plain path, has no counterpart: the
+port's mesh refuses the mimetic model (ROADMAP.md: multi-device: CG,
+escalation and the plain path on the mesh).
 
     python -c "from dycoreplanet_tpu_torch.entry import dryrun_multichip; \\
                dryrun_multichip(8)"
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from dycoreplanet_tpu_torch.base.params import Parameters
+from dycoreplanet_tpu_torch.models import make_model
 from dycoreplanet_tpu_torch.models.boussinesq import (
     BoussinesqModel, resolve_device)
 from dycoreplanet_tpu_torch.parallel.mesh import (
@@ -43,7 +46,7 @@ def _make_model(dtype: str, shape, device) -> BoussinesqModel:
     p.reference_quantities.__post_init__()
     p.numerics.dtype = dtype
     p.numerics.n_radial, p.numerics.n_lat, p.numerics.n_lon = shape
-    return BoussinesqModel(p, device=device)
+    return make_model(p, device=device)
 
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:

@@ -89,14 +89,22 @@ standard one (K4 with ``helmholtz solver = direct``). The Krylov loops
 read their stopping tests back every iteration, so coupled chunks run
 eagerly.
 
+The Poisson solve (``_solve_pressure_poisson``, shared with the mimetic
+model) is the fast diagonalization by default; ``poisson solver = mg``
+runs CG preconditioned by a multigrid V-cycle whose line smoother runs
+K4 (solvers/multigrid.py), ``= cg`` Jacobi-CG. Both read their stopping
+tests back every iteration, so their chunks run eagerly, and the mesh
+refuses them, as it does the mimetic model.
+
 This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
-both personalities (FEEC in its collocated realization; the FEEC 3x3
-solve and the rotational form need a 3D curl, so the 2D slab runs the
-standard personality only, as in the JAX package), incremental
-projection or the coupled solves, with the Richardson/CG or the direct
-Helmholtz solves. Every other configuration raises
-``NotImplementedError`` naming its ROADMAP.md item; none quietly runs
-another path.
+both personalities (FEEC in its collocated realization here, and in its
+mimetic C-grid one, ``models/mimetic.py``, built by ``make_model``; the
+FEEC 3x3 solve and the rotational form need a 3D curl, so the 2D slab
+runs the collocated standard personality only, as in the JAX package),
+incremental projection or the coupled solves, with the Richardson/CG or
+the direct Helmholtz solves, and every Poisson strategy. Every other
+configuration raises ``NotImplementedError`` naming its ROADMAP.md item;
+none quietly runs another path.
 """
 
 from __future__ import annotations
@@ -134,6 +142,7 @@ from dycoreplanet_tpu_torch.solvers.cg import cg
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 from dycoreplanet_tpu_torch.solvers.gmres import gmres
 from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
+from dycoreplanet_tpu_torch.solvers.multigrid import PoissonMultigrid
 from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -237,16 +246,11 @@ def _unsupported(params: Parameters) -> Optional[str]:
     """The ROADMAP.md item that brings a configuration this slice does
     not run, or None."""
     num = params.numerics
-    if params.use_FEEC_solver and num.feec_formulation == "staggered":
-        # the mimetic C-grid personality (models/mimetic.py)
-        return "FEEC, coupled and mimetic solvers"
     if (params.space_dimension == 2
             and num.temperature_advection == "semi-lagrangian"):
         return "semi-Lagrangian transport on the annulus"
     if num.dtype == "bfloat16":
         return "bf16"
-    if num.poisson_solver in ("cg", "mg"):
-        return f"remaining solvers: poisson solver = {num.poisson_solver}"
     if (num.helmholtz_solver != "direct" and num.fixed_solver_iters <= 0
             and num.momentum_fixed_iters > 0):
         return ("remaining solvers: momentum fixed iters > 0 with fixed "
@@ -486,6 +490,11 @@ class BoussinesqModel:
             raise _not_on_mesh(MESH_CG, f"the {self.momentum_solver} "
                                f"momentum solve in the {self.advection_form} "
                                "form")
+        if self.poisson_spectral is None:
+            # the JAX package's mesh runs the Krylov Poisson solves on
+            # GSPMD's plain path
+            raise _not_on_mesh(MESH_CG, f"poisson solver = "
+                               f"{num.poisson_solver}")
         if self.geo.kind == "cuboid":
             raise _not_on_mesh(MESH_CUBOID, "the cuboid")
         if self.geo.kind != "shell":
@@ -736,17 +745,32 @@ class BoussinesqModel:
         self.T_lap_offset = st.weak_laplacian(
             geo, zero, self.T_specs).cpu().numpy()
 
-        # Poisson: the fast-diagonalization solve. "auto" resolves
-        # as the JAX package does off the TPU ("highest"); every
-        # precision computes full-precision transforms here and keeps
-        # its residual-check tolerance
-        prec = params.numerics.poisson_precision
-        if prec == "auto":
-            prec = "highest"
-        self.poisson_spectral = make_poisson_solver(
-            geo, dtype=dt_np, precision=prec,
-            refine_op=lambda x: -st.weak_laplacian(geo, x, self.p_specs),
-            device=self.device)
+        # the direct solves' radial tridiagonals and the multigrid line
+        # smoother share one K4 wrapper
+        self._tridiag = TridiagSolve()
+        # Poisson strategy, as in the JAX package: 'auto'/'fft' the
+        # fast-diagonalization solve ("auto" precision resolves as the
+        # JAX package does off the TPU, "highest"; every precision
+        # computes full-precision transforms here and keeps its
+        # residual-check tolerance), 'mg' CG preconditioned by a
+        # multigrid V-cycle (solvers/multigrid.py), 'cg' Jacobi-CG
+        self.poisson_spectral = None
+        self.poisson_precond = None
+        solver_choice = params.numerics.poisson_solver
+        if solver_choice in ("auto", "fft"):
+            prec = params.numerics.poisson_precision
+            if prec == "auto":
+                prec = "highest"
+            self.poisson_spectral = make_poisson_solver(
+                geo, dtype=dt_np, precision=prec,
+                refine_op=lambda x: -st.weak_laplacian(geo, x, self.p_specs),
+                device=self.device)
+        elif solver_choice == "mg":
+            self.poisson_precond = PoissonMultigrid(
+                geo, self.p_specs, dtype=dt_np, device=self.device,
+                tridiag=self._tridiag)
+        self.poisson_diag = (
+            -weak_laplacian_diagonal(geo, self.p_specs)).astype(dt_np)
         self.helm_diags = np.stack([
             (-weak_laplacian_diagonal(geo, self.u_specs[c])).astype(dt_np)
             for c in range(geo.dim)])
@@ -754,9 +778,7 @@ class BoussinesqModel:
             -weak_laplacian_diagonal(geo, self.T_specs_hom)).astype(dt_np)
 
         # direct (non-iterative) Helmholtz solvers for the implicit
-        # momentum and temperature systems (solvers/helmholtz.py); their
-        # radial tridiagonals share one K4 wrapper
-        self._tridiag = TridiagSolve()
+        # momentum and temperature systems (solvers/helmholtz.py)
         self.helmholtz_direct = None
         self.temperature_direct = None
         if params.numerics.helmholtz_solver == "direct":
@@ -777,6 +799,7 @@ class BoussinesqModel:
         self._T_lap_offset_t = self._tensor(self.T_lap_offset)
         self._helm_diags_t = self._tensor(self.helm_diags)
         self._T_diag_t = self._tensor(self.T_diag)
+        self._poisson_diag_t = self._tensor(self.poisson_diag)
 
     # ------------------------------------------------------------------
     def initial_state(self) -> State:
@@ -792,6 +815,12 @@ class BoussinesqModel:
     def interp_to_faces(self, u: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Face-normal velocities of a collocated field (wall faces 0)."""
         return tuple(cell_to_faces(self.geo, self.u_specs, u))
+
+    def _apply_wall_face_values(self, uf: torch.Tensor, d: int
+                                ) -> torch.Tensor:
+        """Zero normal velocity on the wall faces of axis d (the JAX
+        model's method of this name)."""
+        return apply_wall_face_values(self.geo, uf, d)
 
     # ------------------------------------------------------------------
     def _dt_T(self, dt: float) -> float:
@@ -1083,22 +1112,34 @@ class BoussinesqModel:
         return res.x, res.iterations, res.residual_norm, res.converged
 
     def _solve_pressure_poisson(self, rhs_phi):
-        """-weak_lap(phi) = rhs_phi: the fast-diagonalization solve, or
-        under ``_force_cg`` CG preconditioned by it (a corrupted
-        fast-diag then only slows the iteration). Returns (phi, iters,
-        residual_norm, converged) with the -1 sentinel for the direct
-        solve (replaced by the spot-check in _project_velocity)."""
-        if not self._force_cg:
+        """-weak_lap(phi) = rhs_phi via the configured strategy: the
+        fast-diagonalization solve, or CG preconditioned by the multigrid
+        V-cycle (`mg`) or by Jacobi (`cg`). Under ``_force_cg`` a
+        fast-diagonalization configuration runs CG with the fast solve as
+        its preconditioner (a corrupted fast-diag then only slows the
+        iteration). Shared by the projection and the mimetic step.
+        Returns (phi, iters, residual_norm, converged) with the -1
+        sentinel for the direct solve (replaced by the spot-check in
+        _project_velocity)."""
+        if self.poisson_spectral is not None and not self._force_cg:
             phi, iters = self.poisson_spectral.solve(rhs_phi)
             return (phi, iters, self._const(-1.0),
                     self._const(True, torch.bool))
-        res = cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
-                 rhs_phi, rtol=self.params.numerics.poisson_tol,
-                 maxiter=self.params.numerics.max_cg_iters,
-                 preconditioner=self.poisson_spectral,
-                 record_history=self._hist_n())
+        res = self._poisson_cg(rhs_phi, record_history=self._hist_n())
         self._stash_history("poisson CG", res)
         return res.x, res.iterations, res.residual_norm, res.converged
+
+    def _poisson_cg(self, rhs_phi, record_history: int = 0):
+        """CG on -weak_lap(phi) = rhs_phi, preconditioned by the multigrid
+        V-cycle, else the fast solve, else Jacobi."""
+        precond = (self.poisson_precond if self.poisson_precond is not None
+                   else (self.poisson_spectral
+                         if self.poisson_spectral is not None
+                         else (lambda r: r / self._poisson_diag_t)))
+        return cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
+                  rhs_phi, rtol=self.params.numerics.poisson_tol,
+                  maxiter=self.params.numerics.max_cg_iters,
+                  preconditioner=precond, record_history=record_history)
 
     def _solve_momentum_projection(self, rhs_u, pres, dt):
         """Helmholtz predictor + projection: the direct solve when
@@ -1179,7 +1220,7 @@ class BoussinesqModel:
         if p.correct_pressure_to_zero_mean:
             p_new = p_new - st.volume_mean(geo, p_new)
 
-        if not self._force_cg:
+        if self.poisson_spectral is not None and not self._force_cg:
             # residual spot-check of the direct solve: grad/div are a
             # compatible pair, so vol*div(u_new)/dt IS the solve residual;
             # noise floor C*eps*||area*uf||/dt, per-precision tolerance
@@ -1245,7 +1286,11 @@ class BoussinesqModel:
                          - D_op(self._grad_c(pp)))
 
         def poisson_inv(rp):
-            phi, _ = self.poisson_spectral.solve(rp - torch.mean(rp))
+            rp0 = rp - torch.mean(rp)
+            if self.poisson_spectral is not None:
+                phi, _ = self.poisson_spectral.solve(rp0)
+            else:
+                phi = self._poisson_cg(rp0).x
             return phi - st.volume_mean(geo, phi)
 
         return G_op, D_op, stab, poisson_inv
@@ -1539,13 +1584,14 @@ class BoussinesqModel:
         adaptive chunk's graph would be stale after its first boundary),
         and no Krylov solve (the CG and GMRES loops read their stopping
         tests back every iteration: escalated chunks, ``fixed solver
-        iters`` = 0 without the direct Helmholtz solves, and the coupled
-        solves)."""
+        iters`` = 0 without the direct Helmholtz solves, the coupled
+        solves and the Poisson CG of ``poisson solver = cg | mg``)."""
         no_cg = (self.params.numerics.fixed_solver_iters > 0
                  or self.helmholtz_direct is not None)
         return (self.device.type == "cuda" and not adaptive
                 and not force_cg and no_cg
-                and self.momentum_solver != "coupled")
+                and self.momentum_solver != "coupled"
+                and self.poisson_spectral is not None)
 
     def multi_step(self, state: State, dt: float, n_steps: int,
                    collect_diagnostics: bool = True, adaptive: bool = False,

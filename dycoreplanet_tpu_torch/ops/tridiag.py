@@ -6,9 +6,12 @@ Replaces the Pallas kernel ``tridiag_pallas``
 JAX package's ``tridiag_solve`` (pallas_kernels.py:131): systems along
 axis 0, every trailing axis flattened (C order) into the batch,
 coefficients broadcastable to ``rhs``. The direct Helmholtz solvers
-(solvers/helmholtz.py) and ``CuboidPoissonDirect`` (solvers/spectral.py:
+(solvers/helmholtz.py), ``CuboidPoissonDirect`` (solvers/spectral.py:
 its rhs is ``torch.view_as_real`` of an rfft2, whose trailing axis of 2
-is the pair axis) call it. Kernel source: csrc/tridiag.cu.
+is the pair axis) and the multigrid line smoother (solvers/multigrid.py:
+contiguous coefficients against the residual's moved-axis view, and on
+a periodic axis the Sherman-Morrison pair stacked on axis 1, where the
+coefficients are broadcast) call it. Kernel source: csrc/tridiag.cu.
 
 The kernel reads every operand as the caller passes it: ``layout``
 describes each one by a row stride and the strides of at most three

@@ -410,6 +410,52 @@ def test_cli_feec_prm_matches_jax_cli(tmp_path, jax_feec, label):
         assert stalled
 
 
+# --------------------------------- the FEEC prm's mimetic realization
+STAGGERED = ("\nsubsection Numerics\n  set feec formulation = staggered\n"
+             "end\n")
+MIMETIC_RUNS = {"steps": ["--max-steps", "3"],
+                "chunk2": ["--max-steps", "4", "--chunk", "2"]}
+
+
+@pytest.fixture(scope="module")
+def jax_mimetic(tmp_path_factory):
+    """The JAX CLI's runs of MIMETIC_RUNS."""
+    out = {}
+    for label, argv in MIMETIC_RUNS.items():
+        d = tmp_path_factory.mktemp(f"jax-mimetic-{label}")
+        out[label] = _jax_run(_prm(d / "a.prm", PRM_FEEC, d / "out",
+                                   F64 + LATER + STAGGERED),
+                              argv + ["--no-output"])
+    return out
+
+
+@pytest.mark.parametrize("label", list(MIMETIC_RUNS))
+def test_cli_mimetic_feec_prm_matches_jax_cli(tmp_path, jax_mimetic, label):
+    """data/aqua_planet_shell_test_3d-feec.prm with `feec formulation =
+    staggered` (the mimetic C-grid model, built by make_model) at its own
+    grid, f64, adaptive dt, through both CLIs with --device cpu, per step
+    and with --chunk 2: the personality line, the same lines in the same
+    order, the iteration counts equal, the residuals and |div u| within
+    1e-3 relative or 1e-13, every other number within its print
+    precision."""
+    argv = MIMETIC_RUNS[label]
+    out = _port_run(_prm(tmp_path / "a.prm", PRM_FEEC, tmp_path / "out",
+                         F64 + LATER + STAGGERED), argv + ["--no-output"])
+    assert "Formulation            : FEEC mimetic (staggered C-grid)" in out
+    got, want = _printed(out), _printed(jax_mimetic[label])
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert len(got) >= 12
+    for (name, g), (_, w) in zip(got, want):
+        if name == "Solver iterations":
+            assert g == w
+        elif name in ("Solver residuals", "Post-projection max |div u|"):
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-13,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=2e-6, atol=0,
+                                       err_msg=name)
+
+
 # ------------------------------------------------------- the cube prm
 PRM_CUBE = os.path.join(REPO, "data", "aqua_planet_cube_test_3d.prm")
 LEVEL2 = ("\nsubsection Boussinesq Model\n"

@@ -1,11 +1,10 @@
 """The PyTorch port through its entry points, on CPU: the golden
-trajectories of the configurations it runs (``shell_3d_classic``,
-``annulus_2d``, ``aqua_planet_production``,
-``aqua_planet_production_dynamic``, the FEEC and coupled
-``shell_3d_feec`` and ``annulus_2d_coupled``, and the cube's
-``cube_3d_feec``) replayed through the port's
-``step``
-(at tests/test_golden.py's tolerances), the CLI, and the rule that the
+trajectories, all nine (``shell_3d_classic``, ``annulus_2d``,
+``aqua_planet_production``, ``aqua_planet_production_dynamic``, the FEEC
+and coupled ``shell_3d_feec`` and ``annulus_2d_coupled``, the cube's
+``cube_3d_feec``, and the mimetic ``cube_3d_feec_staggered`` and
+``shell_3d_feec_staggered``) replayed through the port's ``make_model``
+and ``step`` (at tests/test_golden.py's tolerances), the CLI, and the rule that the
 package imports neither JAX nor the JAX package."""
 
 import json
@@ -27,7 +26,7 @@ PRM = os.path.join(REPO, "data", "aqua_planet_shell_test_3d-classic.prm")
 def _run_case_port(name):
     """tests/golden_trajectories.run_case, driving the port's model."""
     from dycoreplanet_tpu_torch.base.params import Parameters
-    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models import make_model
 
     case = CASES[name]
     p = Parameters.from_file(os.path.join(REPO, "data", case["prm"]))
@@ -35,7 +34,7 @@ def _run_case_port(name):
     p.adapt_time_step = False
     for k, v in case["over"].items():
         setattr(p.numerics, k, v)
-    m = BoussinesqModel(p, device="cpu")
+    m = make_model(p, device="cpu")
     s = m.initial_state()
     rows, snaps = [], {}
     for k in range(N_STEPS):
@@ -51,13 +50,13 @@ def _run_case_port(name):
 @pytest.mark.parametrize("name", [
     "shell_3d_classic", "annulus_2d", "aqua_planet_production",
     "aqua_planet_production_dynamic", "shell_3d_feec", "annulus_2d_coupled",
-    "cube_3d_feec"])
+    "cube_3d_feec", "cube_3d_feec_staggered", "shell_3d_feec_staggered"])
 def test_shell_classic_golden_through_port(name):
-    """The goldens of the configurations the port runs (the shell, the
-    annulus and the cube: the standard personality, the FEEC shell's
-    coupled 3x3 solve, the annulus's coupled 2x2 solve and the cube
-    prm's Schur GMRES with the cuboid's rotational advection), replayed
-    through its step."""
+    """The goldens of every configuration (the shell, the annulus and the
+    cube: the standard personality, the FEEC shell's coupled 3x3 solve,
+    the annulus's coupled 2x2 solve, the cube prm's Schur GMRES with the
+    cuboid's rotational advection, and the mimetic C-grid personality on
+    the cube and the shell), replayed through make_model and step."""
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)[name]
     got = _run_case_port(name)

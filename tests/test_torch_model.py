@@ -208,21 +208,63 @@ def test_without_cuda_no_device_raises(monkeypatch):
     (("numerics.fixed_solver_iters", 0), ("numerics.momentum_fixed_iters", 1)),
 ])
 def test_unsupported_configurations_raise(setting):
-    """Each refused configuration; settings in a tuple are applied
-    together (the mimetic FEEC realization, on the shell and on the cube
-    (the ``cube_3d_feec_staggered`` golden's), bf16 on the cuboid, the
-    annulus with the semi-Lagrangian transport, Richardson momentum
-    beside CG temperature). FEEC in its collocated realization and the
-    coupled solves run (tests/test_torch_feec.py), as do the annulus
-    (tests/test_torch_annulus.py) and the cuboid
+    """Each configuration this list once refused; settings in a tuple are
+    applied together. Still refused, naming their ROADMAP.md item: bf16
+    (on the cuboid too), the annulus with the semi-Lagrangian transport,
+    Richardson momentum beside CG temperature. Now run: the mimetic FEEC
+    realization, on the shell and on the cube (the
+    ``cube_3d_feec_staggered`` golden's), and `poisson solver = cg | mg`
+    — built through ``make_model`` (the mimetic model for the first two),
+    two steps through ``run``, finite and divergence-free
+    (tests/test_torch_mimetic.py and tests/test_torch_multigrid.py hold
+    them against the JAX package). FEEC in its collocated realization
+    and the coupled solves run (tests/test_torch_feec.py), as do the
+    annulus (tests/test_torch_annulus.py) and the cuboid
     (test_cuboid_configurations_run, tests/test_torch_cuboid.py)."""
+    from dycoreplanet_tpu_torch.models import make_model
+    from dycoreplanet_tpu_torch.models.mimetic import MimeticBoussinesqModel
+
     p = _params(Parameters)
-    for name, value in (setting if isinstance(setting[0], tuple)
-                        else (setting,)):
+    settings = setting if isinstance(setting[0], tuple) else (setting,)
+    for name, value in settings:
         obj = p.numerics if name.startswith("numerics.") else p
         setattr(obj, name.split(".")[-1], value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BoussinesqModel(p, device="cpu")
+    runs = dict(settings).get("numerics.feec_formulation") == "staggered" \
+        or dict(settings).get("numerics.poisson_solver") in ("cg", "mg")
+    if not runs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            BoussinesqModel(p, device="cpu")
+        return
+    p.numerics.nz = p.numerics.ny = p.numerics.nx = 8
+    m = make_model(p, device="cpu")
+    assert isinstance(m, MimeticBoussinesqModel) == p.use_FEEC_solver
+    state, hist = m.run(max_steps=2)
+    assert len(hist) == 2 and all(h["div_norm"] < 1e-9 for h in hist)
+    assert all(bool(torch.isfinite(x).all())
+               for x in (state.u, state.p, state.T))
+
+
+@pytest.mark.parametrize("setting", [
+    (("use_FEEC_solver", True), ("numerics.feec_formulation", "staggered")),
+    (("numerics.poisson_solver", "cg"),), (("numerics.poisson_solver", "mg"),),
+])
+def test_mesh_refuses_krylov_poisson_and_mimetic(setting):
+    """On a mesh (``prepare_sharded``) the mimetic model and the
+    `poisson solver = cg | mg` models raise under the ROADMAP title of
+    the CG and plain paths on the mesh (the JAX package runs them there
+    only through GSPMD's plain path)."""
+    from dycoreplanet_tpu_torch.models import make_model
+    from dycoreplanet_tpu_torch.models.boussinesq import MESH_CG
+    from dycoreplanet_tpu_torch.parallel.mesh import Mesh
+
+    p = _params(Parameters)
+    for name, value in setting:
+        obj = p.numerics if name.startswith("numerics.") else p
+        setattr(obj, name.split(".")[-1], value)
+    m = make_model(p, device="cpu")
+    mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
+    with pytest.raises(NotImplementedError, match=MESH_CG):
+        m.prepare_sharded(mesh)
 
 
 @pytest.mark.parametrize("dim", [3, 2])
