@@ -188,7 +188,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      and the 64^3 box (Jacobi smoother, no K4); (e) the CLI on the FEEC prm with `feec
      formulation = staggered`: the personality line, and a restart
      bitwise an uninterrupted run's checkpoint;
- 11. one JSON line with every kernel's numbers, then, last, the
+ 11. the remaining solvers and transports of one device: (a) K4 in the
+     layouts of ShellPoissonDirect, ShellPoissonSpectral and
+     AnnulusPoissonDirect at 32x128x256 and 256x3072, f32 and f64,
+     against its plain version, nothing copied, the pair axis where the
+     real and imaginary parts share their coefficients, the wrapper's
+     time beside the bound, each solve whole (launches a solve, its true
+     residual; the spectral CG on a shell with stretched radial faces,
+     its cap raised to 400, and once more as the factory builds it by
+     default, rtol 1e-7 and cap 120), and f64 on the card against the CPU (equal
+     CG iterations, within 1e-12); (b) the semi-Lagrangian transport on the
+     annulus at 256x3072 (the direct path: 20 gated steps through run
+     and as a graph, bitwise) and on the slab at 256x1024 (20 gated
+     steps, escalations counted, its fast chunk as a graph bitwise the
+     same steps eagerly), one f64 step of each on the card against the
+     CPU; (c) Richardson momentum beside CG temperature on the flagship
+     at 32x128x256 f32, 5 steps through run: K2, K3 and K5 once a step
+     and K1 never, by the wrappers and by the profiler, one f64 step on
+     the card against the CPU, and a forced momentum miss that the gate
+     redoes with CG; (d) the bench model on a stretched shell at
+     32x128x256 f32 (its Poisson solve the spectral CG, so no CUDA
+     graph): 5 steps through run and as one multi_step chunk, bitwise
+     equal, K4 the CG iterations + 1 a step, and one profiled step;
+ 12. one JSON line with every kernel's numbers, then, last, the
      {"ok": true, "device": ...} line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
@@ -931,9 +953,6 @@ def annulus_phases(dev):
 # path whose launches the kernels line reports
 MESHES = ((2, 2), (2, 4))
 MAIN_MESH = (2, 4)
-# host-side calls that launch device work (scripts/profile_torch_step.py)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def mesh_model(dev, mesh_shape, dtype="float32", options=lambda p: p):
@@ -958,9 +977,8 @@ def step_profile(fn, n):
     time over the host time from fn's call to a synchronize after it;
     and the hand kernels of the window by wrapper name ("counts")."""
     import torch
-    from torch.autograd import DeviceType
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
-        count_kernels, profiled, wrapper_of)
+        count_kernels, device_rows, host_launches, profiled, wrapper_of)
 
     window = []
 
@@ -972,24 +990,17 @@ def step_profile(fn, n):
         return out
 
     _, prof = profiled(timed)
-    dev_ms = kernels = launches = 0.0
+    rows = device_rows(prof)
+    dev_ms = sum(ms for _, ms, _ in rows)
     by = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            if e.key in LAUNCH_CALLS:
-                launches += e.count
-            continue
-        t_us = getattr(e, "self_device_time_total", None)
-        if t_us is None:
-            t_us = e.self_cuda_time_total
-        if t_us > 0:
-            dev_ms += t_us / 1e3
-            kernels += e.count
-            w = wrapper_of(e.key)
-            if w is not None:
-                by[w] = by.get(w, 0.0) + t_us / 1e3 / n
-    return {"device_ms_per_step": dev_ms / n, "kernels_per_step": kernels / n,
-            "host_launches_per_step": launches / n, "kernel_ms_per_step": by,
+    for name, ms, _ in rows:
+        w = wrapper_of(name)
+        if w is not None:
+            by[w] = by.get(w, 0.0) + ms / n
+    return {"device_ms_per_step": dev_ms / n,
+            "kernels_per_step": sum(c for _, _, c in rows) / n,
+            "host_launches_per_step": host_launches(prof) / n,
+            "kernel_ms_per_step": by,
             "busy_share": dev_ms / (window[0] * 1e3),
             "counts": count_kernels(prof, SHELL_NAMES + ("tridiag",))}
 
@@ -2474,7 +2485,7 @@ def recording_steps(model):
     return calls
 
 
-def krylov_run(label, m, s0, n, want, div_tol=1e-4):
+def krylov_run(label, m, s0, n, want, div_tol=1e-4, tag="10"):
     """n steps of a model whose step runs a Krylov loop (the mimetic
     momentum CG, the Poisson CG of `poisson solver = cg | mg`) through
     run from s0: the first step's host syncs counted (a run of one step),
@@ -2485,7 +2496,8 @@ def krylov_run(label, m, s0, n, want, div_tol=1e-4):
     ``step`` under torch.profiler (the CG cap at PROFILE_ITER_CAP if the
     steps took more): device ms and kernels a step, busy share, and the
     hand kernels on the device, by name, those ``want`` expects and no
-    other. Returns (launches, numbers)."""
+    other. ``tag``: the phase's number in its messages. Returns
+    (launches, numbers)."""
     import torch
 
     dt = m.params.time_step
@@ -2497,16 +2509,16 @@ def krylov_run(label, m, s0, n, want, div_tol=1e-4):
     (s_end, hist), launches, wall = drive(
         m, lambda: m.run(max_steps=n, state=s0))
     if launches != want(calls):
-        fail(f"10 {label}: launches {launches}, expected {want(calls)}")
+        fail(f"{tag} {label}: launches {launches}, expected {want(calls)}")
     diags = [d for _, d in calls]
     if len(hist) != n:
-        fail(f"10 {label}: {len(hist)} steps, not {n}")
+        fail(f"{tag} {label}: {len(hist)} steps, not {n}")
     for x in (s_end.u, s_end.p, s_end.T) + tuple(s_end.u_faces):
         if not bool(torch.isfinite(x).all()):
-            fail(f"10 {label}: non-finite fields")
+            fail(f"{tag} {label}: non-finite fields")
     divs = [h["div_norm"] for h in hist]
     if div_tol is not None and not max(divs) <= div_tol:
-        fail(f"10 {label}: max|div u| per step {divs} > {div_tol}")
+        fail(f"{tag} {label}: max|div u| per step {divs} > {div_tol}")
     helm = [int(d.helmholtz_iters[0]) for d in diags]
     pois = [d.poisson_iters for d in diags]
     cap = m.params.numerics.max_cg_iters
@@ -2522,18 +2534,13 @@ def krylov_run(label, m, s0, n, want, div_tol=1e-4):
     its_run = sum(max(h, p_) for h, p_ in zip(helm, pois)) / n_calls
     dev_ms = (prof["device_ms_per_step"] / its_prof * its_run if capped
               else prof["device_ms_per_step"])
-    # K4 exactly, every kernel the step must not run 0 times; of the
-    # standard step's K1, K2 and K5 (once each) the profiler has missed
-    # the step's first hand kernels, K2 and at times K1, in eager
-    # profiles of 51k and of 4k kernels on an NVIDIA H100 (PERF.md §6),
-    # so those are held to at most once (their wrappers' counts, checked
-    # above, are exact)
+    # every hand kernel exactly as the wrappers counted the profiled step
+    # call (profiled's lead kernels take the loss of a long eager
+    # window's first device records)
     want_prof = {**{k: 0 for k in prof["counts"]}, **want(d_prof)}
     got = prof["counts"]
-    if (got["tridiag"] != want_prof["tridiag"]
-            or any(got[k] > n or (n == 0 and got[k])
-                   for k, n in want_prof.items())):
-        fail(f"10 {label}: the profiled step ran the hand kernels "
+    if got != want_prof:
+        fail(f"{tag} {label}: the profiled step ran the hand kernels "
              f"{got} on the device, expected {want_prof}")
     nums = dict(steps=n, step_calls=n_calls, escalations=m.escalations,
                 helmholtz_iters=helm, poisson_iters=pois,
@@ -2550,7 +2557,7 @@ def krylov_run(label, m, s0, n, want, div_tol=1e-4):
                                 prof["kernel_ms_per_step"].get("tridiag",
                                                                0.0)),
                 profiled_counts=prof["counts"])
-    phase(f"10 {label} {m.geo.cell_shape} f32 (1/Re {m.one_over_Re:.3e}, dt "
+    phase(f"{tag} {label} {m.geo.cell_shape} f32 (1/Re {m.one_over_Re:.3e}, dt "
           f"{dt}): {n} steps through run, {n_calls} step calls, "
           f"{m.escalations} escalation(s), CG iterations helmholtz {helm} "
           f"poisson {pois}, temperature {nums['temperature_iters']}, gate "
@@ -2925,6 +2932,574 @@ def mimetic_phases(dev):
     return by_path, k4_rows, per_cycle, cells
 
 
+# ---------------------------------------------------------------- phase 11
+# (a): K4 in the layouts of the three remaining Poisson solvers, at the
+# flagship's shell and the annulus prm's work size, and the solves whole
+SOLVER_K4 = {"ShellPoissonDirect": "the lat eigentransform's real and "
+             "imaginary parts on axis 2 as the pair axis, (nr, nlat, 2, "
+             "nm); diag (nr, nlat, 1, nm); lower and upper (nr, 1, 1, 1)",
+             "ShellPoissonSpectral": "the radial lines of the spectral "
+             "CG's preconditioner, rhs and diag (nr, nlat, 2nm), lower and "
+             "upper (nr, nlat, 1) broadcasts; no pair axis",
+             "AnnulusPoissonDirect": "torch.view_as_real of the rfft over "
+             "phi, (nr, nphi/2+1, 2), the trailing 2 the pair axis; diag "
+             "(nr, nphi/2+1, 1); lower and upper (nr, 1, 1): one launch "
+             "where the JAX package makes two"}
+SOLVER_LINES = {"ShellPoissonDirect": "dycoreplanet_tpu/solvers/"
+                "spectral.py:498-511", "ShellPoissonSpectral":
+                "dycoreplanet_tpu/solvers/spectral.py:428-430",
+                "AnnulusPoissonDirect": "dycoreplanet_tpu/solvers/"
+                "spectral.py:281-289"}
+# the spectral CG at work size: its factory's rtol (1e-7, f32 clamps it
+# to 16 eps) with room past the factory's cap of 120 (one more solve at
+# the factory's own settings records where that cap leaves it)
+SPECTRAL_MAXITER = 400
+# (d): the bench model on a shell of non-uniform radial spacing (its
+# spectral CG at `poisson tol` and `max cg iters`, as the model passes
+# them)
+STRETCHED_STEPS = 5
+# (b): the 2D SL paths; (c): Richardson momentum beside CG temperature
+SL2D_F64_TOL = 1e-12
+RICH_CG_STEPS = 5
+
+
+def solver_geometry(name, small=False):
+    """The geometry of a solver's check: the flagship's shell (32 x 128 x
+    256; for ShellPoissonSpectral, the solve the factory builds on a
+    shell of non-uniform radial spacing, that shell with its radial faces
+    stretched, presets.stretched_shell) or ANNULUS_PRM's annulus at
+    ANNULUS_REFINEMENT (256 x 3072); with ``small`` 8 x 16 x 32 and
+    refinement 4 (16 x 192)."""
+    from dycoreplanet_tpu_torch.grid.factory import make_geometry, make_shell
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_SHAPE, stretched_shell)
+
+    shape = FEEC_SMALL if small else BENCH_SHAPE
+    if name == "ShellPoissonSpectral":
+        return stretched_shell(shape)
+    if name.startswith("Shell"):
+        return make_shell(*shape, 1.0, 3.0)
+    return make_geometry(annulus_params(
+        refinement=4 if small else ANNULUS_REFINEMENT))
+
+
+def p_specs_of(geo):
+    from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
+    neu = BCSpec(BC.NEUMANN, BC.NEUMANN)
+    return ([neu, BCSpec(BC.POLE, BC.POLE), None] if geo.kind == "shell"
+            else [neu, None])
+
+
+def make_solver(name, geo, dtype, dev, **kw):
+    import numpy as np
+    from dycoreplanet_tpu_torch.solvers import spectral
+
+    return getattr(spectral, name)(geo, dtype=np.dtype(dtype), device=dev,
+                                   **kw)
+
+
+def seeded_rhs(geo, dtype, dev, seed=16, on_cpu=False):
+    """A seeded mean-free right-hand side on dev, drawn there (or with
+    ``on_cpu`` drawn by the CPU's generator, then moved: the same values
+    as on a machine without a card)."""
+    import torch
+    at = "cpu" if on_cpu else dev
+    gen = torch.Generator(device=at).manual_seed(seed)
+    b = torch.randn(geo.cell_shape, generator=gen, device=at, dtype=dtype)
+    return (b - b.mean()).to(dev)
+
+
+def check_solver_k4(dev):
+    """(a): for each of the three solvers at work size, f32 and f64: K4 on
+    the operands the solver passes (its ``systems`` / ``line_operands``),
+    against its plain version (rtol = atol = 1e-5 x scale, f64 1e-12 x
+    scale; NaN in lower[0] and upper[n-1]; the operands unchanged) and,
+    both, against the f64 solution of the same systems (the kernel's
+    error at most twice the plain version's plus that tolerance), none
+    copied, the pair axis where the real and imaginary parts share their
+    coefficients; the wrapper's and the plain version's times and the
+    bound of the operands as passed; then one solve through the solver's
+    entry point with the launches counted from 0 (1 for a direct solve,
+    the CG iterations + 1 for the spectral CG), no copy, and the solve's
+    true relative residual |-L x - b| / |b| (in f64): <= 1e-10 in f64
+    (the spectral CG: 10 x its rtol), recorded and held to 1e-3 in f32.
+    The spectral CG runs on the stretched shell (solver_geometry) with
+    its cap at SPECTRAL_MAXITER, and once more in f32 as
+    make_poisson_solver builds it by default (rtol 1e-7, cap 120; the
+    model passes its `poisson tol` and `max cg iters` instead, (d)): its
+    iterations, whether it stopped at the cap, its true residual and its
+    host ms a solve. Then each solver in f64 on the card against the same solver
+    on the CPU at 8 x 16 x 32 / 16 x 192 (the right-hand side drawn on
+    the CPU), within 1e-12 of |x|, the spectral CG at rtol 1e-11 with
+    equal iterations. Returns {solver: {dtype: numbers}}."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import stencil as st
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+    from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
+
+    rows = {}
+    for name in SOLVER_K4:
+        geo = solver_geometry(name)
+        spectral_cg = name == "ShellPoissonSpectral"
+        rows[name] = {}
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            f32 = dtype == torch.float32
+            kw = {"maxiter": SPECTRAL_MAXITER} if spectral_cg else {}
+            solver = make_solver(name, geo, dname, dev, **kw)
+            tk = solver.tridiag
+            b = seeded_rhs(geo, dtype, dev)
+            if spectral_cg:
+                nr, nlat, _ = geo.cell_shape
+                gen = torch.Generator(device=dev).manual_seed(17)
+                r = torch.randn((nr, nlat, 2 * solver.nm), generator=gen,
+                                device=dev, dtype=dtype)
+                sys4 = solver.line_operands(r)
+            else:
+                sys4 = solver.systems(b)
+            lay = k4.layout(*sys4, pair=tk.pair)
+            want_pair = 1 if spectral_cg else 2
+            if (lay.copied or lay.pair != want_pair
+                    or lay.row_coefficients == spectral_cg):
+                fail(f"11 (a) K4 {name} {dname}: layout copies "
+                     f"{lay.copied}, pair {lay.pair} (expected "
+                     f"{want_pair}), row coefficients "
+                     f"{lay.row_coefficients}")
+            w4 = tk.plain(*sys4)
+            sc = float(w4.abs().max())
+            tol = (1e-5 if f32 else 1e-12) * sc
+            err = check_k4(f"11 (a) K4 tridiag {name} ({dname})", tk, sys4,
+                           w4, tol)
+            # against the f64 solution of the same systems: the kernel's
+            # error at most twice the plain version's plus the tolerance
+            # above (the annulus's pinned k = 0 mode leaves ~1e-4 of the
+            # scale to f32 in both)
+            w64 = tk.plain(*(a.double() for a in sys4))
+            e_k = float((tk(*sys4).double() - w64).abs().max())
+            e_p = float((w4.double() - w64).abs().max())
+            if not e_k <= 2 * e_p + tol:
+                fail(f"11 (a) K4 {name} {dname}: error against the f64 "
+                     f"solution {e_k:.3e}, the plain version's {e_p:.3e}")
+            ms = time_ms(lambda: tk(*sys4))
+            pms = time_ms(lambda: tk.plain(*sys4))
+            moved = k4.values_moved(*sys4)
+            b_ms, b_by = bound_of(sys4[3].element_size() * moved,
+                                  k4.OPS_PER_VALUE * sys4[3].numel())
+            # the whole solve through its entry point
+            tk.launches = tk.copies = 0
+            x, its = solver.solve(b)
+            torch.cuda.synchronize()
+            want_l = its + 1 if spectral_cg else 1
+            launches = tk.launches
+            if (launches, tk.copies) != (want_l, 0):
+                fail(f"11 (a) {name} {dname}: {launches} launches, "
+                     f"{tk.copies} copies in one solve ({its} CG "
+                     f"iterations; expected {want_l}, 0)")
+            b64 = b.double()
+
+            def true_res(x):
+                return float((-st.weak_laplacian(geo, x.double(),
+                                                 p_specs_of(geo))
+                              - b64).norm() / b64.norm())
+            res = true_res(x)
+            res_tol = (1e-3 if f32 else 10 * solver.rtol if spectral_cg
+                       else 1e-10)
+            if not (bool(torch.isfinite(x).all()) and res <= res_tol):
+                fail(f"11 (a) {name} {dname}: the solve's true relative "
+                     f"residual {res:.3e} > {res_tol} ({its} iterations)")
+            factory = None
+            if spectral_cg and f32:
+                # the solve as the factory builds it by default (rtol
+                # 1e-7, cap 120)
+                fs = make_poisson_solver(geo, dtype=np.float32, device=dev)
+                if not isinstance(fs, type(solver)):
+                    fail(f"11 (a) the factory built {type(fs).__name__} on "
+                         f"the stretched shell")
+                fs.solve(b)
+                torch.cuda.synchronize()
+                fs.tridiag.launches = 0
+                t1 = time.perf_counter()
+                xf, itf = fs.solve(b)
+                torch.cuda.synchronize()
+                f_ms = (time.perf_counter() - t1) * 1e3
+                if (not bool(torch.isfinite(xf).all())
+                        or fs.tridiag.launches != itf + 1):
+                    fail(f"11 (a) ShellPoissonSpectral at the factory's "
+                         f"settings: {fs.tridiag.launches} launches in "
+                         f"{itf} iterations, or a non-finite solution")
+                factory = dict(rtol=fs.rtol, maxiter=fs.maxiter,
+                               iterations=itf, at_cap=itf >= fs.maxiter,
+                               residual=true_res(xf), host_ms=f_ms)
+                phase(f"11 (a) {name} {geo.cell_shape} f32 as "
+                      f"make_poisson_solver builds it by default (rtol "
+                      f"{fs.rtol}, cap "
+                      f"{fs.maxiter}): {itf} CG iterations"
+                      f"{' (stopped at its cap)' if factory['at_cap'] else ''}"
+                      f", true relative residual {factory['residual']:.3e} "
+                      f"(with the cap at {SPECTRAL_MAXITER}: {its} "
+                      f"iterations, {res:.3e}), host {f_ms:.2f} ms a solve")
+                del fs, xf
+            cols = [size for size, _ in lay.axes]
+            phase(f"11 (a) K4 tridiag, {name}'s layout {geo.cell_shape} "
+                  f"{dname} (n {sys4[3].shape[0]}, batch axes {cols}, pair "
+                  f"axis {lay.pair_axis}, {tk.plan(lay, dev)[0]} threads a "
+                  f"block): 0 operands copied, max abs err {err:.3e} (tol "
+                  f"{tol:.3e}), against the f64 solution {e_k:.3e} (the "
+                  f"plain version's {e_p:.3e}), kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, "
+                  f"bound {b_ms * 1e3:.2f} us ({b_by}; {moved} values "
+                  f"moved); one solve: {its} CG iterations, {launches} "
+                  f"launch(es), 0 copies, true relative residual {res:.3e}")
+            rows[name][dname] = dict(
+                max_abs_err=err, tol=tol, err_vs_f64=e_k,
+                plain_err_vs_f64=e_p, ms=ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by, launches=launches,
+                copies=tk.copies, iterations=its, residual=res,
+                n=sys4[3].shape[0], columns=cols, pair_axis=lay.pair_axis,
+                **({"factory_solve": factory} if factory else {}))
+            del solver, sys4, w4, x
+        # f64: the card against the CPU at the small size
+        small = solver_geometry(name, small=True)
+        kw = {"rtol": 1e-11, "maxiter": 300} if spectral_cg else {}
+        # drawn on the CPU, and a draw whose CG count at rtol 1e-11 on the
+        # stretched shell does not move with the order of CG's dot
+        # products' sums (tests/test_torch_spectral_direct.py
+        # test_card_check_count_is_order_free): equal counts on the card
+        # and the CPU then hold the card's arithmetic, not the order of
+        # its reductions
+        b = seeded_rhs(small, torch.float64, dev, seed=19, on_cpu=True)
+        xg, ig = make_solver(name, small, "float64", dev, **kw).solve(b)
+        xc, ic = make_solver(name, small, "float64", "cpu", **kw).solve(
+            b.cpu())
+        rel = float((xg.cpu() - xc).abs().max() / xc.abs().max())
+        if ig != ic or not rel <= 1e-12:
+            fail(f"11 (a) {name} f64 {small.cell_shape}: the card ({ig} "
+                 f"iterations) vs the CPU ({ic}): rel diff {rel:.3e} > "
+                 f"1e-12")
+        phase(f"11 (a) {name} f64 {small.cell_shape}: the card vs the CPU, "
+              f"{ig} iterations on both, max |x_card - x_cpu| / |x| "
+              f"{rel:.3e} (tol 1e-12)")
+        rows[name]["card_vs_cpu"] = dict(iterations=ig, rel_diff=rel)
+    return rows
+
+
+def card_vs_cpu_step(label, dev, make, state_of):
+    """One f64 step on the card against the same step on the CPU from the
+    same state (``make(device)`` builds the model, ``state_of(model)``
+    the state): equal iteration counts and verdicts, every field within
+    SL2D_F64_TOL of its scale. Returns the worst relative difference."""
+    from dycoreplanet_tpu_torch.models.convert import (
+        state_from_numpy, state_to_numpy)
+
+    cpu, card = make("cpu"), make(dev)
+    s_cpu = state_of(cpu)
+    s_card = state_from_numpy(card, *state_to_numpy(s_cpu))
+    dt = cpu.params.time_step
+    c1, dc = cpu.step(s_cpu, dt)
+    g1, dg = card.step(s_card, dt)
+    worst = 0.0
+    for x, y in zip((g1.u, g1.p, g1.T) + tuple(g1.u_faces),
+                    (c1.u, c1.p, c1.T) + tuple(c1.u_faces)):
+        worst = max(worst, float((x.cpu() - y).abs().max()
+                                 / y.abs().max().clamp_min(1e-300)))
+    its_g = (dg.helmholtz_iters.tolist(), dg.poisson_iters,
+             dg.temperature_iters, dg.solver_ok)
+    its_c = (dc.helmholtz_iters.tolist(), dc.poisson_iters,
+             dc.temperature_iters, dc.solver_ok)
+    if its_g != its_c or not worst <= SL2D_F64_TOL:
+        fail(f"11 {label} {cpu.geo.cell_shape} f64: the card's step "
+             f"(iterations {its_g}) vs the CPU's ({its_c}): rel diff "
+             f"{worst:.3e} (tol {SL2D_F64_TOL})")
+    phase(f"11 {label} {cpu.geo.cell_shape} f64, one step on the card vs "
+          f"the CPU from the same state: iterations and verdict {its_g} on "
+          f"both, max rel diff of each field's scale {worst:.3e} (tol "
+          f"{SL2D_F64_TOL})")
+    return worst
+
+
+def remaining_phases(dev):
+    """Phase 11, the remaining solvers and transports of one device: (a)
+    K4 in the layouts of ShellPoissonDirect, ShellPoissonSpectral and
+    AnnulusPoissonDirect (check_solver_k4); (b) the semi-Lagrangian
+    transport on the annulus at refinement 8 (256 x 3072; the direct
+    path, 20 gated steps through run and as a graph, bitwise, the
+    transport once a step) and on the slab at 256 x 1024 (20 gated steps
+    through run after its first, escalations counted, its fast chunk as a
+    graph bitwise the same steps eagerly), then one f64 step of each on
+    the card against the CPU; (c) Richardson momentum beside CG
+    temperature on the flagship shell at 32 x 128 x 256 f32 (krylov_run:
+    RICH_CG_STEPS steps through run, K2, K3 and K5 once a step and K1
+    never, by the wrappers and by the profiler), one f64 step on the card
+    against the CPU, and a forced momentum miss (f64) that escalates; (d)
+    the bench model on a shell of non-uniform radial spacing
+    (stretched_run). Returns (K4 rows by solver, run launches by path,
+    replay device kernels by path, numbers)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.graphs import ChunkGraphs
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_SHAPE, bench_params, seed_developed_flow)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    by_path, replay_by_path, cells = {}, {}, {}
+
+    # ---- (a) K4 in the three solvers' layouts ----------------------------
+    k4_rows = check_solver_k4(dev)
+    phase("11 (a) done" + since())
+
+    # ---- (b) SL on the annulus and the slab ------------------------------
+    am = BoussinesqModel(sl_params(annulus_params(helmholtz_solver="direct")),
+                         device=dev)
+    if am._semi_lagrangian is None or set(am.kernels()) != {"tridiag"}:
+        fail(f"11 (b) annulus SL: kernels {list(am.kernels())}")
+    s0 = am.initial_state()
+    am.run(max_steps=2, state=s0)
+    calls0 = am._semi_lagrangian.calls
+    run_out = drive(am, lambda: am.run(max_steps=N_STEPS, state=s0))
+    n_sl = am._semi_lagrangian.calls - calls0
+    (a_end, a_hist), _, _ = run_out
+    check_annulus_run("11 (b) annulus SL direct", am, a_end, a_hist)
+    l_r, l_g, ms_r, ms_g, _, _ = graph_vs_run(
+        "11 (b) annulus SL direct", am, s0, {"tridiag": 2 * N_STEPS},
+        run_out, bitwise=True)
+    if n_sl != N_STEPS:
+        fail(f"11 (b) annulus SL: {n_sl} transports in {N_STEPS} steps")
+    _, d_a = am.step(a_end, am.params.time_step)
+    phase(f"11 (b) annulus SL direct {am.geo.cell_shape} f32: {N_STEPS} "
+          f"gated steps, 0 escalations, the transport {n_sl} times, "
+          f"launches {l_r}, {describe(a_hist, d_a)}; host ms/step run "
+          f"{ms_r:.4f}, graph {ms_g:.4f}" + since())
+    by_path["annulus_sl_direct"] = l_r
+    replay_by_path["annulus_sl_direct_graph"] = l_g
+    cells["annulus_sl_direct"] = dict(
+        escalations=0, max_div=max(h["div_norm"] for h in a_hist),
+        host_ms_run=ms_r, host_ms_graph=ms_g)
+    del am, s0, a_end
+
+    # the slab: its first step from rest leaves max|div u| above 1e-4 in
+    # f32 (phase 9 (e)); the 20 steps start after it
+    sm = BoussinesqModel(sl_params(slab_params()), device=dev)
+    s1, h1 = sm.run(max_steps=1)
+    sm.escalations = 0
+    sm._strong_steps_left = 0
+    calls0 = sm._semi_lagrangian.calls
+    (e_end, e_hist), e_launches, e_wall = drive(
+        sm, lambda: sm.run(max_steps=N_STEPS, state=s1))
+    n_sl = sm._semi_lagrangian.calls - calls0
+    divs = [h["div_norm"] for h in e_hist]
+    if len(e_hist) != N_STEPS or not max(divs) <= 1e-4 or n_sl < N_STEPS:
+        fail(f"11 (b) slab SL: {len(e_hist)} steps, max|div u| "
+             f"{max(divs):.3e} (tol 1e-4), {n_sl} transports")
+    for x in (e_end.u, e_end.p, e_end.T) + tuple(e_end.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail("11 (b) slab SL: non-finite fields")
+    esc = sm.escalations
+    sm.escalations = 0
+    sm._strong_steps_left = 0
+    dt = sm.params.time_step
+    sm.chunk_graphs = ChunkGraphs(sm)
+    sm.chunk_graphs.run(s1, dt, N_STEPS, True)          # capture, replay
+    (s_gf, rows_gf, _), l_gf = replay_launches(
+        "11 (b) slab SL fast chunk", sm,
+        lambda: sm.chunk_graphs.run(s1, dt, N_STEPS, True), {})
+    s_ef, rows_ef, _ = sm._chunk(s1, dt, N_STEPS, True, False)
+    rel_f = rel_diff(s_gf, s_ef)
+    if not (rel_f == 0.0 and torch.equal(rows_gf, rows_ef)):
+        fail(f"11 (b) slab SL fast chunk: graph vs eager max rel diff "
+             f"{rel_f:.3e}; expected bitwise")
+    missed = int((rows_gf[:, 10] < 0.5).sum())
+    _, d_e = sm.step(e_end, dt)
+    phase(f"11 (b) slab SL {SLAB_SHAPE} f32: step 1 from rest max|div u| "
+          f"{h1[0]['div_norm']:.3e}; then {N_STEPS} gated steps through "
+          f"run, {esc} escalation(s), the transport {n_sl} times, launches "
+          f"{e_launches}, {describe(e_hist, d_e)} (<= 1e-4); host ms/step "
+          f"{e_wall / N_STEPS * 1e3:.4f}; the fast chunk of {N_STEPS} as "
+          f"one graph replay vs eagerly: bitwise equal states and rows, "
+          f"{missed} of {N_STEPS} steps miss the gate in both, device "
+          f"kernels of the replay {l_gf}" + since())
+    by_path["slab_sl"] = e_launches
+    replay_by_path["slab_sl_fast_graph"] = l_gf
+    cells["slab_sl"] = dict(escalations=esc, div_step1=h1[0]["div_norm"],
+                            max_div=max(divs), fast_steps_missed=missed,
+                            host_ms_run=e_wall / N_STEPS * 1e3)
+    del sm, s1, e_end, s_gf, s_ef
+
+    def settled(m):
+        s = m.initial_state()
+        for _ in range(2):
+            s, _ = m.step(s, m.params.time_step)
+        return s
+    for label, make in (
+            ("(b) annulus SL direct", lambda d: BoussinesqModel(sl_params(
+                annulus_params("float64", refinement=4,
+                               helmholtz_solver="direct")), device=d)),
+            ("(b) annulus SL default", lambda d: BoussinesqModel(sl_params(
+                annulus_params("float64", refinement=4)), device=d)),
+            ("(b) slab SL", lambda d: BoussinesqModel(sl_params(
+                slab_params((16, 64), "float64")), device=d))):
+        cells[f"f64 {label}"] = card_vs_cpu_step(label, dev, make, settled)
+    phase("11 (b) done" + since())
+
+    # ---- (c) Richardson momentum beside CG temperature --------------------
+    def rich_cg(p):
+        p.numerics.fixed_solver_iters = 0
+        p.numerics.momentum_fixed_iters = 1
+        return p
+    m = BoussinesqModel(rich_cg(bench_params(BENCH_SHAPE)), device=dev)
+    if "richardson" in m.kernels() or m._graphable(False, False):
+        fail(f"11 (c): kernels {list(m.kernels())}, graphable "
+             f"{m._graphable(False, False)}")
+
+    def want(calls):
+        return {"forcing": len(calls), "faces_div": len(calls),
+                "correct": len(calls), "tridiag": 0}
+    s0 = seed_developed_flow(m)
+    by_path["richardson_cg"], cells["richardson_cg"] = krylov_run(
+        "(c) Richardson momentum, CG temperature", m, s0, RICH_CG_STEPS,
+        want, tag="11")
+    del m, s0
+    def small64(**numerics):
+        def make(d):
+            p = rich_cg(bench_params(FEEC_SMALL, "float64"))
+            for k, v in numerics.items():
+                setattr(p.numerics, k, v)
+            return BoussinesqModel(p, device=d)
+        return make
+    cells["f64 (c)"] = card_vs_cpu_step(
+        "(c) Richardson momentum, CG temperature", dev, small64(),
+        seed_developed_flow)
+    # a forced momentum miss, in f64 at FEEC_SMALL: `helmholtz tol` 1e-15
+    # (16 eps) is below one sweep's reach (f32 clamps any tolerance to 16
+    # eps, which the flagship's one sweep meets)
+    fm = small64(helmholtz_tol=1e-15)(dev)
+    s0 = seed_developed_flow(fm)
+    dt = fm.params.time_step
+    _, d_miss = fm.step(s0, dt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        s_fm, h_fm = fm.run(max_steps=1, state=s0)
+    s_st, d_st = fm.step_strong(s0, dt)
+    rel_fm = rel_diff(s_fm, s_st)
+    if (d_miss.solver_ok or fm.escalations != 1 or not d_st.solver_ok
+            or not rel_fm == 0.0):
+        fail(f"11 (c) forced momentum miss: the fast step's verdict "
+             f"{d_miss.solver_ok}, {fm.escalations} escalation(s), the "
+             f"strong step's verdict {d_st.solver_ok}, run vs step_strong "
+             f"rel diff {rel_fm:.3e}")
+    phase(f"11 (c) forced momentum miss {fm.geo.cell_shape} f64 (helmholtz "
+          f"tol 1e-15): the fast step's helmholtz residual "
+          f"{d_miss.helmholtz_residual:.3e}, solver_ok False; run: 1 "
+          f"escalation, the step redone with CG (helmholtz "
+          f"{d_st.helmholtz_iters.tolist()}, temperature "
+          f"{d_st.temperature_iters} iterations), bitwise step_strong's"
+          + since())
+    cells["richardson_cg_forced_miss"] = dict(
+        escalations=fm.escalations,
+        helmholtz_residual=d_miss.helmholtz_residual)
+    del fm, s0, s_fm, s_st
+
+    # ---- (d) the model on a shell of non-uniform radial spacing ---------
+    by_path["stretched_shell"], cells["stretched_shell"] = stretched_run(dev)
+    phase("11 (d) done" + since())
+    phase(f"phase 11 {time.perf_counter() - t0:.1f} s")
+    return k4_rows, by_path, replay_by_path, cells
+
+
+def stretched_run(dev):
+    """(d): the bench model on presets.stretched_shell at 32 x 128 x 256
+    f32, whose Poisson solve make_poisson_solver builds as
+    ShellPoissonSpectral on the model's K4 wrapper, stopping at `poisson
+    tol` and `max cg iters` as the JAX model passes them: it runs no
+    CUDA graph (_graphable: the spectral CG reads its stopping test every
+    iteration); STRETCHED_STEPS gated steps through run and the same
+    steps as one multi_step chunk from the same state, each with the
+    launches counted from 0: K1, K2 and K5 once a step, K4 the CG
+    iterations + 1 a step, no escalation, no graph built, the two
+    bitwise equal, max|div u| <= 1e-4; then one step under
+    torch.profiler, its hand kernels exactly those. Returns (the run's
+    launches, numbers)."""
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_SHAPE, bench_params, seed_developed_flow, stretched_shell)
+    from dycoreplanet_tpu_torch.solvers.spectral import ShellPoissonSpectral
+
+    shape, n = BENCH_SHAPE, STRETCHED_STEPS
+    m = BoussinesqModel(bench_params(shape), geometry=stretched_shell(shape),
+                        device=dev)
+    ps, num = m.poisson_spectral, m.params.numerics
+    if (not isinstance(ps, ShellPoissonSpectral)
+            or ps.tridiag is not m.kernels()["tridiag"]
+            or (ps.rtol, ps.maxiter) != (num.poisson_tol, num.max_cg_iters)
+            or m._graphable(False, False)):
+        fail(f"11 (d) stretched shell: Poisson solve {type(ps).__name__}, "
+             f"graphable {m._graphable(False, False)}")
+    s0 = seed_developed_flow(m)
+    dt = m.params.time_step
+
+    def want(poisson_iters):
+        k = len(poisson_iters)
+        return {"forcing": k, "richardson": k, "faces_div": 0,
+                "correct": k, "tridiag": sum(i + 1 for i in poisson_iters)}
+    (r_end, r_hist), r_launches, r_wall = drive(
+        m, lambda: m.run(max_steps=n, state=s0))
+    r_its = [h["poisson_iters"] for h in r_hist]
+    r_esc = m.escalations
+    (c_end, c_rows, _), c_launches, c_wall = drive(
+        m, lambda: m.multi_step(s0, dt, n))
+    c_its = [int(x) for x in c_rows[:, 5].tolist()]
+    divs = [h["div_norm"] for h in r_hist]
+    rel = rel_diff(r_end, c_end)
+    for x in (r_end.u, r_end.p, r_end.T) + tuple(r_end.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail("11 (d) stretched shell: non-finite fields")
+    if (m.escalations or m.chunk_graphs is not None or len(r_hist) != n
+            or r_launches != want(r_its) or c_launches != want(c_its)
+            or r_its != c_its or rel != 0.0 or not max(divs) <= 1e-4):
+        fail(f"11 (d) stretched shell {shape}: {m.escalations} "
+             f"escalation(s), graphs {m.chunk_graphs}, run launches "
+             f"{r_launches} (expected {want(r_its)}), multi_step launches "
+             f"{c_launches} (expected {want(c_its)}), Poisson iterations "
+             f"{r_its} / {c_its}, run vs multi_step rel diff {rel:.3e}, "
+             f"max|div u| {divs}")
+    diag = []
+
+    def one_step():
+        diag.append(m.step(r_end, dt)[1])
+        return diag[-1].cfl
+    prof = step_profile(one_step, 1)
+    its_p = int(diag[0].poisson_iters)
+    want_p = {**{k: 0 for k in prof["counts"]}, **want([its_p])}
+    if prof["counts"] != want_p:
+        fail(f"11 (d) stretched shell: the profiled step ran the hand "
+             f"kernels {prof['counts']} on the device, expected {want_p}")
+    phase(f"11 (d) the bench model on a stretched shell {shape} f32 "
+          f"(ShellPoissonSpectral, rtol {ps.rtol}, cap {ps.maxiter}; no "
+          f"CUDA graph): {n} steps through run and as one multi_step "
+          f"chunk, bitwise equal, 0 escalations, Poisson CG iterations "
+          f"{r_its}, launches {r_launches} (the same in the chunk), "
+          f"max|div u| per step {[float(f'{x:.3e}') for x in divs]}; host "
+          f"ms/step run {r_wall / n * 1e3:.2f}, chunk "
+          f"{c_wall / n * 1e3:.2f}; one profiled step: "
+          f"{prof['device_ms_per_step']:.3f} device ms in "
+          f"{prof['kernels_per_step']:.0f} kernels (K4 "
+          f"{prof['kernel_ms_per_step'].get('tridiag', 0.0):.3f} ms), "
+          f"{prof['host_launches_per_step']:.0f} host launches, busy share "
+          f"{prof['busy_share']:.3f}, hand kernels {prof['counts']}")
+    return r_launches, dict(
+        shape=list(shape), steps=n, escalations=r_esc, poisson_iters=r_its,
+        div=divs, host_ms_run=r_wall / n * 1e3,
+        host_ms_chunk=c_wall / n * 1e3,
+        device_ms_per_step=prof["device_ms_per_step"],
+        k4_ms_per_step=prof["kernel_ms_per_step"].get("tridiag", 0.0),
+        kernels_per_step=prof["kernels_per_step"],
+        host_launches_per_step=prof["host_launches_per_step"],
+        busy=prof["busy_share"], profiled_counts=prof["counts"])
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3077,7 +3652,8 @@ def main() -> None:
     # against the same function in f64 on the CPU, at the step's dt_T
     # (displacements of a few hundredths of a cell) and at 0.5 (up to
     # the clamp at 2 cells)
-    from dycoreplanet_tpu_torch.diagnostics.device_time import profiled
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        device_events, profiled)
     from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
     sl = slmodel._semi_lagrangian
     wall = slmodel.T_specs[0]
@@ -3097,9 +3673,7 @@ def main() -> None:
     sl_args = (s0.u, s0.T, slmodel._dt_T(dt))
     sl_ms = time_ms(lambda: sl(*sl_args))
     _, sl_prof = profiled(lambda: sl(*sl_args))
-    from torch.autograd import DeviceType
-    sl_kernels = sum(1 for e in sl_prof.events()
-                     if e.device_type == DeviceType.CUDA)
+    sl_kernels = len(device_events(sl_prof))
     phase(f"semi-Lagrangian transport at {BENCH_SHAPE} f32: card vs f64 CPU "
           f"rel diff {sl_err[0]:.3e} (dt_T) / {sl_err[1]:.3e} (dt 0.5) (tol "
           f"1e-5); {sl_ms:.4f} ms of device time and {sl_kernels} device "
@@ -3750,6 +4324,14 @@ def main() -> None:
     for label, counts in mim_launches.items():
         record(label, counts)
 
+    # ---- 11. the remaining Poisson solvers, SL on the 2D geometries,
+    # Richardson momentum beside CG temperature -------------------------
+    k4_solvers, rem_launches, rem_replays, rem_cells = remaining_phases(dev)
+    for label, counts in rem_launches.items():
+        record(label, counts)
+    for label, counts in rem_replays.items():
+        record_replay(label, counts)
+
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
@@ -3809,6 +4391,31 @@ def main() -> None:
         launches_by_path={k: v["tridiag"] for k, v in mim_launches.items()
                           if k.startswith("poisson_mg")},
         replay_launches_by_path={}, cells=mim_cells))
+    # K4 in the layouts of the three remaining Poisson solvers (no model
+    # builds the direct ones): launches through each solver's entry
+    # point in one f32 solve at work size, phase 11 (a) (the spectral CG
+    # on a stretched shell with its cap at SPECTRAL_MAXITER); the
+    # spectral CG's also in the model's run on a stretched shell, (d)
+    for solver, rows in k4_solvers.items():
+        r32 = rows["float32"]
+        paths = {f"{solver}.solve": r32["launches"]}
+        if solver == "ShellPoissonSpectral":
+            paths["stretched_shell"] = rem_launches["stretched_shell"][
+                "tridiag"]
+        report.append(dict(
+            name=f"K4 tridiag ({solver} layout)", route="cuda",
+            source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+            replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+            variant=f"{solver}'s operands, {SOLVER_LINES[solver]}: "
+                    f"{SOLVER_K4[solver]}",
+            launches=r32["launches"], max_abs_err=max(
+                r["max_abs_err"] for k, r in rows.items()
+                if k != "card_vs_cpu"),
+            ms=r32["ms"], plain_ms=r32["plain_ms"],
+            bound_ms=r32["bound_ms"], bound_by=r32["bound_by"],
+            library_ms=None, by_dtype=rows,
+            launches_by_path=paths, replay_launches_by_path={},
+            cells=rem_cells if solver == "ShellPoissonDirect" else {}))
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ Used by ``chip_smoke.py``, ``scripts/probe_k1_k2.py``,
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -17,6 +17,17 @@ _CYCLES_PER_MS = []
 # host seconds of device idle kept on either side of a profiled call
 # (scripts/probe_replay_counts.py)
 PAD_S = 0.05
+# short spin kernels (torch.cuda._sleep) enqueued first in a profiled
+# window, ahead of the call: an eager window can lose its first device
+# records (up to 34 of them on an NVIDIA H100, absent from the raw trace,
+# whatever the padding); the lead takes that loss, and a profile that
+# kept none of it is refused (scripts/probe_eager_profile.py)
+LEAD_KERNELS = 200
+LEAD_CYCLES = 2000
+LEAD_NAME = "spin_kernel"
+# host-side calls that launch device work (kernels or graphs)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 # the device kernel each wrapper of BoussinesqModel.kernels() launches, by
 # a part of its name (K3's wrapper also launches a reduce_partials kernel)
@@ -64,34 +75,77 @@ def wrapper_of(kernel: str) -> Optional[str]:
 
 def profiled(fn, pad_s: float = PAD_S):
     """Run fn() under torch.profiler, the device idle for ``pad_s``
-    seconds of host time on either side of it: (fn's result, the
-    profiler). The profiler keeps only the device activities whose
-    times, as converted to the host's clock, fall inside its window, and
-    that conversion has put kernels milliseconds before the call that
-    launched them: unpadded, the first kernels of fn can be lost."""
+    seconds of host time on either side of it and ``LEAD_KERNELS`` spin
+    kernels enqueued just before it: (fn's result, the profiler). The
+    profiler keeps only the device activities whose times, as converted
+    to the host's clock, fall inside its window, and that conversion has
+    put kernels milliseconds before the call that launched them:
+    unpadded, the first kernels of fn can be lost. Besides, a window can
+    lose its first device records altogether (eager steps of 4k and 51k
+    kernels lost K2 and K1 so): the lead kernels come first and take
+    that loss; a profile that kept none of them may have lost fn's first
+    kernels too, and raises. Read the profile through
+    ``device_events``, ``device_rows``, ``host_launches`` and
+    ``count_kernels``, which leave the lead out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(pad_s)
+        for _ in range(LEAD_KERNELS):
+            torch.cuda._sleep(LEAD_CYCLES)
         out = fn()
         torch.cuda.synchronize()
         time.sleep(pad_s)
+    if not any(e.device_type == DeviceType.CUDA and LEAD_NAME in e.name
+               for e in prof.events()):
+        raise RuntimeError(
+            f"torch.profiler kept none of the {LEAD_KERNELS} lead kernels "
+            "of its window: the profile may have lost the call's first "
+            "kernels")
     return out, prof
 
 
-def count_kernels(prof, names: Iterable[str]) -> Dict[str, int]:
-    """The hand-written kernels of a profile, by wrapper name: {name:
-    count} for every name of ``names``."""
+def device_events(prof) -> List:
+    """The device activities of a ``profiled`` window, its lead kernels
+    left out."""
     from torch.autograd import DeviceType
 
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and LEAD_NAME not in e.name]
+
+
+def device_rows(prof) -> List[Tuple[str, float, int]]:
+    """[(kernel name, device ms, count)] of a ``profiled`` window's
+    device activities of nonzero time, longest first, its lead kernels
+    left out."""
+    rows: Dict[str, Tuple[float, int]] = {}
+    for e in device_events(prof):
+        us = e.time_range.end - e.time_range.start
+        if us > 0:
+            ms, n = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (ms + us / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in rows.items()),
+                  key=lambda r: -r[1])
+
+
+def host_launches(prof) -> int:
+    """The host calls of a ``profiled`` window that launch device work
+    (``LAUNCH_CALLS``), the lead kernels' own launches left out."""
+    n = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    return n - LEAD_KERNELS
+
+
+def count_kernels(prof, names: Iterable[str]) -> Dict[str, int]:
+    """The hand-written kernels of a ``profiled`` window, by wrapper
+    name: {name: count} for every name of ``names``."""
     counts: Dict[str, int] = {name: 0 for name in names}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            w = wrapper_of(e.name)
-            if w in counts:
-                counts[w] += 1
+    for e in device_events(prof):
+        w = wrapper_of(e.name)
+        if w in counts:
+            counts[w] += 1
     return counts
 
 

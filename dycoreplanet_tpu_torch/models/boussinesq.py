@@ -245,17 +245,8 @@ class StepDiagnostics:
 def _unsupported(params: Parameters) -> Optional[str]:
     """The ROADMAP.md item that brings a configuration this slice does
     not run, or None."""
-    num = params.numerics
-    if (params.space_dimension == 2
-            and num.temperature_advection == "semi-lagrangian"):
-        return "semi-Lagrangian transport on the annulus"
-    if num.dtype == "bfloat16":
+    if params.numerics.dtype == "bfloat16":
         return "bf16"
-    if (num.helmholtz_solver != "direct" and num.fixed_solver_iters <= 0
-            and num.momentum_fixed_iters > 0):
-        return ("remaining solvers: momentum fixed iters > 0 with fixed "
-                "solver iters = 0 (Richardson momentum beside CG "
-                "temperature)")
     return None
 
 
@@ -352,9 +343,8 @@ class BoussinesqModel:
         self._forcing = self._proj = None
         self._richardson = self._richardson_free = None
         # semi-Lagrangian temperature transport (K = 2 ghost layers, the
-        # JAX package's default) on the shell and the 3D cuboid (2D
-        # geometries refuse it: _unsupported), its tables on the device
-        # from the start
+        # JAX package's default) on every geometry, its tables on the
+        # device from the start
         self._semi_lagrangian = None
         if num.temperature_advection == "semi-lagrangian":
             self._semi_lagrangian = SemiLagrangian(self.geo, self.T_specs)
@@ -495,6 +485,10 @@ class BoussinesqModel:
             # GSPMD's plain path
             raise _not_on_mesh(MESH_CG, f"poisson solver = "
                                f"{num.poisson_solver}")
+        if getattr(self.poisson_spectral, "iterative", False):
+            # the JAX package leaves ShellPoissonSpectral to GSPMD
+            raise _not_on_mesh(MESH_CG, "the spectral CG Poisson solve of "
+                               "a shell of non-uniform radial spacing")
         if self.geo.kind == "cuboid":
             raise _not_on_mesh(MESH_CUBOID, "the cuboid")
         if self.geo.kind != "shell":
@@ -745,8 +739,9 @@ class BoussinesqModel:
         self.T_lap_offset = st.weak_laplacian(
             geo, zero, self.T_specs).cpu().numpy()
 
-        # the direct solves' radial tridiagonals and the multigrid line
-        # smoother share one K4 wrapper
+        # the direct solves' radial tridiagonals, the multigrid line
+        # smoother and the non-uniform shell's spectral-CG radial lines
+        # share one K4 wrapper
         self._tridiag = TridiagSolve()
         # Poisson strategy, as in the JAX package: 'auto'/'fft' the
         # fast-diagonalization solve ("auto" precision resolves as the
@@ -761,10 +756,17 @@ class BoussinesqModel:
             prec = params.numerics.poisson_precision
             if prec == "auto":
                 prec = "highest"
+            # the shell's CG (ShellPoissonSpectral, on a non-uniform
+            # radial spacing) stops at `poisson tol` and `max cg iters`,
+            # as the JAX package passes them
+            kw = {}
+            if geo.kind == "shell":
+                kw = dict(rtol=params.numerics.poisson_tol,
+                          maxiter=params.numerics.max_cg_iters)
             self.poisson_spectral = make_poisson_solver(
                 geo, dtype=dt_np, precision=prec,
                 refine_op=lambda x: -st.weak_laplacian(geo, x, self.p_specs),
-                device=self.device)
+                device=self.device, tridiag=self._tridiag, **kw)
         elif solver_choice == "mg":
             self.poisson_precond = PoissonMultigrid(
                 geo, self.p_specs, dtype=dt_np, device=self.device,
@@ -1578,20 +1580,41 @@ class BoussinesqModel:
         last = torch.cat([packed[:10], okmin.reshape(1), packed[11:]])
         return state, last[None], dt_now
 
+    @property
+    def _fixed_gate(self) -> bool:
+        """Whether the gate redoes a missed fast step (or chunk) with full
+        CG: whenever a fixed-iteration solve runs on the fast path, that
+        is ``fixed solver iters`` > 0 (Richardson temperature, and
+        momentum beside it), or Richardson momentum beside CG
+        temperature (``momentum fixed iters`` > 0 on the projection path
+        without the direct Helmholtz solve). The JAX package keys its
+        gate on ``fixed solver iters`` > 0 alone (its ``multi_step`` and
+        ``run``), so that there a momentum Richardson miss beside CG
+        temperature is reported as solver_ok false and never redone
+        (ROADMAP.md Queue 3)."""
+        num = self.params.numerics
+        return num.fixed_solver_iters > 0 or (
+            self.momentum_iters > 0 and self.momentum_solver == "projection"
+            and self.helmholtz_direct is None)
+
     def _graphable(self, adaptive: bool, force_cg: bool) -> bool:
         """Whether a chunk runs as a CUDA graph: on the card, with a
         fixed dt (``dt`` reaches K1, K2 and K5 as a host double, so an
         adaptive chunk's graph would be stale after its first boundary),
         and no Krylov solve (the CG and GMRES loops read their stopping
         tests back every iteration: escalated chunks, ``fixed solver
-        iters`` = 0 without the direct Helmholtz solves, the coupled
-        solves and the Poisson CG of ``poisson solver = cg | mg``)."""
+        iters`` = 0 without the direct Helmholtz solves, Richardson
+        momentum beside CG temperature included, the coupled solves, the
+        Poisson CG of ``poisson solver = cg | mg`` and the fast solve's
+        own CG on a shell of non-uniform radial spacing,
+        ``ShellPoissonSpectral``)."""
         no_cg = (self.params.numerics.fixed_solver_iters > 0
                  or self.helmholtz_direct is not None)
         return (self.device.type == "cuda" and not adaptive
                 and not force_cg and no_cg
                 and self.momentum_solver != "coupled"
-                and self.poisson_spectral is not None)
+                and self.poisson_spectral is not None
+                and not getattr(self.poisson_spectral, "iterative", False))
 
     def multi_step(self, state: State, dt: float, n_steps: int,
                    collect_diagnostics: bool = True, adaptive: bool = False,
@@ -1631,7 +1654,7 @@ class BoussinesqModel:
             with self._strong(force_cg):
                 out = self._chunk(state, dt, n_steps, collect_diagnostics,
                                   adaptive)
-        if self.params.numerics.fixed_solver_iters > 0:
+        if self._fixed_gate:
             ok = float(out[1][:, 10].min())     # one pull per chunk
             if not force_cg:
                 if ok < 0.5:
@@ -1721,7 +1744,7 @@ class BoussinesqModel:
                 state, diag = self.step(state, dt)
             else:
                 state, diag = self.temperature_step(state, dt)
-            if not escalated and p.numerics.fixed_solver_iters > 0:
+            if not escalated and self._fixed_gate:
                 if not diag.solver_ok:
                     self._escalate()
                     if (chk_snapshot is not None and nse_step

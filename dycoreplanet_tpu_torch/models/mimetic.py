@@ -105,6 +105,12 @@ class MimeticBoussinesqModel(BoussinesqModel):
         # GSPMD's plain path
         raise _not_on_mesh(MESH_CG, "the mimetic (staggered) personality")
 
+    @property
+    def _fixed_gate(self) -> bool:
+        """The momentum solve is always CG here: the gate redoes a step
+        only for the fixed-iteration temperature solve."""
+        return self.params.numerics.fixed_solver_iters > 0
+
     def _graphable(self, adaptive: bool, force_cg: bool) -> bool:
         """Never: the momentum CG reads its stopping test back every
         iteration."""

@@ -23,11 +23,16 @@ re-normalize the mean. The transforms are plain matrix products
 (``torch.einsum``), left to the BLAS library as the JAX package left
 them to XLA, in full float32 on the card (the model disables TF32).
 
-``CuboidPoissonDirect`` is the superseded direct cuboid solve that the
-JAX package keeps and tests (``make_poisson_solver`` builds the fast
-diagonalization): an rfft2 over (y, x), then the z tridiagonals of
-every mode by the batched Thomas kernel K4 (ops/tridiag.py), the real
-and imaginary parts as K4's pair axis, in one launch.
+``CuboidPoissonDirect``, ``AnnulusPoissonDirect`` and
+``ShellPoissonDirect`` are the direct solves that the JAX package keeps
+and tests (``make_poisson_solver`` builds the fast diagonalizations): a
+real FFT over the periodic axes (and on the shell the lat
+eigentransform), then the tridiagonals along the wall axis of every mode
+by the batched Thomas kernel K4 (ops/tridiag.py), the real and imaginary
+parts as K4's pair axis, in one launch. ``ShellPoissonSpectral`` is the
+factory's solve for a shell with non-uniform radial spacing, where the
+radial conductances do not separate: CG over the lon modes (solvers/
+cg.py) preconditioned by the exact radial lines, K4 once an iteration.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+from dycoreplanet_tpu_torch.solvers.cg import cg
 
 
 def _conductance(geo: Geometry, d: int) -> np.ndarray:
@@ -189,6 +195,61 @@ class CuboidPoissonDirect:
         return x.to(b.dtype), 0
 
 
+class AnnulusPoissonDirect:
+    """Exact annulus solve by an rfft over phi and batched Thomas in r
+    (the JAX ``AnnulusPoissonDirect``, which calls its ``tridiag_solve``
+    on the real and then the imaginary part, with lower and upper
+    materialized to (nr, nphi/2+1)). Here one call of K4 solves both:
+    the rhs is ``torch.view_as_real`` of the (nr, nphi/2+1) transform,
+    its trailing 2 the pair axis; diag is (nr, nphi/2+1, 1), and lower
+    and upper one value a row, (nr, 1, 1): the radial conductances do
+    not depend on phi. No operand is copied. The k = 0 mode's first cell
+    is pinned; callers re-normalize the mean."""
+
+    precision = "highest"
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "annulus":
+            raise ValueError("AnnulusPoissonDirect needs annulus geometry")
+        self.geo = geo
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nr, nphi = geo.cell_shape
+        ar = _conductance(geo, 0)[:, 0]              # (nr+1,)
+        cphi = _conductance(geo, 1)[:, 0]            # (nr,) = dr/(r dphi)
+        mu = _mu(nphi, rfft=True)                    # (nphi//2+1,)
+        diag = (ar[:-1] + ar[1:])[:, None] - cphi[:, None] * mu[None, :]
+        diag[0, 0] += ar[1] if nr > 1 else 1.0       # pin k=0 mode
+        f = lambda a: np.asarray(a, dtype=dtype)     # noqa: E731
+        self._lower = f(-ar[:-1, None, None])
+        self._diag = f(diag[..., None])
+        self._upper = f(-ar[1:, None, None])
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "AnnulusPoissonDirect":
+        """Move the coefficients to ``device``."""
+        self._tc = tuple(_t(a, device)
+                         for a in (self._lower, self._diag, self._upper))
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def systems(self, b: torch.Tensor):
+        """K4's operands (lower, diag, upper, rhs) for the solve of b:
+        rhs is (nr, nphi/2+1, 2), the real and imaginary parts of b's
+        rfft over phi."""
+        acc = torch.promote_types(b.dtype, torch.float32)
+        bh = torch.fft.rfft(b.to(acc), dim=1)
+        return tuple(a.to(acc) for a in self._tc) + (torch.view_as_real(bh),)
+
+    def solve(self, b: torch.Tensor):
+        xh = self.tridiag(*self.systems(b))
+        x = torch.fft.irfft(torch.view_as_complex(xh), n=b.shape[1], dim=1)
+        return x.to(b.dtype), 0
+
+
 class CuboidPoissonFastDiag:
     """EXACT cuboid solve by full fast diagonalization: the y and x
     real-DFT pairs, the z wall eigentransform Q (or, on the fully
@@ -303,6 +364,174 @@ class Cuboid2DPoissonFastDiag:
         h = h * c["_inv"]
         h = torch.einsum("za,ak->zk", c["_Q"], h)
         x = torch.einsum("xk,zk->zx", c["_Gx"], h)
+        return x.to(b.dtype), 0
+
+
+class ShellPoissonSpectral:
+    """Shell solve by an rfft over lon and CG over every lon mode at
+    once, preconditioned by the exact radial lines (the JAX
+    ``ShellPoissonSpectral``): the solve for a shell whose radial spacing
+    is not uniform, where the fast diagonalization does not apply.
+
+    The operator of mode k (real coefficients, the real and imaginary
+    parts stacked on the last axis, (nr, nlat, 2 nm)):
+      (A_k x)_ij = (a_i + a_i+1 + b_j + b_j+1 - c_ij mu_k) x_ij
+                   - a_i x_i-1,j - a_i+1 x_i+1,j - b_j x_i,j-1 - b_j+1 x_i,j+1
+    a = A_r/dist_r, b = A_lat/dist_lat (zero at the poles), c =
+    A_lon/dist_lon; the k = 0 real mode's constant nullvector is
+    deflated to the eigenvalue sigma = mean(diag). The preconditioner
+    solves the radial tridiagonals of every (lat, mode) column by K4
+    (``tridiag``): diag (nr, nlat, 2 nm) and the rhs as they are, lower
+    and upper the radial conductances as (nr, nlat, 1) broadcasts (the
+    JAX code materializes them); two column axes, no pair axis (lower
+    varies along lat), no copy. K4 runs once before CG's loop and once
+    an iteration. ``solve`` returns CG's iteration count; it reads CG's
+    stopping test back every iteration (``iterative``), so a model that
+    solves with it runs no CUDA graph."""
+
+    precision = "highest"
+    iterative = True
+
+    def __init__(self, geo: Geometry, dtype=np.float32, rtol: float = 1e-7,
+                 maxiter: int = 120, tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "shell":
+            raise ValueError("ShellPoissonSpectral needs shell geometry")
+        self.geo = geo
+        self.rtol = rtol
+        self.maxiter = maxiter
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nr, nlat, nlon = geo.cell_shape
+        self.nm = nlon // 2 + 1
+        a = _conductance(geo, 0)[:, :, 0]            # (nr+1, nlat)
+        bb = _conductance(geo, 1)[:, :, 0]           # (nr, nlat+1)
+        c = _conductance(geo, 2)[:, :, 0]            # (nr, nlat)
+        mu2 = np.concatenate([_mu(nlon, rfft=True)] * 2)   # re + im
+        f = lambda x: np.asarray(x, dtype=dtype)     # noqa: E731
+        self._a_lo = f(a[:-1, :, None])              # (nr, nlat, 1)
+        self._a_hi = f(a[1:, :, None])
+        self._b_lo = f(bb[:, :-1, None])
+        self._b_hi = f(bb[:, 1:, None])
+        diag = (a[:-1] + a[1:] + bb[:, :-1] + bb[:, 1:])[:, :, None] \
+            - c[:, :, None] * mu2[None, None, :]
+        self._diag = f(diag)                         # (nr, nlat, 2nm)
+        # k = 0 real-mode deflation: sigma (1 1^T)/N on that slice
+        self._sigma = float(diag.mean())
+        self._defl_scale = self._sigma / (nr * nlat)
+        self.to(device if device is not None else torch.device("cpu"))
+
+    _NAMES = ("_a_lo", "_a_hi", "_b_lo", "_b_hi", "_diag")
+
+    def to(self, device) -> "ShellPoissonSpectral":
+        """Move the coefficients to ``device``."""
+        self._t = {k: _t(getattr(self, k), device) for k in self._NAMES}
+        self._t["_p_lower"] = -self._t["_a_lo"]
+        self._t["_p_upper"] = -self._t["_a_hi"]
+        return self
+
+    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+        """A x in spectral space; x: (nr, nlat, 2nm)."""
+        c = self._t
+        z = torch.zeros_like
+        ax = c["_diag"] * x
+        ax = ax - c["_a_lo"] * torch.cat([z(x[:1]), x[:-1]], dim=0)
+        ax = ax - c["_a_hi"] * torch.cat([x[1:], z(x[:1])], dim=0)
+        ax = ax - c["_b_lo"] * torch.cat([z(x[:, :1]), x[:, :-1]], dim=1)
+        ax = ax - c["_b_hi"] * torch.cat([x[:, 1:], z(x[:, :1])], dim=1)
+        ax[:, :, 0] += self._defl_scale * torch.sum(x[:, :, 0])
+        return ax
+
+    def line_operands(self, r: torch.Tensor):
+        """K4's operands (lower, diag, upper, rhs) of the preconditioner
+        on r, (nr, nlat, 2nm)."""
+        c = self._t
+        return c["_p_lower"], c["_diag"], c["_p_upper"], r
+
+    def _line_precond(self, r: torch.Tensor) -> torch.Tensor:
+        return self.tridiag(*self.line_operands(r))
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def solve(self, b: torch.Tensor):
+        nlon = self.geo.cell_shape[2]
+        acc = torch.promote_types(b.dtype, torch.float32)
+        bh = torch.fft.rfft(b.to(acc), dim=2)
+        bs = torch.cat([bh.real, bh.imag], dim=2)
+        res = cg(self._apply, bs, rtol=self.rtol, maxiter=self.maxiter,
+                 preconditioner=self._line_precond)
+        nm = self.nm
+        xh = torch.complex(res.x[:, :, :nm], res.x[:, :, nm:])
+        x = torch.fft.irfft(xh, n=nlon, dim=2)
+        return x.to(b.dtype), res.iterations
+
+
+class ShellPoissonDirect:
+    """Exact shell solve (the JAX ``ShellPoissonDirect``): rfft over lon,
+    the generalized lat eigentransform of each lon mode, batched Thomas
+    in r, and the inverse transforms. With uniform radial spacing the
+    radial conductances separate, a_ij = alpha_i cos_j, so each (mode,
+    lat eigenvector) is one radial tridiagonal. The eigentransforms are
+    matrix products (``torch.einsum``), as the JAX package computes them
+    outside any Pallas kernel; the tridiagonals are one K4 launch
+    (``tridiag``): the rhs (nr, nlat, 2, nm) with the real and imaginary
+    parts on axis 2, K4's pair axis; diag (nr, nlat, 1, nm); lower and
+    upper one value a row, (nr, 1, 1, 1). No operand is copied."""
+
+    precision = "highest"
+
+    def __init__(self, geo: Geometry, dtype=np.float32,
+                 tridiag: Optional[TridiagSolve] = None,
+                 device: Optional[torch.device] = None):
+        if geo.kind != "shell":
+            raise ValueError("ShellPoissonDirect needs shell geometry")
+        self.geo = geo
+        self.tridiag = tridiag if tridiag is not None else TridiagSolve()
+        nr, nlat, nlon = geo.cell_shape
+        self.nm = nlon // 2 + 1
+        a = _conductance(geo, 0)[:, :, 0].astype(np.float64)
+        cosl = np.cos(np.asarray(geo.axes[1].centers, np.float64))
+        alpha = a[:, 0] / cosl[0]                  # (nr+1,)
+        V, lam = shell_lat_eigensystem(geo)
+        diag = ((alpha[:-1] + alpha[1:])[:, None, None]
+                + np.transpose(lam)[None, :, :])   # (nr, nlat_m, nm)
+        # nullspace pin (k = 0 constant mode): ground the first radial cell
+        m0 = int(np.argmin(lam[0]))
+        diag[0, m0, 0] += alpha[1] if nr > 1 else 1.0
+        f = lambda x: np.asarray(x, dtype=dtype)   # noqa: E731
+        self._V = f(V)
+        self._lower = f(-alpha[:-1, None, None, None])
+        self._upper = f(-alpha[1:, None, None, None])
+        self._diag = f(diag[:, :, None, :])        # (nr, m, 1, nm)
+        self.to(device if device is not None else torch.device("cpu"))
+
+    def to(self, device) -> "ShellPoissonDirect":
+        """Move the transforms and coefficients to ``device``."""
+        self._Vt = _t(self._V, device)
+        self._tc = tuple(_t(a, device)
+                         for a in (self._lower, self._diag, self._upper))
+        return self
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)[0]
+
+    def systems(self, b: torch.Tensor):
+        """K4's operands (lower, diag, upper, rhs) for the solve of b:
+        rhs is (nr, nlat, 2, nm), the lat eigentransform of the real and
+        imaginary parts of b's rfft over lon."""
+        acc = torch.promote_types(b.dtype, torch.float32)
+        bh = torch.fft.rfft(b.to(acc), dim=2)
+        bs = torch.stack([bh.real, bh.imag], dim=2)          # (nr, j, 2, k)
+        yh = torch.einsum("kjm,ijsk->imsk", self._Vt.to(acc), bs)
+        return tuple(a.to(acc) for a in self._tc) + (yh,)
+
+    def solve(self, b: torch.Tensor):
+        nlon = self.geo.cell_shape[2]
+        low, diag, up, yh = self.systems(b)
+        xh = self.tridiag(low, diag, up, yh)
+        xs = torch.einsum("kjm,imsk->ijsk", self._Vt.to(yh.dtype), xh)
+        x = torch.fft.irfft(torch.complex(xs[:, :, 0, :], xs[:, :, 1, :]),
+                            n=nlon, dim=2)
         return x.to(b.dtype), 0
 
 
@@ -533,9 +762,12 @@ def _uniform_radial(geo: Geometry) -> bool:
 
 def make_poisson_solver(geo: Geometry, dtype=np.float32,
                         precision: str = "highest", refine_op=None,
-                        device=None):
-    """The cuboid, annulus and shell-uniform branches of the JAX
-    package's factory; the non-uniform shell raises."""
+                        device=None, tridiag: Optional[TridiagSolve] = None,
+                        **kw):
+    """The JAX package's factory: the fast diagonalizations on the
+    cuboid, the annulus and the uniform-radius shell; on a shell with
+    non-uniform radial spacing ``ShellPoissonSpectral`` (``kw``: its
+    ``rtol`` and ``maxiter``), its radial lines on ``tridiag``."""
     if geo.kind == "cuboid":
         if geo.dim == 2:
             return Cuboid2DPoissonFastDiag(geo, dtype=dtype, device=device)
@@ -544,9 +776,8 @@ def make_poisson_solver(geo: Geometry, dtype=np.float32,
         return AnnulusPoissonFastDiag(geo, dtype=dtype, device=device)
     if geo.kind != "shell":
         raise ValueError(f"unknown geometry kind {geo.kind!r}")
-    if not _uniform_radial(geo):
-        raise NotImplementedError(
-            "the non-uniform radial shell (ShellPoissonSpectral) is not "
-            "ported yet (ROADMAP.md: remaining solvers)")
-    return ShellPoissonFastDiag(geo, dtype=dtype, precision=precision,
-                                refine_op=refine_op, device=device)
+    if _uniform_radial(geo):
+        return ShellPoissonFastDiag(geo, dtype=dtype, precision=precision,
+                                    refine_op=refine_op, device=device)
+    return ShellPoissonSpectral(geo, dtype=dtype, tridiag=tridiag,
+                                device=device, **kw)

@@ -36,11 +36,11 @@ def lags_us(prof):
     """(device events, min lag, the graph launch's host start, device
     starts of K2) in µs from the trace's start, by correlation id."""
     from torch.autograd import DeviceType
+    from dycoreplanet_tpu_torch.diagnostics.device_time import device_events
 
-    events = prof.events()
-    calls = {e.id: e for e in events if e.device_type == DeviceType.CPU
+    calls = {e.id: e for e in prof.events() if e.device_type == DeviceType.CPU
              and e.name.startswith("cuda")}
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = device_events(prof)
     lags = [e.time_range.start - calls[e.id].time_range.start
             for e in dev if e.id in calls]
     launch = [e.time_range.start for e in calls.values()

@@ -65,9 +65,6 @@ K4_ORDER = ("momentum", "temperature")
 HAND = ("forcing_kernel", "rich_fused", "faces_div_kernel",
         "reduce_partials", "correct_kernel", "thomas_")
 GEMM = ("gemm", "Gemm", "sm90_", "cutlass", "cublas", "Kernel2")
-# host-side calls that launch device work (kernels or graphs)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 # the instances of K1 and K2, by the wrapper that launches them
 VARIANT = {"richardson": "K1", "richardson_free": "K1u", "forcing": "K2",
            "forcing_momentum": "K2m", "richardson_operands": "K1o",
@@ -85,21 +82,10 @@ def _category(name: str) -> str:
 def _window(prof, n, window_ms):
     """Device time, launches and groups of one profiled window of n
     steps."""
-    from torch.autograd import DeviceType
-    from dycoreplanet_tpu_torch.diagnostics.device_time import wrapper_of
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        device_rows, host_launches, wrapper_of)
 
-    rows, host_launches = [], 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            if e.key in LAUNCH_CALLS:
-                host_launches += e.count
-            continue
-        t_us = getattr(e, "self_device_time_total", None)
-        if t_us is None:
-            t_us = e.self_cuda_time_total
-        if t_us > 0:
-            rows.append((e.key, t_us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
     cats, var = {}, {}
     for name, ms, cnt in rows:
@@ -115,7 +101,7 @@ def _window(prof, n, window_ms):
         "device_ms_per_step": device_ms / n,
         "busy_share": device_ms / window_ms,
         "kernels_per_step": sum(r[2] for r in rows) / n,
-        "host_launches_per_step": host_launches / n,
+        "host_launches_per_step": host_launches(prof) / n,
         "groups_ms_per_step": {c: v[0] / n for c, v in cats.items()},
         "groups_kernels_per_step": {c: v[1] / n for c, v in cats.items()},
         "variant_ms_per_step": {v: t[0] / n for v, t in var.items()},
@@ -128,7 +114,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--trace", default=None,
-                    help="write a chrome trace of the eager window")
+                    help="write a chrome trace of the eager window (its "
+                         "first kernels: profiled's lead spin kernels)")
     ap.add_argument("--helmholtz", choices=("auto", "direct"),
                     default="auto", help="the `helmholtz solver` setting")
     ap.add_argument("--nse-interval", type=int, default=1,
@@ -156,14 +143,12 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
     from dycoreplanet_tpu_torch.diagnostics.device_time import (
-        PAD_S, profiled, time_ms)
+        device_events, profiled, time_ms)
     from dycoreplanet_tpu_torch.models import BoussinesqModel
     from dycoreplanet_tpu_torch.models.presets import (
         BENCH_DT, bench_params, seed_developed_flow)
@@ -226,26 +211,25 @@ def main() -> int:
     torch.cuda.synchronize()
     ms_enqueue = (time.perf_counter() - t0) / n * 1e3
 
-    # the device idles PAD_S on either side of a profiled window, so that
-    # the profiler's clock conversion loses no kernel at the edges
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PAD_S)
+    window = []
+
+    def eager_window():
         t0 = time.perf_counter()
         s1 = s
         for _ in range(n):
             s1, d = eager_step(s1)
             d.solver_ok
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PAD_S)
+        window.append((time.perf_counter() - t0) * 1e3)
+
+    _, prof = profiled(eager_window)
+    window_ms = window[-1]
     if args.trace:
         prof.export_chrome_trace(args.trace)
     eager = _window(prof, n, window_ms)
     rows = eager.pop("rows")
     # K4 launch by launch, in the order of the step
-    k4 = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and "thomas_" in e.name),
+    k4 = sorted((e for e in device_events(prof) if "thomas_" in e.name),
                 key=lambda e: e.time_range.start)
     k4_ms = {}
     for i, e in enumerate(k4):
@@ -260,8 +244,8 @@ def main() -> int:
         sl_args = (s.u, s.T, model._dt_T(dt))
         sl_ms = time_ms(lambda: model._semi_lagrangian(*sl_args))
         _, sl_prof = profiled(lambda: model._semi_lagrangian(*sl_args))
-        sl_out = {"ms_per_call": sl_ms, "kernels_per_call": sum(
-            1 for e in sl_prof.events() if e.device_type == DeviceType.CUDA)}
+        sl_out = {"ms_per_call": sl_ms,
+                  "kernels_per_call": len(device_events(sl_prof))}
 
     name = torch.cuda.get_device_name(0)
     print(f"configuration: {args.prm or 'flagship (models/presets.py)'}, "
@@ -359,14 +343,14 @@ def main() -> int:
                                         collect_diagnostics=False)
         torch.cuda.synchronize()
         ms_bench_form = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as gprof:
-            time.sleep(PAD_S)
+        def graph_window():
             t0 = time.perf_counter()
             replay_chunks()
             torch.cuda.synchronize()
-            gwindow_ms = (time.perf_counter() - t0) * 1e3
-            time.sleep(PAD_S)
+            window.append((time.perf_counter() - t0) * 1e3)
+
+        _, gprof = profiled(graph_window)
+        gwindow_ms = window[-1]
         graph = _window(gprof, n, gwindow_ms)
         graph.pop("rows")
         # device time between events around back-to-back replays (no

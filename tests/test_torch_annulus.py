@@ -611,18 +611,18 @@ def test_annulus_model_builds_no_shell_kernel():
 
 
 @pytest.mark.parametrize("setting", [
-    ("numerics.temperature_advection", "semi-lagrangian",
-     "semi-Lagrangian transport on the annulus"),
+    ("numerics.temperature_advection", "semi-lagrangian", None),
     ("numerics.dtype", "bfloat16", "bf16"),
     ("numerics.poisson_solver", "cg", None),
     ("numerics.poisson_solver", "mg", None),
 ])
 def test_annulus_refusals_name_their_item(setting):
-    """The annulus configurations once refused here: the semi-Lagrangian
-    transport and bf16 still raise naming their ROADMAP.md item;
+    """The annulus configurations once refused here: bf16 still raises
+    naming its ROADMAP.md item; the semi-Lagrangian transport and
     `poisson solver = cg | mg` (item None) now run — two steps through
-    ``run``, finite and divergence-free, the Poisson solve a CG
-    (tests/test_torch_multigrid.py holds them against the JAX model)."""
+    ``run``, finite and divergence-free, with the fast Poisson solve or
+    a Poisson CG (tests/test_torch_sl2d.py and
+    tests/test_torch_multigrid.py hold them against the JAX model)."""
     p = _params(Parameters)
     name, value, item = setting
     obj = p.numerics if name.startswith("numerics.") else p
@@ -632,11 +632,13 @@ def test_annulus_refusals_name_their_item(setting):
             BoussinesqModel(p, device="cpu")
         return
     m = BoussinesqModel(p, device="cpu")
-    assert m.poisson_spectral is None
+    krylov = name == "numerics.poisson_solver"
+    assert (m.poisson_spectral is None) == krylov
     assert (m.poisson_precond is not None) == (value == "mg")
+    assert (m._semi_lagrangian is not None) == (value == "semi-lagrangian")
     state, hist = m.run(max_steps=2)
-    assert all(h["poisson_iters"] > 0 and h["div_norm"] < 1e-9
-               for h in hist)
+    assert all((h["poisson_iters"] > 0 or not krylov)
+               and h["div_norm"] < 1e-9 for h in hist)
     assert bool(torch.isfinite(state.u).all())
 
 

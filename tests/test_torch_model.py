@@ -209,14 +209,15 @@ def test_without_cuda_no_device_raises(monkeypatch):
 ])
 def test_unsupported_configurations_raise(setting):
     """Each configuration this list once refused; settings in a tuple are
-    applied together. Still refused, naming their ROADMAP.md item: bf16
-    (on the cuboid too), the annulus with the semi-Lagrangian transport,
-    Richardson momentum beside CG temperature. Now run: the mimetic FEEC
-    realization, on the shell and on the cube (the
-    ``cube_3d_feec_staggered`` golden's), and `poisson solver = cg | mg`
-    — built through ``make_model`` (the mimetic model for the first two),
-    two steps through ``run``, finite and divergence-free
-    (tests/test_torch_mimetic.py and tests/test_torch_multigrid.py hold
+    applied together. Still refused, naming its ROADMAP.md item: bf16
+    (on the cuboid too). Now run: the mimetic FEEC realization, on the
+    shell and on the cube (the ``cube_3d_feec_staggered`` golden's),
+    `poisson solver = cg | mg`, the annulus with the semi-Lagrangian
+    transport, and Richardson momentum beside CG temperature — built
+    through ``make_model`` (the mimetic model for the first two), two
+    steps through ``run``, finite and divergence-free
+    (tests/test_torch_mimetic.py, tests/test_torch_multigrid.py,
+    tests/test_torch_sl2d.py and tests/test_torch_richardson_cg.py hold
     them against the JAX package). FEEC in its collocated realization
     and the coupled solves run (tests/test_torch_feec.py), as do the
     annulus (tests/test_torch_annulus.py) and the cuboid
@@ -229,13 +230,14 @@ def test_unsupported_configurations_raise(setting):
     for name, value in settings:
         obj = p.numerics if name.startswith("numerics.") else p
         setattr(obj, name.split(".")[-1], value)
-    runs = dict(settings).get("numerics.feec_formulation") == "staggered" \
-        or dict(settings).get("numerics.poisson_solver") in ("cg", "mg")
+    runs = dict(settings).get("numerics.dtype") != "bfloat16"
     if not runs:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             BoussinesqModel(p, device="cpu")
         return
     p.numerics.nz = p.numerics.ny = p.numerics.nx = 8
+    p.numerics.n_radial, p.numerics.n_lon = (
+        (8, 48) if p.space_dimension == 2 else SHAPE[::2])
     m = make_model(p, device="cpu")
     assert isinstance(m, MimeticBoussinesqModel) == p.use_FEEC_solver
     state, hist = m.run(max_steps=2)
