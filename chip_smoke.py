@@ -210,14 +210,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      32x128x256 f32 (its Poisson solve the spectral CG, so no CUDA
      graph): 5 steps through run and as one multi_step chunk, bitwise
      equal, K4 the CG iterations + 1 a step, and one profiled step;
- 12. one JSON line with every kernel's numbers, then, last, the
-     {"ok": true, "device": ...} line.
+ 12. bfloat16 (the bf16-storage, f32-compute forms) and the native VTK
+     encoder: (a) K2, K2m, K1, K1u, K3 and K5 in bf16 at 32x128x256 on
+     the seeded flow (K2, K2m, K1 and K1u also at 6x20x36 and 4x8x16, K1
+     and K1u at (1,1), (3,3) and (3,3) in groups of sweeps), K4's bf16
+     form on the bf16 multigrid's lines at level 0, and K2o, K1o
+     and K2mo in bf16 on every shard of the 2x2 mesh (stitched against
+     K2, K1 and K2m), each against its plain version: every output
+     within one bf16 ulp of its scale plus 1e-5 x scale (K1's float32
+     norms at the f32 tolerances, K4's float32 x at 1e-5 x scale), the
+     kernel's and the plain version's times and the bound at 2 bytes a
+     value; (b) the bf16 flagship at 32x128x256: 20 gated steps through
+     run and as one graph chunk, bitwise, 0 escalations, max|div u|
+     within BF16_DIV_MARGIN of the CPU's reading from the same bf16 states
+     (cpu_div_reading), max|u| within 10% of the f32 run's, one profiled
+     eager step (device ms, kernels, busy
+     share, in-step ms, every hand kernel counted as the wrappers count
+     it); (c) the annulus at 256x3072 with `helmholtz solver = direct` in
+     bf16 (20 steps, run and graph bitwise, K4 40) and one bf16 step of
+     the shell with `poisson solver = mg` (0 escalations, every K4
+     launch on the device the bf16 form), their max|div u| held to the
+     CPU's reading as in (b); (d) a bf16 checkpoint restored bitwise,
+     its float32 time exact, and a restart from it bitwise; (e) VTK
+     writes at 32x128x256 with the native encoder and with the Python
+     one, interleaved, host ms, the files byte for byte equal;
+ 13. one JSON line with every kernel's numbers (the bf16 forms under
+     by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
+     line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
 
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -480,7 +506,8 @@ def check_k4(name, tk, sys4, want, tol):
     before = [a.clone() for a in (low, diag, up, rhs)]
     got = tk(low, diag, up, rhs)
     torch.cuda.synchronize()
-    bits = {4: torch.int32, 8: torch.int64}[rhs.element_size()]
+    bits = {2: torch.int16, 4: torch.int32,
+            8: torch.int64}[rhs.element_size()]
     for a, b in zip((low, diag, up, rhs), before):
         if not torch.equal(a.view(bits), b.view(bits)):
             fail(f"{name}: the kernel changed a caller's operand")
@@ -624,14 +651,16 @@ def replay_launches(label, model, fn, want):
     return out, counts
 
 
-def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
+def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False,
+                 div_tol=1e-4):
     """One path at full width as BoussinesqModel.run and as one
     multi_step chunk of N_STEPS from the same state (a CUDA graph; the
     first chunk captures it): both zero escalations; the run's wrapper
     launches and the replay's device kernels (replay_launches) `want`;
     one replay; states within 1e-6 of each other (expected bitwise;
     required with `bitwise`); the chunk's rows against the run's
-    records, at the model's own dt (the time step `run` takes). `run_out`:
+    records, at the model's own dt (the time step `run` takes), each
+    row's post-projection divergence below ``div_tol``. `run_out`:
     the run's (result, launches, seconds) when the caller drove it.
     Returns (run launches, the replay's device kernels, run ms/step, graph
     ms/step (host clock, unprofiled), the chunk's state and rows)."""
@@ -673,7 +702,7 @@ def graph_vs_run(label, model, s0, want, run_out=None, bitwise=False):
         for k, v in zip(keys[:4], r[:4]):
             if not abs(float(v) - h[k]) <= 1e-5 * abs(h[k]) + 1e-30:
                 fail(f"{label}: row {j} {k} {float(v)!r} vs run {h[k]!r}")
-        if not float(r[4]) < 1e-4:
+        if not float(r[4]) < div_tol:
             fail(f"{label}: row {j} post-projection divergence {r[4]:.3e}")
     if not (rows[:, 10] == 1.0).all():
         fail(f"{label}: a graph step's solver_ok is 0")
@@ -1002,7 +1031,8 @@ def step_profile(fn, n):
             "host_launches_per_step": host_launches(prof) / n,
             "kernel_ms_per_step": by,
             "busy_share": dev_ms / (window[0] * 1e3),
-            "counts": count_kernels(prof, SHELL_NAMES + ("tridiag",))}
+            "counts": count_kernels(prof, SHELL_NAMES + ("tridiag",)),
+            "rows": rows}
 
 
 def launch_plan(kf, dev, dtype):
@@ -3500,6 +3530,650 @@ def stretched_run(dev):
         busy=prof["busy_share"], profiled_counts=prof["counts"])
 
 
+# ---------------------------------------------------------------- phase 12
+# bfloat16 on one device and on the mesh, and the native VTK encoder:
+# (a) every bf16 form against its plain version; (b) the flagship in
+# bf16 through run and as a graph chunk; (c) the annulus at work size
+# (direct) and the shell's multigrid Poisson solve in bf16; (d) a bf16
+# checkpoint and a restart from it; (e) one VTK write at BENCH_SHAPE with
+# the native encoder and with the Python one
+BF16 = "bfloat16"
+# the bf16 forms' shapes besides BENCH_SHAPE, and K1's iteration pairs
+# there ((3, 3) also in groups of sweeps through device memory)
+BF16_SHAPES = ((6, 20, 36), (4, 8, 16))
+BF16_PAIRS = ((1, 1), (3, 3))
+# the bf16 flagship's state against the f32 run's after N_STEPS: the JAX
+# package's bf16 test bound (tests/test_mixed_precision.py, 10% of the
+# f64 max velocity)
+BF16_TRACK = 0.1
+# the card's bf16 max|div u| against the CPU's from the same state: the
+# rounding the bf16 step leaves in the divergence dominates it (f32
+# reads ~5e-5), and the two sides round the same float32 values but for
+# the kernels' reassociation
+BF16_DIV_MARGIN = 2.0
+# VTK writes a side in phase 12 (e), native and Python interleaved
+VTK_WRITES = 6
+
+
+def bf16_ulp(scale):
+    """The spacing of bfloat16 values (8 significant bits) at ``scale``:
+    one bf16 ulp of an output's scale."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def compare_bf16(name, got, want, reassoc=1e-5):
+    """bfloat16 outputs of a kernel against its plain version (the f32
+    plain version on the widened inputs, each output rounded once): each
+    within one bf16 ulp of its scale (max |want|) plus ``reassoc`` x scale
+    (the two f32 computations' reassociation before they round). Returns
+    (the max abs error, the worst error in ulps of its output's
+    scale)."""
+    import torch
+
+    err = ulps = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+            fail(f"{name} output {k}: {g.dtype} / {w.dtype}, expected "
+                 f"bfloat16")
+        sc = float(w.float().abs().max())
+        ulp = bf16_ulp(sc)
+        d = float((g.float() - w.float()).abs().max())
+        if not d <= ulp + reassoc * sc:
+            fail(f"{name} output {k}: max |diff| {d:.3e} > one bf16 ulp "
+                 f"{ulp:.3e} of its scale {sc:.3e} + {reassoc} x scale")
+        err, ulps = max(err, d), max(ulps, d / ulp if ulp else 0.0)
+    return err, ulps
+
+
+def cpu_div_reading(model, cpu_model, state):
+    """One step from ``state`` on the card (``model``) and from a copy of
+    it on the CPU (``cpu_model``, the same parameters on the CPU, whose
+    wrappers run their plain versions: the float32 plain version on the
+    widened inputs, each output rounded once to bfloat16): (the card's
+    post-projection max|div u|, the CPU's). The CPU's is an independent
+    reading of what bf16 rounding leaves in that step's divergence."""
+    import torch
+
+    def step(m, s):
+        return float(m.step(s, m._scalar(m.params.time_step))[1].div_norm)
+
+    cpu = torch.device("cpu")
+    host = state._replace(u=state.u.to(cpu), p=state.p.to(cpu),
+                          T=state.T.to(cpu),
+                          u_faces=tuple(f.to(cpu) for f in state.u_faces))
+    return step(model, state), step(cpu_model, host)
+
+
+def hold_div_to_cpu(label, card, cpu):
+    """The card's max|div u| ``card`` (one or more steps) within
+    BF16_DIV_MARGIN of the CPU's reading ``cpu`` from the same states.
+    Returns the limit."""
+    limit = BF16_DIV_MARGIN * cpu
+    if not card <= limit:
+        fail(f"{label}: max|div u| {card:.4e} > {BF16_DIV_MARGIN} x the "
+             f"CPU's {cpu:.4e} from the same bf16 state")
+    return limit
+
+
+def check_k1_bf16(name, rk, args1):
+    """K1 (or K1u) in bf16 against its plain version: u*, T_new, the faces
+    and rhs_phi by compare_bf16; the float32 norms: K1's by check_norms
+    at f32 (the kernel computes and sums in f32), K1u's the -1 sentinel
+    and its b norms rtol 1e-5. Returns compare_bf16's (err, ulps)."""
+    import torch
+
+    got, want = rk(*args1), rk.plain(*args1)
+    torch.cuda.synchronize()
+    out = compare_bf16(name, (got[0], got[1]) + tuple(got[2]),
+                       (want[0], want[1]) + tuple(want[2]))
+    if any(x.dtype != torch.float32 for x in tuple(got[3]) + tuple(want[3])):
+        fail(f"{name}: norms {[x.dtype for x in got[3]]}, expected float32")
+    if rk.track_residual:
+        check_norms(name, got[3], want[3], short_norms(rk, args1),
+                    torch.float32)
+    else:
+        g, w = [float(x) for x in got[3]], [float(x) for x in want[3]]
+        if not g[0] == g[2] == w[0] == w[2] == -1.0 or not all(
+                abs(g[b] - w[b]) <= 1e-5 * w[b] for b in (1, 3)):
+            fail(f"{name}: norms {g} vs plain {w}")
+    return out
+
+
+def bf16_richardson(m, iu, iT, track, grouped=False):
+    """A ShellRichardson of model m at (iu, iT) sweeps; ``grouped``: its
+    sweeps in groups (several passes through device memory) under a limit
+    of 2,500 values of shared memory."""
+    import torch
+    from dycoreplanet_tpu_torch.ops import kernel_lib
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+    from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
+
+    rk = ShellRichardson(
+        m.geo, one_over_Re=m.one_over_Re, one_over_Pe=m.one_over_Pe,
+        nse_interval=m.params.NSE_solver_interval, helm_diags=m.helm_diags,
+        T_diag=m.T_diag, iters_u=iu, iters_T=iT, u_specs=m.u_specs,
+        T_specs_hom=m.T_specs_hom, track_residual=track)
+    if grouped:
+        size = torch.finfo(kernel_lib.compute_dtype(m.torch_dtype)).bits // 8
+        rk.plan = (lambda dtype: k1.plan(
+            m.geo.cell_shape, size, iu, iT, smem_limit=2500 * size,
+            track=track))
+        if len(rk.plan(m.torch_dtype)) < 2:
+            fail(f"K1 bf16 ({iu},{iT}) in groups: one pass")
+    return rk
+
+
+def check_k1_k2_bf16(dev, shape):
+    """K2, K2m, then K1 and K1u at every pair of BF16_PAIRS and at (3, 3)
+    in groups, in bf16 at ``shape``, against their plain versions
+    (compare_bf16). Returns {name: worst ulps}."""
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, bench_params, seed_developed_flow)
+
+    m = BoussinesqModel(bench_params(shape, BF16), device=dev)
+    sm = BoussinesqModel(sl_params(bench_params(shape, BF16)), device=dev)
+    s = seed_developed_flow(m)
+    dt = m._scalar(BENCH_DT)
+    a2 = (s.u, s.u_faces, s.T, s.p, dt)
+    out = {}
+    g2 = m._forcing(*a2)
+    out["K2"] = compare_bf16(f"K2 bf16 {shape}", g2, m._forcing.plain(*a2))
+    out["K2m"] = compare_bf16(f"K2m bf16 {shape}", (sm._forcing(*a2),),
+                              (sm._forcing.plain(*a2),))
+    a1 = (g2[0], m._vol_t * g2[1] + m._product(dt, m.one_over_Pe)
+          * m._T_lap_offset_t, s.T, dt)
+    for iu, iT, grouped in [p + (False,) for p in BF16_PAIRS] + [
+            (3, 3, True)]:
+        for track, name in ((True, "K1"), (False, "K1u")):
+            what = (f"{name} bf16 {shape} ({iu},{iT})"
+                    f"{' in groups' if grouped else ''}")
+            e = check_k1_bf16(what, bf16_richardson(m, iu, iT, track,
+                                                    grouped), a1)
+            out[name] = max(out.get(name, (0.0, 0.0)), e)
+    return out
+
+
+def bf16_mesh_kernels(dev, timing):
+    """K2o, K1o and K2mo in bf16 on every shard of the 2 x 2 mesh at
+    BENCH_SHAPE, on the seeded developed flow, against their plain
+    versions (compare_bf16; K1o's sums: |b|^2 rtol 1e-5 and |r| within
+    0.1 |r| + 4 eps_f32 |b|, as in f32), and the shards stitched together
+    against the single-device K2, K1 and K2m in bf16 (compare_bf16). With
+    ``timing``: shard (0, 0)'s kernel and plain times and bound at 2 bytes
+    a value. Returns {name: numbers}."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+    from dycoreplanet_tpu_torch.parallel.halo import halo_pad
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        build, shard_state, unshard_field)
+    from dycoreplanet_tpu_torch.parallel.sharded_pallas import forcing_halos
+
+    rows = {}
+    eps = float(torch.finfo(torch.float32).eps)
+    for sl in (False, True):
+        model = mesh_model(dev, (2, 2), BF16, sl_params if sl else
+                           (lambda p: p))
+        s0 = seed_developed_flow(model)
+        dt = model._scalar(BENCH_DT)
+        mesh = model._mesh.mesh
+        sh = shard_state(s0, model.geo, mesh)
+        kf, kr = model._mesh.forcing.kern, model._mesh.richardson.kern
+        nr, nl, no = kf.local_shape
+        halos = forcing_halos(sh.u, sh.u_faces, sh.T, sh.p, mesh,
+                              advect_T=not sl)
+        name = "K2mo" if sl else "K2o"
+        out2, a2, e2 = {}, {}, (0.0, 0.0)
+        for (a, b), u in sh.u.items():
+            a2[a, b] = (u, tuple(f[a, b] for f in sh.u_faces), sh.T[a, b],
+                        sh.p[a, b], dt, halos[a, b], (a * nl, b * no))
+            got = kf.call_operands(*a2[a, b])
+            want = kf.plain_operands(*a2[a, b])
+            got, want = ((got,), (want,)) if sl else (got, want)
+            e2 = max(e2, compare_bf16(f"{name} bf16 shard {(a, b)}", got,
+                                      want))
+            out2[a, b] = got
+        single = model._forcing(s0.u, s0.u_faces, s0.T, s0.p, dt)
+        single = (single,) if sl else single
+        d2 = compare_bf16(f"{name} bf16 stitched vs single device", [
+            unshard_field(build(mesh, lambda a, b: out2[a, b][i]))
+            for i in range(len(single))], single)
+        rows[name] = dict(max_abs_err=max(e2[0], d2[0]),
+                          max_err_ulps=max(e2[1], d2[1]))
+        if timing:
+            cells = nr * nl * no
+            halo_vals = sum(t.numel() for t in halos[0, 0].values())
+            fields = k2.MOMENTUM_FIELDS_MOVED if sl else k2.FIELDS_MOVED
+            rows[name].update(zip(("bound_ms", "bound_by"), bound_of(
+                2 * (fields * cells + halo_vals),
+                (k2.MOMENTUM_OPS_PER_CELL if sl else k2.OPS_PER_CELL)
+                * cells)))
+            rows[name].update(
+                ms=time_ms(lambda: kf.call_operands(*a2[0, 0])),
+                plain_ms=time_ms(lambda: kf.plain_operands(*a2[0, 0]),
+                                 reps=5))
+        if sl:
+            break
+        # K1o on K2o's outputs, rhs_T as the step forms it
+        ops = model._mesh.ops
+        kT = model._product(dt, model.one_over_Pe)
+        rhs_u = build(mesh, lambda a, b: out2[a, b][0])
+        rhs_T = build(mesh, lambda a, b: ops.vol[a, b] * out2[a, b][1]
+                      + kT * ops.T_lap_offset[a, b])
+        GH = kr.GH
+        st5 = rhs_u.map(lambda u, r, t: torch.cat([u, r[None], t[None]]),
+                        rhs_T, sh.T)
+        st5 = halo_pad(st5, mesh, "lon", 3, width=GH, periodic=True)
+        st5 = halo_pad(st5, mesh, "lat", 2, width=GH, periodic=False)
+        out1, a1, e1 = {}, {}, (0.0, 0.0)
+        for (a, b), e in st5.items():
+            a1[a, b] = (e[:3], e[3], e[4], dt, (a * nl, b * no))
+            got = kr.call_operands(*a1[a, b])
+            want = kr.plain_operands(*a1[a, b])
+            e1 = max(e1, compare_bf16(f"K1o bf16 shard {(a, b)}", got[:6],
+                                      want[:6]))
+            g = [float(x) for x in got[6]]
+            w = [float(x) for x in want[6]]
+            b_ok = all(abs(g[k] - w[k]) <= 1e-5 * w[k] for k in (1, 3))
+            r_ok = all(abs(g[r] ** 0.5 - w[r] ** 0.5)
+                       <= 0.1 * w[r] ** 0.5 + 4 * eps * w[bb] ** 0.5
+                       for r, bb in ((0, 1), (2, 3)))
+            if got[6].dtype != torch.float32 or not (b_ok and r_ok):
+                fail(f"K1o bf16 shard {(a, b)}: sums {g} ({got[6].dtype}) "
+                     f"vs plain {w}")
+            out1[a, b] = got
+        k1_out = model._richardson(unshard_field(rhs_u),
+                                   unshard_field(rhs_T), s0.T, dt)
+        d1 = compare_bf16("K1o bf16 stitched vs K1", [unshard_field(build(
+            mesh, lambda a, b: out1[a, b][i])) for i in range(5)],
+            [k1_out[0], k1_out[1]] + list(k1_out[2][:3]))
+        rows["K1o"] = dict(max_abs_err=max(e1[0], d1[0]),
+                           max_err_ulps=max(e1[1], d1[1]))
+        if timing:
+            cells = nr * nl * no
+            ext = nr * (nl + 2 * GH) * (no + 2 * GH)
+            rows["K1o"].update(zip(("bound_ms", "bound_by"), bound_of(
+                2 * (5 * ext + 8 * cells),
+                k1.ops_per_cell(kr.iters_u, kr.iters_T) * cells)))
+            rows["K1o"].update(
+                ms=time_ms(lambda: kr.call_operands(*a1[0, 0])),
+                plain_ms=time_ms(lambda: kr.plain_operands(*a1[0, 0]),
+                                 reps=5))
+    phase("12 (a) K2o / K1o / K2mo bf16 on the 2x2 mesh, every shard "
+          "against its plain version and stitched against K2 / K1 / K2m: " +
+          "; ".join(f"{k} max abs err {r['max_abs_err']:.3e} "
+                    f"({r['max_err_ulps']:.2f} ulps of scale)"
+                    + (f", kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f}"
+                       f" ms, bound {r['bound_ms'] * 1e3:.2f} us" if timing
+                       else "") for k, r in rows.items()))
+    return rows
+
+
+def bf16_mg_k4(dev):
+    """K4's bf16 form on the MG line smoother's operands at level 0 of
+    the bf16 shell at BENCH_SHAPE, on every line axis: the rhs the bf16
+    residual's moved view (on the periodic lon lines alone, their
+    Sherman-Morrison column solved once: solvers/multigrid.py), the
+    coefficients the smoother's float32 tables, x float32, against the
+    plain version (rtol = atol = 1e-5 x scale, the f32
+    tolerance: both recur in f32 on the same values), nothing copied, one
+    launch's time and the bound (rhs at 2 bytes, the coefficients and x
+    at 4). Returns {kind: numbers}."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import BENCH_SHAPE, bench_params
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+
+    p = bench_params(BENCH_SHAPE, BF16)
+    p.numerics.poisson_solver = "mg"
+    m = BoussinesqModel(p, device=dev)
+    mg, tk = m.poisson_precond, m._tridiag
+    gen = torch.Generator(device=dev).manual_seed(15)
+    r = torch.randn(m.geo.cell_shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    rows = {}
+    for a in mg.line_axes:
+        kind = (f"axis {a} (r)" if a == 0 else f"axis {a}") + (
+            " periodic" if mg.specs[a] is None else "")
+        ops = mg.line_operands(0, a, r)
+        if ops[3].dtype != torch.bfloat16 or any(
+                x.dtype != torch.float32 for x in ops[:3]):
+            fail(f"12 (a) K4 MG bf16 {kind}: operands "
+                 f"{[x.dtype for x in ops]}, expected f32 coefficients and "
+                 f"a bf16 rhs")
+        lay = k4.layout(*ops, pair=tk.pair)
+        want = tk.plain(*ops)
+        sc = float(want.abs().max())
+        tk.copies = 0
+        err = check_k4(f"K4 tridiag MG bf16 {kind}", tk, ops, want,
+                       1e-5 * sc)
+        if lay.copied or tk.copies or tk(*ops).dtype != torch.float32:
+            fail(f"12 (a) K4 MG bf16 {kind}: copied {lay.copied}, x not "
+                 f"float32")
+        n_x = ops[3].numel()
+        coef = k4.values_moved(*ops) - 2 * n_x      # lower, diag, upper
+        b_ms, b_by = bound_of(4 * coef + 2 * n_x + 4 * n_x,
+                              k4.OPS_PER_VALUE * n_x)
+        rows[kind] = dict(max_abs_err=err, ms=time_ms(lambda: tk(*ops)),
+                          plain_ms=time_ms(lambda: tk.plain(*ops), reps=10),
+                          bound_ms=b_ms, bound_by=b_by)
+    phase("12 (a) K4 tridiag bf16 (bf16 rhs, f32 coefficients), MG line "
+          "layout at level 0, every line axis: " + "; ".join(
+              f"{k}: max abs err {r['max_abs_err']:.3e} (tol 1e-5 x scale), "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
+              for k, r in rows.items()) + "; 0 operands copied, x float32")
+    return rows
+
+
+def bf16_phases(dev, s_f32):
+    """Phase 12. ``s_f32``: the f32 flagship's state after N_STEPS steps
+    from the seeded flow (phase 4). Returns (the bf16 rows by kernel
+    name, the launches by path, the replays' device kernels by path)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.io import vtk
+    from dycoreplanet_tpu_torch.io.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.ops import forcing as k2
+    from dycoreplanet_tpu_torch.ops import projection as k3
+    from dycoreplanet_tpu_torch.ops import richardson as k1
+    from dycoreplanet_tpu_torch.ops import stencil as st
+
+    t0 = time.perf_counter()
+    rows, launches, replays = {}, {}, {}
+    # ---- (a) the kernels at BENCH_SHAPE, on the seeded developed flow
+    bm = BoussinesqModel(bench_params(BENCH_SHAPE, BF16), device=dev)
+    n = bm.geo.n_cells
+    b0 = seed_developed_flow(bm)
+    dt = bm._scalar(BENCH_DT)
+    fk, rk, pk = bm._forcing, bm._richardson, bm._proj
+    slm = BoussinesqModel(sl_params(bench_params(BENCH_SHAPE, BF16)),
+                          device=dev)
+    im = BoussinesqModel(interval_params(bench_params(BENCH_SHAPE, BF16)),
+                         device=dev)
+
+    def add(name, err, fn, plain, fields, ops):
+        b_ms, b_by = bound(n, fields, ops, itemsize=2)
+        rows[name] = dict(max_abs_err=err[0], max_err_ulps=err[1],
+                          ms=time_ms(fn), plain_ms=time_ms(plain, reps=10),
+                          bound_ms=b_ms, bound_by=b_by)
+
+    a2 = (b0.u, b0.u_faces, b0.T, b0.p, dt)
+    g2 = fk(*a2)
+    add("K2", compare_bf16("K2 bf16", g2, fk.plain(*a2)),
+        lambda: fk(*a2), lambda: fk.plain(*a2), k2.FIELDS_MOVED,
+        k2.OPS_PER_CELL)
+    fm = slm._forcing
+    add("K2m", compare_bf16("K2m bf16", (fm(*a2),), (fm.plain(*a2),)),
+        lambda: fm(*a2), lambda: fm.plain(*a2), k2.MOMENTUM_FIELDS_MOVED,
+        k2.MOMENTUM_OPS_PER_CELL)
+    a1 = (g2[0], bm._vol_t * g2[1] + bm._product(dt, bm.one_over_Pe)
+          * bm._T_lap_offset_t, b0.T, dt)
+    add("K1", check_k1_bf16("K1 bf16", rk, a1), lambda: rk(*a1),
+        lambda: rk.plain(*a1), k1.FIELDS_MOVED,
+        k1.ops_per_cell(rk.iters_u, rk.iters_T))
+    rku = im._richardson_free
+    add("K1u", check_k1_bf16("K1u bf16", rku, a1), lambda: rku(*a1),
+        lambda: rku.plain(*a1), k1.FIELDS_MOVED,
+        k1.ops_per_cell(rku.iters_u, rku.iters_T, track=False))
+    u_star = rk(*a1)[0]
+    g3, w3 = pk.faces_div(u_star, dt), pk.plain(u_star, dt)
+    e3 = compare_bf16("K3 bf16", g3[:4], w3[:4])
+    if g3[4].dtype != torch.float32:
+        fail(f"K3 bf16: the sum is {g3[4].dtype}, expected float32")
+    compare("K3 bf16 sum", (g3[4] / n,), (w3[4] / n,), 1e-4,
+            2e-5 * float(w3[3].float().abs().max()))
+    add("K3", e3, lambda: pk.faces_div(u_star, dt),
+        lambda: pk.plain(u_star, dt), k3.FIELDS_MOVED, k3.OPS_PER_CELL)
+    rhs_phi = (g3[3] - g3[4] / float(n)).to(torch.bfloat16)
+    phi, _ = bm.poisson_spectral.solve(rhs_phi)
+    a5 = (u_star, g3[:3], phi, b0.p, dt, st.volume_mean(bm.geo, phi))
+    add("K5", compare_bf16("K5 bf16", pk.correct(*a5),
+                           pk.correct_plain(*a5)),
+        lambda: pk.correct(*a5), lambda: pk.correct_plain(*a5),
+        k3.CORRECT_FIELDS_MOVED, k3.CORRECT_OPS_PER_CELL)
+    phase(f"12 (a) bf16 kernels at {BENCH_SHAPE} against their plain "
+          f"versions (each output within one bf16 ulp of its scale + 1e-5 x "
+          f"scale; K1's norms float32 at f32's tolerances; K3's sum "
+          f"float32): " +
+          "; ".join(f"{k} max abs err {r['max_abs_err']:.3e} "
+                    f"({r['max_err_ulps']:.2f} ulps), kernel {r['ms']:.4f} "
+                    f"ms, plain {r['plain_ms']:.3f} ms, bound "
+                    f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, 2 bytes "
+                    f"a value)" for k, r in rows.items()))
+    for shape in BF16_SHAPES:
+        small = check_k1_k2_bf16(dev, shape)
+        for k, e in small.items():
+            rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e[0])
+            rows[k]["max_err_ulps"] = max(rows[k]["max_err_ulps"], e[1])
+        phase(f"12 (a) K2 / K2m / K1 / K1u bf16 at {shape}, K1 and K1u at "
+              f"{list(BF16_PAIRS)} and (3,3) in groups: " + ", ".join(
+                  f"{k} {e[1]:.2f} ulps" for k, e in small.items()))
+    rows["K4 MG"] = bf16_mg_k4(dev)
+    rows.update(bf16_mesh_kernels(dev, timing=True))
+    phase("12 (a) done" + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (b) the flagship in bf16
+    want_l = {"forcing": N_STEPS, "richardson": N_STEPS, "faces_div": 0,
+              "correct": N_STEPS, "tridiag": 0}
+    bm.run(max_steps=2, state=b0)
+    run_b = drive(bm, lambda: bm.run(max_steps=N_STEPS, state=b0))
+    (s_b, hist_b), l_b, _ = run_b
+    if l_b != want_l or len(hist_b) != N_STEPS:
+        fail(f"12 (b) bf16 flagship: run launches {l_b}, expected {want_l}")
+    if any(x.dtype != torch.bfloat16 for x in
+           (s_b.u, s_b.p, s_b.T) + tuple(s_b.u_faces)):
+        fail("12 (b) bf16 flagship: a state field left bfloat16")
+    divs = [h["div_norm"] for h in hist_b]
+    # the card's and the CPU's step from the run's first state (the seeded
+    # flow) and from its last; the run's steps between held to the larger
+    # CPU reading
+    cpu_bm = BoussinesqModel(bench_params(BENCH_SHAPE, BF16), device="cpu")
+    div_0, cpu_0 = cpu_div_reading(bm, cpu_bm, b0)
+    div_c, cpu_c = cpu_div_reading(bm, cpu_bm, s_b)
+    hold_div_to_cpu("12 (b) bf16 flagship, from the seeded flow", div_0,
+                    cpu_0)
+    hold_div_to_cpu(f"12 (b) bf16 flagship, from step {N_STEPS}", div_c,
+                    cpu_c)
+    div_tol = hold_div_to_cpu(f"12 (b) bf16 flagship, {N_STEPS} steps",
+                              max(divs), max(cpu_0, cpu_c))
+    rows["div_flagship"] = dict(card_first=div_0, cpu_first=cpu_0,
+                                card_last=div_c, cpu_last=cpu_c,
+                                run_max=max(divs))
+    _, l_g, ms_r, ms_g, s_g, _ = graph_vs_run(
+        "12 (b) bf16 flagship", bm, b0, want_l, run_b, bitwise=True,
+        div_tol=div_tol)
+    u_b, u_f = s_b.u.float(), s_f32.u
+    track = float((u_b - u_f).abs().max() / u_f.abs().max())
+    if not track <= BF16_TRACK:
+        fail(f"12 (b) bf16 flagship vs f32 after {N_STEPS} steps: max|du| "
+             f"{track:.3e} of max|u| > {BF16_TRACK}")
+    prof = step_profile(lambda: bm.run(max_steps=1, state=b0), 1)
+    once = {k: v // N_STEPS for k, v in l_b.items()}
+    hand = {k: v for k, v in prof["counts"].items()
+            if k in once or v}
+    if hand != once:
+        fail(f"12 (b) bf16 flagship: the profiler counted {hand} hand "
+             f"kernels in one step, the wrappers {once}")
+    for k in ("forcing", "richardson", "correct"):
+        rows[{"forcing": "K2", "richardson": "K1", "correct": "K5"}[k]][
+            "in_step_ms"] = prof["kernel_ms_per_step"].get(k)
+    launches["bf16_main"] = l_b
+    replays["bf16_main_graph"] = l_g
+    phase(f"12 (b) bf16 flagship {BENCH_SHAPE}: {N_STEPS} gated steps, "
+          f"{bm.escalations} escalations, launches {l_b}, max|div u| "
+          f"first/last/max {divs[0]:.4e}/{divs[-1]:.4e}/{max(divs):.4e}; "
+          f"one step from the first / last state: card {div_0:.4e} / "
+          f"{div_c:.4e}, CPU {cpu_0:.4e} / {cpu_c:.4e} (limit "
+          f"{BF16_DIV_MARGIN} x the CPU's; f32 phase 4: < 1e-4), graph = "
+          f"run bitwise, max|u| "
+          f"{hist_b[-1]['max_velocity']:.4f} vs f32 "
+          f"{float(u_f.abs().max()):.4f}, max|u_bf16 - u_f32| {track:.3e} of "
+          f"max|u| (tol {BF16_TRACK}); one eager step: "
+          f"{prof['device_ms_per_step']:.3f} device ms, "
+          f"{prof['kernels_per_step']:.0f} kernels, busy share "
+          f"{prof['busy_share']:.3f}, hand kernels {hand} (= the wrappers'), "
+          f"in-step ms {prof['kernel_ms_per_step']}; host ms/step run "
+          f"{ms_r:.3f}, graph {ms_g:.3f}")
+
+    # ---- (c) the annulus at work size, direct; the shell's MG
+    am = BoussinesqModel(annulus_params(BF16, helmholtz_solver="direct"),
+                         device=dev)
+    a0 = am.initial_state()
+    want_a = {"tridiag": 2 * N_STEPS}
+    am.run(max_steps=2, state=a0)
+    run_a = drive(am, lambda: am.run(max_steps=N_STEPS, state=a0))
+    (s_a, hist_a), l_a, _ = run_a
+    cpu_am = BoussinesqModel(annulus_params(BF16, helmholtz_solver="direct"),
+                             device="cpu")
+    da_0, ca_0 = cpu_div_reading(am, cpu_am, a0)
+    da_c, ca_c = cpu_div_reading(am, cpu_am, s_a)
+    hold_div_to_cpu("12 (c) bf16 annulus direct, from the initial state",
+                    da_0, ca_0)
+    hold_div_to_cpu(f"12 (c) bf16 annulus direct, from step {N_STEPS}",
+                    da_c, ca_c)
+    tol_a = hold_div_to_cpu(
+        f"12 (c) bf16 annulus direct, {N_STEPS} steps",
+        max(h["div_norm"] for h in hist_a), max(ca_0, ca_c))
+    rows["div_annulus"] = dict(card_first=da_0, cpu_first=ca_0,
+                               card_last=da_c, cpu_last=ca_c,
+                               run_max=max(h["div_norm"] for h in hist_a))
+    _, l_ag, _, _, _, _ = graph_vs_run(
+        "12 (c) bf16 annulus direct", am, a0, want_a, run_a, bitwise=True,
+        div_tol=tol_a)
+    launches["bf16_annulus_direct"] = l_a
+    replays["bf16_annulus_direct_graph"] = l_ag
+    phase(f"12 (c) bf16 annulus direct {am.geo.cell_shape}: launches "
+          f"{l_a}, max|div u| {max(h['div_norm'] for h in hist_a):.4e}; one "
+          f"step from the first / last state: card {da_0:.4e} / "
+          f"{da_c:.4e}, CPU {ca_0:.4e} / {ca_c:.4e}, "
+          f"max|u| {hist_a[-1]['max_velocity']:.4e}, {am.escalations} "
+          f"escalations")
+    p = bench_params(BENCH_SHAPE, BF16)
+    p.numerics.poisson_solver = "mg"
+    mgm = BoussinesqModel(p, device=dev)
+    m0 = seed_developed_flow(mgm)
+    (s_m, hist_m), l_m, w_m = drive(mgm, lambda: mgm.run(max_steps=1,
+                                                          state=m0))
+    prof_m = step_profile(lambda: mgm.run(max_steps=1, state=m0), 1)
+    k4_bf16 = sum(c for name, _, c in prof_m["rows"]
+                  if "thomas_" in name and "bfloat16" in name)
+    per_cycle = mgm.poisson_precond.line_solves_per_cycle()
+    iters = hist_m[0]["poisson_iters"]
+    # every line solve takes the bf16 form (the periodic lon lines too)
+    if (mgm.escalations or l_m["tridiag"] != per_cycle * (iters + 1)
+            or prof_m["counts"]["tridiag"] != l_m["tridiag"]
+            or k4_bf16 != l_m["tridiag"]):
+        fail(f"12 (c) bf16 shell mg: K4 {l_m['tridiag']} launches, "
+             f"{prof_m['counts']['tridiag']} on the device ({k4_bf16} of the "
+             f"bf16 form), {iters} CG iterations x {per_cycle}, "
+             f"{mgm.escalations} escalations")
+    p = bench_params(BENCH_SHAPE, BF16)
+    p.numerics.poisson_solver = "mg"
+    dm_0, cm_0 = cpu_div_reading(mgm, BoussinesqModel(p, device="cpu"), m0)
+    hold_div_to_cpu("12 (c) bf16 shell mg, from the seeded flow", dm_0, cm_0)
+    rows["div_mg"] = dict(card_first=dm_0, cpu_first=cm_0,
+                          run_first=hist_m[0]["div_norm"])
+    launches["bf16_poisson_mg"] = l_m
+    phase(f"12 (c) bf16 shell poisson solver = mg {BENCH_SHAPE}, one step: "
+          f"{iters} CG iterations, 0 escalations, K4 launches "
+          f"{l_m['tridiag']} (= {per_cycle} a V-cycle x {iters + 1}), "
+          f"{k4_bf16} of them the bf16 form on the device (every line), "
+          f"max|div u| {hist_m[0]['div_norm']:.4e}; one step from the "
+          f"seeded flow: card {dm_0:.4e}, CPU {cm_0:.4e}, "
+          f"{w_m * 1e3:.0f} host ms")
+
+    # ---- (d) a bf16 checkpoint and a restart from it
+    with tempfile.TemporaryDirectory() as tmp:
+        # from time 4.25, where float32 times lie between bfloat16 values
+        s2, _ = bm.run(max_steps=2, state=b0._replace(time=4.25))
+        path = save_checkpoint(os.path.join(tmp, "bf16_ckpt.npz"), s2)
+        r2, _ = load_checkpoint(path, dev)
+        with np.load(path) as data:
+            kinds = {k: str(data[k].dtype) for k in ("u", "T", "time")}
+        if not same_bits((r2.u, r2.T, (r2.p,) + tuple(r2.u_faces)),
+                         (s2.u, s2.T, (s2.p,) + tuple(s2.u_faces))):
+            fail("12 (d) the bf16 checkpoint did not restore bitwise")
+        if (r2.time, r2.step_number) != (s2.time, s2.step_number):
+            fail(f"12 (d) the bf16 checkpoint restored time "
+                 f"{r2.time!r} / step {r2.step_number}, saved {s2.time!r} / "
+                 f"{s2.step_number}")
+        s5a, _ = bm.run(max_steps=3, state=s2)
+        s5b, _ = bm.run(max_steps=3, state=r2)
+        if not same_bits((s5a.u, s5a.T, (s5a.p,) + tuple(s5a.u_faces)),
+                         (s5b.u, s5b.T, (s5b.p,) + tuple(s5b.u_faces))) or \
+                s5a.time != s5b.time:
+            fail("12 (d) 3 steps from the restored bf16 state differ from "
+                 "3 steps from the saved one")
+        ck_bytes = os.path.getsize(path)
+    phase(f"12 (d) bf16 checkpoint ({ck_bytes} bytes; arrays {kinds}): "
+          f"restored bitwise, time {r2.time!r} exact, 3 steps from it "
+          f"bitwise 3 steps from the saved state")
+
+    # ---- (e) VTK writes and the velocity block's encoding with the
+    # native encoder and with Python's, interleaved
+    with tempfile.TemporaryDirectory() as tmp:
+        host = [x.float().cpu().numpy() for x in (s_b.u, s_b.p, s_b.T)]
+
+        def write(name):
+            t = time.perf_counter()
+            vtk.write_vts(os.path.join(tmp, name), bm.geo,
+                          scalars={"pressure": host[1],
+                                   "temperature": host[2]},
+                          vectors={"velocity": host[0]})
+            return (time.perf_counter() - t) * 1e3
+
+        def encode_ms(fn, a):
+            t = time.perf_counter()
+            fn(a)
+            return (time.perf_counter() - t) * 1e3
+
+        encode = vtk._b64_block
+        block = np.ascontiguousarray(host[0])
+        native, plain, enc_n, enc_p = [], [], [], []
+        for _ in range(VTK_WRITES):
+            native.append(write("native.vts"))
+            vtk._b64_block = vtk._b64_block_plain
+            try:
+                plain.append(write("plain.vts"))
+            finally:
+                vtk._b64_block = encode
+            enc_n.append(encode_ms(vtk._b64_block, block))
+            enc_p.append(encode_ms(vtk._b64_block_plain, block))
+        if not same_file(os.path.join(tmp, "native.vts"),
+                         os.path.join(tmp, "plain.vts")):
+            fail("12 (e) the native encoder's .vts differs from the Python "
+                 "encoder's")
+        vts_bytes = os.path.getsize(os.path.join(tmp, "native.vts"))
+    # the native encoder separates from Python's where every one of its
+    # times is below every one of the other's
+    rows["VTK"] = dict(native_ms=native, plain_ms=plain, vts_bytes=vts_bytes,
+                       encode_native_ms=enc_n, encode_plain_ms=enc_p,
+                       block_bytes=block.nbytes,
+                       write_separated=max(native) < min(plain),
+                       encode_separated=max(enc_n) < min(enc_p))
+    phase(f"12 (e) {VTK_WRITES} VTK writes a side at {BENCH_SHAPE} (u, p, "
+          f"T; {vts_bytes} bytes), interleaved, host ms: native encoder "
+          f"{[round(x, 1) for x in native]}, Python encoder "
+          f"{[round(x, 1) for x in plain]} (separated: "
+          f"{rows['VTK']['write_separated']}); the velocity block alone "
+          f"({block.nbytes} bytes): native {[round(x, 2) for x in enc_n]}, "
+          f"Python {[round(x, 2) for x in enc_p]} (separated: "
+          f"{rows['VTK']['encode_separated']}); files byte for byte equal")
+    phase(f"phase 12 {time.perf_counter() - t0:.1f} s")
+    return rows, launches, replays
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3562,13 +4236,14 @@ def main() -> None:
     for src in ("richardson.cu", "forcing.cu"):
         for r in ptxas[src]:
             by_wrapper.setdefault(wrapper_of(r["kernel"]), []).append(r)
+    # (f32, f64 and bf16 storage; K1u's two tile instances each)
     for wname, label, n_inst in (
-            ("richardson_free", "K1u (TRACK = false)", 4),
-            ("forcing_momentum", "K2m (ADVECT_T = false)", 2),
-            ("richardson_operands", "K1o (OPS = true)", 2),
-            ("forcing_operands", "K2o (OPS = true)", 2),
+            ("richardson_free", "K1u (TRACK = false)", 6),
+            ("forcing_momentum", "K2m (ADVECT_T = false)", 3),
+            ("richardson_operands", "K1o (OPS = true)", 3),
+            ("forcing_operands", "K2o (OPS = true)", 3),
             ("forcing_momentum_operands",
-             "K2mo (ADVECT_T = false, OPS = true)", 2)):
+             "K2mo (ADVECT_T = false, OPS = true)", 3)):
         rows = by_wrapper.get(wname, [])
         if len(rows) != n_inst:
             fail(f"expected {n_inst} {label} instances in ptxas's output, "
@@ -4332,6 +5007,14 @@ def main() -> None:
     for label, counts in rem_replays.items():
         record_replay(label, counts)
 
+    # ---- 12. bf16 on one device and on the mesh; the native VTK encoder
+    bf16_rows, bf16_launches, bf16_replays = bf16_phases(dev, s_end)
+    for label, counts in bf16_launches.items():
+        record(label, counts)
+    for label, counts in bf16_replays.items():
+        record_replay(label, counts)
+    k4_mg["bfloat16"] = bf16_rows["K4 MG"]
+
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
@@ -4347,11 +5030,17 @@ def main() -> None:
            "richardson_free": "interval", "forcing_momentum": "sl",
            "richardson_operands": main_mesh, "forcing_operands": main_mesh,
            "forcing_momentum_operands": f"sl_{main_mesh}"}
+    # by_dtype["bfloat16"]: the bf16 form's numbers (phase 12), its
+    # launches on the bf16 flagship's path where it runs there
     for r in report:
         name = r["name"].split()[1]
         r["launches"] = by_path[name][own[name]]
         r["launches_by_path"] = by_path[name]
         r["replay_launches_by_path"] = replay_by_path.get(name, {})
+        b16 = bf16_rows.get(r["name"].split()[0])
+        if b16 is not None:
+            r.setdefault("by_dtype", {})["bfloat16"] = dict(
+                b16, launches=by_path[name].get("bf16_main", 0))
     # K4 in CuboidPoissonDirect's layout (no model builds that solver):
     # launches through the solver's entry point in phase 9 (a), f32
     c32 = k4_cube["float32"]

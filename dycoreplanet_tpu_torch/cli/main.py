@@ -177,6 +177,7 @@ def _run(params, args) -> int:
 
     import torch
 
+    from dycoreplanet_tpu_torch.base import dtypes
     from dycoreplanet_tpu_torch.diagnostics.timers import TimerRegistry
     from dycoreplanet_tpu_torch.io.checkpoint import load_checkpoint
     from dycoreplanet_tpu_torch.io.vtk import (
@@ -215,12 +216,14 @@ def _run(params, args) -> int:
         if args.no_output:
             return
         with timers.scope("output: vtk"):
-            # one device-to-host copy of u, p and T
+            # one device-to-host copy of u, p and T (bfloat16 widened to
+            # float32, as the file stores them)
             dim = model.geo.dim
             cells = model.geo.cell_shape
             ncell = int(np.prod(cells))
-            flat = torch.cat([state.u.reshape(-1), state.p.reshape(-1),
-                              state.T.reshape(-1)]).cpu().numpy()
+            flat = dtypes.to_numpy(torch.cat([
+                state.u.reshape(-1), state.p.reshape(-1),
+                state.T.reshape(-1)]))
             u = flat[:dim * ncell].reshape((dim,) + cells)
             p = flat[dim * ncell:(dim + 1) * ncell].reshape(cells)
             T = flat[(dim + 1) * ncell:].reshape(cells)

@@ -81,12 +81,22 @@
 // What bounds them now is the staging's per-copy instructions (choosing
 // each chunk's source, once a plane) and the radial window's loads, both
 // repeated by every block (PERF.md §6-7, PR 10).
+//
+// Every form comes in float, double and bfloat16 storage (ST below;
+// shell_common.cuh): the bfloat16 forms widen each value as they stage
+// or load it, hold the planes, fluxes and tables in float, compute in
+// float and round rhs_u and T_adv once. Their staging goes value by
+// value (cp.async cannot widen), so the operands mode's 16-byte rows are
+// off for them (Args::vec 0).
 #include "shell_common.cuh"
 
 namespace {
 
+using shell::compute_t;
 using shell::Dims;
+using shell::narrow;
 using shell::stage;
+using shell::widen;
 using shell::stage_commit;
 using shell::stage_wait;
 using shell::wrap_any;
@@ -138,37 +148,39 @@ struct Lay {
   static constexpr int SMEM_VALUES = O_LAT + L_K * TL;
 };
 
-template <typename T>
+// ST: the fields' storage type; the tables and scalars are its compute
+// type T
+template <typename ST, typename T = compute_t<ST>>
 struct Args {
   Dims g;
   int RS;                  // planes a block marches over
   int nbo, nbl;            // tiles along lon and lat
-  const T* u;
-  const T* f0;
-  const T* f1;
-  const T* f2;
-  const T* Tf;
-  const T* p;
-  const T* T_wall;
+  const ST* u;
+  const ST* f0;
+  const ST* f1;
+  const ST* f2;
+  const ST* Tf;
+  const ST* p;
+  const ST* T_wall;
   const T* M;
   const T* lat;
   T dt, dt_T, beta, T_ref, rho_bg, iRe, omega;
   int scheme, physical_coriolis, perturbation, include_gradp;
-  T* rhs_u;
-  T* T_adv;
+  ST* rhs_u;
+  ST* T_adv;
   // the metric table's rows (nlat; K2o: the shard's plus one), and the
   // array's first row in the global grid and the global nlat (K2: 0, nlat)
   int mrows, j_off, nlat_glob;
   // K2o's ghost operands (ops/forcing.py halo_shapes); null for K2, and
   // HLT, HOT null for K2mo
-  const T* HLu;
-  const T* HLp;
-  const T* HLf1;
-  const T* HOu;
-  const T* HOp;
-  const T* HOf2;
-  const T* HLT;
-  const T* HOT;
+  const ST* HLu;
+  const ST* HLp;
+  const ST* HLf1;
+  const ST* HOu;
+  const ST* HOp;
+  const ST* HOf2;
+  const ST* HLT;
+  const ST* HOT;
   // K2o: whether every staged row's interior may go as 16-byte copies
   // (nlon a multiple of 16 bytes' values, the row operands 16-byte
   // aligned); 0 for K2
@@ -191,26 +203,27 @@ __device__ __forceinline__ T cgrad(T lo, T v, T hi, T idl, T idh) {
 // radial cell m of field Q on the column at offset jk of a plane, with
 // the ghost rules: u_r ANTISYM / ANTISYM, u_lat, u_lon ANTISYM / NEUMANN,
 // T DIRICHLET (2 wall - v) / NEUMANN
-template <int Q, typename T>
-__device__ __forceinline__ T col(const T* __restrict__ F, const Dims& g,
+template <int Q, typename ST, typename T>
+__device__ __forceinline__ T col(const ST* __restrict__ F, const Dims& g,
                                  int64_t plane, int64_t jk, int m, T wall) {
   if (m < 0) {
-    const T v = F[jk];
+    const T v = widen(F[jk]);
     return Q == 3 ? T(2) * wall - v : -v;
   }
   if (m >= g.nr) {
-    const T v = F[(g.nr - 1) * plane + jk];
+    const T v = widen(F[(g.nr - 1) * plane + jk]);
     return Q == 0 ? -v : v;
   }
-  return F[m * plane + jk];
+  return widen(F[m * plane + jk]);
 }
 
 // p: NEUMANN at both walls
-template <typename T>
-__device__ __forceinline__ T pcol(const T* __restrict__ p, const Dims& g,
-                                  int64_t plane, int64_t jk, int m) {
+template <typename ST>
+__device__ __forceinline__ compute_t<ST> pcol(const ST* __restrict__ p,
+                                              const Dims& g, int64_t plane,
+                                              int64_t jk, int m) {
   m = m < 0 ? 0 : (m >= g.nr ? g.nr - 1 : m);
-  return p[m * plane + jk];
+  return widen(p[m * plane + jk]);
 }
 
 // the offset in a plane of staged position (r, c) (halo 2) after the
@@ -250,11 +263,11 @@ __device__ __forceinline__ void row_src(const Dims& g, int i, int jj,
 // K2o: stage column kk (shard coordinates) of a row with sources R and G
 // (row_src; ow[l|h] lon ghosts before and after the shard) into dst: the
 // row inside the shard, G beside it, zero past the ghosts
-template <typename T>
-__device__ __forceinline__ void stage_col(T* dst, const T* R, const T* G,
+template <typename T, typename ST>
+__device__ __forceinline__ void stage_col(T* dst, const ST* R, const ST* G,
                                           int kk, int nlon, int owl,
-                                          int owh, const T* any) {
-  const T* src = nullptr;
+                                          int owh, const ST* any) {
+  const ST* src = nullptr;
   if (kk >= 0 && kk < nlon) {
     if (R != nullptr) src = R + kk;
   } else if (G != nullptr && (kk < 0 ? kk >= -owl : kk - nlon < owh)) {
@@ -283,25 +296,32 @@ __device__ __forceinline__ void stage_pair(T* dst, const T* src, bool valid) {
 // land on a pair of the chunk, one copy each, and the rest is zero;
 // other rows (p, the faces) take their few ghosts value by value. Without
 // vec, every value on its own.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(T* drow, const T* R, const T* G,
+template <typename T, typename ST>
+__device__ __forceinline__ void stage_chunk(T* drow, const ST* R, const ST* G,
                                             int kb, int c, int nlon, int owl,
                                             int owh, bool vec,
-                                            const T* any) {
+                                            const ST* any) {
   constexpr int V = 16 / (int)sizeof(T);
   const int kk = kb + c * V;
   T* dst = drow + c * V;
-  if (vec && (R == nullptr || (kk >= 0 && kk + V <= nlon))) {
-    shell::stage16(dst, R != nullptr ? R + kk : any, R != nullptr);
-  } else if (vec && owl == 2) {
-#pragma unroll
-    for (int q = 0; q < V; q += 2) {
-      const T* src = G == nullptr ? nullptr
-                     : kk + q == -2 ? G
-                     : kk + q == nlon ? G + 2 : nullptr;
-      stage_pair(dst + q, src != nullptr ? src : any, src != nullptr);
+  // vec is set only where storage and shared memory share a type
+  if constexpr (std::is_same_v<T, ST>) {
+    if (vec && (R == nullptr || (kk >= 0 && kk + V <= nlon))) {
+      shell::stage16(dst, R != nullptr ? R + kk : any, R != nullptr);
+      return;
     }
-  } else {
+    if (vec && owl == 2) {
+#pragma unroll
+      for (int q = 0; q < V; q += 2) {
+        const T* src = G == nullptr ? nullptr
+                       : kk + q == -2 ? G
+                       : kk + q == nlon ? G + 2 : nullptr;
+        stage_pair(dst + q, src != nullptr ? src : any, src != nullptr);
+      }
+      return;
+    }
+  }
+  {
 #pragma unroll
     for (int v = 0; v < V; ++v)
       stage_col(dst + v, R, G, kk + v, nlon, owl, owh, any);
@@ -309,8 +329,8 @@ __device__ __forceinline__ void stage_chunk(T* drow, const T* R, const T* G,
 }
 
 // stage plane i into buffer D (asynchronous; one commit group)
-template <bool ADVECT_T, bool OPS, typename T>
-__device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
+template <bool ADVECT_T, bool OPS, typename ST, typename T = compute_t<ST>>
+__device__ __forceinline__ void stage_plane(const Args<ST>& A, T* D, int i,
                                             int j0, int k0) {
   using Y = Lay<ADVECT_T, OPS>;
   const Dims& g = A.g;
@@ -328,7 +348,7 @@ __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
     for (int e = threadIdx.x; e < Y::NF * PH * NC; e += THREADS) {
       const int q = e / (PH * NC), r = e / NC % PH;
       const bool isT = ADVECT_T && q == 3;
-      const T *R, *G;
+      const ST *R, *G;
       row_src(g, i, j0 - 2 + r, isT ? A.Tf : A.u + q * N,
               isT ? A.HLT : A.HLu + q * nHL, 2, 2,
               isT ? A.HOT : A.HOu + q * nHO, 4, R, G);
@@ -341,7 +361,7 @@ __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
     // first (HOf2)
     constexpr int NP = (TL + 2) * NC, N1 = (TL + 1) * N1C, N2 = TL * N2C;
     for (int e = threadIdx.x; e < NP + N1 + N2; e += THREADS) {
-      const T *R, *G;
+      const ST *R, *G;
       if (e < NP) {
         const int r = e / NC;
         row_src(g, i, j0 - 1 + r, A.p, A.HLp, 1, 1, A.HOp, 2, R, G);
@@ -349,13 +369,13 @@ __device__ __forceinline__ void stage_plane(const Args<T>& A, T* D, int i,
                     1, vec, A.u);
       } else if (e < NP + N1) {
         const int r = (e - NP) / N1C;
-        row_src(g, i, j0 + r, A.f1, A.HLf1, 0, 1, (const T*)nullptr, 0, R,
+        row_src(g, i, j0 + r, A.f1, A.HLf1, 0, 1, (const ST*)nullptr, 0, R,
                 G);
         stage_chunk(D + Y::O_F1 + r * TO, R, G, k0, (e - NP) % N1C, g.nlon,
                     0, 0, vec, A.u);
       } else {
         const int r = (e - NP - N1) / N2C;
-        row_src(g, i, j0 + r, A.f2, (const T*)nullptr, 0, 0, A.HOf2, 1, R,
+        row_src(g, i, j0 + r, A.f2, (const ST*)nullptr, 0, 0, A.HOf2, 1, R,
                 G);
         stage_chunk(D + Y::O_F2 + r * Y::XW, R, G, k0, (e - NP - N1) % N2C,
                     g.nlon, 0, 1, vec, A.u);
@@ -415,8 +435,8 @@ __device__ __forceinline__ void pole_signs(const Dims& g, T* D, int j0) {
 
 // the flux of field q through lat face j0 + fr at column k0 + fc of
 // the staged plane D (0 through the pole face past the grid)
-template <bool ADVECT_T, bool OPS, typename T>
-__device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
+template <bool ADVECT_T, bool OPS, typename ST, typename T>
+__device__ __forceinline__ void lat_flux(const Args<ST>& A, const T* D, T* S,
                                          int q, int fr, int fc, int j0) {
   using Y = Lay<ADVECT_T, OPS>;
   const int jf = j0 + fr, e = fr * TO + fc;
@@ -434,8 +454,8 @@ __device__ __forceinline__ void lat_flux(const Args<T>& A, const T* D, T* S,
 }
 
 // the flux of field q through lon face k0 + fc of tile row fr
-template <bool ADVECT_T, bool OPS, typename T>
-__device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
+template <bool ADVECT_T, bool OPS, typename ST, typename T>
+__device__ __forceinline__ void lon_flux(const Args<ST>& A, const T* D, T* S,
                                          int q, int fr, int fc) {
   using Y = Lay<ADVECT_T, OPS>;
   const int e = fr * (TO + 1) + fc;
@@ -452,8 +472,8 @@ __device__ __forceinline__ void lon_flux(const Args<T>& A, const T* D, T* S,
 // the lat and lon face fluxes of the NF fields on plane D: each thread
 // the lower lat and lon faces of its cell, and threads 0..NF*(TO+TL)-1
 // one of the faces past the tile (lat row TL, lon column TO)
-template <bool ADVECT_T, bool OPS, typename T>
-__device__ __forceinline__ void plane_fluxes(const Args<T>& A, const T* D,
+template <bool ADVECT_T, bool OPS, typename ST, typename T>
+__device__ __forceinline__ void plane_fluxes(const Args<ST>& A, const T* D,
                                              T* S, int j0) {
   constexpr int NF = Lay<ADVECT_T>::NF;
   const int tx = threadIdx.x % TO, ty = threadIdx.x / TO;
@@ -471,8 +491,8 @@ __device__ __forceinline__ void plane_fluxes(const Args<T>& A, const T* D,
 
 // the advective flux sum of field Q at the thread's cell (not yet / vol),
 // in the order of the axes; carries the radial flux of face i+1
-template <int Q, bool ADVECT_T, bool OPS, typename T>
-__device__ __forceinline__ T flux_sum(const Args<T>& A, const T* S,
+template <int Q, bool ADVECT_T, bool OPS, typename ST, typename T>
+__device__ __forceinline__ T flux_sum(const Args<ST>& A, const T* S,
                                       Win<T>& w, int i, T ar_hi, T uf_up) {
   using Y = Lay<ADVECT_T, OPS>;
   T fup = T(0);
@@ -489,8 +509,8 @@ __device__ __forceinline__ T flux_sum(const Args<T>& A, const T* S,
   return acc;
 }
 
-template <int Q, typename T>
-__device__ __forceinline__ void win_start(const Args<T>& A, const T* F,
+template <int Q, typename ST, typename T>
+__device__ __forceinline__ void win_start(const Args<ST>& A, const ST* F,
                                           Win<T>& w, int64_t plane,
                                           int64_t jk, int i, T wall, T uf,
                                           T ar_lo) {
@@ -510,9 +530,10 @@ __device__ __forceinline__ void win_shift(Win<T>& w) {
   w.p1 = w.p2;
 }
 
-template <typename T, bool ADVECT_T, bool OPS>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
-    forcing_kernel(const Args<T> A) {
+template <typename ST, bool ADVECT_T, bool OPS>
+__global__ void __launch_bounds__(THREADS, sizeof(compute_t<ST>) == 4 ? 2 : 1)
+    forcing_kernel(const Args<ST> A) {
+  using T = compute_t<ST>;
   using Y = Lay<ADVECT_T, OPS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* S = reinterpret_cast<T*>(smem_raw);
@@ -532,11 +553,11 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   const bool own = j < g.nlat && k < g.nlon;
   const int jc = min(j, g.nlat - 1);
   const int64_t jk = (int64_t)jc * g.nlon + wrap_any(k, g.nlon);
-  const T* u0 = A.u;
-  const T* u1 = A.u + N;
-  const T* u2 = A.u + 2 * N;
+  const ST* u0 = A.u;
+  const ST* u1 = A.u + N;
+  const ST* u2 = A.u + 2 * N;
   // T's inner-wall value: only the transport reads it
-  const T wall = ADVECT_T ? A.T_wall[jk] : T(0);
+  const T wall = ADVECT_T ? widen(A.T_wall[jk]) : T(0);
 
   // the lat rows of the tile, and the first plane
   for (int e = threadIdx.x; e < L_K * TL; e += THREADS)
@@ -548,7 +569,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   // the windows at the first plane, and the flux through its lower face
   Win<T> w0, w1, w2, wT;
   {
-    const T uf = A.f0[ib * plane + jk];
+    const T uf = widen(A.f0[ib * plane + jk]);
     const T ar_lo = A.M[M_AR_LO * MS + (int64_t)ib * A.mrows + jc];
     win_start<0>(A, u0, w0, plane, jk, ib, wall, uf, ar_lo);
     win_start<1>(A, u1, w1, plane, jk, ib, wall, uf, ar_lo);
@@ -557,7 +578,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
       win_start<3>(A, A.Tf, wT, plane, jk, ib, wall, uf, ar_lo);
   }
   T p_m1 = pcol(A.p, g, plane, jk, ib - 1), p_c = pcol(A.p, g, plane, jk, ib);
-  T f0_c = A.f0[ib * plane + jk];
+  T f0_c = widen(A.f0[ib * plane + jk]);
   PROBE(15);
 
   for (int i = ib; i < ie; ++i) {
@@ -576,9 +597,10 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     if constexpr (ADVECT_T)
       wT.p2 = col<3>(A.Tf, g, plane, jk, i + 2, wall);
     else
-      Tcell = A.Tf[i * plane + jk];
+      Tcell = widen(A.Tf[i * plane + jk]);
     const T p_p1 = pcol(A.p, g, plane, jk, i + 1);
-    const T f0_n = i + 1 < g.nr ? A.f0[(int64_t)(i + 1) * plane + jk] : T(0);
+    const T f0_n =
+        i + 1 < g.nr ? widen(A.f0[(int64_t)(i + 1) * plane + jk]) : T(0);
     if (next)
       stage_wait<1>();
     else
@@ -681,12 +703,12 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
         F2v = F2v - cgrad(P[pc - 1], p_c, P[pc + 1], idlon, idlon);
       }
       const int64_t cell = (int64_t)i * plane + (int64_t)j * g.nlon + k;
-      A.rhs_u[cell] = ur + A.dt * F0v;
-      A.rhs_u[N + cell] = ul + A.dt * F1v;
-      A.rhs_u[2 * N + cell] = up + A.dt * F2v;
+      A.rhs_u[cell] = narrow<ST>(ur + A.dt * F0v);
+      A.rhs_u[N + cell] = narrow<ST>(ul + A.dt * F1v);
+      A.rhs_u[2 * N + cell] = narrow<ST>(up + A.dt * F2v);
       if constexpr (ADVECT_T) {
         const T adv_T = sT * ivol - Tc * div_u;
-        A.T_adv[cell] = Tc - A.dt_T * adv_T;
+        A.T_adv[cell] = narrow<ST>(Tc - A.dt_T * adv_T);
       }
     }
     PROBE(13);
@@ -696,46 +718,50 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-template <typename T, bool ADVECT_T, bool OPS>
-int launch(const Args<T>& A, void* stream) {
-  const int smem = Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(T);
+template <typename ST, bool ADVECT_T, bool OPS>
+int launch(const Args<ST>& A, void* stream) {
+  const int smem =
+      Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(compute_t<ST>);
   static bool smem_set = false;
   if (!smem_set && smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T, ADVECT_T, OPS>,
+        forcing_kernel<ST, ADVECT_T, OPS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
     smem_set = true;
   }
   const unsigned grid =
       (unsigned)(((A.g.nr + A.RS - 1) / A.RS) * A.nbl * A.nbo);
-  forcing_kernel<T, ADVECT_T, OPS>
+  forcing_kernel<ST, ADVECT_T, OPS>
       <<<grid, THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
 // resident blocks an SM of one instance (the dynamic shared memory of its
 // launch), into *blocks
-template <typename T, bool ADVECT_T, bool OPS>
+template <typename ST, bool ADVECT_T, bool OPS>
 int occupancy(int* blocks) {
-  const int smem = Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(T);
+  const int smem =
+      Lay<ADVECT_T, OPS>::SMEM_VALUES * (int)sizeof(compute_t<ST>);
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        forcing_kernel<T, ADVECT_T, OPS>,
+        forcing_kernel<ST, ADVECT_T, OPS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
   }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, forcing_kernel<T, ADVECT_T, OPS>, THREADS, smem);
+      blocks, forcing_kernel<ST, ADVECT_T, OPS>, THREADS, smem);
 }
 
 // K2o: whether every staged row may go as 16-byte copies: nlon a multiple
 // of 16 bytes' values, the row operands 16-byte aligned, and HOu / HOT
-// too, whose ghost pairs go as one copy each (HOp, HOf2: value by value)
-template <typename T>
-int rows_aligned(const Args<T>& A, bool advect_T) {
-  auto a16 = [](const T* p) { return ((uintptr_t)p & 15) == 0; };
-  return A.g.nlon % (16 / (int)sizeof(T)) == 0 && a16(A.u) && a16(A.p)
+// too, whose ghost pairs go as one copy each (HOp, HOf2: value by value);
+// never for bfloat16 storage, whose staging widens value by value
+template <typename ST>
+int rows_aligned(const Args<ST>& A, bool advect_T) {
+  if (!std::is_same_v<ST, compute_t<ST>>) return 0;
+  auto a16 = [](const ST* p) { return ((uintptr_t)p & 15) == 0; };
+  return A.g.nlon % (16 / (int)sizeof(ST)) == 0 && a16(A.u) && a16(A.p)
          && a16(A.f1) && a16(A.f2) && a16(A.HLu) && a16(A.HLp)
          && a16(A.HLf1) && a16(A.HOu)
          && (!advect_T || (a16(A.Tf) && a16(A.HLT) && a16(A.HOT)));
@@ -751,42 +777,43 @@ int rows_aligned(const Args<T>& A, bool advect_T) {
 // nlat_glob, with its ghost operands and a metric table of nlat + 1
 // rows: K2o with advect_T != 0, else K2mo (T_wall, T_adv, HLT and HOT
 // unused, may be null).
-#define FORCING_ARGS(T)                                                   \
-  int nr, int nlat, int nlon, int RS, const T *u, const T *f0,            \
-      const T *f1, const T *f2, const T *Tf, const T *p, const T *T_wall, \
+// S: the fields' storage type, T: the tables' (the compute type)
+#define FORCING_ARGS(S, T)                                                \
+  int nr, int nlat, int nlon, int RS, const S *u, const S *f0,            \
+      const S *f1, const S *f2, const S *Tf, const S *p, const S *T_wall, \
       const T *M, const T *lat, double dt, double dt_T, double beta,      \
       double T_ref, double rho_bg, double iRe, double omega, int scheme,  \
       int physical_coriolis, int perturbation, int include_gradp,         \
-      T *rhs_u, T *T_adv
-#define FORCING_INIT(T, MROWS, JOFF, NLATG)                                \
-  Args<T> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,                \
+      S *rhs_u, S *T_adv
+#define FORCING_INIT(S, T, MROWS, JOFF, NLATG)                             \
+  Args<S> A{Dims{nr, nlat, nlon}, RS, (nlon + TO - 1) / TO,                \
             (nlat + TL - 1) / TL, u, f0, f1, f2, Tf, p, T_wall, M, lat,    \
             T(dt), T(dt_T), T(beta), T(T_ref), T(rho_bg), T(iRe),          \
             T(omega), scheme, physical_coriolis, perturbation,             \
             include_gradp, rhs_u, T_adv, MROWS, JOFF, NLATG,               \
             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,          \
             nullptr, nullptr}
-#define FORCING_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(int advect_T, FORCING_ARGS(T), void* stream) {        \
-    const FORCING_INIT(T, nlat, 0, nlat);                                   \
-    return advect_T ? launch<T, true, false>(A, stream)                     \
-                    : launch<T, false, false>(A, stream);                   \
+#define FORCING_ENTRY(NAME, S, T)                                           \
+  extern "C" int NAME(int advect_T, FORCING_ARGS(S, T), void* stream) {     \
+    const FORCING_INIT(S, T, nlat, 0, nlat);                                \
+    return advect_T ? launch<S, true, false>(A, stream)                     \
+                    : launch<S, false, false>(A, stream);                   \
   }                                                                         \
   extern "C" int NAME##_occupancy(int advect_T, int operands,              \
                                   int* blocks) {                            \
     if (operands)                                                           \
-      return advect_T ? occupancy<T, true, true>(blocks)                    \
-                      : occupancy<T, false, true>(blocks);                  \
-    return advect_T ? occupancy<T, true, false>(blocks)                     \
-                    : occupancy<T, false, false>(blocks);                   \
+      return advect_T ? occupancy<S, true, true>(blocks)                    \
+                      : occupancy<S, false, true>(blocks);                  \
+    return advect_T ? occupancy<S, true, false>(blocks)                     \
+                    : occupancy<S, false, false>(blocks);                   \
   }                                                                         \
-  extern "C" int NAME##_operands(int advect_T, FORCING_ARGS(T), int j_off,  \
-                                 int nlat_glob,                             \
-                                 const T* HLu, const T* HLp, const T* HLf1, \
-                                 const T* HOu, const T* HOp, const T* HOf2, \
-                                 const T* HLT, const T* HOT,                \
+  extern "C" int NAME##_operands(int advect_T, FORCING_ARGS(S, T),          \
+                                 int j_off, int nlat_glob,                  \
+                                 const S* HLu, const S* HLp, const S* HLf1, \
+                                 const S* HOu, const S* HOp, const S* HOf2, \
+                                 const S* HLT, const S* HOT,                \
                                  void* stream) {                            \
-    FORCING_INIT(T, nlat + 1, j_off, nlat_glob);                            \
+    FORCING_INIT(S, T, nlat + 1, j_off, nlat_glob);                         \
     A.HLu = HLu;                                                            \
     A.HLp = HLp;                                                            \
     A.HLf1 = HLf1;                                                          \
@@ -796,9 +823,10 @@ int rows_aligned(const Args<T>& A, bool advect_T) {
     A.HLT = HLT;                                                            \
     A.HOT = HOT;                                                            \
     A.vec = rows_aligned(A, advect_T != 0);                                 \
-    return advect_T ? launch<T, true, true>(A, stream)                      \
-                    : launch<T, false, true>(A, stream);                    \
+    return advect_T ? launch<S, true, true>(A, stream)                      \
+                    : launch<S, false, true>(A, stream);                    \
   }
 
-FORCING_ENTRY(dp_forcing_f32, float)
-FORCING_ENTRY(dp_forcing_f64, double)
+FORCING_ENTRY(dp_forcing_f32, float, float)
+FORCING_ENTRY(dp_forcing_f64, double, double)
+FORCING_ENTRY(dp_forcing_bf16, __nv_bfloat16, float)

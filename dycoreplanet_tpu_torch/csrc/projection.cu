@@ -32,6 +32,10 @@
 // read, u (3 fields), three faces and p written — 15 fields (~62.9 MB at
 // 32x128x256 f32), against ~30 operations per cell.
 //
+// Both come in float, double and bfloat16 storage (shell_common.cuh): the
+// bfloat16 forms read and write bfloat16 fields and compute, keep their
+// metric tables and sum the right-hand side in float.
+//
 // Design: one thread per cell, longitude fastest; ghosts are index
 // arithmetic (shell_common.cuh); the mean of phi arrives as a device
 // scalar, so the host never waits. Each neighbour's phi' is formed as
@@ -49,11 +53,11 @@ constexpr int BLOCK = 256;
 // metric channels at (i, j)
 enum { M_VOL = 0, M_AR_LO, M_AR_HI, M_ALAT_LO, M_ALAT_HI, M_ALON, M_K };
 
-template <typename T>
+template <typename S, typename T = shell::compute_t<S>>
 __global__ void faces_div_kernel(Dims g, const T* __restrict__ M,
-                                 const T* __restrict__ u_star, T dt,
-                                 T* __restrict__ f0, T* __restrict__ f1,
-                                 T* __restrict__ f2, T* __restrict__ rhs_raw,
+                                 const S* __restrict__ u_star, T dt,
+                                 S* __restrict__ f0, S* __restrict__ f1,
+                                 S* __restrict__ f2, S* __restrict__ rhs_raw,
                                  T* __restrict__ parts) {
   const int64_t N = g.n_cells();
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -64,25 +68,25 @@ __global__ void faces_div_kernel(Dims g, const T* __restrict__ M,
     const shell::HeadMetric hm{M_VOL, M_AR_LO, M_AR_HI, M_ALAT_LO,
                                M_ALAT_HI, M_ALON};
     T a0, a1, a2, rhs;
-    shell::faces_div_cell<T>(g, u_star, M, hm, i, j, k, dt, a0, a1, a2, rhs);
-    f0[c] = a0;
-    f1[c] = a1;
-    f2[c] = a2;
-    rhs_raw[c] = rhs;
+    shell::faces_div_cell<S>(g, u_star, M, hm, i, j, k, dt, a0, a1, a2, rhs);
+    f0[c] = shell::narrow<S>(a0);
+    f1[c] = shell::narrow<S>(a1);
+    f2[c] = shell::narrow<S>(a2);
+    rhs_raw[c] = shell::narrow<S>(rhs);
     s = rhs;
   }
   shell::block_sum<T, BLOCK>(s, parts, 1, 0);
 }
 
-template <typename T>
-int launch(int nr, int nlat, int nlon, const T* M, const T* u_star,
-           double dt, T* f0, T* f1, T* f2, T* rhs_raw, T* parts, T* sums,
+template <typename S, typename T = shell::compute_t<S>>
+int launch(int nr, int nlat, int nlon, const T* M, const S* u_star,
+           double dt, S* f0, S* f1, S* f2, S* rhs_raw, T* parts, T* sums,
            void* stream) {
   Dims g{nr, nlat, nlon};
   const int64_t N = (int64_t)nr * nlat * nlon;
   const unsigned grid = (unsigned)((N + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-  faces_div_kernel<T><<<grid, BLOCK, 0, s>>>(g, M, u_star, T(dt), f0, f1, f2,
+  faces_div_kernel<S><<<grid, BLOCK, 0, s>>>(g, M, u_star, T(dt), f0, f1, f2,
                                              rhs_raw, parts);
   int err = (int)cudaGetLastError();
   if (err) return err;
@@ -95,18 +99,18 @@ int launch(int nr, int nlat, int nlon, const T* M, const T* u_star,
 // and hi faces of axes r and lat, and across the lon faces
 enum { C_DR_LO = 0, C_DR_HI, C_DLAT_LO, C_DLAT_HI, C_DLON, C_K };
 
-template <typename T>
+template <typename S, typename T = shell::compute_t<S>>
 __global__ void correct_kernel(Dims g, const T* __restrict__ M,
-                               const T* __restrict__ u_star,
-                               const T* __restrict__ phi,
-                               const T* __restrict__ uf0,
-                               const T* __restrict__ uf1,
-                               const T* __restrict__ uf2,
-                               const T* __restrict__ pres,
-                               const T* __restrict__ phi_mean, T dt,
-                               int incremental, T* __restrict__ u_new,
-                               T* __restrict__ f0, T* __restrict__ f1,
-                               T* __restrict__ f2, T* __restrict__ p_new) {
+                               const S* __restrict__ u_star,
+                               const S* __restrict__ phi,
+                               const S* __restrict__ uf0,
+                               const S* __restrict__ uf1,
+                               const S* __restrict__ uf2,
+                               const S* __restrict__ pres,
+                               const S* __restrict__ phi_mean, T dt,
+                               int incremental, S* __restrict__ u_new,
+                               S* __restrict__ f0, S* __restrict__ f1,
+                               S* __restrict__ f2, S* __restrict__ p_new) {
   const int64_t N = g.n_cells();
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= N) return;
@@ -115,8 +119,10 @@ __global__ void correct_kernel(Dims g, const T* __restrict__ M,
   const int mi = g.lm(i, j);
   const int64_t MS = (int64_t)g.nr * g.nlat;
   auto m = [&](int ch) { return M[ch * MS + mi]; };
-  const T pm = phi_mean[0];
-  auto p = [&](int64_t idx) { return phi[idx] - pm; };
+  using shell::narrow;
+  using shell::widen;
+  const T pm = widen(phi_mean[0]);
+  auto p = [&](int64_t idx) { return widen(phi[idx]) - pm; };
 
   const T pc = p(c);
   // radial: Neumann ghosts, so the wall-face gradients are 0
@@ -135,26 +141,28 @@ __global__ void correct_kernel(Dims g, const T* __restrict__ M,
   const T go_hi = (p(g.cell(i, j, g.wrap(k + 1))) - pc) / m(C_DLON);
 
   // left faces: the radial wall face and the pole face carry no flow
-  f0[c] = i == 0 ? T(0) : uf0[c] - dt * gr_lo;
-  f1[c] = j == 0 ? T(0) : uf1[c] - dt * gl_lo;
-  f2[c] = uf2[c] - dt * go_lo;
+  f0[c] = narrow<S>(i == 0 ? T(0) : widen(uf0[c]) - dt * gr_lo);
+  f1[c] = narrow<S>(j == 0 ? T(0) : widen(uf1[c]) - dt * gl_lo);
+  f2[c] = narrow<S>(widen(uf2[c]) - dt * go_lo);
   // cell velocity: centred gradient = mean of the two face gradients
-  u_new[c] = u_star[c] - dt * (T(0.5) * (gr_lo + gr_hi));
-  u_new[N + c] = u_star[N + c] - dt * (T(0.5) * (gl_lo + gl_hi));
-  u_new[2 * N + c] = u_star[2 * N + c] - dt * (T(0.5) * (go_lo + go_hi));
-  p_new[c] = incremental ? pres[c] + pc : pc;
+  u_new[c] = narrow<S>(widen(u_star[c]) - dt * (T(0.5) * (gr_lo + gr_hi)));
+  u_new[N + c] =
+      narrow<S>(widen(u_star[N + c]) - dt * (T(0.5) * (gl_lo + gl_hi)));
+  u_new[2 * N + c] =
+      narrow<S>(widen(u_star[2 * N + c]) - dt * (T(0.5) * (go_lo + go_hi)));
+  p_new[c] = narrow<S>(incremental ? widen(pres[c]) + pc : pc);
 }
 
-template <typename T>
-int launch_correct(int nr, int nlat, int nlon, const T* M, const T* u_star,
-                   const T* phi, const T* uf0, const T* uf1, const T* uf2,
-                   const T* pres, const T* phi_mean, double dt,
-                   int incremental, T* u_new, T* f0, T* f1, T* f2, T* p_new,
+template <typename S, typename T = shell::compute_t<S>>
+int launch_correct(int nr, int nlat, int nlon, const T* M, const S* u_star,
+                   const S* phi, const S* uf0, const S* uf1, const S* uf2,
+                   const S* pres, const S* phi_mean, double dt,
+                   int incremental, S* u_new, S* f0, S* f1, S* f2, S* p_new,
                    void* stream) {
   Dims g{nr, nlat, nlon};
   const int64_t N = (int64_t)nr * nlat * nlon;
   const unsigned grid = (unsigned)((N + BLOCK - 1) / BLOCK);
-  correct_kernel<T><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+  correct_kernel<S><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       g, M, u_star, phi, uf0, uf1, uf2, pres, phi_mean, T(dt), incremental,
       u_new, f0, f1, f2, p_new);
   return (int)cudaGetLastError();
@@ -162,28 +170,32 @@ int launch_correct(int nr, int nlat, int nlon, const T* M, const T* u_star,
 
 }  // namespace
 
-#define PROJECTION_ENTRY(NAME, T)                                           \
+// S: the fields' storage type, T: the compute type of the metric and the
+// sums
+#define PROJECTION_ENTRY(NAME, S, T)                                        \
   extern "C" int NAME(int nr, int nlat, int nlon, const T* M,               \
-                      const T* u_star, double dt, T* f0, T* f1, T* f2,      \
-                      T* rhs_raw, T* parts, T* sums, void* stream) {        \
-    return launch<T>(nr, nlat, nlon, M, u_star, dt, f0, f1, f2, rhs_raw,    \
+                      const S* u_star, double dt, S* f0, S* f1, S* f2,      \
+                      S* rhs_raw, T* parts, T* sums, void* stream) {        \
+    return launch<S>(nr, nlat, nlon, M, u_star, dt, f0, f1, f2, rhs_raw,    \
                      parts, sums, stream);                                  \
   }
 
-PROJECTION_ENTRY(dp_faces_div_f32, float)
-PROJECTION_ENTRY(dp_faces_div_f64, double)
+PROJECTION_ENTRY(dp_faces_div_f32, float, float)
+PROJECTION_ENTRY(dp_faces_div_f64, double, double)
+PROJECTION_ENTRY(dp_faces_div_bf16, __nv_bfloat16, float)
 
-#define CORRECT_ENTRY(NAME, T)                                              \
+#define CORRECT_ENTRY(NAME, S, T)                                           \
   extern "C" int NAME(int nr, int nlat, int nlon, const T* M,               \
-                      const T* u_star, const T* phi, const T* uf0,          \
-                      const T* uf1, const T* uf2, const T* pres,            \
-                      const T* phi_mean, double dt, int incremental,        \
-                      T* u_new, T* f0, T* f1, T* f2, T* p_new,              \
+                      const S* u_star, const S* phi, const S* uf0,          \
+                      const S* uf1, const S* uf2, const S* pres,            \
+                      const S* phi_mean, double dt, int incremental,        \
+                      S* u_new, S* f0, S* f1, S* f2, S* p_new,              \
                       void* stream) {                                       \
-    return launch_correct<T>(nr, nlat, nlon, M, u_star, phi, uf0, uf1, uf2, \
+    return launch_correct<S>(nr, nlat, nlon, M, u_star, phi, uf0, uf1, uf2, \
                              pres, phi_mean, dt, incremental, u_new, f0,    \
                              f1, f2, p_new, stream);                        \
   }
 
-CORRECT_ENTRY(dp_correct_f32, float)
-CORRECT_ENTRY(dp_correct_f64, double)
+CORRECT_ENTRY(dp_correct_f32, float, float)
+CORRECT_ENTRY(dp_correct_f64, double, double)
+CORRECT_ENTRY(dp_correct_bf16, __nv_bfloat16, float)

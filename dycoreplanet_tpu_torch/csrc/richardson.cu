@@ -95,11 +95,22 @@
 // channel a block, the divergence summed through distributed shared
 // memory) lost to one block a tile at both bench shards, f32 and f64
 // (PERF.md §6: scripts/probe_k1_k2.py's sweep), and is not kept.
+//
+// Every form comes in float, double and bfloat16 storage (S below;
+// shell_common.cuh). The bfloat16 forms read rhs_u, rhs_T and T0 as
+// bfloat16, widening each value as it is staged (value by value: cp.async
+// cannot widen, so K1o's 16-byte rows are off for them), keep the boxes,
+// the tables and every sweep in float, and round u*, T_new, the faces and
+// rhs_raw once when they store them. The residual partials and sums, and
+// the iterates and residuals between passes, stay float.
 #include "shell_common.cuh"
 
 namespace {
 
+using shell::compute_t;
 using shell::Dims;
+using shell::narrow;
+using shell::widen;
 using shell::for_box;
 using shell::for_rows;
 using shell::stage;
@@ -127,17 +138,21 @@ enum {
   S_AR_LO, S_AR_HI, S_ALAT_LO, S_ALAT_HI, S_ALON, S_INVD
 };
 
-template <typename T>
+// S: the fields' storage type; T, the compute type, that of the tables,
+// the scratch between passes and the sums
+template <typename S, typename T = compute_t<S>>
 struct Pass {
   Dims g;
   int RB, TL, TO, E;       // tile and halo depth
   int nbo, nbl;            // tiles along lon and lat
   const T* M;              // (M_K, nr, nlat)
   const T* invD;           // (4, nr, nlat): 1 / (vol + coef Ld)
-  const T* xu_in;          // (3, N) iterate in; rhs_u on the first pass
+  const S* xu0;            // (3, N) x0 = rhs_u on the first pass, else null
+  const S* xT0;            // (N) T0 on the first pass, else null
+  const T* xu_in;          // (3, N) iterate of the previous pass, else null
   const T* xT_in;          // (N)
-  const T* rhs_u;          // b_u = vol * rhs_u
-  const T* rhs_T;          // b_T = rhs_T
+  const S* rhs_u;          // b_u = vol * rhs_u
+  const S* rhs_T;          // b_T = rhs_T
   const T* ru_in;          // (3, N) residual of the previous pass, or null:
   const T* rT_in;          //   r = b - A x0 (the first pass)
   T* ru_out;               // (3, N) / (N): residual for the next pass
@@ -145,12 +160,14 @@ struct Pass {
   int n_u, n_T;            // sweeps of this pass
   int last;                // emit the head and the sums
   T coef_u, coef_T, dt;
-  T* xu_out;
-  T* xT_out;
-  T* f0;
-  T* f1;
-  T* f2;
-  T* rhs_raw;
+  S* xu_out;               // the last pass's iterates (u*, T_new)
+  S* xT_out;
+  T* xu_scr;               // another pass's, for the next
+  T* xT_scr;
+  S* f0;
+  S* f1;
+  S* f2;
+  S* rhs_raw;
   T* parts;                // (gridDim.x, 5)
   unsigned* counter;       // zero between calls
   T* sums;                 // (5)
@@ -207,8 +224,9 @@ __device__ __forceinline__ void block_sum5(T& a, T& b, T& c, T& d, T& e,
 // them from the pass at run time (every other plan). TRACK: the exactly
 // tracked residuals, or the residual-free variant (see the top). OPS:
 // K1o
-template <typename T, int kRB, int kTL, int kTO, int kE, bool TRACK, bool OPS>
-__global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
+template <typename S, int kRB, int kTL, int kTO, int kE, bool TRACK, bool OPS>
+__global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<S> P) {
+  using T = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ bool is_last;
   PROBE_START;
@@ -264,17 +282,21 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
   // instruction coalesces. K1o with vrow: whole rows of `pitch` values
   // from extended column k0 (E = GH) in 16-byte chunks, each zero past
   // the block's edge (eO a multiple of V: a chunk lies wholly in or out)
-  auto stage_box = [&](T* dst, const T* src, int nA, int nB, int nC,
+  // (src: storage or compute type; vrow is set only where they agree)
+  auto stage_box = [&](T* dst, const auto* src, int nA, int nB, int nC,
                        int pitch, int lead, int h) {
-    if (OPS && P.vrow) {
-      for_box<THREADS>(nA, nB, pitch / V, [&](int a, int b, int j) {
-        const int64_t row = row_of(a, b, h);
-        const int ec = k0 + j * V;
-        const bool in = row >= 0 && ec < P.eO;
-        shell::stage16(dst + (a * nB + b) * pitch + j * V,
-                       src + (in ? row + ec : 0), in);
-      });
-      return;
+    using Src = std::remove_cv_t<std::remove_pointer_t<decltype(src)>>;
+    if constexpr (std::is_same_v<Src, T>) {
+      if (OPS && P.vrow) {
+        for_box<THREADS>(nA, nB, pitch / V, [&](int a, int b, int j) {
+          const int64_t row = row_of(a, b, h);
+          const int ec = k0 + j * V;
+          const bool in = row >= 0 && ec < P.eO;
+          shell::stage16(dst + (a * nB + b) * pitch + j * V,
+                         src + (in ? row + ec : 0), in);
+        });
+        return;
+      }
     }
     for_box<THREADS>(nA, nB, nC, [&](int a, int b, int c) {
       const int64_t row = row_of(a, b, h);
@@ -318,10 +340,16 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     }
   }
 
-  // x of channel q on the level-0 box, into buffer q % 2
+  // x of channel q on the level-0 box, into buffer q % 2: x0 (storage
+  // type) on the first pass, else the previous pass's iterate
+  const bool first = P.xu0 != nullptr;
   auto stage_x = [&](int q) {
-    stage_box(sxb + (q & 1) * nX, q < 3 ? P.xu_in + q * NI : P.xT_in, XA, XB,
-              XC, XP, 0, E);
+    T* dst = sxb + (q & 1) * nX;
+    if (first)
+      stage_box(dst, q < 3 ? P.xu0 + q * NI : P.xT0, XA, XB, XC, XP, 0, E);
+    else
+      stage_box(dst, q < 3 ? P.xu_in + q * NI : P.xT_in, XA, XB, XC, XP, 0,
+                E);
     stage_commit();
   };
   stage_x(0);
@@ -333,11 +361,10 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     const bool mom = q < 3;
     const int n = mom ? P.n_u : P.n_T;
     const T coef = mom ? P.coef_u : P.coef_T;
-    const T* xin = mom ? P.xu_in + q * NI : P.xT_in;
-    const T* bsrc = mom ? P.rhs_u + q * NI : P.rhs_T;
+    const S* bsrc = mom ? P.rhs_u + q * NI : P.rhs_T;
     const T* rin = mom ? (P.ru_in ? P.ru_in + q * N : nullptr) : P.rT_in;
     // x0 is b's source (first momentum pass; a caller's T0 = rhs_T)
-    const bool b_is_x = xin == bsrc;
+    const bool b_is_x = first && (mom ? P.xu0 + q * NI : P.xT0) == bsrc;
     const int dl = q == 0 ? S_DL_UR : S_DL_OTH;
     const T* tinv = stab + (S_INVD + q) * nTab;
 
@@ -345,10 +372,10 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     // stage on level 1 the previous pass's r (into sr) or b unless it is
     // x0 (into sdx), and the next channel's x; the previous channel's
     // readers are done: the loop ends in a barrier
-    const T* l1 = rin != nullptr ? rin : (b_is_x ? nullptr : bsrc);
-    if (l1 != nullptr)
-      stage_box(rin != nullptr ? sr_raw : sdx_raw, l1, RA, RBx, RC, RP, L1,
-                E - 1);
+    if (rin != nullptr)
+      stage_box(sr_raw, rin, RA, RBx, RC, RP, L1, E - 1);
+    else if (!b_is_x)
+      stage_box(sdx_raw, bsrc, RA, RBx, RC, RP, L1, E - 1);
     stage_commit();
     if (q < 3) {
       stage_x(q + 1);
@@ -438,7 +465,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     // the tile: iterate out (and the residual, before a later pass); on
     // the last pass |r|^2 and this component's faces and divergence term
     // (shell::faces_div_cell's arithmetic, in its order)
-    T* xout = mom ? P.xu_out + q * N : P.xT_out;
+    S* xout = mom ? P.xu_out + q * N : P.xT_out;
+    T* xscr = mom ? P.xu_scr + q * N : P.xT_scr;
     T* rout = mom ? P.ru_out + q * N : P.rT_out;
     for_box<THREADS>(RB, TL, TO, [&](int a, int b, int c) {
       if (!own_row(a, b) || !own_col(c)) return;
@@ -448,14 +476,15 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
       const int ix = t * XP + c + E;
       const T x = sx[ix];
       const T r = sr[((a + E - 1) * RBx + b + E - 1) * RP + c + E - 1];
-      xout[cg] = x;
       if (!P.last) {
+        xscr[cg] = x;
         rout[cg] = r;
         return;
       }
+      xout[cg] = narrow<S>(x);
       const T vol = stab[S_VOL * nTab + t];
       if (rin != nullptr) {  // a later pass: |b|^2 from device memory
-        const T bv = mom ? vol * bsrc[cg] : bsrc[cg];
+        const T bv = mom ? vol * widen(bsrc[cg]) : widen(bsrc[cg]);
         if (mom)
           s_bu += bv * bv;
         else
@@ -467,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
       }
       if (TRACK) s_ru += r * r;
       T f, aq_up, a_lo;
-      T* fout;
+      S* fout;
       if (q == 0) {
         f = gi == 0 ? T(0) : T(0.5) * (sx[ix - sAx] + x);
         aq_up = gi + 1 < g.nr
@@ -489,7 +518,7 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
         a_lo = stab[S_ALON * nTab + t];
         fout = P.f2;
       }
-      fout[cg] = f;
+      fout[cg] = narrow<S>(f);
       const T d = aq_up - a_lo * f;
       const int id = (a * TL + b) * TO + c;
       sdiv[id] = q == 0 ? d : sdiv[id] + d;
@@ -505,7 +534,7 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
     const T vol = stab[S_VOL * nTab + (a + E) * XB + b + E];
     const T div = sdiv[(a * TL + b) * TO + c] / vol;
     const T rhs = (-vol) * div / P.dt;
-    P.rhs_raw[g.cell(i0 + a, j0 + b, k0 + c)] = rhs;
+    P.rhs_raw[g.cell(i0 + a, j0 + b, k0 + c)] = narrow<S>(rhs);
     s_rhs += rhs;
   });
 
@@ -549,8 +578,8 @@ __global__ void __launch_bounds__(THREADS, 2) rich_fused(const Pass<T> P) {
 // raise an instance's dynamic shared memory limit to `bytes` where a
 // launch (or an occupancy query) needs more than it has (per dtype; slot:
 // K1 / K1u 0-3, K1o 4)
-template <typename T>
-int allow_smem(void (*kernel)(const Pass<T>), int slot, int bytes) {
+template <typename S>
+int allow_smem(void (*kernel)(const Pass<S>), int slot, int bytes) {
   static int set[5] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024,
                        48 * 1024};
   if (bytes <= set[slot]) return 0;
@@ -561,14 +590,17 @@ int allow_smem(void (*kernel)(const Pass<T>), int slot, int bytes) {
   return 0;
 }
 
-template <typename T>
+// xu_in / xT_in: x0 in the storage type on the first pass (ru_in null),
+// else the previous pass's iterates in the compute type; xu_out /
+// xT_out: the storage type on the last pass, else the compute type
+template <typename S, typename T = compute_t<S>>
 int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
-           int smem_bytes, const T* M, const T* invD, const T* xu_in,
-           const T* xT_in, const T* rhs_u, const T* rhs_T, const T* ru_in,
+           int smem_bytes, const T* M, const T* invD, const void* xu_in,
+           const void* xT_in, const S* rhs_u, const S* rhs_T, const T* ru_in,
            const T* rT_in, double dt,
            double iRe, double iPe, double dt_T_factor, int n_u, int n_T,
-           int last, T* xu_out, T* xT_out, T* ru_out, T* rT_out, T* f0,
-           T* f1, T* f2, T* rhs_raw, T* parts, unsigned* counter, T* sums,
+           int last, void* xu_out, void* xT_out, T* ru_out, T* rT_out, S* f0,
+           S* f1, S* f2, S* rhs_raw, T* parts, unsigned* counter, T* sums,
            int track, int eL, int eO, int GH, int j_off, int nlat_glob,
            void* stream) {
   // the bench's plan runs a compile-time instance, which takes about 12%
@@ -583,16 +615,16 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
 #else
   const bool bench = !ops && RB == 8 && TL == 8 && TO == 32 && E == 2;
 #endif
-  void (*kernel)(const Pass<T>) =
-      ops ? rich_fused<T, 0, 0, 0, 0, true, true>
-      : track ? (bench ? rich_fused<T, 8, 8, 32, 2, true, false>
-                       : rich_fused<T, 0, 0, 0, 0, true, false>)
-              : (bench ? rich_fused<T, 8, 8, 32, 2, false, false>
-                       : rich_fused<T, 0, 0, 0, 0, false, false>);
+  void (*kernel)(const Pass<S>) =
+      ops ? rich_fused<S, 0, 0, 0, 0, true, true>
+      : track ? (bench ? rich_fused<S, 8, 8, 32, 2, true, false>
+                       : rich_fused<S, 0, 0, 0, 0, true, false>)
+              : (bench ? rich_fused<S, 8, 8, 32, 2, false, false>
+                       : rich_fused<S, 0, 0, 0, 0, false, false>);
   const int v = ops ? 4 : 2 * (track != 0) + bench;
-  const int err = allow_smem<T>(kernel, v, smem_bytes);
+  const int err = allow_smem<S>(kernel, v, smem_bytes);
   if (err) return err;
-  Pass<T> P;
+  Pass<S> P;
   P.g = Dims{nr, nlat, nlon};
   P.RB = RB;
   P.TL = TL;
@@ -603,8 +635,11 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   const int nbr = (nr + RB - 1) / RB;
   P.M = M;
   P.invD = invD;
-  P.xu_in = xu_in;
-  P.xT_in = xT_in;
+  const bool first = ru_in == nullptr;
+  P.xu0 = first ? static_cast<const S*>(xu_in) : nullptr;
+  P.xT0 = first ? static_cast<const S*>(xT_in) : nullptr;
+  P.xu_in = first ? nullptr : static_cast<const T*>(xu_in);
+  P.xT_in = first ? nullptr : static_cast<const T*>(xT_in);
   P.rhs_u = rhs_u;
   P.rhs_T = rhs_T;
   P.ru_in = ru_in;
@@ -618,8 +653,10 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   P.coef_u = dt_t * T(iRe);
   P.coef_T = (dt_t * T(dt_T_factor)) * T(iPe);
   P.dt = dt_t;
-  P.xu_out = xu_out;
-  P.xT_out = xT_out;
+  P.xu_out = last ? static_cast<S*>(xu_out) : nullptr;
+  P.xT_out = last ? static_cast<S*>(xT_out) : nullptr;
+  P.xu_scr = last ? nullptr : static_cast<T*>(xu_out);
+  P.xT_scr = last ? nullptr : static_cast<T*>(xT_out);
   P.f0 = f0;
   P.f1 = f1;
   P.f2 = f2;
@@ -635,11 +672,13 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
   // K1o's 16-byte rows (one pass of halo GH): the extended rows a
   // multiple of 16 bytes, every tile's first column / row on a 16-byte
   // boundary, the operands 16-byte aligned; the tables' rows also XB = TL
-  // + 2E values a multiple of 16 bytes
+  // + 2E values a multiple of 16 bytes. The rows of bfloat16 operands go
+  // value by value (widened as they are staged)
   constexpr int V = 16 / (int)sizeof(T);
   auto a16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  P.vrow = ops && E == GH && eO % V == 0 && (TO % V == 0 || P.nbo == 1) &&
-           a16(xu_in) && a16(xT_in) && a16(rhs_u) && a16(rhs_T);
+  P.vrow = std::is_same_v<S, T> && ops && E == GH && eO % V == 0 &&
+           (TO % V == 0 || P.nbo == 1) && a16(xu_in) && a16(xT_in) &&
+           a16(rhs_u) && a16(rhs_T);
   P.vtab = ops && E == GH && eL % V == 0 && (TL + 2 * E) % V == 0 &&
            (TL % V == 0 || P.nbl == 1) && a16(M) && a16(invD);
   const unsigned grid = (unsigned)(nbr * P.nbl * P.nbo);
@@ -649,10 +688,10 @@ int launch(int nr, int nlat, int nlon, int RB, int TL, int TO, int E,
 
 // resident blocks an SM of K1o's instance with smem_bytes of dynamic
 // shared memory, into *blocks
-template <typename T>
+template <typename S>
 int occupancy(int smem_bytes, int* blocks) {
-  void (*kernel)(const Pass<T>) = rich_fused<T, 0, 0, 0, 0, true, true>;
-  const int err = allow_smem<T>(kernel, 4, smem_bytes);
+  void (*kernel)(const Pass<S>) = rich_fused<S, 0, 0, 0, 0, true, true>;
+  const int err = allow_smem<S>(kernel, 4, smem_bytes);
   if (err) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, THREADS, smem_bytes);
@@ -666,30 +705,32 @@ int occupancy(int smem_bytes, int* blocks) {
 // the shard's first row being global row j_off of nlat_glob.
 // NAME_occupancy: resident blocks an SM of K1o's instance with
 // smem_bytes of dynamic shared memory.
-#define RICHARDSON_ARGS(T)                                                   \
+// S: the fields' storage type, T: the compute type (tables, scratch, sums)
+#define RICHARDSON_ARGS(S, T)                                                \
   int nr, int nlat, int nlon, int RB, int TL, int TO, int E, int smem_bytes, \
-      const T *M, const T *invD, const T *xu_in, const T *xT_in,             \
-      const T *rhs_u, const T *rhs_T, const T *ru_in, const T *rT_in,        \
+      const T *M, const T *invD, const void *xu_in, const void *xT_in,       \
+      const S *rhs_u, const S *rhs_T, const T *ru_in, const T *rT_in,        \
       double dt, double iRe, double iPe, double dt_T_factor, int n_u,        \
-      int n_T, int last, T *xu_out, T *xT_out, T *ru_out, T *rT_out, T *f0,  \
-      T *f1, T *f2, T *rhs_raw, T *parts, unsigned *counter, T *sums
-#define RICHARDSON_CALL(track, eL, eO, GH, j_off, nlat_glob)                  \
-  launch(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD, xu_in, xT_in,   \
+      int n_T, int last, void *xu_out, void *xT_out, T *ru_out, T *rT_out,   \
+      S *f0, S *f1, S *f2, S *rhs_raw, T *parts, unsigned *counter, T *sums
+#define RICHARDSON_CALL(S, track, eL, eO, GH, j_off, nlat_glob)               \
+  launch<S>(nr, nlat, nlon, RB, TL, TO, E, smem_bytes, M, invD, xu_in, xT_in,   \
          rhs_u, rhs_T, ru_in, rT_in, dt, iRe, iPe, dt_T_factor, n_u, n_T,    \
          last, xu_out, xT_out, ru_out, rT_out, f0, f1, f2, rhs_raw, parts,   \
          counter, sums, track, eL, eO, GH, j_off, nlat_glob, stream)
-#define RICHARDSON_ENTRY(NAME, T)                                            \
-  extern "C" int NAME(RICHARDSON_ARGS(T), int track, void* stream) {         \
-    return RICHARDSON_CALL(track, nlat, nlon, 0, 0, nlat);                   \
+#define RICHARDSON_ENTRY(NAME, S, T)                                         \
+  extern "C" int NAME(RICHARDSON_ARGS(S, T), int track, void* stream) {      \
+    return RICHARDSON_CALL(S, track, nlat, nlon, 0, 0, nlat);                \
   }                                                                          \
-  extern "C" int NAME##_operands(RICHARDSON_ARGS(T), int GH, int j_off,      \
+  extern "C" int NAME##_operands(RICHARDSON_ARGS(S, T), int GH, int j_off,   \
                                  int nlat_glob, void* stream) {              \
-    return RICHARDSON_CALL(1, nlat + 2 * GH, nlon + 2 * GH, GH, j_off,       \
+    return RICHARDSON_CALL(S, 1, nlat + 2 * GH, nlon + 2 * GH, GH, j_off,    \
                            nlat_glob);                                       \
   }                                                                          \
   extern "C" int NAME##_occupancy(int smem_bytes, int* blocks) {             \
-    return occupancy<T>(smem_bytes, blocks);                                 \
+    return occupancy<S>(smem_bytes, blocks);                                 \
   }
 
-RICHARDSON_ENTRY(dp_richardson_f32, float)
-RICHARDSON_ENTRY(dp_richardson_f64, double)
+RICHARDSON_ENTRY(dp_richardson_f32, float, float)
+RICHARDSON_ENTRY(dp_richardson_f64, double, double)
+RICHARDSON_ENTRY(dp_richardson_bf16, __nv_bfloat16, float)

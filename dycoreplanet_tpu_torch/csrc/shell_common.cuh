@@ -17,10 +17,20 @@
 //     (2 * wall value - interior).
 // K3 and K5 apply them as index arithmetic on global loads; K1 and K2
 // stage tiles in shared memory and apply them while staging (below).
+//
+// Storage and compute types: a kernel instance reads and writes its
+// fields in a storage type S (float, double or __nv_bfloat16) and
+// computes in Compute<S>::type (float for bfloat16): each value is
+// widened when it is read, the arithmetic runs in float, and each
+// output is rounded once when it is stored (narrow<S>). Tables, shared
+// memory and partial sums hold the compute type.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // Cycle probes at the phase boundaries of K1 and K2, compiled in only
 // with -DK_PROBE (kernel_lib.use_macros; scripts/probe_k1_k2.py): thread
@@ -54,6 +64,33 @@ extern "C" int probe_zero() {
 #endif
 
 namespace shell {
+
+template <typename S>
+struct Compute {
+  using type = S;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using compute_t = typename Compute<S>::type;
+
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+// a compute-type value stored as S: rounded to nearest (ties to even)
+// for bfloat16, as torch's float -> bfloat16 conversion rounds
+template <typename S>
+__device__ __forceinline__ S narrow(compute_t<S> v) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
 
 struct Dims {
   int nr, nlat, nlon;
@@ -124,29 +161,33 @@ struct HeadMetric {
   int vol, ar_lo, ar_hi, alat_lo, alat_hi, alon;
 };
 
-template <typename T>
+template <typename S, typename T = compute_t<S>>
 __device__ __forceinline__ void faces_div_cell(
-    const Dims& g, const T* __restrict__ u, const T* __restrict__ M,
+    const Dims& g, const S* __restrict__ u, const T* __restrict__ M,
     const HeadMetric& hm, int i, int j, int k, T dt, T& f0, T& f1, T& f2,
     T& rhs) {
   const int64_t N = g.n_cells();
-  const T* u0 = u;
-  const T* u1 = u + N;
-  const T* u2 = u + 2 * N;
+  const S* u0 = u;
+  const S* u1 = u + N;
+  const S* u2 = u + 2 * N;
   const int64_t c = g.cell(i, j, k);
   const int mi = g.lm(i, j);
   const int64_t MS = (int64_t)g.nr * g.nlat;
   auto m = [&](int ch) { return M[ch * MS + mi]; };
+  auto v = [](const S* f, int64_t idx) { return widen(f[idx]); };
 
   // radial: face i (0 at the inner wall) and face i+1 (0 at the outer)
-  f0 = i == 0 ? T(0) : T(0.5) * (u0[g.cell(i - 1, j, k)] + u0[c]);
-  T f0_up = i + 1 < g.nr ? T(0.5) * (u0[c] + u0[g.cell(i + 1, j, k)]) : T(0);
+  f0 = i == 0 ? T(0) : T(0.5) * (v(u0, g.cell(i - 1, j, k)) + v(u0, c));
+  T f0_up = i + 1 < g.nr ? T(0.5) * (v(u0, c) + v(u0, g.cell(i + 1, j, k)))
+                         : T(0);
   // latitude: the pole faces have zero area and zero velocity
-  f1 = j == 0 ? T(0) : T(0.5) * (u1[g.cell(i, j - 1, k)] + u1[c]);
-  T f1_up = j + 1 < g.nlat ? T(0.5) * (u1[c] + u1[g.cell(i, j + 1, k)]) : T(0);
+  f1 = j == 0 ? T(0) : T(0.5) * (v(u1, g.cell(i, j - 1, k)) + v(u1, c));
+  T f1_up = j + 1 < g.nlat
+                ? T(0.5) * (v(u1, c) + v(u1, g.cell(i, j + 1, k)))
+                : T(0);
   // longitude: periodic
-  f2 = T(0.5) * (u2[g.cell(i, j, g.wrap(k - 1))] + u2[c]);
-  T f2_up = T(0.5) * (u2[c] + u2[g.cell(i, j, g.wrap(k + 1))]);
+  f2 = T(0.5) * (v(u2, g.cell(i, j, g.wrap(k - 1))) + v(u2, c));
+  T f2_up = T(0.5) * (v(u2, c) + v(u2, g.cell(i, j, g.wrap(k + 1))));
 
   T aq_r_up = i + 1 < g.nr ? m(hm.ar_hi) * f0_up : T(0);
   T aq_l_up = j + 1 < g.nlat ? m(hm.alat_hi) * f1_up : T(0);
@@ -223,6 +264,13 @@ __device__ __forceinline__ void stage(T* dst, const T* src, bool valid) {
                "l"(src), "n"((int)sizeof(T)),
                "r"(valid ? (int)sizeof(T) : 0)
                : "memory");
+}
+// a bfloat16 value into a float of shared memory: widened in a register
+// (cp.async copies bytes and cannot widen); valid = false writes zero.
+// Visible to other threads after the barrier that follows the staging.
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
 }
 // 16 bytes from device to shared memory (cp.async.cg: cached in L2
 // only), both addresses 16-byte aligned; valid = false writes zeros and

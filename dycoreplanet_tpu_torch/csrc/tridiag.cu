@@ -56,11 +56,24 @@
 // wrapper, g in x and then x back-substituted in place.
 // Neither reads lower[0] nor upper[n-1]: the first row divides by d_0
 // alone and the last c' is never formed.
-#include <cuda_runtime.h>
+//
+// Storage and compute (shell_common.cuh): the float and double forms
+// read and write their own type; the bfloat16 form (the multigrid line
+// smoother of a bfloat16 model, whose residual lines are bfloat16) reads
+// rhs as bfloat16, widening each value as it stages or loads it, and
+// lower, diag and upper in float (the smoother's tables: bfloat16
+// coefficients ruin its nearly singular lon lines), runs both
+// recurrences in float and writes x (and c' in the scratch) in float, as
+// the plain version returns them.
 #include <stddef.h>
 #include <stdint.h>
 
+#include "shell_common.cuh"
+
 namespace {
+
+using shell::compute_t;
+using shell::widen;
 
 constexpr int MAX_BLOCK = 256;
 // the most shared memory one block may use on an H100
@@ -76,12 +89,14 @@ struct Operand {
   int64_t pair;
 };
 
-template <typename T>
+// S: rhs's storage type; the coefficients and x are in its compute type
+template <typename S>
 struct Args {
   int n;
   uint32_t cols;     // columns: systems / P
   uint32_t n1, n2;   // sizes of column axes 1 and 2 (axis 0: the rest)
-  Operand<T> l, d, u, b, x;
+  Operand<compute_t<S>> l, d, u, x;
+  Operand<S> b;
 };
 
 template <typename T>
@@ -91,9 +106,9 @@ __device__ __forceinline__ int64_t col_offset(const Operand<T>& o,
   return (int64_t)i0 * o.s[0] + (int64_t)i1 * o.s[1] + (int64_t)i2 * o.s[2];
 }
 
-// shared memory of a staged block: per thread the P rhs columns, diag
-// and (unless ROWC) lower and upper; with ROWC one lower and one upper
-// row for the block
+// shared memory of a staged block (in the compute type T): per thread
+// the P rhs columns, diag and (unless ROWC) lower and upper; with ROWC one
+// lower and one upper row for the block
 template <typename T>
 size_t staged_bytes(int n, int pair, bool rowc, int block) {
   return (size_t)n * sizeof(T) *
@@ -111,10 +126,16 @@ __device__ __forceinline__ void copy_async(T* smem, const T* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
                "l"(gmem), "n"(sizeof(T)));
 }
+// a bfloat16 value widened into shared memory (a register round trip)
+__device__ __forceinline__ void copy_async(float* smem,
+                                           const __nv_bfloat16* gmem) {
+  *smem = __bfloat162float(*gmem);
+}
 
-template <typename T, int P, bool ROWC>
+template <typename S, int P, bool ROWC>
 __global__ void __launch_bounds__(MAX_BLOCK)
-    thomas_staged(const Args<T> a) {
+    thomas_staged(const Args<S> a) {
+  using T = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, W = blockDim.x, t = threadIdx.x;
   // [P][n][W] rhs, then g; [n][W] diag, then c'; lower and upper:
@@ -141,7 +162,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
     i1 = rest % a.n1;
     i0 = rest / a.n1;
     const T* D = a.d.p + col_offset(a.d, i0, i1, i2);
-    const T* B = a.b.p + col_offset(a.b, i0, i1, i2);
+    const S* B = a.b.p + col_offset(a.b, i0, i1, i2);
     for (int i = 0; i < n; ++i) {
       copy_async(sd + i * W + t, D + i * a.d.row);
 #pragma unroll
@@ -202,9 +223,10 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   }
 }
 
-template <typename T, int P>
+template <typename S, int P>
 __global__ void __launch_bounds__(MAX_BLOCK)
-    thomas_general(const Args<T> a, T* __restrict__ cs) {
+    thomas_general(const Args<S> a, compute_t<S>* __restrict__ cs) {
+  using T = compute_t<S>;
   const uint32_t col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= a.cols) return;
   const uint32_t i2 = col % a.n2, rest = col / a.n2;
@@ -212,7 +234,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const T* L = a.l.p + col_offset(a.l, i0, i1, i2);
   const T* D = a.d.p + col_offset(a.d, i0, i1, i2);
   const T* U = a.u.p + col_offset(a.u, i0, i1, i2);
-  const T* B = a.b.p + col_offset(a.b, i0, i1, i2);
+  const S* B = a.b.p + col_offset(a.b, i0, i1, i2);
   T* X = a.x.p + col_offset(a.x, i0, i1, i2);
   const int64_t rl = a.l.row, rd = a.d.row, ru = a.u.row, rb = a.b.row,
                 rx = a.x.row, pb = a.b.pair, px = a.x.pair, m = a.cols;
@@ -227,13 +249,13 @@ __global__ void __launch_bounds__(MAX_BLOCK)
     const T den = D[i * rd] - li * cp;
     if constexpr (P == 1) {
       cp = ui / den;
-      gp[0] = (B[i * rb] - li * gp[0]) / den;
+      gp[0] = (widen(B[i * rb]) - li * gp[0]) / den;
     } else {
       const T r = T(1) / den;
       cp = ui * r;
 #pragma unroll
       for (int p = 0; p < P; ++p)
-        gp[p] = (B[i * rb + p * pb] - li * gp[p]) * r;
+        gp[p] = (widen(B[i * rb + p * pb]) - li * gp[p]) * r;
     }
     cs[i * m] = cp;
 #pragma unroll
@@ -252,11 +274,11 @@ __global__ void __launch_bounds__(MAX_BLOCK)
 
 // the staged kernel of a launch (P, ROWC), its dynamic shared memory
 // limit raised to SMEM_MAX and the SM's carveout set to shared memory
-template <typename T>
+template <typename S>
 const void* staged_kernel(int pair, bool rowc) {
-  const void* f = pair == 2 ? (const void*)thomas_staged<T, 2, true>
-                  : rowc    ? (const void*)thomas_staged<T, 1, true>
-                            : (const void*)thomas_staged<T, 1, false>;
+  const void* f = pair == 2 ? (const void*)thomas_staged<S, 2, true>
+                  : rowc    ? (const void*)thomas_staged<S, 1, true>
+                            : (const void*)thomas_staged<S, 1, false>;
   static bool sized[3] = {false, false, false};
   const int k = pair == 2 ? 0 : rowc ? 1 : 2;
   if (!sized[k] &&
@@ -276,28 +298,30 @@ bool row_only(const Operand<T>& o) {
 // sizes: the three column axes (C order); desc: for lower, diag, upper,
 // rhs, x in turn, the row stride, the three column strides and the pair
 // stride (elements)
-template <typename T>
+template <typename S, typename T = compute_t<S>>
 int launch(int n, int64_t cols, int pair, int block, const int64_t* sizes,
            const int64_t* desc, const T* l, const T* d, const T* u,
-           const T* b, T* x, T* scratch, void* stream) {
+           const S* b, T* x, T* scratch, void* stream) {
   if (n < 1 || cols < 1 || cols > INT32_MAX || (pair != 1 && pair != 2) ||
       block < 32 || block > MAX_BLOCK || block % 32 != 0 ||
       sizes[1] < 1 || sizes[2] < 1 || sizes[0] * sizes[1] * sizes[2] != cols)
     return (int)cudaErrorInvalidValue;
-  Args<T> a;
+  Args<S> a;
   a.n = n;
   a.cols = (uint32_t)cols;
   a.n1 = (uint32_t)sizes[1];
   a.n2 = (uint32_t)sizes[2];
-  Operand<T>* ops[5] = {&a.l, &a.d, &a.u, &a.b, &a.x};
-  T* ptrs[5] = {const_cast<T*>(l), const_cast<T*>(d), const_cast<T*>(u),
-                const_cast<T*>(b), x};
-  for (int k = 0; k < 5; ++k) {
-    ops[k]->p = ptrs[k];
-    ops[k]->row = desc[5 * k];
-    for (int j = 0; j < 3; ++j) ops[k]->s[j] = desc[5 * k + 1 + j];
-    ops[k]->pair = desc[5 * k + 4];
-  }
+  auto describe = [&](auto& op, auto* ptr, int k) {
+    op.p = ptr;
+    op.row = desc[5 * k];
+    for (int j = 0; j < 3; ++j) op.s[j] = desc[5 * k + 1 + j];
+    op.pair = desc[5 * k + 4];
+  };
+  describe(a.l, const_cast<T*>(l), 0);
+  describe(a.d, const_cast<T*>(d), 1);
+  describe(a.u, const_cast<T*>(u), 2);
+  describe(a.b, const_cast<S*>(b), 3);
+  describe(a.x, x, 4);
   const bool rowc = row_only(a.l) && row_only(a.u);
   // the pair shares lower, diag and upper
   if (pair == 2 && !(rowc && a.d.pair == 0)) return (int)cudaErrorInvalidValue;
@@ -306,28 +330,28 @@ int launch(int n, int64_t cols, int pair, int block, const int64_t* sizes,
   void* args[] = {&a};
   if (n <= staged_max<T>(pair, rowc, block)) {
     const cudaError_t e = cudaLaunchKernel(
-        staged_kernel<T>(pair, rowc), dim3(grid), dim3(block), args,
+        staged_kernel<S>(pair, rowc), dim3(grid), dim3(block), args,
         staged_bytes<T>(n, pair, rowc, block), s);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (pair == 2)
-    thomas_general<T, 2><<<grid, block, 0, s>>>(a, scratch);
+    thomas_general<S, 2><<<grid, block, 0, s>>>(a, scratch);
   else
-    thomas_general<T, 1><<<grid, block, 0, s>>>(a, scratch);
+    thomas_general<S, 1><<<grid, block, 0, s>>>(a, scratch);
   return (int)cudaGetLastError();
 }
 
 // resident blocks an SM of the kernel a launch with these arguments
 // takes (its dynamic shared memory included)
-template <typename T>
+template <typename S, typename T = compute_t<S>>
 int occupancy(int n, int pair, bool rowc, int block, int* blocks) {
   if (n <= staged_max<T>(pair, rowc, block))
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, staged_kernel<T>(pair, rowc), block,
+        blocks, staged_kernel<S>(pair, rowc), block,
         staged_bytes<T>(n, pair, rowc, block));
-  const void* f = pair == 2 ? (const void*)thomas_general<T, 2>
-                            : (const void*)thomas_general<T, 1>;
+  const void* f = pair == 2 ? (const void*)thomas_general<S, 2>
+                            : (const void*)thomas_general<S, 1>;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f, block,
                                                             0);
 }
@@ -338,12 +362,14 @@ int occupancy(int n, int pair, bool rowc, int block, int* blocks) {
 // NAME_staged_max, else unused. NAME_staged_max: the most rows a block
 // of `block` threads stages in shared memory. NAME_occupancy: resident
 // blocks an SM of the kernel that a launch with these arguments takes.
-#define TRIDIAG_ENTRY(NAME, T)                                               \
+// S: rhs's storage type, T: the compute type of the coefficients, x and
+// the scratch
+#define TRIDIAG_ENTRY(NAME, S, T)                                            \
   extern "C" int NAME(int n, int64_t cols, int pair, int block,              \
                       const int64_t* sizes, const int64_t* desc, const T* l, \
-                      const T* d, const T* u, const T* b, T* x, T* scratch,  \
+                      const T* d, const T* u, const S* b, T* x, T* scratch,  \
                       void* stream) {                                        \
-    return launch<T>(n, cols, pair, block, sizes, desc, l, d, u, b, x,       \
+    return launch<S>(n, cols, pair, block, sizes, desc, l, d, u, b, x,       \
                      scratch, stream);                                       \
   }                                                                          \
   extern "C" int NAME##_staged_max(int pair, int rowc, int block) {          \
@@ -351,8 +377,9 @@ int occupancy(int n, int pair, bool rowc, int block, int* blocks) {
   }                                                                          \
   extern "C" int NAME##_occupancy(int n, int pair, int rowc, int block,      \
                                   int* blocks) {                             \
-    return occupancy<T>(n, pair, rowc != 0, block, blocks);                  \
+    return occupancy<S>(n, pair, rowc != 0, block, blocks);                  \
   }
 
-TRIDIAG_ENTRY(dp_tridiag_f32, float)
-TRIDIAG_ENTRY(dp_tridiag_f64, double)
+TRIDIAG_ENTRY(dp_tridiag_f32, float, float)
+TRIDIAG_ENTRY(dp_tridiag_f64, double, double)
+TRIDIAG_ENTRY(dp_tridiag_bf16, __nv_bfloat16, float)

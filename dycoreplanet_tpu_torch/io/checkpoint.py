@@ -5,9 +5,14 @@ The format is the JAX package's, so that a checkpoint written by either
 package loads in the other: one ``.npz`` with the keys ``u``, ``p``,
 ``T``, ``time`` (0-d, the model's dtype), ``step_number`` (0-d int32)
 and ``u_face_{d}``, beside a ``.npz.json`` holding the caller's metadata
-and ``n_face_arrays``. The sharded form writes one ``.npz`` per shard
-and a master ``.json`` with the global shapes, dtypes and each shard's
-index ranges. Fields reach the host in one device-to-host copy (per
+and ``n_face_arrays``. A bfloat16 array is written as the JAX package's
+``np.savez`` writes an ml_dtypes bfloat16 array, 2-byte voids
+(``'<V2'``) holding its bits, and read back bit for bit. Beside
+bfloat16 fields ``time`` is float32, as the model keeps it, where the
+JAX package writes its bfloat16 time: a restart resumes at the saved
+time exactly (a bfloat16 ``time`` from a JAX checkpoint is read too).
+The sharded form writes one ``.npz`` per shard and a master ``.json`` with
+the global shapes, dtypes and each shard's index ranges. Fields reach the host in one device-to-host copy (per
 shard on a mesh); a restore is bitwise.
 """
 
@@ -20,39 +25,48 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dycoreplanet_tpu_torch.base import dtypes
 from dycoreplanet_tpu_torch.models.boussinesq import State
 from dycoreplanet_tpu_torch.parallel.mesh import is_sharded, shard_state
 
 
 def _host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """The tensors on the host in one device-to-host copy: their raveled
-    values cast to the widest float dtype among them, concatenated."""
+    values cast to the widest float dtype among them, concatenated
+    (bfloat16 tensors as their bits, ``'<V2'``)."""
     wide = tensors[0].dtype
     for t in tensors[1:]:
         wide = torch.promote_types(wide, t.dtype)
     flat = torch.cat([t.reshape(-1).to(wide) for t in tensors])
-    flat = flat.cpu().numpy()
+    flat = (dtypes.bf16_bits(flat) if wide == torch.bfloat16
+            else flat.cpu().numpy())
     out, off = [], 0
     for t in tensors:
         n = t.numel()
-        out.append(flat[off:off + n].reshape(tuple(t.shape)).astype(
-            np.dtype(str(t.dtype).replace("torch.", ""))))
+        a = flat[off:off + n].reshape(tuple(t.shape))
+        if wide != torch.bfloat16:
+            a = a.astype(np.dtype(str(t.dtype).replace("torch.", "")))
+        out.append(a)
         off += n
     return out
 
 
-def _scalars(state: State, dtype) -> Tuple[np.ndarray, np.ndarray]:
-    """``time`` at the fields' dtype and ``step_number`` as int32, 0-d,
-    as the JAX package's State holds them."""
-    return np.asarray(state.time, dtype=dtype), \
-        np.asarray(state.step_number, dtype=np.int32)
+def _scalars(state: State, like: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``time`` at the dtype of the field ``like`` (float32 beside
+    bfloat16 fields, the model's time) and ``step_number`` as int32,
+    0-d."""
+    step = np.asarray(state.step_number, dtype=np.int32)
+    if dtypes.is_bf16_array(like):
+        return np.asarray(state.time, dtype=np.float32), step
+    return np.asarray(state.time, dtype=like.dtype), step
 
 
 def _arrays(state: State, host: Sequence[np.ndarray]) -> dict:
     """The checkpoint's arrays by key from the host copies of u, p, T and
     the faces (in that order)."""
     u, p, T, *faces = host
-    time, step = _scalars(state, u.dtype)
+    time, step = _scalars(state, u)
     arrays = {"u": u, "p": p, "T": T, "time": time, "step_number": step}
     for d, uf in enumerate(faces):
         arrays[f"u_face_{d}"] = uf
@@ -64,12 +78,12 @@ def _fields(state: State):
 
 
 def _state(arrays: dict, n_faces: int, device) -> State:
-    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    t = lambda a: dtypes.tensor_from_numpy(a, device=device)  # noqa: E731
     return State(u=t(arrays["u"]),
                  u_faces=tuple(t(arrays[f"u_face_{d}"])
                                for d in range(n_faces)),
                  p=t(arrays["p"]), T=t(arrays["T"]),
-                 time=float(arrays["time"]),
+                 time=float(t(arrays["time"]).double()),
                  step_number=int(arrays["step_number"]))
 
 
@@ -103,6 +117,17 @@ def load_checkpoint(path: str, device) -> Tuple[State, dict]:
 
 
 _NAMES = ["u", "p", "T", "time", "step_number"]
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """An array's dtype as the JAX package's master .json names it."""
+    return "bfloat16" if dtypes.is_bf16_array(a) else str(a.dtype)
+
+
+def _np_dtype(name: str) -> np.dtype:
+    """The host dtype of a master .json's dtype name (bfloat16: its
+    bits, 2-byte voids)."""
+    return np.dtype("<V2") if name == "bfloat16" else np.dtype(name)
 
 
 def save_checkpoint_sharded(path: str, state: State,
@@ -139,7 +164,7 @@ def save_checkpoint_sharded(path: str, state: State,
     meta["n_face_arrays"] = n_faces
     meta["n_shards"] = A * B
     meta["global_shapes"] = {n: shapes[n] for n in names}
-    meta["dtypes"] = {n: str(blocks[n].dtype) for n in names}
+    meta["dtypes"] = {n: _dtype_name(blocks[n]) for n in names}
     meta["shard_indices"] = index_meta
     with open(path + ".json", "w") as f:
         json.dump(meta, f)
@@ -156,7 +181,7 @@ def load_checkpoint_sharded(path: str, device=None, *, geo=None,
         raise ValueError("load_checkpoint_sharded: pass device or mesh")
     with open(path + ".json") as f:
         meta = json.load(f)
-    arrays = {name: np.zeros(shape, dtype=np.dtype(meta["dtypes"][name]))
+    arrays = {name: np.zeros(shape, dtype=_np_dtype(meta["dtypes"][name]))
               for name, shape in meta["global_shapes"].items()}
     for k in range(meta["n_shards"]):
         with np.load(f"{path}.shard{k:03d}.npz") as data:

@@ -7,18 +7,24 @@ logically structured, so a field is one VTK StructuredGrid (.vts) with
 explicit cell-centre points, and a .pvd collection records the time
 series. Arrays come from host numpy and are written as Float32 blocks,
 base64 encoded with a UInt32 byte-count header (VTK's inline binary
-format). The encoder is plain Python (``struct`` + ``base64``).
+format). The encoder is native: csrc/vtkenc.cpp (the JAX package's
+native/src/vtkenc.cpp, its C ABI), built by the host compiler at the
+first write (ops/kernel_lib.py ``host_library``); a failed build raises.
+``_b64_block_plain`` (``struct`` + ``base64``) is its plain version,
+which the tests hold it against byte for byte.
 """
 
 from __future__ import annotations
 
 import base64
+import ctypes
 import os
 import struct
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from dycoreplanet_tpu_torch.base import dtypes
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 
 
@@ -90,11 +96,38 @@ def _local_to_cartesian_vectors(geo: Geometry, u: np.ndarray,
     return v.reshape(-1, 3)
 
 
-def _b64_block(data: np.ndarray) -> str:
-    """One binary DataArray: the float32 bytes behind a UInt32 length."""
+def _b64_block_plain(data: np.ndarray) -> str:
+    """Plain version of ``_b64_block``: ``struct`` and ``base64``."""
     raw = np.ascontiguousarray(data, dtype=np.float32).tobytes()
     header = struct.pack("<I", len(raw))
     return base64.b64encode(header + raw).decode("ascii")
+
+
+_ENCODER = []
+
+
+def _encoder():
+    """The native encoder's two entry points, built and bound once."""
+    if not _ENCODER:
+        from dycoreplanet_tpu_torch.ops import kernel_lib as kl
+
+        lib = kl.host_library("vtkenc.cpp")
+        bound, encode = lib.vtk_b64_bound, lib.vtk_encode_block
+        bound.restype, bound.argtypes = ctypes.c_size_t, [ctypes.c_size_t]
+        encode.restype = ctypes.c_size_t
+        encode.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+        _ENCODER.extend((bound, encode))
+    return _ENCODER
+
+
+def _b64_block(data: np.ndarray) -> str:
+    """One binary DataArray: the float32 bytes behind a UInt32 length,
+    base64 encoded by the native encoder."""
+    raw = np.ascontiguousarray(data, dtype=np.float32)
+    bound, encode = _encoder()
+    out = np.empty(bound(raw.nbytes), np.uint8)
+    n = encode(raw.ctypes.data, raw.nbytes, out.ctypes.data)
+    return out[:n].tobytes().decode("ascii")
 
 
 def _extent_str(geo: Geometry, sl=None) -> str:
@@ -207,7 +240,7 @@ def write_vts_sharded(
     ref = next(iter(scalars.values()), None)
     if ref is None:
         ref = next(iter(vectors.values()))
-    host = lambda t: t.detach().cpu().numpy()
+    host = dtypes.to_numpy
     base, _ = os.path.splitext(basepath)
     pieces = []
     for k, ((a, b), _) in enumerate(ref.items()):

@@ -43,21 +43,22 @@ def inverse_operator(op: Op, *, preconditioner: Optional[Op] = None,
     return apply
 
 
-def approximate_inverse(op: Op, *, n_iter: int,
+def approximate_inverse(op: Op, *, n_iter: int, rtol: float = 0.0,
                         preconditioner: Optional[Op] = None,
                         solver: str = "cg",
                         restart: Optional[int] = None) -> Op:
-    """A^{-1} action truncated at ``n_iter`` Krylov iterations;
-    non-convergence is accepted, as the reference swallows it."""
+    """A^{-1} action truncated at ``n_iter`` Krylov iterations (or at
+    ``rtol``; 0: none); non-convergence is accepted, as the reference
+    swallows it."""
     if solver == "cg":
         def apply(src):
-            return cg(op, src, rtol=0.0, maxiter=n_iter,
+            return cg(op, src, rtol=rtol, maxiter=n_iter,
                       preconditioner=preconditioner).x
     else:
         r = restart if restart is not None else n_iter
 
         def apply(src):
-            return gmres(op, src, rtol=0.0, maxiter=n_iter, restart=r,
+            return gmres(op, src, rtol=rtol, maxiter=n_iter, restart=r,
                          preconditioner=preconditioner).x
     return apply
 

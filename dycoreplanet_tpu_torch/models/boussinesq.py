@@ -118,7 +118,7 @@ import numpy as np
 import torch
 
 from dycoreplanet_tpu_torch import linear_algebra as la
-from dycoreplanet_tpu_torch.base import nondim
+from dycoreplanet_tpu_torch.base import dtypes, nondim
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid.factory import make_geometry
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
@@ -145,9 +145,6 @@ from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
 from dycoreplanet_tpu_torch.solvers.multigrid import PoissonMultigrid
 from dycoreplanet_tpu_torch.solvers.spectral import make_poisson_solver
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
 class State(NamedTuple):
     u: torch.Tensor                     # (dim, *cells) velocity, local frame
     u_faces: Tuple[torch.Tensor, ...]   # cell-shaped LEFT-face velocities
@@ -155,6 +152,14 @@ class State(NamedTuple):
     T: torch.Tensor                     # (*cells) temperature
     time: float
     step_number: int
+
+
+def _as_dtype(state: State, dtype: torch.dtype) -> State:
+    """``state`` with its fields in ``dtype`` (the same tensors where they
+    have it)."""
+    c = lambda x: x.to(dtype)  # noqa: E731
+    return state._replace(u=c(state.u), u_faces=tuple(
+        c(f) for f in state.u_faces), p=c(state.p), T=c(state.T))
 
 
 class _MeshStages(NamedTuple):
@@ -242,14 +247,6 @@ class StepDiagnostics:
         return self._h()[11:].astype(np.int32)
 
 
-def _unsupported(params: Parameters) -> Optional[str]:
-    """The ROADMAP.md item that brings a configuration this slice does
-    not run, or None."""
-    if params.numerics.dtype == "bfloat16":
-        return "bf16"
-    return None
-
-
 # the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
 # refuses
 MESH_ANNULUS = "multi-device: the annulus on the mesh"
@@ -283,17 +280,16 @@ class BoussinesqModel:
 
     def __init__(self, params: Parameters, geometry: Optional[Geometry] = None,
                  device=None):
-        item = _unsupported(params)
-        if item is not None:
-            raise NotImplementedError(
-                f"not ported yet (ROADMAP.md: {item})")
         self.device = resolve_device(device)
         self.params = params
         self._consts: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
         self.geo = geometry if geometry is not None else make_geometry(params)
         num = params.numerics
-        self.torch_dtype = _DTYPES[num.dtype]
-        self.dtype = np.dtype(num.dtype)
+        self.torch_dtype = dtypes.TORCH[num.dtype]
+        # the host constants' numpy dtype: float32 arrays of
+        # bfloat16-rounded values for a bfloat16 model (base/dtypes.py)
+        self.dtype = np.dtype(dtypes.host_dtype(self.torch_dtype))
+        self.eps = dtypes.eps(self.torch_dtype)
         if self.device.type == "cuda":
             # TF32 would round the Poisson transforms' operands to 10-bit
             # mantissas; the projection needs full float32 products
@@ -550,8 +546,7 @@ class BoussinesqModel:
                 rk.tables(self._scalar(dt), self.device, self.torch_dtype)
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.array(a), dtype=self.torch_dtype,
-                               device=self.device)
+        return dtypes.tensor_from_numpy(a, self.torch_dtype, self.device)
 
     def _const(self, value, dtype=torch.float32) -> torch.Tensor:
         """A 0-d device constant, made once (by a fill kernel, no host
@@ -590,7 +585,53 @@ class BoussinesqModel:
 
     def _scalar(self, x) -> float:
         """A Python float holding ``x`` rounded to the working dtype."""
-        return float(self.dtype.type(x))
+        return dtypes.round_scalar(x, self.torch_dtype)
+
+    def _product(self, a, b) -> float:
+        """a * b in the working dtype: both rounded, then the product."""
+        return self._scalar(self._scalar(a) * self._scalar(b))
+
+    def _host(self, a) -> np.ndarray:
+        """A host array of the working dtype (base/dtypes.py)."""
+        return dtypes.to_host(a, self.torch_dtype)
+
+    def _in_float32(self, state: State) -> bool:
+        """Whether a step from ``state`` computes on float32 copies of it:
+        a bfloat16 state on a path that runs none of the shell's hand
+        kernels (the annulus, the cuboid, the coupled solves, the mimetic
+        personality). The kernels read bfloat16 and compute in float32;
+        these paths do the same as a whole, as the JAX package's compiled
+        bfloat16 step keeps excess precision inside its fusions: the new
+        state is rounded once (``_stored``), before its diagnostics, and
+        the solvers keep the bfloat16 tolerance clamps (``_rtol``)."""
+        return (self.torch_dtype == torch.bfloat16 and not is_sharded(state)
+                and state.u.dtype == torch.bfloat16
+                and self._forcing is None and self._richardson is None
+                and self._proj is None)
+
+    def _float32_step(self, impl, state: State, dt: float, full: bool):
+        """``impl`` (a step or substep) on float32 copies of ``state``."""
+        return impl(_as_dtype(state, torch.float32), dt, full)
+
+    def _rtol(self, rtol: float) -> float:
+        """A solve's relative tolerance clamped to 16 eps of the working
+        dtype, as the JAX package's solvers clamp it on operands of that
+        dtype: the solvers clamp to their operands' eps, and a bfloat16
+        model's float32 steps (``_in_float32``) keep bfloat16's."""
+        return max(rtol, 16.0 * float(self.eps))
+
+    def _stored(self, state: State) -> State:
+        """A new state as the model stores it: its fields in the working
+        dtype (rounded once from a float32 step, ``_in_float32``)."""
+        return _as_dtype(state, self.torch_dtype)
+
+    def _advance_time(self, time: float, dt_T: float) -> float:
+        """The state's time after a step of ``dt_T``: a Python float, kept
+        in float32 when the fields are bfloat16 (in bfloat16, 4.0 + 0.01
+        is 4.0: the JAX package's time stalls, ROADMAP.md Queue 3)."""
+        if self.torch_dtype == torch.bfloat16:
+            return float(np.float32(np.float32(time) + np.float32(dt_T)))
+        return time + dt_T
 
     # ------------------------------------------------------------------
     def _setup_bcs(self) -> None:
@@ -665,9 +706,8 @@ class BoussinesqModel:
         geo = self.geo
         params = self.params
         dt_np = self.dtype
-        self.vol = np.ascontiguousarray(
-            np.broadcast_to(geo.vol, geo.cell_shape)).astype(dt_np)
-        self.diameter = np.asarray(geo.cell_diameter(), dtype=dt_np)
+        self.vol = self._host(np.broadcast_to(geo.vol, geo.cell_shape))
+        self.diameter = self._host(geo.cell_diameter())
         # gravity along axis 0: -g e_z on the cuboid
         # (core_model_data.tpp:86-95); radial on the shell and the
         # annulus, -g for r > 1, else -g sqrt(r) (tpp:97-106)
@@ -678,7 +718,7 @@ class BoussinesqModel:
         else:
             r = np.broadcast_to(geo.extras["r_centers"], geo.cell_shape)
             gvec[0] = radial_gravity_scalar(r, g0)
-        self.gravity = (self.g_hat_scale * gvec).astype(dt_np)
+        self.gravity = self._host(self.g_hat_scale * gvec)
 
         # hydrostatic background pressure of the constant-density part,
         # grad p_h = g_vec_hat (a face-midpoint integral along the radius),
@@ -690,8 +730,8 @@ class BoussinesqModel:
         p_line = self.g_hat_scale * np.concatenate(
             [[0.0], np.cumsum(0.5 * (g_line[:-1] + g_line[1:]) * dr)])
         shape1 = (geo.cell_shape[0],) + (1,) * (geo.dim - 1)
-        p_h = np.ascontiguousarray(np.broadcast_to(
-            p_line.reshape(shape1), geo.cell_shape)).astype(dt_np)
+        p_h = self._host(np.broadcast_to(p_line.reshape(shape1),
+                                         geo.cell_shape))
         p_h = p_h - (p_h * self.vol).sum() / self.vol.sum()
 
         if geo.kind == "cuboid":
@@ -702,20 +742,19 @@ class BoussinesqModel:
                 geo.dim, float(geo.axes[0].faces[0]),
                 float(geo.axes[0].faces[-1]),
                 width_scale=params.numerics.ic_width_scale)
-        self.T_init = np.asarray(
-            ic(self._cell_center_coords().astype(dt_np)), dtype=dt_np)
+        self.T_init = self._host(ic(self._host(self._cell_center_coords())))
         # boundary values: the IC on the inner wall (the cuboid's bottom);
         # none on the fully periodic cuboid
         periodic = geo.axes[0].periodic
-        self.T_wall = (None if periodic else np.asarray(
-            ic(self._wall_coords().astype(dt_np)), dtype=dt_np))
+        self.T_wall = (None if periodic else self._host(
+            ic(self._host(self._wall_coords()))))
         # reference-state density rho(volume-mean initial T): the constant
         # part of 1 - beta (T - T_ref) is a pure gradient absorbed into
         # rho_background * p_hydro (with the production T_ref = 273.15 it
         # is O(1))
         T_mean0 = float((self.T_init * self.vol).sum() / self.vol.sum())
         self.rho_background = float(1.0 - self.beta * (T_mean0 - self.T_ref))
-        self.p_hydro = (self.rho_background * p_h).astype(dt_np)
+        self.p_hydro = self._host(self.rho_background * p_h)
 
         NEU = BC.NEUMANN
         if periodic:
@@ -736,8 +775,8 @@ class BoussinesqModel:
         # weak_lap_inhom(x) = weak_lap_hom(x) + offset
         zero = torch.zeros(geo.cell_shape, dtype=self.torch_dtype,
                            device=self.device)
-        self.T_lap_offset = st.weak_laplacian(
-            geo, zero, self.T_specs).cpu().numpy()
+        self.T_lap_offset = self._host(st.weak_laplacian(
+            geo, zero, self.T_specs).cpu().double().numpy())
 
         # the direct solves' radial tridiagonals, the multigrid line
         # smoother and the non-uniform shell's spectral-CG radial lines
@@ -769,15 +808,15 @@ class BoussinesqModel:
                 device=self.device, tridiag=self._tridiag, **kw)
         elif solver_choice == "mg":
             self.poisson_precond = PoissonMultigrid(
-                geo, self.p_specs, dtype=dt_np, device=self.device,
+                geo, self.p_specs, dtype=self.torch_dtype, device=self.device,
                 tridiag=self._tridiag)
-        self.poisson_diag = (
-            -weak_laplacian_diagonal(geo, self.p_specs)).astype(dt_np)
+        self.poisson_diag = self._host(
+            -weak_laplacian_diagonal(geo, self.p_specs))
         self.helm_diags = np.stack([
-            (-weak_laplacian_diagonal(geo, self.u_specs[c])).astype(dt_np)
+            self._host(-weak_laplacian_diagonal(geo, self.u_specs[c]))
             for c in range(geo.dim)])
-        self.T_diag = (
-            -weak_laplacian_diagonal(geo, self.T_specs_hom)).astype(dt_np)
+        self.T_diag = self._host(
+            -weak_laplacian_diagonal(geo, self.T_specs_hom))
 
         # direct (non-iterative) Helmholtz solvers for the implicit
         # momentum and temperature systems (solvers/helmholtz.py)
@@ -837,6 +876,8 @@ class BoussinesqModel:
         (the earlier steps of a multi_step chunk without diagnostics)."""
         if is_sharded(state):
             return self._mesh_step_impl(state, dt, full)
+        if self._in_float32(state):
+            return self._float32_step(self._step_impl, state, dt, full)
         geo = self.geo
         p = self.params
         vol = self._vol_t
@@ -857,8 +898,7 @@ class BoussinesqModel:
         else:
             rhs_u = self._forcing(u, u_faces, T, pres, dt)
             T_adv = self._advected_temperature(u, u_faces, T, dt_T)
-        kT = self._scalar(self.dtype.type(dt_T)
-                          * self.dtype.type(self.one_over_Pe))
+        kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
 
         if self.momentum_solver == "coupled":
@@ -892,14 +932,12 @@ class BoussinesqModel:
                 rk = self._richardson_free
             u_star, T_new, prefused, (rn_u, bn_u, rn_T, bn_T) = \
                 rk(rhs_u, rhs_T, T, dt)
-            eps16 = 16.0 * float(np.finfo(self.dtype).eps)
             # rn < 0: not checked on this step (interval mode)
             helm_ok = torch.logical_or(
-                rn_u < 0,
-                rn_u <= max(p.numerics.helmholtz_tol, eps16) * bn_u)
+                rn_u < 0, rn_u <= self._rtol(p.numerics.helmholtz_tol) * bn_u)
             T_ok = torch.logical_or(
                 rn_T < 0,
-                rn_T <= max(p.numerics.temperature_tol, eps16) * bn_T)
+                rn_T <= self._rtol(p.numerics.temperature_tol) * bn_T)
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt,
                                                   prefused=prefused)
@@ -914,9 +952,12 @@ class BoussinesqModel:
             T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
                 rhs_T, kT, T)
 
-        new_state = State(u=u_new, u_faces=tuple(new_faces), p=p_new,
-                          T=T_new, time=state.time + dt_T,
-                          step_number=state.step_number + 1)
+        new_state = self._stored(State(
+            u=u_new, u_faces=tuple(new_faces), p=p_new, T=T_new,
+            time=self._advance_time(state.time, dt_T),
+            step_number=state.step_number + 1))
+        u_new, new_faces, T_new = (new_state.u, list(new_state.u_faces),
+                                   new_state.T)
         ok = torch.logical_and(momentum_ok, T_ok)
         if not full:
             return new_state, None, self._f32(ok)
@@ -952,16 +993,14 @@ class BoussinesqModel:
         else:
             rhs_u = mesh.forcing(u, u_faces, T, pres, dt)
             T_adv = mesh.transport(u, u_faces, T, dt_T)
-        kT = self._scalar(self.dtype.type(dt_T)
-                          * self.dtype.type(self.one_over_Pe))
+        kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
                           ops.T_lap_offset)
         rk = mesh.richardson
         u_star, T_new, (uf0, uf1, uf2, rhs_phi), (rn_u, bn_u, rn_T, bn_T) = \
             rk(rhs_u, rhs_T, T, dt)
-        eps16 = 16.0 * float(np.finfo(self.dtype).eps)
-        helm_ok = rn_u <= max(p.numerics.helmholtz_tol, eps16) * bn_u
-        T_ok = rn_T <= max(p.numerics.temperature_tol, eps16) * bn_T
+        helm_ok = rn_u <= self._rtol(p.numerics.helmholtz_tol) * bn_u
+        T_ok = rn_T <= self._rtol(p.numerics.temperature_tol) * bn_T
 
         # the projection (_project_velocity's fast path)
         phi, _ = mesh.poisson.solve(rhs_phi)
@@ -975,13 +1014,13 @@ class BoussinesqModel:
         vol_div = div_new.map(lambda d, v: torch.sum((v * d) ** 2), ops.vol)
         rnorm = torch.sqrt(ops.total(vol_div)) / dt
         bnorm = torch.sqrt(ops.total(rhs_phi.map(lambda r: torch.sum(r ** 2))))
-        epsf = float(np.finfo(self.dtype).eps)
+        epsf = float(self.eps)
         floor = 16.0 * epsf * torch.sqrt(ops.face_flux2(new_faces)) / dt
         tol = self._poisson_check_tol(mesh.poisson)
         poisson_ok = rnorm <= tol * bnorm + floor
 
         new_state = State(u=u_new, u_faces=new_faces, p=p_new, T=T_new,
-                          time=state.time + dt_T,
+                          time=self._advance_time(state.time, dt_T),
                           step_number=state.step_number + 1)
         ok = torch.logical_and(torch.logical_and(helm_ok, poisson_ok), T_ok)
         if not full:
@@ -1009,17 +1048,21 @@ class BoussinesqModel:
         ``_step_impl``."""
         if is_sharded(state):
             return self._mesh_temperature_step_impl(state, dt, full)
+        if self._in_float32(state):
+            return self._float32_step(self._temperature_step_impl, state, dt,
+                                      full)
         geo = self.geo
         T = state.T
         dt_T = self._dt_T(dt)
         T_adv = self._advected_temperature(state.u, state.u_faces, T, dt_T)
-        kT = self._scalar(self.dtype.type(dt_T)
-                          * self.dtype.type(self.one_over_Pe))
+        kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = self._vol_t * T_adv + kT * self._T_lap_offset_t
         T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
             rhs_T, kT, T)
-        new_state = state._replace(T=T_new, time=state.time + dt_T,
-                                   step_number=state.step_number + 1)
+        new_state = self._stored(state._replace(
+            T=T_new, time=self._advance_time(state.time, dt_T),
+            step_number=state.step_number + 1))
+        T_new = new_state.T
         if not full:
             return new_state, None, self._f32(T_ok)
         speed = st.cell_max_speed(geo, state.u)
@@ -1049,15 +1092,15 @@ class BoussinesqModel:
         T = state.T
         dt_T = self._dt_T(dt)
         T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)
-        kT = self._scalar(self.dtype.type(dt_T)
-                          * self.dtype.type(self.one_over_Pe))
+        kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
                           ops.T_lap_offset)
         T_new, T_iters, T_rnorm, T_ok = ops.temperature_solve(
             self.T_specs_hom, rhs_T, kT, T, num.fixed_solver_iters,
             num.temperature_tol)
-        new_state = state._replace(T=T_new, time=state.time + dt_T,
-                                   step_number=state.step_number + 1)
+        new_state = state._replace(
+            T=T_new, time=self._advance_time(state.time, dt_T),
+            step_number=state.step_number + 1)
         if not full:
             return new_state, None, self._f32(T_ok)
         speed = state.u.map(lambda x: st.cell_max_speed(self.geo, x))
@@ -1102,11 +1145,13 @@ class BoussinesqModel:
         k_fix = 0 if self._force_cg else num.fixed_solver_iters
         if k_fix > 0:
             res = richardson_solve(temp_op, rhs_T, x0, diag=diag_T,
-                                   iters=k_fix, rtol=num.temperature_tol,
+                                   iters=k_fix,
+                                   rtol=self._rtol(num.temperature_tol),
                                    record_history=self._hist_n())
             self._stash_history("temperature richardson", res)
         else:
-            res = cg(temp_op, rhs_T, x0=x0, rtol=num.temperature_tol,
+            res = cg(temp_op, rhs_T, x0=x0,
+                     rtol=self._rtol(num.temperature_tol),
                      maxiter=num.max_cg_iters,
                      preconditioner=lambda r: r / diag_T,
                      record_history=self._hist_n())
@@ -1139,7 +1184,7 @@ class BoussinesqModel:
                          if self.poisson_spectral is not None
                          else (lambda r: r / self._poisson_diag_t)))
         return cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
-                  rhs_phi, rtol=self.params.numerics.poisson_tol,
+                  rhs_phi, rtol=self._rtol(self.params.numerics.poisson_tol),
                   maxiter=self.params.numerics.max_cg_iters,
                   preconditioner=precond, record_history=record_history)
 
@@ -1152,8 +1197,7 @@ class BoussinesqModel:
         geo = self.geo
         dim = geo.dim
         vol = self._vol_t
-        coef = self._scalar(self.dtype.type(dt)
-                            * self.dtype.type(self.one_over_Re))
+        coef = self._product(dt, self.one_over_Re)
         if self.helmholtz_direct is not None:
             u_star = self.helmholtz_direct.solve(vol[None] * rhs_u, coef)
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
@@ -1171,12 +1215,13 @@ class BoussinesqModel:
         if k_fix > 0:
             res = richardson_solve(helm_op, vol[None] * rhs_u, rhs_u,
                                    diag=helm_diag, iters=k_fix,
-                                   rtol=self.params.numerics.helmholtz_tol,
+                                   rtol=self._rtol(
+                                       self.params.numerics.helmholtz_tol),
                                    record_history=self._hist_n())
             self._stash_history("helmholtz richardson", res)
         else:
             res = cg(helm_op, vol[None] * rhs_u, x0=rhs_u,
-                     rtol=self.params.numerics.helmholtz_tol,
+                     rtol=self._rtol(self.params.numerics.helmholtz_tol),
                      maxiter=self.params.numerics.max_cg_iters,
                      preconditioner=lambda r: r / helm_diag,
                      record_history=self._hist_n())
@@ -1207,7 +1252,9 @@ class BoussinesqModel:
                 *uf_star, rhs_raw, total = self._proj.faces_div(u_star, dt)
             # compatibility: the constant spans the weak Laplacian's
             # nullspace, so sum(rhs) must vanish; subtract the float drift
-            rhs_phi = rhs_raw - total / float(geo.n_cells)
+            # (K3's sum is float32 under bfloat16 fields)
+            rhs_phi = (rhs_raw - total / float(geo.n_cells)).to(
+                rhs_raw.dtype)
 
         phi, poisson_iters, poisson_rnorm, poisson_ok = \
             self._solve_pressure_poisson(rhs_phi)
@@ -1230,7 +1277,7 @@ class BoussinesqModel:
             div_chk = st.divergence(geo, new_faces)
             rnorm = torch.sqrt(torch.sum((vol * div_chk) ** 2)) / dt
             bnorm = torch.sqrt(torch.sum(rhs_phi ** 2))
-            epsf = float(np.finfo(self.dtype).eps)
+            epsf = float(self.eps)
             flux2 = None
             for d2 in range(geo.dim):
                 t2 = torch.sum(
@@ -1249,7 +1296,7 @@ class BoussinesqModel:
         Poisson solver: per precision as in the JAX package
         (boussinesq.py:1284-1294), or the bound a solver whose transforms
         amplify round-off declares (the annulus fast diagonalization)."""
-        epsf = float(np.finfo(self.dtype).eps)
+        epsf = float(self.eps)
         prec_tol = {"highest": 256.0 * epsf, "high": 1e-2,
                     "high-refine": 1e-3}[solver.precision]
         amp = getattr(solver, "check_amp", None)
@@ -1320,8 +1367,7 @@ class BoussinesqModel:
         num = p.numerics
         dim = geo.dim
         vol = self._vol_t
-        coef = self._scalar(self.dtype.type(dt)
-                            * self.dtype.type(self.one_over_Re))
+        coef = self._product(dt, self.one_over_Re)
 
         def A_op(u):
             return vol[None] * u - coef * torch.stack([
@@ -1334,11 +1380,13 @@ class BoussinesqModel:
 
         if p.use_schur_complement_solver:
             A_inv = la.inverse_operator(
-                A_op, preconditioner=lambda r: r / helm_diag, rtol=1e-6,
+                A_op, preconditioner=lambda r: r / helm_diag,
+                rtol=self._rtol(1e-6),
                 maxiter=num.max_cg_iters)
             DAinvG = la.schur_complement(D_op, A_inv, G_op)
             res = gmres(lambda pp: DAinvG(pp) + stab(pp), D_op(A_inv(f)),
-                        rtol=1e-6, restart=30, maxiter=num.max_cg_iters,
+                        rtol=self._rtol(1e-6), restart=30,
+                        maxiter=num.max_cg_iters,
                         preconditioner=lambda r: -poisson_inv(r) / dt,
                         record_history=self._hist_n())
             self._stash_history("schur GMRES", res)
@@ -1359,18 +1407,21 @@ class BoussinesqModel:
             def M_inv_strong(rr):
                 ru, rp = rr[:dim], rr[dim]
                 phat = -poisson_inv(rp) / dt
-                inner = cg(A_op, ru - G_op(phat), rtol=1e-6, maxiter=50,
+                inner = cg(A_op, ru - G_op(phat), rtol=self._rtol(1e-6),
+                           maxiter=50,
                            preconditioner=lambda r: r / helm_diag)
                 return torch.cat([inner.x, phat[None]], 0)
 
             b = torch.cat([f, torch.zeros_like(f[:1])], 0)
-            res = gmres(K_op, b, rtol=num.helmholtz_tol, restart=30,
+            res = gmres(K_op, b, rtol=self._rtol(num.helmholtz_tol),
+                        restart=30,
                         maxiter=num.max_cg_iters, preconditioner=M_inv,
                         record_history=self._hist_n())
             self._stash_history("coupled FGMRES", res)
             if self._enable_solver_fallback and not bool(res.converged):
                 # flexible: M_inv_strong holds an inner iterative CG
-                res = gmres(K_op, b, x0=res.x, rtol=num.helmholtz_tol,
+                res = gmres(K_op, b, x0=res.x,
+                            rtol=self._rtol(num.helmholtz_tol),
                             restart=50, maxiter=num.max_cg_iters,
                             preconditioner=M_inv_strong, flexible=True,
                             record_history=self._hist_n())
@@ -1421,8 +1472,7 @@ class BoussinesqModel:
         num = self.params.numerics
         dim = geo.dim
         vol = self._vol_t
-        k_visc = self._scalar(self.dtype.type(dt)
-                              * self.dtype.type(self.one_over_Re))
+        k_visc = self._product(dt, self.one_over_Re)
         G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt)
 
         def curl(v):
@@ -1443,7 +1493,7 @@ class BoussinesqModel:
         sh_diag = vol[None] + k_visc * self._helm_diags_t
         shifted_inv = la.approximate_inverse(
             la.shifted_schur_complement(mass, B10_op, Mw_inv, B01_op),
-            n_iter=3, solver="gmres", restart=3,
+            n_iter=3, rtol=self._rtol(0.0), solver="gmres", restart=3,
             preconditioner=lambda r: r / sh_diag)
 
         def K_op(xx):
@@ -1461,7 +1511,7 @@ class BoussinesqModel:
 
         f = vol[None] * rhs_u
         b = torch.cat([torch.zeros_like(f), f, torch.zeros_like(f[:1])], 0)
-        res = gmres(K_op, b, rtol=num.helmholtz_tol, restart=16,
+        res = gmres(K_op, b, rtol=self._rtol(num.helmholtz_tol), restart=16,
                     maxiter=num.max_cg_iters, preconditioner=M_inv,
                     flexible=True, record_history=self._hist_n())
         self._stash_history("FEEC 3x3 FGMRES", res)
@@ -1546,11 +1596,11 @@ class BoussinesqModel:
     def _next_dt(self, packed: torch.Tensor) -> float:
         """The CFL time step from a step's packed diagnostics, rounded as
         the JAX package's scan computes it (in the working dtype)."""
-        npd = self.dtype.type
+        rnd = self._scalar
         deg = max(self.params.temperature_degree,
                   self.params.nse_velocity_degree)
-        cfl = max(npd(float(packed[0])), npd(1e-30))
-        return float(npd(self._dt_scaling_const()) / (npd(deg) * cfl))
+        cfl = max(rnd(float(packed[0])), rnd(1e-30))
+        return rnd(rnd(self._dt_scaling_const()) / rnd(rnd(deg) * cfl))
 
     def _chunk(self, state: State, dt: float, n_steps: int,
                collect: bool, adaptive: bool):

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
-
+from dycoreplanet_tpu_torch.base import dtypes
 from dycoreplanet_tpu_torch.models.boussinesq import BoussinesqModel, State
 from dycoreplanet_tpu_torch.parallel.mesh import (
     is_sharded, shard_state, unshard_state)
@@ -19,11 +18,12 @@ from dycoreplanet_tpu_torch.parallel.mesh import (
 def state_from_numpy(model: BoussinesqModel, u, u_faces: Sequence, p, T,
                      time: float = 0.0, step_number: int = 0) -> State:
     """State on the model's device and dtype from numpy arrays: u
-    (dim, *cells), dim cell-shaped left-face arrays, p and T (*cells)."""
-    t = model._tensor
-    return State(u=t(np.asarray(u)),
-                 u_faces=tuple(t(np.asarray(f)) for f in u_faces),
-                 p=t(np.asarray(p)), T=t(np.asarray(T)),
+    (dim, *cells), dim cell-shaped left-face arrays, p and T (*cells);
+    bfloat16 arrays (the JAX package's) are taken bit for bit."""
+    t = lambda a: dtypes.tensor_from_numpy(  # noqa: E731
+        a, model.torch_dtype, model.device)
+    return State(u=t(u), u_faces=tuple(t(f) for f in u_faces),
+                 p=t(p), T=t(T),
                  time=float(time), step_number=int(step_number))
 
 
@@ -41,9 +41,10 @@ def sharded_state_from_numpy(model: BoussinesqModel, u, u_faces: Sequence,
 
 def state_to_numpy(state: State) -> Tuple:
     """(u, (uf0, ..., uf_{dim-1}), p, T, time, step_number) as
-    numpy/host, global arrays (a sharded state is gathered)."""
+    numpy/host, global arrays (a sharded state is gathered; bfloat16
+    fields widened to float32)."""
     if is_sharded(state):
         state = unshard_state(state, "cpu")
-    h = lambda x: x.detach().cpu().numpy()
+    h = dtypes.to_numpy
     return (h(state.u), tuple(h(f) for f in state.u_faces), h(state.p),
             h(state.T), float(state.time), int(state.step_number))

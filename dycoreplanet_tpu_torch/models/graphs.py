@@ -136,7 +136,7 @@ class ChunkGraphs:
         time = state.time
         dt_T = m._dt_T(dt)
         for _ in range(n_steps):            # as each eager step adds it
-            time = time + dt_T
+            time = m._advance_time(time, dt_T)
         new = _with_fields(state, fields)._replace(
             time=time, step_number=state.step_number + n_steps)
         return new, packed, m._scalar(dt)

@@ -182,8 +182,7 @@ class MimeticBoussinesqModel(BoussinesqModel):
         sg = self.stag
         dim = self.geo.dim
         num = self.params.numerics
-        coef = self._scalar(self.dtype.type(dt)
-                            * self.dtype.type(self.one_over_Re))
+        coef = self._product(dt, self.one_over_Re)
         w = self._w_stack
 
         def helm_op(x):
@@ -193,7 +192,8 @@ class MimeticBoussinesqModel(BoussinesqModel):
 
         diag = w + coef * self._cc_diag
         res = cg(helm_op, w * uf_star_rhs, x0=uf_star_rhs,
-                 rtol=num.helmholtz_tol, maxiter=num.max_cg_iters,
+                 rtol=self._rtol(num.helmholtz_tol),
+                 maxiter=num.max_cg_iters,
                  preconditioner=lambda r: r / diag)
         return res.x, res.iterations, res.residual_norm, res.converged
 
@@ -203,6 +203,8 @@ class MimeticBoussinesqModel(BoussinesqModel):
         (new_state, packed diagnostics, ok) as the parent's."""
         if is_sharded(state):
             raise _not_on_mesh(MESH_CG, "the mimetic (staggered) personality")
+        if self._in_float32(state):
+            return self._float32_step(self._step_impl, state, dt, full)
         geo = self.geo
         p = self.params
         sg = self.stag
@@ -244,15 +246,17 @@ class MimeticBoussinesqModel(BoussinesqModel):
 
         # ---------------- temperature (conservative flux form) ---------
         T_adv = self._advected_temperature(state.u, state.u_faces, T, dt_T)
-        kT = self._scalar(self.dtype.type(dt_T)
-                          * self.dtype.type(self.one_over_Pe))
+        kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
         T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
             rhs_T, kT, T)
 
-        new_state = State(u=u_new, u_faces=tuple(new_faces), p=p_new,
-                          T=T_new, time=state.time + dt_T,
-                          step_number=state.step_number + 1)
+        new_state = self._stored(State(
+            u=u_new, u_faces=tuple(new_faces), p=p_new, T=T_new,
+            time=self._advance_time(state.time, dt_T),
+            step_number=state.step_number + 1))
+        u_new, new_faces, T_new = (new_state.u, list(new_state.u_faces),
+                                   new_state.T)
         ok = torch.logical_and(torch.logical_and(T_ok, poisson_ok), helm_ok)
         if not full:
             return new_state, None, self._f32(ok)

@@ -24,6 +24,12 @@ stages u alone and reads T at the cell.
 ``Forcing`` is the plain version in any geometry: the annulus step runs
 it as it is, and ``ShellForcing`` adds the kernels to it.
 
+The kernels take float32, float64 or bfloat16 fields. The bfloat16 forms
+(``__nv_bfloat16`` storage) widen each value as it is read, stage and
+compute in float32, keep their tables in float32 and round each output
+once; their plain version is the float32 plain version on the widened
+inputs, each output rounded once.
+
 ``halo_mode="operands"`` is K2o, K2 on one shard of a mesh (the Pallas
 kernel's operands mode, pallas_stencil.py:116-131, 280-319, 708-719;
 driven by parallel/sharded_pallas.py), and with ``advect_T`` false
@@ -292,6 +298,9 @@ class ShellForcing(Forcing):
     def plain(self, u, u_faces, T, pres, dt):
         """Plain PyTorch version: (u + dt * forcing, T_adv), or u + dt *
         forcing without the transport."""
+        if u.dtype == torch.bfloat16:
+            return kl.narrow(self.plain(*kl.widen((u, u_faces, T, pres)),
+                                        dt))
         rhs_u = u + dt * self.explicit_forcing(u, u_faces, pres, T)
         if not self.advect_T:
             return rhs_u
@@ -331,10 +340,14 @@ class ShellForcing(Forcing):
         if consts is None:
             lat = self._lat64.copy()
             # sin(lat) in the working dtype, as the JAX function takes it
+            # (float32, the compute type, under bfloat16 fields); T_wall
+            # in the fields' dtype
             lat[2] = np.sin(lat[2].astype(kl.NP_DTYPE[dtype]))
-            consts = tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+            cdt = kl.compute_dtype(dtype)
+            consts = tuple(torch.as_tensor(a, dtype=t, device=dev)
                            .contiguous()
-                           for a in (self._M64, lat, self._T_wall))
+                           for a, t in ((self._M64, cdt), (lat, cdt),
+                                        (self._T_wall, dtype)))
             self._dev[key] = consts
         M, lat, T_wall = consts
         sfx = kl.suffix(dtype)
@@ -448,7 +461,10 @@ class ShellForcing(Forcing):
         advected_temperature on the block padded by two cells, with the
         padded block's geometry, cropped (plain PyTorch: the operands
         mode's transport, and on a mesh the Eulerian temperature
-        substep's)."""
+        substep's; bfloat16 fields as ``plain_operands`` takes them)."""
+        if T.dtype == torch.bfloat16:
+            return kl.narrow(self.transport_operands(
+                *kl.widen((u_faces, T)), dt_T, kl.widen(halos), offset))
         fo = self._shard(offset).plain
         H = halos
         Tp = self._pad(T, H["HLT"], H["HOT"], 2)
@@ -460,7 +476,12 @@ class ShellForcing(Forcing):
         with the ghost operands, ``Forcing`` on the padded block's geometry
         (mesh.shard_geometry), cropped. Returns (rhs_u, T_adv) with the
         transport (``transport_operands``), else rhs_u. The forcing reads
-        T at the cell alone (the buoyancy)."""
+        T at the cell alone (the buoyancy). bfloat16 fields: the float32
+        plain version on them widened, each output rounded once."""
+        if u.dtype == torch.bfloat16:
+            return kl.narrow(self.plain_operands(
+                *kl.widen((u, u_faces, T, pres)), dt, kl.widen(halos),
+                offset))
         fo = self._shard(offset).plain
         H = halos
         up = self._pad(u, H["HLu"], H["HOu"], 2)
@@ -498,8 +519,10 @@ class ShellForcing(Forcing):
         if tabs is None:
             lat = sh.lat.copy()
             lat[2] = np.sin(lat[2].astype(kl.NP_DTYPE[dtype]))
-            tabs = tuple(torch.as_tensor(a, dtype=dtype, device=dev)
-                         .contiguous() for a in (sh.M, lat, sh.T_wall))
+            cdt = kl.compute_dtype(dtype)
+            tabs = tuple(torch.as_tensor(a, dtype=t, device=dev)
+                         .contiguous() for a, t in ((sh.M, cdt), (lat, cdt),
+                                                    (sh.T_wall, dtype)))
             sh.dev[key] = tabs
         M, lat, T_wall = tabs
         sfx = kl.suffix(dtype)

@@ -10,6 +10,9 @@ Nothing here runs at import: the CPU tests import every module.
 Every C entry point launches on the caller's stream (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; callers
 raise on a nonzero code via :func:`check`.
+
+``host_library`` builds the one host source (csrc/vtkenc.cpp, the VTK
+encoder of io/vtk.py) with the host compiler the same way, at first use.
 """
 
 from __future__ import annotations
@@ -174,6 +177,43 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# host (not CUDA) sources, built by the host compiler with these flags
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The loaded library of one C++ source of csrc/ built by the host
+    compiler (g++; no nvcc), at first use, into ``BUILD_DIR``, keyed by a
+    hash of the source and the flags. Raises with the compiler's output
+    when the build fails; nothing falls back."""
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    path = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler (g++) to build "
+                               f"{source}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp,
+                               os.path.join(CSRC, source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed to build {source} (rc "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    _LIBS[source] = lib
+    return lib
+
+
 def bind(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
     fn = getattr(library(source), name)
     fn.argtypes = list(argtypes)
@@ -202,7 +242,10 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# the numpy dtype of the kernels' tables and scalars: their compute type
+# (float for bfloat16 storage)
+NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64,
+            torch.bfloat16: np.float32}
 
 
 def suffix(dtype: torch.dtype) -> str:
@@ -210,7 +253,39 @@ def suffix(dtype: torch.dtype) -> str:
         return "f32"
     if dtype == torch.float64:
         return "f64"
-    raise TypeError(f"the CUDA kernels take float32 or float64, not {dtype}")
+    if dtype == torch.bfloat16:
+        return "bf16"
+    raise TypeError(f"the CUDA kernels take float32, float64 or bfloat16, "
+                    f"not {dtype}")
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a kernel computes in and keeps its tables, partial sums
+    and shared memory in: float for bfloat16 storage (each value widened
+    when read, rounded once when stored), else the storage type."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def widen(x):
+    """bfloat16 tensors in ``x`` (nested tuples, lists and dicts) as
+    float32."""
+    if isinstance(x, dict):
+        return {k: widen(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(widen(v) for v in x)
+    if torch.is_tensor(x) and x.dtype == torch.bfloat16:
+        return x.float()
+    return x
+
+
+def narrow(x):
+    """float32 tensors in ``x`` (nested tuples and lists) rounded once to
+    bfloat16."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(narrow(v) for v in x)
+    if torch.is_tensor(x) and x.dtype == torch.float32:
+        return x.to(torch.bfloat16)
+    return x
 
 
 def require_cuda(what: str, shapes: Dict[str, Tuple[torch.Tensor, tuple]]

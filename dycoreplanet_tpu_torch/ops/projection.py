@@ -21,6 +21,11 @@ and 7 written (u 3, 3 faces, p): 15 fields, ~62.9 MB at 32x128x256 f32.
 
 Design of both: one thread per cell, ghosts by index arithmetic; K3
 takes fixed-order block sums of rhs.
+
+Both take float32, float64 or bfloat16 fields. The bfloat16 forms
+compute in float32 and round each output once; K3's sum of rhs is then
+float32 (rhs before its rounding). Their plain versions do the same: the
+float32 plain version on the widened inputs, each output rounded once.
 """
 
 from __future__ import annotations
@@ -124,9 +129,15 @@ class ShellProjection:
         self.correct_count = kl.LaunchCount()
 
     def plain(self, u_star: torch.Tensor, dt):
+        if u_star.dtype == torch.bfloat16:
+            *out, total = self.plain(u_star.float(), dt)
+            return (*kl.narrow(out), total)
         return faces_div_plain(self.geo, self.u_specs, u_star, dt)
 
     def correct_plain(self, u_star, uf, phi, pres, dt, phi_mean):
+        if u_star.dtype == torch.bfloat16:
+            return kl.narrow(self.correct_plain(
+                *kl.widen((u_star, uf, phi, pres)), dt, phi_mean.float()))
         return correct_plain(self.geo, self.p_specs, u_star, uf, phi, pres,
                              dt, phi_mean, self.incremental)
 
@@ -134,8 +145,9 @@ class ShellProjection:
         """(metric channels on the device, bound entry point)."""
         key = (which, str(dev), dtype)
         if key not in self._M:
-            self._M[key] = torch.as_tensor(self._M64[which], dtype=dtype,
-                                           device=dev).contiguous()
+            self._M[key] = torch.as_tensor(
+                self._M64[which], dtype=kl.compute_dtype(dtype),
+                device=dev).contiguous()
         sfx = kl.suffix(dtype)
         fn = self._fn.get((which, sfx))
         if fn is None:
@@ -155,8 +167,9 @@ class ShellProjection:
         f0, f1, f2, rhs = (torch.empty((nr, nlat, nlon), dtype=dtype,
                                        device=dev) for _ in range(4))
         nblk = (nr * nlat * nlon + 255) // 256
-        parts = torch.empty(nblk, dtype=dtype, device=dev)
-        total = torch.empty(1, dtype=dtype, device=dev)
+        cdt = kl.compute_dtype(dtype)
+        parts = torch.empty(nblk, dtype=cdt, device=dev)
+        total = torch.empty(1, dtype=cdt, device=dev)
         p = kl.ptr
         kl.check(fn(nr, nlat, nlon, p(M), p(u_star), float(dt),
                     p(f0), p(f1), p(f2), p(rhs), p(parts), p(total),

@@ -42,6 +42,14 @@ shard and the card (:func:`plan_operands`) and stages its rows as
 16-byte copies (``shared_bytes(..., operands=True)``: rows padded to 16
 bytes).
 
+The kernel takes float32, float64 or bfloat16 fields. The bfloat16 form
+(the same source, ``__nv_bfloat16`` storage) widens each value as it is
+staged, keeps its boxes, tables and sweeps in float32 and rounds each
+output once; its residual partials and sums stay float32 (the Pallas
+kernel writes them in the state dtype), and so do the iterates between
+passes. Its plain version is the float32 plain version on the widened
+inputs, the fields rounded once, the norms float32.
+
 The plain version is deliberately the straightforward composition the
 JAX package runs on the CPU: ``solvers.fixed.richardson_solve`` over the
 ghost-based ``weak_laplacian`` and the plain projection head, so an
@@ -283,8 +291,8 @@ class ShellRichardson:
         self.launches = 0
 
     def plan(self, dtype: torch.dtype) -> Tuple[PassPlan, ...]:
-        return plan(self.local_shape, torch.finfo(dtype).bits // 8,
-                    self.iters_u, self.iters_T, track=self.track_residual)
+        return plan(self.local_shape, _itemsize(dtype), self.iters_u,
+                    self.iters_T, track=self.track_residual)
 
     def coefs(self, dt, dtype):
         """coef_u = dt/Re and coef_T = dt_T/Pe, rounded as the kernel and
@@ -296,6 +304,9 @@ class ShellRichardson:
 
     # ------------------------------------------------------------------
     def plain(self, rhs_u, rhs_T, T0, dt):
+        if rhs_u.dtype == torch.bfloat16:
+            *fields, norms = self.plain(*kl.widen((rhs_u, rhs_T, T0)), dt)
+            return (*kl.narrow(fields), norms)
         geo = self.geo
         dtype = rhs_u.dtype
         vol = st.metric(geo, "vol", 0, rhs_u)
@@ -344,10 +355,11 @@ class ShellRichardson:
         if c is None:
             host = (self.tables64 if j0 is None
                     else self._slab(j0, self.local_shape[1]))
-            M = torch.as_tensor(host, dtype=dtype, device=dev).contiguous()
+            cdt = kl.compute_dtype(dtype)
+            M = torch.as_tensor(host, dtype=cdt, device=dev).contiguous()
             c = DeviceTables(M, torch.zeros(1, dtype=torch.int32, device=dev),
                              torch.empty_like(M[6:10]), None,
-                             torch.full((), -1.0, dtype=dtype, device=dev))
+                             torch.full((), -1.0, dtype=cdt, device=dev))
         if c.dt != float(dt):
             cu, cT = self.coefs(dt, dtype)
             torch.reciprocal(c.M[0][None] + cu * c.M[6:9], out=c.invD[:3])
@@ -370,14 +382,17 @@ class ShellRichardson:
         shp = self.geo.cell_shape
         nr, nlat, nlon = shp
         new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+        # the compute type's: partials, sums and the scratch
+        cnew = lambda *s: torch.empty(s, dtype=kl.compute_dtype(dtype),
+                                      device=dev)
         u_star, T_new = new(3, *shp), new(*shp)
         f0, f1, f2, rhs_raw = (new(*shp) for _ in range(4))
         passes = self.plan(dtype)
-        parts = new(passes[-1].n_blocks, 5)
-        sums = new(5)
+        parts = cnew(passes[-1].n_blocks, 5)
+        sums = cnew(5)
         # iterates and residuals between passes ping-pong through two
         # scratch sets (x_u, x_T, r_u, r_T)
-        scratch = [(new(3, *shp), new(*shp), new(3, *shp), new(*shp))
+        scratch = [(cnew(3, *shp), cnew(*shp), cnew(3, *shp), cnew(*shp))
                    for _ in range(min(2, len(passes) - 1))]
         p = kl.ptr
         null = ctypes.c_void_p(None)
@@ -451,7 +466,12 @@ class ShellRichardson:
         them (|r_u|^2, |b_u|^2, |r_T|^2, |b_T|^2, sum rhs_raw). The block
         is GH cells deep, so the garbage that the block's own edge rules
         make spreads no further than GH - 1 cells in by the last residual
-        update."""
+        update. bfloat16 inputs: the float32 plain version on them
+        widened, the fields rounded once, the sums float32."""
+        if ru_e.dtype == torch.bfloat16:
+            *fields, parts = self.plain_operands(
+                *kl.widen((ru_e, rT_e, T0_e)), dt, offset)
+            return (*kl.narrow(fields), parts)
         geo = self._shard_geometry(offset)
         GH = self.GH
         nr, nl, no = self.local_shape
@@ -537,8 +557,7 @@ class ShellRichardson:
             sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
             ps = plan_operands(self.local_shape, sms, self.occupancy(dtype),
-                               torch.finfo(dtype).bits // 8, self.iters_u,
-                               self.iters_T)
+                               _itemsize(dtype), self.iters_u, self.iters_T)
             card = (ps, sms * self.occupancy(dtype, ps.smem_bytes))
             self._card[key] = card
         return card
@@ -563,7 +582,9 @@ class ShellRichardson:
         new = lambda *s: torch.empty(s, dtype=dtype, device=dev)
         u_star, T_new = new(3, nr, nl, no), new(nr, nl, no)
         f0, f1, f2, rhs_raw = (new(nr, nl, no) for _ in range(4))
-        parts, sums = new(ps.n_blocks, 5), new(5)
+        cdt = kl.compute_dtype(dtype)
+        parts = torch.empty(ps.n_blocks, 5, dtype=cdt, device=dev)
+        sums = torch.empty(5, dtype=cdt, device=dev)
         p = kl.ptr
         null = ctypes.c_void_p(None)
         kl.check(fn(nr, nl, no, *ps.tile, ps.halo, ps.smem_bytes, p(M),
@@ -588,6 +609,11 @@ class ShellRichardson:
         out = self._launch(rhs_u, rhs_T, T0, dt)
         self.launches += 1
         return out
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    """Bytes of a value of the kernel's shared memory (its compute type)."""
+    return torch.finfo(kl.compute_dtype(dtype)).bits // 8
 
 
 def ops_per_cell(iters_u: int, iters_T: int, track: bool = True) -> int:

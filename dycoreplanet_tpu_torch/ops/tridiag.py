@@ -24,6 +24,12 @@ thread solves both systems with one reciprocal a row.
 
 Bound: device-memory traffic — each operand read once as passed (a
 broadcast axis counts once) and x written once: ``values_moved``.
+
+float32 and float64 operands give x in their dtype. A bfloat16 rhs (the
+multigrid line smoother's residual lines under a bfloat16 model) takes
+float32 coefficients and gives x in float32: the kernel widens each rhs
+value as it reads it and runs the recurrences in float32, as the plain
+version does, which returns float32 too.
 """
 
 from __future__ import annotations
@@ -127,19 +133,21 @@ class Layout(NamedTuple):
 def layout(lower, diag, upper, rhs, pair: bool = True) -> Layout:
     """The kernel's description of the operands, x being a new
     C-contiguous array of rhs's shape. Coefficients are cast to rhs's
-    dtype (no copy when they have it). ``pair``: look for an axis of
-    size 2 along which lower, diag and upper are broadcast, with lower
-    and upper varying along rows only. An operand is copied (expanded to
-    rhs's shape, C-contiguous) only while the columns need more than
-    MAX_AXES axes, the one that splits the batch most first."""
+    compute dtype (float32 for bfloat16; no copy when they have it).
+    ``pair``: look for an axis of size 2 along which lower, diag and
+    upper are broadcast, with lower and upper varying along rows only. An
+    operand is copied (expanded to rhs's shape, C-contiguous) only while
+    the columns need more than MAX_AXES axes, the one that splits the
+    batch most first."""
     n, batch = rhs.shape[0], tuple(rhs.shape[1:])
     shape = (n,) + batch
     m = math.prod(batch)
     if m >= 2 ** 31:
         raise ValueError(f"tridiag: {m} systems exceed the kernel's 2**31")
     ops = {"rhs": rhs}
+    cdt = kl.compute_dtype(rhs.dtype)
     for k, a in (("lower", lower), ("diag", diag), ("upper", upper)):
-        ops[k] = torch.as_tensor(a).to(rhs.dtype)
+        ops[k] = torch.as_tensor(a).to(cdt)
     xs = _contiguous_strides(shape)
     copied = []
     while True:
@@ -234,9 +242,10 @@ class TridiagSolve:
                                  f"{rhs.device}")
         dev = rhs.device
         block, staged = self.plan(lay, dev)
-        x = torch.empty(rhs.shape, dtype=rhs.dtype, device=dev)
+        cdt = kl.compute_dtype(rhs.dtype)
+        x = torch.empty(rhs.shape, dtype=cdt, device=dev)
         scratch = (None if staged else
-                   torch.empty((n, lay.cols), dtype=rhs.dtype, device=dev))
+                   torch.empty((n, lay.cols), dtype=cdt, device=dev))
         sizes = (ctypes.c_int64 * MAX_AXES)(*(s for s, _ in lay.columns()))
         desc = (ctypes.c_int64 * (5 * len(NAMES)))(
             *(v for k in NAMES for v in lay.desc(k)))

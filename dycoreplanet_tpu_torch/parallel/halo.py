@@ -85,11 +85,12 @@ def halo_pad(x: Sharded, mesh: Mesh, axis_name: str, array_axis: int, *,
 def psum(x: Sharded, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
     """The sum over every shard of equal-shaped partials, in shard order
     on the first device, then one copy a distinct device: {device:
-    total}."""
+    total}. The sum runs in float32 at the least (bfloat16 partials are
+    widened first)."""
     devs = mesh.distinct_devices()
     tot = None
     for _, t in x.items():
-        t = t.to(devs[0])
+        t = t.to(devs[0], torch.promote_types(t.dtype, torch.float32))
         tot = t if tot is None else tot + t
     return {d: tot if d == devs[0] else tot.to(d) for d in devs}
 

@@ -34,7 +34,10 @@ class CGResult(NamedTuple):
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
+    """sum(a * b), accumulated in float32 at the least (bfloat16 operands
+    widened first, as the JAX package's ``_dot``)."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    return torch.sum(a.to(acc) * b.to(acc))
 
 
 def cg(operator: Callable[[torch.Tensor], torch.Tensor],

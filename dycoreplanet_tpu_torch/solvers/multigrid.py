@@ -35,12 +35,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dycoreplanet_tpu_torch.base import dtypes
 from dycoreplanet_tpu_torch.grid import factory
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.bc import BCSpec
 from dycoreplanet_tpu_torch.ops.diagonal import weak_laplacian_diagonal
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+from dycoreplanet_tpu_torch.solvers.tridiag import thomas_solve
 
 
 def _coarsen_shape(shape: Tuple[int, ...], min_cells: int = 4
@@ -81,7 +83,9 @@ class PoissonMultigrid:
     (None: any). The coefficients are made in numpy float64, cast once to
     ``dtype`` and put on ``device``; ``tridiag`` is the K4 wrapper the
     line solves call (the model passes its own, whose ``launches`` count
-    them)."""
+    them). ``dtype`` may be a torch dtype (a model's working dtype,
+    bfloat16 included: the residuals are then bfloat16, the tables
+    float32, and every line solve takes K4's bfloat16 form)."""
 
     def __init__(self, geo: Geometry, specs: Sequence[Optional[BCSpec]], *,
                  n_smooth: int = 2, omega: float = 0.8,
@@ -102,8 +106,20 @@ class PoissonMultigrid:
                                   if line_axes_allowed is not None else None)
         self.tridiag = tridiag if tridiag is not None else TridiagSolve()
         self.device = torch.device("cpu" if device is None else device)
-        self.torch_dtype = torch.float64 if np.dtype(dtype) == np.float64 \
-            else torch.float32
+        self.rhs_bf16 = dtype == torch.bfloat16
+        if isinstance(dtype, torch.dtype):
+            # a model's working dtype. Under bfloat16 the residuals are
+            # bfloat16 and the tables float32: the lon lines near the poles
+            # are nearly singular (their lon conductances dwarf the rest of
+            # the diagonal), and bfloat16 coefficients, as the JAX package
+            # casts them, leave a V-cycle whose residual grows ~1e6-fold
+            # (ROADMAP.md Queue 3)
+            self.torch_dtype = (torch.float32 if dtype == torch.bfloat16
+                                else dtype)
+            dtype = dtypes.host_dtype(dtype)
+        else:
+            self.torch_dtype = torch.float64 \
+                if np.dtype(dtype) == np.float64 else torch.float32
         self.geos: List[Geometry] = [geo]
         shape = geo.cell_shape
         while True:
@@ -193,7 +209,10 @@ class PoissonMultigrid:
         """One line block's device tensors: (lower, diag, upper, None) or,
         on a periodic axis, (lower, d_t, upper, (w / gamma, u)): d_t the
         diagonal of A_t = A_c - u v^T, u = [gamma, 0, .., w] the
-        correction's column (constant, so made once), gamma = -d[0]."""
+        correction's column (constant, so made once), gamma = -d[0].
+        Under bfloat16 residuals the tuple also holds z = A_t^{-1} u,
+        solved once in float64 on the host from the float32 tables, so
+        that K4 takes the bfloat16 residual alone."""
         lo_t, d_t, up_t = self._tensor(lo), self._tensor(d), self._tensor(up)
         if wrap is None:
             return lo_t, d_t, up_t, None
@@ -205,7 +224,10 @@ class PoissonMultigrid:
         u = torch.zeros_like(d_t)
         u[0] = gamma
         u[-1] = w
-        return lo_t, dt_, up_t, (w / gamma, u)
+        if not self.rhs_bf16:
+            return lo_t, dt_, up_t, (w / gamma, u)
+        z = thomas_solve(*(t.cpu().double() for t in (lo_t, dt_, up_t, u)))
+        return lo_t, dt_, up_t, (w / gamma, u, self._tensor(z))
 
     # -----------------------------------------------------------------
     def _apply(self, level: int, x: torch.Tensor) -> torch.Tensor:
@@ -215,10 +237,11 @@ class PoissonMultigrid:
         """(lower, diag, upper, rhs) of the line solve's K4 call along
         ``axis``: the coefficients as made, the residual's moved-axis view;
         on a periodic axis the Sherman-Morrison pair [r, u] stacked on
-        axis 1 against the coefficients' broadcast axis 1."""
+        axis 1 against the coefficients' broadcast axis 1, but for a
+        bfloat16 residual, which goes alone (its z made once)."""
         lo, d, up, wrap = self._lines_t[level][axis]
         rt = torch.movedim(r, axis, 0)
-        if wrap is None:
+        if wrap is None or self.rhs_bf16:
             return lo, d, up, rt
         return (lo[:, None], d[:, None], up[:, None],
                 torch.stack([rt, wrap[1]], dim=1))
@@ -228,12 +251,12 @@ class PoissonMultigrid:
         """T^{-1} r along ``axis`` (K4; periodic axes get the
         Sherman-Morrison corner correction of A_c = A_t + u v^T,
         u = [gamma, 0, .., w], v = [1, 0, .., w / gamma]: one 2-rhs solve
-        of [r, u])."""
+        of [r, u]; for a bfloat16 r, one of r beside the z made once)."""
         x = self.tridiag(*self.line_operands(level, axis, r))
         wrap = self._lines_t[level][axis][3]
         if wrap is not None:
             w_over_gamma = wrap[0]
-            y, z = x[:, 0], x[:, 1]
+            y, z = (x, wrap[2]) if self.rhs_bf16 else (x[:, 0], x[:, 1])
             vy = y[0] + w_over_gamma * y[-1]
             vz = z[0] + w_over_gamma * z[-1]
             x = y - z * (vy / (1.0 + vz))

@@ -608,11 +608,14 @@ class ShellPoissonFastDiag:
         return torch.einsum("lk,ijk->ijl", c["_G"], xk)
 
     def solve(self, b: torch.Tensor):
-        x = self._transform_solve(b)
+        # under a bfloat16 state the solve runs in float32 and casts back
+        acc = torch.promote_types(b.dtype, torch.float32)
+        bw = b.to(acc)
+        x = self._transform_solve(bw)
         if self.precision == "high-refine":
-            r = b - self.refine_op(x)
+            r = bw - self.refine_op(x).to(acc)
             x = x + self._transform_solve(r)
-        return x, 0
+        return x.to(b.dtype), 0
 
 
 class AnnulusPoissonFastDiag:
@@ -675,11 +678,11 @@ class AnnulusPoissonFastDiag:
 
     def solve(self, b: torch.Tensor):
         c = self._t
-        h = torch.einsum("kp,rp->rk", c["_F"], b)
+        h = torch.einsum("kp,rp->rk", c["_F"], b.to(c["_F"].dtype))
         h = torch.einsum("ra,rk->ak", c["_W"], h)
         h = h * c["_inv_denom"]
         h = torch.einsum("ra,ak->rk", c["_W"], h)
-        return torch.einsum("pk,rk->rp", c["_G"], h), 0
+        return torch.einsum("pk,rk->rp", c["_G"], h).to(b.dtype), 0
 
 
 class ShardedShellPoissonFastDiag:
@@ -734,7 +737,7 @@ class ShardedShellPoissonFastDiag:
 
         def forward(a, b):
             F, _, V, _, _ = self._consts(a, b, mesh.device(a, b))
-            bh = torch.einsum("kl,ijl->ijk", F, rhs[a, b])
+            bh = torch.einsum("kl,ijl->ijk", F, rhs[a, b].to(F.dtype))
             bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=2)
             return torch.einsum("kjm,ijsk->imsk", V, bs)
 
@@ -750,7 +753,7 @@ class ShardedShellPoissonFastDiag:
             _, G, V, _, _ = self._consts(a, b, dev)
             xs = torch.einsum("kjm,imsk->ijsk", V, xh[dev])
             xk = torch.cat([xs[:, :, 0, :], xs[:, :, 1, :]], dim=2)
-            return torch.einsum("lk,ijk->ijl", G, xk)
+            return torch.einsum("lk,ijk->ijl", G, xk).to(rhs[a, b].dtype)
 
         return build(mesh, backward), 0
 

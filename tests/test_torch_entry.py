@@ -147,7 +147,8 @@ def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls
-    in neither jax nor dycoreplanet_tpu (this process has both loaded:
+    in neither jax, nor ml_dtypes (the port's bfloat16 goes through
+    torch), nor dycoreplanet_tpu (this process has them loaded:
     tests/conftest.py imports jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -157,6 +158,7 @@ def test_port_imports_no_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'ml_dtypes' or k.startswith('ml_dtypes.')\n"
         "       or k == 'dycoreplanet_tpu'\n"
         "       or k.startswith('dycoreplanet_tpu.')]\n"
         "assert not bad, bad\n"
