@@ -234,7 +234,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      its float32 time exact, and a restart from it bitwise; (e) VTK
      writes at 32x128x256 with the native encoder and with the Python
      one, interleaved, host ms, the files byte for byte equal;
- 13. one JSON line with every kernel's numbers (the bf16 forms under
+ 13. the Krylov solves, the escalation and the plain path on the mesh,
+     and the mimetic personality on the mesh (2x2 and 2x4 shards on the
+     one card, 32x128x256 f32, the seeded flow): (a) step_strong for 5
+     steps against one device's (within 1e-4 of max|u|, the Krylov
+     counts equal or one apart, max|div u| <= 1e-4, K2o A*B times a
+     step and nothing else launched); (b) run for 20 steps with every
+     fast step missing its f32 gate (the fast Poisson solve's constants
+     tripled, as in phase 5: no tolerance makes the seeded flow's f32
+     gate miss): the escalations and the window of one device's run, a
+     second run bitwise the first; (c) `fixed solver iters` = 0 and `poisson solver
+     = cg`, 5 steps each on 2x2 against one device (the stalled f32
+     Jacobi-CG Poisson's max|div u| held to twice one device's); (d) one
+     kernels=False step against the kernel path (1e-5 of max|u|, no hand
+     kernel launched); (e) the mimetic shell on 2x4, 3 steps against one
+     device; (f) the escalated 2x4 step's device ms, host ms, kernels,
+     host launches and host syncs, and the semi-Lagrangian model's
+     escalated step (K2mo A*B times);
+ 14. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -4174,6 +4191,317 @@ def bf16_phases(dev, s_f32):
     return rows, launches, replays
 
 
+# phase 13: the steps of each Krylov check, and the meshes of (a)
+KRYLOV_MESH_STEPS = 5
+KRYLOV_MESH_MIM_STEPS = 3
+
+
+def hold_mesh(label, got, want, divs, tol=1e-4, div_tol=1e-4):
+    """A mesh state (gathered) against the single-device state after the
+    same steps: finite, within tol of max|u| (u, T) and every max|div u|
+    <= div_tol. Returns (max|u - u_one|, max|u_one|, max|div u|)."""
+    import torch
+
+    for x in (got.u, got.p, got.T) + tuple(got.u_faces):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"13 {label}: non-finite fields")
+    du = float((got.u - want.u).abs().max())
+    u_sc = float(want.u.abs().max())
+    dT = float((got.T - want.T).abs().max() / want.T.abs().max())
+    if not du <= tol * u_sc or not dT <= tol:
+        fail(f"13 {label}: max|u_mesh - u_one| {du:.3e} ({du / u_sc:.3e} "
+             f"of max|u|), T rel {dT:.3e}, tol {tol:.0e}")
+    div_max = max(divs)
+    if not div_max <= div_tol:
+        fail(f"13 {label}: max|div u| {div_max:.3e} > {div_tol:.3e}")
+    return du, u_sc, div_max
+
+
+def iters_of(diags):
+    """(helmholtz, temperature, poisson) iterations of each step."""
+    return [(int(d.helmholtz_iters[0]), d.temperature_iters,
+             d.poisson_iters) for d in diags]
+
+
+def same_iters(label, got, want):
+    """The mesh's Krylov counts against one device's: equal, or at most
+    one iteration apart a solve (f32 sums in another order move a count
+    at its knife edge, ROADMAP.md Queue 3); the differences as text."""
+    diff = [tuple(a - b for a, b in zip(g, w)) for g, w in zip(got, want)]
+    if any(abs(x) > 1 for d in diff for x in d):
+        fail(f"13 {label}: Krylov iterations {got}, one device {want}")
+    return ("equal" if not any(any(d) for d in diff)
+            else f"apart by {diff} (the f32 sums' order)")
+
+
+def mesh_cg_phases(dev):
+    """Phase 13: the Krylov solves, the escalation and the plain
+    path on the mesh, and the mimetic personality on the mesh, at
+    BENCH_SHAPE f32 from the seeded flow, every shard on the one card:
+    (a) step_strong for KRYLOV_MESH_STEPS steps on 2x2 and 2x4 against one
+    device's (u and T within 1e-4, Krylov counts equal or one apart,
+    max|div u| <= 1e-4, K2o A*B times a step and nothing else launched);
+    (b) run for N_STEPS on 2x4 with every fast step missing its f32 gate
+    (the fast Poisson solve's constants tripled, as phase 5 forces a
+    miss): the escalations and the window left of one device's run, K2o (N_STEPS + escalations) * A*B times, K1o once a
+    fast try, and a second run (a fresh model) bitwise the first; (c)
+    `fixed solver iters` = 0 (all-CG) and `poisson solver = cg`,
+    KRYLOV_MESH_STEPS steps each on 2x2 against one device (the f32
+    Jacobi-CG Poisson solve stalls short of its tolerance: its max|div u|
+    held to twice one device's); (d) one
+    kernels=False step against the kernel path on 2x4 (within 1e-5 of
+    max|u|, no hand kernel launched); (e) the mimetic shell on 2x4
+    against one device, KRYLOV_MESH_MIM_STEPS steps; (f) the escalated 2x4
+    step's device ms, host ms, kernels, host launches and host syncs a
+    step, and the semi-Lagrangian model's escalated 2x4 step (K2mo A*B
+    times). Returns ({path: launches}, numbers)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel, make_model
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        Mesh, shard_state, unshard_state)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    launches, nums = {}, {}
+    dt, n = BENCH_DT, KRYLOV_MESH_STEPS
+
+    def steps(model, s, k, fn):
+        ds = []
+        for _ in range(k):
+            s, d = getattr(model, fn)(s, dt)
+            ds.append(d)
+        return s, ds
+
+    def on_mesh(model, shape, **kw):
+        A, B = shape
+        return model.prepare_sharded(Mesh(np.array([[dev] * B] * A,
+                                                   dtype=object),
+                                          ("lat", "lon")), **kw)
+
+    one = BoussinesqModel(bench_params(BENCH_SHAPE), device=dev)
+    s0 = seed_developed_flow(one)
+
+    # ---- (a) step_strong on 2x2 and 2x4 ---------------------------------
+    s_one, d_one = steps(one, s0, n, "step_strong")
+    for A, B in MESHES:
+        label = f"(a) step_strong {A}x{B}"
+        m = mesh_model(dev, (A, B))
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        steps(m, st0, 1, "step_strong")                       # warm-up
+        (sm, dm), counts, wall = drive(
+            m, lambda: steps(m, st0, n, "step_strong"))
+        want = {**{k: 0 for k in counts}, "forcing_operands": n * A * B}
+        if counts != want:
+            fail(f"13 {label}: launches {counts}, expected {want}")
+        du, u_sc, div = hold_mesh(label, unshard_state(sm), s_one,
+                                  [d.div_norm for d in dm])
+        its = same_iters(label, iters_of(dm), iters_of(d_one))
+        launches[f"escalated_mesh_{A}x{B}"] = counts
+        nums[label] = dict(du=du / u_sc, div=div, iters=iters_of(dm),
+                           one_iters=iters_of(d_one),
+                           host_ms=wall / n * 1e3)
+        phase(f"13 {label}: {n} steps, launches {counts}, max|u_mesh - "
+              f"u_one| {du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, "
+              f"(helmholtz, temperature, poisson) iterations "
+              f"{iters_of(dm)}, {its} to one device's; "
+              f"{wall / n * 1e3:.1f} host ms a step" + since())
+        del m
+
+    # ---- (f) the escalated 2x4 step, profiled -------------------------
+    m = mesh_model(dev, MAIN_MESH)
+    st0 = shard_state(s0, m.geo, m._mesh.mesh)
+    steps(m, st0, 1, "step_strong")
+    prof = step_profile(lambda: m.step_strong(st0, dt), 1)
+    _, syncs = count_syncs(lambda: m.step_strong(st0, dt))
+    _, _, wall = drive(m, lambda: m.step_strong(st0, dt))
+    prof_1 = step_profile(lambda: one.step_strong(s0, dt), 1)
+    _, syncs_1 = count_syncs(lambda: one.step_strong(s0, dt))
+    nums["(f) escalated 2x4"] = dict(
+        device_ms=prof["device_ms_per_step"],
+        kernels=prof["kernels_per_step"],
+        host_launches=prof["host_launches_per_step"],
+        busy=prof["busy_share"], host_ms=wall * 1e3, syncs=syncs,
+        k2o_ms=prof["kernel_ms_per_step"].get("forcing_operands", 0.0),
+        one_device_ms=prof_1["device_ms_per_step"],
+        one_kernels=prof_1["kernels_per_step"], one_syncs=syncs_1)
+    phase(f"13 (f) escalated step on {MAIN_MESH[0]}x{MAIN_MESH[1]}: "
+          f"{prof['device_ms_per_step']:.4f} device ms in "
+          f"{prof['kernels_per_step']:.0f} kernels (K2o "
+          f"{nums['(f) escalated 2x4']['k2o_ms']:.4f} ms), "
+          f"{prof['host_launches_per_step']:.0f} host launches, {syncs} "
+          f"host syncs, {wall * 1e3:.1f} host ms, busy "
+          f"{prof['busy_share']:.3f}; one device's step_strong "
+          f"{prof_1['device_ms_per_step']:.4f} device ms in "
+          f"{prof_1['kernels_per_step']:.0f} kernels, {syncs_1} host syncs"
+          + since())
+    del m
+
+    # ---- (b) run with every fast step missing its gate ---------------
+    # no tolerance makes the seeded flow's f32 gate miss (its solves are
+    # mass-dominated: one Richardson sweep meets 16 eps at dt up to
+    # 0.05), so the miss is forced as in phase 5: the fast Poisson
+    # solve's constants tripled, which the spot-check catches on every
+    # fast step and the escalated CG repairs (the sharded solve copies
+    # them when the mesh is prepared)
+    def corrupt(model):
+        ps = model.poisson_spectral
+        ps._inv_denom = 3.0 * ps._inv_denom
+        ps.to(dev)
+        return model
+
+    one_t = corrupt(BoussinesqModel(bench_params(BENCH_SHAPE), device=dev))
+    s1_end, h1 = one_t.run(max_steps=N_STEPS, state=s0)
+    if one_t.escalations < 1:
+        fail("13 (b): the corrupted fast solve did not miss on one device")
+    runs = []
+    for _ in range(2):
+        m = on_mesh(corrupt(BoussinesqModel(bench_params(BENCH_SHAPE),
+                                            device=dev)), MAIN_MESH)
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        (sm, hm), counts, wall = drive(
+            m, lambda: m.run(max_steps=N_STEPS, state=st0))
+        runs.append((unshard_state(sm), m.escalations,
+                     m._strong_steps_left, counts, wall, hm))
+        del m
+    (g, esc, left, counts, wall, hm), again = runs[0], runs[1][0]
+    AB = MAIN_MESH[0] * MAIN_MESH[1]
+    label = f"(b) run {MAIN_MESH[0]}x{MAIN_MESH[1]}, escalating"
+    if esc != one_t.escalations or left != one_t._strong_steps_left:
+        fail(f"13 {label}: {esc} escalation(s), {left} left; one device "
+             f"{one_t.escalations}, {one_t._strong_steps_left}")
+    if counts.get("forcing_operands") != (N_STEPS + esc) * AB:
+        fail(f"13 {label}: launches {counts}, K2o expected "
+             f"{(N_STEPS + esc) * AB}")
+    if not all(torch.equal(x, y) for x, y in zip(
+            (g.u, g.p, g.T) + tuple(g.u_faces),
+            (again.u, again.p, again.T) + tuple(again.u_faces))):
+        fail(f"13 {label}: two runs from the same state differ")
+    du, u_sc, div = hold_mesh(label, g, s1_end, [h["div_norm"] for h in hm])
+    launches["escalating_run_mesh_2x4"] = counts
+    nums[label] = dict(escalations=esc, du=du / u_sc, div=div,
+                       host_ms=wall / N_STEPS * 1e3)
+    phase(f"13 {label}: {N_STEPS} steps, {esc} escalation(s) and "
+          f"{left} strong steps left as on one device, launches {counts}, "
+          f"a second run bitwise the first, max|u_mesh - u_one| "
+          f"{du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, "
+          f"{wall / N_STEPS * 1e3:.1f} host ms a step" + since())
+
+    # ---- (c) the all-CG configuration and poisson solver = cg -----------
+    def all_cg(p):
+        p.numerics.fixed_solver_iters = 0
+        p.numerics.momentum_fixed_iters = 0
+        return p
+
+    def poisson_cg(p):
+        p.numerics.poisson_solver = "cg"
+        return p
+
+    for key, opts in (("all_cg", all_cg), ("poisson_cg", poisson_cg)):
+        label = f"(c) {key} 2x2"
+        one_c = BoussinesqModel(opts(bench_params(BENCH_SHAPE)), device=dev)
+        s_c1, d_c1 = steps(one_c, s0, n, "step")
+        m = mesh_model(dev, (2, 2), options=opts)
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        (sm, dm), counts, wall = drive(m, lambda: steps(m, st0, n, "step"))
+        want = {k: 0 for k in counts}
+        want["forcing_operands"] = n * 4
+        if key == "poisson_cg":       # K1o beside the Jacobi-CG Poisson
+            want["richardson_operands"] = n * 4
+        if counts != want:
+            fail(f"13 {label}: launches {counts}, expected {want}")
+        # the f32 Jacobi-CG Poisson solve stalls at its cap short of
+        # `poisson tol` (phase 10 (d), ROADMAP.md Queue 3): its max|div u|
+        # is held to twice one device's
+        div_1 = max(d.div_norm for d in d_c1)
+        du, u_sc, div = hold_mesh(
+            label, unshard_state(sm), s_c1, [d.div_norm for d in dm],
+            div_tol=max(1e-4, 2 * div_1) if key == "poisson_cg" else 1e-4)
+        its = same_iters(label, iters_of(dm), iters_of(d_c1))
+        launches[f"{key}_mesh_2x2"] = counts
+        nums[label] = dict(du=du / u_sc, div=div, one_div=div_1,
+                           iters=iters_of(dm), one_iters=iters_of(d_c1),
+                           host_ms=wall / n * 1e3,
+                           kernels=m.sharded_kernels())
+        phase(f"13 {label}: {n} steps ({m.sharded_kernels()}), launches "
+              f"{counts}, max|u_mesh - u_one| {du / u_sc:.3e} of max|u|, "
+              f"max|div u| {div:.3e} (one device {div_1:.3e}), iterations "
+              f"{iters_of(dm)}, {its} to one device's; "
+              f"{wall / n * 1e3:.1f} host ms a step" + since())
+        del m, one_c
+
+    # ---- (d) kernels=False against the kernel path --------------------
+    mk = mesh_model(dev, MAIN_MESH)
+    mp = on_mesh(BoussinesqModel(bench_params(BENCH_SHAPE), device=dev),
+                 MAIN_MESH, kernels=False)
+    st0 = shard_state(s0, mk.geo, mk._mesh.mesh)
+    s_k, _ = mk.step(st0, dt)
+    (s_p, d_p), counts, wall = drive(mp, lambda: mp.step(st0, dt))
+    if any(counts.values()):
+        fail(f"13 (d) kernels=False: launches {counts}, expected none")
+    gk, gp = unshard_state(s_k), unshard_state(s_p)
+    du = float((gk.u - gp.u).abs().max())
+    u_sc = float(gk.u.abs().max())
+    if not du <= 1e-5 * u_sc or not d_p.div_norm <= 1e-4:
+        fail(f"13 (d) kernels=False: max|u - u_kernels| {du:.3e} "
+             f"(1e-5 x {u_sc:.3e}), max|div u| {d_p.div_norm:.3e}")
+    nums["(d) kernels=False"] = dict(du=du / u_sc, div=d_p.div_norm,
+                                     host_ms=wall * 1e3,
+                                     kernels=mp.sharded_kernels())
+    phase(f"13 (d) kernels=False on {MAIN_MESH[0]}x{MAIN_MESH[1]} "
+          f"({mp.sharded_kernels()}): launches {counts}, max|u - "
+          f"u_kernels| {du / u_sc:.3e} of max|u| (tol 1e-5), max|div u| "
+          f"{d_p.div_norm:.3e}, {wall * 1e3:.1f} host ms" + since())
+    del mk, mp
+
+    # ---- (f) the semi-Lagrangian escalated step: K2mo -----------------
+    sl_one = BoussinesqModel(sl_params(bench_params(BENCH_SHAPE)),
+                             device=dev)
+    s_sl1, d_sl1 = steps(sl_one, s0, 1, "step_strong")
+    m = mesh_model(dev, MAIN_MESH, options=sl_params)
+    st0 = shard_state(s0, m.geo, m._mesh.mesh)
+    (sm, dm), counts, wall = drive(m, lambda: steps(m, st0, 1,
+                                                    "step_strong"))
+    want = {**{k: 0 for k in counts}, "forcing_momentum_operands": AB}
+    if counts != want:
+        fail(f"13 (f) SL step_strong: launches {counts}, expected {want}")
+    du, u_sc, div = hold_mesh("(f) SL step_strong", unshard_state(sm),
+                              s_sl1, [d.div_norm for d in dm])
+    launches["sl_escalated_mesh_2x4"] = counts
+    phase(f"13 (f) SL step_strong on {MAIN_MESH[0]}x{MAIN_MESH[1]}: "
+          f"launches {counts}, max|u_mesh - u_one| {du / u_sc:.3e} of "
+          f"max|u|, max|div u| {div:.3e}, iterations {iters_of(dm)} "
+          f"({same_iters('SL', iters_of(dm), iters_of(d_sl1))})" + since())
+    del m, sl_one
+
+    # ---- (e) the mimetic shell on the mesh ----------------------------
+    mim_one = make_model(mimetic(bench_params(BENCH_SHAPE)), device=dev)
+    sm0 = seed_developed_flow(mim_one)
+    k = KRYLOV_MESH_MIM_STEPS
+    s_m1, d_m1 = steps(mim_one, sm0, k, "step")
+    m = on_mesh(make_model(mimetic(bench_params(BENCH_SHAPE)), device=dev),
+                MAIN_MESH)
+    st0 = shard_state(sm0, m.geo, m._mesh.mesh)
+    (sm, dm), counts, wall = drive(m, lambda: steps(m, st0, k, "step"))
+    if any(counts.values()):
+        fail(f"13 (e) mimetic: launches {counts}, expected none")
+    label = f"(e) mimetic {MAIN_MESH[0]}x{MAIN_MESH[1]}"
+    du, u_sc, div = hold_mesh(label, unshard_state(sm), s_m1,
+                              [d.div_norm for d in dm])
+    its = same_iters(label, iters_of(dm), iters_of(d_m1))
+    nums[label] = dict(du=du / u_sc, div=div, iters=iters_of(dm),
+                       host_ms=wall / k * 1e3, kernels=m.sharded_kernels())
+    phase(f"13 {label}: {k} steps ({m.sharded_kernels()}), max|u_mesh - "
+          f"u_one| {du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, "
+          f"iterations {iters_of(dm)}, {its} to one device's; "
+          f"{wall / k * 1e3:.1f} host ms a step" + since())
+    del m, mim_one
+    phase(f"13 total {time.perf_counter() - t0:.1f} s")
+    return launches, nums
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -5014,6 +5342,12 @@ def main() -> None:
     for label, counts in bf16_replays.items():
         record_replay(label, counts)
     k4_mg["bfloat16"] = bf16_rows["K4 MG"]
+
+    # ---- 13. Krylov, escalation and the plain path on the mesh; the
+    # mimetic personality on the mesh ------------------------------------
+    cg_mesh_launches, _ = mesh_cg_phases(dev)
+    for label, counts in cg_mesh_launches.items():
+        record(label, counts)
 
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,

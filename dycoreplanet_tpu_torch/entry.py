@@ -1,16 +1,18 @@
 """Multi-device dry run of the port (counterpart of the JAX package's
-``__graft_entry__.dryrun_multichip``, standard personality).
+``__graft_entry__.dryrun_multichip``).
 
-``dryrun_multichip(n)`` prepares the flagship shell model at a tiny size
-for a mesh of n shards (``BoussinesqModel.prepare_sharded``), runs one
-sharded step of the kernel path (K2o, K1o, the sharded Poisson solve)
-and holds it against the same step on one device. The shards lie on the
-CUDA cards round-robin (several shards a card where there are fewer
-cards than shards), or, with ``device="cpu"``, on the CPU (the kernels'
-plain versions). The JAX function's last part, the mimetic personality
-on the same mesh through GSPMD's plain path, has no counterpart: the
-port's mesh refuses the mimetic model (ROADMAP.md: multi-device: CG,
-escalation and the plain path on the mesh).
+``dryrun_multichip(n)`` runs the JAX function's three parts on one mesh
+of n shards over the flagship shell at a tiny size: (i) one sharded step
+of the kernel-free path (``prepare_sharded(mesh, kernels=False)``, the
+JAX ``pallas=False``: K2o's plain version and the plain Richardson
+solves on the shards); (ii) the same step on the kernel path (K2o, K1o,
+the sharded Poisson solve), held to (i) within 1e-5 as the JAX function
+holds its kernel path to its plain one, and to the single-device step;
+(iii) the mimetic (staggered C-grid) personality on the same mesh,
+against its single-device step. The shards lie on the CUDA cards
+round-robin (several shards a card where there are fewer cards than
+shards), or, with ``device="cpu"``, on the CPU (the kernels' plain
+versions).
 
     python -c "from dycoreplanet_tpu_torch.entry import dryrun_multichip; \\
                dryrun_multichip(8)"
@@ -29,13 +31,18 @@ from dycoreplanet_tpu_torch.parallel.mesh import (
     build_mesh, shard_state, unshard_state)
 
 
-def _make_model(dtype: str, shape, device) -> BoussinesqModel:
+def _make_model(dtype: str, shape, device, mimetic: bool = False
+                ) -> BoussinesqModel:
     """The JAX entry's ``_make_model``: the shell-test physical setup
-    (R0 = 1, R1 = 3, unit reference quantities) at ``shape``."""
+    (R0 = 1, R1 = 3, unit reference quantities) at ``shape``; with
+    ``mimetic`` the FEEC staggered personality, as its third part sets
+    it."""
     p = Parameters.from_text("")
     p.space_dimension = 3
     p.cuboid_geometry = False
-    p.use_FEEC_solver = False
+    p.use_FEEC_solver = mimetic
+    if mimetic:
+        p.numerics.feec_formulation = "staggered"
     p.time_step = 0.01
     p.physical_constants.R0 = 1.0
     p.physical_constants.atm_height = 2.0
@@ -50,11 +57,12 @@ def _make_model(dtype: str, shape, device) -> BoussinesqModel:
 
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:
-    """One sharded step of the kernel path over a mesh of ``n_devices``
-    shards at (4, 8, 16) f32, against the single-device step. Returns
-    the mesh, the active kernels (``sharded_kernels``), max|u| and the
-    largest |u_mesh - u_single|; raises if the step is not finite or the
-    two differ by more than 1e-5."""
+    """The three parts of the JAX entry over a mesh of ``n_devices``
+    shards at (4, 8, 16) f32 (module docstring). Returns the mesh, the
+    kernel path's active kernels (``sharded_kernels``), its max|u| and
+    largest |u_mesh - u_single| ("err"), and a report of each part under
+    "parts"; raises if a step is not finite or a comparison misses its
+    bound (1e-5)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         cards = torch.cuda.device_count()
@@ -63,24 +71,68 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         devices = [dev] * n_devices
     shape = (4, 8, 16)
     single = _make_model("float32", shape, devices[0])
-    model = _make_model("float32", shape, devices[0])
-    mesh = build_mesh(model.geo, devices)
-    model.prepare_sharded(mesh)
+    mesh = build_mesh(single.geo, devices)
     state = single.initial_state()
     dt = float(single.params.time_step)
+
+    def sharded_step(model, state):
+        got, diag = model.step(shard_state(state, model.geo, mesh), dt)
+        if not np.isfinite(diag.max_velocity):
+            raise RuntimeError("sharded step produced NaN")
+        return unshard_state(got, devices[0]), diag
+
+    def gap(a, b) -> float:
+        return float((a.u - b.u).abs().max())
+
+    def check(name, err):
+        if err >= 1e-5:
+            raise RuntimeError(f"{name} diverged: {err}")
+        return err
+
+    # (i) the kernel-free mesh step
+    plain = _make_model("float32", shape, devices[0]).prepare_sharded(
+        mesh, kernels=False)
+    got_plain, d_plain = sharded_step(plain, state)
+    # (ii) the kernel path, against (i) and the single device
+    model = _make_model("float32", shape, devices[0]).prepare_sharded(mesh)
+    got, diag = sharded_step(model, state)
     want, _ = single.step(state, dt)
-    got, diag = model.step(shard_state(state, model.geo, mesh), dt)
-    if not np.isfinite(diag.max_velocity):
-        raise RuntimeError("sharded step produced NaN")
-    err = float((unshard_state(got, devices[0]).u - want.u).abs().max())
-    if err >= 1e-5:
-        raise RuntimeError(f"sharded step vs single device diverged: {err}")
+    err_plain = check("sharded kernel path vs kernel-free path",
+                      gap(got, got_plain))
+    err = check("sharded step vs single device", gap(got, want))
+    # (iii) the mimetic personality on the same mesh
+    mim_1 = _make_model("float32", shape, devices[0], mimetic=True)
+    mim = _make_model("float32", shape, devices[0],
+                      mimetic=True).prepare_sharded(mesh)
+    s3 = mim_1.initial_state()
+    got3, d3 = sharded_step(mim, s3)
+    err3 = check("sharded mimetic step vs single device",
+                 gap(got3, mim_1.step(s3, dt)[0]))
+    parts = {
+        "plain": {"kernels": plain.sharded_kernels(),
+                  "max_velocity": d_plain.max_velocity,
+                  "div_norm": d_plain.div_norm},
+        "kernels": {"kernels": model.sharded_kernels(),
+                    "max_velocity": diag.max_velocity,
+                    "div_norm": diag.div_norm, "err_plain": err_plain,
+                    "err": err},
+        "mimetic": {"kernels": mim.sharded_kernels(),
+                    "max_velocity": d3.max_velocity,
+                    "div_norm": d3.div_norm, "err": err3}}
     report = {"devices": n_devices, "mesh": dict(mesh.shape),
               "kernels": model.sharded_kernels(),
-              "max_velocity": diag.max_velocity, "err": err}
-    print(f"dryrun_multichip: {n_devices} shards on "
-          f"{len(mesh.distinct_devices())} device(s), mesh {report['mesh']}, "
-          f"shell {shape}, max|u|={diag.max_velocity:.3e}, "
+              "max_velocity": diag.max_velocity, "err": err, "parts": parts}
+    where = (f"{n_devices} shards on {len(mesh.distinct_devices())} "
+             f"device(s), mesh {report['mesh']}, shell {shape}")
+    print(f"dryrun_multichip: {where}, kernel-free: max|u|="
+          f"{d_plain.max_velocity:.3e}, div={d_plain.div_norm:.3e}, "
+          f"kernels {parts['plain']['kernels']}")
+    print(f"dryrun_multichip: kernel path: max|u|={diag.max_velocity:.3e}, "
           f"div={diag.div_norm:.3e}, kernels {report['kernels']}, "
+          f"|u - kernel-free| = {err_plain:.2e}, "
           f"|u - single device| = {err:.2e}")
+    print(f"dryrun_multichip: FEEC staggered mimetic on the same mesh: "
+          f"kernels {parts['mimetic']['kernels']}, max|u|="
+          f"{d3.max_velocity:.3e}, div={d3.div_norm:.3e}, "
+          f"|u - single device| = {err3:.2e}")
     return report

@@ -63,9 +63,14 @@ parallel/sharded_richardson.py), the Poisson solve as
 shards (parallel/sharded_step.py); a semi-Lagrangian model runs K2mo
 (K2m's operands mode) and the transport on the shards
 (parallel/sharded_transport.py), and temperature substeps run the
-transport and the Richardson temperature solve on the shards.
-``step``, ``temperature_step``, ``run`` and ``multi_step`` take a
-sharded state and run eagerly.
+transport and the temperature solve on the shards. Where K1o does not
+run (escalated steps, ``step_verbose``, configurations outside its
+gates, ``prepare_sharded(mesh, kernels=False)``) the model's own
+Richardson and CG solves run on the shards: they take the whole grid's
+operators (``_GridOps``) or the mesh's (``ShardedShellStep``), and the
+one loop of solvers/ runs on global and on Sharded fields. ``step``,
+``step_strong``, ``step_verbose``, ``temperature_step``, ``run`` and
+``multi_step`` take a sharded state and run eagerly.
 
 ``step_verbose`` (`solver diagnostics level` >= 3) also returns each
 solve's residual trail; as in the JAX model it takes the unfused branch
@@ -93,8 +98,8 @@ The Poisson solve (``_solve_pressure_poisson``, shared with the mimetic
 model) is the fast diagonalization by default; ``poisson solver = mg``
 runs CG preconditioned by a multigrid V-cycle whose line smoother runs
 K4 (solvers/multigrid.py), ``= cg`` Jacobi-CG. Both read their stopping
-tests back every iteration, so their chunks run eagerly, and the mesh
-refuses them, as it does the mimetic model.
+tests back every iteration, so their chunks run eagerly; the mesh runs
+Jacobi-CG and refuses the multigrid.
 
 This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
 both personalities (FEEC in its collocated realization here, and in its
@@ -134,11 +139,11 @@ from dycoreplanet_tpu_torch.ops.richardson import ShellRichardson
 from dycoreplanet_tpu_torch.ops.semi_lagrangian import SemiLagrangian
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, is_sharded, shard_state)
+    Mesh, Sharded, is_sharded, shard_state)
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues, TemperatureInitialValuesCuboid)
-from dycoreplanet_tpu_torch.solvers.cg import cg
+from dycoreplanet_tpu_torch.solvers.cg import _dot, cg
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 from dycoreplanet_tpu_torch.solvers.gmres import gmres
 from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
@@ -166,12 +171,19 @@ class _MeshStages(NamedTuple):
     """The stages of the mesh step (``prepare_sharded``)."""
     mesh: Mesh
     forcing: object          # ShardedShellForcing (K2o, or K2mo for SL,
-                             # on every shard)
-    richardson: object       # ShardedShellRichardson (K1o on every shard)
-    poisson: object          # ShardedShellPoissonFastDiag
+                             # on every shard; their plain versions with
+                             # kernels=False); None for the mimetic model
+    richardson: object       # ShardedShellRichardson (K1o on every
+                             # shard), or None where its gates fail or
+                             # kernels=False: the plain solves
+    poisson: object          # ShardedShellPoissonFastDiag, or None
+                             # (poisson solver = cg: Jacobi-CG)
     ops: object              # ShardedShellStep: the plain rest
     transport: object        # ShardedSemiLagrangian (SL: every step and
-                             # substep) or ShardedEulerian (the substeps)
+                             # substep) or ShardedEulerian (the substeps),
+                             # the mimetic model's flux-form transport
+    kernels: bool            # False: prepare_sharded(mesh, kernels=False)
+    staggered: object = None  # the mimetic model's ShardedStaggered
 
 
 class StepDiagnostics:
@@ -252,12 +264,36 @@ class StepDiagnostics:
 MESH_ANNULUS = "multi-device: the annulus on the mesh"
 MESH_CUBOID = "multi-device: the cuboid on the mesh"
 MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
-MESH_CG = "multi-device: CG, escalation and the plain path on the mesh"
+MESH_SOLVES = ("multi-device: the multigrid, coupled and spectral-CG "
+               "solves on the mesh")
 
 
 def _not_on_mesh(item: str, what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} on a mesh is not ported yet "
                                f"(ROADMAP.md: {item})")
+
+
+class _GridOps:
+    """The whole grid's side of the operators the model's solves take
+    (``ShardedShellStep``, parallel/sharded_step.py, is a mesh's), so that
+    one Richardson and one CG code run on global fields and on
+    Sharded ones (``BoussinesqModel._ops``)."""
+
+    dot = staticmethod(_dot)
+
+    def __init__(self, model: "BoussinesqModel"):
+        self.geo = model.geo
+        self.vol = model._vol_t
+        self.T_diag = model._T_diag_t
+        self.helm_diags = model._helm_diags_t
+        self.poisson_diag = model._poisson_diag_t
+
+    def weak_laplacian(self, x, specs):
+        return st.weak_laplacian(self.geo, x, specs)
+
+    def vector_laplacian(self, u, u_specs):
+        return torch.stack([st.weak_laplacian(self.geo, u[c], u_specs[c])
+                            for c in range(self.geo.dim)])
 
 
 def resolve_device(device) -> torch.device:
@@ -434,57 +470,87 @@ class BoussinesqModel:
             out["richardson"] = self._richardson
         if self._richardson_free is not None:
             out["richardson_free"] = self._richardson_free
-        if self._mesh is not None:
+        if self._mesh is not None and self._mesh.forcing is not None:
             kf = self._mesh.forcing.kern
             out["forcing_operands" if kf.advect_T
                 else "forcing_momentum_operands"] = kf
+        if self._mesh is not None and self._mesh.richardson is not None:
             out["richardson_operands"] = self._mesh.richardson.kern
         return out
 
     # ------------------------------------------------------------------
-    def prepare_sharded(self, mesh: Mesh) -> "BoussinesqModel":
+    def prepare_sharded(self, mesh: Mesh, kernels: bool = True
+                        ) -> "BoussinesqModel":
         """Set this model up for sharded states on ``mesh`` (a ("lat",
         "lon") Mesh, parallel/mesh.py; its first shard on the model's
         device): the forcing as K2o (K2mo with the semi-Lagrangian
-        transport) and the Richardson stage as K1o on every shard, the
-        Poisson solve as ``ShardedShellPoissonFastDiag`` (the JAX
-        package's ``prepare_sharded`` on a platform that runs its
-        kernels), the temperature transport on the shards. ``step``,
-        ``temperature_step``, ``run`` and ``multi_step`` then take
-        sharded states (``parallel.mesh.shard_state``); global states
-        still run the single-device step. Configurations the JAX package
-        runs on its GSPMD plain path, or that this slice does not bring
-        to the mesh, raise NotImplementedError naming their ROADMAP.md
-        item; shards too thin for the forcing's halos raise ValueError,
-        as in the JAX package."""
+        transport) and, within its gates, the Richardson stage as K1o on
+        every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
+        (the JAX package's ``prepare_sharded`` on a platform that runs its
+        kernels), the temperature transport on the shards. Where K1o's
+        gates fail (``fixed solver iters`` = 0, Richardson momentum beside
+        CG temperature, a ghost depth beyond one radial block or shard),
+        on escalated steps, in ``step_verbose`` and in temperature
+        substeps the solves run plain on the shards (Richardson or
+        Jacobi-CG; ``poisson solver = cg`` Jacobi-CG), as the JAX package
+        runs them through GSPMD. ``kernels=False`` (the JAX package's
+        ``prepare_sharded(mesh, pallas=False)``) runs the mesh step with no
+        hand kernel, on any device: K2o's and K2mo's plain versions on
+        every shard and the plain solves. ``step``, ``step_strong``,
+        ``step_verbose``, ``temperature_step``, ``run`` and ``multi_step``
+        then take sharded states (``parallel.mesh.shard_state``); global
+        states still run the single-device step. What this slice does not
+        bring to the mesh raises NotImplementedError naming its ROADMAP.md
+        item; a mesh that does not divide the grid, and shards too thin
+        for the forcing's halos, raise ValueError, as in the JAX
+        package."""
         from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
             ShardedShellForcing)
         from dycoreplanet_tpu_torch.parallel.sharded_richardson import (
             make_sharded_richardson)
-        from dycoreplanet_tpu_torch.parallel.sharded_step import (
-            ShardedShellStep)
         from dycoreplanet_tpu_torch.parallel.sharded_transport import (
             ShardedEulerian, ShardedSemiLagrangian)
-        from dycoreplanet_tpu_torch.solvers.spectral import (
-            ShardedShellPoissonFastDiag)
 
         num = self.params.numerics
         if (self.momentum_solver == "coupled"
                 or self.advection_form != "advective"):
             # the JAX package runs these on the mesh only through GSPMD's
             # plain path
-            raise _not_on_mesh(MESH_CG, f"the {self.momentum_solver} "
+            raise _not_on_mesh(MESH_SOLVES, f"the {self.momentum_solver} "
                                f"momentum solve in the {self.advection_form} "
                                "form")
-        if self.poisson_spectral is None:
-            # the JAX package's mesh runs the Krylov Poisson solves on
-            # GSPMD's plain path
-            raise _not_on_mesh(MESH_CG, f"poisson solver = "
-                               f"{num.poisson_solver}")
+        poisson, ops = self._mesh_common(mesh)
+        forcing = ShardedShellForcing(self._forcing, mesh, kernels=kernels)
+        richardson = make_sharded_richardson(self, mesh) if kernels else None
+        if num.residual_check_interval > 1:
+            warnings.warn(
+                f"prepare_sharded: residual check interval = "
+                f"{num.residual_check_interval} has no sharded kernel "
+                "variant; running per-step residual checks on the mesh",
+                RuntimeWarning, stacklevel=2)
+        transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
+                     if self._semi_lagrangian is not None
+                     else ShardedEulerian(forcing.kern, mesh))
+        self._mesh = _MeshStages(mesh, forcing, richardson, poisson, ops,
+                                 transport, bool(kernels))
+        return self
+
+    def _mesh_common(self, mesh: Mesh):
+        """The refusals every personality's mesh shares, then its sharded
+        Poisson solve (None for Jacobi-CG) and plain stages."""
+        from dycoreplanet_tpu_torch.parallel.sharded_step import (
+            ShardedShellStep)
+        from dycoreplanet_tpu_torch.solvers.spectral import (
+            ShardedShellPoissonFastDiag)
+
+        if self.poisson_precond is not None:
+            # the JAX mesh rebuilds the V-cycle with its line smoother on
+            # the radial axis alone
+            raise _not_on_mesh(MESH_SOLVES, "poisson solver = mg")
         if getattr(self.poisson_spectral, "iterative", False):
             # the JAX package leaves ShellPoissonSpectral to GSPMD
-            raise _not_on_mesh(MESH_CG, "the spectral CG Poisson solve of "
-                               "a shell of non-uniform radial spacing")
+            raise _not_on_mesh(MESH_SOLVES, "the spectral CG Poisson solve "
+                               "of a shell of non-uniform radial spacing")
         if self.geo.kind == "cuboid":
             raise _not_on_mesh(MESH_CUBOID, "the cuboid")
         if self.geo.kind != "shell":
@@ -498,38 +564,22 @@ class BoussinesqModel:
             raise ValueError(f"the mesh's first shard lies on "
                              f"{mesh.device(0, 0)}, the model on "
                              f"{self.device}")
-        forcing = ShardedShellForcing(self._forcing, mesh)
-        richardson = make_sharded_richardson(self, mesh)
-        if richardson is None:
-            raise _not_on_mesh(
-                MESH_CG, "a configuration outside the sharded Richardson "
-                "stage's gates (fixed solver iters > 0, a mesh that divides "
-                "the grid, max(iters) + 1 within one radial block and one "
-                "shard)")
-        if num.residual_check_interval > 1:
-            warnings.warn(
-                f"prepare_sharded: residual check interval = "
-                f"{num.residual_check_interval} has no sharded kernel "
-                "variant; running per-step residual checks on the mesh",
-                RuntimeWarning, stacklevel=2)
-        transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
-                     if self._semi_lagrangian is not None
-                     else ShardedEulerian(forcing.kern, mesh))
-        self._mesh = _MeshStages(
-            mesh, forcing, richardson,
-            ShardedShellPoissonFastDiag(self.poisson_spectral, mesh),
-            ShardedShellStep(self, mesh), transport)
-        return self
+        poisson = (ShardedShellPoissonFastDiag(self.poisson_spectral, mesh)
+                   if self.poisson_spectral is not None else None)
+        return poisson, ShardedShellStep(self, mesh)
 
     def sharded_kernels(self) -> Dict[str, str]:
         """Which implementation each hot stage of the mesh step runs, as
-        the JAX package reports it (its ``sharded_kernels``), so that a
-        dropped opt-in is visible."""
-        if self._mesh is None:
+        the JAX package reports it (its ``sharded_kernels``: "jnp" for a
+        plain stage), so that a dropped opt-in is visible."""
+        m = self._mesh
+        if m is None:
             raise ValueError("sharded_kernels: call prepare_sharded first")
-        report = {"forcing": "pallas-sharded",
-                  "richardson": "pallas-sharded",
-                  "poisson": type(self._mesh.poisson).__name__}
+        tag = lambda on: "pallas-sharded" if on else "jnp"  # noqa: E731
+        report = {"forcing": tag(m.forcing is not None and m.kernels),
+                  "richardson": tag(m.richardson is not None),
+                  "poisson": (type(m.poisson).__name__
+                              if m.poisson is not None else "jacobi-cg")}
         M_chk = self.params.numerics.residual_check_interval
         if M_chk > 1:
             report["residual_check_interval"] = (
@@ -841,6 +891,7 @@ class BoussinesqModel:
         self._helm_diags_t = self._tensor(self.helm_diags)
         self._T_diag_t = self._tensor(self.T_diag)
         self._poisson_diag_t = self._tensor(self.poisson_diag)
+        self._grid_ops = _GridOps(self)
 
     # ------------------------------------------------------------------
     def initial_state(self) -> State:
@@ -975,14 +1026,20 @@ class BoussinesqModel:
 
     def _mesh_step_impl(self, state: State, dt: float, full: bool = True):
         """``_step_impl`` on a sharded state: K2o (or K2mo and the sharded
-        semi-Lagrangian transport), K1o, the sharded Poisson solve and the
-        plain rest on the shards; the gate's verdict and the packed
-        diagnostics on the model's device (the mesh's first)."""
+        semi-Lagrangian transport; their plain versions with
+        ``kernels=False``), then K1o, or where K1o does not run (its gates,
+        ``kernels=False``, escalated steps, ``step_verbose``) the plain
+        solves on the shards: Richardson or Jacobi-CG momentum, K3's plain
+        version, and Richardson or Jacobi-CG temperature; the sharded
+        Poisson solve (under ``_force_cg`` CG preconditioned by it, as the
+        JAX escalated step's ``_poisson_cg``; ``poisson solver = cg``
+        Jacobi-CG) and the plain correction. The gate's verdict and the
+        packed diagnostics on the model's device (the mesh's first). A
+        bfloat16 state's plain stages compute in float32 on the widened
+        shards and the new state is rounded once (``_stored``)."""
         mesh = self._mesh
         if mesh is None:
             raise ValueError("a sharded state needs prepare_sharded first")
-        if self._force_cg:
-            raise _not_on_mesh(MESH_CG, "a full-CG (escalated) step")
         ops = mesh.ops
         p = self.params
         u, u_faces, pres, T = state.u, state.u_faces, state.p, state.T
@@ -994,47 +1051,93 @@ class BoussinesqModel:
             rhs_u = mesh.forcing(u, u_faces, T, pres, dt)
             T_adv = mesh.transport(u, u_faces, T, dt_T)
         kT = self._product(dt_T, self.one_over_Pe)
-        rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
-                          ops.T_lap_offset)
         rk = mesh.richardson
-        u_star, T_new, (uf0, uf1, uf2, rhs_phi), (rn_u, bn_u, rn_T, bn_T) = \
-            rk(rhs_u, rhs_T, T, dt)
-        helm_ok = rn_u <= self._rtol(p.numerics.helmholtz_tol) * bn_u
-        T_ok = rn_T <= self._rtol(p.numerics.temperature_tol) * bn_T
+        if rk is not None and not self._force_cg and not self._solver_trace:
+            rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                              ops.T_lap_offset)
+            u_star, T_new, (uf0, uf1, uf2, rhs_phi), \
+                (rn_u, bn_u, rn_T, bn_T) = rk(rhs_u, rhs_T, T, dt)
+            helm_ok = rn_u <= self._rtol(p.numerics.helmholtz_tol) * bn_u
+            T_ok = rn_T <= self._rtol(p.numerics.temperature_tol) * bn_T
+            u_new, new_faces, p_new, div_new, poisson_iters, \
+                poisson_rnorm, poisson_ok = self._mesh_project(
+                    u_star, (uf0, uf1, uf2), rhs_phi, pres, dt)
+            helm_iters, T_iters = rk.iters_u, rk.iters_T
+            helm_rnorm, T_rnorm = rn_u, rn_T
+            new_state = State(u=u_new, u_faces=new_faces, p=p_new, T=T_new,
+                              time=self._advance_time(state.time, dt_T),
+                              step_number=state.step_number + 1)
+        else:
+            bf16 = self.torch_dtype == torch.bfloat16
+            if bf16:
+                wide = lambda x: x.to(torch.float32)  # noqa: E731
+                rhs_u, T_adv, T, pres = map(wide, (rhs_u, T_adv, T, pres))
+            ops = self._ops(rhs_u)
+            rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                              ops.T_lap_offset)
+            u_star, helm_iters, helm_rnorm, helm_ok = \
+                self._helmholtz_solve(rhs_u, dt)
+            uf_star, rhs_phi = ops.faces_div(self.u_specs, u_star, dt)
+            u_new, new_faces, p_new, div_new, poisson_iters, \
+                poisson_rnorm, poisson_ok = self._mesh_project(
+                    u_star, uf_star, rhs_phi, pres, dt)
+            T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+                rhs_T, kT, T)
+            new_state = State(u=u_new, u_faces=new_faces, p=p_new, T=T_new,
+                              time=self._advance_time(state.time, dt_T),
+                              step_number=state.step_number + 1)
+            if bf16:
+                new_state = self._stored(new_state)
+                div_new = mesh.ops.divergence(new_state.u_faces)
+        ok = torch.logical_and(torch.logical_and(helm_ok, poisson_ok), T_ok)
+        if not full:
+            return new_state, None, self._f32(ok)
+        packed = self._mesh_pack(
+            new_state.u, new_state.T, div_new, poisson_iters, T_iters,
+            [helm_iters] * self.geo.dim, helmholtz_residual=helm_rnorm,
+            poisson_residual=poisson_rnorm, temperature_residual=T_rnorm,
+            solver_ok=ok)
+        return new_state, packed, packed[10]
 
-        # the projection (_project_velocity's fast path)
-        phi, _ = mesh.poisson.solve(rhs_phi)
+    def _mesh_project(self, u_star, uf_star, rhs_phi, pres, dt):
+        """The projection on the mesh (``_project_velocity``'s): the
+        Poisson solve, the plain correction on the shards and, after the
+        fast solve, the residual spot-check from the fixed-order sums.
+        Returns (u_new, faces, p_new, div_new, poisson_iters,
+        poisson_rnorm, poisson_ok)."""
+        mesh = self._mesh
+        ops = self._ops(u_star)
+        p = self.params
+        phi, iters, rnorm, ok = self._solve_pressure_poisson(rhs_phi)
         u_new, new_faces, p_new = ops.correct(
-            self.p_specs, u_star, (uf0, uf1, uf2), phi, pres, dt,
+            self.p_specs, u_star, uf_star, phi, pres, dt,
             p.numerics.projection == "incremental")
         if p.correct_pressure_to_zero_mean:
             mean = ops.volume_mean(p_new)
             p_new = p_new.map(lambda x: x - mean[x.device])
         div_new = ops.divergence(new_faces)
-        vol_div = div_new.map(lambda d, v: torch.sum((v * d) ** 2), ops.vol)
-        rnorm = torch.sqrt(ops.total(vol_div)) / dt
-        bnorm = torch.sqrt(ops.total(rhs_phi.map(lambda r: torch.sum(r ** 2))))
-        epsf = float(self.eps)
-        floor = 16.0 * epsf * torch.sqrt(ops.face_flux2(new_faces)) / dt
-        tol = self._poisson_check_tol(mesh.poisson)
-        poisson_ok = rnorm <= tol * bnorm + floor
+        if mesh.poisson is not None and not self._force_cg:
+            vol_div = div_new.map(lambda d, v: torch.sum((v * d) ** 2),
+                                  ops.vol)
+            rnorm = torch.sqrt(ops.total(vol_div)) / dt
+            bnorm = torch.sqrt(ops.total(rhs_phi.map(
+                lambda r: torch.sum(r ** 2))))
+            floor = (16.0 * float(self.eps)
+                     * torch.sqrt(ops.face_flux2(new_faces)) / dt)
+            ok = rnorm <= self._poisson_check_tol(mesh.poisson) * bnorm + floor
+        return u_new, new_faces, p_new, div_new, iters, rnorm, ok
 
-        new_state = State(u=u_new, u_faces=new_faces, p=p_new, T=T_new,
-                          time=self._advance_time(state.time, dt_T),
-                          step_number=state.step_number + 1)
-        ok = torch.logical_and(torch.logical_and(helm_ok, poisson_ok), T_ok)
-        if not full:
-            return new_state, None, self._f32(ok)
+    def _mesh_pack(self, u_new, T_new, div_new, *counts, **rest):
+        """The packed diagnostics of a mesh step from its fixed-order
+        maxima (``_pack``'s slots: ``counts`` are poisson_iters,
+        temperature_iters, helmholtz_iters)."""
+        ops = self._mesh.ops
         speed = u_new.map(lambda x: st.cell_max_speed(self.geo, x))
         cfl = ops.max(speed.map(lambda sp, d: torch.clamp(sp, min=1e-10) / d,
                                 ops.diameter))
-        packed = self._pack(
-            cfl, ops.max(speed), ops.min(T_new), ops.max(T_new),
-            ops.max(div_new.map(torch.abs)), 0, rk.iters_T,
-            [rk.iters_u] * self.geo.dim, helmholtz_residual=rn_u,
-            poisson_residual=rnorm, temperature_residual=rn_T,
-            solver_ok=ok)
-        return new_state, packed, packed[10]
+        return self._pack(cfl, ops.max(speed), ops.min(T_new),
+                          ops.max(T_new), ops.max(div_new.map(torch.abs)),
+                          *counts, **rest)
 
     def _temperature_step_impl(self, state: State, dt: float,
                                full: bool = True):
@@ -1077,39 +1180,30 @@ class BoussinesqModel:
     def _mesh_temperature_step_impl(self, state: State, dt: float,
                                     full: bool = True):
         """``_temperature_step_impl`` on a sharded state: the transport
-        (parallel/sharded_transport.py) and the Richardson temperature
-        solve on the shards (parallel/sharded_step.py), the diagnostics of
-        the frozen velocity from the fixed-order maxima. A full-CG
-        (escalated) substep is not on the mesh: it raises."""
+        (parallel/sharded_transport.py) and the temperature solve
+        (Richardson, or Jacobi-CG when escalated or with ``fixed solver
+        iters`` = 0) on the shards, the diagnostics of the frozen velocity
+        from the fixed-order maxima."""
         mesh = self._mesh
         if mesh is None:
             raise ValueError("a sharded state needs prepare_sharded first")
-        if self._force_cg:
-            raise _not_on_mesh(MESH_CG, "a full-CG (escalated) temperature "
-                               "substep")
         ops = mesh.ops
-        num = self.params.numerics
         T = state.T
         dt_T = self._dt_T(dt)
         T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)
         kT = self._product(dt_T, self.one_over_Pe)
         rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
                           ops.T_lap_offset)
-        T_new, T_iters, T_rnorm, T_ok = ops.temperature_solve(
-            self.T_specs_hom, rhs_T, kT, T, num.fixed_solver_iters,
-            num.temperature_tol)
+        T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+            rhs_T, kT, T)
         new_state = state._replace(
             T=T_new, time=self._advance_time(state.time, dt_T),
             step_number=state.step_number + 1)
         if not full:
             return new_state, None, self._f32(T_ok)
-        speed = state.u.map(lambda x: st.cell_max_speed(self.geo, x))
-        packed = self._pack(
-            ops.max(speed.map(lambda sp, d: torch.clamp(sp, min=1e-10) / d,
-                              ops.diameter)),
-            ops.max(speed), ops.min(T_new), ops.max(T_new),
-            ops.max(ops.divergence(state.u_faces).map(torch.abs)), 0,
-            T_iters, [0] * self.geo.dim, temperature_residual=T_rnorm,
+        packed = self._mesh_pack(
+            state.u, T_new, ops.divergence(state.u_faces), 0, T_iters,
+            [0] * self.geo.dim, temperature_residual=T_rnorm,
             solver_ok=T_ok)
         return new_state, packed, packed[10]
 
@@ -1134,29 +1228,37 @@ class BoussinesqModel:
             T_new = self.temperature_direct.solve(rhs_T[None], kT)[0]
             return (T_new, -1, self._const(-1.0),
                     self._const(True, torch.bool))
-        geo = self.geo
-        vol = self._vol_t
+        ops = self._ops(rhs_T)
+        vol = ops.vol
         num = self.params.numerics
-        diag_T = vol + kT * self._T_diag_t
+        diag_T = vol + kT * ops.T_diag
 
         def temp_op(x):
-            return vol * x - kT * st.weak_laplacian(geo, x, self.T_specs_hom)
+            return vol * x - kT * ops.weak_laplacian(x, self.T_specs_hom)
 
         k_fix = 0 if self._force_cg else num.fixed_solver_iters
         if k_fix > 0:
             res = richardson_solve(temp_op, rhs_T, x0, diag=diag_T,
                                    iters=k_fix,
                                    rtol=self._rtol(num.temperature_tol),
-                                   record_history=self._hist_n())
+                                   record_history=self._hist_n(),
+                                   dot=ops.dot)
             self._stash_history("temperature richardson", res)
         else:
             res = cg(temp_op, rhs_T, x0=x0,
                      rtol=self._rtol(num.temperature_tol),
                      maxiter=num.max_cg_iters,
                      preconditioner=lambda r: r / diag_T,
-                     record_history=self._hist_n())
+                     record_history=self._hist_n(), dot=ops.dot)
             self._stash_history("temperature CG", res)
         return res.x, res.iterations, res.residual_norm, res.converged
+
+    def _ops(self, x):
+        """The operators of the solves for field ``x``: the whole grid's,
+        or on a mesh its stages' in ``x``'s dtype."""
+        if isinstance(x, Sharded):
+            return self._mesh.ops.like(x.dtype)
+        return self._grid_ops
 
     def _solve_pressure_poisson(self, rhs_phi):
         """-weak_lap(phi) = rhs_phi via the configured strategy: the
@@ -1168,25 +1270,35 @@ class BoussinesqModel:
         Returns (phi, iters, residual_norm, converged) with the -1
         sentinel for the direct solve (replaced by the spot-check in
         _project_velocity)."""
-        if self.poisson_spectral is not None and not self._force_cg:
-            phi, iters = self.poisson_spectral.solve(rhs_phi)
+        fast = self._fast_poisson(rhs_phi)
+        if fast is not None and not self._force_cg:
+            phi, iters = fast.solve(rhs_phi)
             return (phi, iters, self._const(-1.0),
                     self._const(True, torch.bool))
         res = self._poisson_cg(rhs_phi, record_history=self._hist_n())
         self._stash_history("poisson CG", res)
         return res.x, res.iterations, res.residual_norm, res.converged
 
+    def _fast_poisson(self, rhs_phi):
+        """The fast Poisson solve for ``rhs_phi``: the model's, or on a
+        mesh the sharded one; None for the Krylov strategies."""
+        if isinstance(rhs_phi, Sharded):
+            return self._mesh.poisson
+        return self.poisson_spectral
+
     def _poisson_cg(self, rhs_phi, record_history: int = 0):
         """CG on -weak_lap(phi) = rhs_phi, preconditioned by the multigrid
         V-cycle, else the fast solve, else Jacobi."""
+        ops = self._ops(rhs_phi)
+        fast = self._fast_poisson(rhs_phi)
         precond = (self.poisson_precond if self.poisson_precond is not None
-                   else (self.poisson_spectral
-                         if self.poisson_spectral is not None
-                         else (lambda r: r / self._poisson_diag_t)))
-        return cg(lambda x: -st.weak_laplacian(self.geo, x, self.p_specs),
+                   else (fast if fast is not None
+                         else (lambda r: r / ops.poisson_diag)))
+        return cg(lambda x: -ops.weak_laplacian(x, self.p_specs),
                   rhs_phi, rtol=self._rtol(self.params.numerics.poisson_tol),
                   maxiter=self.params.numerics.max_cg_iters,
-                  preconditioner=precond, record_history=record_history)
+                  preconditioner=precond, record_history=record_history,
+                  dot=ops.dot)
 
     def _solve_momentum_projection(self, rhs_u, pres, dt):
         """Helmholtz predictor + projection: the direct solve when
@@ -1194,43 +1306,50 @@ class BoussinesqModel:
         fixed-iteration Jacobi-Richardson off the shell (where K1 does
         not run) or full CG (the escalated path), all components in one
         stacked solve."""
-        geo = self.geo
-        dim = geo.dim
-        vol = self._vol_t
-        coef = self._product(dt, self.one_over_Re)
+        dim = self.geo.dim
         if self.helmholtz_direct is not None:
-            u_star = self.helmholtz_direct.solve(vol[None] * rhs_u, coef)
+            coef = self._product(dt, self.one_over_Re)
+            u_star = self.helmholtz_direct.solve(
+                self._vol_t[None] * rhs_u, coef)
             (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
              poisson_ok) = self._project_velocity(u_star, pres, dt)
             return (u_new, p_new, new_faces, [-1] * dim, poisson_iters,
                     self._const(-1.0), poisson_rnorm, poisson_ok)
+        u_star, iters, rnorm, helm_ok = self._helmholtz_solve(rhs_u, dt)
+        (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
+         poisson_ok) = self._project_velocity(u_star, pres, dt)
+        return (u_new, p_new, new_faces, [iters] * dim, poisson_iters,
+                rnorm, poisson_rnorm, torch.logical_and(helm_ok, poisson_ok))
+
+    def _helmholtz_solve(self, rhs_u, dt):
+        """(vol - dt/Re L) u* = vol rhs_u, all components in one stacked
+        solve: fixed-iteration Jacobi-Richardson (``momentum iters`` > 0,
+        not escalated) or Jacobi-CG, on the whole grid or the shards.
+        Returns (u*, iterations, residual norm, converged)."""
+        ops = self._ops(rhs_u)
+        vol = ops.vol
+        coef = self._product(dt, self.one_over_Re)
 
         def helm_op(x):
-            return vol[None] * x - coef * torch.stack([
-                st.weak_laplacian(geo, x[c], self.u_specs[c])
-                for c in range(dim)])
+            return vol * x - coef * ops.vector_laplacian(x, self.u_specs)
 
-        helm_diag = vol[None] + coef * self._helm_diags_t
+        helm_diag = vol + coef * ops.helm_diags
+        b = vol * rhs_u
+        tol = self._rtol(self.params.numerics.helmholtz_tol)
         k_fix = 0 if self._force_cg else self.momentum_iters
         if k_fix > 0:
-            res = richardson_solve(helm_op, vol[None] * rhs_u, rhs_u,
-                                   diag=helm_diag, iters=k_fix,
-                                   rtol=self._rtol(
-                                       self.params.numerics.helmholtz_tol),
-                                   record_history=self._hist_n())
+            res = richardson_solve(helm_op, b, rhs_u, diag=helm_diag,
+                                   iters=k_fix, rtol=tol,
+                                   record_history=self._hist_n(),
+                                   dot=ops.dot)
             self._stash_history("helmholtz richardson", res)
         else:
-            res = cg(helm_op, vol[None] * rhs_u, x0=rhs_u,
-                     rtol=self._rtol(self.params.numerics.helmholtz_tol),
+            res = cg(helm_op, b, x0=rhs_u, rtol=tol,
                      maxiter=self.params.numerics.max_cg_iters,
                      preconditioner=lambda r: r / helm_diag,
-                     record_history=self._hist_n())
+                     record_history=self._hist_n(), dot=ops.dot)
             self._stash_history("helmholtz CG", res)
-        (u_new, p_new, new_faces, poisson_iters, poisson_rnorm,
-         poisson_ok) = self._project_velocity(res.x, pres, dt)
-        return (u_new, p_new, new_faces, [res.iterations] * dim,
-                poisson_iters, res.residual_norm, poisson_rnorm,
-                torch.logical_and(res.converged, poisson_ok))
+        return res.x, res.iterations, res.residual_norm, res.converged
 
     # ------------------------------------------------------------------
     def _project_velocity(self, u_star, pres, dt, prefused=None):
@@ -1555,9 +1674,6 @@ class BoussinesqModel:
         K1 records no iterate's residual; K2 and K5 still run. The trails
         reach the host in one copy. Returns (new_state, diagnostics,
         {solver name: float32 numpy trail, NaN-padded to _HIST_CAP})."""
-        if is_sharded(state):
-            raise _not_on_mesh(MESH_CG, "step_verbose (the solver residual "
-                               "trails)")
         old = self._solver_trace
         self._solver_trace = True
         self._trace_sink = []

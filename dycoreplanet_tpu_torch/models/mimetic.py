@@ -30,7 +30,10 @@ transported in the conservative flux form with the prognostic faces.
 The step runs no other hand kernel: as in the JAX package it is plain
 array code throughout, so the shell's K1, K2, K3 and K5 wrappers are not
 built. Its momentum CG reads its stopping test back every iteration, so
-``multi_step`` chunks run eagerly (no CUDA graph).
+``multi_step`` chunks run eagerly (no CUDA graph). On a mesh of the shell
+(``prepare_sharded``) the same step runs on the shards: the staggered
+operators on each shard's window (parallel/sharded_mimetic.py), the CG
+and the projection with the mesh's inner product and sharded solve.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ from dycoreplanet_tpu_torch.base import nondim
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.models.boussinesq import (
-    MESH_CG, BoussinesqModel, State, _not_on_mesh)
+    BoussinesqModel, State, _as_dtype, _MeshStages)
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.staggered import StaggeredOps
-from dycoreplanet_tpu_torch.parallel.mesh import is_sharded
+from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, is_sharded
+from dycoreplanet_tpu_torch.parallel.sharded_mimetic import (
+    ShardedStaggered, StagFields)
 from dycoreplanet_tpu_torch.solvers.cg import cg
 
 
@@ -66,14 +71,17 @@ class MimeticBoussinesqModel(BoussinesqModel):
         # diagonal of the viscous operator, and gravity at the axis-0
         # faces (the radial law of the cell-centred field,
         # core_model_data.tpp:97-106): made in numpy as in the JAX model,
-        # put on the device once
-        self._w_stack = self._tensor(np.stack([
+        # put on the device once; the host arrays (the working dtype's
+        # values) stay for a mesh's shards (parallel/sharded_mimetic.py)
+        self._w_stack_host = self._host(np.stack([
             np.broadcast_to(st._left_metric(geo, d, sg.w_face[d]),
                             geo.cell_shape).astype(dtn)
             for d in range(geo.dim)]))
-        self._cc_diag = self._tensor(np.stack([
+        self._cc_diag_host = self._host(np.stack([
             np.broadcast_to(np.asarray(dg), geo.cell_shape).astype(dtn)
             for dg in sg.curlcurl_diag()]))
+        self._w_stack = self._tensor(self._w_stack_host)
+        self._cc_diag = self._tensor(self._cc_diag_host)
         g0 = params.physical_constants.gravity_constant
         if geo.kind == "cuboid":
             g0f = np.full(geo.cell_shape, -g0)
@@ -82,28 +90,49 @@ class MimeticBoussinesqModel(BoussinesqModel):
             grf = np.where(rf > 1.0, -g0, -g0 * np.sqrt(np.maximum(rf, 0.0)))
             shape1 = (geo.cell_shape[0],) + (1,) * (geo.dim - 1)
             g0f = np.broadcast_to(grf.reshape(shape1), geo.cell_shape)
-        self._gravity_face0 = self._tensor(
+        self._gravity_face0_host = self._host(
             (self.g_hat_scale * g0f).astype(dtn))
+        self._gravity_face0 = self._tensor(self._gravity_face0_host)
 
         # planetary vorticity on the shell's edges (physical mode):
         # 2 Omega sin(lat) at the r-edges (lat faces), 2 Omega cos(lat)
         # at the lat-edges (lat centres)
+        self._plan_vort0 = self._plan_vort1 = self._plan_vort_host = None
         if geo.kind == "shell":
             om = 2.0 * self.omega_hat
             lat_f = np.asarray(geo.axes[1].faces, np.float64)
             lat_c = np.asarray(geo.axes[1].centers, np.float64)
-            self._plan_vort0 = self._tensor(
-                (om * np.sin(lat_f)).reshape(1, -1, 1).astype(dtn))
-            self._plan_vort1 = self._tensor(
-                (om * np.cos(lat_c)).reshape(1, -1, 1).astype(dtn))
+            self._plan_vort_host = tuple(self._host(a.astype(dtn)) for a in (
+                (om * np.sin(lat_f)).reshape(1, -1, 1),
+                (om * np.cos(lat_c)).reshape(1, -1, 1)))
+            self._plan_vort0, self._plan_vort1 = (
+                self._tensor(a) for a in self._plan_vort_host)
 
     def _build_shell_kernels(self, forcing: dict) -> None:
         """None: the mimetic step runs none of the shell's kernels."""
 
-    def prepare_sharded(self, mesh):
-        # the JAX package runs the mimetic step on a mesh only through
-        # GSPMD's plain path
-        raise _not_on_mesh(MESH_CG, "the mimetic (staggered) personality")
+    def prepare_sharded(self, mesh: Mesh, kernels: bool = True
+                        ) -> "MimeticBoussinesqModel":
+        """Set this model up for sharded states on a ("lat", "lon") mesh of
+        the shell (the JAX package runs the mimetic step there through
+        GSPMD's plain path): the staggered operators on every shard's
+        window (parallel/sharded_mimetic.py), the momentum Jacobi-CG and
+        the temperature solve on the shards, the projection with
+        ``ShardedShellPoissonFastDiag`` (Jacobi-CG with ``poisson solver
+        = cg``) and the plain correction. The step runs no hand kernel, so
+        ``kernels`` changes nothing. Refuses what BoussinesqModel's mesh
+        refuses."""
+        from dycoreplanet_tpu_torch.parallel.sharded_transport import (
+            ShardedSemiLagrangian)
+
+        poisson, ops = self._mesh_common(mesh)
+        stag = ShardedStaggered(self, mesh)
+        transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
+                     if self._semi_lagrangian is not None
+                     else stag.transport)
+        self._mesh = _MeshStages(mesh, None, None, poisson, ops, transport,
+                                 False, stag)
+        return self
 
     @property
     def _fixed_gate(self) -> bool:
@@ -117,14 +146,16 @@ class MimeticBoussinesqModel(BoussinesqModel):
         return False
 
     # ------------------------------------------------------------------
-    def _face_tendency(self, U, pres, T):
+    def _face_tendency(self, U, pres, T, fields: StagFields = None):
         """Explicit face-normal momentum tendency from step n:
         vector-invariant advection + Coriolis (as planetary vorticity) +
         buoyancy + grad p^n (incremental). Full-face input, list of
-        full-face outputs."""
+        full-face outputs. ``fields``: the operators and face constants
+        of the grid (default) or of a shard's window on a mesh."""
         geo = self.geo
         num = self.params.numerics
-        sg = self.stag
+        f = self._grid_fields() if fields is None else fields
+        sg = f.stag
         dim = geo.dim
 
         zeta = sg.vorticity(U)
@@ -145,8 +176,8 @@ class MimeticBoussinesqModel(BoussinesqModel):
             if geo.kind == "cuboid":
                 q = [-zeta[0] + om, -zeta[1], -zeta[2]]
             elif self.coriolis_mode == "physical":
-                q = [-zeta[0] + self._plan_vort0,
-                     -zeta[1] + self._plan_vort1, -zeta[2]]
+                q = [-zeta[0] + f.plan_vort0,
+                     -zeta[1] + f.plan_vort1, -zeta[2]]
             else:
                 q = [-zeta[0], -zeta[1], -zeta[2]]
         tend = sg.cross(q, U)
@@ -160,7 +191,7 @@ class MimeticBoussinesqModel(BoussinesqModel):
         if num.buoyancy == "perturbation":
             rho = rho - self.rho_background
         rho_f = sg.avg_c2f(rho, 0, self.p_specs[0])
-        gf = self._gravity_face0
+        gf = f.gravity_face0
         # full faces: the cell-shaped gravity padded with its wall value
         # (the tendency at walls is dropped by contract)
         if not geo.axes[0].periodic:
@@ -171,6 +202,21 @@ class MimeticBoussinesqModel(BoussinesqModel):
             gp = sg.grad_faces(pres, self.p_specs)
             tend = [tend[d] - gp[d] for d in range(dim)]
         return tend
+
+    def _grid_fields(self) -> StagFields:
+        """The whole grid's operators and face constants."""
+        return StagFields(self.stag, self._gravity_face0, self._plan_vort0,
+                          self._plan_vort1)
+
+    def _face_rhs(self, u_faces, pres, T, dt: float,
+                  fields: StagFields = None) -> torch.Tensor:
+        """The stacked cell-shaped faces U + dt * tendency: the right-hand
+        side of the viscous solve (``fields`` as ``_face_tendency``'s)."""
+        sg = self.stag if fields is None else fields.stag
+        U = sg.expand(list(u_faces))
+        tend = self._face_tendency(U, pres, T, fields)
+        return torch.stack(sg.contract(
+            [U[d] + dt * tend[d] for d in range(self.geo.dim)]))
 
     # ------------------------------------------------------------------
     def _solve_momentum_mimetic(self, uf_star_rhs, dt: float):
@@ -183,18 +229,29 @@ class MimeticBoussinesqModel(BoussinesqModel):
         dim = self.geo.dim
         num = self.params.numerics
         coef = self._product(dt, self.one_over_Re)
-        w = self._w_stack
+        if isinstance(uf_star_rhs, Sharded):   # on a mesh
+            ops = self._ops(uf_star_rhs)
+            stag = self._mesh.staggered
+            w, cc_diag = stag.memo(ops.dtype, lambda: (
+                ops.cut(self._w_stack_host, ops.dtype),
+                ops.cut(self._cc_diag_host, ops.dtype)))
+            curlcurl = stag.curlcurl
+        else:
+            ops = self._grid_ops
+            w, cc_diag = self._w_stack, self._cc_diag
+
+            def curlcurl(x):
+                U = sg.expand([x[d] for d in range(dim)])
+                return torch.stack(sg.contract(sg.curlcurl_weighted(U)))
 
         def helm_op(x):
-            U = sg.expand([x[d] for d in range(dim)])
-            cc = sg.contract(sg.curlcurl_weighted(U))
-            return w * x + coef * torch.stack(cc)
+            return w * x + coef * curlcurl(x)
 
-        diag = w + coef * self._cc_diag
+        diag = w + coef * cc_diag
         res = cg(helm_op, w * uf_star_rhs, x0=uf_star_rhs,
                  rtol=self._rtol(num.helmholtz_tol),
                  maxiter=num.max_cg_iters,
-                 preconditioner=lambda r: r / diag)
+                 preconditioner=lambda r: r / diag, dot=ops.dot)
         return res.x, res.iterations, res.residual_norm, res.converged
 
     # ------------------------------------------------------------------
@@ -202,7 +259,7 @@ class MimeticBoussinesqModel(BoussinesqModel):
         """One mimetic NSE step (JAX model: ``_step_body``). Returns
         (new_state, packed diagnostics, ok) as the parent's."""
         if is_sharded(state):
-            raise _not_on_mesh(MESH_CG, "the mimetic (staggered) personality")
+            return self._mesh_step(state, dt, full)
         if self._in_float32(state):
             return self._float32_step(self._step_impl, state, dt, full)
         geo = self.geo
@@ -214,11 +271,8 @@ class MimeticBoussinesqModel(BoussinesqModel):
         dt = self._scalar(dt)
         dt_T = self._dt_T(dt)
 
-        U = sg.expand(list(state.u_faces))
         # ---------------- explicit tendency on the faces ---------------
-        tend = self._face_tendency(U, pres, T)
-        rhs_faces = torch.stack(sg.contract(
-            [U[d] + dt * tend[d] for d in range(dim)]))
+        rhs_faces = self._face_rhs(state.u_faces, pres, T, dt)
 
         # ---------------- implicit mimetic viscosity -------------------
         u_star, helm_it, helm_rnorm, helm_ok = self._solve_momentum_mimetic(
@@ -269,6 +323,68 @@ class MimeticBoussinesqModel(BoussinesqModel):
             [helm_it] * dim, helmholtz_residual=helm_rnorm,
             poisson_residual=poisson_rnorm, temperature_residual=T_rnorm,
             solver_ok=ok)
+        return new_state, packed, packed[10]
+
+    def _mesh_step(self, state: State, dt: float, full: bool = True):
+        """``_step_impl`` on a sharded state: the tendency, C^T M C and the
+        cell velocity on the shards' windows (parallel/sharded_mimetic.py),
+        the momentum Jacobi-CG and the temperature solve on the shards, the
+        projection with the sharded Poisson solve and the plain
+        correction; the step of one device, operation for operation. A
+        bfloat16 state computes in float32 on the widened shards and the
+        new state is rounded once, as on one device (``_in_float32``)."""
+        mesh = self._mesh
+        if mesh is None:
+            raise ValueError("a sharded state needs prepare_sharded first")
+        if state.T.dtype == torch.bfloat16:
+            state = _as_dtype(state, torch.float32)
+        stag = mesh.staggered
+        ops = self._ops(state.T)
+        p = self.params
+        dim = self.geo.dim
+        pres, T = state.p, state.T
+        dt = self._scalar(dt)
+        dt_T = self._dt_T(dt)
+
+        rhs_faces = stag.apply(
+            lambda w, f0, f1, f2, pw, Tw: self._face_rhs(
+                (f0, f1, f2), pw, Tw, dt, w.constants(Tw.dtype)[0]),
+            *state.u_faces, pres, T)
+        u_star, helm_it, helm_rnorm, helm_ok = self._solve_momentum_mimetic(
+            rhs_faces, dt)
+        uf_star = ops.wall_faces([u_star.map(lambda x, d=d: x[d])
+                                  for d in range(dim)])
+        rhs_phi = ops.poisson_rhs(uf_star, dt)
+        phi, poisson_iters, poisson_rnorm, poisson_ok = \
+            self._solve_pressure_poisson(rhs_phi)
+        # the face correction of the projection (the cell part unused)
+        _, new_faces, p_new = ops.correct(
+            self.p_specs, u_star, uf_star, phi, pres, dt,
+            p.numerics.projection == "incremental")
+        if p.correct_pressure_to_zero_mean:
+            mean = ops.volume_mean(p_new)
+            p_new = p_new.map(lambda x: x - mean[x.device])
+        u_new = stag.cell_velocity(new_faces)
+
+        T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)
+        kT = self._product(dt_T, self.one_over_Pe)
+        rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                          ops.T_lap_offset)
+        T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+            rhs_T, kT, T)
+
+        new_state = self._stored(State(
+            u=u_new, u_faces=tuple(new_faces), p=p_new, T=T_new,
+            time=self._advance_time(state.time, dt_T),
+            step_number=state.step_number + 1))
+        ok = torch.logical_and(torch.logical_and(T_ok, poisson_ok), helm_ok)
+        if not full:
+            return new_state, None, self._f32(ok)
+        packed = self._mesh_pack(
+            new_state.u, new_state.T, mesh.ops.divergence(new_state.u_faces),
+            poisson_iters, T_iters, [helm_it] * dim,
+            helmholtz_residual=helm_rnorm, poisson_residual=poisson_rnorm,
+            temperature_residual=T_rnorm, solver_ok=ok)
         return new_state, packed, packed[10]
 
     # ------------------------------------------------------------------

@@ -66,11 +66,16 @@ class StaggeredMetrics:
     axis ``d`` evaluated at the staggering combo ``stag`` ('c' = cell
     centers, 'f' = full faces per axis), optionally with one mirror
     ghost appended at each end of ``ext_axis``. Scale factors: cuboid
-    s_d = 1; annulus s_phi = r; shell s_lat = r, s_lon = r cos(lat)."""
+    s_d = 1; annulus s_phi = r; shell s_lat = r, s_lon = r cos(lat).
+    ``dxi``: the coordinate spacings to take (a window of a grid takes
+    the whole grid's, parallel/sharded_mimetic.py)."""
 
-    def __init__(self, geo: Geometry):
+    def __init__(self, geo: Geometry, dxi: Optional[Sequence[float]] = None):
         self.geo = geo
         self.dim = geo.dim
+        if dxi is not None:
+            self.dxi = list(dxi)
+            return
         # uniform coordinate spacing per axis (factory invariant)
         self.dxi = []
         for a in geo.axes:
@@ -130,9 +135,11 @@ class StaggeredOps:
     ``u_specs[c][d]`` is the ghost rule of velocity component c along
     axis d (the model's u_specs); ``scalar_specs[d]`` the pressure-like
     rule. The 3D and 2D cuboid, the annulus and the shell (its pole
-    closure: the half-turn antipodal ghost rules, ``_gapply``)."""
+    closure: the half-turn antipodal ghost rules, ``_gapply``). ``dxi``:
+    StaggeredMetrics'."""
 
-    def __init__(self, geo: Geometry, u_specs, scalar_specs):
+    def __init__(self, geo: Geometry, u_specs, scalar_specs,
+                 dxi: Optional[Sequence[float]] = None):
         if geo.kind not in ("cuboid", "annulus", "shell"):
             raise NotImplementedError(geo.kind)
         if geo.kind == "shell" and geo.cell_shape[-1] % 2:
@@ -143,7 +150,7 @@ class StaggeredOps:
         self.dim = geo.dim
         self.u_specs = u_specs
         self.scalar_specs = scalar_specs
-        self.m = StaggeredMetrics(geo)
+        self.m = StaggeredMetrics(geo, dxi)
         self._cache: Dict[tuple, torch.Tensor] = {}
         self._build_static()
 

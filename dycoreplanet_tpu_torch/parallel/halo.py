@@ -227,3 +227,30 @@ def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
 
     return halo_pad(build(mesh, lat), mesh, "lon", ax + 1, width=width,
                     periodic=True)
+
+
+def _runs(idx, n: int) -> List[List[int]]:
+    """[shard, first, stop] runs of consecutive global indices ``idx``
+    that lie in one shard of ``n`` rows or columns each."""
+    out: List[List[int]] = []
+    for i in idx:
+        s, k = divmod(int(i), n)
+        if out and out[-1][0] == s and out[-1][2] == k:
+            out[-1][2] += 1
+        else:
+            out.append([s, k, k + 1])
+    return out
+
+
+def window(x: Sharded, rows: range, cols, device) -> torch.Tensor:
+    """The global rows ``rows`` and columns ``cols`` (global indices, any
+    order) of a Sharded field, gathered onto ``device`` from the shards
+    that own them (a copy a piece between cards, none on one device):
+    each shard's window of mesh.window_geometry."""
+    nl, no = x[0, 0].shape[-2:]
+    cruns = _runs(cols, no)
+    parts = []
+    for a, j0, j1 in _runs(rows, nl):
+        row = [x[a, b][..., j0:j1, k0:k1].to(device) for b, k0, k1 in cruns]
+        parts.append(row[0] if len(row) == 1 else torch.cat(row, dim=-1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)

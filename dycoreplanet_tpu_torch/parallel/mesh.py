@@ -123,6 +123,64 @@ class Sharded:
                             *(o.shards[a][b] for o in others))
                          for b in range(B)] for a in range(A)])
 
+    # the elementwise arithmetic of the Krylov loops (solvers/cg.py,
+    # solvers/fixed.py): with another Sharded shard by shard; with a
+    # number; with a 0-d tensor (a loop's scalar, on the model's device),
+    # copied once to each other device a shard lies on
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0][0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device."""
+        return self.shards[0][0].device
+
+    def to(self, dtype) -> "Sharded":
+        return self.map(lambda t: t.to(dtype))
+
+    def zeros_like(self) -> "Sharded":
+        return self.map(torch.zeros_like)
+
+    def _binary(self, other, fn: Callable) -> "Sharded":
+        if isinstance(other, Sharded):
+            return self.map(fn, other)
+        if not torch.is_tensor(other):
+            return self.map(lambda t: fn(t, other))
+        on = {other.device: other}
+
+        def one(t):
+            o = on.get(t.device)
+            if o is None:
+                o = on[t.device] = other.to(t.device)
+            return fn(t, o)
+
+        return self.map(one)
+
+    def __add__(self, other):
+        return self._binary(other, torch.add)
+
+    def __sub__(self, other):
+        return self._binary(other, torch.sub)
+
+    def __mul__(self, other):
+        return self._binary(other, torch.mul)
+
+    def __truediv__(self, other):
+        return self._binary(other, torch.div)
+
+    def __radd__(self, other):
+        return self._binary(other, lambda t, o: o + t)
+
+    def __rsub__(self, other):
+        return self._binary(other, lambda t, o: o - t)
+
+    def __rmul__(self, other):
+        return self._binary(other, lambda t, o: o * t)
+
+    def __neg__(self):
+        return self.map(torch.neg)
+
 
 def build(mesh: Mesh, fn: Callable[[int, int], torch.Tensor]) -> Sharded:
     """A Sharded field of fn(a, b) for every shard."""
@@ -202,9 +260,34 @@ def shard_geometry(geo: Geometry, j0: int, nl: int, k0: int, no: int,
         raise ValueError("shard_geometry takes the lat-lon shell")
     nr, nlat, nlon = geo.cell_shape
     rows = np.arange(j0 - pad, j0 + nl + pad)
-    cells = _lat_index(nlat, rows)
-    faces = np.clip(np.arange(j0 - pad, j0 + nl + pad + 1), 0, nlat)
-    cols = np.arange(k0 - pad, k0 + no + pad) % nlon
+    return _cut_geometry(
+        geo, _lat_index(nlat, rows),
+        np.clip(np.arange(j0 - pad, j0 + nl + pad + 1), 0, nlat),
+        np.arange(k0 - pad, k0 + no + pad) % nlon)
+
+
+def window_geometry(geo: Geometry, rows: range, cols) -> Geometry:
+    """The geometry of a window of the global shell: the lat rows
+    ``rows`` (a range inside the grid, no row past a pole) and the lon
+    columns ``cols`` (global indices, any order, taken modulo nlon), as
+    :func:`window` gathers a field. A window that holds a pole and, after
+    its own columns, the columns at lon + pi (each the same distance
+    from the window's middle) closes the pole as the whole ring does:
+    the stencils' half-turn roll of the window's columns reaches lon +
+    pi."""
+    if geo.kind != "shell":
+        raise ValueError("window_geometry takes the lat-lon shell")
+    nlon = geo.cell_shape[2]
+    return _cut_geometry(geo, np.arange(rows.start, rows.stop),
+                         np.arange(rows.start, rows.stop + 1),
+                         np.asarray(cols) % nlon)
+
+
+def _cut_geometry(geo: Geometry, cells: np.ndarray, faces: np.ndarray,
+                  cols: np.ndarray) -> Geometry:
+    """The shell's metric at the global lat cells ``cells`` (their faces
+    ``faces``) and lon columns ``cols``."""
+    nr, nlat, nlon = geo.cell_shape
 
     def cut(a):
         a = np.asarray(a)
@@ -219,7 +302,7 @@ def shard_geometry(geo: Geometry, j0: int, nl: int, k0: int, no: int,
     ar, alat, alon = geo.axes
     lat_faces = np.asarray(alat.faces)[faces]
     axes = (ar,
-            Axis(alat.name, len(rows), False,
+            Axis(alat.name, len(cells), False,
                  np.asarray(alat.centers)[cells], lat_faces),
             Axis(alon.name, len(cols), True,
                  np.asarray(alon.centers)[cols],

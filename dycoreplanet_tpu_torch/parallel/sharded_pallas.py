@@ -74,9 +74,12 @@ class ShardedShellForcing:
     """The shell forcing on a ("lat", "lon") mesh: ``__call__(u, u_faces,
     T, pres, dt)`` on Sharded fields -> (rhs_u, T_adv), Sharded, or rhs_u
     alone without the transport (K2mo), as ShellForcing's on global
-    arrays."""
+    arrays. ``kernels=False`` runs the kernel's plain version on every
+    shard, whatever the device (the kernel-free mesh path the caller
+    asked for, ``prepare_sharded(mesh, kernels=False)``)."""
 
-    def __init__(self, base: ShellForcing, mesh: Mesh):
+    def __init__(self, base: ShellForcing, mesh: Mesh,
+                 kernels: bool = True):
         nr, nlat, nlon = base.geo.cell_shape
         A, B = int(mesh.shape["lat"]), int(mesh.shape["lon"])
         if nlat % A or nlon % B:
@@ -87,6 +90,7 @@ class ShardedShellForcing:
             raise ValueError(
                 f"shard too thin for width-2 halos: local {self.local}")
         self.mesh = mesh
+        self.kernels = bool(kernels)
         # per-shard kernel: identical physics, ghosts as operands
         self.kern = ShellForcing(
             base.geo, beta=base.beta, T_ref=base.T_ref,
@@ -103,7 +107,9 @@ class ShardedShellForcing:
         halos = forcing_halos(u, u_faces, T, pres, self.mesh,
                               self.kern.advect_T)
         _, nl, no = self.local
-        out = build(self.mesh, lambda a, b: self.kern.call_operands(
+        call = (self.kern.call_operands if self.kernels
+                else self.kern.plain_operands)
+        out = build(self.mesh, lambda a, b: call(
             u[a, b], tuple(f[a, b] for f in u_faces), T[a, b], pres[a, b],
             dt, halos[a, b], (a * nl, b * no)))
         if not self.kern.advect_T:

@@ -2,9 +2,15 @@
 package leaves to GSPMD around its sharded kernels (the right-hand side
 of the temperature solve, the face and cell correction of the
 projection, the volume means, the divergence spot-check and the packed
-diagnostics' reductions; in a temperature substep the Jacobi-Richardson
-temperature solve). The temperature transport on the mesh is
-parallel/sharded_transport.py.
+diagnostics' reductions), and the operators of the plain solves that
+run where K1o does not (escalated and all-CG steps, Richardson momentum
+beside CG temperature, temperature substeps, ``prepare_sharded(mesh,
+kernels=False)``): the momentum Helmholtz, temperature and Poisson
+operators, the Jacobi diagonals, the faces and Poisson right-hand side
+of K3's plain version, and the Krylov loops' inner product. The model's
+solves (models/boussinesq.py) run the one Richardson and CG loop of
+solvers/ on these, as on one device. The temperature transport on the
+mesh is parallel/sharded_transport.py.
 
 Each stencil runs the port's plain operator on the shard padded by one
 cell from its neighbours (``halo.pad_block``: lat rows from the
@@ -14,7 +20,9 @@ and is cropped: the operator's own edge rules and wraps touch only the
 pad, so every owned cell sees the values and metric of the single-device
 step. What the single-device operator applies at a wall face it reaches
 only through the pad is applied here by the shard that owns the face
-(the pole lat face, on the bottom lat shard). Sums and maxima over the
+(the pole lat face, on the bottom lat shard). A velocity pads with
+its pole sign pattern (u_r as a scalar, the tangential components
+sign-flipped: ``sharded_pallas._flip_vec``). Sums and maxima over the
 mesh are fixed-order (``halo.psum``, ``halo.pmax``).
 """
 
@@ -27,20 +35,25 @@ import torch
 import torch.nn.functional as F
 
 from dycoreplanet_tpu_torch.ops import stencil as st
-from dycoreplanet_tpu_torch.ops.projection import correct_plain
+from dycoreplanet_tpu_torch.ops.projection import (
+    apply_wall_face_values, cell_to_faces, correct_plain)
 from dycoreplanet_tpu_torch.parallel.halo import pad_block, pmax, psum
 from dycoreplanet_tpu_torch.parallel.mesh import (
     Mesh, Sharded, block, build, crop, local_shape, shard_geometry)
+from dycoreplanet_tpu_torch.parallel.sharded_pallas import _flip_vec
+from dycoreplanet_tpu_torch.solvers.cg import _dot
 
 
 class ShardedShellStep:
     """Per-shard geometries and constants of a model's mesh step, and the
     step's plain stages on Sharded fields."""
 
-    def __init__(self, model, mesh: Mesh):
+    def __init__(self, model, mesh: Mesh, dtype=None):
         geo = model.geo
+        self.model = model
         self.mesh = mesh
         self.local = local_shape(geo, mesh)
+        self.n_cells = float(geo.n_cells)
         _, nl, no = self.local
         self.first = mesh.distinct_devices()[0]
         self.offsets = {(a, b): (a * nl, b * no)
@@ -51,11 +64,26 @@ class ShardedShellStep:
                     for ab, (j0, k0) in self.offsets.items()}
         self.geo_pad = {ab: shard_geometry(geo, j0, nl, k0, no, pad=1)
                         for ab, (j0, k0) in self.offsets.items()}
-        self.vol = self.cut(model.vol, model.torch_dtype)
-        self.T_lap_offset = self.cut(model.T_lap_offset, model.torch_dtype)
-        self.diameter = self.cut(model.diameter, model.torch_dtype)
-        self.T_diag = self.cut(model.T_diag, model.torch_dtype)
+        # the constants in the working dtype, or (``like``) in another
+        self.dtype = model.torch_dtype if dtype is None else dtype
+        c = lambda a: self.cut(a, self.dtype)  # noqa: E731
+        self.vol = c(model.vol)
+        self.T_lap_offset = c(model.T_lap_offset)
+        self.diameter = c(model.diameter)
+        self.T_diag = c(model.T_diag)
+        self.helm_diags = c(model.helm_diags)
+        self.poisson_diag = c(model.poisson_diag)
         self.total_vol = psum(self.vol.map(torch.sum), mesh)
+        self._like = {self.dtype: self}
+
+    def like(self, dtype) -> "ShardedShellStep":
+        """These stages with their constants in ``dtype`` (made once): a
+        bfloat16 model's plain stages compute in float32."""
+        out = self._like.get(dtype)
+        if out is None:
+            out = self._like[dtype] = ShardedShellStep(self.model,
+                                                       self.mesh, dtype)
+        return out
 
     def cut(self, a: np.ndarray, dtype) -> Sharded:
         """A global (..., nlat, nlon) host array cut onto the mesh."""
@@ -73,6 +101,12 @@ class ShardedShellStep:
         """The fixed-order sum of every shard's partial, on the first
         device."""
         return psum(parts, self.mesh)[self.first]
+
+    def dot(self, x: Sharded, y: Sharded) -> torch.Tensor:
+        """The Krylov loops' inner product on the mesh: every shard's
+        ``_dot`` (float32 at the least), summed in a fixed order on the
+        first device."""
+        return self.total(x.map(_dot, y))
 
     def volume_mean(self, f: Sharded) -> Dict[torch.device, torch.Tensor]:
         """st.volume_mean over the mesh, on every device."""
@@ -134,30 +168,53 @@ class ShardedShellStep:
         return build(self.mesh, lambda a, b: crop(st.weak_laplacian(
             self.geo_pad[a, b], xp[a, b], specs), 1))
 
-    def temperature_solve(self, specs_hom, rhs_T: Sharded, kT, x0: Sharded,
-                          iters: int, rtol: float):
-        """(vol - kT weak_lap_hom) T = rhs_T by ``iters`` Jacobi-Richardson
-        sweeps on the shards (solvers/fixed.py ``richardson_solve``: the
-        residual tracked exactly, one exchange an apply), the residual and
-        b norms from the fixed-order sums: (T, iterations, residual norm,
-        converged), the norm and the verdict on the first device."""
-        vol = self.vol
-        diag = vol.map(lambda v, d: v + kT * d, self.T_diag)
+    def vector_laplacian(self, u: Sharded, u_specs) -> Sharded:
+        """st.weak_laplacian of each velocity component on every shard
+        (the momentum Helmholtz operator's), from the shard padded by one
+        cell with the pole sign pattern of u_specs' lat rules."""
+        up = pad_block(u, self.mesh, 1, sign=u.map(_flip_vec))
+        return build(self.mesh, lambda a, b: crop(torch.stack([
+            st.weak_laplacian(self.geo_pad[a, b], up[a, b][c], u_specs[c])
+            for c in range(3)]), 1))
 
-        def op(x):
-            return x.map(lambda t, v, w: v * t - kT * w, vol,
-                         self.weak_laplacian(x, specs_hom))
+    def faces_div(self, u_specs, u_star: Sharded, dt):
+        """K3's plain version on the mesh (ops/projection.py
+        ``faces_div_plain``): the face velocities of u* on every shard
+        (the pole lat face 0, written by the bottom lat shard) and the
+        Poisson right-hand side -vol div(U*) / dt less its compatibility
+        shift, the fixed-order total over the mesh / n_cells: (faces,
+        rhs_phi)."""
+        mesh = self.mesh
+        up = pad_block(u_star, mesh, 1, sign=u_star.map(_flip_vec))
 
-        x = x0
-        r = rhs_T.map(torch.sub, op(x))
-        for _ in range(iters):
-            dx = r.map(torch.div, diag)
-            x = x.map(torch.add, dx)
-            r = r.map(torch.sub, op(dx))
-        eps = torch.finfo(rhs_T[0, 0].dtype).eps
-        rnorm = torch.sqrt(self.total(r.map(lambda t: torch.sum(t * t))))
-        bnorm = torch.sqrt(self.total(rhs_T.map(lambda t: torch.sum(t * t))))
-        return x, iters, rnorm, rnorm <= max(rtol, 16.0 * eps) * bnorm
+        def one(a, b):
+            faces = [crop(f, 1).contiguous() for f in cell_to_faces(
+                self.geo_pad[a, b], u_specs, up[a, b])]
+            if a == 0:      # the pole lat face (global face 0)
+                faces[1][:, 0] = 0.0
+            return faces
+
+        out = build(mesh, one)
+        faces = tuple(out.map(lambda o: o[d]) for d in range(3))
+        return faces, self.poisson_rhs(faces, dt)
+
+    def poisson_rhs(self, faces: Sequence[Sharded], dt) -> Sharded:
+        """-vol div(faces) / dt less its compatibility shift (the
+        fixed-order total over the mesh / n_cells)."""
+        rhs_raw = self.divergence(faces).map(lambda d, v: -v * d / dt,
+                                             self.vol)
+        total = self.total(rhs_raw.map(torch.sum))
+        return rhs_raw - total / self.n_cells
+
+    def wall_faces(self, faces: Sequence[Sharded]) -> Tuple[Sharded, ...]:
+        """ops/projection.py ``apply_wall_face_values`` on the mesh: the
+        radial wall face on every shard, the pole lat face (global face
+        0) on the bottom lat shard."""
+        f0 = faces[0].map(lambda t: apply_wall_face_values(
+            self.geo[0, 0], t, 0))
+        f1 = build(self.mesh, lambda a, b: apply_wall_face_values(
+            self.geo[a, b], faces[1][a, b], 1) if a == 0 else faces[1][a, b])
+        return (f0, f1, faces[2])
 
     def max(self, f: Sharded) -> torch.Tensor:
         return pmax(f.map(torch.max), self.mesh)

@@ -12,6 +12,12 @@ reads its stopping test back from the device. CG only runs on the
 escalated steps of the fast path. ``record_history`` > 0 records the
 per-iteration residual norms (the solver trails of ``solver diagnostics
 level`` >= 3).
+
+The same loop runs on a mesh: ``b`` a ``parallel.mesh.Sharded`` field
+(whose arithmetic is shard by shard) and ``dot`` the mesh's inner
+product (every shard's ``_dot``, summed in a fixed order on the first
+device, parallel/sharded_step.py). The loop's scalars live on that
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a.to(acc) * b.to(acc))
 
 
+def _zeros_like(b):
+    return torch.zeros_like(b) if torch.is_tensor(b) else b.zeros_like()
+
+
 def cg(operator: Callable[[torch.Tensor], torch.Tensor],
        b: torch.Tensor,
        x0: Optional[torch.Tensor] = None,
@@ -49,23 +59,25 @@ def cg(operator: Callable[[torch.Tensor], torch.Tensor],
        maxiter: int = 500,
        preconditioner: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
        divergence_factor: float = 32.0,
-       record_history: int = 0) -> CGResult:
+       record_history: int = 0,
+       dot: Callable = _dot) -> CGResult:
     """Solve A x = b for an SPD matrix-free ``operator`` with an SPD
-    ``preconditioner``. Returns the best iterate seen. With
-    ``record_history`` > 0 the residual norm after iteration k goes to
-    ``history[min(k, cap - 1)]``, as in the JAX package."""
-    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
+    ``preconditioner``, ``dot`` the inner product. Returns the best
+    iterate seen. With ``record_history`` > 0 the residual norm after
+    iteration k goes to ``history[min(k, cap - 1)]``, as in the JAX
+    package."""
+    x = _zeros_like(b) if x0 is None else x0.to(b.dtype)
     M = preconditioner if preconditioner is not None else (lambda r: r)
     eps = torch.finfo(b.dtype).eps
     rtol_eff = max(rtol, 16.0 * eps)
-    b_norm = torch.sqrt(_dot(b, b))
+    b_norm = torch.sqrt(dot(b, b))
     stop = torch.clamp(rtol_eff * b_norm, min=atol)
 
     r = b - operator(x)
     z = M(r)
     p = z
-    rz = _dot(r, z)
-    rnorm = torch.sqrt(_dot(r, r))
+    rz = dot(r, z)
+    rnorm = torch.sqrt(dot(r, r))
     x_best, rbest = x, rnorm
     cap = int(record_history)
     hist = (torch.full((cap,), float("nan"), dtype=torch.float32,
@@ -74,16 +86,16 @@ def cg(operator: Callable[[torch.Tensor], torch.Tensor],
     while (k < maxiter and bool(rnorm > stop)
            and bool(rnorm < divergence_factor * rbest + stop)):
         Ap = operator(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = torch.where(pAp > 0, rz / pAp, torch.zeros_like(pAp))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta * p
         rz = rz_new
-        rnorm = torch.sqrt(_dot(r, r))
+        rnorm = torch.sqrt(dot(r, r))
         if hist is not None:
             hist[min(k, cap - 1)] = rnorm.to(torch.float32)
         k += 1

@@ -13,7 +13,9 @@ Richardson stage of kernel K1 (ops/richardson.py); ``track_residual=False``
 that of K1's residual-free variant, which skips the last residual update
 and reports the residual norm as the -1 sentinel ("not checked").
 ``record_history`` > 0 records the residual norm after each iteration
-(NaN-padded to that length), as the JAX package's does.
+(NaN-padded to that length), as the JAX package's does. On a mesh ``b``
+is a ``parallel.mesh.Sharded`` field and ``dot`` the mesh's inner
+product, as in solvers/cg.py.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ def richardson_solve(operator: Callable[[torch.Tensor], torch.Tensor],
                      diag: torch.Tensor, iters: int = 2,
                      rtol: float = 1e-8,
                      track_residual: bool = True,
-                     record_history: int = 0) -> CGResult:
-    """``iters`` unrolled Jacobi-Richardson steps on A x = b."""
+                     record_history: int = 0,
+                     dot: Callable = _dot) -> CGResult:
+    """``iters`` unrolled Jacobi-Richardson steps on A x = b, ``dot`` the
+    inner product."""
     if record_history > 0 and not track_residual:
         raise ValueError("record_history needs track_residual")
     x = x0.to(b.dtype)
@@ -45,15 +49,15 @@ def richardson_solve(operator: Callable[[torch.Tensor], torch.Tensor],
         if track_residual or j + 1 < iters:
             r = r - operator(dx)
         if record_history > 0:
-            hist.append(torch.sqrt(_dot(r, r)).to(torch.float32))
+            hist.append(torch.sqrt(dot(r, r)).to(torch.float32))
     if not track_residual:
         return CGResult(
             x=x, iterations=iters,
             residual_norm=torch.full((), -1.0, dtype=b.dtype,
                                      device=b.device),
             converged=torch.ones((), dtype=torch.bool, device=b.device))
-    rnorm = torch.sqrt(_dot(r, r))
-    stop = rtol_eff * torch.sqrt(_dot(b, b))
+    rnorm = torch.sqrt(dot(r, r))
+    stop = rtol_eff * torch.sqrt(dot(b, b))
     history = None
     if record_history > 0:
         pad = max(record_history - len(hist), 0)

@@ -711,6 +711,10 @@ class ShardedShellPoissonFastDiag:
                       for k in ("_F", "_G", "_V", "_Q", "_inv_denom")}
         self._dev = {}
 
+    def __call__(self, b):
+        """The solve as a preconditioner (the escalated Poisson CG's)."""
+        return self.solve(b)[0]
+
     def _consts(self, a: int, b: int, dev):
         """The shard's F columns, G rows and V lat rows, and the
         replicated Q and 1/denominator, on dev."""

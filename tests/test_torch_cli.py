@@ -209,6 +209,9 @@ def test_step_verbose_trails_match_jax():
 
 
 def test_step_verbose_refuses_a_sharded_state():
+    """step_verbose on a sharded state of the shell prm (which raised
+    before the mesh ran the plain solves) returns the trails of the
+    single-device step_verbose, within 1e-8."""
     import torch
 
     from dycoreplanet_tpu_torch.base.params import Parameters
@@ -216,14 +219,18 @@ def test_step_verbose_refuses_a_sharded_state():
     from dycoreplanet_tpu_torch.parallel.mesh import Mesh, shard_state
 
     with open(PRM) as f:
-        m = BoussinesqModel(Parameters.from_text(f.read() + F64),
-                            device="cpu")
+        text = f.read() + F64
+    m = BoussinesqModel(Parameters.from_text(text), device="cpu")
+    one = BoussinesqModel(Parameters.from_text(text), device="cpu")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
     m.prepare_sharded(mesh)
     s = shard_state(m.initial_state(), m.geo, mesh)
-    with pytest.raises(NotImplementedError,
-                       match="CG, escalation and the plain path on the mesh"):
-        m.step_verbose(s, 0.1)
+    _, _, trails = m.step_verbose(s, 0.1)
+    _, _, want = one.step_verbose(one.initial_state(), 0.1)
+    assert set(trails) == set(want) and trails
+    for name in want:
+        np.testing.assert_allclose(trails[name], want[name], rtol=1e-8,
+                                   atol=1e-20, err_msg=name)
     assert torch.is_tensor(s.p[0, 0])
 
 

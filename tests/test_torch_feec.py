@@ -17,7 +17,7 @@ numpy-seeded inputs:
     counts every step, u, p, T and the faces within 1e-9 of their scale;
   * the kernels each model builds, ``step_verbose``'s trails, a coupled
     ``multi_step`` chunk against the step loop, and ``prepare_sharded``
-    refusing the coupled and rotational models (MESH_CG).
+    refusing the coupled and rotational models (MESH_SOLVES).
 
 The JAX models (and their compiled steps) are shared through a
 module-scoped fixture."""
@@ -34,7 +34,7 @@ from dycoreplanet_tpu.ops import vector as j_vec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid.factory import make_cuboid
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_CG
+from dycoreplanet_tpu_torch.models.boussinesq import MESH_SOLVES
 from dycoreplanet_tpu_torch.ops import vector as vec
 from dycoreplanet_tpu_torch.parallel.mesh import Mesh
 
@@ -286,7 +286,7 @@ def test_coupled_multi_step_matches_steps():
 def test_prepare_sharded_refuses(case):
     tm = _model(BoussinesqModel, case, device="cpu")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
-    with pytest.raises(NotImplementedError, match=MESH_CG):
+    with pytest.raises(NotImplementedError, match=MESH_SOLVES):
         tm.prepare_sharded(mesh)
 
 

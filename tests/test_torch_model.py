@@ -251,12 +251,14 @@ def test_unsupported_configurations_raise(setting):
     (("numerics.poisson_solver", "cg"),), (("numerics.poisson_solver", "mg"),),
 ])
 def test_mesh_refuses_krylov_poisson_and_mimetic(setting):
-    """On a mesh (``prepare_sharded``) the mimetic model and the
-    `poisson solver = cg | mg` models raise under the ROADMAP title of
-    the CG and plain paths on the mesh (the JAX package runs them there
-    only through GSPMD's plain path)."""
+    """On a mesh (``prepare_sharded``) the `poisson solver = mg` model
+    raises under the ROADMAP title of the multigrid, coupled and
+    spectral-CG solves on the mesh (the JAX mesh rebuilds its V-cycle);
+    the mimetic model and `poisson solver = cg` (which raised before the
+    sharded Krylov solves) prepare, their Poisson solve reported as the
+    JAX package reports it."""
     from dycoreplanet_tpu_torch.models import make_model
-    from dycoreplanet_tpu_torch.models.boussinesq import MESH_CG
+    from dycoreplanet_tpu_torch.models.boussinesq import MESH_SOLVES
     from dycoreplanet_tpu_torch.parallel.mesh import Mesh
 
     p = _params(Parameters)
@@ -265,8 +267,14 @@ def test_mesh_refuses_krylov_poisson_and_mimetic(setting):
         setattr(obj, name.split(".")[-1], value)
     m = make_model(p, device="cpu")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        m.prepare_sharded(mesh)
+    if p.numerics.poisson_solver == "mg":
+        with pytest.raises(NotImplementedError, match=MESH_SOLVES):
+            m.prepare_sharded(mesh)
+        return
+    assert m.prepare_sharded(mesh) is m
+    assert m.sharded_kernels()["poisson"] == (
+        "jacobi-cg" if p.numerics.poisson_solver == "cg"
+        else "ShardedShellPoissonFastDiag")
 
 
 @pytest.mark.parametrize("dim", [3, 2])

@@ -44,7 +44,7 @@ from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.entry import dryrun_multichip
 from dycoreplanet_tpu_torch.models import BoussinesqModel
 from dycoreplanet_tpu_torch.models.boussinesq import (
-    MESH_ANNULUS, MESH_CG, MESH_PATHS)
+    MESH_ANNULUS, MESH_PATHS, MESH_SOLVES)
 from dycoreplanet_tpu_torch.models.convert import (
     sharded_state_from_numpy, state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops.forcing import ShellForcing, halo_shapes
@@ -421,7 +421,7 @@ def test_interval_mode_runs_per_step_checks_on_the_mesh():
 @pytest.mark.parametrize("over,item", [
     ({"space_dimension": 2}, MESH_ANNULUS),
     ({"numerics.helmholtz_solver": "direct"}, MESH_PATHS),
-    ({"numerics.fixed_solver_iters": 0}, MESH_CG),
+    ({"numerics.poisson_solver": "mg"}, MESH_SOLVES),
 ])
 def test_refused_configurations_name_their_item(over, item):
     """Configurations outside this slice raise NotImplementedError naming
@@ -441,31 +441,57 @@ def test_refused_configurations_name_their_item(over, item):
 
 
 def test_gate_outside_the_sharded_stage_and_escalation_raise():
-    """A mesh the sharded Richardson stage's gates refuse (the JAX
-    package's GSPMD plain path) raises naming the item; on the mesh a
-    gate miss that escalates to CG, and step_strong, raise the same
-    way."""
+    """A mesh the sharded Richardson stage's gates refuse (1 x 8: shards
+    of two lon columns, thinner than its ghost depth) runs the plain
+    Richardson solves on the shards, as the JAX package's GSPMD plain
+    path does, and reports them ("jnp"); on the mesh a gate miss
+    escalates to the sharded CG through run and step_strong runs, both as
+    on one device. (Before the sharded Krylov solves these raised naming
+    the item.)"""
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        tm.prepare_sharded(Mesh(np.array([["cpu"] * 8], dtype=object),
-                                ("lat", "lon")))
-    _, tm = _models(**{"numerics.helmholtz_tol": 1e-300})
+    _, ts = _models()
+    tm.prepare_sharded(Mesh(np.array([["cpu"] * 8], dtype=object),
+                            ("lat", "lon")))
+    assert tm.sharded_kernels()["richardson"] == "jnp"
+    s_m, _ = tm.run(max_steps=2)
+    s_1, _ = ts.run(max_steps=2)
+    np.testing.assert_allclose(_np(unshard_field(s_m.u)), _np(s_1.u),
+                               rtol=1e-9, atol=1e-11)
+    over = {"numerics.helmholtz_tol": 1e-300}
+    (_, tm), (_, ts) = _models(**over), _models(**over)
     tm.prepare_sharded(Mesh(np.array([["cpu"] * 4] * 2, dtype=object),
                             ("lat", "lon")))
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        tm.run(max_steps=2)
+    s_m, h_m = tm.run(max_steps=2)
+    s_1, h_1 = ts.run(max_steps=2)
+    assert tm.escalations == ts.escalations == 1
+    assert tm._strong_steps_left == ts._strong_steps_left == 7
+    np.testing.assert_allclose(_np(unshard_field(s_m.u)), _np(s_1.u),
+                               rtol=1e-9, atol=1e-11)
     s = shard_state(tm.initial_state(), tm.geo, tm._mesh.mesh)
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        tm.step_strong(s, 0.01)
+    _, d = tm.step_strong(s, 0.01)
+    _, d1 = ts.step_strong(ts.initial_state(), 0.01)
+    assert d.helmholtz_iters[0] == d1.helmholtz_iters[0] > 0
 
 
 def test_dryrun_multichip_on_the_cpu():
-    """The JAX entry's counterpart: one sharded step of the kernel path over
-    8 shards against the single-device step."""
+    """The JAX entry's counterpart, all three parts over 8 shards: (i) the
+    kernel-free step (every stage "jnp"), (ii) the kernel path within
+    1e-5 of (i) and of the single-device step, (iii) the mimetic model on
+    the same mesh within 1e-5 of its single-device step; each finite,
+    divergence-free to 1e-8."""
     rep = dryrun_multichip(8, device="cpu")
+    parts = rep["parts"]
     assert rep["mesh"] == {"lat": 2, "lon": 4}
     assert rep["kernels"]["richardson"] == "pallas-sharded"
     assert rep["err"] < 1e-5
+    assert parts["plain"]["kernels"] == {
+        "forcing": "jnp", "richardson": "jnp",
+        "poisson": "ShardedShellPoissonFastDiag"}
+    assert parts["kernels"]["err_plain"] < 1e-5
+    assert parts["mimetic"]["kernels"]["forcing"] == "jnp"
+    assert parts["mimetic"]["err"] < 1e-5
+    for part in parts.values():
+        assert 0 < part["max_velocity"] < 1 and part["div_norm"] < 1e-8
 
 
 @pytest.mark.parametrize("kernel,wrapper", [

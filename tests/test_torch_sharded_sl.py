@@ -20,7 +20,7 @@ CPU, where its wrappers take the kernels' plain versions.
     model's sharded steps (rtol 1e-9, atol 1e-11) and the port's
     single-device steps; ``run`` and ``multi_step`` on the mesh at NSE =
     2; ``sharded_kernels()`` equal to the JAX report; a substep's gate miss
-    raising naming its ROADMAP item.
+    escalating to the sharded CG as on one device.
 """
 
 import numpy as np
@@ -44,7 +44,6 @@ from dycoreplanet_tpu.parallel.sharded_pallas import (
     ShardedShellForcing as JShardedForcing)
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_CG
 from dycoreplanet_tpu_torch.models.convert import (
     sharded_state_from_numpy, state_from_numpy)
 from dycoreplanet_tpu_torch.ops.forcing import halo_shapes
@@ -303,26 +302,38 @@ def test_run_and_multi_step_on_the_mesh_nse2(case):
 
 def test_substep_gate_miss_raises_mesh_cg():
     """A temperature substep on the mesh that misses its gate escalates to
-    full CG, which is not on the mesh: run raises naming the item at the
-    substep (the NSE step before it passed), and so does
-    temperature_step_strong. Nothing runs global CG on shards."""
+    full CG on the shards, as on one device: run redoes the substep with
+    the sharded Jacobi-CG temperature solve (the NSE step before it
+    passed), with the escalation count, the window left and the state of
+    the single-device run; temperature_step_strong runs on the mesh.
+    (Before the sharded Krylov solves this raised naming the item.)"""
     _, tm = _models(**dict(SL, **NSE2))
+    _, ts = _models(**dict(SL, **NSE2))
     tm.prepare_sharded(_tmesh(2, 4))
     seen = []
 
-    def stiffen(state, rec):
-        # after the NSE step: a diffusion two sweeps cannot converge
-        seen.append(rec["step"])
-        tm.one_over_Pe *= 1e6
+    def stiffen(model):
+        def cb(state, rec):
+            # after the NSE step: a diffusion two sweeps cannot converge
+            seen.append(rec["step"])
+            model.one_over_Pe *= 1e6
+        return cb
 
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        tm.run(max_steps=2, callback=stiffen)
-    assert seen == [0] and tm.escalations == 1
-    s = shard_state(tm.initial_state(), tm.geo, tm._mesh.mesh)
+    s_m, h_m = tm.run(max_steps=2, callback=stiffen(tm))
+    s_1, h_1 = ts.run(max_steps=2, callback=stiffen(ts))
+    assert seen == [0, 1, 0, 1]
+    assert tm.escalations == ts.escalations == 1
+    assert tm._strong_steps_left == ts._strong_steps_left
+    assert h_m[1]["temperature_iters"] == h_1[1]["temperature_iters"] > 2
+    np.testing.assert_allclose(_np(unshard_field(s_m.T)), _np(s_1.T),
+                               rtol=1e-9, atol=1e-11)
+    s = shard_state(ts.initial_state(), tm.geo, tm._mesh.mesh)
     _, d = tm.temperature_step(s, 0.01)
     assert not d.solver_ok and d.temperature_residual > 0
-    with pytest.raises(NotImplementedError, match=MESH_CG):
-        tm.temperature_step_strong(s, 0.01)
+    s2, d2 = tm.temperature_step_strong(s, 0.01)
+    _, d1 = ts.temperature_step_strong(ts.initial_state(), 0.01)
+    assert d2.temperature_iters == d1.temperature_iters
+    assert d2.solver_ok == d1.solver_ok
 
 
 @pytest.mark.parametrize("kernel,wrapper", [
