@@ -251,7 +251,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      device; (f) the escalated 2x4 step's device ms, host ms, kernels,
      host launches and host syncs, and the semi-Lagrangian model's
      escalated step (K2mo A*B times);
- 14. one JSON line with every kernel's numbers (the bf16 forms under
+ 14. the multigrid and the coupled solves on the mesh (32x128x256,
+     the seeded flow, every shard on the one card): (a) `poisson solver =
+     mg` f32, one step on 2x2 and one on 2x4 with the CG capped at 16 on
+     both sides (the V-cycle relaxing along r alone, as the JAX mesh
+     rebuilds it: ~215 CG iterations where one device's two-axis V-cycle
+     takes 11): K4 A*B x 52 x (CG iterations + 1) times, K2o and K1o A*B
+     times a step, the CG counts within 5% of one device's with the same
+     radial-only rebuild (equal when capped), u and T within 1e-5 of
+     max|u|, max|div u| within twice one device's; one shard's K4 against
+     its plain version, nothing copied; one V-cycle of the 2x4 step
+     profiled beside one device's; (b) the FEEC 3x3 with the flagship's
+     physics on 2x4, one step: the outer count against one device's,
+     max|u|, max|div u|, host ms, syncs; (c) the shell's 2x2 block FGMRES
+     and Schur GMRES at 16x64x128 on 2x2, 2 steps each; (d) one bf16 mg
+     step on 2x4 within 2^-7 of one device's, every K4 rhs bf16;
+ 15. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -4196,7 +4211,7 @@ KRYLOV_MESH_STEPS = 5
 KRYLOV_MESH_MIM_STEPS = 3
 
 
-def hold_mesh(label, got, want, divs, tol=1e-4, div_tol=1e-4):
+def hold_mesh(label, got, want, divs, tol=1e-4, div_tol=1e-4, tag="13"):
     """A mesh state (gathered) against the single-device state after the
     same steps: finite, within tol of max|u| (u, T) and every max|div u|
     <= div_tol. Returns (max|u - u_one|, max|u_one|, max|div u|)."""
@@ -4204,16 +4219,16 @@ def hold_mesh(label, got, want, divs, tol=1e-4, div_tol=1e-4):
 
     for x in (got.u, got.p, got.T) + tuple(got.u_faces):
         if not bool(torch.isfinite(x).all()):
-            fail(f"13 {label}: non-finite fields")
+            fail(f"{tag} {label}: non-finite fields")
     du = float((got.u - want.u).abs().max())
     u_sc = float(want.u.abs().max())
     dT = float((got.T - want.T).abs().max() / want.T.abs().max())
     if not du <= tol * u_sc or not dT <= tol:
-        fail(f"13 {label}: max|u_mesh - u_one| {du:.3e} ({du / u_sc:.3e} "
+        fail(f"{tag} {label}: max|u_mesh - u_one| {du:.3e} ({du / u_sc:.3e} "
              f"of max|u|), T rel {dT:.3e}, tol {tol:.0e}")
     div_max = max(divs)
     if not div_max <= div_tol:
-        fail(f"13 {label}: max|div u| {div_max:.3e} > {div_tol:.3e}")
+        fail(f"{tag} {label}: max|div u| {div_max:.3e} > {div_tol:.3e}")
     return du, u_sc, div_max
 
 
@@ -4223,13 +4238,13 @@ def iters_of(diags):
              d.poisson_iters) for d in diags]
 
 
-def same_iters(label, got, want):
+def same_iters(label, got, want, tag="13"):
     """The mesh's Krylov counts against one device's: equal, or at most
     one iteration apart a solve (f32 sums in another order move a count
     at its knife edge, ROADMAP.md Queue 3); the differences as text."""
     diff = [tuple(a - b for a, b in zip(g, w)) for g, w in zip(got, want)]
     if any(abs(x) > 1 for d in diff for x in d):
-        fail(f"13 {label}: Krylov iterations {got}, one device {want}")
+        fail(f"{tag} {label}: Krylov iterations {got}, one device {want}")
     return ("equal" if not any(any(d) for d in diff)
             else f"apart by {diff} (the f32 sums' order)")
 
@@ -4500,6 +4515,333 @@ def mesh_cg_phases(dev):
     del m, mim_one
     phase(f"13 total {time.perf_counter() - t0:.1f} s")
     return launches, nums
+
+
+# ---------------------------------------------------------------- phase 14
+MG_COMPARE_CAP = 16
+MG_PROFILE_CAP = 0
+COUPLED_MESH_SHAPE = (16, 64, 128)
+
+
+def radial_mg(model):
+    """``model`` with its V-cycle rebuilt as the mesh rebuilds it (the line
+    smoother on the radial axis alone, on the model's K4 wrapper): the
+    single-device yardstick of the mesh's MG."""
+    from dycoreplanet_tpu_torch.solvers.multigrid import PoissonMultigrid
+
+    model.poisson_precond = PoissonMultigrid(
+        model.geo, model.p_specs, dtype=model.torch_dtype,
+        device=model.device, tridiag=model._tridiag, line_axes_allowed=(0,))
+    return model
+
+
+class RhsDtypes:
+    """A K4 wrapper's stand-in that records the dtype of every rhs and
+    passes the call on (the wrapper still launches and counts)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.dtypes = set()
+
+    def __call__(self, lower, diag, upper, rhs):
+        self.dtypes.add(rhs.dtype)
+        return self.base(lower, diag, upper, rhs)
+
+
+def check_sharded_mg_k4(dev, m):
+    """One shard's radial line solve of the mesh's V-cycle at level 0
+    (the shard's (nr, nl, no) coefficients and a seeded residual of its
+    shape, as ``shard_operands`` passes them): K4 against its plain
+    version (rtol = atol = 1e-5 x scale), nothing copied, the wrapper's
+    time over 50 calls, the plain version's, the bound (5 values a cell:
+    lower, diag, upper and the rhs read, x written)."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+
+    mg = m._mesh.multigrid
+    tk = k4.TridiagSolve()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    r = torch.randn(mg.ops[0].local, generator=gen, device=dev)
+    ops = mg.shard_operands(0, (0, 0), r)
+    lay = k4.layout(*ops, pair=tk.pair)
+    if lay.copied or ops[3] is not r:
+        fail(f"14 (a) K4 sharded MG: copied {lay.copied}")
+    want = tk.plain(*ops)
+    sc = float(want.abs().max())
+    err = check_k4("K4 tridiag sharded MG (radial)", tk, ops, want,
+                   1e-5 * sc)
+    moved = k4.values_moved(*ops)
+    b_ms, b_by = bound_of(4 * moved, k4.OPS_PER_VALUE * r.numel())
+    out = dict(max_abs_err=err, ms=time_ms(lambda: tk(*ops)),
+               plain_ms=time_ms(lambda: tk.plain(*ops), reps=10),
+               bound_ms=b_ms, bound_by=b_by, values_moved=moved,
+               shard=tuple(r.shape), copies=tk.copies)
+    if tk.copies:
+        fail(f"14 (a) K4 sharded MG: the wrapper copied {tk.copies}")
+    phase(f"14 (a) K4 tridiag, the sharded MG's radial lines at level 0 "
+          f"(shard (0, 0) of {mg.mesh.shape['lat']}x{mg.mesh.shape['lon']}, "
+          f"rhs {tuple(r.shape)}, columns {[s_ for s_, _ in lay.axes]}): max "
+          f"abs err {err:.3e} (tol {1e-5 * sc:.3e}), 0 operands copied; "
+          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {b_ms * 1e3:.2f} us ({b_by}; {moved} values moved)")
+    return out
+
+
+def mesh_solve_phases(dev):
+    """Phase 14: the multigrid and the coupled solves on the mesh at
+    BENCH_SHAPE from the seeded flow, every shard on the one card: (a)
+    `poisson solver = mg`, f32, one step on 2x2 and one on 2x4 with the
+    CG capped at MG_COMPARE_CAP on both sides: K4 A*B x
+    line_solves_per_cycle x (CG iterations + 1) times exactly, K2o and
+    K1o A*B times, the CG counts within 5% of one device's with the
+    radial-only rebuild (the f32 sums' order over ~215 iterations; equal
+    when capped), u and T within 1e-5 of max|u|, max|div u| within twice
+    one device's; one shard's K4 against its plain version; one V-cycle
+    of the 2x4 step profiled (device ms, kernels, host launches, syncs,
+    host ms) beside one device's; (b) the FEEC 3x3 with the flagship's
+    physics on 2x4, one step from one device's first: the outer count
+    against one device's, u within 1e-4 of max|u|, max|div u|, host ms,
+    the device stream's elapsed ms, host syncs; (c) the shell's 2x2
+    block FGMRES and Schur GMRES at COUPLED_MESH_SHAPE on 2x2, 2 steps
+    each, against one device; (d) one bf16 MG step on 2x4, within 2^-7
+    of one device's bf16 step (radial-only), every K4 rhs bf16. Returns
+    ({path: launches}, the sharded K4 row's numbers)."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_DT, BENCH_SHAPE, bench_params, seed_developed_flow)
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        Mesh, shard_state, unshard_state)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    launches, k4_row = {}, {}
+    dt = BENCH_DT
+
+    def steps(model, s, k):
+        ds = []
+        for _ in range(k):
+            s, d = model.step(s, dt)
+            d.cfl                       # the step's diagnostics copy
+            ds.append(d)
+        return s, ds
+
+    def on_mesh(model, shape):
+        A, B = shape
+        return model.prepare_sharded(Mesh(np.array([[dev] * B] * A,
+                                                   dtype=object),
+                                          ("lat", "lon")))
+
+    def mg(p):
+        p.numerics.poisson_solver = "mg"
+        return p
+
+    def profile(label, m, st):
+        """One step of m from st profiled, its host syncs and host ms."""
+        prof = step_profile(lambda: m.step(st, dt)[1].cfl, 1)
+        _, syncs = count_syncs(lambda: m.step(st, dt)[1].cfl)
+        _, _, wall = drive(m, lambda: m.step(st, dt)[1].cfl)
+        out = dict(device_ms=prof["device_ms_per_step"],
+                   kernels=prof["kernels_per_step"],
+                   host_launches=prof["host_launches_per_step"],
+                   busy=prof["busy_share"], syncs=syncs, host_ms=wall * 1e3,
+                   kernel_ms=prof["kernel_ms_per_step"])
+        phase(f"14 {label} profiled step: {out['device_ms']:.3f} device ms "
+              f"in {out['kernels']:.0f} kernels, {out['host_launches']:.0f} "
+              f"host launches, {syncs} host syncs, {out['host_ms']:.1f} "
+              f"host ms, busy {out['busy']:.3f}; hand kernels' device ms "
+              f"{ {k: round(v, 4) for k, v in out['kernel_ms'].items()} }"
+              + since())
+        return out
+
+    # ---- (a) poisson solver = mg on 2x2 and 2x4 -------------------------
+    # relaxing along r alone the f32 MG-CG takes ~215 iterations a step
+    # where one device's two-axis V-cycle takes 11 (~70 host s a step on
+    # 2x4), and the step ends at max|div u| ~5.6e-4 on one device too. So
+    # 2x2 takes one whole step, its CG count held to within 5% of one
+    # device's (the f32 sums' order over ~215 iterations), its divergence
+    # to twice one device's; 2x4 one step with the CG capped at
+    # MG_COMPARE_CAP on both sides, equal counts; the profile reads a 2x4
+    # step capped at MG_PROFILE_CAP (one V-cycle), as phase 8 (a) caps the
+    # FEEC prm's
+    def capped(model, cap, fn):
+        keep = model.params.numerics.max_cg_iters
+        model.params.numerics.max_cg_iters = cap
+        try:
+            return fn()
+        finally:
+            model.params.numerics.max_cg_iters = keep
+
+    one = radial_mg(BoussinesqModel(mg(bench_params(BENCH_SHAPE)),
+                                    device=dev))
+    s0 = seed_developed_flow(one)
+    (s_one, d_one), _, w_one = drive(one, lambda: steps(one, s0, 1))
+    cap_one = capped(one, MG_COMPARE_CAP, lambda: steps(one, s0, 1))
+    phase(f"14 (a) mg one device, radial-only V-cycle: CG iterations "
+          f"{d_one[0].poisson_iters}, max|div u| {d_one[0].div_norm:.3e}, "
+          f"{w_one * 1e3:.1f} host ms a step; capped at {MG_COMPARE_CAP}: "
+          f"max|div u| {cap_one[1][0].div_norm:.3e}" + since())
+    for (A, B), cap in (((2, 2), None), (MAIN_MESH, MG_COMPARE_CAP)):
+        label = f"(a) mg {A}x{B}" + (f", CG capped at {cap}" if cap else "")
+        m = mesh_model(dev, (A, B), options=mg)
+        mgs = m._mesh.multigrid
+        if m.sharded_kernels()["poisson"] != "mg-cg" or mgs.line_axes != [0]:
+            fail(f"14 {label}: {m.sharded_kernels()}, line axes "
+                 f"{mgs.line_axes}")
+        per_cycle = mgs.line_solves_per_cycle()
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        run = ((lambda: steps(m, st0, 1)) if cap is None else
+               (lambda: capped(m, cap, lambda: steps(m, st0, 1))))
+        (sm, dm), counts, wall = drive(m, run)
+        want_s, want_d = (s_one, d_one) if cap is None else cap_one
+        its, its_one = dm[0].poisson_iters, want_d[0].poisson_iters
+        cycles = its + 1
+        want = {**{k: 0 for k in counts}, "forcing_operands": A * B,
+                "richardson_operands": A * B,
+                "tridiag": A * B * per_cycle * cycles}
+        if counts != want:
+            fail(f"14 {label}: launches {counts}, expected {want}")
+        du, u_sc, div = hold_mesh(
+            label, unshard_state(sm), want_s, [dm[0].div_norm], tol=1e-5,
+            div_tol=max(1e-4, 2 * want_d[0].div_norm), tag="14")
+        if abs(its - its_one) > (0 if cap else max(1, 0.05 * its_one)):
+            fail(f"14 {label}: CG iterations {its}, one device {its_one}")
+        launches[f"mg_mesh_{A}x{B}"] = counts
+        phase(f"14 {label}: 1 step, launches {counts} ({A * B} shards x "
+              f"{per_cycle} line solves a V-cycle x {cycles} V-cycles), "
+              f"max|u_mesh - u_one| {du / u_sc:.3e} of max|u|, max|div u| "
+              f"{div:.3e} (one device {want_d[0].div_norm:.3e}), CG "
+              f"iterations {its} (one device, radial-only, {its_one}); "
+              f"{wall * 1e3:.1f} host ms a step, "
+              f"{wall / cycles * 1e3:.1f} a V-cycle" + since())
+        if (A, B) == MAIN_MESH:
+            k4_row = check_sharded_mg_k4(dev, m)
+            prof = capped(m, MG_PROFILE_CAP, lambda: profile(
+                f"{label}, CG capped at {MG_PROFILE_CAP}", m, st0))
+            k4_row.update(step=prof, per_cycle=per_cycle,
+                          launches=counts["tridiag"],
+                          in_step_ms=prof["kernel_ms"].get("tridiag", 0.0)
+                          / (A * B * per_cycle * (MG_PROFILE_CAP + 1)))
+        del m
+    k4_row["one_device_step"] = capped(one, MG_PROFILE_CAP, lambda: profile(
+        f"(a) mg one device (radial-only), CG capped at {MG_PROFILE_CAP}",
+        one, s0))
+    del one
+
+    # ---- (d) one bf16 MG step on 2x4 ----------------------------------
+    one_b = radial_mg(BoussinesqModel(mg(bench_params(BENCH_SHAPE, BF16)),
+                                      device=dev))
+    sb0 = seed_developed_flow(one_b)
+    sb_one, db_one = one_b.step(sb0, dt)
+    m = mesh_model(dev, MAIN_MESH, dtype=BF16, options=mg)
+    rec = RhsDtypes(m._mesh.multigrid.tridiag)
+    m._mesh.multigrid.tridiag = rec
+    (sb, db), counts, _ = drive(m, lambda: m.step(
+        shard_state(sb0, m.geo, m._mesh.mesh), dt))
+    g = unshard_state(sb)
+    worst = 0.0
+    for name, x, y in zip(("u", "p", "T"), (g.u, g.p, g.T),
+                          (sb_one.u, sb_one.p, sb_one.T)):
+        if x.dtype != torch.bfloat16 or not bool(torch.isfinite(x).all()):
+            fail(f"14 (d) bf16 mg: {name} {x.dtype}, finite "
+                 f"{bool(torch.isfinite(x).all())}")
+        rel = float((x.float() - y.float()).abs().max()
+                    / y.float().abs().max())
+        worst = max(worst, rel)
+    if not worst <= 2.0 ** -7 or rec.dtypes != {torch.bfloat16}:
+        fail(f"14 (d) bf16 mg: max rel diff {worst:.3e} (bound 2^-7), K4 "
+             f"rhs dtypes {rec.dtypes}")
+    if db.poisson_iters - db_one.poisson_iters not in (-1, 0, 1):
+        fail(f"14 (d) bf16 mg: {db.poisson_iters} CG iterations, one "
+             f"device {db_one.poisson_iters}")
+    launches["bf16_mg_mesh_2x4"] = counts
+    phase(f"14 (d) bf16 mg {MAIN_MESH[0]}x{MAIN_MESH[1]}: 1 step, launches "
+          f"{counts}, every K4 rhs bf16, max rel diff to one device's "
+          f"{worst:.3e} (bound 2^-7), CG iterations {db.poisson_iters} (one "
+          f"device {db_one.poisson_iters}), max|div u| {db.div_norm:.3e} "
+          f"(one device {db_one.div_norm:.3e})" + since())
+    del m, one_b
+
+    # ---- (b) the FEEC 3x3 with the flagship's physics on 2x4 ----------
+    # from one device's first step (the seeded flow's own first step takes
+    # ~70 outer iterations, the next ~14); the mesh step holds ~10^5
+    # kernels, more than a profile reads within the phase's time: its host
+    # ms and syncs, and the device stream's elapsed time between two events
+    def feec(p):
+        p.use_FEEC_solver = True
+        return p
+
+    one_f = BoussinesqModel(feec(bench_params(BENCH_SHAPE)), device=dev)
+    sf1, _ = one_f.step(seed_developed_flow(one_f), dt)
+    (sf_one, df_one), _, w_1 = drive(one_f, lambda: steps(one_f, sf1, 1))
+    m = mesh_model(dev, MAIN_MESH, options=feec)
+    if m.momentum_solver != "coupled" or m.sharded_kernels()["forcing"] \
+            != "jnp":
+        fail(f"14 (b) FEEC: {m.momentum_solver}, {m.sharded_kernels()}")
+    stf = shard_state(sf1, m.geo, m._mesh.mesh)
+    (sm, dm), counts, wall = drive(m, lambda: steps(m, stf, 1))
+    if any(counts.values()):
+        fail(f"14 (b) FEEC: launches {counts}, expected none")
+    label = f"(b) FEEC 3x3 {MAIN_MESH[0]}x{MAIN_MESH[1]}"
+    du, u_sc, div = hold_mesh(label, unshard_state(sm), sf_one,
+                              [d.div_norm for d in dm], tag="14")
+    outer, outer_1 = dm[0].poisson_iters, df_one[0].poisson_iters
+    if abs(outer - outer_1) > 1:
+        fail(f"14 {label}: outer iterations {outer}, one device {outer_1}")
+    _, syncs = count_syncs(lambda: m.step(stf, dt)[1].cfl)
+    _, syncs_1 = count_syncs(lambda: one_f.step(sf1, dt)[1].cfl)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    m.step(stf, dt)[1].cfl
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches["feec_mesh_2x4"] = counts
+    phase(f"14 {label}: 1 step (flagship physics) from one device's "
+          f"first, {outer} outer iterations (one device {outer_1}), "
+          f"max|u_mesh - u_one| {du / u_sc:.3e} of max|u|, max|div u| "
+          f"{div:.3e}, gate {dm[0].solver_ok}; {wall * 1e3:.1f} host ms a "
+          f"step ({wall / outer * 1e3:.1f} an outer iteration), device "
+          f"stream {ev[0].elapsed_time(ev[1]):.1f} ms, {syncs} host syncs; "
+          f"one device {w_1 * 1e3:.1f} host ms, {syncs_1} syncs" + since())
+    del m, one_f
+
+    # ---- (c) the shell's 2x2 block FGMRES and Schur GMRES on 2x2 ------
+    for key, schur in (("fgmres", False), ("schur", True)):
+        def coupled(p, schur=schur):
+            p.numerics.momentum_solver = "coupled"
+            p.use_schur_complement_solver = schur
+            return p
+
+        one_c = BoussinesqModel(coupled(bench_params(COUPLED_MESH_SHAPE)),
+                                device=dev)
+        sc0 = seed_developed_flow(one_c)
+        sc_one, dc_one = steps(one_c, sc0, 2)
+        m = on_mesh(BoussinesqModel(coupled(bench_params(
+            COUPLED_MESH_SHAPE)), device=dev), (2, 2))
+        stc = shard_state(sc0, m.geo, m._mesh.mesh)
+        (sm, dm), counts, wall = drive(m, lambda: steps(m, stc, 2))
+        label = f"(c) coupled {key} 2x2 {COUPLED_MESH_SHAPE}"
+        du, u_sc, div = hold_mesh(label, unshard_state(sm), sc_one,
+                                  [d.div_norm for d in dm],
+                                  div_tol=max(1e-4, 2 * max(
+                                      d.div_norm for d in dc_one)),
+                                  tag="14")
+        outer = [d.poisson_iters for d in dm]
+        outer_1 = [d.poisson_iters for d in dc_one]
+        if any(abs(a - b) > 1 for a, b in zip(outer, outer_1)) or any(
+                counts.values()):
+            fail(f"14 {label}: outer iterations {outer}, one device "
+                 f"{outer_1}, launches {counts}")
+        launches[f"coupled_{key}_mesh_2x2"] = counts
+        phase(f"14 {label}: 2 steps, outer iterations {outer} (one device "
+              f"{outer_1}), max|u_mesh - u_one| {du / u_sc:.3e} of max|u|, "
+              f"max|div u| {div:.3e}, gate {[d.solver_ok for d in dm]}; "
+              f"{wall / 2 * 1e3:.1f} host ms a step" + since())
+        del m, one_c
+    phase(f"14 total {time.perf_counter() - t0:.1f} s")
+    return launches, k4_row
 
 
 def main() -> None:
@@ -5349,6 +5691,11 @@ def main() -> None:
     for label, counts in cg_mesh_launches.items():
         record(label, counts)
 
+    # ---- 14. the multigrid and the coupled solves on the mesh ----------
+    solve_mesh_launches, k4_sh = mesh_solve_phases(dev)
+    for label, counts in solve_mesh_launches.items():
+        record(label, counts)
+
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
@@ -5414,6 +5761,26 @@ def main() -> None:
         launches_by_path={k: v["tridiag"] for k, v in mim_launches.items()
                           if k.startswith("poisson_mg")},
         replay_launches_by_path={}, cells=mim_cells))
+    # K4 in the mesh's V-cycle (phase 14 (a)): every shard's radial lines
+    # as they are; launches on the 2x4 mg path in one step, the
+    # times of one shard's level-0 launch
+    report.append(dict(
+        name="K4 tridiag (sharded PoissonMultigrid radial lines)",
+        route="cuda", source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+        replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+        variant="the mesh's V-cycle (line_axes_allowed=(0,), dycoreplanet_"
+                "tpu/models/boussinesq.py:311-322): each shard's "
+                "contiguous (nr, nl, no) coefficients and residual, one "
+                "launch a shard a line solve; the times: level 0, shard "
+                f"{k4_sh['shard']} of {MAIN_MESH[0]}x{MAIN_MESH[1]}",
+        launches=k4_sh["launches"], max_abs_err=k4_sh["max_abs_err"],
+        ms=k4_sh["ms"], plain_ms=k4_sh["plain_ms"],
+        bound_ms=k4_sh["bound_ms"], bound_by=k4_sh["bound_by"],
+        library_ms=None, in_step_ms=k4_sh["in_step_ms"],
+        launches_per_vcycle_per_shard=k4_sh["per_cycle"],
+        launches_by_path={k: v["tridiag"] for k, v in
+                          solve_mesh_launches.items() if "mg" in k},
+        replay_launches_by_path={}))
     # K4 in the layouts of the three remaining Poisson solvers (no model
     # builds the direct ones): launches through each solver's entry
     # point in one f32 solve at work size, phase 11 (a) (the spectral CG

@@ -92,14 +92,19 @@ vorticity-velocity-pressure system by flexible FGMRES(16)
 (solvers/gmres.py, linear_algebra/). Its temperature solve is the
 standard one (K4 with ``helmholtz solver = direct``). The Krylov loops
 read their stopping tests back every iteration, so coupled chunks run
-eagerly.
+eagerly. On a mesh the coupled solves run the same loops on Sharded
+block vectors, their blocks the mesh's operators, and the plain forcing
+and transport on the shards (``ShardedPlainForcing``).
 
 The Poisson solve (``_solve_pressure_poisson``, shared with the mimetic
 model) is the fast diagonalization by default; ``poisson solver = mg``
 runs CG preconditioned by a multigrid V-cycle whose line smoother runs
 K4 (solvers/multigrid.py), ``= cg`` Jacobi-CG. Both read their stopping
-tests back every iteration, so their chunks run eagerly; the mesh runs
-Jacobi-CG and refuses the multigrid.
+tests back every iteration, so their chunks run eagerly. On a mesh the
+V-cycle relaxes along the radial lines alone, as the JAX package's mesh
+rebuilds it, K4 on every shard's own columns
+(``ShardedPoissonMultigrid``); the stretched shell's spectral CG is
+refused there.
 
 This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
 both personalities (FEEC in its collocated realization here, and in its
@@ -143,7 +148,7 @@ from dycoreplanet_tpu_torch.parallel.mesh import (
 from dycoreplanet_tpu_torch.physics.closures import radial_gravity_scalar
 from dycoreplanet_tpu_torch.physics.initial_data import (
     TemperatureInitialValues, TemperatureInitialValuesCuboid)
-from dycoreplanet_tpu_torch.solvers.cg import _dot, cg
+from dycoreplanet_tpu_torch.solvers.cg import _dot, _zeros_like, cg
 from dycoreplanet_tpu_torch.solvers.fixed import richardson_solve
 from dycoreplanet_tpu_torch.solvers.gmres import gmres
 from dycoreplanet_tpu_torch.solvers.helmholtz import make_helmholtz_solver
@@ -180,10 +185,17 @@ class _MeshStages(NamedTuple):
                              # (poisson solver = cg: Jacobi-CG)
     ops: object              # ShardedShellStep: the plain rest
     transport: object        # ShardedSemiLagrangian (SL: every step and
-                             # substep) or ShardedEulerian (the substeps),
+                             # substep) or ShardedPlainForcing (Eulerian:
+                             # the substeps, and the steps without K2o),
                              # the mimetic model's flux-form transport
     kernels: bool            # False: prepare_sharded(mesh, kernels=False)
     staggered: object = None  # the mimetic model's ShardedStaggered
+    plain_forcing: object = None  # ShardedPlainForcing: the forcing
+                             # where no K2o runs (the coupled solves, the
+                             # rotational form); None for the mimetic
+                             # model
+    multigrid: object = None  # ShardedPoissonMultigrid (poisson solver =
+                             # mg): the CG's preconditioner
 
 
 class StepDiagnostics:
@@ -264,8 +276,7 @@ class StepDiagnostics:
 MESH_ANNULUS = "multi-device: the annulus on the mesh"
 MESH_CUBOID = "multi-device: the cuboid on the mesh"
 MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
-MESH_SOLVES = ("multi-device: the multigrid, coupled and spectral-CG "
-               "solves on the mesh")
+MESH_SPECTRAL = "multi-device: the spectral-CG solve on the mesh"
 
 
 def _not_on_mesh(item: str, what: str) -> NotImplementedError:
@@ -276,10 +287,11 @@ def _not_on_mesh(item: str, what: str) -> NotImplementedError:
 class _GridOps:
     """The whole grid's side of the operators the model's solves take
     (``ShardedShellStep``, parallel/sharded_step.py, is a mesh's), so that
-    one Richardson and one CG code run on global fields and on
-    Sharded ones (``BoussinesqModel._ops``)."""
+    one Richardson, CG and GMRES code and one set of coupled blocks run
+    on global fields and on Sharded ones (``BoussinesqModel._ops``)."""
 
     dot = staticmethod(_dot)
+    total = None        # no mesh to sum over (the solvers' default)
 
     def __init__(self, model: "BoussinesqModel"):
         self.geo = model.geo
@@ -294,6 +306,50 @@ class _GridOps:
     def vector_laplacian(self, u, u_specs):
         return torch.stack([st.weak_laplacian(self.geo, u[c], u_specs[c])
                             for c in range(self.geo.dim)])
+
+    def gradient(self, x, specs):
+        return torch.stack([st.centered_gradient(self.geo, x, d, specs[d])
+                            for d in range(self.geo.dim)])
+
+    def cell_faces(self, u_specs, u):
+        return cell_to_faces(self.geo, u_specs, u)
+
+    def grad_faces(self, x, specs):
+        return [st.grad_left_faces(self.geo, x, d, specs[d])
+                for d in range(self.geo.dim)]
+
+    def wall_faces(self, faces):
+        return [apply_wall_face_values(self.geo, f, d)
+                for d, f in enumerate(faces)]
+
+    def divergence(self, faces):
+        return st.divergence(self.geo, faces)
+
+    def curl(self, u, u_specs):
+        return vec.curl_3d(self.geo, u, u_specs)
+
+    @staticmethod
+    def less_mean(x):
+        return x - torch.mean(x)
+
+    def less_volume_mean(self, x):
+        return x - st.volume_mean(self.geo, x)
+
+
+def _rows(x, i: int, j: Optional[int] = None):
+    """x[i:j] (x[i] for j None) of a block vector, global or Sharded."""
+    take = (lambda t: t[i]) if j is None else (lambda t: t[i:j])
+    return x.map(take) if isinstance(x, Sharded) else take(x)
+
+
+def _block(ndim: int, *parts):
+    """The block vector of ``parts`` along a new leading axis (a part of
+    ``ndim`` axes, one cell field, counts one row), global or Sharded."""
+    def cat(*ts):
+        return torch.cat([t if t.dim() > ndim else t[None] for t in ts], 0)
+    if isinstance(parts[0], Sharded):
+        return parts[0].map(cat, *parts[1:])
+    return cat(*parts)
 
 
 def resolve_device(device) -> torch.device:
@@ -486,8 +542,14 @@ class BoussinesqModel:
         device): the forcing as K2o (K2mo with the semi-Lagrangian
         transport) and, within its gates, the Richardson stage as K1o on
         every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
-        (the JAX package's ``prepare_sharded`` on a platform that runs its
-        kernels), the temperature transport on the shards. Where K1o's
+        or, for ``poisson solver = mg``, CG preconditioned by the radial
+        V-cycle on the shards (``_mesh_common``), as the JAX package's
+        ``prepare_sharded`` on a platform that runs its kernels, the
+        temperature transport on the shards. The models that run no
+        forcing kernel on one device (the coupled solves, the rotational
+        form) run the plain forcing and Eulerian transport on the shards
+        (``ShardedPlainForcing``) and their coupled solves on Sharded block
+        vectors, as the JAX package runs them through GSPMD. Where K1o's
         gates fail (``fixed solver iters`` = 0, Richardson momentum beside
         CG temperature, a ghost depth beyond one radial block or shard),
         on escalated steps, in ``step_verbose`` and in temperature
@@ -505,22 +567,20 @@ class BoussinesqModel:
         for the forcing's halos, raise ValueError, as in the JAX
         package."""
         from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
-            ShardedShellForcing)
+            ShardedPlainForcing, ShardedShellForcing)
         from dycoreplanet_tpu_torch.parallel.sharded_richardson import (
             make_sharded_richardson)
         from dycoreplanet_tpu_torch.parallel.sharded_transport import (
-            ShardedEulerian, ShardedSemiLagrangian)
+            ShardedSemiLagrangian)
 
         num = self.params.numerics
-        if (self.momentum_solver == "coupled"
-                or self.advection_form != "advective"):
-            # the JAX package runs these on the mesh only through GSPMD's
-            # plain path
-            raise _not_on_mesh(MESH_SOLVES, f"the {self.momentum_solver} "
-                               f"momentum solve in the {self.advection_form} "
-                               "form")
-        poisson, ops = self._mesh_common(mesh)
-        forcing = ShardedShellForcing(self._forcing, mesh, kernels=kernels)
+        poisson, ops, multigrid = self._mesh_common(mesh)
+        # the plain forcing (for the coupled solves and the rotational
+        # form, which run no forcing kernel on one device either: the JAX
+        # package's GSPMD path) and the Eulerian transport
+        plain = ShardedPlainForcing(self._plain_forcing, self.T_wall, mesh)
+        forcing = (ShardedShellForcing(self._forcing, mesh, kernels=kernels)
+                   if self._forcing is not None else None)
         richardson = make_sharded_richardson(self, mesh) if kernels else None
         if num.residual_check_interval > 1:
             warnings.warn(
@@ -529,27 +589,31 @@ class BoussinesqModel:
                 "variant; running per-step residual checks on the mesh",
                 RuntimeWarning, stacklevel=2)
         transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
-                     if self._semi_lagrangian is not None
-                     else ShardedEulerian(forcing.kern, mesh))
+                     if self._semi_lagrangian is not None else plain)
         self._mesh = _MeshStages(mesh, forcing, richardson, poisson, ops,
-                                 transport, bool(kernels))
+                                 transport, bool(kernels),
+                                 plain_forcing=plain, multigrid=multigrid)
         return self
 
     def _mesh_common(self, mesh: Mesh):
         """The refusals every personality's mesh shares, then its sharded
-        Poisson solve (None for Jacobi-CG) and plain stages."""
+        Poisson solve (None for the Krylov strategies), plain stages and,
+        for ``poisson solver = mg``, the sharded V-cycle (else None): the
+        model's ``poisson_precond`` is rebuilt with its line smoother on
+        the unsharded radial axis alone, as the JAX package's mesh
+        rebuilds it (a line solve along a sharded axis would gather whole
+        lines), and that V-cycle runs on the shards. A level of the
+        hierarchy that the mesh does not divide raises ValueError."""
         from dycoreplanet_tpu_torch.parallel.sharded_step import (
             ShardedShellStep)
+        from dycoreplanet_tpu_torch.solvers.multigrid import (
+            ShardedPoissonMultigrid)
         from dycoreplanet_tpu_torch.solvers.spectral import (
             ShardedShellPoissonFastDiag)
 
-        if self.poisson_precond is not None:
-            # the JAX mesh rebuilds the V-cycle with its line smoother on
-            # the radial axis alone
-            raise _not_on_mesh(MESH_SOLVES, "poisson solver = mg")
         if getattr(self.poisson_spectral, "iterative", False):
             # the JAX package leaves ShellPoissonSpectral to GSPMD
-            raise _not_on_mesh(MESH_SOLVES, "the spectral CG Poisson solve "
+            raise _not_on_mesh(MESH_SPECTRAL, "the spectral CG Poisson solve "
                                "of a shell of non-uniform radial spacing")
         if self.geo.kind == "cuboid":
             raise _not_on_mesh(MESH_CUBOID, "the cuboid")
@@ -566,7 +630,15 @@ class BoussinesqModel:
                              f"{self.device}")
         poisson = (ShardedShellPoissonFastDiag(self.poisson_spectral, mesh)
                    if self.poisson_spectral is not None else None)
-        return poisson, ShardedShellStep(self, mesh)
+        multigrid = None
+        if self.poisson_precond is not None:
+            radial = PoissonMultigrid(
+                self.geo, self.p_specs, dtype=self.torch_dtype,
+                device=self.device, tridiag=self._tridiag,
+                line_axes_allowed=(0,))
+            multigrid = ShardedPoissonMultigrid(radial, mesh)
+            self.poisson_precond = radial
+        return poisson, ShardedShellStep(self.geo, mesh, self), multigrid
 
     def sharded_kernels(self) -> Dict[str, str]:
         """Which implementation each hot stage of the mesh step runs, as
@@ -579,7 +651,9 @@ class BoussinesqModel:
         report = {"forcing": tag(m.forcing is not None and m.kernels),
                   "richardson": tag(m.richardson is not None),
                   "poisson": (type(m.poisson).__name__
-                              if m.poisson is not None else "jacobi-cg")}
+                              if m.poisson is not None else
+                              "mg-cg" if m.multigrid is not None
+                              else "jacobi-cg")}
         M_chk = self.params.numerics.residual_check_interval
         if M_chk > 1:
             report["residual_check_interval"] = (
@@ -654,7 +728,13 @@ class BoussinesqModel:
         bfloat16 step keeps excess precision inside its fusions: the new
         state is rounded once (``_stored``), before its diagnostics, and
         the solvers keep the bfloat16 tolerance clamps (``_rtol``)."""
-        return (self.torch_dtype == torch.bfloat16 and not is_sharded(state)
+        return not is_sharded(state) and self._kernel_free_bf16(state)
+
+    def _kernel_free_bf16(self, state: State) -> bool:
+        """``_in_float32``'s test, global or sharded: a bfloat16 state on
+        a path that runs none of the shell's hand kernels (on a mesh the
+        coupled solves, which widen the shards alike)."""
+        return (self.torch_dtype == torch.bfloat16
                 and state.u.dtype == torch.bfloat16
                 and self._forcing is None and self._richardson is None
                 and self._proj is None)
@@ -953,20 +1033,9 @@ class BoussinesqModel:
         rhs_T = vol * T_adv + kT * self._T_lap_offset_t
 
         if self.momentum_solver == "coupled":
-            # the monolithic saddle-point solve; the FEEC shell's is the
-            # 3x3 vorticity-velocity-pressure system. It takes the
-            # forcing without -grad p^n: the JAX model adds grad p^n back
-            if p.numerics.projection == "incremental":
-                forcing = forcing + self._grad_c(pres)
-            coupled = (self._solve_momentum_coupled_feec
-                       if p.use_FEEC_solver and geo.dim == 3
-                       and not p.use_schur_complement_solver
-                       else self._solve_momentum_coupled)
-            (u_new, p_new, new_faces, outer_iters, outer_rnorm,
-             momentum_ok) = coupled(u + dt * forcing, dt)
-            helm_iters = [outer_iters] * geo.dim
-            poisson_iters = outer_iters
-            helm_rnorm = poisson_rnorm = outer_rnorm
+            (u_new, p_new, new_faces, helm_iters, poisson_iters, helm_rnorm,
+             poisson_rnorm, momentum_ok) = self._coupled_momentum(
+                 u, forcing, pres, dt)
             T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
                 rhs_T, kT, T)
         elif (self._richardson is not None and not self._force_cg
@@ -1033,26 +1102,56 @@ class BoussinesqModel:
         version, and Richardson or Jacobi-CG temperature; the sharded
         Poisson solve (under ``_force_cg`` CG preconditioned by it, as the
         JAX escalated step's ``_poisson_cg``; ``poisson solver = cg``
-        Jacobi-CG) and the plain correction. The gate's verdict and the
-        packed diagnostics on the model's device (the mesh's first). A
-        bfloat16 state's plain stages compute in float32 on the widened
-        shards and the new state is rounded once (``_stored``)."""
+        Jacobi-CG, ``= mg`` CG preconditioned by the sharded V-cycle) and
+        the plain correction. Without K2o (the coupled solves, the
+        rotational form) the plain forcing and transport on the shards;
+        the coupled solves then as on one device (``_coupled_momentum``),
+        on Sharded block vectors. The gate's verdict and the packed
+        diagnostics on the model's device (the mesh's first). A bfloat16
+        state's plain stages, and the whole of a coupled step, compute in
+        float32 on the widened shards and the new state is rounded once
+        (``_stored``)."""
         mesh = self._mesh
         if mesh is None:
             raise ValueError("a sharded state needs prepare_sharded first")
-        ops = mesh.ops
         p = self.params
+        coupled = self.momentum_solver == "coupled"
+        bf16 = self.torch_dtype == torch.bfloat16
+        if self._kernel_free_bf16(state):
+            state = _as_dtype(state, torch.float32)
+        ops = self._ops(state.T)
         u, u_faces, pres, T = state.u, state.u_faces, state.p, state.T
         dt = self._scalar(dt)
         dt_T = self._dt_T(dt)
-        if mesh.forcing.kern.advect_T:
+        if mesh.forcing is None:
+            # the coupled solves and the rotational form (no K2o)
+            forcing = mesh.plain_forcing.explicit_forcing(u, u_faces, pres,
+                                                          T)
+            rhs_u = u + dt * forcing
+            T_adv = mesh.transport(u, u_faces, T, dt_T)
+        elif mesh.forcing.kern.advect_T:
             rhs_u, T_adv = mesh.forcing(u, u_faces, T, pres, dt)
         else:
             rhs_u = mesh.forcing(u, u_faces, T, pres, dt)
             T_adv = mesh.transport(u, u_faces, T, dt_T)
         kT = self._product(dt_T, self.one_over_Pe)
         rk = mesh.richardson
-        if rk is not None and not self._force_cg and not self._solver_trace:
+        if coupled:
+            rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
+                              ops.T_lap_offset)
+            (u_new, p_new, new_faces, helm_iters, poisson_iters, helm_rnorm,
+             poisson_rnorm, helm_ok) = self._coupled_momentum(
+                 u, forcing, pres, dt)
+            helm_iters, poisson_ok = helm_iters[0], helm_ok
+            T_new, T_iters, T_rnorm, T_ok = self._solve_temperature_system(
+                rhs_T, kT, T)
+            new_state = self._stored(State(
+                u=u_new, u_faces=tuple(new_faces), p=p_new, T=T_new,
+                time=self._advance_time(state.time, dt_T),
+                step_number=state.step_number + 1))
+            div_new = mesh.ops.divergence(new_state.u_faces)
+        elif (rk is not None and not self._force_cg
+              and not self._solver_trace):
             rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
                               ops.T_lap_offset)
             u_star, T_new, (uf0, uf1, uf2, rhs_phi), \
@@ -1068,7 +1167,6 @@ class BoussinesqModel:
                               time=self._advance_time(state.time, dt_T),
                               step_number=state.step_number + 1)
         else:
-            bf16 = self.torch_dtype == torch.bfloat16
             if bf16:
                 wide = lambda x: x.to(torch.float32)  # noqa: E731
                 rhs_u, T_adv, T, pres = map(wide, (rhs_u, T_adv, T, pres))
@@ -1113,8 +1211,7 @@ class BoussinesqModel:
             self.p_specs, u_star, uf_star, phi, pres, dt,
             p.numerics.projection == "incremental")
         if p.correct_pressure_to_zero_mean:
-            mean = ops.volume_mean(p_new)
-            p_new = p_new.map(lambda x: x - mean[x.device])
+            p_new = ops.less_volume_mean(p_new)
         div_new = ops.divergence(new_faces)
         if mesh.poisson is not None and not self._force_cg:
             vol_div = div_new.map(lambda d, v: torch.sum((v * d) ** 2),
@@ -1180,14 +1277,18 @@ class BoussinesqModel:
     def _mesh_temperature_step_impl(self, state: State, dt: float,
                                     full: bool = True):
         """``_temperature_step_impl`` on a sharded state: the transport
-        (parallel/sharded_transport.py) and the temperature solve
+        (``_MeshStages.transport``) and the temperature solve
         (Richardson, or Jacobi-CG when escalated or with ``fixed solver
         iters`` = 0) on the shards, the diagnostics of the frozen velocity
-        from the fixed-order maxima."""
+        from the fixed-order maxima; a bfloat16 state of a kernel-free
+        model in float32, rounded once, as on one device."""
         mesh = self._mesh
         if mesh is None:
             raise ValueError("a sharded state needs prepare_sharded first")
-        ops = mesh.ops
+        wide = self._kernel_free_bf16(state)
+        if wide:
+            state = _as_dtype(state, torch.float32)
+        ops = self._ops(state.T)
         T = state.T
         dt_T = self._dt_T(dt)
         T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)
@@ -1199,10 +1300,12 @@ class BoussinesqModel:
         new_state = state._replace(
             T=T_new, time=self._advance_time(state.time, dt_T),
             step_number=state.step_number + 1)
+        if wide:
+            new_state = self._stored(new_state)
         if not full:
             return new_state, None, self._f32(T_ok)
         packed = self._mesh_pack(
-            state.u, T_new, ops.divergence(state.u_faces), 0, T_iters,
+            state.u, new_state.T, ops.divergence(state.u_faces), 0, T_iters,
             [0] * self.geo.dim, temperature_residual=T_rnorm,
             solver_ok=T_ok)
         return new_state, packed, packed[10]
@@ -1291,7 +1394,9 @@ class BoussinesqModel:
         V-cycle, else the fast solve, else Jacobi."""
         ops = self._ops(rhs_phi)
         fast = self._fast_poisson(rhs_phi)
-        precond = (self.poisson_precond if self.poisson_precond is not None
+        mg = (self._mesh.multigrid if isinstance(rhs_phi, Sharded)
+              else self.poisson_precond)
+        precond = (mg if mg is not None
                    else (fast if fast is not None
                          else (lambda r: r / ops.poisson_diag)))
         return cg(lambda x: -ops.weak_laplacian(x, self.p_specs),
@@ -1425,41 +1530,59 @@ class BoussinesqModel:
 
     # ------------------------------------------------------------------
     # the coupled momentum solves: plain PyTorch, as they are jnp in the
-    # JAX package, which runs no kernel there
-    def _grad_c(self, pp: torch.Tensor) -> torch.Tensor:
-        """The centred pressure gradient, (dim, *cells)."""
-        return torch.stack([
-            st.centered_gradient(self.geo, pp, d, self.p_specs[d])
-            for d in range(self.geo.dim)])
+    # JAX package, which runs no kernel there. Every block takes the
+    # operators of ``_ops``, so that the same solves run on global fields
+    # and on Sharded ones (a block vector [w | u | p] is one Sharded whose
+    # shards hold the stacked blocks)
+    def _coupled_momentum(self, u, forcing, pres, dt):
+        """The momentum and pressure of a coupled step from the explicit
+        ``forcing`` (which holds -grad p^n under the incremental
+        projection: the coupled system takes it without, so the JAX model
+        adds grad p^n back): the FEEC shell's 3x3 solve or the 2x2 one.
+        Returns (u, p, faces, helm_iters, poisson_iters, helm_rnorm,
+        poisson_rnorm, converged), the outer solve's count and residual
+        in both slots."""
+        p = self.params
+        dim = self.geo.dim
+        if p.numerics.projection == "incremental":
+            forcing = forcing + self._ops(pres).gradient(pres, self.p_specs)
+        coupled = (self._solve_momentum_coupled_feec
+                   if p.use_FEEC_solver and dim == 3
+                   and not p.use_schur_complement_solver
+                   else self._solve_momentum_coupled)
+        (u_new, p_new, new_faces, outer_iters, outer_rnorm,
+         momentum_ok) = coupled(u + dt * forcing, dt)
+        return (u_new, p_new, new_faces, [outer_iters] * dim, outer_iters,
+                outer_rnorm, outer_rnorm, momentum_ok)
 
-    def _coupled_blocks(self, dt: float):
+    def _coupled_blocks(self, dt: float, ops):
         """The blocks both coupled systems share, for the Rhie-Chow
         stabilized collocated pair: (G, D, stab, poisson_inv) with
         G p = dt V grad_c p, D u = V div(face-averaged u), stab p = dt
         (L_compact - L_wide) p, the pressure-velocity coupling that removes
         the collocated checkerboard mode, and poisson_inv the exact
-        fast-diagonalization inverse of -L between zero-mean projections."""
-        geo = self.geo
-        vol = self._vol_t
+        fast-diagonalization inverse of -L between zero-mean projections
+        (``ops``: the grid's or the mesh's)."""
+        vol = ops.vol
 
         def G_op(pp):
-            return dt * vol[None] * self._grad_c(pp)
+            return dt * vol * ops.gradient(pp, self.p_specs)
 
         def D_op(u):
-            return vol * st.divergence(geo, cell_to_faces(geo, self.u_specs,
-                                                          u))
+            return vol * ops.divergence(ops.cell_faces(self.u_specs, u))
 
         def stab(pp):
-            return dt * (st.weak_laplacian(geo, pp, self.p_specs)
-                         - D_op(self._grad_c(pp)))
+            return dt * (ops.weak_laplacian(pp, self.p_specs)
+                         - D_op(ops.gradient(pp, self.p_specs)))
 
         def poisson_inv(rp):
-            rp0 = rp - torch.mean(rp)
-            if self.poisson_spectral is not None:
-                phi, _ = self.poisson_spectral.solve(rp0)
+            rp0 = ops.less_mean(rp)
+            fast = self._fast_poisson(rp0)
+            if fast is not None:
+                phi, _ = fast.solve(rp0)
             else:
                 phi = self._poisson_cg(rp0).x
-            return phi - st.volume_mean(geo, phi)
+            return ops.less_volume_mean(phi)
 
         return G_op, D_op, stab, poisson_inv
 
@@ -1481,61 +1604,60 @@ class BoussinesqModel:
         complement D A^{-1} G + stab, A^{-1} an inner CG to 1e-6
         (reference tpp:1248-1414). Returns (u, p, faces, outer
         iterations, outer residual norm, converged)."""
-        geo = self.geo
         p = self.params
         num = p.numerics
-        dim = geo.dim
-        vol = self._vol_t
+        dim = self.geo.dim
+        ops = self._ops(rhs_u)
+        vol = ops.vol
         coef = self._product(dt, self.one_over_Re)
 
         def A_op(u):
-            return vol[None] * u - coef * torch.stack([
-                st.weak_laplacian(geo, u[c], self.u_specs[c])
-                for c in range(dim)])
+            return vol * u - coef * ops.vector_laplacian(u, self.u_specs)
 
-        helm_diag = vol[None] + coef * self._helm_diags_t
-        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt)
-        f = vol[None] * rhs_u
+        helm_diag = vol + coef * ops.helm_diags
+        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt, ops)
+        f = vol * rhs_u
+        total = ops.total
 
         if p.use_schur_complement_solver:
             A_inv = la.inverse_operator(
                 A_op, preconditioner=lambda r: r / helm_diag,
                 rtol=self._rtol(1e-6),
-                maxiter=num.max_cg_iters)
+                maxiter=num.max_cg_iters, total=total)
             DAinvG = la.schur_complement(D_op, A_inv, G_op)
             res = gmres(lambda pp: DAinvG(pp) + stab(pp), D_op(A_inv(f)),
                         rtol=self._rtol(1e-6), restart=30,
                         maxiter=num.max_cg_iters,
                         preconditioner=lambda r: -poisson_inv(r) / dt,
-                        record_history=self._hist_n())
+                        record_history=self._hist_n(), total=total)
             self._stash_history("schur GMRES", res)
             p_sol = res.x
             u_sol = A_inv(f - G_op(p_sol))
         else:
             def K_op(xx):
-                u, pp = xx[:dim], xx[dim]
-                return torch.cat([A_op(u) + G_op(pp),
-                                  (D_op(u) - stab(pp))[None]], 0)
+                u, pp = _rows(xx, 0, dim), _rows(xx, dim)
+                return _block(dim, A_op(u) + G_op(pp), D_op(u) - stab(pp))
 
             def M_inv(rr):
-                ru, rp = rr[:dim], rr[dim]
+                ru, rp = _rows(rr, 0, dim), _rows(rr, dim)
                 phat = -poisson_inv(rp) / dt
                 uhat = (ru - G_op(phat)) / helm_diag
-                return torch.cat([uhat, phat[None]], 0)
+                return _block(dim, uhat, phat)
 
             def M_inv_strong(rr):
-                ru, rp = rr[:dim], rr[dim]
+                ru, rp = _rows(rr, 0, dim), _rows(rr, dim)
                 phat = -poisson_inv(rp) / dt
                 inner = cg(A_op, ru - G_op(phat), rtol=self._rtol(1e-6),
                            maxiter=50,
-                           preconditioner=lambda r: r / helm_diag)
-                return torch.cat([inner.x, phat[None]], 0)
+                           preconditioner=lambda r: r / helm_diag,
+                           dot=ops.dot)
+                return _block(dim, inner.x, phat)
 
-            b = torch.cat([f, torch.zeros_like(f[:1])], 0)
+            b = _block(dim, f, _zeros_like(_rows(f, 0)))
             res = gmres(K_op, b, rtol=self._rtol(num.helmholtz_tol),
                         restart=30,
                         maxiter=num.max_cg_iters, preconditioner=M_inv,
-                        record_history=self._hist_n())
+                        record_history=self._hist_n(), total=total)
             self._stash_history("coupled FGMRES", res)
             if self._enable_solver_fallback and not bool(res.converged):
                 # flexible: M_inv_strong holds an inner iterative CG
@@ -1543,8 +1665,8 @@ class BoussinesqModel:
                             rtol=self._rtol(num.helmholtz_tol),
                             restart=50, maxiter=num.max_cg_iters,
                             preconditioner=M_inv_strong, flexible=True,
-                            record_history=self._hist_n())
-            u_sol, p_sol = res.x[:dim], res.x[dim]
+                            record_history=self._hist_n(), total=total)
+            u_sol, p_sol = _rows(res.x, 0, dim), _rows(res.x, dim)
         return self._coupled_result(u_sol, p_sol, dt, res)
 
     def _coupled_result(self, u_sol, p_sol, dt, res):
@@ -1553,7 +1675,7 @@ class BoussinesqModel:
         iterations, residual norm and verdict."""
         p_new = p_sol
         if self.params.correct_pressure_to_zero_mean:
-            p_new = p_new - st.volume_mean(self.geo, p_new)
+            p_new = self._ops(p_sol).less_volume_mean(p_new)
         return (u_sol, p_new, self._rhie_chow_faces(u_sol, p_sol, dt),
                 res.iterations, res.residual_norm, res.converged)
 
@@ -1562,13 +1684,12 @@ class BoussinesqModel:
         velocity corrected by the compact-minus-wide pressure-gradient
         difference (discretely divergence-free to the solver's
         tolerance)."""
-        geo = self.geo
-        ufs = cell_to_faces(geo, self.u_specs, u_sol)
-        gcfs = cell_to_faces(geo, self.u_specs, self._grad_c(p_sol))
-        return [apply_wall_face_values(
-            geo, uf - dt * (st.grad_left_faces(geo, p_sol, d, self.p_specs[d])
-                            - gcf), d)
-            for d, (uf, gcf) in enumerate(zip(ufs, gcfs))]
+        ops = self._ops(p_sol)
+        ufs = ops.cell_faces(self.u_specs, u_sol)
+        gcfs = ops.cell_faces(self.u_specs, ops.gradient(p_sol, self.p_specs))
+        gfs = ops.grad_faces(p_sol, self.p_specs)
+        return list(ops.wall_faces([uf - dt * (gf - gcf)
+                                    for uf, gf, gcf in zip(ufs, gfs, gcfs)]))
 
     def _solve_momentum_coupled_feec(self, rhs_u, dt):
         """The monolithic 3x3 vorticity-velocity-pressure solve of the FEEC
@@ -1586,56 +1707,61 @@ class BoussinesqModel:
         truncated Jacobi-preconditioned GMRES(3) (reference
         shifted_schur_complement.hpp:155-171, 277-298), p_hat the exact
         Poisson solve. The inner GMRES is nonlinear in its input, so the
-        outer solve stores its Z vectors."""
-        geo = self.geo
+        outer solve stores its Z vectors. On a mesh the curls cross the
+        pole with the velocity's sign pattern, the vorticity's as the
+        velocity's (``ShardedShellStep.curl``)."""
         num = self.params.numerics
-        dim = geo.dim
-        vol = self._vol_t
+        dim = self.geo.dim
+        ops = self._ops(rhs_u)
+        vol = ops.vol
         k_visc = self._product(dt, self.one_over_Re)
-        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt)
+        G_op, D_op, stab, poisson_inv = self._coupled_blocks(dt, ops)
 
         def curl(v):
-            return vec.curl_3d(geo, v, self.u_specs)
+            return ops.curl(v, self.u_specs)
 
         def mass(w):              # Mw and Mu: the diagonal mass
-            return vol[None] * w
+            return vol * w
 
         def Mw_inv(rw):
-            return rw / vol[None]
+            return rw / vol
 
         def B01_op(u):            # the w row's coupling: -V curl u
-            return -vol[None] * curl(u)
+            return -vol * curl(u)
 
         def B10_op(w):            # the u row's: dt/Re V curl w
-            return k_visc * vol[None] * curl(w)
+            return k_visc * vol * curl(w)
 
-        sh_diag = vol[None] + k_visc * self._helm_diags_t
+        sh_diag = vol + k_visc * ops.helm_diags
         shifted_inv = la.approximate_inverse(
             la.shifted_schur_complement(mass, B10_op, Mw_inv, B01_op),
             n_iter=3, rtol=self._rtol(0.0), solver="gmres", restart=3,
-            preconditioner=lambda r: r / sh_diag)
+            preconditioner=lambda r: r / sh_diag, total=ops.total)
 
         def K_op(xx):
-            w, u, pp = xx[:dim], xx[dim:2 * dim], xx[2 * dim]
-            return torch.cat([mass(w) + B01_op(u),
-                              B10_op(w) + mass(u) + G_op(pp),
-                              (D_op(u) - stab(pp))[None]], 0)
+            w, u, pp = (_rows(xx, 0, dim), _rows(xx, dim, 2 * dim),
+                        _rows(xx, 2 * dim))
+            return _block(dim, mass(w) + B01_op(u),
+                          B10_op(w) + mass(u) + G_op(pp),
+                          D_op(u) - stab(pp))
 
         def M_inv(rr):
-            rw, ru, rp = rr[:dim], rr[dim:2 * dim], rr[2 * dim]
+            rw, ru, rp = (_rows(rr, 0, dim), _rows(rr, dim, 2 * dim),
+                          _rows(rr, 2 * dim))
             what = Mw_inv(rw)
             uhat = shifted_inv(ru - B10_op(what))
             phat = -poisson_inv(rp) / dt
-            return torch.cat([what, uhat, phat[None]], 0)
+            return _block(dim, what, uhat, phat)
 
-        f = vol[None] * rhs_u
-        b = torch.cat([torch.zeros_like(f), f, torch.zeros_like(f[:1])], 0)
+        f = vol * rhs_u
+        b = _block(dim, _zeros_like(f), f, _zeros_like(_rows(f, 0)))
         res = gmres(K_op, b, rtol=self._rtol(num.helmholtz_tol), restart=16,
                     maxiter=num.max_cg_iters, preconditioner=M_inv,
-                    flexible=True, record_history=self._hist_n())
+                    flexible=True, record_history=self._hist_n(),
+                    total=ops.total)
         self._stash_history("FEEC 3x3 FGMRES", res)
-        return self._coupled_result(res.x[dim:2 * dim], res.x[2 * dim], dt,
-                                    res)
+        return self._coupled_result(_rows(res.x, dim, 2 * dim),
+                                    _rows(res.x, 2 * dim), dt, res)
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager

@@ -125,13 +125,13 @@ class MimeticBoussinesqModel(BoussinesqModel):
         from dycoreplanet_tpu_torch.parallel.sharded_transport import (
             ShardedSemiLagrangian)
 
-        poisson, ops = self._mesh_common(mesh)
+        poisson, ops, multigrid = self._mesh_common(mesh)
         stag = ShardedStaggered(self, mesh)
         transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
                      if self._semi_lagrangian is not None
                      else stag.transport)
         self._mesh = _MeshStages(mesh, None, None, poisson, ops, transport,
-                                 False, stag)
+                                 False, stag, multigrid=multigrid)
         return self
 
     @property
@@ -362,8 +362,7 @@ class MimeticBoussinesqModel(BoussinesqModel):
             self.p_specs, u_star, uf_star, phi, pres, dt,
             p.numerics.projection == "incremental")
         if p.correct_pressure_to_zero_mean:
-            mean = ops.volume_mean(p_new)
-            p_new = p_new.map(lambda x: x - mean[x.device])
+            p_new = ops.less_volume_mean(p_new)
         u_new = stag.cell_velocity(new_faces)
 
         T_adv = mesh.transport(state.u, state.u_faces, T, dt_T)

@@ -248,6 +248,26 @@ class Forcing:
                                  scheme=self.scheme, form="advective")
         return T - dt_T * adv_T
 
+    def on_block(self, j0: int, nl: int, k0: int, no: int, pad: int,
+                 T_wall) -> "Forcing":
+        """This forcing on the shell's rows j0 .. j0 + nl and columns k0 ..
+        k0 + no padded by ``pad`` cells (mesh.shard_geometry, its gravity
+        cut alike), the Dirichlet wall value ``T_wall`` already cut to the
+        padded block: a shard's plain forcing on a mesh."""
+        T_specs = [BCSpec(self.T_specs[0].lo, self.T_specs[0].hi,
+                          lo_value=T_wall)] + list(self.T_specs[1:])
+        return Forcing(shard_geometry(self.geo, j0, nl, k0, no, pad=pad),
+                       beta=self.beta, T_ref=self.T_ref,
+                       rho_background=self.rho_background,
+                       gravity=block(self.gravity, j0, nl, k0, no, pad),
+                       one_over_Re=self.one_over_Re,
+                       omega_hat=self.omega_hat,
+                       coriolis_mode=self.coriolis_mode,
+                       buoyancy=self.buoyancy, scheme=self.scheme,
+                       include_gradp=self.include_gradp,
+                       u_specs=self.u_specs, p_specs=self.p_specs,
+                       T_specs=T_specs, advection_form=self.advection_form)
+
 
 class ShellForcing(Forcing):
     """Callable (u, u_faces, T, p, dt) -> (rhs_u, T_adv) with
@@ -401,20 +421,8 @@ class ShellForcing(Forcing):
         if sh is None:
             nr, nl, no = self.local_shape
             j0, k0 = offset
-            geo = shard_geometry(self.geo, j0, nl, k0, no, pad=2)
-            T_specs = [BCSpec(self.T_specs[0].lo, self.T_specs[0].hi,
-                              lo_value=block(self._T_wall, j0, nl, k0, no,
-                                             2))] + list(self.T_specs[1:])
-            fo = Forcing(geo, beta=self.beta, T_ref=self.T_ref,
-                         rho_background=self.rho_background,
-                         gravity=block(self.gravity, j0, nl, k0, no, 2),
-                         one_over_Re=self.one_over_Re,
-                         omega_hat=self.omega_hat,
-                         coriolis_mode=self.coriolis_mode,
-                         buoyancy=self.buoyancy, scheme=self.scheme,
-                         include_gradp=self.include_gradp,
-                         u_specs=self.u_specs, p_specs=self.p_specs,
-                         T_specs=T_specs)
+            fo = self.on_block(j0, nl, k0, no, 2,
+                               block(self._T_wall, j0, nl, k0, no, 2))
             M = np.zeros(self._M64.shape[:2] + (nl + 1,))
             top = min(j0 + nl + 1, self.geo.cell_shape[1])
             M[:, :, :top - j0] = self._M64[:, :, j0:top]

@@ -10,16 +10,24 @@ the boundary ring at lon + pi (``halo.half_turn``), the tangential
 components sign-flipped (``_flip_vec``'s pattern), both rows of a side
 the same ring. The lat face velocity of the next shard's first row is
 zero past the top pole (a non-periodic exchange gives zeros there).
+
+``ShardedPlainForcing`` is the forcing of the models that have no
+forcing kernel on one device either (the coupled solves, the rotational
+form of the FEEC personality), and their Eulerian temperature
+transport: ``Forcing`` on every shard's block padded by the same two
+cells, as K2o's plain version runs it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
+from dycoreplanet_tpu_torch.ops.forcing import Forcing, ShellForcing
 from dycoreplanet_tpu_torch.parallel.halo import (
-    exchange_ghosts, lat_halo, lon_halo)
-from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
+    exchange_ghosts, lat_halo, lon_halo, pad_block)
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    Mesh, Sharded, block, build, crop, local_shape)
 
 # the pole sign pattern of a stacked [u_r, u_lat, u_lon] row (POLE for
 # u_r, POLE_FLIP for the tangential components: the local basis flips
@@ -27,9 +35,20 @@ from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
 _FLIP_VEC = (1.0, -1.0, -1.0)
 
 
+_FLIP_BY = {}
+
+
 def _flip_vec(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(_FLIP_VEC, dtype=like.dtype,
-                        device=like.device).reshape(3, 1, 1, 1)
+    """The pattern in ``like``'s dtype on its device, made once there (a
+    tensor made from host values is a host-to-device copy, which waits
+    for the device)."""
+    key = (like.dtype, like.device)
+    out = _FLIP_BY.get(key)
+    if out is None:
+        out = _FLIP_BY[key] = torch.tensor(
+            _FLIP_VEC, dtype=like.dtype, device=like.device).reshape(
+                3, 1, 1, 1)
+    return out
 
 
 def face_seams(u_faces, mesh: Mesh) -> dict:
@@ -115,3 +134,54 @@ class ShardedShellForcing:
         if not self.kern.advect_T:
             return out
         return (out.map(lambda o: o[0]), out.map(lambda o: o[1]))
+
+
+class ShardedPlainForcing:
+    """``Forcing`` (either advection form) and its Eulerian transport on a
+    ("lat", "lon") mesh: what the JAX package leaves to GSPMD where no
+    forcing kernel runs. Each shard runs ``Forcing.on_block`` on its block
+    padded by two cells (``halo.pad_block``: u with its pole sign pattern,
+    p and T with the POLE rule, the face velocities zero past the poles),
+    cropped; the buoyancy reads T at the cell alone. ``T_wall`` is the
+    model's host array of the Dirichlet wall value. Calling it is the
+    transport, (u, u_faces, T, dt_T) -> T_adv as
+    parallel/sharded_transport.py's transports (``calls`` counts the
+    calls)."""
+
+    def __init__(self, base: Forcing, T_wall, mesh: Mesh):
+        _, nl, no = local_shape(base.geo, mesh)
+        if nl < 2 or no < 2:
+            raise ValueError(f"shard too thin for width-2 halos: local "
+                             f"{(nl, no)}")
+        self.mesh = mesh
+        self.shards = {}
+        for a in range(mesh.shape["lat"]):
+            for b in range(mesh.shape["lon"]):
+                j0, k0 = a * nl, b * no
+                wall = torch.as_tensor(block(T_wall, j0, nl, k0, no, 2),
+                                       device=mesh.device(a, b))
+                self.shards[a, b] = base.on_block(j0, nl, k0, no, 2, wall)
+        self.calls = 0
+
+    def explicit_forcing(self, u: Sharded, u_faces, pres: Sharded,
+                         T: Sharded) -> Sharded:
+        """``Forcing.explicit_forcing`` on every shard."""
+        mesh = self.mesh
+        up = pad_block(u, mesh, 2, sign=u.map(_flip_vec))
+        fp = [pad_block(f, mesh, 2) for f in u_faces]
+        pp = pad_block(pres, mesh, 2, sign=1.0)
+        return build(mesh, lambda a, b: crop(
+            self.shards[a, b].explicit_forcing(
+                up[a, b], [f[a, b] for f in fp], pp[a, b],
+                F.pad(T[a, b], (2, 2, 2, 2))), 2).contiguous())
+
+    def __call__(self, u: Sharded, u_faces, T: Sharded, dt_T) -> Sharded:
+        """T - dt_T u . grad T with the face velocities ``u_faces`` (``u``
+        unused: the semi-Lagrangian transport's)."""
+        self.calls += 1
+        mesh = self.mesh
+        Tp = pad_block(T, mesh, 2, sign=1.0)
+        fp = [pad_block(f, mesh, 2) for f in u_faces]
+        return build(mesh, lambda a, b: crop(
+            self.shards[a, b].advected_temperature(
+                [f[a, b] for f in fp], Tp[a, b], dt_T), 2).contiguous())

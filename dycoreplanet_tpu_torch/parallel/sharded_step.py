@@ -7,10 +7,13 @@ run where K1o does not (escalated and all-CG steps, Richardson momentum
 beside CG temperature, temperature substeps, ``prepare_sharded(mesh,
 kernels=False)``): the momentum Helmholtz, temperature and Poisson
 operators, the Jacobi diagonals, the faces and Poisson right-hand side
-of K3's plain version, and the Krylov loops' inner product. The model's
-solves (models/boussinesq.py) run the one Richardson and CG loop of
+of K3's plain version, and the Krylov loops' inner product; the blocks
+of the coupled solves (the centred gradient, the cell-to-face average,
+the compact face gradient, the curl, the means). The model's solves
+(models/boussinesq.py) run the one Richardson, CG and GMRES loop of
 solvers/ on these, as on one device. The temperature transport on the
-mesh is parallel/sharded_transport.py.
+mesh is parallel/sharded_transport.py's (semi-Lagrangian) or
+parallel/sharded_pallas.py's ``ShardedPlainForcing`` (Eulerian).
 
 Each stencil runs the port's plain operator on the shard padded by one
 cell from its neighbours (``halo.pad_block``: lat rows from the
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from dycoreplanet_tpu_torch.ops import stencil as st
+from dycoreplanet_tpu_torch.ops import vector as vec
 from dycoreplanet_tpu_torch.ops.projection import (
     apply_wall_face_values, cell_to_faces, correct_plain)
 from dycoreplanet_tpu_torch.parallel.halo import pad_block, pmax, psum
@@ -45,11 +49,13 @@ from dycoreplanet_tpu_torch.solvers.cg import _dot
 
 
 class ShardedShellStep:
-    """Per-shard geometries and constants of a model's mesh step, and the
-    step's plain stages on Sharded fields."""
+    """Per-shard geometries of a shell on a mesh and the step's plain
+    stages on Sharded fields; with a ``model``, its constants cut to the
+    shards too (without, the geometry-and-specs form the multigrid
+    levels take: the stencils alone)."""
 
-    def __init__(self, model, mesh: Mesh, dtype=None):
-        geo = model.geo
+    def __init__(self, geo, mesh: Mesh, model=None, dtype=None):
+        self.global_geo = geo
         self.model = model
         self.mesh = mesh
         self.local = local_shape(geo, mesh)
@@ -64,6 +70,9 @@ class ShardedShellStep:
                     for ab, (j0, k0) in self.offsets.items()}
         self.geo_pad = {ab: shard_geometry(geo, j0, nl, k0, no, pad=1)
                         for ab, (j0, k0) in self.offsets.items()}
+        self._like = {}
+        if model is None:
+            return
         # the constants in the working dtype, or (``like``) in another
         self.dtype = model.torch_dtype if dtype is None else dtype
         c = lambda a: self.cut(a, self.dtype)  # noqa: E731
@@ -74,15 +83,15 @@ class ShardedShellStep:
         self.helm_diags = c(model.helm_diags)
         self.poisson_diag = c(model.poisson_diag)
         self.total_vol = psum(self.vol.map(torch.sum), mesh)
-        self._like = {self.dtype: self}
+        self._like[self.dtype] = self
 
     def like(self, dtype) -> "ShardedShellStep":
         """These stages with their constants in ``dtype`` (made once): a
         bfloat16 model's plain stages compute in float32."""
         out = self._like.get(dtype)
         if out is None:
-            out = self._like[dtype] = ShardedShellStep(self.model,
-                                                       self.mesh, dtype)
+            out = self._like[dtype] = ShardedShellStep(
+                self.global_geo, self.mesh, self.model, dtype)
         return out
 
     def cut(self, a: np.ndarray, dtype) -> Sharded:
@@ -179,13 +188,18 @@ class ShardedShellStep:
 
     def faces_div(self, u_specs, u_star: Sharded, dt):
         """K3's plain version on the mesh (ops/projection.py
-        ``faces_div_plain``): the face velocities of u* on every shard
-        (the pole lat face 0, written by the bottom lat shard) and the
-        Poisson right-hand side -vol div(U*) / dt less its compatibility
-        shift, the fixed-order total over the mesh / n_cells: (faces,
-        rhs_phi)."""
-        mesh = self.mesh
-        up = pad_block(u_star, mesh, 1, sign=u_star.map(_flip_vec))
+        ``faces_div_plain``): the face velocities of u* (``cell_faces``)
+        and the Poisson right-hand side -vol div(U*) / dt less its
+        compatibility shift, the fixed-order total over the mesh /
+        n_cells: (faces, rhs_phi)."""
+        faces = self.cell_faces(u_specs, u_star)
+        return faces, self.poisson_rhs(faces, dt)
+
+    def cell_faces(self, u_specs, u: Sharded) -> Tuple[Sharded, ...]:
+        """ops/projection.py ``cell_to_faces`` of a cell velocity (or any
+        vector field with the velocity's pole rule) on every shard (the
+        pole lat face 0, written by the bottom lat shard)."""
+        up = pad_block(u, self.mesh, 1, sign=u.map(_flip_vec))
 
         def one(a, b):
             faces = [crop(f, 1).contiguous() for f in cell_to_faces(
@@ -194,9 +208,46 @@ class ShardedShellStep:
                 faces[1][:, 0] = 0.0
             return faces
 
-        out = build(mesh, one)
-        faces = tuple(out.map(lambda o: o[d]) for d in range(3))
-        return faces, self.poisson_rhs(faces, dt)
+        out = build(self.mesh, one)
+        return tuple(out.map(lambda o: o[d]) for d in range(3))
+
+    def gradient(self, x: Sharded, specs) -> Sharded:
+        """The stacked st.centered_gradient of a scalar (the POLE rule of
+        ``specs``' lat axis) on every shard."""
+        xp = pad_block(x, self.mesh, 1, sign=1.0)
+        return build(self.mesh, lambda a, b: crop(torch.stack([
+            st.centered_gradient(self.geo_pad[a, b], xp[a, b], d, specs[d])
+            for d in range(3)]), 1).contiguous())
+
+    def grad_faces(self, x: Sharded, specs) -> Tuple[Sharded, ...]:
+        """st.grad_left_faces of a scalar along each axis on every shard
+        (the wall faces as the single-device stencil gives them: the
+        caller's ``wall_faces`` zeroes them)."""
+        xp = pad_block(x, self.mesh, 1, sign=1.0)
+        out = build(self.mesh, lambda a, b: [
+            crop(st.grad_left_faces(self.geo_pad[a, b], xp[a, b], d,
+                                    specs[d]), 1).contiguous()
+            for d in range(3)])
+        return tuple(out.map(lambda o: o[d]) for d in range(3))
+
+    def curl(self, u: Sharded, u_specs) -> Sharded:
+        """ops/vector.py ``curl_3d`` on every shard, from the shard padded
+        by one cell with the pole sign pattern (the vorticity crosses the
+        pole as the velocity does: its tangential components flip)."""
+        up = pad_block(u, self.mesh, 1, sign=u.map(_flip_vec))
+        return build(self.mesh, lambda a, b: crop(vec.curl_3d(
+            self.geo_pad[a, b], up[a, b], u_specs), 1).contiguous())
+
+    def less_mean(self, x: Sharded) -> Sharded:
+        """x less its unweighted cell mean (the fixed-order total /
+        n_cells)."""
+        return x - self.total(x.map(torch.sum)) / self.n_cells
+
+    def less_volume_mean(self, x: Sharded) -> Sharded:
+        """x less its volume mean."""
+        mean = self.volume_mean(x)
+        return build(self.mesh, lambda a, b: x[a, b]
+                     - mean[self.mesh.device(a, b)])
 
     def poisson_rhs(self, faces: Sequence[Sharded], dt) -> Sharded:
         """-vol div(faces) / dt less its compatibility shift (the

@@ -1,7 +1,9 @@
-"""The temperature transport on a mesh: what the JAX package leaves to
-GSPMD around its sharded kernels (``_advected_temperature`` in the NSE
-step of a semi-Lagrangian model, beside K2mo, and in every temperature
-substep), in plain PyTorch on the shards, as on one device.
+"""The semi-Lagrangian temperature transport on a mesh: what the JAX
+package leaves to GSPMD around its sharded kernels
+(``_advected_temperature`` in the NSE step of a semi-Lagrangian model,
+beside K2mo, and in every temperature substep), in plain PyTorch on the
+shards, as on one device. The Eulerian transport on a mesh is
+parallel/sharded_pallas.py ``ShardedPlainForcing``.
 
   * ``ShardedSemiLagrangian``: the shard padded by K = 2 cells as the
     single-device transport pads the whole field (``halo.pad_mirror``:
@@ -12,14 +14,9 @@ substep), in plain PyTorch on the shards, as on one device.
     ``interpolate``) on the padded block, with the global cell widths cut
     to the shard. Each cell gathers the same padded values and does the
     same arithmetic as on one device, so the two agree bitwise.
-  * ``ShardedEulerian``: ``Forcing.advected_temperature`` on the shard
-    padded by two cells from the transport's ghosts (the operands mode's
-    T rows, the pole ring repeated, so that a ghost's MUSCL slope is 0 as
-    on one device), with the padded block's geometry, cropped
-    (ops/forcing.py ``transport_operands``).
 
-Both are callables (u, u_faces, T, dt_T) -> T_adv on Sharded fields;
-``calls`` counts the calls.
+A callable (u, u_faces, T, dt_T) -> T_adv on Sharded fields; ``calls``
+counts the calls.
 """
 
 from __future__ import annotations
@@ -27,14 +24,11 @@ from __future__ import annotations
 import torch
 
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec, pad_axis_width
-from dycoreplanet_tpu_torch.ops.forcing import ShellForcing
 from dycoreplanet_tpu_torch.ops.semi_lagrangian import (
     SemiLagrangian, interpolate, make_tables)
 from dycoreplanet_tpu_torch.parallel.halo import pad_mirror
 from dycoreplanet_tpu_torch.parallel.mesh import (
     Mesh, Sharded, block, build, local_shape)
-from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
-    per_shard, transport_halos)
 
 
 def _cut(value, j0: int, nl: int, k0: int, no: int, device):
@@ -97,26 +91,3 @@ class ShardedSemiLagrangian:
         return build(self.mesh, lambda a, b: interpolate(
             u[a, b], padded[a, b], dt_T,
             self.tables((a, b), T[a, b].device, T[a, b].dtype), K))
-
-
-class ShardedEulerian:
-    """The Eulerian T - dt_T u . grad T on a ("lat", "lon") mesh, from an
-    operands-mode ShellForcing (its per-shard padded geometries)."""
-
-    def __init__(self, kern: ShellForcing, mesh: Mesh):
-        if kern.halo_mode != "operands":
-            raise ValueError("ShardedEulerian takes an operands-mode "
-                             "ShellForcing")
-        self.kern = kern
-        self.mesh = mesh
-        self.calls = 0
-
-    def __call__(self, u: Sharded, u_faces, T: Sharded, dt_T) -> Sharded:
-        """T - dt_T u . grad T with the face velocities ``u_faces`` (``u``
-        unused: the semi-Lagrangian transport's)."""
-        self.calls += 1
-        halos = per_shard(transport_halos(u_faces, T, self.mesh), self.mesh)
-        _, nl, no = self.kern.local_shape
-        return build(self.mesh, lambda a, b: self.kern.transport_operands(
-            tuple(f[a, b] for f in u_faces), T[a, b], dt_T, halos[a, b],
-            (a * nl, b * no)))

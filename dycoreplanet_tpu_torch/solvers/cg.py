@@ -46,6 +46,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a.to(acc) * b.to(acc))
 
 
+def mesh_dot(total: Optional[Callable] = None) -> Callable:
+    """The Krylov loops' inner product: ``_dot``, or on a mesh (``total``
+    the fixed-order sum of the shards' partials, parallel/sharded_step.py)
+    every shard's ``_dot`` summed by ``total``."""
+    if total is None:
+        return _dot
+    return lambda a, b: total(a.map(_dot, b))
+
+
 def _zeros_like(b):
     return torch.zeros_like(b) if torch.is_tensor(b) else b.zeros_like()
 

@@ -26,6 +26,16 @@ coefficients; a periodic axis stacks the Sherman-Morrison pair [r, u] on
 axis 1 against the coefficients' broadcast axis 1. At 32 x 128 x 256 the
 hierarchy has 4 levels and, with the two stiff axes, one V-cycle runs
 3 * 2 * (2 + 2) + 40 * 2 = 104 line solves.
+
+On a mesh (``ShardedPoissonMultigrid``, the V-cycle of a hierarchy
+rebuilt with ``line_axes_allowed=(0,)``, as the JAX package's mesh
+rebuilds it) the same cycle runs on Sharded fields: each level's
+operator on the shards (parallel/sharded_step.py), each radial line
+solve one K4 launch a shard on the shard's own columns (its residual as
+it is, the level's coefficients cut to the shard once: no copy), and the
+restriction and prolongation on each shard alone, which holds whole
+2 x 2 x 2 families where the mesh divides every level. At 32 x 128 x 256
+one V-cycle runs 3 * 2 * 2 + 40 = 52 line solves on every shard.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.bc import BCSpec
 from dycoreplanet_tpu_torch.ops.diagonal import weak_laplacian_diagonal
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
+from dycoreplanet_tpu_torch.parallel.mesh import build
+from dycoreplanet_tpu_torch.solvers.cg import _zeros_like
 from dycoreplanet_tpu_torch.solvers.tridiag import thomas_solve
 
 
@@ -302,10 +314,10 @@ class PoissonMultigrid:
             # palindromic sweep order keeps the coarse solve self-adjoint
             # with an alternating-direction smoother
             half = self.coarse_iters // 2
-            x = self._smooth(level, torch.zeros_like(b), b, half)
+            x = self._smooth(level, _zeros_like(b), b, half)
             return self._smooth(level, x, b, self.coarse_iters - half,
                                 reverse=True)
-        x = self._smooth(level, torch.zeros_like(b), b, self.n_smooth)
+        x = self._smooth(level, _zeros_like(b), b, self.n_smooth)
         r = b - self._apply(level, x)
         xc = self._vcycle(level + 1, self._restrict(r))
         x = x + self._prolong(xc)
@@ -322,3 +334,61 @@ class PoissonMultigrid:
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         """Preconditioner application M^{-1} r (one V-cycle)."""
         return self._vcycle(0, r)
+
+
+class ShardedPoissonMultigrid(PoissonMultigrid):
+    """The V-cycle of ``base`` (a PoissonMultigrid of the shell whose line
+    smoother relaxes along the radial axis alone: ``line_axes_allowed=
+    (0,)``) on a ("lat", "lon") mesh, on Sharded residuals. It shares
+    base's hierarchy, tables and K4 wrapper (whose ``launches`` count
+    every shard's line solves); the cycle itself is PoissonMultigrid's.
+    A level whose lat or lon count the mesh does not divide raises
+    ValueError: its 2 x 2 x 2 families would straddle two shards."""
+
+    def __init__(self, base: PoissonMultigrid, mesh):
+        from dycoreplanet_tpu_torch.parallel.sharded_step import (
+            ShardedShellStep)
+
+        if base.smoother != "line" or base.line_axes != [0]:
+            raise ValueError("the sharded V-cycle relaxes along the radial "
+                             "lines alone (line_axes_allowed=(0,))")
+        A, B = mesh.shape["lat"], mesh.shape["lon"]
+        for level, g in enumerate(base.geos):
+            _, nlat, nlon = g.cell_shape
+            if nlat % A or nlon % B:
+                raise ValueError(
+                    f"poisson solver = mg: level {level} of the hierarchy, "
+                    f"{g.cell_shape}, is not divisible by the mesh "
+                    f"({A}, {B})")
+        for name in ("specs", "n_smooth", "omega", "coarse_iters",
+                     "smoother", "line_axes", "geos", "tridiag"):
+            setattr(self, name, getattr(base, name))
+        self.mesh = mesh
+        self.ops = [ShardedShellStep(g, mesh) for g in base.geos]
+        # each level's radial line coefficients cut to every shard
+        self.shard_lines = [
+            {ab: tuple(t[:, j0:j0 + op.local[1], k0:k0 + op.local[2]]
+                       .to(mesh.device(*ab)).contiguous()
+                       for t in lv[0][:3])
+             for ab, (j0, k0) in op.offsets.items()}
+            for lv, op in zip(base._lines_t, self.ops)]
+
+    def shard_operands(self, level: int, ab, r):
+        """(lower, diag, upper, rhs) of shard ``ab``'s radial line solve:
+        the level's coefficients cut to the shard and the shard's residual
+        ``r`` (a tensor) as it is."""
+        return self.shard_lines[level][ab] + (r,)
+
+    def _apply(self, level: int, x):
+        return -self.ops[level].weak_laplacian(x, self.specs)
+
+    def _line_solve(self, level: int, axis: int, r):
+        """T^{-1} r along the radial lines: one K4 launch a shard."""
+        return build(self.mesh, lambda a, b: self.tridiag(
+            *self.shard_operands(level, (a, b), r[a, b])).to(r[a, b].dtype))
+
+    def _restrict(self, r):
+        return r.map(PoissonMultigrid._restrict)
+
+    def _prolong(self, x):
+        return x.map(PoissonMultigrid._prolong)

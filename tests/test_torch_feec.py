@@ -16,8 +16,9 @@ numpy-seeded inputs:
     strong-preconditioner retry on and off: equal outer iteration
     counts every step, u, p, T and the faces within 1e-9 of their scale;
   * the kernels each model builds, ``step_verbose``'s trails, a coupled
-    ``multi_step`` chunk against the step loop, and ``prepare_sharded``
-    refusing the coupled and rotational models (MESH_SOLVES).
+    ``multi_step`` chunk against the step loop, and the coupled and
+    rotational models through ``prepare_sharded`` on a 2 x 2 mesh, one
+    step against one device.
 
 The JAX models (and their compiled steps) are shared through a
 module-scoped fixture."""
@@ -34,9 +35,9 @@ from dycoreplanet_tpu.ops import vector as j_vec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid.factory import make_cuboid
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_SOLVES
 from dycoreplanet_tpu_torch.ops import vector as vec
-from dycoreplanet_tpu_torch.parallel.mesh import Mesh
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    Mesh, shard_state, unshard_state)
 
 OP_TOL = 1e-12
 STEP_TOL = 1e-9
@@ -284,10 +285,26 @@ def test_coupled_multi_step_matches_steps():
 @pytest.mark.parametrize("case", ["shell_feec", "shell_coupled",
                                   "shell_feec_projection"])
 def test_prepare_sharded_refuses(case):
+    """The coupled and rotational models, which the mesh refused before
+    their solves were ported to it, prepare on a 2 x 2 mesh and take one
+    step from the initial state as on one device: the fields within 1e-9
+    of their scale, equal outer (or Poisson) and temperature counts."""
     tm = _model(BoussinesqModel, case, device="cpu")
+    one = _model(BoussinesqModel, case, device="cpu")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
-    with pytest.raises(NotImplementedError, match=MESH_SOLVES):
-        tm.prepare_sharded(mesh)
+    assert tm.prepare_sharded(mesh) is tm
+    assert tm.sharded_kernels()["forcing"] == "jnp"
+    s1 = one.initial_state()
+    sm, dm = tm.step(shard_state(s1, tm.geo, mesh), DT)
+    s1, d1 = one.step(s1, DT)
+    got = unshard_state(sm)
+    for a, b in zip((got.u, got.p, got.T) + tuple(got.u_faces),
+                    (s1.u, s1.p, s1.T) + tuple(s1.u_faces)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= STEP_TOL * scale
+    assert (dm.poisson_iters, dm.temperature_iters) == (
+        d1.poisson_iters, d1.temperature_iters)
+    assert dm.solver_ok == d1.solver_ok
 
 
 @pytest.mark.parametrize("schur", [True, False], ids=["schur", "fgmres"])

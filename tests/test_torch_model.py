@@ -251,14 +251,13 @@ def test_unsupported_configurations_raise(setting):
     (("numerics.poisson_solver", "cg"),), (("numerics.poisson_solver", "mg"),),
 ])
 def test_mesh_refuses_krylov_poisson_and_mimetic(setting):
-    """On a mesh (``prepare_sharded``) the `poisson solver = mg` model
-    raises under the ROADMAP title of the multigrid, coupled and
-    spectral-CG solves on the mesh (the JAX mesh rebuilds its V-cycle);
-    the mimetic model and `poisson solver = cg` (which raised before the
-    sharded Krylov solves) prepare, their Poisson solve reported as the
-    JAX package reports it."""
+    """On a mesh (``prepare_sharded``) the mimetic model, `poisson solver
+    = cg` and `poisson solver = mg` (each of which raised before its
+    solves were ported to the mesh) prepare, their Poisson solve reported
+    as the JAX package reports it; the mg model's V-cycle rebuilt with
+    its line smoother on the radial axis alone, as the JAX mesh rebuilds
+    it."""
     from dycoreplanet_tpu_torch.models import make_model
-    from dycoreplanet_tpu_torch.models.boussinesq import MESH_SOLVES
     from dycoreplanet_tpu_torch.parallel.mesh import Mesh
 
     p = _params(Parameters)
@@ -267,14 +266,14 @@ def test_mesh_refuses_krylov_poisson_and_mimetic(setting):
         setattr(obj, name.split(".")[-1], value)
     m = make_model(p, device="cpu")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
-    if p.numerics.poisson_solver == "mg":
-        with pytest.raises(NotImplementedError, match=MESH_SOLVES):
-            m.prepare_sharded(mesh)
-        return
     assert m.prepare_sharded(mesh) is m
-    assert m.sharded_kernels()["poisson"] == (
-        "jacobi-cg" if p.numerics.poisson_solver == "cg"
-        else "ShardedShellPoissonFastDiag")
+    assert m.sharded_kernels()["poisson"] == {
+        "cg": "jacobi-cg", "mg": "mg-cg"}.get(
+            p.numerics.poisson_solver, "ShardedShellPoissonFastDiag")
+    if p.numerics.poisson_solver == "mg":
+        assert m.poisson_precond.line_axes == [0]
+        assert m._mesh.multigrid.line_solves_per_cycle() == \
+            m.poisson_precond.line_solves_per_cycle()
 
 
 @pytest.mark.parametrize("dim", [3, 2])

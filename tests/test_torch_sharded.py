@@ -44,7 +44,7 @@ from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.entry import dryrun_multichip
 from dycoreplanet_tpu_torch.models import BoussinesqModel
 from dycoreplanet_tpu_torch.models.boussinesq import (
-    MESH_ANNULUS, MESH_PATHS, MESH_SOLVES)
+    MESH_ANNULUS, MESH_PATHS, MESH_SPECTRAL)
 from dycoreplanet_tpu_torch.models.convert import (
     sharded_state_from_numpy, state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops.forcing import ShellForcing, halo_shapes
@@ -314,7 +314,8 @@ def test_full_step_matches_jax_prepare_sharded():
     js = JState(u=jnp.asarray(u), u_faces=tuple(jnp.asarray(f)
                                                 for f in faces),
                 p=jnp.asarray(pres), T=jnp.asarray(T),
-                time=jnp.asarray(0.0), step_number=jnp.asarray(0))
+                time=jnp.asarray(0.0, jnp.float64),
+                step_number=jnp.asarray(0))
     sh = state_sharding(jm.geo, jmesh)
     rep = NamedSharding(jmesh, P())
     js = j_shard_state(js, jm.geo, jmesh)
@@ -421,19 +422,25 @@ def test_interval_mode_runs_per_step_checks_on_the_mesh():
 @pytest.mark.parametrize("over,item", [
     ({"space_dimension": 2}, MESH_ANNULUS),
     ({"numerics.helmholtz_solver": "direct"}, MESH_PATHS),
-    ({"numerics.poisson_solver": "mg"}, MESH_SOLVES),
+    ({"stretched": True}, MESH_SPECTRAL),
 ])
 def test_refused_configurations_name_their_item(over, item):
     """Configurations outside this slice raise NotImplementedError naming
-    their ROADMAP.md item in prepare_sharded."""
+    their ROADMAP.md item in prepare_sharded (``stretched``: the shell of
+    non-uniform radial spacing, whose Poisson solve is the spectral
+    CG)."""
+    from dycoreplanet_tpu_torch.models.presets import stretched_shell
+
     tp = _configure(Parameters.from_text(""), "float64", SHAPE)
+    over = dict(over)
+    geo = stretched_shell(SHAPE) if over.pop("stretched", False) else None
     for k, v in over.items():
         obj = tp
         *path, last = k.split(".")
         for name in path:
             obj = getattr(obj, name)
         setattr(obj, last, v)
-    tm = BoussinesqModel(tp, device="cpu")
+    tm = BoussinesqModel(tp, geometry=geo, device="cpu")
     from dycoreplanet_tpu_torch.parallel.mesh import build_mesh
     mesh = build_mesh(tm.geo, ["cpu"] * 8)
     with pytest.raises(NotImplementedError, match=item):

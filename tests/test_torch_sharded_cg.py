@@ -99,7 +99,8 @@ def _jstate(u, faces, pres, T):
     return JState(u=jnp.asarray(u), u_faces=tuple(jnp.asarray(f)
                                                   for f in faces),
                   p=jnp.asarray(pres), T=jnp.asarray(T),
-                  time=jnp.asarray(0.0), step_number=jnp.asarray(0))
+                  time=jnp.asarray(0.0, jnp.float64),
+                  step_number=jnp.asarray(0))
 
 
 # ----------------------------------------------------------------------

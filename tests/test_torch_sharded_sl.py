@@ -50,9 +50,9 @@ from dycoreplanet_tpu_torch.ops.forcing import halo_shapes
 from dycoreplanet_tpu_torch.parallel.mesh import (
     Mesh, shard_field, shard_state, unshard_field, unshard_state)
 from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
-    ShardedShellForcing)
+    ShardedPlainForcing, ShardedShellForcing)
 from dycoreplanet_tpu_torch.parallel.sharded_transport import (
-    ShardedEulerian, ShardedSemiLagrangian)
+    ShardedSemiLagrangian)
 from tests.test_sharded_pallas import _operands_twin
 from tests.test_torch_kernels import _configure
 from tests.test_torch_semi_lagrangian import _random_flow
@@ -188,8 +188,8 @@ def test_sharded_sl_transport_rejects_thin_shards():
 @pytest.mark.parametrize("scheme", ["muscl", "upwind", "centered"])
 def test_sharded_eulerian_transport_bitwise(scheme):
     """The Eulerian T - dt u . grad T on the shards of (2, 4) and (4, 2)
-    (the block padded by two cells, the pole ring repeated) equals the
-    single-device transport bitwise."""
+    (``ShardedPlainForcing``: the block padded by two cells, the pole ring
+    repeated) equals the single-device transport bitwise."""
     _, tm = _models(scheme=scheme)
     u, faces, _ = _fields(5)
     T = tm.T_init + 0.1 * np.random.default_rng(6).standard_normal(SHAPE)
@@ -199,8 +199,7 @@ def test_sharded_eulerian_transport_bitwise(scheme):
         torch.as_tensor(T), dt_T)
     for mesh_shape in ((2, 4), (4, 2)):
         tmesh = _tmesh(*mesh_shape)
-        tr = ShardedEulerian(ShardedShellForcing(tm._forcing, tmesh).kern,
-                             tmesh)
+        tr = ShardedPlainForcing(tm._plain_forcing, tm.T_wall, tmesh)
         t = lambda a: shard_field(torch.as_tensor(np.asarray(a)), tmesh)
         got = unshard_field(tr(t(u), tuple(t(f) for f in faces), t(T),
                                dt_T))
@@ -233,7 +232,8 @@ def test_mesh_steps_match_jax_prepare_sharded(case):
     js = JState(u=jnp.asarray(u), u_faces=tuple(jnp.asarray(f)
                                                 for f in faces),
                 p=jnp.asarray(pres), T=jnp.asarray(T),
-                time=jnp.asarray(0.0), step_number=jnp.asarray(0))
+                time=jnp.asarray(0.0, jnp.float64),
+                step_number=jnp.asarray(0))
     sh = state_sharding(jm.geo, jmesh)
     rep = NamedSharding(jmesh, P())
     js = j_shard_state(js, jm.geo, jmesh)

@@ -38,7 +38,7 @@ from dycoreplanet_tpu.solvers import spectral as j_spec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid import factory as t_factory
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_SOLVES
+from dycoreplanet_tpu_torch.models.boussinesq import MESH_SPECTRAL
 from dycoreplanet_tpu_torch.models.presets import stretched_shell
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops import tridiag as k4
@@ -313,7 +313,7 @@ def test_stretched_shell_model_runs_no_graph(monkeypatch):
         monkeypatch.setattr(model, "device", torch.device("cuda"))
         assert model._graphable(False, False) is graphable
         monkeypatch.setattr(model, "device", torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=MESH_SOLVES):
+    with pytest.raises(NotImplementedError, match=MESH_SPECTRAL):
         m.prepare_sharded(Mesh(np.array([["cpu"] * 2] * 2, dtype=object),
                                ("lat", "lon")))
     s0 = m.initial_state()
