@@ -266,7 +266,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      max|u|, max|div u|, host ms, syncs; (c) the shell's 2x2 block FGMRES
      and Schur GMRES at 16x64x128 on 2x2, 2 steps each; (d) one bf16 mg
      step on 2x4 within 2^-7 of one device's, every K4 rhs bf16;
- 15. one JSON line with every kernel's numbers (the bf16 forms under
+ 15. the annulus, the 3D box and the 2D slab on their own meshes
+     (("phi",), ("y", "x"), ("x",); every shard on the one card): (a) the
+     annulus prm at 256x3072 f32 on 4 and 8 phi shards, 5 steps through
+     run against one device's run (escalations equal, u and T within
+     1e-4 of max|u|, max|div u| <= 1e-4), one 8-shard step profiled; (b)
+     the standard 128^3 box on 2x4, 2 steps through run (every step CG,
+     as on one device, equal CG counts), and the cube prm's FEEC 3x3 at
+     64^3, one step from one device's first (outer count within one);
+     (c) the mimetic box and annulus and the SL slab against one device;
+     (d) `poisson solver = mg` on the annulus (8 phi shards) and the
+     walled box (2x4), CG capped at 8: K4 shards x line solves a V-cycle
+     x V-cycles exactly (the box smooths by Jacobi: 0), one phi shard's
+     K4 against its plain version in f32 and f64, nothing copied; (e) one
+     f64 mesh step of each on the card against the CPU; (f) a sharded
+     checkpoint of each restored bitwise;
+ 16. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -4844,6 +4859,406 @@ def mesh_solve_phases(dev):
     return launches, k4_row
 
 
+# ---------------------------------------------------------------- phase 15
+# the annulus, the 3D box and the 2D slab on their own meshes (("phi",),
+# ("y", "x"), ("x",)), every shard on the one card: (a) the annulus prm at
+# work size on GEO_PHI_SHARDS; (b) the box on GEO_BOX_MESH; (c) the
+# mimetic personality on the three meshes; (d) poisson solver = mg
+# (CG capped at GEO_MG_CAP on both sides); (e) f64 card vs CPU; (f) a
+# sharded checkpoint round trip
+GEO_PHI_SHARDS = (4, 8)
+GEO_BOX_MESH = (2, 4)
+GEO_RUN_STEPS = 5
+GEO_STD_STEPS = 2
+# the standard box's escalations in GEO_STD_STEPS steps at 128^3 in f32:
+# every fast try misses its temperature gate by physics (ROADMAP.md Queue
+# 3), so the first step escalates and the next run inside the CG window
+# it opens: every step is a CG step
+GEO_STD_ESCALATIONS = 1
+GEO_MG_CAP = 8
+# (c): the mimetic cases' sizes (`initial global refinement`, the slab's
+# shape) and steps
+GEO_MIM_REF = {"box": 6, "annulus": 6}
+GEO_MIM_SLAB = (128, 512)
+GEO_MIM_STEPS = 2
+# (e): small f64 grids (annulus 16 x 192, box 16^3)
+GEO_F64_REF = {"annulus": 4, "box": 4}
+
+
+def geo_mesh(dev, geo, shards):
+    """The geometry's mesh (parallel/mesh.py build_mesh's layout) of
+    ``shards`` shards, every one on dev; a pair is the box's A x B."""
+    import numpy as np
+    from dycoreplanet_tpu_torch.parallel.mesh import Mesh, mesh_axes
+
+    names = mesh_axes(geo)
+    if len(names) == 1:
+        return Mesh(np.array([dev] * shards, dtype=object), names)
+    A, B = shards
+    return Mesh(np.array([[dev] * B] * A, dtype=object), names)
+
+
+def check_geo_mg_k4(dev, geo, p_specs, shards):
+    """One shard's radial line solve of the annulus mesh's V-cycle at level
+    0 (its (nr, no) coefficients, as ``shard_operands`` passes them, and a
+    seeded residual of its shape), f32 and f64: K4 against its plain
+    version (rtol = atol = 1e-5 x scale, f64 1e-12 x scale), nothing
+    copied, the wrapper's time over 50 calls, the plain version's, the
+    bound (5 values a cell: lower, diag, upper and the rhs read, x
+    written). Returns {dtype: numbers}."""
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import time_ms
+    from dycoreplanet_tpu_torch.ops import tridiag as k4
+    from dycoreplanet_tpu_torch.solvers.multigrid import (
+        PoissonMultigrid, ShardedPoissonMultigrid)
+
+    out = {}
+    mesh = geo_mesh(dev, geo, shards)
+    for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        tk = k4.TridiagSolve()
+        mg = ShardedPoissonMultigrid(PoissonMultigrid(
+            geo, p_specs, dtype=dtype, device=dev, tridiag=tk,
+            line_axes_allowed=(0,)), mesh)
+        gen = torch.Generator(device=dev).manual_seed(22)
+        r = torch.randn(mg.ops[0].local, generator=gen, device=dev,
+                        dtype=dtype)
+        ops = mg.shard_operands(0, (0, 0), r)
+        lay = k4.layout(*ops, pair=tk.pair)
+        if lay.copied or ops[3] is not r:
+            fail(f"15 (d) K4 annulus mesh MG: copied {lay.copied}")
+        want = tk.plain(*ops)
+        sc = float(want.abs().max())
+        name = str(dtype).replace("torch.", "")
+        err = check_k4(f"K4 tridiag annulus mesh MG ({name})", tk, ops,
+                       want, rel * sc)
+        moved = k4.values_moved(*ops)
+        b_ms, b_by = bound_of(r.element_size() * moved,
+                              k4.OPS_PER_VALUE * r.numel())
+        row = dict(max_abs_err=err, ms=time_ms(lambda: tk(*ops)),
+                   plain_ms=time_ms(lambda: tk.plain(*ops), reps=10),
+                   bound_ms=b_ms, bound_by=b_by, values_moved=moved,
+                   shard=tuple(r.shape), copies=tk.copies)
+        if tk.copies:
+            fail(f"15 (d) K4 annulus mesh MG: the wrapper copied "
+                 f"{tk.copies}")
+        out[name] = row
+        phase(f"15 (d) K4 tridiag, the annulus mesh's radial lines at "
+              f"level 0, {name} (shard (0, 0) of {shards} phi shards, rhs "
+              f"{tuple(r.shape)}, columns {[s_ for s_, _ in lay.axes]}): "
+              f"max abs err {err:.3e} (tol {rel * sc:.3e}), 0 operands "
+              f"copied; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {b_ms * 1e3:.2f} us "
+              f"({b_by}; {moved} values moved)")
+    return out
+
+
+def geometry_mesh_phases(dev):
+    """Phase 15: the annulus, the 3D box and the 2D slab on their own
+    meshes, every shard on the one card. (a) The annulus prm at work size
+    (f32) on 4 and 8 phi shards: GEO_RUN_STEPS steps through run, u and T
+    within 1e-4 of one device's run, max|div u| <= 1e-4, escalations
+    equal to one device's; one 8-shard step profiled (device ms, kernels,
+    host launches, host syncs, host ms, busy share). (b) The box on
+    GEO_BOX_MESH: the standard personality at 128^3, GEO_STD_STEPS steps
+    through run, every step escalated as on one device, equal CG counts;
+    the cube prm's FEEC 3x3 at 64^3, one step from one device's first,
+    outer iterations within one of one device's. (c) The mimetic box,
+    annulus and slab on their meshes, GEO_MIM_STEPS steps against one
+    device. (d) `poisson solver = mg` on the annulus (8 shards) and the
+    walled box (GEO_BOX_MESH), one step with the CG capped at GEO_MG_CAP
+    on both sides (one device with the radial-only rebuild): K4 exactly
+    shards x line solves a V-cycle x V-cycles (the box smooths by
+    Jacobi: 0), one shard's K4 against its plain version in f32 and f64,
+    nothing copied, one V-cycle's step profiled. (e) One f64 step of an annulus mesh and a box mesh
+    on the card against the same on the CPU. (f) A sharded checkpoint of
+    each round trip, bitwise. Returns ({path: launches}, the K4 row's
+    numbers)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.io import checkpoint as ck
+    from dycoreplanet_tpu_torch.models import BoussinesqModel, make_model
+    from dycoreplanet_tpu_torch.models.convert import (
+        state_from_numpy, state_to_numpy)
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        shard_state, unshard_state)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    launches, k4_row = {}, {}
+
+    def on_mesh(model, shards):
+        return model.prepare_sharded(geo_mesh(dev, model.geo, shards))
+
+    def label_of(model):
+        mesh = model._mesh.mesh
+        if len(mesh.axis_names) == 1:
+            return f"{mesh.grid[1]} {mesh.axis_names[0]} shards"
+        return f"{mesh.grid[0]}x{mesh.grid[1]}"
+
+    def steps(model, s, k, dt):
+        ds = []
+        for _ in range(k):
+            s, d = model.step(s, dt)
+            d.cfl
+            ds.append(d)
+        return s, ds
+
+    def run_vs_one(tag, make, shards, n, div_tol=1e-4):
+        """n steps through run on the mesh against one device's run:
+        escalations equal, the states within 1e-4, the histories' CG
+        counts returned."""
+        one = make()
+        (s1, h1), _, w1 = drive(one, lambda: one.run(max_steps=n))
+        m = on_mesh(make(), shards)
+        (sm, hm), counts, wm = drive(m, lambda: m.run(max_steps=n))
+        label = f"{tag} {label_of(m)}"
+        if m.escalations != one.escalations:
+            fail(f"15 {label}: {m.escalations} escalation(s), one device "
+                 f"{one.escalations}")
+        du, u_sc, div = hold_mesh(label, unshard_state(sm), s1,
+                                  [h["div_norm"] for h in hm],
+                                  div_tol=div_tol, tag="15")
+        return dict(m=m, one=one, counts=counts, du=du / u_sc, div=div,
+                    host_ms=wm / n * 1e3, host_ms_one=w1 / n * 1e3,
+                    its=[(h["poisson_iters"], h["temperature_iters"])
+                         for h in hm],
+                    its_one=[(h["poisson_iters"], h["temperature_iters"])
+                             for h in h1], state=sm)
+
+    # ---- (a) the annulus prm at work size on 4 and 8 phi shards --------
+    for shards in GEO_PHI_SHARDS:
+        r = run_vs_one("(a) annulus", lambda: BoussinesqModel(
+            annulus_params(), device=dev), shards, GEO_RUN_STEPS)
+        if any(r["counts"].values()):
+            fail(f"15 (a) annulus {shards}: launches {r['counts']}")
+        launches[f"annulus_mesh_{shards}"] = r["counts"]
+        phase(f"15 (a) annulus {r['m'].geo.cell_shape} on "
+              f"{label_of(r['m'])}: {GEO_RUN_STEPS} steps through run, "
+              f"{r['m'].escalations} escalation(s) (one device "
+              f"{r['one'].escalations}), max|u_mesh - u_one| "
+              f"{r['du']:.3e} of max|u|, max|div u| {r['div']:.3e}, "
+              f"Krylov (poisson, temperature) {r['its']} (one device "
+              f"{r['its_one']}); {r['host_ms']:.1f} host ms a step (one "
+              f"device {r['host_ms_one']:.1f}), launches {r['counts']}"
+              + since())
+        if shards == GEO_PHI_SHARDS[-1]:
+            m, st = r["m"], r["state"]
+            dt = m.params.time_step
+            prof = step_profile(lambda: m.step(st, dt)[1].cfl, 1)
+            _, syncs = count_syncs(lambda: m.step(st, dt)[1].cfl)
+            _, _, wall = drive(m, lambda: m.step(st, dt)[1].cfl)
+            one, s1 = r["one"], unshard_state(st)
+            prof1 = step_profile(lambda: one.step(s1, dt)[1].cfl, 1)
+            _, syncs1 = count_syncs(lambda: one.step(s1, dt)[1].cfl)
+            phase(f"15 (a) annulus {shards} phi shards, one step profiled: "
+                  f"{prof['device_ms_per_step']:.3f} device ms in "
+                  f"{prof['kernels_per_step']:.0f} kernels, "
+                  f"{prof['host_launches_per_step']:.0f} host launches, "
+                  f"{syncs} host syncs, {wall * 1e3:.1f} host ms, busy "
+                  f"{prof['busy_share']:.3f}; one device "
+                  f"{prof1['device_ms_per_step']:.3f} device ms in "
+                  f"{prof1['kernels_per_step']:.0f} kernels, {syncs1} "
+                  f"syncs, busy {prof1['busy_share']:.3f}" + since())
+        del r
+
+    # ---- (b) the box on 2x4 --------------------------------------------
+    r = run_vs_one("(b) box standard", lambda: BoussinesqModel(
+        cube_params(CUBE_STD_REF, feec=False), device=dev), GEO_BOX_MESH,
+        GEO_STD_STEPS)
+    window = (r["m"]._strong_steps_left, r["one"]._strong_steps_left)
+    if r["m"].escalations != GEO_STD_ESCALATIONS or window[0] != window[1]:
+        fail(f"15 (b) box: {r['m'].escalations} escalation(s) in "
+             f"{GEO_STD_STEPS} steps, expected {GEO_STD_ESCALATIONS}; CG "
+             f"window left {window[0]}, one device {window[1]}")
+    diff = same_iters("(b) box standard", r["its"], r["its_one"], tag="15")
+    launches["box_std_mesh_2x4"] = r["counts"]
+    phase(f"15 (b) box standard {r['m'].geo.cell_shape} on "
+          f"{label_of(r['m'])}: {GEO_STD_STEPS} steps through run, "
+          f"{r['m'].escalations} escalation(s) (one device "
+          f"{r['one'].escalations}: the first step misses its f32 gate, "
+          f"expected, the next runs in the CG window it opens; "
+          f"{window[0]} strong steps left as one device), CG (poisson, "
+          f"temperature) {r['its']} ({diff}), "
+          f"max|u_mesh - u_one| {r['du']:.3e} of max|u|, max|div u| "
+          f"{r['div']:.3e}; {r['host_ms']:.1f} host ms a step (one device "
+          f"{r['host_ms_one']:.1f})" + since())
+    del r
+
+    one = BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False),
+                          device=dev)
+    dt = one.params.time_step
+    sf1, _ = one.step(one.initial_state(), dt)
+    (sf_one, df_one), _, w1 = drive(one, lambda: steps(one, sf1, 1, dt))
+    m = on_mesh(BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False),
+                                device=dev), GEO_BOX_MESH)
+    stf = shard_state(sf1, m.geo, m._mesh.mesh)
+    ((sm, dm), counts, wall), syncs = count_syncs(
+        lambda: drive(m, lambda: steps(m, stf, 1, dt)))
+    label = f"(b) cube FEEC 3x3 {m.geo.cell_shape} {label_of(m)}"
+    du, u_sc, div = hold_mesh(label, unshard_state(sm), sf_one,
+                              [d.div_norm for d in dm], tag="15")
+    outer, outer_1 = dm[0].poisson_iters, df_one[0].poisson_iters
+    if abs(outer - outer_1) > 1 or any(counts.values()):
+        fail(f"15 {label}: outer iterations {outer}, one device {outer_1}, "
+             f"launches {counts}")
+    launches["cube_feec_mesh_2x4"] = counts
+    phase(f"15 {label}: 1 step from one device's first, {outer} outer "
+          f"iterations (one device {outer_1}), max|u_mesh - u_one| "
+          f"{du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, gate "
+          f"{dm[0].solver_ok}; {wall * 1e3:.1f} host ms (one device "
+          f"{w1 * 1e3:.1f}), {syncs} host syncs" + since())
+    del m, one
+
+    # ---- (c) the mimetic box, annulus and slab on their meshes --------
+    for key, make, shards in (
+            ("box", lambda: cube_params(GEO_MIM_REF["box"]), GEO_BOX_MESH),
+            ("annulus", lambda: annulus_params(
+                refinement=GEO_MIM_REF["annulus"]), GEO_PHI_SHARDS[-1]),
+            ("slab", lambda: slab_params(GEO_MIM_SLAB), GEO_PHI_SHARDS[0])):
+        if key == "slab":
+            # the slab has no curl (no mimetic model, in both packages):
+            # its standard personality with the SL transport
+            def params(make=make):
+                p = make()
+                p.numerics.temperature_advection = "semi-lagrangian"
+                return p
+        else:
+            def params(make=make):
+                return mimetic(make())
+        r = run_vs_one(f"(c) {key}", lambda: make_model(params(),
+                                                        device=dev),
+                       shards, GEO_MIM_STEPS, div_tol=1e-3)
+        diff = same_iters(f"(c) {key}", r["its"], r["its_one"], tag="15")
+        launches[f"mimetic_{key}_mesh"] = r["counts"]
+        phase(f"15 (c) {type(r['m']).__name__} {key} "
+              f"{r['m'].geo.cell_shape} on {label_of(r['m'])}: "
+              f"{GEO_MIM_STEPS} steps through run, {r['m'].escalations} "
+              f"escalation(s) (one device {r['one'].escalations}), Krylov "
+              f"{r['its']} ({diff}), max|u_mesh - u_one| {r['du']:.3e} of "
+              f"max|u|, max|div u| {r['div']:.3e}; {r['host_ms']:.1f} host "
+              f"ms a step" + since())
+        del r
+
+    # ---- (d) poisson solver = mg on the annulus and the walled box ----
+    for key, make, shards in (
+            ("annulus", lambda: annulus_params(poisson_solver="mg"),
+             GEO_PHI_SHARDS[-1]),
+            ("box", lambda: cube_params(CUBE_3X3_REF, feec=False,
+                                        poisson_solver="mg"),
+             GEO_BOX_MESH)):
+        one = radial_mg(BoussinesqModel(make(), device=dev))
+        m = on_mesh(BoussinesqModel(make(), device=dev), shards)
+        dt = one.params.time_step
+        one.params.numerics.max_cg_iters = GEO_MG_CAP
+        m.params.numerics.max_cg_iters = GEO_MG_CAP
+        s0 = one.initial_state()
+        (s_one, d_one), c_one, w1 = drive(one, lambda: steps(one, s0, 1, dt))
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        (sm, dm), counts, wall = drive(m, lambda: steps(m, st0, 1, dt))
+        mgs = m._mesh.multigrid
+        per_cycle = mgs.line_solves_per_cycle()
+        n_shards = int(np.prod(m._mesh.mesh.grid))
+        its, its_one = dm[0].poisson_iters, d_one[0].poisson_iters
+        want = n_shards * per_cycle * (its + 1)
+        if counts["tridiag"] != want or its != its_one:
+            fail(f"15 (d) mg {key}: K4 {counts['tridiag']} launches, "
+                 f"expected {n_shards} x {per_cycle} x {its + 1} = {want}; "
+                 f"CG iterations {its}, one device {its_one}")
+        label = f"(d) mg {key} {m.geo.cell_shape} {label_of(m)}"
+        du, u_sc, div = hold_mesh(label, unshard_state(sm), s_one,
+                                  [d.div_norm for d in dm], tol=1e-4,
+                                  div_tol=max(1e-4, 2 * d_one[0].div_norm),
+                                  tag="15")
+        launches[f"mg_{key}_mesh"] = counts
+        phase(f"15 {label}, CG capped at {GEO_MG_CAP}: launches {counts} "
+              f"({n_shards} shards x {per_cycle} line solves a V-cycle "
+              f"({mgs.smoother} smoother) x {its + 1} V-cycles), 0 copies "
+              f"({m._tridiag.copies}), CG iterations {its} (one device "
+              f"{its_one}, K4 {c_one['tridiag']}), max|u_mesh - u_one| "
+              f"{du / u_sc:.3e} of max|u|, max|div u| {div:.3e}; "
+              f"{wall * 1e3:.1f} host ms (one device {w1 * 1e3:.1f})"
+              + since())
+        if m._tridiag.copies:
+            fail(f"15 {label}: K4 copied {m._tridiag.copies} operands")
+        if key == "annulus":
+            by_dtype = check_geo_mg_k4(dev, m.geo, m.p_specs, shards)
+            # one V-cycle's step (the CG capped at 0): a whole step's
+            # ~140,000 kernels take the profiler ~90 s to read
+            m.params.numerics.max_cg_iters = 0
+            prof = step_profile(lambda: m.step(st0, dt)[1].cfl, 1)
+            in_step = prof["kernel_ms_per_step"].get("tridiag", 0.0) / (
+                n_shards * per_cycle)
+            k4_row = dict(by_dtype["float32"], by_dtype=by_dtype,
+                          launches=counts["tridiag"], per_cycle=per_cycle,
+                          shards=n_shards, in_step_ms=in_step,
+                          step=dict(device_ms=prof["device_ms_per_step"],
+                                    kernels=prof["kernels_per_step"],
+                                    busy=prof["busy_share"]))
+            phase(f"15 (d) mg annulus {shards} phi shards, one step with "
+                  f"the CG capped at 0 (one V-cycle) profiled: "
+                  f"{prof['device_ms_per_step']:.3f} device ms in "
+                  f"{prof['kernels_per_step']:.0f} kernels, busy "
+                  f"{prof['busy_share']:.3f}; K4 {in_step:.4f} ms a launch "
+                  f"in the step" + since())
+        del m, one
+
+    # ---- (e) f64: the card against the CPU; (f) checkpoints ------------
+    for key, make, shards in (
+            ("annulus", lambda: annulus_params(
+                "float64", refinement=GEO_F64_REF["annulus"]),
+             GEO_PHI_SHARDS[-1]),
+            ("box", lambda: cube_params(GEO_F64_REF["box"], "float64",
+                                        feec=False), GEO_BOX_MESH)):
+        cpu = BoussinesqModel(make(), device="cpu")
+        cpu.prepare_sharded(geo_mesh("cpu", cpu.geo, shards))
+        card = on_mesh(BoussinesqModel(make(), device=dev), shards)
+        dt = cpu.params.time_step
+        s_cpu = cpu.run(max_steps=1)[0]
+        s_card = shard_state(state_from_numpy(
+            card, *state_to_numpy(unshard_state(s_cpu))), card.geo,
+            card._mesh.mesh)
+        c1, dc = cpu.step(s_cpu, dt)
+        g1, dg = card.step(s_card, dt)
+        gc, gg = unshard_state(c1), unshard_state(g1)
+        worst = 0.0
+        for x, y in zip((gg.u, gg.p, gg.T) + tuple(gg.u_faces),
+                        (gc.u, gc.p, gc.T) + tuple(gc.u_faces)):
+            worst = max(worst, float((x.cpu() - y).abs().max()
+                                     / y.abs().max().clamp_min(1e-300)))
+        its_g = (dg.helmholtz_iters.tolist(), dg.poisson_iters,
+                 dg.temperature_iters, dg.solver_ok)
+        its_c = (dc.helmholtz_iters.tolist(), dc.poisson_iters,
+                 dc.temperature_iters, dc.solver_ok)
+        if its_g != its_c or not worst <= 1e-12:
+            fail(f"15 (e) {key} mesh f64: the card (iterations {its_g}) vs "
+                 f"the CPU ({its_c}): max rel diff {worst:.3e} (tol 1e-12)")
+        phase(f"15 (e) {key} {card.geo.cell_shape} on "
+              f"{label_of(card)}, f64: one step on the card vs the CPU's "
+              f"mesh from the same state: iterations and verdict {its_g} "
+              f"on both, max rel diff of each field's scale {worst:.3e} "
+              f"(tol 1e-12)" + since())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{key}_ck")
+            ck.save_checkpoint_sharded(path, g1, {"case": key})
+            back, meta = ck.load_checkpoint_sharded(
+                path, geo=card.geo, mesh=card._mesh.mesh)
+            fields = lambda s: [s.u, s.p, s.T, *s.u_faces]  # noqa: E731
+            same = all(torch.equal(b[ab], t) for a_, b in zip(
+                fields(g1), fields(back)) for ab, t in a_.items())
+            if not same or back.time != g1.time or \
+                    back.step_number != g1.step_number:
+                fail(f"15 (f) {key}: the sharded checkpoint's restore is "
+                     f"not bitwise")
+            phase(f"15 (f) {key}: sharded checkpoint of {meta['n_shards']} "
+                  f"shards restored onto the card's mesh bitwise (time "
+                  f"{back.time}, step {back.step_number})")
+        del cpu, card
+    phase(f"15 total {time.perf_counter() - t0:.1f} s")
+    return launches, k4_row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -5696,6 +6111,11 @@ def main() -> None:
     for label, counts in solve_mesh_launches.items():
         record(label, counts)
 
+    # ---- 15. the annulus, the 3D box and the 2D slab on their meshes --
+    geo_mesh_launches, k4_geo = geometry_mesh_phases(dev)
+    for label, counts in geo_mesh_launches.items():
+        record(label, counts)
+
     # ---- report --------------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
@@ -5780,6 +6200,29 @@ def main() -> None:
         launches_per_vcycle_per_shard=k4_sh["per_cycle"],
         launches_by_path={k: v["tridiag"] for k, v in
                           solve_mesh_launches.items() if "mg" in k},
+        replay_launches_by_path={}))
+    # K4 in the annulus mesh's V-cycle (phase 15 (d)): every phi shard's
+    # radial lines as they are; launches on the 8-shard mg path in one
+    # step (CG capped at GEO_MG_CAP), the times of one shard's level-0
+    # launch (f32; f64 under by_dtype)
+    report.append(dict(
+        name="K4 tridiag (sharded PoissonMultigrid radial lines, annulus)",
+        route="cuda", source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
+        replaces="dycoreplanet_tpu/ops/pallas_kernels.py:59",
+        variant="the annulus mesh's V-cycle (line_axes_allowed=(0,), "
+                "dycoreplanet_tpu/models/boussinesq.py:311-322): each phi "
+                "shard's contiguous (nr, no) coefficients and residual, one "
+                "launch a shard a line solve; the times: level 0, shard "
+                f"{k4_geo['shard']} of {k4_geo['shards']} phi shards",
+        launches=k4_geo["launches"], max_abs_err=max(
+            r["max_abs_err"] for r in k4_geo["by_dtype"].values()),
+        ms=k4_geo["ms"], plain_ms=k4_geo["plain_ms"],
+        bound_ms=k4_geo["bound_ms"], bound_by=k4_geo["bound_by"],
+        library_ms=None, in_step_ms=k4_geo["in_step_ms"],
+        by_dtype=k4_geo["by_dtype"],
+        launches_per_vcycle_per_shard=k4_geo["per_cycle"],
+        launches_by_path={k: v["tridiag"] for k, v in
+                          geo_mesh_launches.items() if "mg" in k},
         replay_launches_by_path={}))
     # K4 in the layouts of the three remaining Poisson solvers (no model
     # builds the direct ones): launches through each solver's entry

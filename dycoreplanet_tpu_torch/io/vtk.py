@@ -213,12 +213,16 @@ def write_vts(
 
 
 def _shard_slices(geo: Geometry, grid, a: int, b: int):
-    """The global cell slices of shard (a, b) of an A x B ("lat", "lon")
-    mesh (``grid`` = (A, B)); the radial axis is never cut."""
+    """The global cell slices of shard (a, b) of the geometry's mesh as an
+    A x B grid (``grid``; parallel/mesh.py): rows of axis -2, columns of
+    axis -1; the vertical axis is never cut (on a one-axis mesh, A = 1,
+    it is axis -2)."""
     A, B = grid
-    nl, no = geo.cell_shape[1] // A, geo.cell_shape[2] // B
-    return (slice(None), slice(a * nl, (a + 1) * nl),
-            slice(b * no, (b + 1) * no))
+    nl, no = geo.cell_shape[-2] // A, geo.cell_shape[-1] // B
+    cols = slice(b * no, (b + 1) * no)
+    if geo.dim == 2:
+        return (slice(None), cols)
+    return (slice(None), slice(a * nl, (a + 1) * nl), cols)
 
 
 def write_vts_sharded(
@@ -232,9 +236,9 @@ def write_vts_sharded(
     tensors, plus a .pvts master referencing them — the reference's
     per-rank .vtu + rank-0 .pvtu (boussinesq_model.tpp:1661-1691); the
     global field is never gathered. Piece k is shard (k // B, k % B) of
-    the A x B mesh, the shard that the JAX package's
-    ``addressable_shards[k]`` holds on a mesh of that shape. Returns the
-    .pvts path."""
+    the A x B grid of the mesh (1 x B on the annulus and the slab), the
+    shard that the JAX package's ``addressable_shards[k]`` holds on a mesh
+    of that shape. Returns the .pvts path."""
     scalars = scalars or {}
     vectors = vectors or {}
     ref = next(iter(scalars.values()), None)

@@ -16,7 +16,7 @@ Reference mapping:
 
 On a mesh the operands are ``parallel.mesh.Sharded`` fields and
 ``total`` the mesh's fixed-order sum of the shards' partials
-(``ShardedShellStep.total``): the inner solves take it (solvers/cg.py,
+(``ShardedStep.total``): the inner solves take it (solvers/cg.py,
 solvers/gmres.py), and ``zero_mean`` sums with it.
 """
 

@@ -67,10 +67,14 @@ transport and the temperature solve on the shards. Where K1o does not
 run (escalated steps, ``step_verbose``, configurations outside its
 gates, ``prepare_sharded(mesh, kernels=False)``) the model's own
 Richardson and CG solves run on the shards: they take the whole grid's
-operators (``_GridOps``) or the mesh's (``ShardedShellStep``), and the
+operators (``_GridOps``) or the mesh's (``ShardedStep``), and the
 one loop of solvers/ runs on global and on Sharded fields. ``step``,
 ``step_strong``, ``step_verbose``, ``temperature_step``, ``run`` and
-``multi_step`` take a sharded state and run eagerly.
+``multi_step`` take a sharded state and run eagerly. The annulus, the
+box and the slab run on their own meshes (("phi",), ("y", "x"), ("x",):
+parallel/mesh.py) with the same plain stages, the plain forcing and
+transport on the shards, and their sharded fast diagonalizations
+(solvers/spectral.py).
 
 ``step_verbose`` (`solver diagnostics level` >= 3) also returns each
 solve's residual trail; as in the JAX model it takes the unfused branch
@@ -102,9 +106,9 @@ runs CG preconditioned by a multigrid V-cycle whose line smoother runs
 K4 (solvers/multigrid.py), ``= cg`` Jacobi-CG. Both read their stopping
 tests back every iteration, so their chunks run eagerly. On a mesh the
 V-cycle relaxes along the radial lines alone, as the JAX package's mesh
-rebuilds it, K4 on every shard's own columns
-(``ShardedPoissonMultigrid``); the stretched shell's spectral CG is
-refused there.
+rebuilds it, K4 on every shard's own columns (``ShardedPoissonMultigrid``;
+the shell and the annulus; the walled box's V-cycle smooths by Jacobi);
+the stretched shell's spectral CG is refused there.
 
 This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
 both personalities (FEEC in its collocated realization here, and in its
@@ -183,7 +187,7 @@ class _MeshStages(NamedTuple):
                              # kernels=False: the plain solves
     poisson: object          # ShardedShellPoissonFastDiag, or None
                              # (poisson solver = cg: Jacobi-CG)
-    ops: object              # ShardedShellStep: the plain rest
+    ops: object              # ShardedStep: the plain rest
     transport: object        # ShardedSemiLagrangian (SL: every step and
                              # substep) or ShardedPlainForcing (Eulerian:
                              # the substeps, and the steps without K2o),
@@ -273,8 +277,6 @@ class StepDiagnostics:
 
 # the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
 # refuses
-MESH_ANNULUS = "multi-device: the annulus on the mesh"
-MESH_CUBOID = "multi-device: the cuboid on the mesh"
 MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
 MESH_SPECTRAL = "multi-device: the spectral-CG solve on the mesh"
 
@@ -286,7 +288,7 @@ def _not_on_mesh(item: str, what: str) -> NotImplementedError:
 
 class _GridOps:
     """The whole grid's side of the operators the model's solves take
-    (``ShardedShellStep``, parallel/sharded_step.py, is a mesh's), so that
+    (``ShardedStep``, parallel/sharded_step.py, is a mesh's), so that
     one Richardson, CG and GMRES code and one set of coupled blocks run
     on global fields and on Sharded ones (``BoussinesqModel._ops``)."""
 
@@ -537,9 +539,11 @@ class BoussinesqModel:
     # ------------------------------------------------------------------
     def prepare_sharded(self, mesh: Mesh, kernels: bool = True
                         ) -> "BoussinesqModel":
-        """Set this model up for sharded states on ``mesh`` (a ("lat",
-        "lon") Mesh, parallel/mesh.py; its first shard on the model's
-        device): the forcing as K2o (K2mo with the semi-Lagrangian
+        """Set this model up for sharded states on ``mesh`` (the
+        geometry's layout, parallel/mesh.py: ("lat", "lon") on the shell,
+        ("phi",) on the annulus, ("y", "x") on the box, ("x",) on the
+        slab; its first shard on the model's device). On the shell: the
+        forcing as K2o (K2mo with the semi-Lagrangian
         transport) and, within its gates, the Richardson stage as K1o on
         every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
         or, for ``poisson solver = mg``, CG preconditioned by the radial
@@ -547,9 +551,11 @@ class BoussinesqModel:
         ``prepare_sharded`` on a platform that runs its kernels, the
         temperature transport on the shards. The models that run no
         forcing kernel on one device (the coupled solves, the rotational
-        form) run the plain forcing and Eulerian transport on the shards
-        (``ShardedPlainForcing``) and their coupled solves on Sharded block
-        vectors, as the JAX package runs them through GSPMD. Where K1o's
+        form, every geometry but the shell) run the plain forcing and
+        Eulerian transport on the shards (``ShardedPlainForcing``), the
+        geometry's sharded fast diagonalization, and their coupled solves
+        on Sharded block vectors, as the JAX package runs them through
+        GSPMD. Where K1o's
         gates fail (``fixed solver iters`` = 0, Richardson momentum beside
         CG temperature, a ghost depth beyond one radial block or shard),
         on escalated steps, in ``step_verbose`` and in temperature
@@ -601,34 +607,33 @@ class BoussinesqModel:
         for ``poisson solver = mg``, the sharded V-cycle (else None): the
         model's ``poisson_precond`` is rebuilt with its line smoother on
         the unsharded radial axis alone, as the JAX package's mesh
-        rebuilds it (a line solve along a sharded axis would gather whole
-        lines), and that V-cycle runs on the shards. A level of the
-        hierarchy that the mesh does not divide raises ValueError."""
+        rebuilds it on every geometry (a line solve along a sharded axis
+        would gather whole lines), and that V-cycle runs on the shards. A
+        mesh whose axes are not the geometry's layout (parallel/mesh.py
+        ``mesh_axes``), and a level of the hierarchy that the mesh does
+        not divide, raise ValueError."""
+        from dycoreplanet_tpu_torch.parallel.mesh import mesh_axes
         from dycoreplanet_tpu_torch.parallel.sharded_step import (
-            ShardedShellStep)
+            ShardedStep)
         from dycoreplanet_tpu_torch.solvers.multigrid import (
             ShardedPoissonMultigrid)
         from dycoreplanet_tpu_torch.solvers.spectral import (
-            ShardedShellPoissonFastDiag)
+            make_sharded_poisson_solver)
 
         if getattr(self.poisson_spectral, "iterative", False):
             # the JAX package leaves ShellPoissonSpectral to GSPMD
             raise _not_on_mesh(MESH_SPECTRAL, "the spectral CG Poisson solve "
                                "of a shell of non-uniform radial spacing")
-        if self.geo.kind == "cuboid":
-            raise _not_on_mesh(MESH_CUBOID, "the cuboid")
-        if self.geo.kind != "shell":
-            raise _not_on_mesh(MESH_ANNULUS, f"the {self.geo.kind}")
         if self.helmholtz_direct is not None:
             raise _not_on_mesh(MESH_PATHS, "helmholtz solver = direct")
-        if mesh.axis_names != ("lat", "lon"):
-            raise ValueError(f"a shell mesh has axes ('lat', 'lon'), not "
-                             f"{mesh.axis_names}")
+        if mesh.axis_names != mesh_axes(self.geo):
+            raise ValueError(f"a {self.geo.kind} mesh has axes "
+                             f"{mesh_axes(self.geo)}, not {mesh.axis_names}")
         if mesh.device(0, 0) != self.device:
             raise ValueError(f"the mesh's first shard lies on "
                              f"{mesh.device(0, 0)}, the model on "
                              f"{self.device}")
-        poisson = (ShardedShellPoissonFastDiag(self.poisson_spectral, mesh)
+        poisson = (make_sharded_poisson_solver(self.poisson_spectral, mesh)
                    if self.poisson_spectral is not None else None)
         multigrid = None
         if self.poisson_precond is not None:
@@ -638,7 +643,7 @@ class BoussinesqModel:
                 line_axes_allowed=(0,))
             multigrid = ShardedPoissonMultigrid(radial, mesh)
             self.poisson_precond = radial
-        return poisson, ShardedShellStep(self.geo, mesh, self), multigrid
+        return poisson, ShardedStep(self.geo, mesh, self), multigrid
 
     def sharded_kernels(self) -> Dict[str, str]:
         """Which implementation each hot stage of the mesh step runs, as
@@ -1358,9 +1363,16 @@ class BoussinesqModel:
 
     def _ops(self, x):
         """The operators of the solves for field ``x``: the whole grid's,
-        or on a mesh its stages' in ``x``'s dtype."""
+        or on a mesh its stages' with their constants in ``x``'s dtype,
+        but in the working dtype where a bfloat16 step computes in
+        float32 (``_in_float32``: the single-device step's float32 fields
+        meet the model's bfloat16 constants, as in the JAX package)."""
         if isinstance(x, Sharded):
-            return self._mesh.ops.like(x.dtype)
+            widened = (self.torch_dtype == torch.bfloat16
+                       and self._forcing is None
+                       and self._richardson is None and self._proj is None)
+            return self._mesh.ops.like(self.torch_dtype if widened
+                                       else x.dtype)
         return self._grid_ops
 
     def _solve_pressure_poisson(self, rhs_phi):
@@ -1709,7 +1721,7 @@ class BoussinesqModel:
         Poisson solve. The inner GMRES is nonlinear in its input, so the
         outer solve stores its Z vectors. On a mesh the curls cross the
         pole with the velocity's sign pattern, the vorticity's as the
-        velocity's (``ShardedShellStep.curl``)."""
+        velocity's (``ShardedStep.curl``)."""
         num = self.params.numerics
         dim = self.geo.dim
         ops = self._ops(rhs_u)

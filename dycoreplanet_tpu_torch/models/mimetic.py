@@ -113,13 +113,14 @@ class MimeticBoussinesqModel(BoussinesqModel):
 
     def prepare_sharded(self, mesh: Mesh, kernels: bool = True
                         ) -> "MimeticBoussinesqModel":
-        """Set this model up for sharded states on a ("lat", "lon") mesh of
-        the shell (the JAX package runs the mimetic step there through
-        GSPMD's plain path): the staggered operators on every shard's
-        window (parallel/sharded_mimetic.py), the momentum Jacobi-CG and
-        the temperature solve on the shards, the projection with
-        ``ShardedShellPoissonFastDiag`` (Jacobi-CG with ``poisson solver
-        = cg``) and the plain correction. The step runs no hand kernel, so
+        """Set this model up for sharded states on the geometry's mesh
+        (the shell's ("lat", "lon"), the box's ("y", "x"), the annulus's
+        ("phi",), the slab's ("x",); the JAX package runs the mimetic
+        step there through GSPMD's plain path): the staggered operators
+        on every shard's window (parallel/sharded_mimetic.py), the
+        momentum Jacobi-CG and the temperature solve on the shards, the
+        projection with the geometry's sharded fast solve (Jacobi-CG with
+        ``poisson solver = cg``) and the plain correction. The step runs no hand kernel, so
         ``kernels`` changes nothing. Refuses what BoussinesqModel's mesh
         refuses."""
         from dycoreplanet_tpu_torch.parallel.sharded_transport import (
@@ -347,8 +348,9 @@ class MimeticBoussinesqModel(BoussinesqModel):
         dt_T = self._dt_T(dt)
 
         rhs_faces = stag.apply(
-            lambda w, f0, f1, f2, pw, Tw: self._face_rhs(
-                (f0, f1, f2), pw, Tw, dt, w.constants(Tw.dtype)[0]),
+            lambda w, *fw: self._face_rhs(
+                fw[:dim], fw[dim], fw[dim + 1], dt,
+                w.constants(fw[dim + 1].dtype)[0]),
             *state.u_faces, pres, T)
         u_star, helm_it, helm_rnorm, helm_ok = self._solve_momentum_mimetic(
             rhs_faces, dt)

@@ -63,7 +63,8 @@ from dycoreplanet_tpu_torch.ops import kernel_lib as kl
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops import vector as vec
 from dycoreplanet_tpu_torch.ops.bc import BCSpec
-from dycoreplanet_tpu_torch.parallel.mesh import block, crop, shard_geometry
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    block, crop, row_rule, shard_geometry)
 
 FIELDS_MOVED = 12
 # floating-point operations per cell, counted from csrc/forcing.cu with
@@ -250,16 +251,21 @@ class Forcing:
 
     def on_block(self, j0: int, nl: int, k0: int, no: int, pad: int,
                  T_wall) -> "Forcing":
-        """This forcing on the shell's rows j0 .. j0 + nl and columns k0 ..
-        k0 + no padded by ``pad`` cells (mesh.shard_geometry, its gravity
-        cut alike), the Dirichlet wall value ``T_wall`` already cut to the
-        padded block: a shard's plain forcing on a mesh."""
-        T_specs = [BCSpec(self.T_specs[0].lo, self.T_specs[0].hi,
-                          lo_value=T_wall)] + list(self.T_specs[1:])
+        """This forcing on rows j0 .. j0 + nl and columns k0 .. k0 + no of
+        the grid's axes -2 and -1 padded by ``pad`` cells along each
+        sharded axis (mesh.shard_geometry, its gravity cut alike), the
+        Dirichlet wall value ``T_wall`` already cut to the padded block
+        (None on the fully periodic box, which has no wall): a shard's
+        plain forcing on a mesh."""
+        T_specs = list(self.T_specs)
+        if T_wall is not None:
+            T_specs[0] = BCSpec(T_specs[0].lo, T_specs[0].hi,
+                                lo_value=T_wall)
         return Forcing(shard_geometry(self.geo, j0, nl, k0, no, pad=pad),
                        beta=self.beta, T_ref=self.T_ref,
                        rho_background=self.rho_background,
-                       gravity=block(self.gravity, j0, nl, k0, no, pad),
+                       gravity=block(self.gravity, j0, nl, k0, no, pad,
+                                     rows=row_rule(self.geo)),
                        one_over_Re=self.one_over_Re,
                        omega_hat=self.omega_hat,
                        coriolis_mode=self.coriolis_mode,

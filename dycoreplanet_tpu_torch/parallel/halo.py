@@ -10,8 +10,12 @@ minor), on the first device, copied to each device once: two runs give
 the same bits, and no float atomics are used.
 
 On a non-periodic mesh axis the missing neighbour contributes zeros,
-as ``ppermute`` does; the pole closure of the lat axis (the boundary
-ring at lon + pi) is :func:`half_turn`.
+as ``ppermute`` does; the pole closure of the shell's lat axis (the
+boundary ring at lon + pi) is :func:`half_turn`. Every other sharded
+axis (the shell's lon, the box's y and x, the annulus's phi, the slab's
+x) is a periodic ring (``row_halo``, ``col_halo``). The rows are the
+cell arrays' axis -2 and the columns axis -1 (parallel/mesh.py: a
+one-axis mesh has one row of shards and pads no rows).
 """
 
 from __future__ import annotations
@@ -35,13 +39,10 @@ def ring_perms(n: int, periodic: bool) -> Tuple[list, list]:
     return fwd, bwd
 
 
-_AXIS = {"lat": 0, "lon": 1}
-
-
 def _permute(src: Sharded, mesh: Mesh, axis_name: str, perm) -> Sharded:
     """ppermute along one mesh axis: shard dst gets src's block on its own
     device, zeros where no pair names it."""
-    ax = _AXIS[axis_name]
+    ax = mesh.grid_axis(axis_name)
     frm = {d: s for s, d in perm}
 
     def get(a, b):
@@ -109,7 +110,7 @@ def pmax(x: Sharded, mesh: Mesh) -> torch.Tensor:
 def _half_turn_at(rows: Sharded, mesh: Mesh, a: int, b: int
                   ) -> torch.Tensor:
     """Shard (a, b)'s part of :func:`half_turn`."""
-    B = mesh.shape["lon"]
+    B = mesh.grid[1]
     no = rows[0, 0].shape[-1]
     nlon = B * no
     dev = mesh.device(a, b)
@@ -141,7 +142,7 @@ def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
     of factors broadcast over the leading axes, for POLE_FLIP components)
     repeated ``width`` times. ``sign=None``: zeros beyond the poles, as a
     non-periodic exchange gives."""
-    A = mesh.shape["lat"]
+    A = mesh.grid[0]
     ax = x[0, 0].dim() - 2
     lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width, periodic=False)
     if sign is None:
@@ -161,29 +162,48 @@ def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
     return build(mesh, rows)
 
 
-def lon_halo(x: Sharded, mesh: Mesh, width: int) -> Sharded:
-    """[g_-width..g_-1, g_+1..g_+width] lon columns (periodic)."""
-    ax = x[0, 0].dim() - 1
-    lo, hi = exchange_ghosts(x, mesh, "lon", ax, width=width, periodic=True)
+def _ring(x: Sharded, mesh: Mesh, name: str, ax: int, width: int
+          ) -> Sharded:
+    """[g_-width..g_-1, g_+1..g_+width] along array axis ``ax`` from the
+    periodic ring of mesh axis ``name``."""
+    lo, hi = exchange_ghosts(x, mesh, name, ax, width=width, periodic=True)
     return lo.map(lambda l, h: torch.cat([l, h], dim=ax), hi)
 
 
+def col_halo(x: Sharded, mesh: Mesh, width: int) -> Sharded:
+    """[g_-width..g_-1, g_+1..g_+width] columns (axis -1, periodic)."""
+    return _ring(x, mesh, mesh.axis_names[-1], x[0, 0].dim() - 1, width)
+
+
+
+def row_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
+    """[g_-width..g_-1, g_+1..g_+width] rows (axis -2): the shell's lat
+    rows as :func:`lat_halo` (``sign``: its pole closure), the box's y
+    rows from their periodic ring (``sign`` unused)."""
+    if mesh.rows == "pole":
+        return lat_halo(x, mesh, width, sign)
+    return _ring(x, mesh, mesh.axis_names[0], x[0, 0].dim() - 2, width)
+
+
 def pad_block(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
-    """Every shard padded by ``width`` cells on both sides of lat and lon
-    from its neighbours (lat ghosts as :func:`lat_halo`, lon periodic);
-    the corners, which no axis-wise stencil reads, are zero."""
-    LH = lat_halo(x, mesh, width, sign)
-    LO = lon_halo(x, mesh, width)
+    """Every shard padded by ``width`` cells on both sides of its sharded
+    axes from its neighbours (rows as :func:`row_halo`, columns periodic;
+    a one-axis mesh pads its columns alone); the corners, which no
+    axis-wise stencil reads, are zero."""
+    pr, pc = mesh.pads(width)
+    LO = col_halo(x, mesh, width)
+    LH = row_halo(x, mesh, width, sign) if pr else LO
 
     def pad(t, lh, lo):
         w = width
-        out = t.new_zeros(t.shape[:-2] + (t.shape[-2] + 2 * w,
+        out = t.new_zeros(t.shape[:-2] + (t.shape[-2] + 2 * pr,
                                           t.shape[-1] + 2 * w))
-        out[..., w:-w, w:-w] = t
-        out[..., :w, w:-w] = lh[..., :w, :]
-        out[..., -w:, w:-w] = lh[..., w:, :]
-        out[..., w:-w, :w] = lo[..., :w]
-        out[..., w:-w, -w:] = lo[..., w:]
+        out[..., pr:out.shape[-2] - pr, w:-w] = t
+        out[..., pr:out.shape[-2] - pr, :w] = lo[..., :w]
+        out[..., pr:out.shape[-2] - pr, -w:] = lo[..., w:]
+        if pr:
+            out[..., :w, w:-w] = lh[..., :w, :]
+            out[..., -w:, w:-w] = lh[..., w:, :]
         return out
 
     return x.map(pad, LH, LO)
@@ -192,40 +212,46 @@ def pad_block(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
 def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
     """Every shard padded by ``width`` cells along each axis as ops/bc.py
     ``pad_axis_width`` pads the whole field, axis after axis (the
-    semi-Lagrangian transport's pad, whose 2^3-corner gather reads the
+    semi-Lagrangian transport's pad, whose 2^dim-corner gather reads the
     diagonal cells too):
 
-      1. the radial axis, locally: ``r_pad(a, b, t)`` pads shard (a, b)'s
-         block ``t`` with its wall ghosts (None: no radial pad);
-      2. lat of the r-padded shard: the neighbours' rows, and past a pole
-         ghost k is interior row k - 1 at lon + pi (the POLE rule), in
-         the order [g_w .. g_1 | f | g_1 .. g_w] (not :func:`lat_halo`'s
-         repeated boundary ring);
-      3. lon (periodic) of the (r, lat)-padded shard, so that the corners
-         carry the lat ghosts, as the single-device wrap does.
+      1. the vertical axis, locally: ``r_pad(a, b, t)`` pads shard (a,
+         b)'s block ``t`` with its wall ghosts (None: no vertical pad);
+      2. the rows of the padded shard: on the shell the neighbours' lat
+         rows, and past a pole ghost k is interior row k - 1 at lon + pi
+         (the POLE rule), in the order [g_w .. g_1 | f | g_1 .. g_w] (not
+         :func:`lat_halo`'s repeated boundary ring); on the box the
+         periodic ring of y; none on a one-axis mesh;
+      3. the columns (periodic) of the shard padded so far, so that the
+         corners carry the row ghosts, as the single-device wrap does.
     """
     if r_pad is not None:
         x = build(mesh, lambda a, b: r_pad(a, b, x[a, b]))
-    A = mesh.shape["lat"]
+    A = mesh.grid[0]
     ax = x[0, 0].dim() - 2
     n = x[0, 0].shape[ax]
-    if n < width:
-        raise ValueError(f"a shard of {n} lat rows cannot give {width} "
-                         "ghost rows")
-    lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width, periodic=False)
-    first = x.map(lambda t: t.narrow(ax, 0, width))
-    last = x.map(lambda t: t.narrow(ax, n - width, width))
+    if mesh.rows == "periodic":
+        x = halo_pad(x, mesh, mesh.axis_names[0], ax, width=width)
+    elif mesh.rows == "pole":
+        if n < width:
+            raise ValueError(f"a shard of {n} lat rows cannot give {width} "
+                             "ghost rows")
+        lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width,
+                                 periodic=False)
+        first = x.map(lambda t: t.narrow(ax, 0, width))
+        last = x.map(lambda t: t.narrow(ax, n - width, width))
 
-    def pole(rows, a, b):
-        # ghost k (k = 1 nearest) mirrors interior row k - 1
-        return _half_turn_at(rows, mesh, a, b).flip(ax)
+        def pole(rows, a, b):
+            # ghost k (k = 1 nearest) mirrors interior row k - 1
+            return _half_turn_at(rows, mesh, a, b).flip(ax)
 
-    def lat(a, b):
-        lo_ab = pole(first, a, b) if a == 0 else lo[a, b]
-        hi_ab = pole(last, a, b) if a == A - 1 else hi[a, b]
-        return torch.cat([lo_ab, x[a, b], hi_ab], dim=ax)
+        def lat(a, b):
+            lo_ab = pole(first, a, b) if a == 0 else lo[a, b]
+            hi_ab = pole(last, a, b) if a == A - 1 else hi[a, b]
+            return torch.cat([lo_ab, x[a, b], hi_ab], dim=ax)
 
-    return halo_pad(build(mesh, lat), mesh, "lon", ax + 1, width=width,
+        x = build(mesh, lat)
+    return halo_pad(x, mesh, mesh.axis_names[-1], ax + 1, width=width,
                     periodic=True)
 
 
@@ -242,11 +268,12 @@ def _runs(idx, n: int) -> List[List[int]]:
     return out
 
 
-def window(x: Sharded, rows: range, cols, device) -> torch.Tensor:
-    """The global rows ``rows`` and columns ``cols`` (global indices, any
-    order) of a Sharded field, gathered onto ``device`` from the shards
-    that own them (a copy a piece between cards, none on one device):
-    each shard's window of mesh.window_geometry."""
+def window(x: Sharded, rows, cols, device) -> torch.Tensor:
+    """The global rows ``rows`` and columns ``cols`` (global indices of
+    axes -2 and -1, any order) of a Sharded field, gathered onto
+    ``device`` from the shards that own them (a copy a piece between
+    cards, none on one device): each shard's window of
+    mesh.window_geometry."""
     nl, no = x[0, 0].shape[-2:]
     cruns = _runs(cols, no)
     parts = []

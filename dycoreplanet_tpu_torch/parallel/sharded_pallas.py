@@ -13,9 +13,10 @@ zero past the top pole (a non-periodic exchange gives zeros there).
 
 ``ShardedPlainForcing`` is the forcing of the models that have no
 forcing kernel on one device either (the coupled solves, the rotational
-form of the FEEC personality), and their Eulerian temperature
-transport: ``Forcing`` on every shard's block padded by the same two
-cells, as K2o's plain version runs it.
+form of the FEEC personality, and every geometry but the shell: the box,
+the annulus, the slab), and their Eulerian temperature transport:
+``Forcing`` on every shard's block padded by the same two cells along
+each sharded axis, as K2o's plain version runs it.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ import torch.nn.functional as F
 
 from dycoreplanet_tpu_torch.ops.forcing import Forcing, ShellForcing
 from dycoreplanet_tpu_torch.parallel.halo import (
-    exchange_ghosts, lat_halo, lon_halo, pad_block)
+    col_halo, exchange_ghosts, lat_halo, pad_block)
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, Sharded, block, build, crop, local_shape)
+    Mesh, Sharded, block, build, crop, local_shape, offsets)
 
 # the pole sign pattern of a stacked [u_r, u_lat, u_lon] row (POLE for
 # u_r, POLE_FLIP for the tangential components: the local basis flips
@@ -66,7 +67,7 @@ def transport_halos(u_faces, T: Sharded, mesh: Mesh) -> dict:
     Sharded: the face seams and two T rows each side (the pole ring at
     lon + pi, both rows the same) and columns (HLT, HOT)."""
     return dict(face_seams(u_faces, mesh),
-                HLT=lat_halo(T, mesh, 2, sign=1.0), HOT=lon_halo(T, mesh, 2))
+                HLT=lat_halo(T, mesh, 2, sign=1.0), HOT=col_halo(T, mesh, 2))
 
 
 def per_shard(named: dict, mesh: Mesh) -> Sharded:
@@ -85,7 +86,7 @@ def forcing_halos(u: Sharded, u_faces, T: Sharded, pres: Sharded,
              else face_seams(u_faces, mesh))
     named.update(HLu=lat_halo(u, mesh, 2, sign=u.map(_flip_vec)),
                  HLp=lat_halo(pres, mesh, 1, sign=1.0),
-                 HOu=lon_halo(u, mesh, 2), HOp=lon_halo(pres, mesh, 1))
+                 HOu=col_halo(u, mesh, 2), HOp=col_halo(pres, mesh, 1))
     return per_shard(named, mesh)
 
 
@@ -137,43 +138,47 @@ class ShardedShellForcing:
 
 
 class ShardedPlainForcing:
-    """``Forcing`` (either advection form) and its Eulerian transport on a
-    ("lat", "lon") mesh: what the JAX package leaves to GSPMD where no
+    """``Forcing`` (either advection form) and its Eulerian transport on
+    the geometry's mesh: what the JAX package leaves to GSPMD where no
     forcing kernel runs. Each shard runs ``Forcing.on_block`` on its block
-    padded by two cells (``halo.pad_block``: u with its pole sign pattern,
-    p and T with the POLE rule, the face velocities zero past the poles),
-    cropped; the buoyancy reads T at the cell alone. ``T_wall`` is the
-    model's host array of the Dirichlet wall value. Calling it is the
-    transport, (u, u_faces, T, dt_T) -> T_adv as
-    parallel/sharded_transport.py's transports (``calls`` counts the
-    calls)."""
+    padded by two cells along each sharded axis (``halo.pad_block``: on
+    the shell u with its pole sign pattern, p and T with the POLE rule,
+    the face velocities zero past the poles; elsewhere the periodic
+    rings), cropped; the buoyancy reads T at the cell alone. ``T_wall``
+    is the model's host array of the Dirichlet wall value (None on the
+    fully periodic box). Calling it is the transport, (u, u_faces, T,
+    dt_T) -> T_adv as parallel/sharded_transport.py's transports
+    (``calls`` counts the calls)."""
 
     def __init__(self, base: Forcing, T_wall, mesh: Mesh):
-        _, nl, no = local_shape(base.geo, mesh)
-        if nl < 2 or no < 2:
+        nl, no = local_shape(base.geo, mesh)[-2:]
+        self.pads = mesh.pads(2)
+        if (self.pads[0] and nl < 2) or no < 2:
             raise ValueError(f"shard too thin for width-2 halos: local "
                              f"{(nl, no)}")
         self.mesh = mesh
+        self.pole = mesh.rows == "pole"
         self.shards = {}
-        for a in range(mesh.shape["lat"]):
-            for b in range(mesh.shape["lon"]):
-                j0, k0 = a * nl, b * no
-                wall = torch.as_tensor(block(T_wall, j0, nl, k0, no, 2),
-                                       device=mesh.device(a, b))
-                self.shards[a, b] = base.on_block(j0, nl, k0, no, 2, wall)
+        for (a, b), (j0, k0) in offsets(base.geo, mesh).items():
+            wall = None if T_wall is None else torch.as_tensor(
+                block(T_wall, j0, nl, k0, no, 2, rows=mesh.rows),
+                device=mesh.device(a, b))
+            self.shards[a, b] = base.on_block(j0, nl, k0, no, 2, wall)
         self.calls = 0
 
     def explicit_forcing(self, u: Sharded, u_faces, pres: Sharded,
                          T: Sharded) -> Sharded:
         """``Forcing.explicit_forcing`` on every shard."""
         mesh = self.mesh
-        up = pad_block(u, mesh, 2, sign=u.map(_flip_vec))
+        pr, pc = self.pads
+        up = pad_block(u, mesh, 2, sign=u.map(_flip_vec) if self.pole
+                       else None)
         fp = [pad_block(f, mesh, 2) for f in u_faces]
         pp = pad_block(pres, mesh, 2, sign=1.0)
         return build(mesh, lambda a, b: crop(
             self.shards[a, b].explicit_forcing(
                 up[a, b], [f[a, b] for f in fp], pp[a, b],
-                F.pad(T[a, b], (2, 2, 2, 2))), 2).contiguous())
+                F.pad(T[a, b], (pc, pc, pr, pr))), self.pads).contiguous())
 
     def __call__(self, u: Sharded, u_faces, T: Sharded, dt_T) -> Sharded:
         """T - dt_T u . grad T with the face velocities ``u_faces`` (``u``
@@ -184,4 +189,5 @@ class ShardedPlainForcing:
         fp = [pad_block(f, mesh, 2) for f in u_faces]
         return build(mesh, lambda a, b: crop(
             self.shards[a, b].advected_temperature(
-                [f[a, b] for f in fp], Tp[a, b], dt_T), 2).contiguous())
+                [f[a, b] for f in fp], Tp[a, b], dt_T),
+            self.pads).contiguous())

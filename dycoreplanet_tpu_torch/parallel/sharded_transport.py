@@ -7,13 +7,15 @@ parallel/sharded_pallas.py ``ShardedPlainForcing``.
 
   * ``ShardedSemiLagrangian``: the shard padded by K = 2 cells as the
     single-device transport pads the whole field (``halo.pad_mirror``:
-    the radial wall locally, its Dirichlet value cut to the shard; the
-    lat rows in the mirror order, pole ghost k at interior row k - 1 at
-    lon + pi; then lon, so that the corners carry the lat ghosts), and
-    the single-device interpolation (ops/semi_lagrangian.py
+    the vertical wall locally, its Dirichlet value cut to the shard; on
+    the shell the lat rows in the mirror order, pole ghost k at interior
+    row k - 1 at lon + pi, on the box the periodic y rows; then the
+    periodic columns, so that the corners carry the row ghosts), and the
+    single-device interpolation (ops/semi_lagrangian.py
     ``interpolate``) on the padded block, with the global cell widths cut
     to the shard. Each cell gathers the same padded values and does the
-    same arithmetic as on one device, so the two agree bitwise.
+    same arithmetic as on one device, so the two agree bitwise. It runs
+    on every geometry's mesh (parallel/mesh.py).
 
 A callable (u, u_faces, T, dt_T) -> T_adv on Sharded fields; ``calls``
 counts the calls.
@@ -28,45 +30,50 @@ from dycoreplanet_tpu_torch.ops.semi_lagrangian import (
     SemiLagrangian, interpolate, make_tables)
 from dycoreplanet_tpu_torch.parallel.halo import pad_mirror
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, Sharded, block, build, local_shape)
+    Mesh, Sharded, block, build, local_shape, offsets)
 
 
 def _cut(value, j0: int, nl: int, k0: int, no: int, device):
-    """A wall value (a number, or a global (nlat, nlon) tensor) cut to a
+    """A wall value (a number, or a global tensor of the cells' shape
+    without the vertical axis: (n1, n2), or (n2,) on a 2D grid) cut to a
     shard's block on ``device``."""
-    if torch.is_tensor(value):
-        return value[..., j0:j0 + nl, k0:k0 + no].to(device)
-    return value
+    if not torch.is_tensor(value):
+        return value
+    if value.dim() > 1:
+        value = value[..., j0:j0 + nl, :]
+    return value[..., k0:k0 + no].to(device)
 
 
 class ShardedSemiLagrangian:
-    """SemiLagrangian on a ("lat", "lon") mesh of the shell."""
+    """SemiLagrangian on the geometry's mesh (the shell's ("lat", "lon"),
+    the box's ("y", "x"), the annulus's ("phi",), the slab's ("x",))."""
 
     def __init__(self, base: SemiLagrangian, mesh: Mesh):
-        r_spec, lat_spec, lon_spec = base.specs
-        if lon_spec is not None or (lat_spec.lo, lat_spec.hi) != (BC.POLE,
-                                                                   BC.POLE):
+        r_spec, *rest = base.specs
+        pole = [BCSpec(BC.POLE, BC.POLE), None]
+        want = pole if mesh.rows == "pole" else [None] * len(rest)
+        if [None if s is None else (s.lo, s.hi) for s in rest] != [
+                None if s is None else (s.lo, s.hi) for s in want]:
             raise ValueError("ShardedSemiLagrangian takes a scalar's pole "
-                             "rule (POLE) and the periodic lon")
+                             "rule (POLE) on the shell's lat and periodic "
+                             "sharded axes elsewhere")
         self.mesh = mesh
         self.K = base.K
-        _, nl, no = local_shape(base.geo, mesh)
-        if nl < self.K or no < self.K:
+        self.r_periodic = base.geo.axes[0].periodic
+        nl, no = local_shape(base.geo, mesh)[-2:]
+        if (mesh.rows and nl < self.K) or no < self.K:
             raise ValueError(f"shard too thin for width-{self.K} halos: "
                              f"local {(nl, no)}")
-        self.offsets = {(a, b): (a * nl, b * no)
-                        for a in range(mesh.shape["lat"])
-                        for b in range(mesh.shape["lon"])}
+        self.offsets = offsets(base.geo, mesh)
         # each shard's radial rule, its wall values cut to the shard, and
         # its block of the global cell widths
         self.r_specs = {
-            ab: BCSpec(r_spec.lo, r_spec.hi,
-                       _cut(r_spec.lo_value, j0, nl, k0, no,
-                            mesh.device(*ab)),
-                       _cut(r_spec.hi_value, j0, nl, k0, no,
-                            mesh.device(*ab)))
+            ab: None if r_spec is None else BCSpec(
+                r_spec.lo, r_spec.hi,
+                _cut(r_spec.lo_value, j0, nl, k0, no, mesh.device(*ab)),
+                _cut(r_spec.hi_value, j0, nl, k0, no, mesh.device(*ab)))
             for ab, (j0, k0) in self.offsets.items()}
-        self._h64 = {ab: block(base._h64, j0, nl, k0, no)
+        self._h64 = {ab: block(base._h64, j0, nl, k0, no, rows=mesh.rows)
                      for ab, (j0, k0) in self.offsets.items()}
         self._dev = {}
         self.calls = 0
@@ -87,7 +94,7 @@ class ShardedSemiLagrangian:
         padded = pad_mirror(
             T, self.mesh, K,
             r_pad=lambda a, b, t: pad_axis_width(
-                t, 0, self.r_specs[a, b], False, K))
+                t, 0, self.r_specs[a, b], self.r_periodic, K))
         return build(self.mesh, lambda a, b: interpolate(
             u[a, b], padded[a, b], dt_T,
             self.tables((a, b), T[a, b].device, T[a, b].dtype), K))

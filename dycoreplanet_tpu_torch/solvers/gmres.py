@@ -29,7 +29,7 @@ the same products, less memory traffic.
 
 The same loop runs on a mesh: ``b`` a ``parallel.mesh.Sharded`` field and
 ``total`` the mesh's fixed-order sum of the shards' partials
-(parallel/sharded_step.py ``ShardedShellStep.total``). Each shard holds
+(parallel/sharded_step.py ``ShardedStep.total``). Each shard holds
 its own columns of V and Z; every product of the Arnoldi step, each
 norm and inner product, is a per-shard partial ((j + 1)-vectors for the
 CGS2 passes) summed by ``total`` in a fixed order on the first device,

@@ -34,8 +34,11 @@ operator on the shards (parallel/sharded_step.py), each radial line
 solve one K4 launch a shard on the shard's own columns (its residual as
 it is, the level's coefficients cut to the shard once: no copy), and the
 restriction and prolongation on each shard alone, which holds whole
-2 x 2 x 2 families where the mesh divides every level. At 32 x 128 x 256
-one V-cycle runs 3 * 2 * 2 + 40 = 52 line solves on every shard.
+2^dim families where the mesh divides every level. At 32 x 128 x 256
+one V-cycle runs 3 * 2 * 2 + 40 = 52 line solves on every shard. The
+annulus's mesh relaxes its radial lines the same way; the walled box's
+smoother is weighted Jacobi ("auto" on the cuboid, in both packages), so
+its sharded V-cycle runs no K4.
 """
 
 from __future__ import annotations
@@ -337,41 +340,47 @@ class PoissonMultigrid:
 
 
 class ShardedPoissonMultigrid(PoissonMultigrid):
-    """The V-cycle of ``base`` (a PoissonMultigrid of the shell whose line
-    smoother relaxes along the radial axis alone: ``line_axes_allowed=
-    (0,)``) on a ("lat", "lon") mesh, on Sharded residuals. It shares
-    base's hierarchy, tables and K4 wrapper (whose ``launches`` count
-    every shard's line solves); the cycle itself is PoissonMultigrid's.
-    A level whose lat or lon count the mesh does not divide raises
-    ValueError: its 2 x 2 x 2 families would straddle two shards."""
+    """The V-cycle of ``base`` (a PoissonMultigrid rebuilt as the JAX
+    package's mesh rebuilds it, ``line_axes_allowed=(0,)``: on the shell
+    and the annulus the line smoother relaxes along the radial lines
+    alone; the walled box's smoother is weighted Jacobi, as "auto" picks
+    on the cuboid in both packages) on the geometry's mesh, on Sharded
+    residuals. It shares base's hierarchy, tables and K4 wrapper (whose
+    ``launches`` count every shard's line solves); the cycle itself is
+    PoissonMultigrid's. A level whose sharded axes the mesh does not
+    divide raises ValueError: its 2^dim families would straddle two
+    shards."""
 
     def __init__(self, base: PoissonMultigrid, mesh):
         from dycoreplanet_tpu_torch.parallel.sharded_step import (
-            ShardedShellStep)
+            ShardedStep)
 
-        if base.smoother != "line" or base.line_axes != [0]:
+        if base.smoother == "line" and base.line_axes != [0]:
             raise ValueError("the sharded V-cycle relaxes along the radial "
                              "lines alone (line_axes_allowed=(0,))")
-        A, B = mesh.shape["lat"], mesh.shape["lon"]
+        A, B = mesh.grid
         for level, g in enumerate(base.geos):
-            _, nlat, nlon = g.cell_shape
-            if nlat % A or nlon % B:
+            if g.cell_shape[-2] % A or g.cell_shape[-1] % B:
                 raise ValueError(
                     f"poisson solver = mg: level {level} of the hierarchy, "
                     f"{g.cell_shape}, is not divisible by the mesh "
                     f"({A}, {B})")
         for name in ("specs", "n_smooth", "omega", "coarse_iters",
-                     "smoother", "line_axes", "geos", "tridiag"):
+                     "smoother", "line_axes", "geos", "tridiag",
+                     "torch_dtype"):
             setattr(self, name, getattr(base, name))
         self.mesh = mesh
-        self.ops = [ShardedShellStep(g, mesh) for g in base.geos]
-        # each level's radial line coefficients cut to every shard
+        self.ops = [ShardedStep(g, mesh) for g in base.geos]
+        # each level's radial line coefficients (or Jacobi diagonal) cut
+        # to every shard
         self.shard_lines = [
-            {ab: tuple(t[:, j0:j0 + op.local[1], k0:k0 + op.local[2]]
+            {ab: tuple(t[..., j0:j0 + op.local[-2], k0:k0 + op.local[-1]]
                        .to(mesh.device(*ab)).contiguous()
                        for t in lv[0][:3])
              for ab, (j0, k0) in op.offsets.items()}
             for lv, op in zip(base._lines_t, self.ops)]
+        self._diags_t = [op.cut(d, base.torch_dtype)
+                         for d, op in zip(base.diags, self.ops)]
 
     def shard_operands(self, level: int, ab, r):
         """(lower, diag, upper, rhs) of shard ``ab``'s radial line solve:

@@ -685,50 +685,61 @@ class AnnulusPoissonFastDiag:
         return torch.einsum("pk,rk->rp", c["_G"], h).to(b.dtype), 0
 
 
-class ShardedShellPoissonFastDiag:
-    """ShellPoissonFastDiag on a ("lat", "lon") mesh (the JAX class,
-    spectral.py:697-780), whose only collective is one field-sized sum a
-    solve: each shard contracts its own lon columns of F and lat rows of
-    V, and a fixed-order sum of the shards' partials (``halo.psum``)
-    completes both forward transforms. The eigen-space work (the radial
-    transform and the divide) gives the same result on every shard; it
-    runs once for each distinct device of the mesh, not once a shard (on
-    one card the shards would repeat it). The backward transforms are
-    local: each shard applies its own rows of V and G. ``precision`` is
-    the base solver's (the model's spot-check tolerance; the
-    "high-refine" pass needs the global operator and is not run here)."""
+class _ShardedFastDiag:
+    """A fast diagonalization on its geometry's mesh (parallel/mesh.py),
+    whose only collective is one field-sized sum a solve: each shard
+    contracts its own rows and columns of the forward transforms of the
+    sharded axes (``_forward``), and a fixed-order sum of the shards'
+    partials (``halo.psum``) completes them. The eigen-space work
+    (``_middle``: the transforms of the unsharded axes and the divide)
+    gives the same result on every shard; it runs once for each distinct
+    device of the mesh, not once a shard (on one card the shards would
+    repeat it). The backward transforms (``_backward``) are local: each
+    shard applies its own rows of the inverse transforms. ``precision``
+    is the base solver's (the model's spot-check tolerance), and so is
+    ``check_amp`` where it has one. A subclass names the base's host
+    arrays it cuts (``_cuts``: name -> the axis of the array that runs
+    over the sharded axis -2 or -1 of the cells, as "rows" / "cols", or
+    None for a replicated array)."""
 
-    def __init__(self, base: ShellPoissonFastDiag, mesh):
-        from dycoreplanet_tpu_torch.parallel.mesh import local_shape
+    _cuts: dict = {}
+
+    def __init__(self, base, mesh):
+        from dycoreplanet_tpu_torch.parallel.mesh import local_shape, offsets
 
         self.geo = base.geo
-        self.nm = base.nm
         self.mesh = mesh
         self.precision = base.precision
-        _, nl, no = local_shape(base.geo, mesh)
-        self._local = (nl, no)
-        self._host = {k: getattr(base, k)
-                      for k in ("_F", "_G", "_V", "_Q", "_inv_denom")}
+        if hasattr(base, "check_amp"):
+            self.check_amp = base.check_amp
+        nl, no = local_shape(base.geo, mesh)[-2:]
+        self._offsets = offsets(base.geo, mesh)
+        self._span = {"rows": nl, "cols": no}
+        self._host = {k: getattr(base, k) for k in self._cuts
+                      if getattr(base, k, None) is not None}
         self._dev = {}
 
     def __call__(self, b):
         """The solve as a preconditioner (the escalated Poisson CG's)."""
         return self.solve(b)[0]
 
-    def _consts(self, a: int, b: int, dev):
-        """The shard's F columns, G rows and V lat rows, and the
-        replicated Q and 1/denominator, on dev."""
+    def _consts(self, a: int, b: int, dev) -> dict:
+        """The base's arrays on dev, each cut to shard (a, b)'s rows or
+        columns along its axis that runs over them (made once)."""
         key = (a, b, str(dev))
         c = self._dev.get(key)
         if c is None:
-            nl, no = self._local
-            h = self._host
-            t = lambda x: torch.as_tensor(np.ascontiguousarray(x),
+            j0, k0 = self._offsets[a, b]
+            c = {}
+            for name, x in self._host.items():
+                cut = self._cuts[name]
+                if cut is not None:
+                    ax, which = cut
+                    start = j0 if which == "rows" else k0
+                    x = np.take(x, np.arange(start, start
+                                             + self._span[which]), axis=ax)
+                c[name] = torch.as_tensor(np.ascontiguousarray(x),
                                           device=dev)
-            c = (t(h["_F"][:, b * no:(b + 1) * no]),
-                 t(h["_G"][b * no:(b + 1) * no]),
-                 t(h["_V"][:, a * nl:(a + 1) * nl]),
-                 t(h["_Q"]), t(h["_inv_denom"]))
             self._dev[key] = c
         return c
 
@@ -737,29 +748,124 @@ class ShardedShellPoissonFastDiag:
         from dycoreplanet_tpu_torch.parallel.mesh import build
 
         mesh = self.mesh
+        part = build(mesh, lambda a, b: self._forward(
+            self._consts(a, b, mesh.device(a, b)), rhs[a, b]))
+        full = psum(part, mesh)                  # THE solver all-reduce
+        mid = {dev: self._middle(self._consts(0, 0, dev), h)
+               for dev, h in full.items()}
+        return build(mesh, lambda a, b: self._backward(
+            self._consts(a, b, mesh.device(a, b)),
+            mid[mesh.device(a, b)]).to(rhs[a, b].dtype)), 0
+
+
+class ShardedShellPoissonFastDiag(_ShardedFastDiag):
+    """ShellPoissonFastDiag on a ("lat", "lon") mesh (the JAX class,
+    spectral.py:697-780): each shard contracts its own lon columns of F
+    and lat rows of V; the radial transform and the divide are the
+    eigen-space work; each shard applies its own rows of V and G. The
+    "high-refine" pass needs the global operator and is not run here."""
+
+    _cuts = {"_F": (1, "cols"), "_G": (0, "cols"), "_V": (1, "rows"),
+             "_Q": None, "_inv_denom": None}
+
+    def __init__(self, base: ShellPoissonFastDiag, mesh):
+        super().__init__(base, mesh)
+        self.nm = base.nm
+
+    def _forward(self, c, x):
         nm = self.nm
+        bh = torch.einsum("kl,ijl->ijk", c["_F"], x.to(c["_F"].dtype))
+        bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=2)
+        return torch.einsum("kjm,ijsk->imsk", c["_V"], bs)
 
-        def forward(a, b):
-            F, _, V, _, _ = self._consts(a, b, mesh.device(a, b))
-            bh = torch.einsum("kl,ijl->ijk", F, rhs[a, b].to(F.dtype))
-            bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=2)
-            return torch.einsum("kjm,ijsk->imsk", V, bs)
+    def _middle(self, c, y):
+        zh = torch.einsum("ia,imsk->amsk", c["_Q"], y)
+        return torch.einsum("ia,amsk->imsk", c["_Q"], zh * c["_inv_denom"])
 
-        yh = psum(build(mesh, forward), mesh)     # THE solver all-reduce
-        xh = {}
-        for dev, y in yh.items():
-            _, _, _, Q, inv = self._consts(0, 0, dev)
-            zh = torch.einsum("ia,imsk->amsk", Q, y)
-            xh[dev] = torch.einsum("ia,amsk->imsk", Q, zh * inv)
+    def _backward(self, c, xh):
+        xs = torch.einsum("kjm,imsk->ijsk", c["_V"], xh)
+        xk = torch.cat([xs[:, :, 0, :], xs[:, :, 1, :]], dim=2)
+        return torch.einsum("lk,ijk->ijl", c["_G"], xk)
 
-        def backward(a, b):
-            dev = mesh.device(a, b)
-            _, G, V, _, _ = self._consts(a, b, dev)
-            xs = torch.einsum("kjm,imsk->ijsk", V, xh[dev])
-            xk = torch.cat([xs[:, :, 0, :], xs[:, :, 1, :]], dim=2)
-            return torch.einsum("lk,ijk->ijl", G, xk).to(rhs[a, b].dtype)
 
-        return build(mesh, backward), 0
+class ShardedAnnulusPoissonFastDiag(_ShardedFastDiag):
+    """AnnulusPoissonFastDiag on a ("phi",) mesh: each shard contracts its
+    own phi columns of the DFT F; the radial eigentransform W and the
+    divide are the eigen-space work (the constant mode's zero
+    eigenvalue has its reciprocal zeroed in the base's table); each
+    shard applies its own rows of the inverse G."""
+
+    _cuts = {"_F": (1, "cols"), "_G": (0, "cols"), "_W": None,
+             "_inv_denom": None}
+
+    def _forward(self, c, x):
+        return torch.einsum("kp,rp->rk", c["_F"], x.to(c["_F"].dtype))
+
+    def _middle(self, c, h):
+        h = torch.einsum("ra,rk->ak", c["_W"], h) * c["_inv_denom"]
+        return torch.einsum("ra,ak->rk", c["_W"], h)
+
+    def _backward(self, c, h):
+        return torch.einsum("pk,rk->rp", c["_G"], h)
+
+
+class ShardedCuboidPoissonFastDiag(_ShardedFastDiag):
+    """CuboidPoissonFastDiag on a ("y", "x") mesh: each shard contracts
+    its own y rows of F_y and x columns of F_x; the z transform (the wall
+    eigentransform Q, or on the fully periodic box the DFT pair) and the
+    divide are the eigen-space work; each shard applies its own rows of
+    G_x and G_y."""
+
+    _cuts = {"_Fy": (1, "rows"), "_Gy": (0, "rows"), "_Fx": (1, "cols"),
+             "_Gx": (0, "cols"), "_Q": None, "_Fz": None, "_Gz": None,
+             "_inv_denom": None}
+
+    def _forward(self, c, x):
+        h = torch.einsum("ky,zyx->zkx", c["_Fy"], x.to(c["_Fy"].dtype))
+        return torch.einsum("kx,zyx->zyk", c["_Fx"], h)
+
+    def _middle(self, c, h):
+        if "_Q" in c:
+            h = torch.einsum("za,zyx->ayx", c["_Q"], h) * c["_inv_denom"]
+            return torch.einsum("za,ayx->zyx", c["_Q"], h)
+        h = torch.einsum("az,zyx->ayx", c["_Fz"], h) * c["_inv_denom"]
+        return torch.einsum("za,ayx->zyx", c["_Gz"], h)
+
+    def _backward(self, c, h):
+        h = torch.einsum("xk,zyk->zyx", c["_Gx"], h)
+        return torch.einsum("yk,zkx->zyx", c["_Gy"], h)
+
+
+class ShardedCuboid2DPoissonFastDiag(_ShardedFastDiag):
+    """Cuboid2DPoissonFastDiag on an ("x",) mesh: each shard contracts its
+    own x columns of F_x; the z eigentransform and the divide are the
+    eigen-space work; each shard applies its own rows of G_x."""
+
+    _cuts = {"_Fx": (1, "cols"), "_Gx": (0, "cols"), "_Q": None,
+             "_inv": None}
+
+    def _forward(self, c, x):
+        return torch.einsum("kx,zx->zk", c["_Fx"], x.to(c["_Fx"].dtype))
+
+    def _middle(self, c, h):
+        h = torch.einsum("za,zk->ak", c["_Q"], h) * c["_inv"]
+        return torch.einsum("za,ak->zk", c["_Q"], h)
+
+    def _backward(self, c, h):
+        return torch.einsum("xk,zk->zx", c["_Gx"], h)
+
+
+def make_sharded_poisson_solver(base, mesh):
+    """The sharded form of a fast diagonalization (``make_poisson_solver``'s
+    product) on the geometry's mesh."""
+    for single, sharded in (
+            (ShellPoissonFastDiag, ShardedShellPoissonFastDiag),
+            (AnnulusPoissonFastDiag, ShardedAnnulusPoissonFastDiag),
+            (CuboidPoissonFastDiag, ShardedCuboidPoissonFastDiag),
+            (Cuboid2DPoissonFastDiag, ShardedCuboid2DPoissonFastDiag)):
+        if type(base) is single:
+            return sharded(base, mesh)
+    raise ValueError(f"no sharded form of {type(base).__name__}")
 
 
 def _uniform_radial(geo: Geometry) -> bool:

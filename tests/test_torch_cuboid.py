@@ -48,7 +48,7 @@ from dycoreplanet_tpu.solvers import spectral as j_spec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid import factory as t_factory
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_CUBOID
+from dycoreplanet_tpu_torch.models.boussinesq import MESH_PATHS
 from dycoreplanet_tpu_torch.models.convert import (
     state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops import stencil as st
@@ -507,9 +507,10 @@ def test_state_carried_across_as_numpy(jax_runs, case):
 
 
 def test_prepare_sharded_refuses_the_cuboid():
-    """The cuboid on a mesh is refused under its own ROADMAP title
-    (Queue 1 item 10); the standard personality reaches that check."""
-    tm = _model("default")
-    mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("lat", "lon"))
-    with pytest.raises(NotImplementedError, match=MESH_CUBOID):
+    """The cuboid runs on its ("y", "x") mesh now; what it still refuses
+    there is ``helmholtz solver = direct``, under its own ROADMAP title
+    (Queue 1 item 10: direct and graph chunks on the mesh)."""
+    tm = _model("direct")
+    mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("y", "x"))
+    with pytest.raises(NotImplementedError, match=MESH_PATHS):
         tm.prepare_sharded(mesh)

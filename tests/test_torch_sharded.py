@@ -44,7 +44,7 @@ from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.entry import dryrun_multichip
 from dycoreplanet_tpu_torch.models import BoussinesqModel
 from dycoreplanet_tpu_torch.models.boussinesq import (
-    MESH_ANNULUS, MESH_PATHS, MESH_SPECTRAL)
+    MESH_PATHS, MESH_SPECTRAL)
 from dycoreplanet_tpu_torch.models.convert import (
     sharded_state_from_numpy, state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops.forcing import ShellForcing, halo_shapes
@@ -420,7 +420,8 @@ def test_interval_mode_runs_per_step_checks_on_the_mesh():
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"space_dimension": 2}, MESH_ANNULUS),
+    ({"space_dimension": 2, "numerics.helmholtz_solver": "direct"},
+     MESH_PATHS),
     ({"numerics.helmholtz_solver": "direct"}, MESH_PATHS),
     ({"stretched": True}, MESH_SPECTRAL),
 ])
