@@ -281,17 +281,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      K4 against its plain version in f32 and f64, nothing copied; (e) one
      f64 mesh step of each on the card against the CPU; (f) a sharded
      checkpoint of each restored bitwise;
- 16. one JSON line with every kernel's numbers (the bf16 forms under
+ 16. direct Helmholtz and the spectral CG on the mesh, and the mesh's
+     communication ledger (every shard on the one card, f32 unless
+     named): (a) the flagship with `helmholtz solver = direct` on 2x4, 5
+     steps through run against one device's (escalations equal, within
+     1e-4 of max|u|, K4 2 a step as on one device, K2o 8 a step, K1o 0),
+     one step profiled; (b) the annulus prm at 256x3072 direct on 8 phi
+     shards, the same; (c) the 128^3 box direct on 2x4, 2 steps, K4 0;
+     (d) the stretched shell at 32x128x256 on 2x4, 2 steps, each step's
+     Poisson CG count against one device's (equal or one apart, the
+     difference printed), K4 the iterations + 1; (e) the comm ledger of
+     one step of (a), (b), (d) and of the default 2x4 step, count and
+     bytes per op; (f) f64 card vs CPU of each new sharded solver
+     (1e-12);
+ 17. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
 """
 
+import atexit
 import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -310,8 +325,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(msg: str) -> None:
-    print(f"chip_smoke: {msg}", flush=True)
+    """One progress line, led by the seconds since the script started."""
+    print(f"chip_smoke: [{time.perf_counter() - _T0:6.1f} s] {msg}",
+          flush=True)
 
 
 def bound_of(n_bytes, n_ops):
@@ -1607,18 +1627,73 @@ OUT_SHAPE = (32, 128, 256)
 OUT_DT = 0.0005
 
 
+def cli_runs(jobs, timeout=600):
+    """``python -m dycoreplanet_tpu_torch -p prm argv`` for every (label,
+    prm, argv) of ``jobs``, all started together (each process spends
+    most of its seconds on the host, starting up); waits for all of them
+    and kills any still running at ``timeout`` seconds. Returns [(rc,
+    stdout, stderr)] in the order of ``jobs``."""
+    procs = []
+    for label, prm, argv in jobs:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm]
+            + argv, cwd=HERE, stdout=out, stderr=err, text=True), out, err))
+    t_end = time.perf_counter() + timeout
+    results = []
+    for proc, out, err in procs:
+        try:
+            rc = proc.wait(timeout=max(t_end - time.perf_counter(), 0.1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        texts = []
+        for f in (out, err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        results.append((rc, *texts))
+    return results
+
+
+# the CLI runs of phases 8-10 that need nothing of their phase, started
+# side by side with phase 7's: {label: (rc, stdout, stderr)}, and
+# ["the directory they wrote in"]; empty where a phase runs alone
+CLI_AHEAD = {}
+CLI_AHEAD_DIR = []
+
+
+def cli_dir():
+    """The directory a phase's CLI jobs write in: the one of the runs
+    started ahead, or a new temporary one."""
+    import contextlib
+
+    if CLI_AHEAD_DIR:
+        return contextlib.nullcontext(CLI_AHEAD_DIR[0])
+    return tempfile.TemporaryDirectory()
+
+
+def run_clis(jobs, timeout=600):
+    """cli_runs(jobs), taking a job's run from CLI_AHEAD where it was
+    started ahead; fails unless every run exits with rc 0 and none
+    escalated. Returns their stdouts."""
+    ahead = [CLI_AHEAD.pop(label, None) for label, _, _ in jobs]
+    fresh = iter(cli_runs([j for j, a in zip(jobs, ahead) if a is None],
+                          timeout))
+    runs = [a if a is not None else next(fresh) for a in ahead]
+    outs = []
+    for (label, _, _), (rc, out, err) in zip(jobs, runs):
+        if rc != 0:
+            fail(f"CLI ({label}) rc {rc}:\n{out[-2000:]}\n{err[-2000:]}")
+        if "retrying chunk with full CG" in err:
+            fail(f"CLI ({label}) escalated:\n{err[-2000:]}")
+        outs.append(out)
+    return outs
+
+
 def run_cli(label, prm, argv, timeout=600):
-    """``python -m dycoreplanet_tpu_torch -p prm argv`` on the card; fails
-    unless rc 0. Returns its stdout."""
-    cli = subprocess.run(
-        [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm] + argv,
-        cwd=HERE, capture_output=True, text=True, timeout=timeout)
-    if cli.returncode != 0:
-        fail(f"CLI ({label}) rc {cli.returncode}:\n{cli.stdout[-2000:]}\n"
-             f"{cli.stderr[-2000:]}")
-    if "retrying chunk with full CG" in cli.stderr:
-        fail(f"CLI ({label}) escalated:\n{cli.stderr[-2000:]}")
-    return cli.stdout
+    """run_clis of one run: its stdout."""
+    return run_clis([(label, prm, argv)], timeout)[0]
 
 
 def out_prm(tmp, src, outdir, extra=""):
@@ -1676,9 +1751,11 @@ def same_file(a, b):
         return f.read() == g.read()
 
 
-def cli_output_phase(tmp):
+def cli_output_phase(tmp, side_jobs=()):
     """Phase 7b: the CLI with output at 32x128x256 f32 on the card, a
-    fixed dt; every file in ``tmp``. Returns the numbers it printed."""
+    fixed dt; every file in ``tmp``. Its runs but (b) go side by side
+    with ``side_jobs`` (cli_runs jobs, phase 7's). Returns (the numbers
+    it printed, cli_runs of side_jobs)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -1697,10 +1774,28 @@ def cli_output_phase(tmp):
     ck = lambda k, n: os.path.join(d[k], f"boussinesq_ckpt_{n:06d}.npz")
     vts = lambda k, n: os.path.join(d[k], f"boussinesq_{n:06d}.vts")
 
-    # (a) per step, checkpoints every 2, the mesh, a profiler trace
-    out_a = run_cli("7b a", out_prm(tmp, classic, d["a"], extra),
-                    ["--max-steps", "4", "--checkpoint-every", "2",
-                     "--write-mesh", "--profile", prof["a"]])
+    own = [
+        # (a) per step, checkpoints every 2, the mesh, a profiler trace
+        ("7b a", out_prm(tmp, classic, d["a"], extra),
+         ["--max-steps", "4", "--checkpoint-every", "2", "--write-mesh",
+          "--profile", prof["a"]]),
+        # (c) graph chunks of 2: the same file at step 4
+        ("7b c", out_prm(tmp, classic, d["c"], extra),
+         ["--chunk", "2", "--max-steps", "4"]),
+        # (d) level 3: the trails, on the unfused branch (no K1)
+        ("7b d", out_prm(tmp, classic, d["d"], extra + level3),
+         ["--max-steps", "2", "--no-output", "--profile", prof["d"]]),
+        # (e) the annulus prm with output and checkpoints
+        ("7b e", out_prm(
+            tmp, os.path.join(HERE, "data", "aqua_planet_test_2d.prm"),
+            d["e"]), ["--max-steps", "4", "--checkpoint-every", "2"])]
+    # all but (b), which restarts from (a), side by side with side_jobs
+    runs = cli_runs(own + list(side_jobs))
+    side = runs[len(own):]
+    for (label, _, _), (rc, out, err) in zip(own, runs):
+        if rc != 0 or "retrying chunk with full CG" in err:
+            fail(f"CLI ({label}) rc {rc}:\n{out[-2000:]}\n{err[-2000:]}")
+    out_a, _, out_d, out_e = [out for _, out, _ in runs[:len(own)]]
     divs = [float(ln.split(":")[-1]) for ln in out_a.splitlines()
             if "Post-projection max |div u|" in ln]
     if len(divs) != 4 or not all(np.isfinite(x) and x <= 1e-4
@@ -1751,18 +1846,11 @@ def cli_output_phase(tmp):
           "ckpt_000002 is (a)'s ckpt_000004 bitwise (u, faces, p, T, "
           "time, step_number)")
 
-    # (c) graph chunks of 2: the same file at step 4
-    run_cli("7b c", out_prm(tmp, classic, d["c"], extra),
-            ["--chunk", "2", "--max-steps", "4"])
     if not same_file(vts("c", 4), vts("a", 4)):
         fail("7b c: boussinesq_000004.vts of --chunk 2 differs from (a)'s")
     phase("7b (c) --chunk 2 (graph chunks): boussinesq_000004.vts is "
           "(a)'s byte for byte, 0 escalations")
 
-    # (d) level 3: the trails, on the unfused branch (no K1)
-    out_d = run_cli("7b d", out_prm(tmp, classic, d["d"], extra + level3),
-                    ["--max-steps", "2", "--no-output", "--profile",
-                     prof["d"]])
     for name in ("helmholtz richardson", "temperature richardson"):
         n = out_d.count(f"   [{name}] ||r|| trail (2 its): ")
         if n != 2:
@@ -1776,10 +1864,6 @@ def cli_output_phase(tmp):
     phase(f"7b (d) solver diagnostics level 3, 2 steps: {trail[:2]}; the "
           f"trace names forcing_kernel and correct_kernel, not rich_fused")
 
-    # (e) the annulus prm with output and checkpoints
-    out_e = run_cli("7b e", out_prm(
-        tmp, os.path.join(HERE, "data", "aqua_planet_test_2d.prm"), d["e"]),
-        ["--max-steps", "4", "--checkpoint-every", "2"])
     files_e = sorted(os.listdir(d["e"]))
     if len([f for f in files_e if f.endswith(".vts")]) != 5 or \
             not os.path.exists(ck("e", 4)):
@@ -1807,14 +1891,17 @@ def cli_output_phase(tmp):
           f"{step_b:.1f} ms/step; .vts {nums['vts_bytes']} bytes, .npz "
           f"{nums['npz_bytes']} bytes")
     phase(f"7b phases {time.perf_counter() - t0:.1f} s")
-    return nums
+    return nums, side
 
 
 
 # ----------------------------------------------------------------- phase 8
 FEEC_PRM = "aqua_planet_shell_test_3d-feec.prm"
 # (a): FEEC 3x3 steps at the bench shape (the first counts host syncs)
-FEEC_STEPS = 3
+FEEC_STEPS = 2
+# (a): the outer cap of FEEC_PRM's physics, whose solve stalls at the
+# prm's cap of 512 (~25 host s a step on an NVIDIA H100 80GB HBM3 host)
+FEEC_PRM_CAP = 64
 # (b): the card against the CPU in f64
 FEEC_SMALL = (8, 16, 32)
 # (d): annulus coupled steps at work size
@@ -1896,6 +1983,14 @@ def annulus_coupled_params(dtype="float32", schur=True, **kw):
     return p
 
 
+def feec_cli_jobs(tmp=None):
+    """Phase 8 (f)'s CLI run: the prm as it is, whose final time lets one
+    step of dt 0.1 run (the CPU tests run it with --chunk too,
+    tests/test_torch_cli.py)."""
+    return [(FEEC_PRM, os.path.join(HERE, "data", FEEC_PRM),
+             ["--max-steps", "3", "--no-output"])]
+
+
 def feec_phases(dev):
     """Phase 8, the FEEC personality and the coupled solves (plain PyTorch:
     the JAX package runs no kernel in them) and the kernels they put on
@@ -1926,7 +2021,8 @@ def feec_phases(dev):
     # ---- (a) the FEEC 3x3 FGMRES at the bench shape ----------------------
     # with FEEC_PRM's physics (Re 100: the solve stalls at its cap of 512
     # outer iterations at this size, in f32 and f64, in the JAX model too;
-    # scripts/probe_coupled_gate.py) and with the flagship's (Re ~7e4), from
+    # scripts/probe_coupled_gate.py; here capped at FEEC_PRM_CAP, the same
+    # iterations fewer times) and with the flagship's (Re ~7e4), from
     # the seeded developed flow: FEEC_STEPS steps, the first with the
     # host syncs counted (it also pays cuBLAS's one-time set-up), the rest
     # timed; then one step under torch.profiler, for FEEC_PRM's physics
@@ -1941,6 +2037,8 @@ def feec_phases(dev):
         if m.momentum_solver != "coupled" or set(m.kernels()) != {"tridiag"}:
             fail(f"FEEC model: momentum solver {m.momentum_solver}, kernels "
                  f"{list(m.kernels())}")
+        if label == "FEEC prm":
+            m.params.numerics.max_cg_iters = FEEC_PRM_CAP
         s0 = seed_developed_flow(m)
         def first_step():
             out = m.step(s0, BENCH_DT)
@@ -1971,6 +2069,7 @@ def feec_phases(dev):
                   16 * float(torch.finfo(torch.float32).eps))
         phase(f"8 (a) FEEC 3x3 FGMRES {BENCH_SHAPE} = {n_cells} cells f32, "
               f"{label} physics (1/Re {m.one_over_Re:.3e}), dt {BENCH_DT}, "
+              f"outer cap {cap}, "
               f"seeded developed flow: {FEEC_STEPS} steps finite, "
               f"{solves(diags)} (outer rtol max(helmholtz tol, 16 eps) = "
               f"{tol:.3e}); host {ms_a:.2f} ms/step (steps 2-{FEEC_STEPS}, "
@@ -2097,10 +2196,7 @@ def feec_phases(dev):
     del sm
 
     # ---- (f) the CLI -----------------------------------------------------
-    # the prm as it is: its final time lets one step of dt 0.1 run (the
-    # CPU tests run it with --chunk too, tests/test_torch_cli.py)
-    out = run_cli(FEEC_PRM, os.path.join(HERE, "data", FEEC_PRM),
-                  ["--max-steps", "3", "--no-output"])
+    (out,) = run_clis(feec_cli_jobs())
     its = [ln.strip() for ln in out.splitlines() if "Solver iterations" in ln]
     divs = [ln.strip() for ln in out.splitlines() if "Post-projection" in ln]
     if len(divs) != 1 or "FEEC (rotational, coupled 3x3)" not in out:
@@ -2325,6 +2421,13 @@ def coupled_cube(dev, label, params, n, profile_cap=None):
                           gate=[d.solver_ok for d in diags])
 
 
+def cube_cli_jobs(tmp):
+    """Phase 9 (g)'s CLI run: CUBE_PRM with output into tmp/cube-out."""
+    outdir = os.path.join(tmp, "cube-out")
+    return [(CUBE_PRM, out_prm(tmp, os.path.join(HERE, "data", CUBE_PRM),
+                               outdir), ["--max-steps", "5"])]
+
+
 def cuboid_phases(dev):
     """Phase 9, the cuboid (plain PyTorch: the JAX package runs no Pallas
     kernel there) and K4 in CuboidPoissonDirect's layout: (a) K4 in that
@@ -2351,7 +2454,7 @@ def cuboid_phases(dev):
             ("cube_schur", "(b) cube Schur GMRES",
              cube_params(CUBE_SCHUR_REF), 2),
             ("cube_feec_3x3", "(c) cube FEEC 3x3 FGMRES",
-             cube_params(CUBE_3X3_REF, schur=False), 3)):
+             cube_params(CUBE_3X3_REF, schur=False), 2)):
         by_path[key], cells[key] = coupled_cube(
             dev, label, params, n,
             profile_cap=16 if key == "cube_feec_3x3" else None)
@@ -2505,11 +2608,9 @@ def cuboid_phases(dev):
         del cpu, card
 
     # ---- (g) the CLI with output -----------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        outdir = os.path.join(tmp, "cube-out")
-        prm = out_prm(tmp, os.path.join(HERE, "data", CUBE_PRM), outdir)
-        out = run_cli(CUBE_PRM, prm, ["--max-steps", "5"])
-        files = sorted(os.listdir(outdir))
+    with cli_dir() as tmp:
+        (out,) = run_clis(cube_cli_jobs(tmp))
+        files = sorted(os.listdir(os.path.join(tmp, "cube-out")))
         want = [f"boussinesq_{k:06d}.vts" for k in range(6)]
         if "Geometry               : cuboid" not in out or [
                 f for f in files if f.endswith(".vts")] != want \
@@ -2528,14 +2629,36 @@ def cuboid_phases(dev):
 # ---------------------------------------------------------------- phase 10
 # (a), (b): mimetic steps through run a case; (d): Poisson CG steps
 MIM_STEPS = 3
-MG_STEPS = 3
+MG_STEPS = 2
 # a profiled step with more CG iterations than this runs with the cap at
 # this many, its device ms then the profiled ms an iteration times the
 # step's iterations (a 500-iteration step holds ~10^5 kernels, whose
-# profile takes minutes to read)
-PROFILE_ITER_CAP = 64
+# profile takes minutes to read; the shell's 11-iteration MG-CG step
+# holds 51,476, ~20 host s of reading)
+PROFILE_ITER_CAP = 4
 # (c): the card against the CPU in f64, one step a geometry
 MIM_F64_TOL = 1e-12
+
+
+# (e): the CLI's prm additions
+MIM_STAGGERED = ("subsection Numerics\n  set feec formulation = staggered\n"
+                 "end\n")
+MIM_FIXED = ("subsection Boussinesq Model\n  set adapt time step = false\n"
+             "  set time step = 0.01\n  set final time = 10\nend\n")
+
+
+def mimetic_cli_jobs(tmp):
+    """Phase 10 (e)'s first two CLI runs, FEEC_PRM with `feec formulation
+    = staggered`: 3 steps without output, and 4 at a fixed dt with a
+    checkpoint every step into tmp/mim-a (whose step 2 (e) restarts
+    from)."""
+    src = os.path.join(HERE, "data", FEEC_PRM)
+    return [("10 (e) mimetic", out_prm(tmp, src, os.path.join(tmp, "mim"),
+                                       MIM_STAGGERED),
+             ["--max-steps", "3", "--no-output"]),
+            ("10 (e) a", out_prm(tmp, src, os.path.join(tmp, "mim-a"),
+                                 MIM_STAGGERED + MIM_FIXED),
+             ["--max-steps", "4", "--checkpoint-every", "1"])]
 
 
 def mimetic(params):
@@ -2968,25 +3091,18 @@ def mimetic_phases(dev):
         del m
 
     # ---- (e) the CLI ------------------------------------------------------
-    staggered = ("subsection Numerics\n  set feec formulation = staggered\n"
-                 "end\n")
-    fixed = ("subsection Boussinesq Model\n  set adapt time step = false\n"
-             "  set time step = 0.01\n  set final time = 10\nend\n")
-    with tempfile.TemporaryDirectory() as tmp:
+    with cli_dir() as tmp:
         src = os.path.join(HERE, "data", FEEC_PRM)
-        out = run_cli("10 (e) mimetic", out_prm(
-            tmp, src, os.path.join(tmp, "mim"), staggered),
-            ["--max-steps", "3", "--no-output"])
+        d = {k: os.path.join(tmp, f"mim-{k}") for k in "ab"}
+        ck = lambda k, n: os.path.join(d[k], f"boussinesq_ckpt_{n:06d}.npz")
+        # the first two side by side
+        out, _ = run_clis(mimetic_cli_jobs(tmp))
         if "Formulation            : FEEC mimetic (staggered C-grid)" \
                 not in out:
             fail("10 (e) CLI: no mimetic personality line")
         divs = [ln.strip() for ln in out.splitlines() if "Post-projection" in ln]
-        d = {k: os.path.join(tmp, f"mim-{k}") for k in "ab"}
-        ck = lambda k, n: os.path.join(d[k], f"boussinesq_ckpt_{n:06d}.npz")
-        run_cli("10 (e) a", out_prm(tmp, src, d["a"], staggered + fixed),
-                ["--max-steps", "4", "--checkpoint-every", "1"])
         out_b = run_cli("10 (e) b", out_prm(tmp, src, d["b"],
-                                            staggered + fixed),
+                                            MIM_STAGGERED + MIM_FIXED),
                         ["--restart", ck("a", 2), "--max-steps", "2",
                          "--checkpoint-every", "1"])
         if f"Restarted from {ck('a', 2)} at step 2" not in out_b:
@@ -4223,6 +4339,8 @@ def bf16_phases(dev, s_f32):
 
 # phase 13: the steps of each Krylov check, and the meshes of (a)
 KRYLOV_MESH_STEPS = 5
+# (c): the steps of `poisson solver = cg` on the mesh
+KRYLOV_MESH_CG_STEPS = 2
 KRYLOV_MESH_MIM_STEPS = 3
 
 
@@ -4276,7 +4394,8 @@ def mesh_cg_phases(dev):
     miss): the escalations and the window left of one device's run, K2o (N_STEPS + escalations) * A*B times, K1o once a
     fast try, and a second run (a fresh model) bitwise the first; (c)
     `fixed solver iters` = 0 (all-CG) and `poisson solver = cg`,
-    KRYLOV_MESH_STEPS steps each on 2x2 against one device (the f32
+    KRYLOV_MESH_STEPS and KRYLOV_MESH_CG_STEPS steps on 2x2 against one
+    device (the f32
     Jacobi-CG Poisson solve stalls short of its tolerance: its max|div u|
     held to twice one device's); (d) one
     kernels=False step against the kernel path on 2x4 (within 1e-5 of
@@ -4429,8 +4548,11 @@ def mesh_cg_phases(dev):
         p.numerics.poisson_solver = "cg"
         return p
 
+    n_full = n
     for key, opts in (("all_cg", all_cg), ("poisson_cg", poisson_cg)):
         label = f"(c) {key} 2x2"
+        # the Jacobi-CG steps stall at 500 iterations, ~2 host s a step
+        n = KRYLOV_MESH_CG_STEPS if key == "poisson_cg" else n_full
         one_c = BoussinesqModel(opts(bench_params(BENCH_SHAPE)), device=dev)
         s_c1, d_c1 = steps(one_c, s0, n, "step")
         m = mesh_model(dev, (2, 2), options=opts)
@@ -4606,13 +4728,12 @@ def check_sharded_mg_k4(dev, m):
 def mesh_solve_phases(dev):
     """Phase 14: the multigrid and the coupled solves on the mesh at
     BENCH_SHAPE from the seeded flow, every shard on the one card: (a)
-    `poisson solver = mg`, f32, one step on 2x2 and one on 2x4 with the
-    CG capped at MG_COMPARE_CAP on both sides: K4 A*B x
+    `poisson solver = mg`, f32, one step on 2x2 and one on 2x4, the CG
+    capped at MG_COMPARE_CAP on both sides: K4 A*B x
     line_solves_per_cycle x (CG iterations + 1) times exactly, K2o and
-    K1o A*B times, the CG counts within 5% of one device's with the
-    radial-only rebuild (the f32 sums' order over ~215 iterations; equal
-    when capped), u and T within 1e-5 of max|u|, max|div u| within twice
-    one device's; one shard's K4 against its plain version; one V-cycle
+    K1o A*B times, the CG counts equal to one device's with the
+    radial-only rebuild, u and T within 1e-5 of max|u|, max|div u|
+    within twice one device's; one shard's K4 against its plain version; one V-cycle
     of the 2x4 step profiled (device ms, kernels, host launches, syncs,
     host ms) beside one device's; (b) the FEEC 3x3 with the flagship's
     physics on 2x4, one step from one device's first: the outer count
@@ -4673,14 +4794,12 @@ def mesh_solve_phases(dev):
 
     # ---- (a) poisson solver = mg on 2x2 and 2x4 -------------------------
     # relaxing along r alone the f32 MG-CG takes ~215 iterations a step
-    # where one device's two-axis V-cycle takes 11 (~70 host s a step on
-    # 2x4), and the step ends at max|div u| ~5.6e-4 on one device too. So
-    # 2x2 takes one whole step, its CG count held to within 5% of one
-    # device's (the f32 sums' order over ~215 iterations), its divergence
-    # to twice one device's; 2x4 one step with the CG capped at
-    # MG_COMPARE_CAP on both sides, equal counts; the profile reads a 2x4
-    # step capped at MG_PROFILE_CAP (one V-cycle), as phase 8 (a) caps the
-    # FEEC prm's
+    # where one device's two-axis V-cycle takes 11 (~13 host s a step on
+    # one device, ~74 on 2x2), and the step ends at max|div u| ~5.6e-4 on
+    # one device too. So each mesh takes one step with the CG capped at
+    # MG_COMPARE_CAP on both sides, equal counts, its divergence held to
+    # twice one device's; the profile reads a 2x4 step capped at
+    # MG_PROFILE_CAP (one V-cycle), as phase 8 (a) caps the FEEC prm's
     def capped(model, cap, fn):
         keep = model.params.numerics.max_cg_iters
         model.params.numerics.max_cg_iters = cap
@@ -4692,14 +4811,15 @@ def mesh_solve_phases(dev):
     one = radial_mg(BoussinesqModel(mg(bench_params(BENCH_SHAPE)),
                                     device=dev))
     s0 = seed_developed_flow(one)
-    (s_one, d_one), _, w_one = drive(one, lambda: steps(one, s0, 1))
-    cap_one = capped(one, MG_COMPARE_CAP, lambda: steps(one, s0, 1))
-    phase(f"14 (a) mg one device, radial-only V-cycle: CG iterations "
-          f"{d_one[0].poisson_iters}, max|div u| {d_one[0].div_norm:.3e}, "
-          f"{w_one * 1e3:.1f} host ms a step; capped at {MG_COMPARE_CAP}: "
-          f"max|div u| {cap_one[1][0].div_norm:.3e}" + since())
-    for (A, B), cap in (((2, 2), None), (MAIN_MESH, MG_COMPARE_CAP)):
-        label = f"(a) mg {A}x{B}" + (f", CG capped at {cap}" if cap else "")
+    cap_one, _, w_one = drive(one, lambda: capped(
+        one, MG_COMPARE_CAP, lambda: steps(one, s0, 1)))
+    phase(f"14 (a) mg one device, radial-only V-cycle, CG capped at "
+          f"{MG_COMPARE_CAP}: CG iterations {cap_one[1][0].poisson_iters}, "
+          f"max|div u| {cap_one[1][0].div_norm:.3e}, {w_one * 1e3:.1f} host "
+          f"ms a step" + since())
+    for (A, B), cap in (((2, 2), MG_COMPARE_CAP),
+                        (MAIN_MESH, MG_COMPARE_CAP)):
+        label = f"(a) mg {A}x{B}, CG capped at {cap}"
         m = mesh_model(dev, (A, B), options=mg)
         mgs = m._mesh.multigrid
         if m.sharded_kernels()["poisson"] != "mg-cg" or mgs.line_axes != [0]:
@@ -4707,10 +4827,9 @@ def mesh_solve_phases(dev):
                  f"{mgs.line_axes}")
         per_cycle = mgs.line_solves_per_cycle()
         st0 = shard_state(s0, m.geo, m._mesh.mesh)
-        run = ((lambda: steps(m, st0, 1)) if cap is None else
-               (lambda: capped(m, cap, lambda: steps(m, st0, 1))))
-        (sm, dm), counts, wall = drive(m, run)
-        want_s, want_d = (s_one, d_one) if cap is None else cap_one
+        (sm, dm), counts, wall = drive(m, lambda: capped(
+            m, cap, lambda: steps(m, st0, 1)))
+        want_s, want_d = cap_one
         its, its_one = dm[0].poisson_iters, want_d[0].poisson_iters
         cycles = its + 1
         want = {**{k: 0 for k in counts}, "forcing_operands": A * B,
@@ -4721,7 +4840,7 @@ def mesh_solve_phases(dev):
         du, u_sc, div = hold_mesh(
             label, unshard_state(sm), want_s, [dm[0].div_norm], tol=1e-5,
             div_tol=max(1e-4, 2 * want_d[0].div_norm), tag="14")
-        if abs(its - its_one) > (0 if cap else max(1, 0.05 * its_one)):
+        if its != its_one:
             fail(f"14 {label}: CG iterations {its}, one device {its_one}")
         launches[f"mg_mesh_{A}x{B}"] = counts
         phase(f"14 {label}: 1 step, launches {counts} ({A * B} shards x "
@@ -4796,7 +4915,15 @@ def mesh_solve_phases(dev):
             != "jnp":
         fail(f"14 (b) FEEC: {m.momentum_solver}, {m.sharded_kernels()}")
     stf = shard_state(sf1, m.geo, m._mesh.mesh)
-    (sm, dm), counts, wall = drive(m, lambda: steps(m, stf, 1))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_step():
+        ev[0].record()
+        out = steps(m, stf, 1)
+        ev[1].record()
+        return out
+
+    (sm, dm), counts, wall = drive(m, timed_step)
     if any(counts.values()):
         fail(f"14 (b) FEEC: launches {counts}, expected none")
     label = f"(b) FEEC 3x3 {MAIN_MESH[0]}x{MAIN_MESH[1]}"
@@ -4807,10 +4934,6 @@ def mesh_solve_phases(dev):
         fail(f"14 {label}: outer iterations {outer}, one device {outer_1}")
     _, syncs = count_syncs(lambda: m.step(stf, dt)[1].cfl)
     _, syncs_1 = count_syncs(lambda: one_f.step(sf1, dt)[1].cfl)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    m.step(stf, dt)[1].cfl
-    ev[1].record()
     torch.cuda.synchronize()
     launches["feec_mesh_2x4"] = counts
     phase(f"14 {label}: 1 step (flagship physics) from one device's "
@@ -4876,6 +4999,9 @@ GEO_STD_STEPS = 2
 # it opens: every step is a CG step
 GEO_STD_ESCALATIONS = 1
 GEO_MG_CAP = 8
+# (b): the outer cap of the cube's FEEC 3x3 on both sides (its step from
+# one device's first takes ~119 outer iterations, ~40 host s on 2x4)
+GEO_FEEC_CAP = 32
 # (c): the mimetic cases' sizes (`initial global refinement`, the slab's
 # shape) and steps
 GEO_MIM_REF = {"box": 6, "annulus": 6}
@@ -5086,12 +5212,13 @@ def geometry_mesh_phases(dev):
           f"{r['host_ms_one']:.1f})" + since())
     del r
 
-    one = BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False),
-                          device=dev)
+    one = BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False,
+                                      max_cg_iters=GEO_FEEC_CAP), device=dev)
     dt = one.params.time_step
     sf1, _ = one.step(one.initial_state(), dt)
     (sf_one, df_one), _, w1 = drive(one, lambda: steps(one, sf1, 1, dt))
-    m = on_mesh(BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False),
+    m = on_mesh(BoussinesqModel(cube_params(CUBE_3X3_REF, schur=False,
+                                            max_cg_iters=GEO_FEEC_CAP),
                                 device=dev), GEO_BOX_MESH)
     stf = shard_state(sf1, m.geo, m._mesh.mesh)
     ((sm, dm), counts, wall), syncs = count_syncs(
@@ -5105,7 +5232,8 @@ def geometry_mesh_phases(dev):
              f"launches {counts}")
     launches["cube_feec_mesh_2x4"] = counts
     phase(f"15 {label}: 1 step from one device's first, {outer} outer "
-          f"iterations (one device {outer_1}), max|u_mesh - u_one| "
+          f"iterations (one device {outer_1}; the cap {GEO_FEEC_CAP} on "
+          f"both), max|u_mesh - u_one| "
           f"{du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, gate "
           f"{dm[0].solver_ok}; {wall * 1e3:.1f} host ms (one device "
           f"{w1 * 1e3:.1f}), {syncs} host syncs" + since())
@@ -5257,6 +5385,310 @@ def geometry_mesh_phases(dev):
         del cpu, card
     phase(f"15 total {time.perf_counter() - t0:.1f} s")
     return launches, k4_row
+
+
+# ---------------------------------------------------------------- phase 16
+# direct Helmholtz and the spectral CG on the mesh, every shard on the one
+# card, f32 unless named: (a) the flagship with `helmholtz solver =
+# direct` on DIRECT_MESH, (b) the annulus prm at 256 x 3072 direct on
+# DIRECT_PHI_SHARDS phi shards, (c) the 128^3 box direct on DIRECT_MESH,
+# (d) the stretched shell at the bench shape on DIRECT_MESH; (e) the comm
+# ledger of one step of (a), (b), (d) and of the default DIRECT_MESH
+# step; (f) f64 card vs CPU of each new sharded solver
+DIRECT_MESH = (2, 4)
+DIRECT_PHI_SHARDS = 8
+DIRECT_STEPS = 5
+DIRECT_BOX_STEPS = 2
+DIRECT_STRETCHED_STEPS = 2
+
+
+def ledger_text(summary, field_bytes):
+    """A comm ledger's ops as "op count/bytes (per-shard fields)"."""
+    return "; ".join(
+        f"{op} {v['count']} / {v['bytes']} B ({v['bytes'] / field_bytes:.3f}"
+        f" fields)" for op, v in summary.items() if v["count"]) or "none"
+
+
+def direct_mesh_phases(dev):
+    """Phase 16: direct Helmholtz and the spectral CG on the mesh. (a) The
+    flagship (bench_params, 32 x 128 x 256, the seeded flow) with
+    `helmholtz solver = direct` on DIRECT_MESH, DIRECT_STEPS steps through
+    run against one device's run: escalations equal, u and T within 1e-4
+    of max|u|, max|div u| <= 1e-4, K4 a step as on one device (2), K2o A*B
+    a step, K1o and every single-device shell kernel 0; one step
+    profiled (device ms, kernels, host launches, host syncs). (b) The
+    annulus prm at 256 x 3072 direct on DIRECT_PHI_SHARDS phi shards, the
+    same checks (no K2o on the annulus). (c) The standard 128^3 box
+    direct on DIRECT_MESH, DIRECT_BOX_STEPS steps: K4 0 (matrix
+    products). (d) The bench model on the stretched shell at 32 x 128 x
+    256 on DIRECT_MESH, DIRECT_STRETCHED_STEPS steps from the seeded
+    flow: each step's Poisson CG count equal to one device's or one apart
+    (the knife edge of the sums' order, ROADMAP.md Queue 3: the
+    difference printed), K4 the iterations + 1 a step; one step
+    profiled. (e) The comm ledger (parallel/comm_analysis.py) of one step
+    of (a), (b), (d) and of the default step on DIRECT_MESH: no
+    all-gather and no all-to-all, the direct steps' and the stretched
+    shell's all-reduce bytes printed. (f) f64 card against the CPU for
+    each new sharded solver at a small size (the shell's and the box's on
+    2 x 2, the annulus's on 8 phi shards, the spectral CG on 2 x 2 with an
+    order-free right-hand side): within 1e-12 of the scale, equal CG
+    counts, K4 once a solve (the CG's iterations + 1), nothing copied.
+    Returns ({path: launches}, {name: numbers})."""
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.models import BoussinesqModel
+    from dycoreplanet_tpu_torch.models.presets import (
+        BENCH_SHAPE, bench_params, seed_developed_flow, stretched_shell)
+    from dycoreplanet_tpu_torch.parallel import comm_analysis as comm
+    from dycoreplanet_tpu_torch.parallel.mesh import (
+        shard_field, shard_state, unshard_field, unshard_state)
+    from dycoreplanet_tpu_torch.solvers import spectral
+    from dycoreplanet_tpu_torch.solvers.helmholtz import (
+        make_sharded_helmholtz_solver)
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    launches, numbers, ledgers = {}, {}, {}
+
+    def label_of(model):
+        return label_of_mesh(model._mesh.mesh)
+
+    def profile(m, st, dt):
+        """One mesh step's device ms, kernels, host launches, host syncs
+        and host ms."""
+        prof = step_profile(lambda: m.step(st, dt)[1].cfl, 1)
+        _, syncs = count_syncs(lambda: m.step(st, dt)[1].cfl)
+        _, _, wall = drive(m, lambda: m.step(st, dt)[1].cfl)
+        return dict(device_ms=prof["device_ms_per_step"],
+                    kernels=prof["kernels_per_step"],
+                    host_launches=prof["host_launches_per_step"],
+                    syncs=syncs, host_ms=wall * 1e3,
+                    busy=prof["busy_share"],
+                    k4_ms=prof["kernel_ms_per_step"].get("tridiag", 0.0),
+                    counts=prof["counts"])
+
+    def prof_text(p):
+        return (f"{p['device_ms']:.3f} device ms in {p['kernels']:.0f} "
+                f"kernels (K4 {p['k4_ms']:.4f} ms), {p['host_launches']:.0f} "
+                f"host launches, {p['syncs']} host syncs, {p['host_ms']:.1f} "
+                f"host ms, busy {p['busy']:.3f}")
+
+    def run_pair(tag, make, mesh_of, n, state_of=None, want=None):
+        """n steps through run of one device and of its mesh from the same
+        state: escalations equal, within 1e-4, K4 launches equal to one
+        device's, every other wrapper as ``want`` (else 0). Returns (mesh
+        model, its last state, numbers)."""
+        one = make()
+        m = make()
+        m.prepare_sharded(mesh_of(m.geo))
+        s0 = state_of(one) if state_of else one.initial_state()
+        st0 = shard_state(s0, m.geo, m._mesh.mesh)
+        (s1, h1), c1, w1 = drive(one, lambda: one.run(max_steps=n, state=s0))
+        (sm, hm), cm, wm = drive(m, lambda: m.run(max_steps=n, state=st0))
+        label = f"{tag} {m.geo.cell_shape} {label_of(m)}"
+        if m.escalations != one.escalations:
+            fail(f"16 {label}: {m.escalations} escalation(s), one device "
+                 f"{one.escalations}")
+        du, u_sc, div = hold_mesh(label, unshard_state(sm), s1,
+                                  [h["div_norm"] for h in hm], tag="16")
+        expect = {**{k: 0 for k in cm}, **(want or {}),
+                  "tridiag": c1["tridiag"]}
+        if cm != expect:
+            fail(f"16 {label}: launches {cm}, expected {expect} (one "
+                 f"device {c1})")
+        its = [(h["poisson_iters"], h["temperature_iters"]) for h in hm]
+        its1 = [(h["poisson_iters"], h["temperature_iters"]) for h in h1]
+        if its != its1:
+            fail(f"16 {label}: Krylov {its}, one device {its1}")
+        r = dict(escalations=m.escalations, du=du / u_sc, div=div,
+                 launches=cm, launches_one=c1, host_ms=wm / n * 1e3,
+                 host_ms_one=w1 / n * 1e3, its=its)
+        phase(f"16 {label}: {n} steps through run, {m.escalations} "
+              f"escalation(s) (one device {one.escalations}), max|u_mesh - "
+              f"u_one| {du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, "
+              f"launches {cm} (one device {c1}), Krylov (poisson, "
+              f"temperature) {its}; {r['host_ms']:.1f} host ms a step (one "
+              f"device {r['host_ms_one']:.1f})" + since())
+        return m, sm, r
+
+    # ---- (a) the flagship, direct, on DIRECT_MESH ----------------------
+    A, B = DIRECT_MESH
+    shell_mesh = lambda geo: geo_mesh(dev, geo, DIRECT_MESH)  # noqa: E731
+    make_a = lambda: BoussinesqModel(direct_params(bench_params(  # noqa
+        BENCH_SHAPE)), device=dev)
+    m, st, r = run_pair("(a) flagship direct", make_a, shell_mesh,
+                        DIRECT_STEPS, seed_developed_flow,
+                        {"forcing_operands": A * B * DIRECT_STEPS})
+    if r["launches"]["tridiag"] != 2 * DIRECT_STEPS:
+        fail(f"16 (a): K4 {r['launches']['tridiag']} in {DIRECT_STEPS} "
+             f"steps, expected {2 * DIRECT_STEPS}")
+    dt = m.params.time_step
+    r["profile"] = profile(m, st, dt)
+    phase(f"16 (a) one direct {A}x{B} step profiled: "
+          f"{prof_text(r['profile'])}; the profiler's hand kernels "
+          f"{r['profile']['counts']}" + since())
+    ledgers["flagship direct"] = (comm.step_comm_summary(m, st, dt),
+                                  m.geo, m._mesh.mesh)
+    launches[f"direct_mesh_{A}x{B}"] = r["launches"]
+    numbers["flagship_direct"] = r
+    del m, st
+
+    # ---- (b) the annulus prm direct on DIRECT_PHI_SHARDS ---------------
+    make_b = lambda: BoussinesqModel(annulus_params(  # noqa: E731
+        helmholtz_solver="direct"), device=dev)
+    m, st, r = run_pair("(b) annulus direct", make_b,
+                        lambda geo: geo_mesh(dev, geo, DIRECT_PHI_SHARDS),
+                        DIRECT_STEPS)
+    dt = m.params.time_step
+    r["profile"] = profile(m, st, dt)
+    phase(f"16 (b) one annulus direct step profiled: "
+          f"{prof_text(r['profile'])}" + since())
+    ledgers["annulus direct"] = (comm.step_comm_summary(m, st, dt), m.geo,
+                                 m._mesh.mesh)
+    launches[f"annulus_direct_mesh_{DIRECT_PHI_SHARDS}"] = r["launches"]
+    numbers["annulus_direct"] = r
+    del m, st
+
+    # ---- (c) the 128^3 box direct on DIRECT_MESH -----------------------
+    make_c = lambda: BoussinesqModel(cube_params(  # noqa: E731
+        CUBE_STD_REF, feec=False, helmholtz_solver="direct"), device=dev)
+    m, st, r = run_pair("(c) box direct", make_c, shell_mesh,
+                        DIRECT_BOX_STEPS)
+    if r["launches"]["tridiag"]:
+        fail(f"16 (c): K4 {r['launches']['tridiag']}, expected 0")
+    launches[f"box_direct_mesh_{A}x{B}"] = r["launches"]
+    numbers["box_direct"] = r
+    del m, st
+
+    # ---- (d) the stretched shell on DIRECT_MESH ------------------------
+    geo_s = stretched_shell(BENCH_SHAPE)
+    one = BoussinesqModel(bench_params(BENCH_SHAPE), geometry=geo_s,
+                          device=dev)
+    m = BoussinesqModel(bench_params(BENCH_SHAPE), geometry=geo_s,
+                        device=dev).prepare_sharded(shell_mesh(geo_s))
+    if type(m._mesh.poisson).__name__ != "ShardedShellPoissonSpectral":
+        fail(f"16 (d): the mesh's Poisson solve {type(m._mesh.poisson)}")
+    s1 = seed_developed_flow(one)
+    sm = shard_state(s1, m.geo, m._mesh.mesh)
+    dt = one.params.time_step
+    its, its1, k4m, k4o, walls = [], [], [], [], []
+    for _ in range(DIRECT_STRETCHED_STEPS):
+        (s1, d1), c1, _ = drive(one, lambda: one.step(s1, dt))
+        (sm, dm), cm, wm = drive(m, lambda: m.step(sm, dt))
+        its.append(dm.poisson_iters)
+        its1.append(d1.poisson_iters)
+        k4m.append(cm["tridiag"])
+        k4o.append(c1["tridiag"])
+        walls.append(wm * 1e3)
+    diff = [a - b for a, b in zip(its, its1)]
+    if any(abs(x) > 1 for x in diff) or k4m != [i + 1 for i in its]:
+        fail(f"16 (d) stretched: CG iterations {its}, one device {its1}; "
+             f"K4 {k4m} (one device {k4o})")
+    du, u_sc, div = hold_mesh("(d) stretched", unshard_state(sm), s1,
+                              [float(dm.div_norm)], tag="16")
+    prof_d = profile(m, sm, dt)
+    r = dict(its=its, its_one=its1, diff=diff, k4=k4m, k4_one=k4o,
+             du=du / u_sc, div=div, host_ms=walls, profile=prof_d)
+    apart = ("equal" if not any(diff) else
+             f"apart by {diff}: the knife edge of the sums' order, "
+             f"ROADMAP.md Queue 3")
+    phase(f"16 (d) stretched shell {geo_s.cell_shape} {A}x{B} "
+          f"(ShardedShellPoissonSpectral): {DIRECT_STRETCHED_STEPS} steps, "
+          f"Poisson CG iterations {its} (one device {its1}: {apart}), "
+          f"K4 {k4m} (one device {k4o}), max|u_mesh - u_one| "
+          f"{du / u_sc:.3e} of max|u|, max|div u| {div:.3e}, host ms "
+          f"{[round(w, 1) for w in walls]}; one step profiled: "
+          f"{prof_text(prof_d)}" + since())
+    ledgers["stretched shell"] = (comm.step_comm_summary(m, sm, dt),
+                                  m.geo, m._mesh.mesh)
+    launches[f"stretched_shell_mesh_{A}x{B}"] = {"tridiag": sum(k4m)}
+    numbers["stretched"] = r
+    del m, one, sm, s1
+
+    # ---- (e) the comm ledger -------------------------------------------
+    md = mesh_model(dev, DIRECT_MESH)
+    sd = shard_state(seed_developed_flow(md), md.geo, md._mesh.mesh)
+    ledgers["default"] = (comm.step_comm_summary(md, sd, md.params.time_step),
+                          md.geo, md._mesh.mesh)
+    del md, sd
+    numbers["ledgers"] = {}
+    for name, (summary, geo, mesh) in ledgers.items():
+        cells = int(np.prod(geo.cell_shape)) // int(np.prod(mesh.grid))
+        field = 4 * cells
+        if summary["all-gather"]["count"] or summary["all-to-all"]["count"]:
+            fail(f"16 (e) {name}: {summary}")
+        numbers["ledgers"][name] = dict(summary, per_shard_field_bytes=field)
+        phase(f"16 (e) the comm ledger of one {name} step on "
+              f"{label_of_mesh(mesh)}: {ledger_text(summary, field)}")
+
+    # ---- (f) f64: each new sharded solver on the card vs the CPU --------
+    worst = {}
+    for kind, make_p, shards in (
+            ("shell", lambda: direct_params(bench_params((8, 16, 32),
+                                                         "float64")), (2, 2)),
+            ("annulus", lambda: annulus_params(
+                "float64", refinement=GEO_F64_REF["annulus"],
+                helmholtz_solver="direct"), DIRECT_PHI_SHARDS),
+            ("box", lambda: cube_params(GEO_F64_REF["box"], "float64",
+                                        feec=False,
+                                        helmholtz_solver="direct"), (2, 2))):
+        cpu = BoussinesqModel(make_p(), device="cpu")
+        card = BoussinesqModel(make_p(), device=dev)
+        for attr, n_c in (("helmholtz_direct", cpu.geo.dim),
+                          ("temperature_direct", 1)):
+            b = torch.as_tensor(np.random.default_rng(4).standard_normal(
+                (n_c,) + cpu.geo.cell_shape))
+            mc = geo_mesh("cpu", cpu.geo, shards)
+            want = unshard_field(make_sharded_helmholtz_solver(
+                getattr(cpu, attr), mc).solve(shard_field(b, mc), 0.3))
+            mg = geo_mesh(dev, card.geo, shards)
+            tk = card._tridiag
+            tk.launches = tk.copies = 0
+            got = unshard_field(make_sharded_helmholtz_solver(
+                getattr(card, attr), mg).solve(shard_field(b.to(dev), mg),
+                                               0.3))
+            err = float((got.cpu() - want).abs().max() / want.abs().max())
+            k4_want = 0 if kind == "box" else 1
+            if not err <= 1e-12 or tk.launches != k4_want or tk.copies:
+                fail(f"16 (f) {kind} {attr} f64: card vs CPU {err:.3e} "
+                     f"(tol 1e-12), K4 {tk.launches} (expected {k4_want}), "
+                     f"copies {tk.copies}")
+            worst[f"{kind} {attr}"] = err
+    geo_f = stretched_shell((8, 16, 32))
+    gen = torch.Generator().manual_seed(19)
+    b = torch.randn(geo_f.cell_shape, generator=gen, dtype=torch.float64)
+    b = b - b.mean()
+    out = {}
+    for d in ("cpu", dev):
+        base = spectral.ShellPoissonSpectral(geo_f, dtype=np.float64,
+                                             rtol=1e-11, maxiter=300,
+                                             device=d)
+        mesh = geo_mesh(d, geo_f, (2, 2))
+        x, its_f = spectral.make_sharded_poisson_solver(base, mesh).solve(
+            shard_field(b.to(d), mesh))
+        out[str(d)] = (unshard_field(x).cpu(), its_f, base.tridiag)
+    (xc, ic, _), (xg, ig, tk) = out["cpu"], out[str(dev)]
+    err = float((xg - xc).abs().max() / xc.abs().max())
+    if ig != ic or not err <= 1e-12 or tk.launches != ig + 1 or tk.copies:
+        fail(f"16 (f) spectral CG f64: card {ig} iterations, CPU {ic}; "
+             f"{err:.3e} (tol 1e-12); K4 {tk.launches} (expected "
+             f"{ig + 1}), copies {tk.copies}")
+    worst["stretched spectral CG"] = err
+    numbers["f64"] = dict(worst, spectral_iterations=ig)
+    phase(f"16 (f) f64 card vs CPU, each sharded solver (max rel diff of "
+          f"the scale, tol 1e-12): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; the spectral CG {ig} iterations on both, K4 {ig + 1}, 0 "
+            f"copies" + since())
+    phase(f"16 total {time.perf_counter() - t0:.1f} s")
+    return launches, numbers
+
+
+def label_of_mesh(mesh):
+    """A mesh as "A x B" or "B <axis> shards"."""
+    if len(mesh.axis_names) == 1:
+        return f"{mesh.grid[1]} {mesh.axis_names[0]} shards"
+    return f"{mesh.grid[0]}x{mesh.grid[1]}"
 
 
 def main() -> None:
@@ -6036,6 +6468,7 @@ def main() -> None:
                 g.write(f.read() + "\n" + text)
         annulus = {name: os.path.join(HERE, "data", f"{name}.prm")
                    for name in ("aqua_planet", "aqua_planet_test_2d")}
+        jobs = []
         for label, prm, chunk in (
                 ("classic", classic, []), ("direct", prms["direct"], []),
                 ("classic --chunk 4", classic, ["--chunk", "4"]),
@@ -6050,20 +6483,27 @@ def main() -> None:
                  annulus["aqua_planet_test_2d"], ["--chunk", "4"])):
             steps = "8" if chunk else ("5" if "aqua_planet" in label
                                        else "3")
-            cli = subprocess.run(
-                [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm,
-                 "--max-steps", steps, "--no-output"] + chunk,
-                cwd=HERE, capture_output=True, text=True, timeout=600)
-            if cli.returncode != 0:
-                fail(f"CLI ({label}) rc {cli.returncode}:\n"
-                     f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
-            div_lines = [ln.strip() for ln in cli.stdout.splitlines()
+            jobs.append((label, prm,
+                         ["--max-steps", steps, "--no-output"] + chunk))
+        # ---- 7b. the CLI with output at work size, its first run side
+        # by side with the nine runs above and the CLI runs of phases
+        # 8-10 that need nothing of their phase (CLI_AHEAD) ------------
+        ahead_dir = tempfile.mkdtemp()
+        atexit.register(shutil.rmtree, ahead_dir, True)
+        CLI_AHEAD_DIR.append(ahead_dir)
+        ahead = (feec_cli_jobs() + cube_cli_jobs(ahead_dir)
+                 + mimetic_cli_jobs(ahead_dir))
+        _, side = cli_output_phase(tmp, jobs + ahead)
+        for (label, _, _), run in zip(ahead, side[len(jobs):]):
+            CLI_AHEAD[label] = run
+        for (label, _, _), (rc, out, err) in zip(jobs, side):
+            if rc != 0:
+                fail(f"CLI ({label}) rc {rc}:\n{out[-2000:]}\n"
+                     f"{err[-2000:]}")
+            div_lines = [ln.strip() for ln in out.splitlines()
                          if "Post-projection" in ln]
             phase(f"CLI ({label}) rc 0 ({len(div_lines)} step(s); last: "
                   f"{div_lines[-1] if div_lines else 'none'})")
-
-        # ---- 7b. the CLI with output at work size ------------------------
-        cli_output_phase(tmp)
 
     # ---- 8. the FEEC personality and the coupled solves ----------------
     feec_launches, feec_replays = feec_phases(dev)
@@ -6114,6 +6554,12 @@ def main() -> None:
     # ---- 15. the annulus, the 3D box and the 2D slab on their meshes --
     geo_mesh_launches, k4_geo = geometry_mesh_phases(dev)
     for label, counts in geo_mesh_launches.items():
+        record(label, counts)
+
+    # ---- 16. direct Helmholtz and the spectral CG on the mesh; the comm
+    # ledger ------------------------------------------------------------
+    direct_launches, direct_numbers = direct_mesh_phases(dev)
+    for label, counts in direct_launches.items():
         record(label, counts)
 
     # ---- report --------------------------------------------------------
@@ -6235,6 +6681,9 @@ def main() -> None:
         if solver == "ShellPoissonSpectral":
             paths["stretched_shell"] = rem_launches["stretched_shell"][
                 "tridiag"]
+            mesh_path = f"stretched_shell_mesh_{DIRECT_MESH[0]}x" \
+                        f"{DIRECT_MESH[1]}"
+            paths[mesh_path] = direct_launches[mesh_path]["tridiag"]
         report.append(dict(
             name=f"K4 tridiag ({solver} layout)", route="cuda",
             source="dycoreplanet_tpu_torch/csrc/tridiag.cu",
@@ -6249,6 +6698,11 @@ def main() -> None:
             library_ms=None, by_dtype=rows,
             launches_by_path=paths, replay_launches_by_path={},
             cells=rem_cells if solver == "ShellPoissonDirect" else {}))
+    # K4 on the mesh's direct and spectral paths (phase 16): one launch a
+    # solve on the one card, in one device's layout
+    next(r for r in report if r["name"] == "K4 tridiag")[
+        "mesh_direct"] = {k: v for k, v in direct_numbers.items()
+                          if k not in ("ledgers", "f64")}
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

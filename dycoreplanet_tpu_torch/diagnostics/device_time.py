@@ -158,11 +158,15 @@ def device_launches(fn, names: Iterable[str]):
     return out, count_kernels(prof, names)
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 50, warmup: int = 3,
+            host_budget_ms: float = 250.0) -> float:
     """Mean device time of one call (ms): one event pair around `reps`
     back-to-back calls after `warmup` calls. The calls are enqueued
     behind a device-side sleep longer than their enqueueing, so the
-    host's launch cost stays out of the interval."""
+    host's launch cost stays out of the interval. A call whose warm-up
+    took more than ``host_budget_ms / reps`` of host time (a plain
+    version of many small launches) is timed over fewer calls, as many
+    as fit in ``host_budget_ms``, and never fewer than 5."""
     if not _CYCLES_PER_MS:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -176,6 +180,8 @@ def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / warmup
+    reps = max(min(reps, 5),
+               min(reps, int(host_budget_ms / max(host_ms, 1e-6))))
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(_CYCLES_PER_MS[0] * (2 * host_ms * reps + 5)))

@@ -108,7 +108,13 @@ tests back every iteration, so their chunks run eagerly. On a mesh the
 V-cycle relaxes along the radial lines alone, as the JAX package's mesh
 rebuilds it, K4 on every shard's own columns (``ShardedPoissonMultigrid``;
 the shell and the annulus; the walled box's V-cycle smooths by Jacobi);
-the stretched shell's spectral CG is refused there.
+the stretched shell's spectral CG runs whole on every distinct device
+after one field-sized sum (``ShardedShellPoissonSpectral``). With
+``helmholtz solver = direct`` the mesh step runs the sharded direct
+solves (solvers/helmholtz.py: one field-sized sum, then K4 once a
+device on one device's layout; the box's matrix products), K3's plain
+faces and divergence, the sharded Poisson solve and the plain
+correction.
 
 This slice runs the 3D spherical shell, the 2D annulus and the cuboid,
 both personalities (FEEC in its collocated realization here, and in its
@@ -116,9 +122,9 @@ mimetic C-grid one, ``models/mimetic.py``, built by ``make_model``; the
 FEEC 3x3 solve and the rotational form need a 3D curl, so the 2D slab
 runs the collocated standard personality only, as in the JAX package),
 incremental projection or the coupled solves, with the Richardson/CG or
-the direct Helmholtz solves, and every Poisson strategy. Every other
-configuration raises ``NotImplementedError`` naming its ROADMAP.md item;
-none quietly runs another path.
+the direct Helmholtz solves, and every Poisson strategy, on one device
+and on the mesh. A parameter outside these raises ``NotImplementedError``
+(base/params.py); none quietly runs another path.
 """
 
 from __future__ import annotations
@@ -185,8 +191,9 @@ class _MeshStages(NamedTuple):
     richardson: object       # ShardedShellRichardson (K1o on every
                              # shard), or None where its gates fail or
                              # kernels=False: the plain solves
-    poisson: object          # ShardedShellPoissonFastDiag, or None
-                             # (poisson solver = cg: Jacobi-CG)
+    poisson: object          # the sharded fast diagonalization or
+                             # spectral CG, or None (poisson solver = cg
+                             # | mg)
     ops: object              # ShardedStep: the plain rest
     transport: object        # ShardedSemiLagrangian (SL: every step and
                              # substep) or ShardedPlainForcing (Eulerian:
@@ -200,6 +207,9 @@ class _MeshStages(NamedTuple):
                              # model
     multigrid: object = None  # ShardedPoissonMultigrid (poisson solver =
                              # mg): the CG's preconditioner
+    helmholtz: object = None  # the sharded direct momentum solve
+                             # (helmholtz solver = direct), else None
+    temperature: object = None  # the sharded direct temperature solve
 
 
 class StepDiagnostics:
@@ -273,17 +283,6 @@ class StepDiagnostics:
     @property
     def helmholtz_iters(self) -> np.ndarray:
         return self._h()[11:].astype(np.int32)
-
-
-# the ROADMAP.md items (Queue 1 item 10) that bring what the mesh step
-# refuses
-MESH_PATHS = "multi-device: direct and graph chunks on the mesh"
-MESH_SPECTRAL = "multi-device: the spectral-CG solve on the mesh"
-
-
-def _not_on_mesh(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} on a mesh is not ported yet "
-                               f"(ROADMAP.md: {item})")
 
 
 class _GridOps:
@@ -546,7 +545,8 @@ class BoussinesqModel:
         forcing as K2o (K2mo with the semi-Lagrangian
         transport) and, within its gates, the Richardson stage as K1o on
         every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
-        or, for ``poisson solver = mg``, CG preconditioned by the radial
+        (``ShardedShellPoissonSpectral`` on a stretched shell) or, for
+        ``poisson solver = mg``, CG preconditioned by the radial
         V-cycle on the shards (``_mesh_common``), as the JAX package's
         ``prepare_sharded`` on a platform that runs its kernels, the
         temperature transport on the shards. The models that run no
@@ -561,17 +561,17 @@ class BoussinesqModel:
         on escalated steps, in ``step_verbose`` and in temperature
         substeps the solves run plain on the shards (Richardson or
         Jacobi-CG; ``poisson solver = cg`` Jacobi-CG), as the JAX package
-        runs them through GSPMD. ``kernels=False`` (the JAX package's
-        ``prepare_sharded(mesh, pallas=False)``) runs the mesh step with no
-        hand kernel, on any device: K2o's and K2mo's plain versions on
-        every shard and the plain solves. ``step``, ``step_strong``,
+        runs them through GSPMD. With ``helmholtz solver = direct`` (no
+        K1o) the geometry's sharded direct solves run on every step,
+        escalated ones too, as on one device. ``kernels=False`` (the JAX
+        package's ``prepare_sharded(mesh, pallas=False)``) runs the mesh
+        step with no hand kernel, on any device: K2o's and K2mo's plain
+        versions on every shard and the plain solves. ``step``, ``step_strong``,
         ``step_verbose``, ``temperature_step``, ``run`` and ``multi_step``
         then take sharded states (``parallel.mesh.shard_state``); global
-        states still run the single-device step. What this slice does not
-        bring to the mesh raises NotImplementedError naming its ROADMAP.md
-        item; a mesh that does not divide the grid, and shards too thin
-        for the forcing's halos, raise ValueError, as in the JAX
-        package."""
+        states still run the single-device step. A mesh that does not
+        divide the grid, and shards too thin for the forcing's halos,
+        raise ValueError, as in the JAX package."""
         from dycoreplanet_tpu_torch.parallel.sharded_pallas import (
             ShardedPlainForcing, ShardedShellForcing)
         from dycoreplanet_tpu_torch.parallel.sharded_richardson import (
@@ -580,7 +580,7 @@ class BoussinesqModel:
             ShardedSemiLagrangian)
 
         num = self.params.numerics
-        poisson, ops, multigrid = self._mesh_common(mesh)
+        common = self._mesh_common(mesh)
         # the plain forcing (for the coupled solves and the rotational
         # form, which run no forcing kernel on one device either: the JAX
         # package's GSPMD path) and the Eulerian transport
@@ -596,17 +596,22 @@ class BoussinesqModel:
                 RuntimeWarning, stacklevel=2)
         transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
                      if self._semi_lagrangian is not None else plain)
-        self._mesh = _MeshStages(mesh, forcing, richardson, poisson, ops,
-                                 transport, bool(kernels),
-                                 plain_forcing=plain, multigrid=multigrid)
+        self._mesh = _MeshStages(mesh=mesh, forcing=forcing,
+                                 richardson=richardson, transport=transport,
+                                 kernels=bool(kernels), plain_forcing=plain,
+                                 **common)
         return self
 
-    def _mesh_common(self, mesh: Mesh):
-        """The refusals every personality's mesh shares, then its sharded
-        Poisson solve (None for the Krylov strategies), plain stages and,
-        for ``poisson solver = mg``, the sharded V-cycle (else None): the
-        model's ``poisson_precond`` is rebuilt with its line smoother on
-        the unsharded radial axis alone, as the JAX package's mesh
+    def _mesh_common(self, mesh: Mesh) -> dict:
+        """The stages every personality's mesh shares, as ``_MeshStages``
+        fields: the sharded Poisson solve (``poisson``: the geometry's
+        fast diagonalization or the stretched shell's spectral CG; None
+        for the Krylov strategies), the plain stages (``ops``), the
+        sharded direct Helmholtz solves (``helmholtz``, ``temperature``;
+        None without ``helmholtz solver = direct``) and, for ``poisson
+        solver = mg``, the sharded V-cycle (``multigrid``, else None):
+        the model's ``poisson_precond`` is rebuilt with its line smoother
+        on the unsharded radial axis alone, as the JAX package's mesh
         rebuilds it on every geometry (a line solve along a sharded axis
         would gather whole lines), and that V-cycle runs on the shards. A
         mesh whose axes are not the geometry's layout (parallel/mesh.py
@@ -615,17 +620,13 @@ class BoussinesqModel:
         from dycoreplanet_tpu_torch.parallel.mesh import mesh_axes
         from dycoreplanet_tpu_torch.parallel.sharded_step import (
             ShardedStep)
+        from dycoreplanet_tpu_torch.solvers.helmholtz import (
+            make_sharded_helmholtz_solver)
         from dycoreplanet_tpu_torch.solvers.multigrid import (
             ShardedPoissonMultigrid)
         from dycoreplanet_tpu_torch.solvers.spectral import (
             make_sharded_poisson_solver)
 
-        if getattr(self.poisson_spectral, "iterative", False):
-            # the JAX package leaves ShellPoissonSpectral to GSPMD
-            raise _not_on_mesh(MESH_SPECTRAL, "the spectral CG Poisson solve "
-                               "of a shell of non-uniform radial spacing")
-        if self.helmholtz_direct is not None:
-            raise _not_on_mesh(MESH_PATHS, "helmholtz solver = direct")
         if mesh.axis_names != mesh_axes(self.geo):
             raise ValueError(f"a {self.geo.kind} mesh has axes "
                              f"{mesh_axes(self.geo)}, not {mesh.axis_names}")
@@ -633,8 +634,8 @@ class BoussinesqModel:
             raise ValueError(f"the mesh's first shard lies on "
                              f"{mesh.device(0, 0)}, the model on "
                              f"{self.device}")
-        poisson = (make_sharded_poisson_solver(self.poisson_spectral, mesh)
-                   if self.poisson_spectral is not None else None)
+        sharded = lambda s, make: (  # noqa: E731
+            make(s, mesh) if s is not None else None)
         multigrid = None
         if self.poisson_precond is not None:
             radial = PoissonMultigrid(
@@ -643,7 +644,14 @@ class BoussinesqModel:
                 line_axes_allowed=(0,))
             multigrid = ShardedPoissonMultigrid(radial, mesh)
             self.poisson_precond = radial
-        return poisson, ShardedStep(self.geo, mesh, self), multigrid
+        return dict(
+            poisson=sharded(self.poisson_spectral,
+                            make_sharded_poisson_solver),
+            ops=ShardedStep(self.geo, mesh, self), multigrid=multigrid,
+            helmholtz=sharded(self.helmholtz_direct,
+                              make_sharded_helmholtz_solver),
+            temperature=sharded(self.temperature_direct,
+                                make_sharded_helmholtz_solver))
 
     def sharded_kernels(self) -> Dict[str, str]:
         """Which implementation each hot stage of the mesh step runs, as
@@ -1102,9 +1110,11 @@ class BoussinesqModel:
         """``_step_impl`` on a sharded state: K2o (or K2mo and the sharded
         semi-Lagrangian transport; their plain versions with
         ``kernels=False``), then K1o, or where K1o does not run (its gates,
-        ``kernels=False``, escalated steps, ``step_verbose``) the plain
-        solves on the shards: Richardson or Jacobi-CG momentum, K3's plain
-        version, and Richardson or Jacobi-CG temperature; the sharded
+        ``kernels=False``, escalated steps, ``step_verbose``,
+        ``helmholtz solver = direct``) the plain solves on the shards:
+        Richardson or Jacobi-CG momentum (the sharded direct solve of vol
+        rhs_u), K3's plain version, and Richardson, Jacobi-CG or the
+        sharded direct temperature solve; the sharded
         Poisson solve (under ``_force_cg`` CG preconditioned by it, as the
         JAX escalated step's ``_poisson_cg``; ``poisson solver = cg``
         Jacobi-CG, ``= mg`` CG preconditioned by the sharded V-cycle) and
@@ -1178,8 +1188,17 @@ class BoussinesqModel:
             ops = self._ops(rhs_u)
             rhs_T = T_adv.map(lambda t, v, o: v * t + kT * o, ops.vol,
                               ops.T_lap_offset)
-            u_star, helm_iters, helm_rnorm, helm_ok = \
-                self._helmholtz_solve(rhs_u, dt)
+            if mesh.helmholtz is not None:
+                # the direct solve of vol rhs_u (under _force_cg too, as
+                # on one device)
+                u_star = mesh.helmholtz.solve(
+                    rhs_u.map(lambda r, v: v[None] * r, ops.vol),
+                    self._product(dt, self.one_over_Re))
+                helm_iters, helm_rnorm, helm_ok = (
+                    -1, self._const(-1.0), self._const(True, torch.bool))
+            else:
+                u_star, helm_iters, helm_rnorm, helm_ok = \
+                    self._helmholtz_solve(rhs_u, dt)
             uf_star, rhs_phi = ops.faces_div(self.u_specs, u_star, dt)
             u_new, new_faces, p_new, div_new, poisson_iters, \
                 poisson_rnorm, poisson_ok = self._mesh_project(
@@ -1333,7 +1352,11 @@ class BoussinesqModel:
         iterations, residual_norm, converged); -1 = direct, not
         measured."""
         if self.temperature_direct is not None:
-            T_new = self.temperature_direct.solve(rhs_T[None], kT)[0]
+            if isinstance(rhs_T, Sharded):
+                T_new = self._mesh.temperature.solve(
+                    rhs_T.map(lambda t: t[None]), kT).map(lambda t: t[0])
+            else:
+                T_new = self.temperature_direct.solve(rhs_T[None], kT)[0]
             return (T_new, -1, self._const(-1.0),
                     self._const(True, torch.bool))
         ops = self._ops(rhs_T)

@@ -118,21 +118,23 @@ class MimeticBoussinesqModel(BoussinesqModel):
         ("phi",), the slab's ("x",); the JAX package runs the mimetic
         step there through GSPMD's plain path): the staggered operators
         on every shard's window (parallel/sharded_mimetic.py), the
-        momentum Jacobi-CG and the temperature solve on the shards, the
-        projection with the geometry's sharded fast solve (Jacobi-CG with
-        ``poisson solver = cg``) and the plain correction. The step runs no hand kernel, so
-        ``kernels`` changes nothing. Refuses what BoussinesqModel's mesh
-        refuses."""
+        momentum Jacobi-CG and the temperature solve on the shards (the
+        sharded direct solve with ``helmholtz solver = direct``, K4 once
+        a device), the projection with the geometry's sharded Poisson
+        solve (Jacobi-CG with ``poisson solver = cg``) and the plain
+        correction. The step runs no other hand kernel, so ``kernels``
+        changes nothing."""
         from dycoreplanet_tpu_torch.parallel.sharded_transport import (
             ShardedSemiLagrangian)
 
-        poisson, ops, multigrid = self._mesh_common(mesh)
+        common = self._mesh_common(mesh)
         stag = ShardedStaggered(self, mesh)
         transport = (ShardedSemiLagrangian(self._semi_lagrangian, mesh)
                      if self._semi_lagrangian is not None
                      else stag.transport)
-        self._mesh = _MeshStages(mesh, None, None, poisson, ops, transport,
-                                 False, stag, multigrid=multigrid)
+        self._mesh = _MeshStages(mesh=mesh, forcing=None, richardson=None,
+                                 transport=transport, kernels=False,
+                                 staggered=stag, **common)
         return self
 
     @property

@@ -15,7 +15,9 @@ boundary ring at lon + pi) is :func:`half_turn`. Every other sharded
 axis (the shell's lon, the box's y and x, the annulus's phi, the slab's
 x) is a periodic ring (``row_halo``, ``col_halo``). The rows are the
 cell arrays' axis -2 and the columns axis -1 (parallel/mesh.py: a
-one-axis mesh has one row of shards and pads no rows).
+one-axis mesh has one row of shards and pads no rows). Inside
+``comm_analysis.counting`` each move between shards reports itself as
+the collective the JAX package compiles it to.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from dycoreplanet_tpu_torch.parallel import comm_analysis as comm
 from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
 
 
@@ -53,6 +56,8 @@ def _permute(src: Sharded, mesh: Mesh, axis_name: str, perm) -> Sharded:
         at = (s, b) if ax == 0 else (a, s)
         return src[at].to(mesh.device(a, b))
 
+    if comm.active is not None and any(s != d for s, d in perm):
+        comm.active.record("collective-permute", comm.nbytes(src[0, 0]))
     return build(mesh, get)
 
 
@@ -89,6 +94,10 @@ def psum(x: Sharded, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
     total}. The sum runs in float32 at the least (bfloat16 partials are
     widened first)."""
     devs = mesh.distinct_devices()
+    if comm.active is not None:
+        t = x[0, 0]
+        comm.active.record("all-reduce", comm.nbytes(
+            t, torch.promote_types(t.dtype, torch.float32)))
     tot = None
     for _, t in x.items():
         t = t.to(devs[0], torch.promote_types(t.dtype, torch.float32))
@@ -100,6 +109,8 @@ def pmax(x: Sharded, mesh: Mesh) -> torch.Tensor:
     """The largest of equal-shaped partials, elementwise, on the first
     device."""
     dev = mesh.distinct_devices()[0]
+    if comm.active is not None:
+        comm.active.record("all-reduce", comm.nbytes(x[0, 0]))
     out = None
     for _, t in x.items():
         t = t.to(dev)
@@ -132,6 +143,8 @@ def half_turn(rows: Sharded, mesh: Mesh) -> Sharded:
     b + B/2 (a shard permute); for odd B the half turn falls inside a
     shard, and each shard's values come from two neighbouring shards
     (B = 1: the local roll by nlon/2)."""
+    if comm.active is not None and mesh.grid[1] > 1:
+        comm.active.record("collective-permute", comm.nbytes(rows[0, 0]))
     return build(mesh, lambda a, b: _half_turn_at(rows, mesh, a, b))
 
 
@@ -245,6 +258,11 @@ def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
             # ghost k (k = 1 nearest) mirrors interior row k - 1
             return _half_turn_at(rows, mesh, a, b).flip(ax)
 
+        if comm.active is not None and mesh.grid[1] > 1:
+            for rows in (first, last):   # the two pole closures' half turns
+                comm.active.record("collective-permute",
+                                   comm.nbytes(rows[0, 0]))
+
         def lat(a, b):
             lo_ab = pole(first, a, b) if a == 0 else lo[a, b]
             hi_ab = pole(last, a, b) if a == A - 1 else hi[a, b]
@@ -268,16 +286,21 @@ def _runs(idx, n: int) -> List[List[int]]:
     return out
 
 
-def window(x: Sharded, rows, cols, device) -> torch.Tensor:
+def window(x: Sharded, rows, cols, device, dest=None) -> torch.Tensor:
     """The global rows ``rows`` and columns ``cols`` (global indices of
     axes -2 and -1, any order) of a Sharded field, gathered onto
     ``device`` from the shards that own them (a copy a piece between
     cards, none on one device): each shard's window of
-    mesh.window_geometry."""
+    mesh.window_geometry. ``dest`` names the shard that takes it (the
+    all-gather's destination in ``comm_analysis``)."""
     nl, no = x[0, 0].shape[-2:]
     cruns = _runs(cols, no)
     parts = []
     for a, j0, j1 in _runs(rows, nl):
         row = [x[a, b][..., j0:j1, k0:k1].to(device) for b, k0, k1 in cruns]
         parts.append(row[0] if len(row) == 1 else torch.cat(row, dim=-1))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+    if comm.active is not None:
+        comm.active.record("all-gather", comm.nbytes(out),
+                           dest=(str(device), dest))
+    return out

@@ -148,7 +148,7 @@ class ShardedStaggered:
         the shard's block."""
         def one(a, b):
             w = self.windows[a, b]
-            out = fn(w, *(window(f, w.rows, w.cols, w.device)
+            out = fn(w, *(window(f, w.rows, w.cols, w.device, (a, b))
                           for f in fields))
             return out[..., w.crop[0], w.crop[1]].contiguous()
 

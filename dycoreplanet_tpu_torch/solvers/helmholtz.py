@@ -23,6 +23,14 @@ K4. Host setup is f64 numpy, identical to the JAX package's; the
 per-mode transforms are plain matrix products (``torch.einsum``) in
 full precision (the model disables TF32), and
 ``c`` enters only on the device side, so one solver serves every dt.
+
+On a mesh (``make_sharded_helmholtz_solver``) each solve is the sharded
+fast diagonalization's shape (solvers/spectral.py ``_ShardedFastDiag``):
+each shard contracts its own rows and columns of the transforms of the
+sharded axes, one field-sized fixed-order sum completes them, the
+middle (the radial systems through K4, in one device's layout, or on
+the box the z transform and the divide) runs once a distinct device,
+and each shard applies its own rows of the inverse transforms.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from dycoreplanet_tpu_torch.grid.geometry import Geometry
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
 from dycoreplanet_tpu_torch.ops.tridiag import TridiagSolve
 from dycoreplanet_tpu_torch.solvers.spectral import (
-    _conductance, _mu, _real_dft_pair, _uniform_radial,
+    _conductance, _mu, _real_dft_pair, _ShardedFastDiag, _uniform_radial,
     shell_lat_eigensystem)
 
 # wall-rule weight on the boundary diagonal of the 1D operator
@@ -307,6 +315,116 @@ class CuboidHelmholtzDirect:
         h = torch.einsum("xk,czyk->czyx", t["_Gx"], h)
         x = torch.einsum("yk,czkx->czyx", t["_Gy"], h)
         return x.to(b.dtype)
+
+
+class ShardedShellHelmholtzDirect(_ShardedFastDiag):
+    """ShellHelmholtzDirect on a ("lat", "lon") mesh: each shard contracts
+    its own lon columns of F and lat rows of V, the sum completes the
+    transformed right-hand side in one device's Thomas layout (nr, C, m,
+    s, k), K4 solves the radial systems v + c (trd + lam) (their
+    per-field wall rules) once a device, and each shard applies its own
+    rows of V and columns of G. ``solve(b, c)`` as the base's."""
+
+    _cuts = {"_F": (1, "cols"), "_G": (0, "cols"), "_V": (1, "rows"),
+             "_v": None, "_trd": None, "_lam": None, "_low": None,
+             "_up": None}
+
+    def __init__(self, base: ShellHelmholtzDirect, mesh):
+        super().__init__(base, mesh)
+        self.nm = base.nm
+        self.tridiag = base.tridiag
+
+    def solve(self, b, c: float):
+        return self._solve(b, c)[0]
+
+    def _forward(self, t, x):
+        nm = self.nm
+        bh = torch.einsum("kl,cijl->cijk", t["_F"], x.to(t["_F"].dtype))
+        bs = torch.stack([bh[..., :nm], bh[..., nm:]], dim=3)
+        return torch.einsum("kjm,cijsk->icmsk", t["_V"], bs).contiguous()
+
+    def _middle(self, t, yt, c):
+        diag = t["_v"] + c * (t["_trd"] + t["_lam"])
+        return self.tridiag(c * t["_low"], diag, c * t["_up"], yt)
+
+    def _backward(self, t, xt):
+        xs = torch.einsum("kjm,icmsk->cijsk", t["_V"], xt)
+        xk = torch.cat([xs[:, :, :, 0, :], xs[:, :, :, 1, :]], dim=3)
+        return torch.einsum("lk,cijk->cijl", t["_G"], xk).contiguous()
+
+
+class ShardedAnnulusHelmholtzDirect(_ShardedFastDiag):
+    """AnnulusHelmholtzDirect on a ("phi",) mesh (a 1 x B grid): each
+    shard contracts its own phi columns of F, the sum completes the
+    (C, nr, 2nm) transform, K4 solves the radial systems in one device's
+    layout (its (nr, C, 2nm) view) once a device, and each shard applies
+    its own rows of G."""
+
+    _cuts = {"_F": (1, "cols"), "_G": (0, "cols"), "_v": None,
+             "_trd": None, "_shift": None, "_low": None, "_up": None}
+
+    def __init__(self, base: AnnulusHelmholtzDirect, mesh):
+        super().__init__(base, mesh)
+        self.tridiag = base.tridiag
+
+    def solve(self, b, c: float):
+        return self._solve(b, c)[0]
+
+    def _forward(self, t, x):
+        return torch.einsum("kp,crp->crk", t["_F"],
+                            x.to(t["_F"].dtype)).contiguous()
+
+    def _middle(self, t, h, c):
+        diag = t["_v"] + c * (t["_trd"] + t["_shift"])
+        return self.tridiag(c * t["_low"], diag, c * t["_up"],
+                            torch.movedim(h, 1, 0))
+
+    def _backward(self, t, xt):
+        return torch.einsum("pk,crk->crp", t["_G"],
+                            torch.movedim(xt, 0, 1)).contiguous()
+
+
+class ShardedCuboidHelmholtzDirect(_ShardedFastDiag):
+    """CuboidHelmholtzDirect on a ("y", "x") mesh: each shard contracts
+    its own y rows of F_y and x columns of F_x; the z eigentransforms and
+    the divide by vol + c denomK are the middle, once a device (matrix
+    products only, no K4, as on one device); each shard applies its own
+    rows of G_x and G_y."""
+
+    _cuts = {"_Fy": (1, "rows"), "_Gy": (0, "rows"), "_Fx": (1, "cols"),
+             "_Gx": (0, "cols"), "_Q": None, "_denomK": None}
+
+    def __init__(self, base: CuboidHelmholtzDirect, mesh):
+        super().__init__(base, mesh)
+        self._vol = base._vol
+
+    def solve(self, b, c: float):
+        return self._solve(b, c)[0]
+
+    def _forward(self, t, x):
+        h = torch.einsum("ky,czyx->czkx", t["_Fy"], x.to(t["_Fy"].dtype))
+        return torch.einsum("kx,czyx->czyk", t["_Fx"], h)
+
+    def _middle(self, t, h, c):
+        h = torch.einsum("cza,czyx->cayx", t["_Q"], h)
+        h = h / (self._vol + c * t["_denomK"])
+        return torch.einsum("cza,cayx->czyx", t["_Q"], h)
+
+    def _backward(self, t, h):
+        h = torch.einsum("xk,czyk->czyx", t["_Gx"], h)
+        return torch.einsum("yk,czkx->czyx", t["_Gy"], h)
+
+
+def make_sharded_helmholtz_solver(base, mesh):
+    """The sharded form of ``make_helmholtz_solver``'s product on the
+    geometry's mesh."""
+    for single, sharded in (
+            (ShellHelmholtzDirect, ShardedShellHelmholtzDirect),
+            (AnnulusHelmholtzDirect, ShardedAnnulusHelmholtzDirect),
+            (CuboidHelmholtzDirect, ShardedCuboidHelmholtzDirect)):
+        if type(base) is single:
+            return sharded(base, mesh)
+    raise ValueError(f"no sharded form of {type(base).__name__}")
 
 
 def make_helmholtz_solver(geo: Geometry, wall_specs: Sequence[BCSpec],

@@ -33,10 +33,16 @@ parts as K4's pair axis, in one launch. ``ShellPoissonSpectral`` is the
 factory's solve for a shell with non-uniform radial spacing, where the
 radial conductances do not separate: CG over the lon modes (solvers/
 cg.py) preconditioned by the exact radial lines, K4 once an iteration.
+
+On a mesh (``make_sharded_poisson_solver``) each of the factory's
+solves is a ``_ShardedFastDiag``: the shards' partial forward
+transforms, one field-sized fixed-order sum, the middle (the divide, or
+the spectral CG whole) once a distinct device, the local backward.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Optional, Tuple
 
@@ -691,8 +697,9 @@ class _ShardedFastDiag:
     contracts its own rows and columns of the forward transforms of the
     sharded axes (``_forward``), and a fixed-order sum of the shards'
     partials (``halo.psum``) completes them. The eigen-space work
-    (``_middle``: the transforms of the unsharded axes and the divide)
-    gives the same result on every shard; it runs once for each distinct
+    (``_middle``: the transforms of the unsharded axes and the divide,
+    or a direct Helmholtz solve's radial systems, or a whole CG) gives
+    the same result on every shard; it runs once for each distinct
     device of the mesh, not once a shard (on one card the shards would
     repeat it). The backward transforms (``_backward``) are local: each
     shard applies its own rows of the inverse transforms. ``precision``
@@ -700,7 +707,8 @@ class _ShardedFastDiag:
     ``check_amp`` where it has one. A subclass names the base's host
     arrays it cuts (``_cuts``: name -> the axis of the array that runs
     over the sharded axis -2 or -1 of the cells, as "rows" / "cols", or
-    None for a replicated array)."""
+    None for a replicated array); a shard's constants also hold its
+    block's offsets (``"_at"``: (j0, k0))."""
 
     _cuts: dict = {}
 
@@ -709,7 +717,7 @@ class _ShardedFastDiag:
 
         self.geo = base.geo
         self.mesh = mesh
-        self.precision = base.precision
+        self.precision = getattr(base, "precision", None)
         if hasattr(base, "check_amp"):
             self.check_amp = base.check_amp
         nl, no = local_shape(base.geo, mesh)[-2:]
@@ -730,7 +738,7 @@ class _ShardedFastDiag:
         c = self._dev.get(key)
         if c is None:
             j0, k0 = self._offsets[a, b]
-            c = {}
+            c = {"_at": (j0, k0)}
             for name, x in self._host.items():
                 cut = self._cuts[name]
                 if cut is not None:
@@ -738,12 +746,23 @@ class _ShardedFastDiag:
                     start = j0 if which == "rows" else k0
                     x = np.take(x, np.arange(start, start
                                              + self._span[which]), axis=ax)
-                c[name] = torch.as_tensor(np.ascontiguousarray(x),
+                c[name] = torch.as_tensor(np.array(x, order="C"),
                                           device=dev)
             self._dev[key] = c
         return c
 
     def solve(self, rhs):
+        return self._solve(rhs)
+
+    def _middle_count(self, c, h, *args):
+        """The middle and its iteration count (0: a direct middle)."""
+        return self._middle(c, h, *args), 0
+
+    def _solve(self, rhs, *args):
+        """(x, the middle's iteration count): the shards' forward
+        partials, THE solver all-reduce, the middle (``args``: a
+        Helmholtz solve's coefficient) once a distinct device, the local
+        backward."""
         from dycoreplanet_tpu_torch.parallel.halo import psum
         from dycoreplanet_tpu_torch.parallel.mesh import build
 
@@ -751,11 +770,12 @@ class _ShardedFastDiag:
         part = build(mesh, lambda a, b: self._forward(
             self._consts(a, b, mesh.device(a, b)), rhs[a, b]))
         full = psum(part, mesh)                  # THE solver all-reduce
-        mid = {dev: self._middle(self._consts(0, 0, dev), h)
+        mid = {dev: self._middle_count(self._consts(0, 0, dev), h, *args)
                for dev, h in full.items()}
-        return build(mesh, lambda a, b: self._backward(
+        x = build(mesh, lambda a, b: self._backward(
             self._consts(a, b, mesh.device(a, b)),
-            mid[mesh.device(a, b)]).to(rhs[a, b].dtype)), 0
+            mid[mesh.device(a, b)][0]).to(rhs[a, b].dtype))
+        return x, mid[mesh.device(0, 0)][1]
 
 
 class ShardedShellPoissonFastDiag(_ShardedFastDiag):
@@ -855,14 +875,75 @@ class ShardedCuboid2DPoissonFastDiag(_ShardedFastDiag):
         return torch.einsum("xk,zk->zx", c["_Gx"], h)
 
 
+class ShardedShellPoissonSpectral(_ShardedFastDiag):
+    """ShellPoissonSpectral on a ("lat", "lon") mesh. The lon rfft
+    cannot run along a sharded axis, so the lon real DFT is the matmul
+    pair ``_real_dft_pair`` (the annulus's phi on its mesh): each shard
+    contracts its own lon columns of F and places the result in its own
+    lat rows of a zero (nr, nlat, 2 nm) field, and the one field-sized
+    sum completes the transform. The middle is the whole CG over every
+    lon mode with K4 as its line preconditioner (the base's operator and
+    radial lines, on each distinct device), once a device; the backward
+    is each shard's own lat rows through its own columns of G. ``solve``
+    returns the CG's count, as the base does; ``iterative``, ``rtol`` and
+    ``maxiter`` are the base's. The order of the DFT's sums is not the
+    FFT's, which can move the count by one on a right-hand side at the
+    CG's knife edge (ROADMAP.md Queue 3)."""
+
+    _cuts = {"_F": (1, "cols"), "_G": (0, "cols")}
+    iterative = True
+
+    def __init__(self, base: ShellPoissonSpectral, mesh):
+        super().__init__(base, mesh)
+        nr, nlat, nlon = base.geo.cell_shape
+        F, G = _real_dft_pair(nlon, base._diag.dtype)
+        self._host.update(_F=F, _G=G)
+        self.base = base
+        self.rtol, self.maxiter = base.rtol, base.maxiter
+        self.tridiag = base.tridiag
+        self._full = (nr, nlat, 2 * base.nm)
+        self._nl = self._span["rows"]
+        self._on = {}
+
+    def _solver(self, dev) -> ShellPoissonSpectral:
+        """The base's operator and radial lines on ``dev`` (made once):
+        the base itself on its own device."""
+        s = self._on.get(str(dev))
+        if s is None:
+            s = (self.base if self.base._t["_diag"].device == dev
+                 else copy.copy(self.base).to(dev))
+            self._on[str(dev)] = s
+        return s
+
+    def _forward(self, c, x):
+        j0 = c["_at"][0]
+        bh = torch.einsum("kl,ijl->ijk", c["_F"], x.to(c["_F"].dtype))
+        out = bh.new_zeros(self._full)
+        out[:, j0:j0 + self._nl] = bh
+        return out
+
+    def _middle_count(self, c, h):
+        s = self._solver(h.device)
+        res = cg(s._apply, h, rtol=self.rtol, maxiter=self.maxiter,
+                 preconditioner=s._line_precond)
+        return res.x, res.iterations
+
+    def _backward(self, c, xh):
+        j0 = c["_at"][0]
+        return torch.einsum("lk,ijk->ijl", c["_G"],
+                            xh[:, j0:j0 + self._nl])
+
+
 def make_sharded_poisson_solver(base, mesh):
-    """The sharded form of a fast diagonalization (``make_poisson_solver``'s
-    product) on the geometry's mesh."""
+    """The sharded form of ``make_poisson_solver``'s product (a fast
+    diagonalization, or the stretched shell's spectral CG) on the
+    geometry's mesh."""
     for single, sharded in (
             (ShellPoissonFastDiag, ShardedShellPoissonFastDiag),
             (AnnulusPoissonFastDiag, ShardedAnnulusPoissonFastDiag),
             (CuboidPoissonFastDiag, ShardedCuboidPoissonFastDiag),
-            (Cuboid2DPoissonFastDiag, ShardedCuboid2DPoissonFastDiag)):
+            (Cuboid2DPoissonFastDiag, ShardedCuboid2DPoissonFastDiag),
+            (ShellPoissonSpectral, ShardedShellPoissonSpectral)):
         if type(base) is single:
             return sharded(base, mesh)
     raise ValueError(f"no sharded form of {type(base).__name__}")

@@ -48,14 +48,14 @@ from dycoreplanet_tpu.solvers import spectral as j_spec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid import factory as t_factory
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_PATHS
 from dycoreplanet_tpu_torch.models.convert import (
     state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.bc import BC, BCSpec
 from dycoreplanet_tpu_torch.ops import tridiag as k4
 from dycoreplanet_tpu_torch.ops import vector as vec
-from dycoreplanet_tpu_torch.parallel.mesh import Mesh
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    Mesh, shard_state, unshard_state)
 from dycoreplanet_tpu_torch.physics import closures as t_cl
 from dycoreplanet_tpu_torch.physics import initial_data as t_ic
 from dycoreplanet_tpu_torch.solvers import helmholtz as t_helm
@@ -507,10 +507,26 @@ def test_state_carried_across_as_numpy(jax_runs, case):
 
 
 def test_prepare_sharded_refuses_the_cuboid():
-    """The cuboid runs on its ("y", "x") mesh now; what it still refuses
-    there is ``helmholtz solver = direct``, under its own ROADMAP title
-    (Queue 1 item 10: direct and graph chunks on the mesh)."""
-    tm = _model("direct")
+    """The cuboid's mesh once refused ``helmholtz solver = direct``; now
+    the box's direct step runs on its ("y", "x") mesh (2 x 2): two steps
+    against the port's one device, the sharded CuboidHelmholtzDirect
+    (matrix products only, no K4) within 1e-12 of the scale, equal
+    counts, max|div u| round-off."""
+    one, tm = _model("direct"), _model("direct")
     mesh = Mesh(np.array([["cpu"] * 2] * 2, dtype=object), ("y", "x"))
-    with pytest.raises(NotImplementedError, match=MESH_PATHS):
-        tm.prepare_sharded(mesh)
+    tm.prepare_sharded(mesh)
+    assert type(tm._mesh.helmholtz).__name__ == \
+        "ShardedCuboidHelmholtzDirect"
+    s1 = one.initial_state()
+    sm = shard_state(s1, tm.geo, mesh)
+    dt = tm.params.time_step
+    for _ in range(2):
+        s1, d1 = one.step(s1, dt)
+        sm, dm = tm.step(sm, dt)
+        g = unshard_state(sm)
+        for name in ("u", "T", "p"):
+            _close(getattr(g, name), _np(getattr(s1, name)), 1e-12,
+                   f"direct mesh {name}")
+        assert (dm.poisson_iters, dm.temperature_iters) == \
+            (d1.poisson_iters, d1.temperature_iters)
+        assert dm.div_norm < 1e-9

@@ -15,8 +15,9 @@ where its wrappers take the kernels' plain versions.
   * three steps through ``prepare_sharded`` on (2, 4) against the JAX
     model's (rtol 1e-9, atol 1e-11) and against the port's single-device
     step; ``run`` and ``multi_step`` on the mesh;
-  * ``sharded_kernels()`` equal to the JAX report, and every refused
-    configuration raising NotImplementedError naming its ROADMAP item.
+  * ``sharded_kernels()`` equal to the JAX report, and the
+    configurations once refused (the direct Helmholtz solves, the
+    stretched shell's spectral CG) stepping as on one device.
 """
 
 import numpy as np
@@ -43,8 +44,6 @@ from dycoreplanet_tpu.solvers.spectral import (
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.entry import dryrun_multichip
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import (
-    MESH_PATHS, MESH_SPECTRAL)
 from dycoreplanet_tpu_torch.models.convert import (
     sharded_state_from_numpy, state_from_numpy, state_to_numpy)
 from dycoreplanet_tpu_torch.ops.forcing import ShellForcing, halo_shapes
@@ -419,33 +418,54 @@ def test_interval_mode_runs_per_step_checks_on_the_mesh():
                                rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("over,item", [
-    ({"space_dimension": 2, "numerics.helmholtz_solver": "direct"},
-     MESH_PATHS),
-    ({"numerics.helmholtz_solver": "direct"}, MESH_PATHS),
-    ({"stretched": True}, MESH_SPECTRAL),
-])
-def test_refused_configurations_name_their_item(over, item):
-    """Configurations outside this slice raise NotImplementedError naming
-    their ROADMAP.md item in prepare_sharded (``stretched``: the shell of
-    non-uniform radial spacing, whose Poisson solve is the spectral
-    CG)."""
+@pytest.mark.parametrize("over", [
+    {"space_dimension": 2, "numerics.helmholtz_solver": "direct"},
+    {"numerics.helmholtz_solver": "direct"},
+    {"stretched": True},
+], ids=["annulus-direct", "shell-direct", "stretched"])
+def test_refused_configurations_name_their_item(over):
+    """The configurations prepare_sharded once refused (naming their
+    ROADMAP.md item) run on the mesh now: the annulus and the shell with
+    `helmholtz solver = direct` and the shell of non-uniform radial
+    spacing (``stretched``, whose Poisson solve is the spectral CG; its
+    `poisson tol` at 1e-12, where the CG count does not move with the
+    order of the sums: tests/test_torch_sharded_direct.py). One step on
+    build_mesh's mesh of 8 shards against the port's one device, the
+    sharding bounds (1e-9 of u, T; 1e-7 of p), equal counts."""
     from dycoreplanet_tpu_torch.models.presets import stretched_shell
-
-    tp = _configure(Parameters.from_text(""), "float64", SHAPE)
-    over = dict(over)
-    geo = stretched_shell(SHAPE) if over.pop("stretched", False) else None
-    for k, v in over.items():
-        obj = tp
-        *path, last = k.split(".")
-        for name in path:
-            obj = getattr(obj, name)
-        setattr(obj, last, v)
-    tm = BoussinesqModel(tp, geometry=geo, device="cpu")
     from dycoreplanet_tpu_torch.parallel.mesh import build_mesh
-    mesh = build_mesh(tm.geo, ["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match=item):
-        tm.prepare_sharded(mesh)
+
+    over = dict(over)
+    stretched = over.pop("stretched", False)
+
+    def make():
+        tp = _configure(Parameters.from_text(""), "float64", SHAPE)
+        for k, v in over.items():
+            obj = tp
+            *path, last = k.split(".")
+            for name in path:
+                obj = getattr(obj, name)
+            setattr(obj, last, v)
+        if stretched:
+            tp.numerics.poisson_tol = 1e-12
+        return BoussinesqModel(tp, device="cpu", geometry=(
+            stretched_shell(SHAPE) if stretched else None))
+
+    one, tm = make(), make()
+    tm.prepare_sharded(build_mesh(tm.geo, ["cpu"] * 8))
+    s1 = one.initial_state()
+    sm = shard_state(s1, tm.geo, tm._mesh.mesh)
+    dt = float(tm.params.time_step)
+    s1, d1 = one.step(s1, dt)
+    sm, dm = tm.step(sm, dt)
+    g = unshard_state(sm)
+    for name, tol in (("u", 1e-9), ("T", 1e-9), ("p", 1e-7)):
+        np.testing.assert_allclose(_np(getattr(g, name)),
+                                   _np(getattr(s1, name)), rtol=tol,
+                                   atol=tol * 1e-2, err_msg=name)
+    assert (dm.poisson_iters, dm.temperature_iters) == \
+        (d1.poisson_iters, d1.temperature_iters)
+    assert list(dm.helmholtz_iters) == list(d1.helmholtz_iters)
 
 
 def test_gate_outside_the_sharded_stage_and_escalation_raise():

@@ -38,7 +38,6 @@ from dycoreplanet_tpu.solvers import spectral as j_spec
 from dycoreplanet_tpu_torch.base.params import Parameters
 from dycoreplanet_tpu_torch.grid import factory as t_factory
 from dycoreplanet_tpu_torch.models import BoussinesqModel
-from dycoreplanet_tpu_torch.models.boussinesq import MESH_SPECTRAL
 from dycoreplanet_tpu_torch.models.presets import stretched_shell
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops import tridiag as k4
@@ -298,8 +297,9 @@ def test_stretched_shell_model_runs_no_graph(monkeypatch):
     CG reads its stopping test back every iteration (``iterative``), so
     _graphable is False on the card, where the same model on the uniform
     shell is graphable (the device taken as the card's for the
-    question); the mesh refuses it. Three steps through run and as one
-    multi_step chunk from the same state: bitwise equal, no escalation,
+    question); prepare_sharded accepts it (its sharded spectral CG).
+    Three steps through run and as one multi_step chunk from the same
+    state: bitwise equal, no escalation,
     the CG stopped at `poisson tol` (1e-8) and `max cg iters` (500) as
     the JAX model passes them, max|div u| <= 1e-6."""
     m = _shell_model(_geos("shell stretched")[0])
@@ -313,9 +313,11 @@ def test_stretched_shell_model_runs_no_graph(monkeypatch):
         monkeypatch.setattr(model, "device", torch.device("cuda"))
         assert model._graphable(False, False) is graphable
         monkeypatch.setattr(model, "device", torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=MESH_SPECTRAL):
-        m.prepare_sharded(Mesh(np.array([["cpu"] * 2] * 2, dtype=object),
-                               ("lat", "lon")))
+    mesh_m = _shell_model(_geos("shell stretched")[0])
+    mesh_m.prepare_sharded(Mesh(np.array([["cpu"] * 2] * 2, dtype=object),
+                                ("lat", "lon")))
+    assert mesh_m.sharded_kernels()["poisson"] == \
+        "ShardedShellPoissonSpectral"
     s0 = m.initial_state()
     s_run, hist = m.run(max_steps=3, state=s0)
     s_chunk, rows, _ = m.multi_step(s0, m.params.time_step, 3)
