@@ -294,7 +294,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      one step of (a), (b), (d) and of the default 2x4 step, count and
      bytes per op; (f) f64 card vs CPU of each new sharded solver
      (1e-12);
- 17. one JSON line with every kernel's numbers (the bf16 forms under
+ 17. the mesh across processes (parallel/dist.py), its ranks
+     scripts/torch_multihost_smoke.py processes, (b) and (c) started in
+     phase 7's pool, (a) alone: (a) 2 gloo ranks sharing the card run the
+     flagship at 32x128x256 f32 on 2x2 (two shards a rank), 5 gated
+     steps through run: 0 escalations, K2o and K1o 2 x 5 times on each
+     rank, the gathered state bitwise the single-controller 2x2 run's
+     from the same state; each rank's host ms a step, one more step's
+     device ms, kernels and host syncs, its messages and bytes a step
+     (point-to-point and all-gathered) and its comm ledger (the
+     single-controller one's); (b) 4 gloo ranks run the annulus prm at
+     256x3072 with `helmholtz solver = direct` on 4 phi shards, 3 steps:
+     K4 twice a step on each rank, bitwise a single-controller process
+     started beside them; (c) a one-rank NCCL world
+     runs the flagship on 2x2 for the same 5 steps as (a), bitwise,
+     its sums all-gathered on the NCCL group; NCCL moves between ranks
+     are not run (one card);
+ 18. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -1629,17 +1645,30 @@ OUT_DT = 0.0005
 
 def cli_runs(jobs, timeout=600):
     """``python -m dycoreplanet_tpu_torch -p prm argv`` for every (label,
-    prm, argv) of ``jobs``, all started together (each process spends
-    most of its seconds on the host, starting up); waits for all of them
-    and kills any still running at ``timeout`` seconds. Returns [(rc,
+    prm, argv) of ``jobs`` (``python argv`` where prm is None; a fourth
+    entry: the environment's additions), all started together (each
+    process spends most of its seconds on the host, starting up); waits
+    for all of them and kills any still running at ``timeout`` seconds;
+    each run's seconds go to CLI_SECONDS by its label. Returns [(rc,
     stdout, stderr)] in the order of ``jobs``."""
     procs = []
-    for label, prm, argv in jobs:
+    for label, prm, argv, *env in jobs:
         out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        head = ([] if prm is None
+                else ["-m", "dycoreplanet_tpu_torch", "-p", prm])
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "dycoreplanet_tpu_torch", "-p", prm]
-            + argv, cwd=HERE, stdout=out, stderr=err, text=True), out, err))
-    t_end = time.perf_counter() + timeout
+            [sys.executable] + head + argv, cwd=HERE, stdout=out,
+            stderr=err, text=True,
+            env=dict(os.environ, **env[0]) if env else None), out, err))
+    t_start = time.perf_counter()
+    t_end = t_start + timeout
+    running = dict(enumerate(procs))
+    while running and time.perf_counter() < t_end:
+        for i, (proc, _, _) in list(running.items()):
+            if proc.poll() is not None:
+                CLI_SECONDS[jobs[i][0]] = time.perf_counter() - t_start
+                del running[i]
+        time.sleep(0.1)
     results = []
     for proc, out, err in procs:
         try:
@@ -1661,6 +1690,8 @@ def cli_runs(jobs, timeout=600):
 # ["the directory they wrote in"]; empty where a phase runs alone
 CLI_AHEAD = {}
 CLI_AHEAD_DIR = []
+# the seconds of every CLI run, by label (cli_runs)
+CLI_SECONDS = {}
 
 
 def cli_dir():
@@ -1677,12 +1708,12 @@ def run_clis(jobs, timeout=600):
     """cli_runs(jobs), taking a job's run from CLI_AHEAD where it was
     started ahead; fails unless every run exits with rc 0 and none
     escalated. Returns their stdouts."""
-    ahead = [CLI_AHEAD.pop(label, None) for label, _, _ in jobs]
+    ahead = [CLI_AHEAD.pop(label, None) for label, *_ in jobs]
     fresh = iter(cli_runs([j for j, a in zip(jobs, ahead) if a is None],
                           timeout))
     runs = [a if a is not None else next(fresh) for a in ahead]
     outs = []
-    for (label, _, _), (rc, out, err) in zip(jobs, runs):
+    for (label, *_), (rc, out, err) in zip(jobs, runs):
         if rc != 0:
             fail(f"CLI ({label}) rc {rc}:\n{out[-2000:]}\n{err[-2000:]}")
         if "retrying chunk with full CG" in err:
@@ -5691,6 +5722,252 @@ def label_of_mesh(mesh):
     return f"{mesh.grid[0]}x{mesh.grid[1]}"
 
 
+# phase 17: the mesh across processes, its ranks run as
+# scripts/torch_multihost_smoke.py (in the CLI pool, CLI_AHEAD, where the
+# whole script runs)
+PM_SCRIPT = os.path.join(HERE, "scripts", "torch_multihost_smoke.py")
+PM_RANK_TIMEOUT = 300
+# the host threads of each process of (b): five processes each build the
+# annulus's lon DFT tables by a 3072 x 3072 SVD, whose BLAS threads would
+# otherwise crowd the host's cores (~49 s a build beside (c) on the 8
+# cores of an H100 machine, ~17 s with 2 threads a process); its
+# single-controller reference runs with the same threads, which the
+# tables follow at round-off
+PM_B_THREADS = {k: "2" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                 "MKL_NUM_THREADS")}
+
+
+def process_mesh_jobs(base, parts="bc"):
+    """Phase 17's ranks as cli_runs jobs, each group writing under
+    ``base``: (a) 2 gloo ranks sharing the card, the flagship (32 x 128 x
+    256 f32, the seeded flow) on 2 x 2, 5 gated steps through run, one
+    more profiled; (b) 4 gloo ranks, the annulus prm at 256 x 3072 with
+    `helmholtz solver = direct` on 4 phi shards, 3 steps, and beside them
+    one process running it on the single-controller mesh ("bref",
+    ``--single``), all with PM_B_THREADS; (c) a one-rank NCCL world, the
+    flagship on 2 x 2, its 5 steps; the groups of ``parts``. A job's
+    label names its group second, and its argv holds the group's
+    directory after "--out"."""
+    jobs = []
+    for part, world, backend, argv, env in (
+            ("a", 2, "gloo", ["--check", "flagship", "--profile"], {}),
+            ("b", 4, "gloo", ["--check", "annulus_direct", "--profile"],
+             PM_B_THREADS),
+            ("c", 1, "nccl", ["--check", "flagship"], {})):
+        if part not in parts:
+            continue
+        out = os.path.join(base, f"ranks-17{part}")
+        os.makedirs(out, exist_ok=True)
+        for r in range(world):
+            jobs.append((f"17 {part} rank {r}", None, [
+                PM_SCRIPT, "--device", "cuda:0", "--backend", backend,
+                "--init-method", f"file://{out}/rendezvous", "--timeout",
+                str(PM_RANK_TIMEOUT), "--out", out] + argv,
+                dict(env, RANK=str(r), WORLD_SIZE=str(world),
+                     LOCAL_RANK="0")))
+        if part == "b":
+            ref = os.path.join(base, "ranks-17bref")
+            jobs.append(("17 bref single", None, [
+                PM_SCRIPT, "--single", "--device", "cuda:0", "--out",
+                ref] + argv[:2], env))
+    return jobs
+
+
+def process_mesh_phases(dev):
+    """Phase 17: the mesh across processes (parallel/dist.py; the ranks
+    of process_mesh_jobs, all started after the kernels are built: (b)
+    and (c) taken from CLI_AHEAD where they ran in the CLI pool, else run
+    here, and (a) run here alone, so that its times are its own). (a) On
+    each of the
+    2 gloo ranks: 0 escalations, K2o and K1o each 2 x 5 times, host ms a
+    step from the end of the first step, one more step's device ms,
+    kernels and host syncs (profiler, sync debug mode), the messages and
+    bytes it sent and received a step and its comm ledger of one step;
+    the gathered state bitwise the single-controller 2 x 2 run's from the
+    same state (run here, run_path of the script). (b) On each of the 4
+    ranks: K4 twice a step (3 steps: 6), escalations as one process's,
+    the state bitwise the single-controller 4-shard run's ("bref"). (c) The
+    one-rank NCCL world's state after 5 steps bitwise the same
+    single-controller run's, its sums all-gathered on the NCCL group
+    (counted). Returns ({path: launches}, {name: numbers})."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from dycoreplanet_tpu_torch.parallel.mesh import build_mesh
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    spec = importlib.util.spec_from_file_location("torch_multihost_smoke",
+                                                  PM_SCRIPT)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if "jax" in sys.modules or "dycoreplanet_tpu" in sys.modules:
+        fail("17: the multihost smoke script imported JAX")
+    base = CLI_AHEAD_DIR[0] if CLI_AHEAD_DIR else tempfile.mkdtemp()
+    alone = process_mesh_jobs(base, "a")
+    runs = cli_runs(alone, PM_RANK_TIMEOUT + 60)
+    phase(f"17 (a) 2 gloo ranks sharing the card ran alone{since()}")
+    pooled = process_mesh_jobs(base, "bc")
+    ahead = [CLI_AHEAD.pop(label, None) for label, *_ in pooled]
+    if any(r is None for r in ahead):
+        ahead = cli_runs(pooled, PM_RANK_TIMEOUT + 60)
+        phase(f"17 (b), (c) ran here{since()}")
+    jobs, runs = alone + pooled, runs + ahead
+    groups = {}
+    for (label, _, argv, _), (rc, out, err) in zip(jobs, runs):
+        if rc != 0:
+            fail(f"17 ({label}) rc {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        groups.setdefault(label.split()[1], argv[argv.index("--out") + 1])
+    got, recs = {}, {}
+    for part, out in groups.items():
+        with np.load(os.path.join(out, "results.npz")) as f:
+            got[part] = {k: f[k] for k in f.files}
+        recs[part] = []
+        r = 0
+        while os.path.exists(os.path.join(out, f"rank{r}.json")):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                recs[part].append(json.load(f))
+            r += 1
+        if any(rec["imported_jax"] for rec in recs[part]):
+            fail(f"17 ({part}): a rank imported JAX")
+    ref_a, rec_ref = smoke.run_path(
+        "flagship", dev, lambda geo: build_mesh(geo, [dev] * 4),
+        profile=True)
+    torch.cuda.synchronize()
+    phase(f"17 the single-controller flagship 2x2 run on the card "
+          f"({rec_ref['host_ms_per_step_after_first']:.1f} host ms a "
+          f"step, {rec_ref['device_ms_one_step']:.2f} device ms, "
+          f"{rec_ref['device_kernels_one_step']} kernels, "
+          f"{rec_ref['host_syncs_one_step']} host syncs a step){since()}")
+    ref_b = got["bref"]
+    rec_refb = recs["bref"][0]["paths"]["annulus_direct"]
+
+    def same(what, mine, ref, prefix):
+        names = [k.split("/", 1)[1] for k in ref
+                 if k.startswith(prefix + "/") and not k.endswith("rows")]
+        for n in names:
+            a, b = mine[f"{prefix}/{n}"], ref[f"{prefix}/{n}"]
+            if not np.array_equal(a, b):
+                fail(f"17 {what}: {n} differs from the single-controller "
+                     f"mesh by {float(np.max(np.abs(a - b))):.3e}")
+        return names
+
+    launches, numbers = {}, {}
+    # (a) 2 gloo ranks on the card, the flagship on 2 x 2
+    names = same("(a) 2 gloo ranks", got["a"], ref_a, "flagship")
+    n_steps = smoke.PATHS["flagship"][2]
+    per_rank = []
+    for rec in recs["a"]:
+        p = rec["paths"]["flagship"]
+        esc, lc = p["escalations_by_step"], p["launches"]
+        if esc[-1] != 0:
+            fail(f"17 (a) rank {rec['rank']}: {esc[-1]} escalation(s)")
+        for w in ("forcing_operands", "richardson_operands"):
+            if lc[w] != 2 * n_steps:
+                fail(f"17 (a) rank {rec['rank']}: {w} launched {lc[w]} "
+                     f"times, not 2 x {n_steps}")
+        if p["ledger"] != rec_ref["ledger"]:
+            fail(f"17 (a) rank {rec['rank']}: comm ledger {p['ledger']} "
+                 f"against one process's {rec_ref['ledger']}")
+        tr = p["transport"]
+        row = dict(rank=rec["rank"], shards=p["shards"],
+                   host_ms=p["host_ms_per_step_after_first"],
+                   device_ms=p["device_ms_one_step"],
+                   kernels=p["device_kernels_one_step"],
+                   host_syncs=p["host_syncs_one_step"],
+                   sent_per_step=tr["sent"] / n_steps,
+                   received_per_step=tr["received"] / n_steps,
+                   sent_bytes_per_step=tr["sent_bytes"] / n_steps,
+                   received_bytes_per_step=tr["received_bytes"] / n_steps,
+                   all_gathers_per_step=tr["all_gather"] / n_steps,
+                   all_gather_bytes_per_step=(tr["all_gather_bytes"]
+                                              / n_steps),
+                   all_gather_received_bytes_per_step=(
+                       tr["all_gather_received_bytes"] / n_steps),
+                   launches={k: v for k, v in lc.items() if v})
+        per_rank.append(row)
+        launches[f"process_mesh_2x2_rank{rec['rank']}"] = lc
+        led = p["ledger"]
+        phase(f"17 (a) rank {rec['rank']}/2 (gloo, cuda:0, shards "
+              f"{p['shards']}): 0 escalations, K2o {lc['forcing_operands']}"
+              f" K1o {lc['richardson_operands']} in {n_steps} steps, "
+              f"{row['host_ms']:.1f} host ms a step, "
+              f"{row['device_ms']:.2f} device ms, {row['kernels']} kernels,"
+              f" {row['host_syncs']} host syncs a step; a step "
+              f"{row['sent_per_step']:.0f} messages sent and "
+              f"{row['received_per_step']:.0f} received "
+              f"({row['sent_bytes_per_step'] / 2 ** 20:.2f} MiB sent, "
+              f"{row['received_bytes_per_step'] / 2 ** 20:.2f} MiB "
+              f"received), {row['all_gathers_per_step']:.0f} all-gathers "
+              f"({row['all_gather_bytes_per_step'] / 2 ** 20:.2f} MiB put "
+              f"in, {row['all_gather_received_bytes_per_step'] / 2 ** 20:.2f}"
+              f" MiB received); ledger of a step: "
+              f"{led['collective-permute']['count']} "
+              f"collective-permute, {led['all-reduce']['count']} "
+              f"all-reduce, {led['all-gather']['count']} all-gather (as one "
+              f"process)")
+    phase(f"17 (a) the 2 ranks' gathered {names} bitwise the "
+          f"single-controller 2x2 run's after {n_steps} steps{since()}")
+    numbers["ranks_2x2"] = per_rank
+    numbers["one_process_2x2"] = {
+        k: rec_ref[k] for k in ("host_ms_per_step_after_first",
+                                "device_ms_one_step",
+                                "device_kernels_one_step",
+                                "host_syncs_one_step", "ledger")}
+    # (b) 4 gloo ranks, the annulus direct on 4 phi shards
+    same("(b) 4 gloo ranks", got["b"], ref_b, "annulus_direct")
+    nb = smoke.PATHS["annulus_direct"][2]
+    for rec in recs["b"]:
+        p = rec["paths"]["annulus_direct"]
+        if p["launches"]["tridiag"] != 2 * nb:
+            fail(f"17 (b) rank {rec['rank']}: K4 {p['launches']['tridiag']}"
+                 f" launches, not 2 x {nb}")
+        if p["escalations_by_step"] != rec_refb["escalations_by_step"]:
+            fail(f"17 (b) rank {rec['rank']}: escalations "
+                 f"{p['escalations_by_step']}, one process "
+                 f"{rec_refb['escalations_by_step']}")
+        launches[f"process_mesh_phi4_rank{rec['rank']}"] = p["launches"]
+    hb = [rec["paths"]["annulus_direct"] for rec in recs["b"]]
+    phase(f"17 (b) 4 gloo ranks, the annulus 256x3072 direct on 4 phi "
+          f"shards, {nb} steps: K4 {[p['launches']['tridiag'] for p in hb]}"
+          f" a rank, escalations {hb[0]['escalations_by_step'][-1]} (one "
+          f"process {rec_refb['escalations_by_step'][-1]}), host ms a step "
+          f"{[round(p['host_ms_per_step_after_first'], 1) for p in hb]}, "
+          f"device ms {[round(p['device_ms_one_step'], 2) for p in hb]}; "
+          f"the state bitwise the single-controller mesh's{since()}")
+    numbers["ranks_phi4"] = [dict(
+        rank=r, host_ms=p["host_ms_per_step_after_first"],
+        device_ms=p["device_ms_one_step"], launches=p["launches"])
+        for r, p in enumerate(hb)]
+    # (c) a one-rank NCCL world
+    (rec_c,) = recs["c"]
+    pc = rec_c["paths"]["flagship"]
+    if rec_c["backend"] != "nccl" or pc["transport"]["all_gather"] < 1:
+        fail(f"17 (c): backend {rec_c['backend']}, "
+             f"{pc['transport']['all_gather']} all-gathers")
+    same("(c) one NCCL rank", got["c"], ref_a, "flagship")
+    launches["process_mesh_nccl1"] = pc["launches"]
+    phase(f"17 (c) a one-rank NCCL world, the flagship on 2x2 (4 shards "
+          f"on the rank), {n_steps} steps: bitwise the single-controller "
+          f"run's; {pc['transport']['all_gather']} all-gathers on the NCCL "
+          f"group ({pc['transport']['all_gather'] / n_steps:.0f} a step). "
+          f"NCCL moves between ranks were not run: this machine has one "
+          f"card, and NCCL refuses two ranks of one communicator on one "
+          f"GPU{since()}")
+    numbers["nccl1"] = {"all_gathers": pc["transport"]["all_gather"],
+                        "steps": n_steps}
+    # where a rank's seconds go: its main (after the imports), the model's
+    # build and the whole path
+    secs = {part: [[round(rec["main_s"], 1)] + [
+        round(p[k], 1) for p in rec["paths"].values()
+        for k in ("build_s", "path_s")] for rec in rs]
+        for part, rs in recs.items()}
+    phase(f"17 each rank's seconds [main, build, path]: {secs}")
+    numbers["rank_seconds"] = secs
+    return launches, numbers
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -6492,9 +6769,13 @@ def main() -> None:
         atexit.register(shutil.rmtree, ahead_dir, True)
         CLI_AHEAD_DIR.append(ahead_dir)
         ahead = (feec_cli_jobs() + cube_cli_jobs(ahead_dir)
-                 + mimetic_cli_jobs(ahead_dir))
+                 + mimetic_cli_jobs(ahead_dir)
+                 + process_mesh_jobs(ahead_dir, "bc"))
         _, side = cli_output_phase(tmp, jobs + ahead)
-        for (label, _, _), run in zip(ahead, side[len(jobs):]):
+        slow = sorted(CLI_SECONDS.items(), key=lambda kv: -kv[1])[:6]
+        phase(f"7 the pool's {len(jobs + ahead)} runs and 7b's, the "
+              f"slowest: {[(k, round(v, 1)) for k, v in slow]}")
+        for (label, *_), run in zip(ahead, side[len(jobs):]):
             CLI_AHEAD[label] = run
         for (label, _, _), (rc, out, err) in zip(jobs, side):
             if rc != 0:
@@ -6560,6 +6841,11 @@ def main() -> None:
     # ledger ------------------------------------------------------------
     direct_launches, direct_numbers = direct_mesh_phases(dev)
     for label, counts in direct_launches.items():
+        record(label, counts)
+
+    # ---- 17. the mesh across processes ---------------------------------
+    pm_launches, pm_numbers = process_mesh_phases(dev)
+    for label, counts in pm_launches.items():
         record(label, counts)
 
     # ---- report --------------------------------------------------------
@@ -6703,6 +6989,10 @@ def main() -> None:
     next(r for r in report if r["name"] == "K4 tridiag")[
         "mesh_direct"] = {k: v for k, v in direct_numbers.items()
                           if k not in ("ledgers", "f64")}
+    # K2o and K1o on the process mesh (phase 17 (a)): each rank's numbers
+    for r in report:
+        if r["name"].split()[0] in ("K2o", "K1o"):
+            r["process_mesh"] = pm_numbers["ranks_2x2"]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -122,7 +122,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     report = {"devices": n_devices, "mesh": dict(mesh.shape),
               "kernels": model.sharded_kernels(),
               "max_velocity": diag.max_velocity, "err": err, "parts": parts}
-    where = (f"{n_devices} shards on {len(mesh.distinct_devices())} "
+    where = (f"{n_devices} shards on {len(set(devices))} "
              f"device(s), mesh {report['mesh']}, shell {shape}")
     print(f"dryrun_multichip: {where}, kernel-free: max|u|="
           f"{d_plain.max_velocity:.3e}, div={d_plain.div_norm:.3e}, "

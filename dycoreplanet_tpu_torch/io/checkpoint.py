@@ -12,7 +12,9 @@ bfloat16 fields ``time`` is float32, as the model keeps it, where the
 JAX package writes its bfloat16 time: a restart resumes at the saved
 time exactly (a bfloat16 ``time`` from a JAX checkpoint is read too).
 The sharded form writes one ``.npz`` per shard and a master ``.json`` with
-the global shapes, dtypes and each shard's index ranges. Fields reach the host in one device-to-host copy (per
+the global shapes, dtypes and each shard's index ranges; on a mesh that
+spans processes each rank writes its own shards and reads back its own
+blocks. Fields reach the host in one device-to-host copy (per
 shard on a mesh); a restore is bitwise.
 """
 
@@ -27,7 +29,8 @@ import torch
 
 from dycoreplanet_tpu_torch.base import dtypes
 from dycoreplanet_tpu_torch.models.boussinesq import State
-from dycoreplanet_tpu_torch.parallel.mesh import is_sharded, shard_state
+from dycoreplanet_tpu_torch.parallel.mesh import (
+    build, is_sharded, local_shape)
 
 
 def _host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
@@ -137,50 +140,115 @@ def save_checkpoint_sharded(path: str, state: State,
     copied to the host in one copy a shard, and a master ``{path}.json``
     with the global shapes, dtypes and index ranges — the JAX package's
     layout, shard k being (k // B, k % B) of the A x B mesh. The global
-    array is never gathered."""
+    array is never gathered. On a mesh that spans processes each rank
+    writes its own shards under their global k, rank 0 the master, and
+    every rank returns once all have written."""
     if not is_sharded(state):
         raise ValueError("save_checkpoint_sharded needs a sharded state")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     n_faces = len(state.u_faces)
     names = _NAMES + [f"u_face_{d}" for d in range(n_faces)]
     A, B = state.p.grid
-    index_meta = {n: [] for n in names}
-    shapes = {}
-    for k, ((a, b), _) in enumerate(state.p.items()):
+    blocks = None
+    for (a, b), _ in state.p.items():
         blocks = _arrays(state, _host([x[a, b] for x in _fields(state)]))
-        for name in names:
-            blk = blocks[name]
-            rng = [[0, n] for n in blk.shape]
-            if blk.ndim >= 2:
-                nl, no = blk.shape[-2:]
-                rng[-2] = [a * nl, (a + 1) * nl]
-                rng[-1] = [b * no, (b + 1) * no]
-                shapes[name] = list(blk.shape[:-2]) + [A * nl, B * no]
-            else:
-                shapes[name] = list(blk.shape)
-            index_meta[name].append(rng)
-        np.savez(f"{path}.shard{k:03d}.npz", **blocks)
-    meta = dict(metadata or {})
-    meta["n_face_arrays"] = n_faces
-    meta["n_shards"] = A * B
-    meta["global_shapes"] = {n: shapes[n] for n in names}
-    meta["dtypes"] = {n: _dtype_name(blocks[n]) for n in names}
-    meta["shard_indices"] = index_meta
-    with open(path + ".json", "w") as f:
-        json.dump(meta, f)
+        np.savez(f"{path}.shard{a * B + b:03d}.npz", **blocks)
+    group = state.p.group
+    if group is None or torch.distributed.get_rank(group) == 0:
+        index_meta = {n: [] for n in names}
+        shapes = {}
+        for k in range(A * B):
+            a, b = divmod(k, B)
+            for name in names:
+                shape = blocks[name].shape
+                rng = [[0, n] for n in shape]
+                if len(shape) >= 2:
+                    nl, no = shape[-2:]
+                    rng[-2] = [a * nl, (a + 1) * nl]
+                    rng[-1] = [b * no, (b + 1) * no]
+                    shapes[name] = list(shape[:-2]) + [A * nl, B * no]
+                else:
+                    shapes[name] = list(shape)
+                index_meta[name].append(rng)
+        meta = dict(metadata or {})
+        meta["n_face_arrays"] = n_faces
+        meta["n_shards"] = A * B
+        meta["global_shapes"] = {n: shapes[n] for n in names}
+        meta["dtypes"] = {n: _dtype_name(blocks[n]) for n in names}
+        meta["shard_indices"] = index_meta
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f)
+    if group is not None:
+        from dycoreplanet_tpu_torch.parallel.dist import gather_objects
+        gather_objects(group, None)      # every rank's files are written
     return path
+
+
+def _local_blocks(path: str, meta: dict, mesh, geo) -> Tuple[dict, tuple]:
+    """{(a, b): {name: block}} of this process's shards of ``mesh``, read
+    from the shard files that overlap them (the writer's layout may be
+    any), and (time, step_number)."""
+    nl, no = local_shape(geo, mesh)[-2:]
+    out = {}
+    for (a, b) in mesh.local_shards():
+        out[a, b] = {n: np.zeros(shape[:-2] + [nl, no],
+                                 dtype=_np_dtype(meta["dtypes"][n]))
+                     for n, shape in meta["global_shapes"].items()
+                     if len(shape) >= 2}
+    scalars = None
+    for k in range(meta["n_shards"]):
+        data = None
+        for (a, b), blk in out.items():
+            want = ((a * nl, (a + 1) * nl), (b * no, (b + 1) * no))
+            for name, dst in blk.items():
+                rngs = meta["shard_indices"][name][k]
+                cut = [(max(lo, r0), min(hi, r1))
+                       for (lo, hi), (r0, r1) in zip(want, rngs[-2:])]
+                if any(lo >= hi for lo, hi in cut):
+                    continue
+                if data is None:
+                    data = np.load(f"{path}.shard{k:03d}.npz")
+                (j0, j1), (k0, k1) = cut
+                (r0, _), (c0, _) = rngs[-2:]
+                dst[..., j0 - want[0][0]:j1 - want[0][0],
+                    k0 - want[1][0]:k1 - want[1][0]] = \
+                    data[name][..., j0 - r0:j1 - r0, k0 - c0:k1 - c0]
+        if data is not None:
+            if scalars is None:
+                scalars = (data["time"], data["step_number"])
+            data.close()
+    if scalars is None:
+        with np.load(f"{path}.shard000.npz") as data:
+            scalars = (data["time"], data["step_number"])
+    return out, scalars
 
 
 def load_checkpoint_sharded(path: str, device=None, *, geo=None,
                             mesh=None) -> Tuple[State, dict]:
     """Restore a checkpoint written by either package's
     save_checkpoint_sharded: the global State on ``device``, or, given
-    ``mesh`` (and the model's ``geo``), cut onto that mesh
-    (``shard_state``); and the metadata."""
+    ``mesh`` (and the model's ``geo``), cut onto that mesh, each process
+    reading the blocks of its own shards alone; and the metadata."""
     if (device is None) == (mesh is None):
         raise ValueError("load_checkpoint_sharded: pass device or mesh")
     with open(path + ".json") as f:
         meta = json.load(f)
+    if mesh is not None:
+        if geo is None:
+            raise ValueError("load_checkpoint_sharded: a mesh needs the geo")
+        blocks, (time, step) = _local_blocks(path, meta, mesh, geo)
+
+        def field(name):
+            return build(mesh, lambda a, b: dtypes.tensor_from_numpy(
+                blocks[a, b][name], device=mesh.device(a, b)))
+
+        n_faces = meta["n_face_arrays"]
+        state = State(u=field("u"), u_faces=tuple(
+            field(f"u_face_{d}") for d in range(n_faces)),
+            p=field("p"), T=field("T"),
+            time=float(dtypes.tensor_from_numpy(time).double()),
+            step_number=int(step))
+        return state, meta
     arrays = {name: np.zeros(shape, dtype=_np_dtype(meta["dtypes"][name]))
               for name, shape in meta["global_shapes"].items()}
     for k in range(meta["n_shards"]):
@@ -189,9 +257,4 @@ def load_checkpoint_sharded(path: str, device=None, *, geo=None,
                 rngs = meta["shard_indices"][name][k]
                 arrays[name][tuple(slice(a, b) for a, b in rngs)] = \
                     data[name]
-    if mesh is None:
-        return _state(arrays, meta["n_face_arrays"], device), meta
-    if geo is None:
-        raise ValueError("load_checkpoint_sharded: a mesh needs the geo")
-    state = _state(arrays, meta["n_face_arrays"], "cpu")
-    return shard_state(state, geo, mesh), meta
+    return _state(arrays, meta["n_face_arrays"], device), meta

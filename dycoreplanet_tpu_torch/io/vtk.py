@@ -238,7 +238,10 @@ def write_vts_sharded(
     global field is never gathered. Piece k is shard (k // B, k % B) of
     the A x B grid of the mesh (1 x B on the annulus and the slab), the
     shard that the JAX package's ``addressable_shards[k]`` holds on a mesh
-    of that shape. Returns the .pvts path."""
+    of that shape. On a mesh that spans processes each rank writes its
+    own pieces under their global k and rank 0 the .pvts, once every rank
+    has written (the JAX package's per-process output). Returns the .pvts
+    path."""
     scalars = scalars or {}
     vectors = vectors or {}
     ref = next(iter(scalars.values()), None)
@@ -246,16 +249,23 @@ def write_vts_sharded(
         ref = next(iter(vectors.values()))
     host = dtypes.to_numpy
     base, _ = os.path.splitext(basepath)
-    pieces = []
-    for k, ((a, b), _) in enumerate(ref.items()):
-        cell_sl = _shard_slices(geo, ref.grid, a, b)
-        piece_path = f"{base}.p{k:03d}.vts"
-        write_vts(piece_path, geo,
+    A, B = ref.grid
+    for (a, b), _ in ref.items():
+        write_vts(f"{base}.p{a * B + b:03d}.vts", geo,
                   scalars={n: host(x[a, b]) for n, x in scalars.items()},
                   vectors={n: host(x[a, b]) for n, x in vectors.items()},
-                  sl=cell_sl)
-        pieces.append((os.path.basename(piece_path),
-                       _extent_str(geo, cell_sl)))
+                  sl=_shard_slices(geo, ref.grid, a, b))
+    pieces = [(os.path.basename(f"{base}.p{k:03d}.vts"),
+               _extent_str(geo, _shard_slices(geo, ref.grid, *divmod(k, B))))
+              for k in range(A * B)]
+    pvts_path = base + ".pvts"
+    if ref.group is not None:
+        import torch.distributed as tdist
+
+        from dycoreplanet_tpu_torch.parallel.dist import gather_objects
+        gather_objects(ref.group, None)     # every rank's pieces written
+        if tdist.get_rank(ref.group) != 0:
+            return pvts_path
 
     lines = [
         '<?xml version="1.0"?>',
@@ -275,7 +285,6 @@ def write_vts_sharded(
     for fname, ext in pieces:
         lines.append(f'    <Piece Extent="{ext}" Source="{fname}"/>')
     lines += ["  </PStructuredGrid>", "</VTKFile>"]
-    pvts_path = base + ".pvts"
     os.makedirs(os.path.dirname(pvts_path) or ".", exist_ok=True)
     with open(pvts_path, "w") as f:
         f.write("\n".join(lines))

@@ -102,7 +102,7 @@ def zero_mean(weights: Optional[torch.Tensor] = None,
     if total is not None:
         if weights is None:
             def apply(x):
-                n = sum(t.numel() for _, t in x.items())
+                n = x.numel()
                 return x - total(x.map(torch.sum)) / n
         else:
             w_total = total(weights.map(torch.sum))

@@ -55,8 +55,9 @@ solver = direct`` the annulus Helmholtz solves run K4, two launches a
 step; the cuboid's are full fast diagonalizations, no K4 (the 2D slab
 has no direct solver, as in the JAX package).
 
-On a mesh of shards (``prepare_sharded``, one process, the shards on
-one or more devices; parallel/) the shell step runs the forcing and the
+On a mesh of shards (``prepare_sharded``: one process, the shards on
+one or more devices, or W processes, each its own block of shards on
+its card; parallel/) the shell step runs the forcing and the
 Richardson stage as K2o and K1o on every shard (parallel/sharded_pallas.py,
 parallel/sharded_richardson.py), the Poisson solve as
 ``ShardedShellPoissonFastDiag``, and the rest in plain PyTorch on the
@@ -541,7 +542,9 @@ class BoussinesqModel:
         """Set this model up for sharded states on ``mesh`` (the
         geometry's layout, parallel/mesh.py: ("lat", "lon") on the shell,
         ("phi",) on the annulus, ("y", "x") on the box, ("x",) on the
-        slab; its first shard on the model's device). On the shell: the
+        slab; this process's first shard on the model's device: on a
+        mesh that spans processes each rank prepares its own model, and
+        the stages hold its own shards). On the shell: the
         forcing as K2o (K2mo with the semi-Lagrangian
         transport) and, within its gates, the Richardson stage as K1o on
         every shard, the Poisson solve as ``ShardedShellPoissonFastDiag``
@@ -630,9 +633,9 @@ class BoussinesqModel:
         if mesh.axis_names != mesh_axes(self.geo):
             raise ValueError(f"a {self.geo.kind} mesh has axes "
                              f"{mesh_axes(self.geo)}, not {mesh.axis_names}")
-        if mesh.device(0, 0) != self.device:
-            raise ValueError(f"the mesh's first shard lies on "
-                             f"{mesh.device(0, 0)}, the model on "
+        if mesh.own_device != self.device:
+            raise ValueError(f"this process's first shard lies on "
+                             f"{mesh.own_device}, the model on "
                              f"{self.device}")
         sharded = lambda s, make: (  # noqa: E731
             make(s, mesh) if s is not None else None)
@@ -1122,7 +1125,9 @@ class BoussinesqModel:
         rotational form) the plain forcing and transport on the shards;
         the coupled solves then as on one device (``_coupled_momentum``),
         on Sharded block vectors. The gate's verdict and the packed
-        diagnostics on the model's device (the mesh's first). A bfloat16
+        diagnostics on the model's device (this process's first shard's),
+        from replicated sums: every rank of a process mesh reads the same
+        bits, and takes the same escalation, retry and rewind. A bfloat16
         state's plain stages, and the whole of a coupled step, compute in
         float32 on the widened shards and the new state is rounded once
         (``_stored``)."""

@@ -1,1 +1,2 @@
-"""Multi-device runs of the shell step on a mesh of shards (one process)."""
+"""Multi-device runs of the step on a mesh of shards (one process, or one
+process a card under ``torch.distributed``: parallel/dist.py)."""

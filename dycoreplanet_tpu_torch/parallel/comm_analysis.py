@@ -16,7 +16,7 @@ JAX package compiles it to:
   all-reduce           ``psum`` (so ``ShardedStep.total`` and ``dot``,
                        the Krylov loops' inner products and the sharded
                        solves' one field-sized sum) and ``pmax``;
-  all-gather           ``window``: a shard's window of the global grid,
+  all-gather           ``windows``: a shard's window of the global grid,
                        other shards' interiors beyond a halo;
   all-to-all,          never made by the port (no transpose of a field
   reduce-scatter       across the mesh): counted so that a test can hold
@@ -33,6 +33,17 @@ an exchange along a mesh axis of one shard) moves nothing and is not
 counted. Counts are of executed ops: the JAX counts are of HLO
 instructions, where a loop body counts once, so a Krylov path's counts
 grow with its iterations.
+
+On a mesh that spans processes (parallel/mesh.py) every rank takes part
+in every transport call and records it as one process records it (a
+gather: every destination's part), so that each rank's ledger of a step
+is the single-controller ledger. That ledger is the JAX module's count,
+not what a process mesh moves: there ``psum`` and ``pmax`` are
+all-gathers of every shard's partial (parallel/halo.py), so a rank
+receives the partials of the other ranks' shards, A·B - A·B/W of them
+where the ledger records one partial's bytes for an all-reduce. The
+messages and bytes a rank actually sends and receives, the all-gathers'
+included, are parallel/dist.py's ``stats``.
 
 Outside :func:`counting` nothing is recorded: a transport call pays one
 test of ``active``.

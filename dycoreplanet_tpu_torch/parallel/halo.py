@@ -2,12 +2,21 @@
 JAX package's ``parallel/halo.py``).
 
 The JAX functions run inside ``shard_map`` and move data with
-``lax.ppermute`` and ``lax.psum``. Here one process holds every shard,
-so a ppermute is a copy of the edge slab to the neighbour's device
-(``Tensor.to``: a peer copy between cards, no copy on one device), and
-a psum is a sum of the shards' partials in a fixed order (a major, b
-minor), on the first device, copied to each device once: two runs give
-the same bits, and no float atomics are used.
+``lax.ppermute`` and ``lax.psum``. Here every read of another shard's
+data is one move primitive (``_move``): a transport call lists its
+pieces, (source shard, index of its block, destination shard), alike on
+every process, and each piece is copied with ``Tensor.to`` where this
+process holds both shards (a peer copy between cards, no copy on one
+device), or sent and received between the two ranks in the call's one
+``batch_isend_irecv`` (parallel/dist.py) on a mesh that spans
+processes (parallel/mesh.py). Every function below is built on it, so
+both forms of the mesh run the same halo rules.
+
+A psum is a sum of the shards' partials in a fixed order (a major, b
+minor), on this process's first device, copied to each of its devices
+once; on a process mesh the local partials are all-gathered first, and
+every rank sums all of them in that order: every rank, and two runs,
+get the same bits, and no float atomics are used. ``pmax`` likewise.
 
 On a non-periodic mesh axis the missing neighbour contributes zeros,
 as ``ppermute`` does; the pole closure of the shell's lat axis (the
@@ -16,18 +25,55 @@ axis (the shell's lon, the box's y and x, the annulus's phi, the slab's
 x) is a periodic ring (``row_halo``, ``col_halo``). The rows are the
 cell arrays' axis -2 and the columns axis -1 (parallel/mesh.py: a
 one-axis mesh has one row of shards and pads no rows). Inside
-``comm_analysis.counting`` each move between shards reports itself as
-the collective the JAX package compiles it to.
+``comm_analysis.counting`` each transport call reports itself as the
+collective the JAX package compiles it to, on every process alike.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dycoreplanet_tpu_torch.parallel import comm_analysis as comm
+from dycoreplanet_tpu_torch.parallel import dist as pdist
 from dycoreplanet_tpu_torch.parallel.mesh import Mesh, Sharded, build
+
+
+def _move(x: Sharded, mesh: Mesh, pieces) -> Dict[int, torch.Tensor]:
+    """The cross-shard reads of one transport call: ``pieces`` [(src,
+    key, dst)], the source shard's (a, b), an index of its block and the
+    destination shard's (a, b), listed alike by every process. Returns
+    {i: piece i on its destination's device} for the pieces whose
+    destination this process holds: from a local source by ``Tensor.to``,
+    from another rank's in one ``batch_isend_irecv``, received into
+    buffers shaped from this process's own block (every shard's shape)."""
+    out, sends, recvs = {}, [], []
+    meta = None
+    for i, (src, key, dst) in enumerate(pieces):
+        here, there = mesh.is_local(*src), mesh.is_local(*dst)
+        if here and there:
+            out[i] = x[src][key].to(mesh.device(*dst))
+        elif here:
+            sends.append((i, x[src][key], mesh.owner(*dst)))
+        elif there:
+            if meta is None:
+                like = x.local()
+                meta = torch.empty(like.shape, dtype=like.dtype,
+                                   device="meta")
+            recvs.append((i, tuple(meta[key].shape), meta.dtype,
+                          mesh.device(*dst), mesh.owner(*src)))
+    if sends or recvs:
+        out.update(pdist.exchange(mesh.group, sends, recvs))
+    return out
+
+
+def _join(grid: List[List[torch.Tensor]]) -> torch.Tensor:
+    """Pieces laid out as rows of columns, joined along axes -1 and
+    -2."""
+    rows = [r[0] if len(r) == 1 else torch.cat(r, dim=-1) for r in grid]
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=-2)
 
 
 def ring_perms(n: int, periodic: bool) -> Tuple[list, list]:
@@ -47,18 +93,19 @@ def _permute(src: Sharded, mesh: Mesh, axis_name: str, perm) -> Sharded:
     device, zeros where no pair names it."""
     ax = mesh.grid_axis(axis_name)
     frm = {d: s for s, d in perm}
-
-    def get(a, b):
-        idx = (a, b)
-        s = frm.get(idx[ax])
-        if s is None:
-            return torch.zeros_like(src[a, b])
-        at = (s, b) if ax == 0 else (a, s)
-        return src[at].to(mesh.device(a, b))
-
+    A, B = mesh.grid
+    pieces, at = [], {}
+    for a in range(A):
+        for b in range(B):
+            s = frm.get((a, b)[ax])
+            if s is not None:
+                at[a, b] = len(pieces)
+                pieces.append(((s, b) if ax == 0 else (a, s), ..., (a, b)))
     if comm.active is not None and any(s != d for s, d in perm):
-        comm.active.record("collective-permute", comm.nbytes(src[0, 0]))
-    return build(mesh, get)
+        comm.active.record("collective-permute", comm.nbytes(src.local()))
+    moved = _move(src, mesh, pieces)
+    return build(mesh, lambda a, b: moved[at[a, b]] if (a, b) in at
+                 else torch.zeros_like(src[a, b]))
 
 
 def exchange_ghosts(x: Sharded, mesh: Mesh, axis_name: str, array_axis: int,
@@ -88,64 +135,90 @@ def halo_pad(x: Sharded, mesh: Mesh, axis_name: str, array_axis: int, *,
                  lo, hi)
 
 
+def _all_partials(x: Sharded, mesh: Mesh, dtype=None) -> List[torch.Tensor]:
+    """Every shard's partial (equal shapes) in shard order on this
+    process's first device, in ``dtype``: on a process mesh the local
+    ones all-gathered (parallel/dist.py)."""
+    dev = mesh.own_device
+    parts = [t.to(dev, dtype) if dtype is not None else t.to(dev)
+             for t in x.parts()]
+    if mesh.group is None:
+        return parts
+    got = pdist.all_gather(mesh.group, torch.stack(parts))
+    # each in the memory layout of a local partial (an einsum's may be
+    # permuted), so that the sum, and what reads it, runs as on one
+    # process
+    return [torch.empty_like(parts[0]).copy_(g)
+            for g in got.reshape((-1,) + got.shape[2:])]
+
+
 def psum(x: Sharded, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
     """The sum over every shard of equal-shaped partials, in shard order
-    on the first device, then one copy a distinct device: {device:
-    total}. The sum runs in float32 at the least (bfloat16 partials are
-    widened first)."""
-    devs = mesh.distinct_devices()
+    on this process's first device, then one copy a distinct device of
+    the process: {device: total}, the same bits on every rank. The sum
+    runs in float32 at the least (bfloat16 partials are widened
+    first)."""
+    t = x.local()
+    acc = torch.promote_types(t.dtype, torch.float32)
     if comm.active is not None:
-        t = x[0, 0]
-        comm.active.record("all-reduce", comm.nbytes(
-            t, torch.promote_types(t.dtype, torch.float32)))
+        comm.active.record("all-reduce", comm.nbytes(t, acc))
     tot = None
-    for _, t in x.items():
-        t = t.to(devs[0], torch.promote_types(t.dtype, torch.float32))
-        tot = t if tot is None else tot + t
-    return {d: tot if d == devs[0] else tot.to(d) for d in devs}
+    for p in _all_partials(x, mesh, acc):
+        tot = p if tot is None else tot + p
+    first, *rest = mesh.distinct_devices()
+    return {first: tot, **{d: tot.to(d) for d in rest}}
 
 
 def pmax(x: Sharded, mesh: Mesh) -> torch.Tensor:
-    """The largest of equal-shaped partials, elementwise, on the first
-    device."""
-    dev = mesh.distinct_devices()[0]
+    """The largest of equal-shaped partials, elementwise, on this
+    process's first device (the same on every rank)."""
     if comm.active is not None:
-        comm.active.record("all-reduce", comm.nbytes(x[0, 0]))
+        comm.active.record("all-reduce", comm.nbytes(x.local()))
     out = None
-    for _, t in x.items():
-        t = t.to(dev)
-        out = t if out is None else torch.maximum(out, t)
+    for p in _all_partials(x, mesh):
+        out = p if out is None else torch.maximum(out, p)
     return out
 
 
-def _half_turn_at(rows: Sharded, mesh: Mesh, a: int, b: int
-                  ) -> torch.Tensor:
-    """Shard (a, b)'s part of :func:`half_turn`."""
-    B = mesh.grid[1]
-    no = rows[0, 0].shape[-1]
+def _half_turn_runs(B: int, no: int, b: int) -> List[Tuple[int, int, int]]:
+    """[(lon shard, first column, count)]: where lon shard b's columns at
+    lon + pi lie, in order (one run for even B; for odd B the half turn
+    falls inside a shard, and two neighbouring shards give a run each)."""
     nlon = B * no
-    dev = mesh.device(a, b)
     start = (b * no + nlon // 2) % nlon
-    parts: List[torch.Tensor] = []
-    c = 0
+    out, c = [], 0
     while c < no:
         s, col = divmod((start + c) % nlon, no)
         take = min(no - col, no - c)
-        parts.append(rows[a, s][..., col:col + take].to(dev))
+        out.append((s, col, take))
         c += take
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return out
 
 
-def half_turn(rows: Sharded, mesh: Mesh) -> Sharded:
+def half_turn(rows: Sharded, mesh: Mesh, at_row: Optional[int] = None
+              ) -> Sharded:
     """The global half-turn longitude roll of a lat ring cut over the lon
     shards: shard (a, b) gets the ring's values at lon + pi over its own
     columns. For an even number B of lon shards that is the block of shard
-    b + B/2 (a shard permute); for odd B the half turn falls inside a
-    shard, and each shard's values come from two neighbouring shards
-    (B = 1: the local roll by nlon/2)."""
-    if comm.active is not None and mesh.grid[1] > 1:
-        comm.active.record("collective-permute", comm.nbytes(rows[0, 0]))
-    return build(mesh, lambda a, b: _half_turn_at(rows, mesh, a, b))
+    b + B/2 (a shard permute); for odd B each shard's values come from two
+    neighbouring shards, which may lie on two other ranks (B = 1: the
+    local roll by nlon/2). ``at_row``: only the shards of that grid row
+    (a pole row) get theirs; the others hold None."""
+    A, B = mesh.grid
+    no = rows.local().shape[-1]
+    if comm.active is not None and B > 1:
+        comm.active.record("collective-permute", comm.nbytes(rows.local()))
+    pieces, of = [], {}
+    for a in range(A) if at_row is None else (at_row,):
+        for b in range(B):
+            of[a, b] = []
+            for s, col, take in _half_turn_runs(B, no, b):
+                of[a, b].append(len(pieces))
+                pieces.append(((a, s), (..., slice(col, col + take)),
+                               (a, b)))
+    moved = _move(rows, mesh, pieces)
+    return build(mesh, lambda a, b: _join([[moved[i] for i in of[a, b]]])
+                 if (a, b) in of else None)
 
 
 def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
@@ -156,12 +229,13 @@ def lat_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
     repeated ``width`` times. ``sign=None``: zeros beyond the poles, as a
     non-periodic exchange gives."""
     A = mesh.grid[0]
-    ax = x[0, 0].dim() - 2
+    ax = x.local().dim() - 2
     lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width, periodic=False)
     if sign is None:
         return lo.map(lambda l, h: torch.cat([l, h], dim=ax), hi)
-    first = half_turn(x.map(lambda t: t.narrow(ax, 0, 1)), mesh)
-    last = half_turn(x.map(lambda t: t.narrow(ax, t.shape[ax] - 1, 1)), mesh)
+    first = half_turn(x.map(lambda t: t.narrow(ax, 0, 1)), mesh, 0)
+    last = half_turn(x.map(lambda t: t.narrow(ax, t.shape[ax] - 1, 1)), mesh,
+                     A - 1)
 
     def rows(a, b):
         lo_ab, hi_ab = lo[a, b], hi[a, b]
@@ -185,8 +259,7 @@ def _ring(x: Sharded, mesh: Mesh, name: str, ax: int, width: int
 
 def col_halo(x: Sharded, mesh: Mesh, width: int) -> Sharded:
     """[g_-width..g_-1, g_+1..g_+width] columns (axis -1, periodic)."""
-    return _ring(x, mesh, mesh.axis_names[-1], x[0, 0].dim() - 1, width)
-
+    return _ring(x, mesh, mesh.axis_names[-1], x.local().dim() - 1, width)
 
 
 def row_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
@@ -195,7 +268,7 @@ def row_halo(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
     rows from their periodic ring (``sign`` unused)."""
     if mesh.rows == "pole":
         return lat_halo(x, mesh, width, sign)
-    return _ring(x, mesh, mesh.axis_names[0], x[0, 0].dim() - 2, width)
+    return _ring(x, mesh, mesh.axis_names[0], x.local().dim() - 2, width)
 
 
 def pad_block(x: Sharded, mesh: Mesh, width: int, sign=None) -> Sharded:
@@ -241,8 +314,8 @@ def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
     if r_pad is not None:
         x = build(mesh, lambda a, b: r_pad(a, b, x[a, b]))
     A = mesh.grid[0]
-    ax = x[0, 0].dim() - 2
-    n = x[0, 0].shape[ax]
+    ax = x.local().dim() - 2
+    n = x.local().shape[ax]
     if mesh.rows == "periodic":
         x = halo_pad(x, mesh, mesh.axis_names[0], ax, width=width)
     elif mesh.rows == "pole":
@@ -251,21 +324,14 @@ def pad_mirror(x: Sharded, mesh: Mesh, width: int, r_pad=None) -> Sharded:
                              "ghost rows")
         lo, hi = exchange_ghosts(x, mesh, "lat", ax, width=width,
                                  periodic=False)
-        first = x.map(lambda t: t.narrow(ax, 0, width))
-        last = x.map(lambda t: t.narrow(ax, n - width, width))
-
-        def pole(rows, a, b):
-            # ghost k (k = 1 nearest) mirrors interior row k - 1
-            return _half_turn_at(rows, mesh, a, b).flip(ax)
-
-        if comm.active is not None and mesh.grid[1] > 1:
-            for rows in (first, last):   # the two pole closures' half turns
-                comm.active.record("collective-permute",
-                                   comm.nbytes(rows[0, 0]))
+        # ghost k (k = 1 nearest) mirrors interior row k - 1 at lon + pi
+        first = half_turn(x.map(lambda t: t.narrow(ax, 0, width)), mesh, 0)
+        last = half_turn(x.map(lambda t: t.narrow(ax, n - width, width)),
+                         mesh, A - 1)
 
         def lat(a, b):
-            lo_ab = pole(first, a, b) if a == 0 else lo[a, b]
-            hi_ab = pole(last, a, b) if a == A - 1 else hi[a, b]
+            lo_ab = first[a, b].flip(ax) if a == 0 else lo[a, b]
+            hi_ab = last[a, b].flip(ax) if a == A - 1 else hi[a, b]
             return torch.cat([lo_ab, x[a, b], hi_ab], dim=ax)
 
         x = build(mesh, lat)
@@ -286,21 +352,31 @@ def _runs(idx, n: int) -> List[List[int]]:
     return out
 
 
-def window(x: Sharded, rows, cols, device, dest=None) -> torch.Tensor:
-    """The global rows ``rows`` and columns ``cols`` (global indices of
-    axes -2 and -1, any order) of a Sharded field, gathered onto
-    ``device`` from the shards that own them (a copy a piece between
-    cards, none on one device): each shard's window of
-    mesh.window_geometry. ``dest`` names the shard that takes it (the
-    all-gather's destination in ``comm_analysis``)."""
-    nl, no = x[0, 0].shape[-2:]
-    cruns = _runs(cols, no)
-    parts = []
-    for a, j0, j1 in _runs(rows, nl):
-        row = [x[a, b][..., j0:j1, k0:k1].to(device) for b, k0, k1 in cruns]
-        parts.append(row[0] if len(row) == 1 else torch.cat(row, dim=-1))
-    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
-    if comm.active is not None:
-        comm.active.record("all-gather", comm.nbytes(out),
-                           dest=(str(device), dest))
-    return out
+def windows(x: Sharded, mesh: Mesh, specs: dict) -> Sharded:
+    """Windows of the global grid in one transport call: ``specs`` {(a,
+    b): (rows, cols)}, listed alike by every process, the global rows of
+    axis -2 and columns of axis -1 (global indices, any order) that shard
+    (a, b) takes, gathered onto its device from the shards that own them:
+    each shard's window of mesh.window_geometry. In ``comm_analysis`` an
+    all-gather made one destination at a time."""
+    t = x.local()
+    nl, no = t.shape[-2:]
+    lead = int(np.prod(t.shape[:-2], dtype=np.int64)) * t.element_size()
+    pieces: list = []
+    plan = {}      # each destination's pieces, as rows of columns
+    for dst in sorted(specs):
+        rows, cols = specs[dst]
+        cruns = _runs(cols, no)
+        plan[dst] = []
+        for a, j0, j1 in _runs(rows, nl):
+            plan[dst].append([])
+            for b, k0, k1 in cruns:
+                plan[dst][-1].append(len(pieces))
+                pieces.append(((a, b), (..., slice(j0, j1), slice(k0, k1)),
+                               dst))
+        if comm.active is not None:
+            comm.active.record("all-gather", lead * len(rows) * len(cols),
+                               dest=dst)
+    moved = _move(x, mesh, pieces)
+    return build(mesh, lambda a, b: _join([[moved[i] for i in r]
+                                          for r in plan[a, b]]))

@@ -1,14 +1,26 @@
 """Device mesh and sharded fields: the horizontal domain decomposition of
 every geometry (counterpart of the JAX package's ``parallel/mesh.py``).
 
-The JAX package is single-controller: one Python process drives every
-device of its ``jax.sharding.Mesh``. The port keeps that design. A
-:class:`Mesh` is an array of shards, each with the device it lives on;
-devices may repeat, so a mesh of 2 x 4 shards can run on one card (or,
-in the tests, on the CPU) with every halo rule of the multi-card case.
-A :class:`Sharded` field holds one tensor per shard, the shard's block
-of a global array. The vertical axis (r or z) is never sharded. The
-layouts are the JAX package's (``mesh_axes``):
+A :class:`Mesh` is an A x B array of shards, each with the device it
+lives on, in one of two forms:
+
+  * one process (``group=None``, the JAX package's single controller):
+    the process holds every shard; devices may repeat, so a mesh of 2 x
+    4 shards can run on one card (or, in the tests, on the CPU) with
+    every halo rule of the multi-card case;
+  * W processes (``group``: a ``torch.distributed`` group,
+    parallel/dist.py; one process a card by default): the shards are
+    dealt over the ranks in shard order (a major, b minor), a block of
+    A * B / W to each, and each rank holds only its own. ``owner(a,
+    b)`` names the rank of a shard, ``is_local`` whether this process
+    holds it; the devices of other ranks' shards are not known here.
+
+A :class:`Sharded` field holds one tensor per shard that this process
+holds (every shard on one process), the shard's block of a global array;
+``items`` and ``map`` walk those, and indexing a shard of another rank
+raises. Every shard has the same shape (``local_shape``). The vertical
+axis (r or z) is never sharded. The layouts are the JAX package's
+(``mesh_axes``):
 
   shell   (r, lat, lon): mesh ("lat", "lon"), A x B shards
   cuboid  (z, y, x):     mesh ("y", "x"),     A x B shards
@@ -23,6 +35,9 @@ On a one-axis mesh axis -2 is the vertical axis, which the one row of
 shards holds whole and nothing pads. ``Mesh.rows`` is the rule of axis
 -2: "pole" (the shell's lat, closed at the poles), "periodic" (the box's
 y) or None (a one-axis mesh); axis -1 is periodic in every geometry.
+A field crosses between the forms whole: ``shard_field`` cuts this
+process's blocks of a global array, ``unshard_field`` gathers every
+block in shard order (a collective on a process mesh).
 """
 
 from __future__ import annotations
@@ -58,12 +73,14 @@ def row_rule(geo: Geometry) -> Optional[str]:
 class Mesh:
     """An array of shards, one device each (repeats allowed), with axis
     names; ``shape`` maps each name to its size, as ``jax.sharding.Mesh``
-    does."""
+    does. With a ``group`` the shards are dealt over its ranks in shard
+    order, a block of A * B / W each (module docstring); ``devices``
+    then gives the devices of this rank's shards at their places (the
+    other entries are not read)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
-        arr = np.empty(np.shape(devices), dtype=object)
-        for idx in np.ndindex(arr.shape):
-            arr[idx] = torch.device(np.asarray(devices, dtype=object)[idx])
+    def __init__(self, devices, axis_names: Sequence[str], group=None):
+        src = np.asarray(devices, dtype=object)
+        arr = np.empty(src.shape, dtype=object)
         if arr.ndim != len(axis_names):
             raise ValueError(f"{arr.ndim}-d device array for axes "
                              f"{tuple(axis_names)}")
@@ -71,6 +88,20 @@ class Mesh:
                                       and axis_names[0] not in _ROWS):
             raise ValueError(f"a mesh has the axes of a layout (mesh_axes), "
                              f"not {tuple(axis_names)}")
+        self.group = group
+        if group is None:
+            self.world, self.rank = 1, 0
+        else:
+            import torch.distributed as dist
+            self.world = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+        if arr.size % self.world:
+            raise ValueError(f"{arr.size} shards cannot be dealt over "
+                             f"{self.world} ranks")
+        self._per = arr.size // self.world
+        for k, idx in enumerate(np.ndindex(arr.shape)):
+            if k // self._per == self.rank:
+                arr[idx] = torch.device(src[idx])
         self.devices = arr
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, arr.shape))
@@ -79,12 +110,36 @@ class Mesh:
         self.grid = self._grid.shape
         self.rows = _ROWS[self.axis_names[0]] if arr.ndim == 2 else None
 
+    def owner(self, a: int, b: int) -> int:
+        """The rank that holds shard (a, b) of the grid."""
+        return (a * self.grid[1] + b) // self._per
+
+    def is_local(self, a: int, b: int) -> bool:
+        """Whether this process holds shard (a, b) of the grid."""
+        return self.owner(a, b) == self.rank
+
+    def local_shards(self) -> List[Tuple[int, int]]:
+        """The (a, b) of this process's shards, in shard order."""
+        A, B = self.grid
+        return [(a, b) for a in range(A) for b in range(B)
+                if self.is_local(a, b)]
+
     def device(self, *idx) -> torch.device:
         """The device of shard (a, b) of the grid (or of the mesh's own
-        index)."""
-        if len(idx) == 2:
-            return self._grid[idx]
-        return self.devices[idx]
+        index); raises for a shard of another rank."""
+        d = self._grid[idx] if len(idx) == 2 else self.devices[idx]
+        if d is None:
+            raise LookupError(f"shard {idx} lies on rank "
+                              f"{self.owner(*idx) if len(idx) == 2 else '?'}"
+                              f", not on rank {self.rank}")
+        return d
+
+    @property
+    def own_device(self) -> torch.device:
+        """The device of this process's first shard: where the replicated
+        results of the mesh's sums are read (the mesh's first device on
+        one process)."""
+        return self.device(*self.local_shards()[0])
 
     def grid_axis(self, name: str) -> int:
         """The grid axis (0: rows, 1: columns) of a mesh axis."""
@@ -96,9 +151,10 @@ class Mesh:
         return (width if self.rows else 0, width)
 
     def distinct_devices(self) -> List[torch.device]:
-        """The mesh's devices, each once, in shard order."""
+        """This process's devices, each once, in shard order."""
         out = []
-        for d in self.devices.flat:
+        for ab in self.local_shards():
+            d = self._grid[ab]
             if d not in out:
                 out.append(d)
         return out
@@ -121,18 +177,40 @@ def _default_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def build_mesh(geo: Geometry, devices: Optional[Sequence] = None) -> Mesh:
+def build_mesh(geo: Geometry, devices: Optional[Sequence] = None,
+               group=None) -> Mesh:
     """A mesh shaped for the geometry's horizontal axes (the JAX
-    function's shapes and names); ``devices`` defaults to every CUDA
-    card."""
-    devices = list(devices if devices is not None else _default_devices())
-    n = len(devices)
+    function's shapes and names). One process: ``devices`` are the
+    shards' (default: every CUDA card). With a ``group`` (parallel/
+    dist.py): ``devices`` are this rank's shards' (default: its current
+    card, one shard), every rank gives as many, and the mesh holds
+    W times that many shards, this rank's block in rank order."""
+    if group is None:
+        devices = list(devices if devices is not None
+                       else _default_devices())
+        n, mine = len(devices), 0
+    else:
+        import torch.distributed as dist
+
+        from dycoreplanet_tpu_torch.parallel.dist import gather_objects
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("build_mesh: CUDA is not available on "
+                                   "this rank; pass its devices")
+            devices = [torch.device("cuda", torch.cuda.current_device())]
+        devices = list(devices)
+        counts = gather_objects(group, len(devices))
+        if len(set(counts)) != 1:
+            raise ValueError(f"build_mesh: the ranks give {counts} shards")
+        mine = dist.get_rank(group) * len(devices)
+        n = len(devices) * len(counts)
     arr = np.empty(n, dtype=object)
-    arr[:] = devices
+    arr[:] = "cpu"
+    arr[mine:mine + len(devices)] = devices
     names = mesh_axes(geo)
     if len(names) == 1:
-        return Mesh(arr, names)
-    return Mesh(arr.reshape(_factor2(n)), names)
+        return Mesh(arr, names, group)
+    return Mesh(arr.reshape(_factor2(n)), names, group)
 
 
 def mesh_shape_for(geo: Geometry, n_devices: Optional[int] = None
@@ -148,30 +226,60 @@ def mesh_shape_for(geo: Geometry, n_devices: Optional[int] = None
 
 class Sharded:
     """A field cut over a mesh: ``shards[a][b]`` is the block of row shard
-    a and column shard b (``Mesh.grid``), on that shard's device."""
+    a and column shard b (``Mesh.grid``), on that shard's device, or None
+    for a shard another rank holds (``group``: the mesh's process group,
+    None on one process)."""
 
-    def __init__(self, shards: List[List[torch.Tensor]]):
+    def __init__(self, shards: List[List[Optional[torch.Tensor]]],
+                 group=None):
         self.shards = shards
+        self.group = group
 
     @property
     def grid(self) -> Tuple[int, int]:
         return len(self.shards), len(self.shards[0])
 
     def __getitem__(self, ab) -> torch.Tensor:
-        return self.shards[ab[0]][ab[1]]
+        t = self.shards[ab[0]][ab[1]]
+        if t is None:
+            raise LookupError(f"shard {tuple(ab)} is held by another "
+                              "process")
+        return t
 
     def items(self):
-        """((a, b), tensor) in shard order: a major, b minor."""
+        """((a, b), tensor) of this process's shards in shard order: a
+        major, b minor."""
         for a, row in enumerate(self.shards):
             for b, t in enumerate(row):
-                yield (a, b), t
+                if t is not None:
+                    yield (a, b), t
+
+    def local(self) -> torch.Tensor:
+        """This process's first shard (every shard has its shape)."""
+        return next(self.items())[1]
+
+    def parts(self) -> List[torch.Tensor]:
+        """This process's shards in shard order."""
+        return [t for _, t in self.items()]
+
+    def with_parts(self, parts: Sequence[torch.Tensor]) -> "Sharded":
+        """A field of this one's layout holding ``parts`` (as ``parts()``
+        lists them)."""
+        it = iter(parts)
+        return Sharded([[None if t is None else next(it) for t in row]
+                        for row in self.shards], self.group)
+
+    def numel(self) -> int:
+        """The element count of the global field."""
+        A, B = self.grid
+        return self.local().numel() * A * B
 
     def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
-        """fn(shard, *other shards) on every shard."""
-        A, B = self.grid
-        return Sharded([[fn(self.shards[a][b],
-                            *(o.shards[a][b] for o in others))
-                         for b in range(B)] for a in range(A)])
+        """fn(shard, *other shards) on every shard of this process."""
+        return Sharded([[None if t is None else
+                         fn(t, *(o.shards[a][b] for o in others))
+                         for b, t in enumerate(row)]
+                        for a, row in enumerate(self.shards)], self.group)
 
     # the elementwise arithmetic of the Krylov loops (solvers/cg.py,
     # solvers/fixed.py): with another Sharded shard by shard; with a
@@ -179,13 +287,12 @@ class Sharded:
     # copied once to each other device a shard lies on
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0][0].dtype
+        return self.local().dtype
 
     @property
     def device(self) -> torch.device:
-        """The first shard's device."""
-        return self.shards[0][0].device
-
+        """This process's first shard's device."""
+        return self.local().device
     def to(self, dtype) -> "Sharded":
         return self.map(lambda t: t.to(dtype))
 
@@ -233,9 +340,10 @@ class Sharded:
 
 
 def build(mesh: Mesh, fn: Callable[[int, int], torch.Tensor]) -> Sharded:
-    """A Sharded field of fn(a, b) for every shard."""
+    """A Sharded field of fn(a, b) for every shard of this process."""
     A, B = mesh.grid
-    return Sharded([[fn(a, b) for b in range(B)] for a in range(A)])
+    return Sharded([[fn(a, b) if mesh.is_local(a, b) else None
+                     for b in range(B)] for a in range(A)], mesh.group)
 
 
 def local_shape(geo: Geometry, mesh: Mesh) -> Tuple[int, ...]:
@@ -262,9 +370,16 @@ def offsets(geo: Geometry, mesh: Mesh) -> dict:
     return {(a, b): (a * nl, b * no) for a in range(A) for b in range(B)}
 
 
+def local_offsets(geo: Geometry, mesh: Mesh) -> dict:
+    """``offsets`` of this process's shards alone: where the per-shard
+    tables are built."""
+    return {ab: at for ab, at in offsets(geo, mesh).items()
+            if mesh.is_local(*ab)}
+
+
 def shard_field(x: torch.Tensor, mesh: Mesh) -> Sharded:
-    """Cut a global (..., n1, n2) cell array into the mesh's blocks of
-    axes -2 and -1, each a contiguous copy on its shard's device."""
+    """Cut a global (..., n1, n2) cell array into this process's blocks
+    of axes -2 and -1, each a contiguous copy on its shard's device."""
     A, B = mesh.grid
     nl, no = x.shape[-2] // A, x.shape[-1] // B
     return build(mesh, lambda a, b: x[..., a * nl:(a + 1) * nl,
@@ -273,17 +388,28 @@ def shard_field(x: torch.Tensor, mesh: Mesh) -> Sharded:
 
 
 def unshard_field(x: Sharded, device=None) -> torch.Tensor:
-    """The global array of a Sharded field, on ``device`` (default: shard
-    (0, 0)'s): its blocks joined along axes -1 and -2."""
-    dev = x[0, 0].device if device is None else torch.device(device)
+    """The global array of a Sharded field, on ``device`` (default: this
+    process's first shard's): its blocks joined along axes -1 and -2. On
+    a process mesh every rank calls it: the blocks are all-gathered in
+    shard order, and every rank gets the whole array."""
+    dev = x.device if device is None else torch.device(device)
+    rows = x.shards
+    if x.group is not None:
+        from dycoreplanet_tpu_torch.parallel.dist import all_gather
+        A, B = x.grid
+        # gathered where the shards lie (NCCL takes no host tensor)
+        got = all_gather(x.group, torch.stack(x.parts()))
+        flat = got.reshape((A * B,) + got.shape[2:])
+        rows = [[flat[a * B + b] for b in range(B)] for a in range(A)]
     return torch.cat([torch.cat([t.to(dev) for t in row], dim=-1)
-                      for row in x.shards], dim=-2)
+                      for row in rows], dim=-2)
 
 
 def shard_state(state, geo: Geometry, mesh: Mesh):
     """A State's fields cut onto the mesh (the JAX function's canonical
     layout: the cell-shaped left faces share the cells' partitioning;
-    time and step number stay host numbers, replicated)."""
+    time and step number stay host numbers, replicated); on a process
+    mesh this process's blocks alone."""
     local_shape(geo, mesh)
     return state._replace(
         u=shard_field(state.u, mesh),
@@ -292,8 +418,8 @@ def shard_state(state, geo: Geometry, mesh: Mesh):
 
 
 def unshard_state(state, device=None):
-    """The global State of a sharded one, on ``device`` (default: shard
-    (0, 0)'s)."""
+    """The global State of a sharded one, on ``device`` (default: this
+    process's first shard's); a collective on a process mesh."""
     return state._replace(
         u=unshard_field(state.u, device),
         u_faces=tuple(unshard_field(f, device) for f in state.u_faces),
@@ -344,7 +470,7 @@ def window_geometry(geo: Geometry, rows, cols) -> Geometry:
     past a pole; taken modulo on the box; ignored on a one-axis layout,
     whose window holds the whole vertical axis) and the columns ``cols``
     of axis -1 (global indices, any order, taken modulo), as
-    :func:`halo.window` gathers a field. A shell window that holds a pole
+    :func:`halo.windows` gathers a field. A shell window that holds a pole
     and, after its own columns, the columns at lon + pi (each the same
     distance from the window's middle) closes the pole as the whole ring
     does: the stencils' half-turn roll of the window's columns reaches

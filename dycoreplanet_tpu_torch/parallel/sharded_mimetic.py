@@ -6,7 +6,8 @@ Each shard runs the single-device operators (ops/staggered.py,
 ops/stencil.py) on a window of the global grid around its block, and
 keeps its own block of the result. The window holds the shard's rows and
 columns and ``WIDTH`` more on each side of every sharded axis (gathered
-from the shards that own them, ``halo.window``; a periodic axis wraps:
+from the shards that own them, ``halo.windows``, on a mesh that spans
+processes from other ranks too; a periodic axis wraps:
 the box's y and x, the annulus's phi, the slab's x, the shell's lon; a
 one-axis mesh's window holds the whole vertical axis). On the shell the
 lat extent stops at a pole, so that a window that holds a pole closes it
@@ -37,7 +38,7 @@ import torch
 from dycoreplanet_tpu_torch.ops import stencil as st
 from dycoreplanet_tpu_torch.ops.bc import BCSpec
 from dycoreplanet_tpu_torch.ops.staggered import StaggeredOps
-from dycoreplanet_tpu_torch.parallel.halo import window
+from dycoreplanet_tpu_torch.parallel.halo import windows
 from dycoreplanet_tpu_torch.parallel.mesh import (
     Mesh, Sharded, build, local_shape, offsets, row_rule, window_geometry)
 
@@ -114,7 +115,9 @@ class ShardedStaggered:
         B = mesh.grid[1]
         self.mesh = mesh
         self.scheme = model.advection_scheme
-        self.windows = {}
+        # every shard's window (rows, cols): the pieces every process
+        # lists alike; the operators of this process's windows alone
+        self.specs, self.windows = {}, {}
         for (a, b), (j0, k0) in offsets(geo, mesh).items():
             own = np.arange(k0 - width, k0 + no + width) % n2
             cols, c0 = own, width
@@ -130,9 +133,11 @@ class ShardedStaggered:
                 r0 = width
             else:               # a one-axis mesh: the vertical axis whole
                 rows, r0 = range(n1), 0
-            crop = (slice(r0, r0 + nl), slice(c0, c0 + no))
-            self.windows[a, b] = _Window(model, rows, cols, crop,
-                                         mesh.device(a, b))
+            self.specs[a, b] = (rows, cols)
+            if mesh.is_local(a, b):
+                crop = (slice(r0, r0 + nl), slice(c0, c0 + no))
+                self.windows[a, b] = _Window(model, rows, cols, crop,
+                                             mesh.device(a, b))
         self._memo = {}
 
     def memo(self, key, make: Callable):
@@ -145,11 +150,13 @@ class ShardedStaggered:
 
     def apply(self, fn: Callable, *fields) -> Sharded:
         """``fn(window, *the fields' windows)`` on every shard, cropped to
-        the shard's block."""
+        the shard's block (each field's windows gathered in one transport
+        call)."""
+        got = [windows(f, self.mesh, self.specs) for f in fields]
+
         def one(a, b):
             w = self.windows[a, b]
-            out = fn(w, *(window(f, w.rows, w.cols, w.device, (a, b))
-                          for f in fields))
+            out = fn(w, *(g[a, b] for g in got))
             return out[..., w.crop[0], w.crop[1]].contiguous()
 
         return build(self.mesh, one)

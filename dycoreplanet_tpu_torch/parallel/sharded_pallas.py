@@ -28,7 +28,7 @@ from dycoreplanet_tpu_torch.ops.forcing import Forcing, ShellForcing
 from dycoreplanet_tpu_torch.parallel.halo import (
     col_halo, exchange_ghosts, lat_halo, pad_block)
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, Sharded, block, build, crop, local_shape, offsets)
+    Mesh, Sharded, block, build, crop, local_offsets, local_shape)
 
 # the pole sign pattern of a stacked [u_r, u_lat, u_lon] row (POLE for
 # u_r, POLE_FLIP for the tangential components: the local basis flips
@@ -159,7 +159,7 @@ class ShardedPlainForcing:
         self.mesh = mesh
         self.pole = mesh.rows == "pole"
         self.shards = {}
-        for (a, b), (j0, k0) in offsets(base.geo, mesh).items():
+        for (a, b), (j0, k0) in local_offsets(base.geo, mesh).items():
             wall = None if T_wall is None else torch.as_tensor(
                 block(T_wall, j0, nl, k0, no, 2, rows=mesh.rows),
                 device=mesh.device(a, b))

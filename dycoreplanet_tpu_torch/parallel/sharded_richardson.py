@@ -29,7 +29,8 @@ class ShardedShellRichardson:
     """ShellRichardson on a ("lat", "lon") mesh: ``__call__(rhs_u, rhs_T,
     T0, dt)`` on Sharded fields -> (u_star, T_new, (uf0, uf1, uf2,
     rhs_phi), (rnorm_u, bnorm_u, rnorm_T, bnorm_T)), the fields Sharded,
-    the norms 0-d tensors on the mesh's first device."""
+    the norms 0-d tensors on this process's first device (the same bits
+    on every rank of a process mesh)."""
 
     def __init__(self, kern: ShellRichardson, mesh: Mesh):
         if kern.halo_mode != "operands":
@@ -53,8 +54,7 @@ class ShardedShellRichardson:
             st5[a, b][:3], st5[a, b][3], st5[a, b][4], dt,
             (a * nl, b * no)))
         tot = psum(out.map(lambda o: o[6]), mesh)
-        first = mesh.distinct_devices()[0]
-        norms = torch.sqrt(tot[first][:4])
+        norms = torch.sqrt(tot[mesh.own_device][:4])
         n_cells = float(self.kern.geo.n_cells)
         pick = lambda i: out.map(lambda o: o[i])
         rhs_phi = build(mesh, lambda a, b: out[a, b][5]

@@ -30,7 +30,9 @@ shell's pole lat face, on the bottom lat shard); the vertical wall faces
 lie in every shard. On the shell a velocity pads with its pole sign
 pattern (u_r as a scalar, the tangential components sign-flipped:
 ``sharded_pallas._flip_vec``). Sums and maxima over the mesh are
-fixed-order (``halo.psum``, ``halo.pmax``).
+fixed-order (``halo.psum``, ``halo.pmax``) and replicated: on a mesh
+that spans processes every rank reads the same bits, on its own device
+(``self.first``), and builds the tables of its own shards alone.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from dycoreplanet_tpu_torch.ops.projection import (
     apply_wall_face_values, cell_to_faces, correct_plain)
 from dycoreplanet_tpu_torch.parallel.halo import pad_block, pmax, psum
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, Sharded, block, build, crop, local_shape, offsets, shard_geometry)
+    Mesh, Sharded, block, build, crop, local_offsets, local_shape,
+    shard_geometry)
 from dycoreplanet_tpu_torch.parallel.sharded_pallas import _flip_vec
 from dycoreplanet_tpu_torch.solvers.cg import _dot
 
@@ -66,13 +69,13 @@ class ShardedStep:
         self.dim = geo.dim
         self.n_cells = float(geo.n_cells)
         nl, no = self.local[-2:]
-        self.first = mesh.distinct_devices()[0]
-        self.offsets = offsets(geo, mesh)
+        self.first = mesh.own_device
+        self.offsets = local_offsets(geo, mesh)
         self.pads = mesh.pads(1)
         # the shell's lat rows: a pole face on the bottom lat shard and
         # the velocity's pole sign pattern
         self.pole = mesh.rows == "pole"
-        # owned and one-cell-padded geometries of every shard
+        # owned and one-cell-padded geometries of this process's shards
         self.geo = {ab: shard_geometry(geo, j0, nl, k0, no)
                     for ab, (j0, k0) in self.offsets.items()}
         self.geo_pad = {ab: shard_geometry(geo, j0, nl, k0, no, pad=1)
@@ -122,8 +125,8 @@ class ShardedStep:
 
     # ------------------------------------------------------------------
     def total(self, parts: Sharded) -> torch.Tensor:
-        """The fixed-order sum of every shard's partial, on the first
-        device."""
+        """The fixed-order sum of every shard's partial, on this process's
+        first device (the same bits on every rank)."""
         return psum(parts, self.mesh)[self.first]
 
     def dot(self, x: Sharded, y: Sharded) -> torch.Tensor:
@@ -291,7 +294,7 @@ class ShardedStep:
         box), the shell's pole lat face (global face 0) on the bottom lat
         shard; the periodic sharded axes have no wall."""
         out = [faces[0].map(lambda t: apply_wall_face_values(
-            self.geo[0, 0], t, 0))]
+            self.global_geo, t, 0))]
         if self.pole:
             out.append(build(self.mesh, lambda a, b: apply_wall_face_values(
                 self.geo[a, b], faces[1][a, b], 1) if a == 0

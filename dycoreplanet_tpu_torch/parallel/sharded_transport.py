@@ -30,7 +30,7 @@ from dycoreplanet_tpu_torch.ops.semi_lagrangian import (
     SemiLagrangian, interpolate, make_tables)
 from dycoreplanet_tpu_torch.parallel.halo import pad_mirror
 from dycoreplanet_tpu_torch.parallel.mesh import (
-    Mesh, Sharded, block, build, local_shape, offsets)
+    Mesh, Sharded, block, build, local_offsets, local_shape)
 
 
 def _cut(value, j0: int, nl: int, k0: int, no: int, device):
@@ -64,9 +64,9 @@ class ShardedSemiLagrangian:
         if (mesh.rows and nl < self.K) or no < self.K:
             raise ValueError(f"shard too thin for width-{self.K} halos: "
                              f"local {(nl, no)}")
-        self.offsets = offsets(base.geo, mesh)
-        # each shard's radial rule, its wall values cut to the shard, and
-        # its block of the global cell widths
+        self.offsets = local_offsets(base.geo, mesh)
+        # each of this process's shards' radial rule, its wall values cut
+        # to the shard, and its block of the global cell widths
         self.r_specs = {
             ab: None if r_spec is None else BCSpec(
                 r_spec.lo, r_spec.hi,

@@ -49,8 +49,9 @@ from dycoreplanet_tpu_torch.solvers.cg import (
 
 
 def _parts(v) -> List[torch.Tensor]:
-    """A vector's tensors: itself, or a Sharded's shards in shard order."""
-    return [t for _, t in v.items()] if isinstance(v, Sharded) else [v]
+    """A vector's tensors: itself, or a Sharded's shards (this
+    process's) in shard order."""
+    return v.parts() if isinstance(v, Sharded) else [v]
 
 
 def _whole(parts: List[torch.Tensor], like):
@@ -58,8 +59,7 @@ def _whole(parts: List[torch.Tensor], like):
     Sharded)."""
     if not isinstance(like, Sharded):
         return parts[0]
-    A, B = like.grid
-    return Sharded([parts[a * B:(a + 1) * B] for a in range(A)])
+    return like.with_parts(parts)
 
 
 def _on(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

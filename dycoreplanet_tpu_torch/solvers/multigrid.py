@@ -372,7 +372,7 @@ class ShardedPoissonMultigrid(PoissonMultigrid):
         self.mesh = mesh
         self.ops = [ShardedStep(g, mesh) for g in base.geos]
         # each level's radial line coefficients (or Jacobi diagonal) cut
-        # to every shard
+        # to this process's shards (op.offsets: its own)
         self.shard_lines = [
             {ab: tuple(t[..., j0:j0 + op.local[-2], k0:k0 + op.local[-1]]
                        .to(mesh.device(*ab)).contiguous()

@@ -761,8 +761,9 @@ class _ShardedFastDiag:
     def _solve(self, rhs, *args):
         """(x, the middle's iteration count): the shards' forward
         partials, THE solver all-reduce, the middle (``args``: a
-        Helmholtz solve's coefficient) once a distinct device, the local
-        backward."""
+        Helmholtz solve's coefficient) once a distinct device of this
+        process (once a rank on a process mesh: the same bits on every
+        rank, as the sum is), the local backward."""
         from dycoreplanet_tpu_torch.parallel.halo import psum
         from dycoreplanet_tpu_torch.parallel.mesh import build
 
@@ -770,12 +771,13 @@ class _ShardedFastDiag:
         part = build(mesh, lambda a, b: self._forward(
             self._consts(a, b, mesh.device(a, b)), rhs[a, b]))
         full = psum(part, mesh)                  # THE solver all-reduce
-        mid = {dev: self._middle_count(self._consts(0, 0, dev), h, *args)
+        mine = mesh.local_shards()[0]
+        mid = {dev: self._middle_count(self._consts(*mine, dev), h, *args)
                for dev, h in full.items()}
         x = build(mesh, lambda a, b: self._backward(
             self._consts(a, b, mesh.device(a, b)),
             mid[mesh.device(a, b)][0]).to(rhs[a, b].dtype))
-        return x, mid[mesh.device(0, 0)][1]
+        return x, mid[mesh.own_device][1]
 
 
 class ShardedShellPoissonFastDiag(_ShardedFastDiag):

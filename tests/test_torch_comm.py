@@ -211,8 +211,9 @@ def test_ledger_rules():
             halo.exchange_ghosts(xs, mesh, "lat", 1, periodic=False)
             halo.exchange_ghosts(xs, mesh, "lon", 2)
         halo.pmax(xs.map(torch.max), mesh)
-        for b, cols in enumerate((range(0, 12), range(4, 12))):
-            halo.window(xs, range(0, 8), np.asarray(cols), "cpu", (0, b))
+        halo.windows(xs, mesh, {
+            (0, b): (range(0, 8), np.asarray(cols))
+            for b, cols in enumerate((range(0, 12), range(4, 12)))})
     s_in, s_out = inner.summary(), outer.summary()
     block = F64 * int(np.prod(geo.cell_shape)) // 2
     assert s_in["collective-permute"] == {"count": 2,
