@@ -310,7 +310,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      runs the flagship on 2x2 for the same 5 steps as (a), bitwise,
      its sums all-gathered on the NCCL group; NCCL moves between ranks
      are not run (one card);
- 18. one JSON line with every kernel's numbers (the bf16 forms under
+ 18. the last counterparts of the JAX package's entry points and
+     scripts: (a) entry()'s fn on the card, K2, K1 and K5 once each and
+     K3 and K4 never (the wrappers' counts and the profiler's), its new
+     state within ENTRY_TOL of each field's scale of
+     entry(device="cpu")'s; the gap taken apart: the same step with
+     K1, with K2, and with all three in their plain versions on the
+     card, each with its Poisson right-hand side, solution and
+     iterations against the CPU's, the kernel step against the card's
+     plain step, the step with K1 and K5 launched against
+     the card's plain step (ENTRY_K1K5_TOL), K2's rhs_u against its
+     plain version's (ENTRY_K2_TOL), the card's plain step against the
+     CPU's (ENTRY_DEVICE_TOL), and the card's Poisson solve of the CPU's
+     right-hand side; (b) scripts/torch_soak_production.py
+     --scale3d at its full 2000 steps in chunks of 100 (32x128x256 f32,
+     the first chunk a graph replay, the adaptive ones eager): ok, the
+     resume bitwise, steps/s, the CFL range, escalations; after (b) and
+     (c) one adaptive chunk of SOAK_PROFILE_STEPS profiled (host and
+     device ms a step, busy share); (c) the 2D
+     production soak at 64x2048 f32 (the annulus's projection path:
+     `momentum solver` auto picks it beside `use FEEC solver` false, as
+     in the JAX package; the prm's Schur switch is read by the coupled
+     solve alone), its steps cut to SOAK_2D_STEPS: ok, the resume
+     bitwise; (d)
+     scripts/torch_comm_bytes.py on the card and with --device cpu, both
+     started in phase 7's pool: the weak and strong tables equal, row
+     for row;
+ 19. one JSON line with every kernel's numbers (the bf16 forms under
      by_dtype["bfloat16"]), then, last, the {"ok": true, "device": ...}
      line.
 Imports neither JAX nor the JAX package. Needs one CUDA card.
@@ -5968,6 +5994,295 @@ def process_mesh_phases(dev):
     return launches, numbers
 
 
+# ---------------------------------------------------------------- phase 18
+SOAK_SCRIPT = os.path.join(HERE, "scripts", "torch_soak_production.py")
+COMM_SCRIPT = os.path.join(HERE, "scripts", "torch_comm_bytes.py")
+# (b): the 3D soak at the JAX script's own length
+SOAK_3D_STEPS, SOAK_3D_CHUNK = 2000, 100
+# (c): the 2D production soak cut from 2000 steps to two chunks of the
+# JAX script's 100, the first at its fixed dt, the second adaptive: ~12 s
+# with the resume's chunk on an H100 (PERF.md §6)
+SOAK_2D_STEPS, SOAK_2D_CHUNK = 200, 100
+# (b), (c): the steps of the one adaptive chunk profiled after each soak
+SOAK_PROFILE_STEPS = 10
+# (a), of each field's scale, from its readings on an H100 (PERF.md §6,
+# PR 23): entry()'s card step (K1, K2, K5, the Poisson products on the
+# card) against the CPU's (their plain versions), 5.04e-5 in p; its
+# diagnosis: K2's rhs_u against its plain version's, 5.23e-6 (K2 forms
+# the buoyancy as the Pallas kernel does, pallas_stencil.py:601-603,
+# (1 - beta (T - T_ref)) - rho_background, which cancels where the
+# buoyancy drives the flow; the plain version folds the constants as
+# XLA does, and the divergence of u* carries the difference into p),
+# the step with K1 and K5 launched (K2 plain) against the card's plain
+# step, 3.2e-7, and the card's plain step against the CPU's, 6.1e-7
+ENTRY_TOL = 1e-4
+ENTRY_K2_TOL = 1e-5
+ENTRY_K1K5_TOL = 2e-6
+ENTRY_DEVICE_TOL = 5e-6
+
+
+def comm_table_jobs():
+    """Phase 18 (d)'s runs of scripts/torch_comm_bytes.py as cli_runs
+    jobs: the shards on the card, and on the CPU (its torch and BLAS
+    threads cut, PM_B_THREADS, beside the pool's other processes)."""
+    return [("18 comm tables card", None, [COMM_SCRIPT]),
+            ("18 comm tables cpu", None, [COMM_SCRIPT, "--device", "cpu"],
+             PM_B_THREADS)]
+
+
+def table_rows(text):
+    """The markdown rows (header and rule included) of the script's
+    output, in order."""
+    return [ln for ln in text.splitlines() if ln.startswith("|")]
+
+
+ENTRY_FIELDS = ("u", "p", "T", "uf0", "uf1", "uf2")
+
+
+def state_fields(state):
+    """A State's fields in ENTRY_FIELDS's order."""
+    return (state.u, state.p, state.T) + tuple(state.u_faces)
+
+
+def rel_gap(x, y) -> float:
+    """max|x - y| over max|y|, on y's device."""
+    return float((x.to(y.device) - y).abs().max()
+                 / y.abs().max().clamp_min(1e-30))
+
+
+def field_gaps(got, want):
+    """{field: rel_gap} of two States."""
+    return {name: rel_gap(x, y) for name, x, y in
+            zip(ENTRY_FIELDS, state_fields(got), state_fields(want))}
+
+
+class PlainCalls:
+    """Stands in for a kernel wrapper: the calls named in ``calls`` take
+    the wrapper's plain version (``name="plain method"``, ``__call__``
+    for the wrapper's own call), whatever device their tensors lie on;
+    every other attribute is the wrapper's."""
+
+    def __init__(self, wrapper, **calls):
+        self._wrapper = wrapper
+        self._calls = calls
+
+    def __getattr__(self, name):
+        return getattr(self._wrapper, self._calls.get(name, name))
+
+    def __call__(self, *args):
+        return getattr(self._wrapper, self._calls["__call__"])(*args)
+
+
+def plain_on_card(model, which):
+    """Swap the model's wrappers named in ``which`` (of "K1", "K2",
+    "K5") for their plain versions, which then run on the card."""
+    if "K1" in which:
+        model._richardson = PlainCalls(model._richardson, __call__="plain")
+    if "K2" in which:
+        model._forcing = PlainCalls(model._forcing, __call__="plain")
+    if "K5" in which:
+        model._proj = PlainCalls(model._proj, faces_div="plain",
+                                 correct="correct_plain")
+
+
+def poisson_tap(model):
+    """Record the model's next Poisson solve: ({"rhs", "phi", "iters"},
+    filled by the solve; the untapped solve)."""
+    seen = {}
+    solve = model._solve_pressure_poisson
+
+    def tapped(rhs):
+        out = solve(rhs)
+        seen.update(rhs=rhs, phi=out[0], iters=int(out[1]))
+        return out
+
+    model._solve_pressure_poisson = tapped
+    return seen, solve
+
+
+def entry_diagnosis(entry, fn_c, s_c, dt):
+    """Phase 18 (a)'s diagnosis of the card's gap to the CPU: entry()'s
+    step on the card with its kernels, with K1, K2, and all three of K1,
+    K2 and K5 in their plain versions, and on the CPU, each with its
+    Poisson solve tapped; each against the CPU's (fields, the solve's
+    right-hand side and solution, its iterations), the kernel step
+    against the card's plain step, K2's rhs_u against its plain
+    version's on entry()'s state, and the card's solve of the CPU's
+    right-hand side against the CPU's solution. Fails where K2's rhs_u
+    is more than ENTRY_K2_TOL of its scale from the plain version's,
+    the step that launches K1 and K5 (K2 plain) more than
+    ENTRY_K1K5_TOL from the card's plain step, or the card's plain step
+    more than ENTRY_DEVICE_TOL from the CPU's. Prints the report;
+    returns the CPU's State."""
+    taps, outs = {}, {}
+    for name, which in (("cpu", None), ("kernels", ()), ("K1 plain", ("K1",)),
+                        ("K2 plain", ("K2",)),
+                        ("all plain", ("K1", "K2", "K5"))):
+        if which is None:
+            f, s = fn_c, s_c
+        else:
+            f, (s, _) = entry()
+            plain_on_card(f.model, which)
+        if name == "kernels":
+            k2, s_k = f.model._forcing, s
+        taps[name], solve = poisson_tap(f.model)
+        outs[name] = f(s, dt)
+    cpu, tap_c, plain = outs["cpu"], taps["cpu"], outs["all plain"]
+    lines = []
+    for name in ("kernels", "K1 plain", "K2 plain", "all plain"):
+        tap = taps[name]
+        lines.append(
+            f"{name} on the card vs the CPU: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in field_gaps(outs[name],
+                                                      cpu).items())
+            + f"; Poisson rhs {rel_gap(tap['rhs'], tap_c['rhs']):.3e}, phi "
+            f"{rel_gap(tap['phi'], tap_c['phi']):.3e}, iterations "
+            f"{tap['iters']} (CPU {tap_c['iters']})")
+    args = (s_k.u, s_k.u_faces, s_k.T, s_k.p, dt)
+    k2_gap = rel_gap(k2(*args)[0], k2.plain(*args)[0])
+    kernel_gap = field_gaps(outs["kernels"], plain)
+    k1k5_gap = field_gaps(outs["K2 plain"], plain)
+    device_gap = field_gaps(plain, cpu)
+    rhs_gap = rel_gap(taps["kernels"]["rhs"], taps["all plain"]["rhs"])
+    phi_card = solve(tap_c["rhs"].to(taps["all plain"]["rhs"].device))[0]
+    lines += [
+        f"K2's rhs_u vs its plain version's on the card, of its scale: "
+        f"{k2_gap:.3e} (tol {ENTRY_K2_TOL}); the step's Poisson rhs, "
+        f"kernels vs plain on the card: {rhs_gap:.3e} "
+        f"({rhs_gap / max(k2_gap, 1e-30):.0f}x K2's)",
+        "the kernels vs the plain step, both on the card: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in kernel_gap.items()),
+        "K1 and K5 launched, K2 plain, vs the plain step, both on the "
+        "card: " + ", ".join(f"{k} {v:.3e}" for k, v in k1k5_gap.items())
+        + f" (tol {ENTRY_K1K5_TOL})",
+        f"the plain step on the card vs the CPU: max "
+        f"{max(device_gap.values()):.3e} (tol {ENTRY_DEVICE_TOL})",
+        f"the card's Poisson solve of the CPU's rhs vs the CPU's phi: "
+        f"{rel_gap(phi_card, tap_c['phi']):.3e}"]
+    for line in lines:
+        print(f"  18 (a) {line}", flush=True)
+    if not k2_gap <= ENTRY_K2_TOL:
+        fail(f"18 (a) entry(): K2's rhs_u vs its plain version's: {k2_gap} "
+             f"of its scale (tol {ENTRY_K2_TOL})")
+    if not max(k1k5_gap.values()) <= ENTRY_K1K5_TOL:
+        fail(f"18 (a) entry(): K1 and K5 launched vs the plain step on the "
+             f"card: {k1k5_gap} (tol {ENTRY_K1K5_TOL})")
+    if not max(device_gap.values()) <= ENTRY_DEVICE_TOL:
+        fail(f"18 (a) entry(): the plain step on the card vs the CPU's: "
+             f"{device_gap} (tol {ENTRY_DEVICE_TOL})")
+    return cpu
+
+
+def soak_entry_phases(dev):
+    """Phase 18 (module docstring). Returns {path: launches}."""
+    import importlib.util
+
+    import torch
+    from dycoreplanet_tpu_torch.diagnostics.device_time import (
+        device_launches)
+    from dycoreplanet_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    since = lambda: f" [{time.perf_counter() - t0:.1f} s]"   # noqa: E731
+    launches = {}
+    # (a) entry()'s step on the card and on the CPU
+    fn, (s0, dt) = entry()
+    model = fn.model
+    want = {"forcing": 1, "richardson": 1, "faces_div": 0, "correct": 1,
+            "tridiag": 0}
+    out, l_a, wall = drive(model, lambda: fn(s0, dt))
+    if l_a != want:
+        fail(f"18 (a) entry(): wrapper launches {l_a}, expected {want}")
+    names = dict.fromkeys(SHELL_NAMES + ("tridiag",))
+    _, counts = device_launches(lambda: fn(s0, dt), names)
+    want_dev = {**dict.fromkeys(names, 0), **want}
+    if counts != want_dev:
+        fail(f"18 (a) entry(): the profiler counted {counts}, expected "
+             f"{want_dev}")
+    fn_c, (s_c, dt_c) = entry(device="cpu")
+    if dt_c != dt:
+        fail(f"18 (a) entry(): dt {dt!r} on the card, {dt_c!r} on the CPU")
+    for name, x in zip(ENTRY_FIELDS, state_fields(out)):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"18 (a) entry(): the card's {name} is not finite")
+    worst = field_gaps(out, entry_diagnosis(entry, fn_c, s_c, dt))
+    by_field = ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+    if not max(worst.values()) <= ENTRY_TOL:
+        fail(f"18 (a) entry(): the card's step vs the CPU's, of each "
+             f"field's scale: {by_field} (tol {ENTRY_TOL})")
+    launches["entry"] = l_a
+    phase(f"18 (a) entry(): fn(state, dt) at {model.geo.cell_shape} f32, "
+          f"wrapper launches {l_a}, the profiler's {counts}; vs "
+          f"entry(device='cpu'), of each field's scale: {by_field} (tol "
+          f"{ENTRY_TOL}); {wall * 1e3:.1f} host ms (first call){since()}")
+
+    spec = importlib.util.spec_from_file_location("torch_soak_production",
+                                                  SOAK_SCRIPT)
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    if "jax" in sys.modules or "dycoreplanet_tpu" in sys.modules:
+        fail("18: the soak script imported JAX")
+    for part, steps, chunk, scale3d in (
+            ("b", SOAK_3D_STEPS, SOAK_3D_CHUNK, True),
+            ("c", SOAK_2D_STEPS, SOAK_2D_CHUNK, False)):
+        t_part = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = soak.soak(steps, chunk, scale3d=scale3d, device=dev)
+        secs = time.perf_counter() - t_part
+        s = res["summary"]
+        if not (s.get("ok") and s.get("bitwise_resume")):
+            fail(f"18 ({part}) soak {steps} steps: {json.dumps(s)}")
+        lk = {k: w.launches for k, w in res["model"].kernels().items()}
+        # the 3D soak's fast steps run K2, K1 and K5 (and K3 only where
+        # a chunk is redone with CG); the annulus builds no shell kernel
+        if scale3d and not (lk["forcing"] == lk["correct"]
+                            >= lk["richardson"] > 0):
+            fail(f"18 ({part}) soak: wrapper launches {lk}")
+        retries = sum("retrying chunk" in str(w.message) for w in caught)
+        launches["soak_3d" if scale3d else "soak_2d"] = lk
+        phase(f"18 ({part}) {s['config']} soak, {steps} steps in chunks of "
+              f"{chunk}: ok, bitwise resume; {s['steps_per_sec']} steps/s "
+              f"(first run), CFL {s['cfl_range']}, T {s['T_range_final']}, "
+              f"max|u| {s['max_u_final']:.4f}, dt {s['dt_final']:.4g}, "
+              f"div {s['div_final']:.3e}; {res['escalations']} "
+              f"escalation(s) ({retries} chunk(s) redone with CG in both "
+              f"runs); chunks {res['replays']} graph replays; wrapper "
+              f"launches of both runs {lk}; {secs:.1f} s{since()}")
+        # where an adaptive chunk's time goes: one more, short, profiled
+        soaked = res["model"]
+        prof = step_profile(lambda: soaked.multi_step(
+            res["resumed"], s["dt_final"], SOAK_PROFILE_STEPS,
+            collect_diagnostics=False, adaptive=True), SOAK_PROFILE_STEPS)
+        phase(f"18 ({part}) one more adaptive chunk of {SOAK_PROFILE_STEPS} "
+              f"steps profiled: "
+              f"{prof['device_ms_per_step'] / prof['busy_share']:.3f} host "
+              f"ms and {prof['device_ms_per_step']:.4f} device ms a step, "
+              f"{prof['kernels_per_step']:.1f} kernels and "
+              f"{prof['host_launches_per_step']:.1f} host launches a step, "
+              f"busy share {prof['busy_share']:.3f}{since()}")
+        del res, soaked
+
+    # (d) the scaling tables, card and CPU, from phase 7's pool
+    runs = run_clis(comm_table_jobs(), timeout=600)
+    card, cpu = (table_rows(t) for t in runs)
+    if not card or len(card) != len(cpu) or card != cpu:
+        diff = [(a, b) for a, b in zip(card, cpu) if a != b]
+        fail(f"18 (d) the card's scaling tables differ from the CPU's "
+             f"({len(card)} / {len(cpu)} rows): {diff[:3]}")
+    body = [ln for ln in card if not ln.startswith(("| devices", "|---"))]
+    if len(body) != 8:
+        fail(f"18 (d) expected 8 table rows, got {body}")
+    phase(f"18 (d) scripts/torch_comm_bytes.py: the weak and strong tables "
+          f"on the card and on the CPU equal, {len(body)} rows "
+          f"(card {CLI_SECONDS.get('18 comm tables card', 0.0):.1f} s, CPU "
+          f"{CLI_SECONDS.get('18 comm tables cpu', 0.0):.1f} s in the "
+          f"pool){since()}")
+    for ln in card:
+        print(f"  {ln}", flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -6770,7 +7085,7 @@ def main() -> None:
         CLI_AHEAD_DIR.append(ahead_dir)
         ahead = (feec_cli_jobs() + cube_cli_jobs(ahead_dir)
                  + mimetic_cli_jobs(ahead_dir)
-                 + process_mesh_jobs(ahead_dir, "bc"))
+                 + process_mesh_jobs(ahead_dir, "bc") + comm_table_jobs())
         _, side = cli_output_phase(tmp, jobs + ahead)
         slow = sorted(CLI_SECONDS.items(), key=lambda kv: -kv[1])[:6]
         phase(f"7 the pool's {len(jobs + ahead)} runs and 7b's, the "
@@ -6848,7 +7163,12 @@ def main() -> None:
     for label, counts in pm_launches.items():
         record(label, counts)
 
-    # ---- report --------------------------------------------------------
+    # ---- 18. entry(), the production soak and the scaling tables -------
+    soak_launches = soak_entry_phases(dev)
+    for label, counts in soak_launches.items():
+        record(label, counts)
+
+    # ---- 19. report ----------------------------------------------------
     # launches: the wrappers' count on the path the kernel serves (K1,
     # K2, K5: the main path; K3, K4: the direct path; K1u: interval
     # mode; K2m: the semi-Lagrangian path; K1o, K2o: the mesh 2 x 4; K2mo:

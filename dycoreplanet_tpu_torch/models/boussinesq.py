@@ -772,12 +772,16 @@ class BoussinesqModel:
         return _as_dtype(state, self.torch_dtype)
 
     def _advance_time(self, time: float, dt_T: float) -> float:
-        """The state's time after a step of ``dt_T``: a Python float, kept
-        in float32 when the fields are bfloat16 (in bfloat16, 4.0 + 0.01
-        is 4.0: the JAX package's time stalls, ROADMAP.md Queue 3)."""
-        if self.torch_dtype == torch.bfloat16:
-            return float(np.float32(np.float32(time) + np.float32(dt_T)))
-        return time + dt_T
+        """The state's time after a step of ``dt_T``: a Python float that
+        holds a value of the time's dtype, added in it: float64 beside
+        float64 fields, float32 beside float32 ones (the JAX package's
+        time is the model's dtype) and bfloat16 ones (in bfloat16, 4.0 +
+        0.01 is 4.0: the JAX package's time stalls, ROADMAP.md Queue 3).
+        A checkpoint stores it in that dtype, so a restart resumes at the
+        saved time exactly."""
+        if self.torch_dtype == torch.float64:
+            return time + dt_T
+        return float(np.float32(np.float32(time) + np.float32(dt_T)))
 
     # ------------------------------------------------------------------
     def _setup_bcs(self) -> None:

@@ -237,7 +237,8 @@ def run_path(name, device, mesh_of, ckpt=None, profile=False):
     process mesh) from ``seeded``: (arrays, record). ``arrays``: the
     gathered final state(s) and the packed diagnostic rows, by
     "name/field" (the same on every rank); ``record``: this rank's comm
-    ledger of one step (the small paths), its escalations, the wrappers'
+    ledger of one step (the small paths) and its transport in that step
+    (``parallel/dist.py`` ``stats``), its escalations, the wrappers'
     launches in the driven steps, host ms a step, the seconds of the
     model's build and of the whole path and, with ``profile``, the
     device ms of one more step; ``ckpt``: a path to write the final
@@ -262,7 +263,10 @@ def run_path(name, device, mesh_of, ckpt=None, profile=False):
     record = {"mesh": list(mesh.grid), "shards": mesh.local_shards(),
               "build_s": time.perf_counter() - t_path}
     if drive != "escalate":
+        # the ledger of one step, and this rank's transport in that step
+        pdist.reset_stats()
         record["ledger"] = comm.step_comm_summary(model, s0, dt)
+        record["ledger_transport"] = dict(pdist.stats)
     for k in model.kernels().values():
         k.launches = 0
     pdist.reset_stats()
@@ -365,7 +369,7 @@ def _smoke(ranks):
     from dycoreplanet_tpu_torch.entry import _make_model
     from dycoreplanet_tpu_torch.parallel.mesh import build_mesh, shard_state
 
-    model = _make_model("float32", (8, 32, 64), ranks.device)
+    model = _make_model("float32", (8, 32, 64), device=ranks.device)
     mesh = build_mesh(model.geo, [ranks.device], group=ranks.group)
     model.prepare_sharded(mesh)
     state = shard_state(model.initial_state(), model.geo, mesh)

@@ -16,8 +16,9 @@ single-controller mesh run beside them by a process started alike
   * every gathered state and packed row bitwise the single-controller
     mesh's; the default step within rtol 1e-9, atol 1e-11 of the JAX
     single-device step; each rank's comm ledger equal to the
-    single-controller ledger; the forced miss escalating on every rank at
-    the same step; a sharded checkpoint written by 2 ranks restored
+    single-controller ledger, its all-gathered bytes the ledger's
+    process-mesh column (scripts/torch_comm_bytes.py); the forced miss
+    escalating on every rank at the same step; a sharded checkpoint written by 2 ranks restored
     bitwise onto the ranks' own mesh, the single-controller mesh and one
     device; the sharded .vts pieces and .pvts written by 2 ranks byte
     for byte the single-controller mesh's; the ranks import no JAX; NCCL without CUDA, and CUDA without a card,
@@ -212,6 +213,37 @@ def test_each_rank_ledger_is_the_single_controller_ledger(launched, world):
         assert want["all-reduce"]["count"] > 0
         for rec in launched["records"][world]:
             assert rec["paths"][path]["ledger"] == want, (path, rec["rank"])
+
+
+def test_derived_gather_column_equals_the_ranks_stats(launched):
+    """scripts/torch_comm_bytes.py's process-mesh column, derived from
+    the ledger (the partial bytes of every psum and pmax times the shards
+    of the other ranks: 2 of the 4 here, two shards a rank), equals the
+    bytes each of the 2 ranks received in all-gathers during the
+    ledger's step (``parallel/dist.py`` ``stats``), on every path with a
+    ledger; nothing else was all-gathered."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_comm_bytes", os.path.join(ROOT, "scripts",
+                                         "torch_comm_bytes.py"))
+    cb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cb)
+    seen = 0
+    for path in LAUNCHES[2]:
+        for rec in launched["records"][2]:
+            got = rec["paths"][path]
+            if "ledger" not in got:
+                continue
+            tr = got["ledger_transport"]
+            want = cb.gathered_bytes(got["ledger"], 4, world=2)
+            assert want > 0
+            assert tr["all_gather_received_bytes"] == want, (path,
+                                                             rec["rank"])
+            # what a rank puts in: its 2 partials a sum, as much as it
+            # receives from the one other rank
+            assert tr["all_gather_bytes"] == want
+            assert tr["all_gather"] == got["ledger"]["all-reduce"]["count"]
+            seen += 1
+    assert seen == 2 * (len(LAUNCHES[2]) - 1)
 
 
 def test_forced_miss_escalates_on_every_rank_at_the_same_step(launched):

@@ -145,18 +145,26 @@ def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
     assert "Exception on processing" in err and "ckpt" in err
 
 
+# the port's scripts that the import check loads beside the package
+PORT_SCRIPTS = ("torch_soak_production.py", "torch_comm_bytes.py")
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, imported in a fresh interpreter, pulls
-    in neither jax, nor ml_dtypes (the port's bfloat16 goes through
-    torch), nor dycoreplanet_tpu (this process has them loaded:
-    tests/conftest.py imports jax)."""
+    """Every module of the port, and the scripts of PORT_SCRIPTS, imported
+    in a fresh interpreter, pull in neither jax, nor ml_dtypes (the
+    port's bfloat16 goes through torch), nor dycoreplanet_tpu (this
+    process has them loaded: tests/conftest.py imports jax)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import dycoreplanet_tpu_torch, dycoreplanet_tpu_torch.cli.main\n"
         "for m in pkgutil.walk_packages(dycoreplanet_tpu_torch.__path__,\n"
         "                               'dycoreplanet_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        f"for name in {PORT_SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name[:-3], 'scripts/' + name)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'ml_dtypes' or k.startswith('ml_dtypes.')\n"
         "       or k == 'dycoreplanet_tpu'\n"
